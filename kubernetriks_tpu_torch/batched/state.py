@@ -1,0 +1,356 @@
+"""Dense tensor state of the batched simulation.
+
+Clusters step together as (C, N) node-slot and (C, P) pod-slot tensors;
+payloads (capacities, requests, durations) are staged per slot from the
+compiled trace, and events only flip phases and masks. Every leaf has the
+dtype of the JAX reference's leaf of the same name (`kubernetriks_tpu/
+batched/state.py`): int32 resources (ram in RAM_UNIT units), float32
+offsets, bool masks, and time as the (win, off) pairs of timerep.py.
+
+The state is a tree of NamedTuples of tensors. `flatten` names each leaf
+by its attribute path (".pods.queue_ts.win"), the same strings the JAX
+reference's `jax.tree_util.keystr` gives, so the two states compare leaf
+for leaf as flat numpy dicts (`compare_states`, convert.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from kubernetriks_tpu_torch.batched.timerep import TPair, from_f64_np, t_inf, t_zeros
+
+# Pod phases.
+PHASE_EMPTY = 0  # slot not yet created
+PHASE_QUEUED = 1  # in the scheduler's active queue
+PHASE_UNSCHEDULABLE = 2  # parked in the unschedulable queue
+PHASE_RUNNING = 3  # bound to a node (incl. binding in flight)
+PHASE_SUCCEEDED = 4
+PHASE_REMOVED = 5
+PHASE_FAILED = 6
+
+# Event kinds in the compiled trace slab.
+EV_NONE = 0
+EV_CREATE_NODE = 1
+EV_REMOVE_NODE = 2
+EV_CREATE_POD = 3
+EV_REMOVE_POD = 4
+
+DEFAULT_RAM_UNIT = 1024 * 1024  # 1 MiB
+
+INF = float("inf")
+
+
+class NodeArrays(NamedTuple):
+    """(C, N) per-node-slot tensors."""
+
+    alive: torch.Tensor  # bool
+    cap_cpu: torch.Tensor  # int32 millicores
+    cap_ram: torch.Tensor  # int32 ram units
+    alloc_cpu: torch.Tensor  # int32
+    alloc_ram: torch.Tensor  # int32
+    # Pending autoscaler effects; +inf = none (always +inf in this port,
+    # which runs no autoscaler yet).
+    create_time: TPair
+    remove_time: TPair
+    crash_downtime: torch.Tensor  # float32 seconds (0: no fault injection)
+
+
+class PodArrays(NamedTuple):
+    """(C, P) per-pod-slot tensors."""
+
+    phase: torch.Tensor  # int32
+    req_cpu: torch.Tensor  # int32 millicores
+    req_ram: torch.Tensor  # int32 ram units
+    # Running duration as a time pair; win < 0 marks a long-running service.
+    duration: TPair
+    queue_ts: TPair  # queue-priority / eligibility timestamp
+    queue_seq: torch.Tensor  # int32 FIFO tie-break within equal timestamps
+    initial_attempt_ts: TPair
+    attempts: torch.Tensor  # int32
+    node: torch.Tensor  # int32 node slot, -1 = none
+    start_time: TPair
+    finish_time: TPair  # +inf = no pending finish
+    removal_time: TPair  # pending HPA scale-down effect; +inf = none
+    hpa_idx: torch.Tensor  # int32, -1 (no HPA in this port)
+    restarts: torch.Tensor  # int32 (no pod faults in this port)
+    will_fail: torch.Tensor  # bool
+
+
+class EstArrays(NamedTuple):
+    """(C,) streaming estimator accumulators (count/sum/sum of squares/
+    min/max -> min/max/mean/variance at readout)."""
+
+    count: torch.Tensor  # int32
+    total: torch.Tensor  # float32
+    total_sq: torch.Tensor  # float32
+    minimum: torch.Tensor  # float32
+    maximum: torch.Tensor  # float32
+
+    @staticmethod
+    def zeros(shape, device) -> "EstArrays":
+        return EstArrays(
+            count=torch.zeros(shape, dtype=torch.int32, device=device),
+            total=torch.zeros(shape, dtype=torch.float32, device=device),
+            total_sq=torch.zeros(shape, dtype=torch.float32, device=device),
+            minimum=torch.full(shape, INF, dtype=torch.float32, device=device),
+            maximum=torch.full(shape, -INF, dtype=torch.float32, device=device),
+        )
+
+
+class MetricArrays(NamedTuple):
+    """(C,) per-cluster counters, in the reference's field order."""
+
+    pods_succeeded: torch.Tensor
+    pods_removed: torch.Tensor
+    terminated_pods: torch.Tensor
+    processed_nodes: torch.Tensor
+    scheduling_decisions: torch.Tensor  # successful assignments
+    scaled_up_pods: torch.Tensor
+    scaled_down_pods: torch.Tensor
+    scaled_up_nodes: torch.Tensor
+    scaled_down_nodes: torch.Tensor
+    hpa_reserve_clamped: torch.Tensor
+    ca_reserve_starved: torch.Tensor
+    node_crashes: torch.Tensor
+    node_recoveries: torch.Tensor
+    node_downtime_s: torch.Tensor  # float32
+    pod_interruptions: torch.Tensor
+    pod_restarts: torch.Tensor
+    pods_failed: torch.Tensor
+    queue_time: EstArrays
+    algo_latency: EstArrays
+    pod_duration: EstArrays
+
+
+class ClusterBatchState(NamedTuple):
+    """Complete batched simulation state, leading axis C everywhere."""
+
+    time: torch.Tensor  # (C,) int32 last completed window index
+    queue_seq_counter: torch.Tensor  # (C,) int32 next queue sequence number
+    event_cursor: torch.Tensor  # (C,) int32 next unapplied trace event
+    pod_base: torch.Tensor  # (C,) int32 (0: whole trace resident)
+    last_flush_win: torch.Tensor  # (C,) int32 last unschedulable flush window
+    requeue_signal: torch.Tensor  # (C,) bool node-add/pod-finish since last cycle
+    nodes: NodeArrays
+    pods: PodArrays
+    metrics: MetricArrays
+
+
+class TraceSlab(NamedTuple):
+    """(C, E, 4) int32 compiled trace events, time-sorted per cluster:
+    [win, off-bits, kind, slot], padded with EV_NONE at win = INF_WIN."""
+
+    packed: torch.Tensor
+
+    @staticmethod
+    def build(win, off, kind, slot, device) -> "TraceSlab":
+        packed = np.stack(
+            [
+                np.asarray(win, np.int32),
+                np.asarray(off, np.float32).view(np.int32),
+                np.asarray(kind, np.int32),
+                np.asarray(slot, np.int32),
+            ],
+            axis=-1,
+        )
+        return TraceSlab(packed=torch.from_numpy(np.ascontiguousarray(packed)).to(device))
+
+
+class StepConstants(NamedTuple):
+    """Per-run scalars derived from SimulationConfig: the control-plane hop
+    delays composed into effective offsets."""
+
+    scheduling_interval: float
+    time_per_node: float  # scheduler latency model: 1 us per alive node
+    delta_pod_enqueue: float  # create -> pod in scheduler queue
+    delta_bind_start: float  # assignment (incl. cycle duration) -> pod starts
+    delta_reschedule: float  # node removal -> its pods re-enqueued
+    flush_interval: float  # 30 s
+    max_unschedulable_stay: float  # 300 s
+    # Global pod slots below trace_pod_bound are plain trace pods mapped to
+    # device slots by subtracting pod_base (identity on whole-trace runs).
+    trace_pod_bound: int = 1 << 30
+    resident_shift: int = 0
+
+
+def make_step_constants(config) -> StepConstants:
+    """Compose effective delays from the six config delays."""
+    return StepConstants(
+        scheduling_interval=config.scheduling_cycle_interval,
+        time_per_node=1e-6,
+        delta_pod_enqueue=config.as_to_ps_network_delay
+        + config.ps_to_sched_network_delay,
+        delta_bind_start=config.sched_to_as_network_delay
+        + 2.0 * config.as_to_ps_network_delay
+        + config.as_to_node_network_delay,
+        delta_reschedule=config.as_to_node_network_delay
+        + config.as_to_ps_network_delay
+        + config.ps_to_sched_network_delay,
+        flush_interval=30.0,
+        max_unschedulable_stay=300.0,
+    )
+
+
+def duration_pair_np(pod_duration: np.ndarray, interval: float):
+    """Host float64 durations -> (win, off) numpy pair; < 0 marks a
+    long-running service (win = -1)."""
+    dur = np.asarray(pod_duration, np.float64)
+    service = dur < 0
+    dwin, doff = from_f64_np(np.where(service, 0.0, dur), interval)
+    return (
+        np.where(service, -1, dwin).astype(np.int32),
+        np.where(service, 0.0, doff).astype(np.float32),
+    )
+
+
+def init_state(
+    n_clusters: int,
+    n_nodes: int,
+    n_pods: int,
+    node_cap_cpu: np.ndarray,
+    node_cap_ram: np.ndarray,
+    pod_req_cpu: np.ndarray,
+    pod_req_ram: np.ndarray,
+    pod_duration: np.ndarray,
+    interval: float,
+    device,
+) -> ClusterBatchState:
+    """The initial state with pre-staged payloads (all slots start
+    EMPTY/dead; trace events bring them to life). pod_duration: float64
+    seconds, < 0 marks a long-running service."""
+    C, N, P = n_clusters, n_nodes, n_pods
+    dev = torch.device(device)
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    def zeros_i32(shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    dwin, doff = duration_pair_np(pod_duration, interval)
+    nodes = NodeArrays(
+        alive=torch.zeros((C, N), dtype=torch.bool, device=dev),
+        cap_cpu=i32(node_cap_cpu),
+        cap_ram=i32(node_cap_ram),
+        alloc_cpu=i32(node_cap_cpu),
+        alloc_ram=i32(node_cap_ram),
+        create_time=t_inf((C, N), dev),
+        remove_time=t_inf((C, N), dev),
+        crash_downtime=torch.zeros((C, N), dtype=torch.float32, device=dev),
+    )
+    pods = PodArrays(
+        phase=zeros_i32((C, P)),
+        req_cpu=i32(pod_req_cpu),
+        req_ram=i32(pod_req_ram),
+        duration=TPair(win=i32(dwin), off=torch.as_tensor(doff, device=dev)),
+        queue_ts=t_zeros((C, P), dev),
+        queue_seq=zeros_i32((C, P)),
+        initial_attempt_ts=t_zeros((C, P), dev),
+        attempts=zeros_i32((C, P)),
+        node=torch.full((C, P), -1, dtype=torch.int32, device=dev),
+        start_time=t_zeros((C, P), dev),
+        finish_time=t_inf((C, P), dev),
+        removal_time=t_inf((C, P), dev),
+        hpa_idx=torch.full((C, P), -1, dtype=torch.int32, device=dev),
+        restarts=zeros_i32((C, P)),
+        will_fail=torch.zeros((C, P), dtype=torch.bool, device=dev),
+    )
+    counters = {name: zeros_i32((C,)) for name in MetricArrays._fields[:17]}
+    counters["node_downtime_s"] = torch.zeros((C,), dtype=torch.float32, device=dev)
+    metrics = MetricArrays(
+        **counters,
+        queue_time=EstArrays.zeros((C,), dev),
+        algo_latency=EstArrays.zeros((C,), dev),
+        pod_duration=EstArrays.zeros((C,), dev),
+    )
+    return ClusterBatchState(
+        time=zeros_i32((C,)),
+        queue_seq_counter=zeros_i32((C,)),
+        event_cursor=zeros_i32((C,)),
+        pod_base=zeros_i32((C,)),
+        last_flush_win=zeros_i32((C,)),
+        requeue_signal=torch.zeros((C,), dtype=torch.bool, device=dev),
+        nodes=nodes,
+        pods=pods,
+        metrics=metrics,
+    )
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Leaves of a NamedTuple tree keyed by attribute path (".a.b")."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out: Dict[str, torch.Tensor] = {}
+        for name in tree._fields:
+            out.update(flatten(getattr(tree, name), f"{prefix}.{name}"))
+        return out
+    return {prefix: tree}
+
+
+def leaf_paths(cls, prefix: str = "") -> list:
+    """Every leaf path of the NamedTuple type `cls`, in field order."""
+    out = []
+    for name in cls._fields:
+        sub = _TREE_TYPES.get((cls.__name__, name))
+        path = f"{prefix}.{name}"
+        out.extend(leaf_paths(sub, path) if sub is not None else [path])
+    return out
+
+
+def unflatten(cls, leaves: Dict[str, object], prefix: str = ""):
+    """Inverse of `flatten`: `cls` is the root NamedTuple type; the types
+    of nested NamedTuple fields come from `_TREE_TYPES`."""
+    kwargs = {}
+    for name in cls._fields:
+        path = f"{prefix}.{name}"
+        sub = _TREE_TYPES.get((cls.__name__, name))
+        kwargs[name] = unflatten(sub, leaves, path) if sub is not None else leaves[path]
+    return cls(**kwargs)
+
+
+# (parent type, field) -> NamedTuple type of that field.
+_TREE_TYPES = {
+    ("ClusterBatchState", "nodes"): NodeArrays,
+    ("ClusterBatchState", "pods"): PodArrays,
+    ("ClusterBatchState", "metrics"): MetricArrays,
+    ("NodeArrays", "create_time"): TPair,
+    ("NodeArrays", "remove_time"): TPair,
+    **{
+        ("PodArrays", f): TPair
+        for f in (
+            "duration",
+            "queue_ts",
+            "initial_attempt_ts",
+            "start_time",
+            "finish_time",
+            "removal_time",
+        )
+    },
+    ("MetricArrays", "queue_time"): EstArrays,
+    ("MetricArrays", "algo_latency"): EstArrays,
+    ("MetricArrays", "pod_duration"): EstArrays,
+}
+
+
+def compare_states(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> list:
+    """Compare two flat numpy states (convert.state_to_numpy) under the
+    reference's parity policy (`kubernetriks_tpu/batched/state.py:681`):
+    every leaf exactly equal, except float32 `.metrics.` accumulators, held
+    to rtol 1e-6 with atol 0 (their folds sum in a different order on
+    different paths). Returns the paths that differ (empty = parity)."""
+    if set(a) != set(b):
+        return [f"<leaf sets differ: {sorted(set(a) ^ set(b))}>"]
+    bad = []
+    for key in sorted(a):
+        xa, ya = np.asarray(a[key]), np.asarray(b[key])
+        if xa.shape != ya.shape:
+            ok = False
+        elif ".metrics." in key and xa.dtype == np.float32:
+            ok = bool(np.allclose(xa, ya, rtol=1e-6, atol=0.0))
+        else:
+            ok = bool((xa == ya).all())
+        if not ok:
+            bad.append(key)
+    return bad

@@ -1,0 +1,108 @@
+"""Generic YAML trace format: workload events CreatePod / RemovePod and
+cluster events CreateNode / RemoveNode, with serde-style tags
+(``event_type: !CreatePod {pod: ...}``) flattened by the tagged loader.
+
+CreatePodGroup (HPA-managed groups) raises NotImplementedError: pod groups
+arrive with the autoscalers (ROADMAP Queue 1 item 7)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+from kubernetriks_tpu_torch.config import load_yaml_with_tags
+from kubernetriks_tpu_torch.core.events import (
+    CreateNodeRequest,
+    CreatePodRequest,
+    RemoveNodeRequest,
+    RemovePodRequest,
+)
+from kubernetriks_tpu_torch.core.types import Node, Pod
+from kubernetriks_tpu_torch.trace.interface import Trace, TraceEvents
+
+
+def _tag_of(event_type: Any) -> str:
+    if isinstance(event_type, str):
+        return event_type
+    return event_type.get("__tag__", "")
+
+
+class GenericWorkloadTrace(Trace):
+    def __init__(self, events: List[Dict[str, Any]]) -> None:
+        self.events = events
+
+    @staticmethod
+    def from_yaml(text: str) -> "GenericWorkloadTrace":
+        doc = load_yaml_with_tags(text) or {}
+        return GenericWorkloadTrace(events=doc.get("events") or [])
+
+    @staticmethod
+    def from_file(path: str) -> "GenericWorkloadTrace":
+        with open(path) as f:
+            return GenericWorkloadTrace.from_yaml(f.read())
+
+    def convert_to_simulator_events(self) -> TraceEvents:
+        converted: TraceEvents = []
+        events, self.events = self.events, []
+        for event in events:
+            ts = float(event["timestamp"])
+            event_type = event["event_type"]
+            tag = _tag_of(event_type)
+            if tag == "CreatePod":
+                converted.append(
+                    (ts, CreatePodRequest(pod=Pod.from_dict(event_type["pod"])))
+                )
+            elif tag == "RemovePod":
+                converted.append(
+                    (ts, RemovePodRequest(pod_name=event_type["pod_name"]))
+                )
+            elif tag == "CreatePodGroup":
+                raise NotImplementedError(
+                    "CreatePodGroup: pod groups are not run by "
+                    "kubernetriks_tpu_torch yet (ROADMAP Queue 1 item 7)"
+                )
+            else:
+                raise ValueError(f"unknown workload event type {tag!r}")
+        converted.sort(key=lambda pair: pair[0])
+        return converted
+
+    def event_count(self) -> int:
+        return len(self.events)
+
+
+class GenericClusterTrace(Trace):
+    def __init__(self, events: List[Dict[str, Any]]) -> None:
+        self.events = events
+
+    @staticmethod
+    def from_yaml(text: str) -> "GenericClusterTrace":
+        doc = load_yaml_with_tags(text) or {}
+        return GenericClusterTrace(events=doc.get("events") or [])
+
+    @staticmethod
+    def from_file(path: str) -> "GenericClusterTrace":
+        with open(path) as f:
+            return GenericClusterTrace.from_yaml(f.read())
+
+    def convert_to_simulator_events(self) -> TraceEvents:
+        """Sets allocatable = capacity on node creation."""
+        converted: TraceEvents = []
+        events, self.events = self.events, []
+        for event in events:
+            ts = float(event["timestamp"])
+            event_type = event["event_type"]
+            tag = _tag_of(event_type)
+            if tag == "CreateNode":
+                node = Node.from_dict(event_type["node"])
+                node.status.allocatable = node.status.capacity.copy()
+                converted.append((ts, CreateNodeRequest(node=node)))
+            elif tag == "RemoveNode":
+                converted.append(
+                    (ts, RemoveNodeRequest(node_name=event_type["node_name"]))
+                )
+            else:
+                raise ValueError(f"unknown cluster event type {tag!r}")
+        converted.sort(key=lambda pair: pair[0])
+        return converted
+
+    def event_count(self) -> int:
+        return len(self.events)

@@ -1,0 +1,177 @@
+"""Reference adapter for the PyTorch port's parity tests, and the test that
+the port's runtime loads neither jax nor the JAX package.
+
+The JAX package (kubernetriks_tpu) is the reference: these helpers build
+its batched engine on the CPU along two paths — the XLA path
+(use_pallas=False) and the dense Pallas kernel path in interpret mode with
+the megakernel forced on — and flatten its state to the framework-neutral
+{keystr path: numpy array} form that kubernetriks_tpu_torch.convert and
+compare_states use. Only tests import both packages.
+
+JAX 0.9 dropped `jax.experimental.enable_x64`, which the reference's kernel
+modules import; the alias below is installed before any reference module
+is imported (the reference package itself is left as it is).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import numpy as np  # noqa: E402
+
+import kubernetriks_tpu.ops.scheduler_kernel as jax_kernels  # noqa: E402
+from kubernetriks_tpu.batched.engine import build_batched_from_traces as jax_build  # noqa: E402
+from kubernetriks_tpu.config import SimulationConfig as JaxConfig  # noqa: E402
+from kubernetriks_tpu.trace.generator import (  # noqa: E402
+    PoissonWorkloadTrace as JaxPoisson,
+    UniformClusterTrace as JaxUniform,
+)
+from kubernetriks_tpu.trace.generic import (  # noqa: E402
+    GenericClusterTrace as JaxGenericCluster,
+    GenericWorkloadTrace as JaxGenericWorkload,
+)
+
+from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces as port_build  # noqa: E402
+from kubernetriks_tpu_torch.batched.state import compare_states  # noqa: E402
+from kubernetriks_tpu_torch.config import SimulationConfig as PortConfig  # noqa: E402
+from kubernetriks_tpu_torch.convert import state_to_numpy  # noqa: E402
+from kubernetriks_tpu_torch.trace.generator import (  # noqa: E402
+    PoissonWorkloadTrace as PortPoisson,
+    UniformClusterTrace as PortUniform,
+)
+from kubernetriks_tpu_torch.trace.generic import (  # noqa: E402
+    GenericClusterTrace as PortGenericCluster,
+    GenericWorkloadTrace as PortGenericWorkload,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BENCH_CONFIG = "sim_name: bench\nseed: 1\nscheduling_cycle_interval: 10.0\n"
+POISSON = dict(
+    rate_per_second=2.0, horizon=100.0, seed=3, cpu=4000, ram=8 * 1024**3,
+    duration_range=(30.0, 120.0),
+)
+
+
+def jax_state_to_numpy(state) -> dict:
+    """The JAX engine's ClusterBatchState as {keystr path: numpy array}."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
+
+
+class TraceSpec:
+    """One trace, given once, rendered as each package's event objects:
+    either the Poisson/uniform generators with shared parameters or a pair
+    of generic YAML documents."""
+
+    def __init__(self, n_nodes=8, poisson=None, cluster_yaml=None, workload_yaml=None):
+        self.n_nodes = n_nodes
+        self.poisson = poisson
+        self.cluster_yaml = cluster_yaml
+        self.workload_yaml = workload_yaml
+
+    def events(self, side: str):
+        if self.cluster_yaml is not None:
+            cluster_cls = JaxGenericCluster if side == "jax" else PortGenericCluster
+            workload_cls = JaxGenericWorkload if side == "jax" else PortGenericWorkload
+            return (
+                cluster_cls.from_yaml(self.cluster_yaml).convert_to_simulator_events(),
+                workload_cls.from_yaml(self.workload_yaml).convert_to_simulator_events(),
+            )
+        uniform = JaxUniform if side == "jax" else PortUniform
+        poisson = JaxPoisson if side == "jax" else PortPoisson
+        return (
+            uniform(self.n_nodes).convert_to_simulator_events(),
+            poisson(**self.poisson).convert_to_simulator_events(),
+        )
+
+
+def build_jax_engine(config_yaml, spec: TraceSpec, n_clusters, k, path, monkeypatch=None, **kwargs):
+    """The reference engine on one of its two paths: "xla" (use_pallas=
+    False) or "megakernel" (interpret-mode Pallas, with use_pallas_select
+    AND use_megakernel forced on after the build: the engine fixes
+    use_megakernel at build time from use_pallas_select, which its C >= 128
+    gate leaves off at test sizes). For the megakernel path pass
+    `monkeypatch`: a counting wrapper then proves the kernel was traced.
+    Other keyword arguments go to the engine build."""
+    cluster, workload = spec.events("jax")
+    mega = path == "megakernel"
+    sim = jax_build(
+        JaxConfig.from_yaml(config_yaml), cluster, workload,
+        n_clusters=n_clusters, max_pods_per_cycle=k,
+        use_pallas=mega, pallas_interpret=mega, **kwargs,
+    )
+    sim.megakernel_calls = [0]
+    if mega:
+        sim.use_pallas_select = True
+        sim.use_megakernel = True
+        real = jax_kernels.fused_select_cycle_commit
+
+        def counting(*args, **kwargs):
+            sim.megakernel_calls[0] += 1
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(jax_kernels, "fused_select_cycle_commit", counting)
+        jax.clear_caches()  # a cached window program would skip the wrapper
+    return sim
+
+
+def build_port_engine(config_yaml, spec: TraceSpec, n_clusters, k, device="cpu", **kwargs):
+    cluster, workload = spec.events("port")
+    return port_build(
+        PortConfig.from_yaml(config_yaml), cluster, workload,
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=k, **kwargs,
+    )
+
+
+def test_reference_adapter_forces_the_megakernel(monkeypatch):
+    spec = TraceSpec(n_nodes=4, poisson=dict(POISSON, horizon=40.0))
+    sim = build_jax_engine(BENCH_CONFIG, spec, 2, 4, "megakernel", monkeypatch)
+    sim.step_until_time(50.0)
+    assert sim.megakernel_calls[0] >= 1
+    assert sim.use_megakernel and sim.use_pallas_select
+    port = build_port_engine(BENCH_CONFIG, spec, 2, 4)
+    port.step_until_time(50.0)
+    assert compare_states(jax_state_to_numpy(sim.state), state_to_numpy(port.state)) == []
+
+
+def test_port_main_path_loads_no_jax():
+    """The port's main path, run in a fresh interpreter, leaves no module
+    named jax* or kubernetriks_tpu.* in sys.modules."""
+    code = textwrap.dedent(
+        """
+        import sys
+        from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+        from kubernetriks_tpu_torch.config import SimulationConfig
+        from kubernetriks_tpu_torch.convert import state_to_numpy
+        from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+        import kubernetriks_tpu_torch.ops._build, kubernetriks_tpu_torch.ops.scheduler_kernel
+        cfg = SimulationConfig.from_yaml("sim_name: t\\nscheduling_cycle_interval: 10.0")
+        sim = build_batched_from_traces(
+            cfg, UniformClusterTrace(4).convert_to_simulator_events(),
+            PoissonWorkloadTrace(1.0, 60.0, seed=3, cpu=4000).convert_to_simulator_events(),
+            n_clusters=2, device="cpu", max_pods_per_cycle=8)
+        sim.step_until_time(90.0)
+        state_to_numpy(sim.state)
+        assert sim.metrics_summary()["counters"]["scheduling_decisions"] > 0
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+                     or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+        """
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
