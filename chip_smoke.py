@@ -43,6 +43,27 @@ L2_BYTES = 50 * 1024**2  # H100 L2 cache
 OUT_DIR = HERE / "chiprun_out"
 
 
+def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256):
+    """The reference's headline bench shape (`bench.py:92` `run_shape`):
+    n_clusters uniform clusters of n_nodes nodes (64 000 mCPU, 128 GiB),
+    Poisson pods at 2/s for 1000 s (seed 3, 4000 mCPU, 8 GiB, 30-120 s),
+    default profile, 64 pods per cycle. profile_main_path.py uses it too."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    config = SimulationConfig.from_yaml("sim_name: bench\nseed: 1\nscheduling_cycle_interval: 10.0")
+    return build_batched_from_traces(
+        config,
+        UniformClusterTrace(n_nodes, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
+        PoissonWorkloadTrace(
+            rate_per_second=2.0, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
+            duration_range=(30.0, 120.0),
+        ).convert_to_simulator_events(),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=64,
+    )
+
+
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
@@ -165,7 +186,6 @@ def main() -> int:
     # --- 2. build -----------------------------------------------------------
     from kubernetriks_tpu_torch.ops import _build
     from kubernetriks_tpu_torch.ops import scheduler_kernel as sk
-    from kubernetriks_tpu_torch.profile_main_path import headline_sim
 
     build_s = _build.build_all()
     print(f"phase 2: kernels built in {build_s:.2f} s", flush=True)

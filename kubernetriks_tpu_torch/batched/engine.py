@@ -34,10 +34,11 @@ from kubernetriks_tpu_torch.batched.state import (
     EV_REMOVE_NODE,
     ClusterBatchState,
     TraceSlab,
+    flatten,
     init_state,
     make_step_constants,
 )
-from kubernetriks_tpu_torch.batched.step import DeviceConstants, WindowPlan, window_body
+from kubernetriks_tpu_torch.batched.step import CUMSUM_MAX_K, DeviceConstants, WindowPlan, window_body
 from kubernetriks_tpu_torch.batched.timerep import INF_WIN, from_f64_np
 from kubernetriks_tpu_torch.batched.trace_compile import (
     CompiledClusterTrace,
@@ -51,15 +52,19 @@ BIG_RANK = 1 << 30
 
 def resolve_device(device=None) -> torch.device:
     """`device` as given; None means the CUDA card, and raises without one
-    (the port never carries on on the CPU unasked)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: kubernetriks_tpu_torch runs on the card by "
-            "default; pass device='cpu' to run the plain PyTorch path"
-        )
-    return torch.device("cuda")
+    (the port never carries on on the CPU unasked). A CUDA device comes
+    back with its index, as tensors report theirs."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: kubernetriks_tpu_torch runs on the card by "
+                "default; pass device='cpu' to run the plain PyTorch path"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _name_ranks(names) -> np.ndarray:
@@ -117,6 +122,13 @@ class BatchedSimulation:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
+        if self.max_pods_per_cycle > CUMSUM_MAX_K:
+            raise ValueError(
+                f"max_pods_per_cycle={self.max_pods_per_cycle} (the pod slot count "
+                f"when not given) is above {CUMSUM_MAX_K}, the largest cycle "
+                f"step.xla_cumsum16 is pinned for; pass max_pods_per_cycle <= "
+                f"{CUMSUM_MAX_K} (ROADMAP Queue 3, the cumsum trap, lifts this)"
+            )
 
         self.state = init_state(
             C,
@@ -195,7 +207,14 @@ class BatchedSimulation:
         by convert.state_from_numpy) at window `next_window_idx`. Reads the
         event cursor back once to seed the host mirror. Pending autoscaler
         effects (finite node create/remove or pod removal times) need the
-        autoscaler port and raise."""
+        autoscaler port and raise, as does a leaf that is not on this
+        engine's device."""
+        for path, leaf in flatten(state).items():
+            if leaf.device != self.device:
+                raise ValueError(
+                    f"install_state: leaf {path} is on {leaf.device}, the engine "
+                    f"runs on {self.device}"
+                )
         pending = (
             (state.nodes.create_time.win < INF_WIN).any()
             | (state.nodes.remove_time.win < INF_WIN).any()
@@ -255,7 +274,6 @@ class BatchedSimulation:
             self._plan(w),
             conditional_move=self.conditional_move,
             name_ranks=self.name_ranks,
-            profile=self.profile,
             sync=self._count_sync,
         )
         self.next_window_idx = w + 1

@@ -5,8 +5,9 @@ default profile — Fit + LeastAllocatedResources, weight 1.0 — written op
 for op as its `_filter_fit` / `_score_least_allocated` / `profile_score`
 (pipeline.py:97-117,261-285). The CUDA megakernel
 (ops/csrc/select_cycle_commit.cu) inlines the same expressions in the same
-order. Any other profile raises UnsupportedProfileError at engine build:
-the other scorers arrive with ROADMAP Queue 1 item 6.
+order. Any other profile raises UnsupportedProfileError at engine build,
+the one place a profile is checked; the step and kernel layers compute
+this profile only. The other scorers arrive with ROADMAP Queue 1 item 6.
 
 Semantics: the filter ANDs onto the alive mask; scores are float32;
 zero-allocatable and non-fitting nodes score -inf, so they never win the
@@ -66,11 +67,10 @@ def _score_least_allocated(cpu, ram, rc, rr):
     return (cpu_score + ram_score) * 0.5
 
 
-def profile_fit_score(profile: CompiledProfile, alive, cpu, ram, rc, rr):
-    """(fit mask, masked float32 score) over broadcast-compatible node
-    allocatables `cpu`/`ram` and candidate requests `rc`/`rr`."""
-    if profile != DEFAULT_PROFILE:
-        raise UnsupportedProfileError(f"profile {profile.name!r} has no port yet")
+def profile_fit_score(alive, cpu, ram, rc, rr):
+    """The default profile's (fit mask, masked float32 score) over
+    broadcast-compatible node allocatables `cpu`/`ram` and candidate
+    requests `rc`/`rr`."""
     fit = alive & (rc <= cpu) & (rr <= ram)
     score = torch.where(fit, _score_least_allocated(cpu, ram, rc, rr), float("-inf"))
     return fit, score

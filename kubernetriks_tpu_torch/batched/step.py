@@ -29,7 +29,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from kubernetriks_tpu_torch.batched.pipeline import DEFAULT_PROFILE
 from kubernetriks_tpu_torch.batched.state import (
     EV_CREATE_NODE,
     EV_CREATE_POD,
@@ -615,7 +614,6 @@ def run_scheduling_cycle(
     max_pods_per_cycle: int,
     conditional_move: bool = False,
     wake: Optional[WakeEvents] = None,
-    profile=DEFAULT_PROFILE,
     sync=None,
 ) -> ClusterBatchState:
     """One scheduling cycle at window W for every cluster: the megakernel
@@ -641,7 +639,7 @@ def run_scheduling_cycle(
         alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
         pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
         pods.req_cpu, pods.req_ram, waited_p, pods.phase, pods.node,
-        qpre_t, start_t, park_t, k_pods=K, profile=profile,
+        qpre_t, start_t, park_t, k_pods=K,
     )
     # Metric merge: the queue-time estimator rows from the kernel; the
     # algorithm latency adds the per-cluster pod_sched_time per assignment.
@@ -684,7 +682,6 @@ def window_body(
     plan: WindowPlan,
     conditional_move: bool = False,
     name_ranks=None,
-    profile=DEFAULT_PROFILE,
     sync=None,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: events and
@@ -697,5 +694,5 @@ def window_body(
         conditional_move=conditional_move, name_ranks=name_ranks,
     )
     return run_scheduling_cycle(
-        state, W, k, max_pods_per_cycle, conditional_move, wake, profile, sync
+        state, W, k, max_pods_per_cycle, conditional_move, wake, sync
     )

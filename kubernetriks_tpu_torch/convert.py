@@ -8,7 +8,7 @@ numpy arrays keyed by attribute path (".pods.queue_ts.win"), the strings
 so this module needs neither jax nor the JAX package.
 
     flat = {keystr(p): np.asarray(x) for p, x in tree_flatten_with_path(jax_state)}
-    port.install_state(state_from_numpy(flat, device), jax_sim.next_window_idx)
+    port.install_state(state_from_numpy(flat, port.device), jax_sim.next_window_idx)
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from kubernetriks_tpu_torch.batched.engine import resolve_device
 from kubernetriks_tpu_torch.batched.state import ClusterBatchState, flatten, leaf_paths, unflatten
 
 
@@ -26,9 +27,10 @@ def state_to_numpy(state: ClusterBatchState) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in flatten(state).items()}
 
 
-def state_from_numpy(flat: Dict[str, np.ndarray], device="cpu") -> ClusterBatchState:
-    """{path: numpy array} -> the port's state on `device`. Every leaf keeps
-    its numpy dtype; a missing or extra leaf raises."""
+def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> ClusterBatchState:
+    """{path: numpy array} -> the port's state on `device` (None means the
+    CUDA card and raises without one; see engine.resolve_device). Every
+    leaf keeps its numpy dtype; a missing or extra leaf raises."""
     expected = set(leaf_paths(ClusterBatchState))
     got = set(flat)
     if got != expected:
@@ -36,7 +38,7 @@ def state_from_numpy(flat: Dict[str, np.ndarray], device="cpu") -> ClusterBatchS
             f"state leaves differ: missing {sorted(expected - got)}, "
             f"unexpected {sorted(got - expected)}"
         )
-    dev = torch.device(device)
+    dev = resolve_device(device)
     leaves = {k: torch.tensor(np.asarray(v), device=dev) for k, v in flat.items()}
     return unflatten(ClusterBatchState, leaves)
 

@@ -26,7 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from kubernetriks_tpu_torch.batched.pipeline import DEFAULT_PROFILE, profile_fit_score
+from kubernetriks_tpu_torch.batched.pipeline import profile_fit_score
 
 LAUNCHES: Dict[str, int] = {
     "fused_event_scatter": 0,
@@ -262,7 +262,7 @@ def fused_free_resources(
 
 def select_cycle_commit_plain(
     alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram,
-    waited, phase, node, qpre_t, start_t, park_t, k_pods: int, profile=DEFAULT_PROFILE,
+    waited, phase, node, qpre_t, start_t, park_t, k_pods: int,
 ):
     """Per cluster, up to K times: pick the eligible pod with the least
     (queue win, offset bits, seq) — lowest slot if the whole key ties —
@@ -292,7 +292,7 @@ def select_cycle_commit_plain(
         seli = sel.to(torch.int32)
         rc = (seli * req_cpu).amax(dim=1, keepdim=True)
         rr = (seli * req_ram).amax(dim=1, keepdim=True)
-        fit, score = profile_fit_score(profile, alive, cpu, ram, rc, rr)
+        fit, score = profile_fit_score(alive, cpu, ram, rc, rr)
         max_score = score.amax(dim=1, keepdim=True)
         best = torch.where(score == max_score, iota_n, -1).amax(dim=1, keepdim=True)
         any_fit = fit.any(dim=1, keepdim=True)
@@ -335,7 +335,6 @@ def fused_select_cycle_commit(
     start_t: torch.Tensor,  # (C, K) float32 positional start offsets
     park_t: torch.Tensor,  # (C, K) float32 positional park offsets
     k_pods: int,
-    profile=DEFAULT_PROFILE,
 ):
     """(alloc_cpu, alloc_ram, phase, node, start_tmp, park_tmp, qstats
     (C, 5)); start/park are +inf where untouched."""
@@ -343,10 +342,8 @@ def fused_select_cycle_commit(
         return select_cycle_commit_plain(
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
             pod_req_cpu, pod_req_ram, waited, phase, node, qpre_t, start_t,
-            park_t, k_pods, profile,
+            park_t, k_pods,
         )
-    if profile != DEFAULT_PROFILE:
-        raise ValueError(f"fused_select_cycle_commit: profile {profile.name!r} has no CUDA kernel")
     C, P = eligible.shape
     N = alloc_cpu.shape[1]
     K = int(k_pods)

@@ -1,16 +1,20 @@
-"""Where the main path's window time goes on the card.
+#!/usr/bin/env python3
+"""Where the port's main-path window time goes on the card.
 
-    python -m kubernetriks_tpu_torch.profile_main_path [--windows 20]
+    python3 profile_main_path.py [--windows 20]
 
-Builds the headline shape (`headline_sim`, which chip_smoke.py's main
-path uses too), steps to t=190 s as warm-up, then:
-  1. times `--windows` windows on the host clock, ending in a synchronize;
-  2. traces the next `--windows` windows with torch.profiler (CPU + CUDA)
-     and sums device kernel time per name.
-Prints one JSON line: host ms per window, device busy ms per window, the
-device's idle share (1 - busy / host time, from the unprofiled timing),
-device kernel launches per window, and the top device ops with their share
-of busy time. The full key_averages table goes to
+Builds the headline shape (`chip_smoke.headline_sim`), steps to t=190 s as
+warm-up and keeps that state. Then it runs the same `--windows` windows
+twice from it (the state is immutable, so `install_state` replays them):
+  1. untraced, on the host clock, ending in a synchronize;
+  2. traced with torch.profiler (CPU + CUDA), again on the host clock,
+     summing device kernel time per name.
+The device's idle share is 1 - busy / wall, both from the traced windows;
+the untraced wall time of the same windows is printed beside it, and the
+difference is the profiler's own cost. Prints one JSON line: host ms per
+window (untraced and traced), device busy ms per window, the idle share,
+device kernel launches per window, and the top device ops with their
+share of busy time. The full key_averages table goes to
 chiprun_out/profile_main_path.txt. Needs a CUDA device.
 """
 
@@ -23,26 +27,11 @@ import sys
 import time
 from pathlib import Path
 
+import torch
 
-def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256):
-    """The reference's headline bench shape (`bench.py:92` `run_shape`):
-    n_clusters uniform clusters of n_nodes nodes (64 000 mCPU, 128 GiB),
-    Poisson pods at 2/s for 1000 s (seed 3, 4000 mCPU, 8 GiB, 30-120 s),
-    default profile, 64 pods per cycle."""
-    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
-    from kubernetriks_tpu_torch.config import SimulationConfig
-    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+from chip_smoke import headline_sim
 
-    config = SimulationConfig.from_yaml("sim_name: bench\nseed: 1\nscheduling_cycle_interval: 10.0")
-    return build_batched_from_traces(
-        config,
-        UniformClusterTrace(n_nodes, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
-        PoissonWorkloadTrace(
-            rate_per_second=2.0, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
-            duration_range=(30.0, 120.0),
-        ).convert_to_simulator_events(),
-        n_clusters=n_clusters, device=device, max_pods_per_cycle=64,
-    )
+HERE = Path(__file__).resolve().parent
 
 
 def main(argv=None) -> int:
@@ -50,7 +39,6 @@ def main(argv=None) -> int:
     ap.add_argument("--windows", type=int, default=20)
     args = ap.parse_args(argv)
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -66,18 +54,22 @@ def main(argv=None) -> int:
     sim = headline_sim("cuda")
     sim.step_until_time(190.0)
     torch.cuda.synchronize()
+    state0, window0 = sim.state, sim.next_window_idx
 
     n = args.windows
-    t0 = time.perf_counter()
-    for _ in range(n):
-        sim.step_window()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / n
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed_windows() -> float:
+        t0 = time.perf_counter()
         for _ in range(n):
             sim.step_window()
         torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    host_ms = timed_windows()
+    sim.install_state(state0, window0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = timed_windows()
     events = prof.key_averages()
 
     def dev_us(e):
@@ -98,7 +90,7 @@ def main(argv=None) -> int:
     busy_us = sum(us for _, us, _ in kernels)
     launches = sum(c for _, _, c in kernels)
     kernels.sort(key=lambda k: -k[1])
-    out_dir = Path("chiprun_out")
+    out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "profile_main_path.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
@@ -111,8 +103,9 @@ def main(argv=None) -> int:
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},
         "host_ms_per_window": host_ms,
+        "traced_host_ms_per_window": traced_ms,
         "device_busy_ms_per_window": busy_ms if busy_us > 0 else None,
-        "device_idle_share": (1.0 - busy_ms / host_ms) if busy_us > 0 else None,
+        "device_idle_share": (1.0 - busy_ms / traced_ms) if busy_us > 0 else None,
         "device_kernels_per_window": launches / n,
         "port_kernels_ms_per_window": {
             name: sum(us for k, us, _ in kernels if name in k) / 1e3 / n

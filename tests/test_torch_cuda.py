@@ -13,7 +13,7 @@ import torch
 from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
 from kubernetriks_tpu_torch.batched.state import compare_states
 from kubernetriks_tpu_torch.config import SimulationConfig
-from kubernetriks_tpu_torch.convert import state_to_numpy
+from kubernetriks_tpu_torch.convert import state_from_numpy, state_to_numpy
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 from kubernetriks_tpu_torch.trace.generic import GenericClusterTrace, GenericWorkloadTrace
 
@@ -179,20 +179,31 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
 def test_card_run_matches_cpu_run(cuda_device):
     """On the card the main path goes through the three CUDA kernels and
     ends in the CPU run's state."""
-    cluster_yaml, workload_yaml = churn_yaml(3)
-    config = SimulationConfig.from_yaml(DELAYS)
-
-    def run(device):
-        sim = build_batched_from_traces(
-            config,
-            GenericClusterTrace.from_yaml(cluster_yaml).convert_to_simulator_events(),
-            GenericWorkloadTrace.from_yaml(workload_yaml).convert_to_simulator_events(),
-            n_clusters=4, device=device, max_pods_per_cycle=8,
-        )
-        sim.step_until_time(600.0)
-        return state_to_numpy(sim.state)
-
     port_kernels.reset_launches()
-    card = run(cuda_device)
+    card = state_to_numpy(_churn_sim(cuda_device, 600.0).state)
     assert all(n > 0 for n in port_kernels.LAUNCHES.values()), port_kernels.LAUNCHES
-    assert compare_states(run("cpu"), card) == []
+    assert compare_states(state_to_numpy(_churn_sim("cpu", 600.0).state), card) == []
+
+
+def _churn_sim(device, until: float):
+    cluster_yaml, workload_yaml = churn_yaml(3)
+    sim = build_batched_from_traces(
+        SimulationConfig.from_yaml(DELAYS),
+        GenericClusterTrace.from_yaml(cluster_yaml).convert_to_simulator_events(),
+        GenericWorkloadTrace.from_yaml(workload_yaml).convert_to_simulator_events(),
+        n_clusters=4, device=device, max_pods_per_cycle=8,
+    )
+    sim.step_until_time(until)
+    return sim
+
+
+@pytest.mark.cuda
+def test_cpu_state_into_cuda_engine_raises(cuda_device):
+    """A handed-over state must lie on the engine's device; state_from_numpy
+    without a device puts it on the card."""
+    flat = state_to_numpy(_churn_sim("cpu", 60.0).state)
+    sim = _churn_sim(cuda_device, 0.0)
+    with pytest.raises(ValueError, match="install_state: leaf .* is on cpu"):
+        sim.install_state(state_from_numpy(flat, "cpu"), 7)
+    sim.install_state(state_from_numpy(flat), 7)
+    assert sim.state.pods.phase.device.type == "cuda"

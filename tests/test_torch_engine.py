@@ -115,7 +115,7 @@ def test_small_event_chunks_match_reference():
 
 def test_mid_run_handoff_from_reference(main_runs):
     port = build_port_engine(BENCH_CONFIG, MAIN, 4, 8)
-    port.install_state(state_from_numpy(main_runs[60.0]), main_runs["next60.0"])
+    port.install_state(state_from_numpy(main_runs[60.0], "cpu"), main_runs["next60.0"])
     port.step_until_time(300.0)
     assert port.next_window_idx == main_runs["next300.0"]
     assert compare_states(main_runs[300.0], state_to_numpy(port.state)) == []
@@ -151,6 +151,30 @@ def test_build_without_device_needs_cuda(monkeypatch):
     cluster, workload = _tiny_events()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_batched_from_traces(SimulationConfig(), cluster, workload, n_clusters=1)
+
+
+def test_state_from_numpy_without_device_needs_cuda(main_runs, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy(main_runs[60.0])
+
+
+def test_install_state_on_another_device_raises(main_runs):
+    """A state on another device than the engine's is refused at install,
+    not left to fail later in a kernel wrapper (the meta device stands in
+    for the card here; test_torch_cuda.py installs a CPU state into a CUDA
+    engine)."""
+    port = build_port_engine(BENCH_CONFIG, MAIN, 4, 8)
+    with pytest.raises(ValueError, match="install_state: leaf .* is on meta"):
+        port.install_state(state_from_numpy(main_runs[60.0], "meta"), main_runs["next60.0"])
+
+
+def test_cycle_above_the_pinned_cumsum_raises():
+    cluster, workload = _tiny_events()
+    with pytest.raises(ValueError, match="max_pods_per_cycle=257 .* above 256"):
+        build_batched_from_traces(
+            SimulationConfig(), cluster, workload, device="cpu", max_pods_per_cycle=257
+        )
 
 
 @pytest.mark.parametrize(

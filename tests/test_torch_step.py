@@ -181,6 +181,6 @@ def test_init_state_leaves_and_dtypes_match_reference():
         assert want[key].dtype == got[key].dtype, key
     assert port_state.compare_states(want, got) == []
     # Round trip through the exchange format.
-    back = state_to_numpy(state_from_numpy(want))
+    back = state_to_numpy(state_from_numpy(want, "cpu"))
     assert port_state.compare_states(want, back) == []
     assert all(back[k].dtype == want[k].dtype for k in want)
