@@ -5,22 +5,38 @@
 
 Phases; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from ops/csrc with nvcc, timed;
+  2. build the five CUDA kernels from ops/csrc with nvcc (one process each,
+     all at once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
-     inputs captured from the main path at its own shapes (1024 clusters x
-     256 nodes, the run's pod and event widths, K = 64); device times of
-     the kernel and, where one exists, of a single PyTorch library call as
-     a yardstick (timed only; both from CUDA-graph replays between CUDA
-     events), and the plain version's time on the CUDA clock;
-  4. the main path — the headline bench shape: 1024 uniform clusters of 256
-     nodes (64 000 mCPU, 128 GiB), Poisson pods at 2/s for 1000 s (seed 3,
-     4000 mCPU, 8 GiB, 30-120 s), default profile, 64 pods per cycle;
+     inputs captured from its path at that path's shapes — the three
+     scheduling kernels from the headline path at t = 190 s (1024 clusters
+     x 256 nodes, K = 64), the two cluster-autoscaler kernels from the
+     autoscaler path at the first window where each acts (256 clusters x
+     96 node slots x 1664 pod slots); device times of the kernel and, where
+     one exists, of a single PyTorch library call as a yardstick (timed
+     only; both from CUDA-graph replays between CUDA events, cycling over
+     enough input copies to overrun the L2 cache), and the plain version's
+     time on the CUDA clock;
+  4. the headline path — the headline bench shape: 1024 uniform clusters of
+     256 nodes (64 000 mCPU, 128 GiB), Poisson pods at 2/s for 1000 s (seed
+     3, 4000 mCPU, 8 GiB, 30-120 s), default profile, 64 pods per cycle;
      build, step to 190 s, then 200 s steps to 1200 s; decisions, rate,
      windows, host syncs per window and each kernel's launch count, with
      conservation checks on the final state;
   5. card against CPU: a 300 s trace with a node removal at C=8, N=16, run
      through the kernels on the card and through the plain path on the CPU,
-     final states equal under compare_states.
+     final states equal under compare_states;
+  6. the autoscaler path — the reference's composed scenario (`bench.py:260`
+     `run_composed` defaults, whole-resident, no slot reclaim): 256
+     clusters of 32 nodes (64 000 mCPU, 128 GiB) plus 64 CA slots, Poisson
+     pods at 1.5/s for 1000 s (16 000 mCPU, 32 GiB), one HPA group (8 to 64
+     pods, cpu target 0.5, load 4/24/2 over 300/300/400 s), the CA at a
+     10 s scan; build, step to 190 s, then 200 s steps to 1200 s; the HPA
+     and CA counters, the autoscaler bounds, every cluster equal, host
+     syncs per window and each kernel's launch count;
+  7. card against CPU on the autoscaler path: the composed scenario at 4
+     nodes and C=8 to t=400 s (CA scale-ups and a removal), final states
+     equal under compare_states.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -64,17 +80,104 @@ def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256):
     )
 
 
+COMPOSED_GROUP_YAML = """events:
+- timestamp: 49.5
+  event_type:
+    !CreatePodGroup
+      pod_group:
+        name: grp
+        initial_pod_count: 8
+        max_pod_count: {max_pods}
+        pod_template:
+          metadata: {{name: grp}}
+          spec:
+            resources:
+              requests: {{cpu: 8000, ram: 17179869184}}
+              limits: {{cpu: 8000, ram: 17179869184}}
+        target_resources_usage: {{cpu_utilization: 0.5}}
+        resources_usage_model_config:
+          cpu_config:
+            model_name: pod_group
+            config: |
+              - duration: {d1}
+                total_load: 4.0
+              - duration: {d2}
+                total_load: 24.0
+              - duration: {d3}
+                total_load: 2.0
+"""
+
+# The reference's composed line at its own width (`bench.py:260`
+# `run_composed` defaults); composed_sim's defaults are a toy cut of it.
+FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, burst=(300.0, 300.0, 400.0), k=64)
+
+
+def composed_config_yaml(n_nodes: int) -> str:
+    """The composed scenario's config (`bench.py:198` `_composed_inputs`):
+    HPA on, the CA with one 64 000 mCPU / 128 GiB node group, at most
+    n_nodes CA nodes, a 10 s scan."""
+    return f"""
+sim_name: bench_composed
+seed: 1
+scheduling_cycle_interval: 10.0
+horizontal_pod_autoscaler:
+  enabled: true
+cluster_autoscaler:
+  enabled: true
+  scan_interval: 10.0
+  max_node_count: {n_nodes}
+  node_groups:
+  - node_template:
+      metadata: {{name: ca_node}}
+      status: {{capacity: {{cpu: 64000, ram: 137438953472}}}}
+"""
+
+
+def composed_workload_yaml(max_group_pods: int, burst) -> str:
+    return COMPOSED_GROUP_YAML.format(max_pods=max_group_pods, d1=burst[0], d2=burst[1], d3=burst[2])
+
+
+def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_group_pods=16,
+                 burst=(90.0, 90.0, 120.0), k=8):
+    """The reference's composed scenario (`bench.py:198` `_composed_inputs`)
+    on the port: n_nodes uniform nodes, Poisson plain pods (seed 3, 16 000
+    mCPU / 32 GiB, 30-120 s) beside one HPA pod group, the CA allowed
+    n_nodes nodes of the 64 000 mCPU template; max_ca_pods_per_cycle 64,
+    max_pods_per_scale_down 8. FULL_COMPOSED gives the reference's width."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+    from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
+
+    cluster = UniformClusterTrace(n_nodes, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+    plain = PoissonWorkloadTrace(
+        rate_per_second=rate, horizon=horizon, seed=3, cpu=16000, ram=32 * 1024**3,
+        duration_range=(30.0, 120.0), name_prefix="plain",
+    ).convert_to_simulator_events()
+    group = GenericWorkloadTrace.from_yaml(
+        composed_workload_yaml(max_group_pods, burst)
+    ).convert_to_simulator_events()
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml(composed_config_yaml(n_nodes)), cluster,
+        sorted(plain + group, key=lambda e: e[0]),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
+        max_ca_pods_per_cycle=64, max_pods_per_scale_down=8,
+    )
+
+
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
 
 
 def graph_ms(fns, inner: int = 12, reps: int = 5) -> float:
-    """Device time of one call: `inner` calls, cycling through `fns` (the
-    same call on different input copies), captured in a CUDA graph and
-    replayed `reps` times between CUDA events. Without the graph a short
-    kernel's time would be the host's launch cost (the wrapper's checks and
-    allocations take longer than the kernel runs)."""
+    """Device time of one call: at least `inner` calls, cycling through
+    `fns` (the same call on different input copies, each one at least
+    once), captured in a CUDA graph and replayed `reps` times between CUDA
+    events. Without the graph a short kernel's time would be the host's
+    launch cost (the wrapper's checks and allocations take longer than the
+    kernel runs)."""
+    inner = max(inner, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -135,6 +238,27 @@ def capture_inputs(step_mod, names):
             setattr(step_mod, n, fn)
 
     return captured, restore
+
+
+def capture_first(mod, name, acts):
+    """Wrap `mod.name` so the arguments of the first call whose outputs
+    satisfy `acts(args, outs)` are kept (reading the outputs synchronizes,
+    so this runs only in a capture pass). Returns (captured, restore)."""
+    captured = {}
+    real = getattr(mod, name)
+
+    def wrapped(*args, **kwargs):
+        outs = real(*args, **kwargs)
+        if name not in captured and acts(args, outs):
+            captured[name] = (args, kwargs)
+        return outs
+
+    setattr(mod, name, wrapped)
+    return captured, lambda: setattr(mod, name, real)
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def max_abs_err(outs_a, outs_b) -> float:
@@ -226,9 +350,9 @@ def main() -> int:
         ]
 
     def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops):
-        outs_k = kernel_fn(*args, **kwargs)
+        outs_k = as_tuple(kernel_fn(*args, **kwargs))
         torch.cuda.synchronize()
-        outs_p = plain_fn(*args, **kwargs)
+        outs_p = as_tuple(plain_fn(*args, **kwargs))
         torch.cuda.synchronize()
         err = max_abs_err(outs_k, outs_p)
         if not outputs_agree(outs_k, outs_p, stats_idx):
@@ -322,6 +446,67 @@ def main() -> int:
     )
     del sim, captured
 
+    # The CA kernels, on inputs of the autoscaler path at full width: the
+    # first window where the scale-up packs a cache pod and the first where
+    # the scale-down removes a node (both launch, masked, on every window
+    # where a CA cycle is due).
+    from kubernetriks_tpu_torch.batched import autoscale as autoscale_mod
+    from kubernetriks_tpu_torch.ops import autoscale_kernel as ak
+
+    sim = composed_sim(dev, 256, **FULL_COMPOSED)
+    cap_up, restore_up = capture_first(
+        autoscale_mod, "fused_ca_scale_up", lambda a, o: bool(a[8].any()) and bool(o[0].any())
+    )
+    cap_down, restore_down = capture_first(
+        autoscale_mod, "fused_ca_scale_down", lambda a, o: bool(o.any())
+    )
+    sim.step_until_time(1200.0)
+    restore_up()
+    restore_down()
+    torch.cuda.synchronize()
+    if "fused_ca_scale_up" not in cap_up or "fused_ca_scale_down" not in cap_down:
+        fail(f"the autoscaler path never scaled up or down (captured {list(cap_up) + list(cap_down)})")
+    print(
+        f"phase 3: autoscaler shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods} "
+        f"S={sim.autoscale_statics.ca_slots.shape[1]} K_up={sim.max_ca_pods_per_cycle} "
+        f"K_sd={sim.max_pods_per_scale_down}",
+        flush=True,
+    )
+    # Scale-down. What the function must read: the branch flag of every
+    # cluster; for clusters on the branch, the threshold, seven node rows
+    # (alive, not-pending: 1 B; capacities, allocatables, rank: 4 B), the
+    # candidate rows (9 B) and, for each alive candidate, its pod entries
+    # (9 B each, up to K); it writes S flags. Operations: ~5 per node per
+    # pod entry (fit tests and the argmin).
+    args, kwargs = cap_down["fused_ca_scale_down"]
+    br = args[0][:, 0]
+    C, N = args[2].shape
+    S = args[9].shape[1]
+    K = kwargs["k_sd"]
+    n_br = int(br.sum())
+    entries = int((torch.clamp(args[11], max=K) * (args[10] & br[:, None])).sum())
+    check_kernel(
+        "fused_ca_scale_down", ak.fused_ca_scale_down, ak.ca_scale_down_plain, args, kwargs, -1,
+        None, C + n_br * (4 + 22 * N + 9 * S) + 9 * entries + C * S, 5 * N * entries,
+    )
+    # Scale-up. Reads the quota, and for clusters with a valid candidate
+    # the seven group rows (28 B each) and the valid candidates (9 B); the
+    # validity flags of the rest; writes S flags, Gn counts and one count.
+    # Operations: 3 compares per slot per valid candidate.
+    args, kwargs = cap_up["fused_ca_scale_up"]
+    cvalid = args[8]
+    C, G = args[1].shape
+    Kc = cvalid.shape[1]
+    S = kwargs["n_slots"]
+    n_valid = int(cvalid.sum())
+    n_active = int(cvalid.any(dim=1).sum())
+    check_kernel(
+        "fused_ca_scale_up", ak.fused_ca_scale_up, ak.ca_scale_up_plain, args, kwargs, -1,
+        None, 4 * C + n_active * 28 * G + C * Kc + 8 * n_valid + C * (S + 4 * G + 4),
+        3 * S * n_valid,
+    )
+    del sim, cap_up, cap_down
+
     # --- 4. the main path ----------------------------------------------------
     sim = headline_sim(dev)
     sk.reset_launches()
@@ -390,7 +575,7 @@ def main() -> int:
 
     # --- 5. card against CPU ---------------------------------------------------
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
-    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.batched.state import compare_states, flatten
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.convert import state_to_numpy
     from kubernetriks_tpu_torch.core.events import RemoveNodeRequest
@@ -422,20 +607,101 @@ def main() -> int:
         fail(f"phase 5 run made no progress: {counters}")
     print(f"phase 5: card == CPU under compare_states ({counters})", flush=True)
 
+    # --- 6. the autoscaler path -----------------------------------------------
+    ca_names = ["fused_ca_scale_down", "fused_ca_scale_up"]
+    sk.reset_launches()
+    sim = composed_sim(dev, 256, **FULL_COMPOSED)
+    sim.step_until_time(190.0)
+    before = sim.decisions_total()
+    syncs0, windows0 = sim.host_syncs, sim.windows_run
+    t0 = time.perf_counter()
+    end = 390.0
+    while end <= 1200.0:
+        sim.step_until_time(end)
+        end += 200.0
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    auto_launches = dict(sk.LAUNCHES)
+    windows = sim.windows_run - windows0
+    auto_syncs = (sim.host_syncs - syncs0) / max(windows, 1)
+    total = sim.decisions_total()
+    decisions = total - before
+    auto_counters = sim.metrics_summary()["counters"]  # raises if an autoscaler bound was crossed
+    print(
+        f"phase 6: decisions {total} (timed {decisions} in {elapsed:.3f} s = "
+        f"{decisions / elapsed:.1f} decisions/s), windows {sim.windows_run} "
+        f"(timed {windows}, {1e3 * elapsed / max(windows, 1):.3f} ms/window), "
+        f"host syncs per window {auto_syncs:.3f}, launches {auto_launches}, counters {auto_counters}",
+        flush=True,
+    )
+    for key in ("total_scaled_up_pods", "total_scaled_down_pods", "total_scaled_up_nodes", "total_scaled_down_nodes"):
+        if auto_counters[key] <= 0:
+            fail(f"the autoscaler path made no {key}")
+    for name in names + ca_names:
+        if auto_launches[name] <= 0:
+            fail(f"the autoscaler path never launched {name}")
+    if auto_syncs != 0:
+        fail(f"the autoscaler path read the device back {auto_syncs} times per window")
+    st = sim.state
+    for path, leaf in flatten(st.metrics).items():
+        if not bool((leaf == leaf[:1]).all()) and leaf.dtype == torch.int32:
+            fail(f"clusters replaying the same trace diverged at {path}")
+    for leaf in (st.pods.phase, st.pods.node, st.nodes.alive, st.auto.ca_count, st.auto.hpa_tail):
+        if not bool((leaf == leaf[:1]).all()):
+            fail("clusters replaying the same trace diverged")
+    print("phase 6: autoscaler bounds and state checks passed", flush=True)
+    autoscaler_path = {
+        "decisions": total,
+        "timed_decisions": decisions,
+        "timed_seconds": elapsed,
+        "decisions_per_s": decisions / elapsed,
+        "windows": sim.windows_run,
+        "timed_windows": windows,
+        "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "host_syncs_per_window": auto_syncs,
+        "launches": auto_launches,
+        "counters": auto_counters,
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "hpa_seg": list(sim.hpa_seg)},
+    }
+    del sim, st
+
+    # --- 7. card against CPU on the autoscaler path -----------------------------
+    finals = {}
+    sk.reset_launches()
+    for where in ("cuda", "cpu"):
+        s7 = composed_sim(where, 8)
+        s7.step_until_time(400.0)
+        finals[where] = (state_to_numpy(s7.state), s7.metrics_summary()["counters"])
+    if sk.LAUNCHES["fused_ca_scale_down"] <= 0 or sk.LAUNCHES["fused_ca_scale_up"] <= 0:
+        fail("phase 7 card run did not launch both CA kernels")
+    bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+    if bad:
+        fail(f"autoscaler path: card and CPU states differ at {bad}")
+    counters = finals["cuda"][1]
+    if counters["total_scaled_down_nodes"] <= 0 or counters["total_scaled_up_nodes"] <= 0:
+        fail(f"phase 7 run made no CA scale-up and removal: {counters}")
+    print(f"phase 7: card == CPU under compare_states on the autoscaler path ({counters})", flush=True)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
         "fused_free_resources": ("free_resources.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:513"),
         "fused_select_cycle_commit": ("select_cycle_commit.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:1139"),
+        "fused_ca_scale_down": ("ca_scale_down.cu", "kubernetriks_tpu/ops/autoscale_kernel.py:177"),
+        "fused_ca_scale_up": ("ca_scale_up.cu", "kubernetriks_tpu/ops/autoscale_kernel.py:402"),
     }
-    for name in names:
+    # Each kernel's launches come from its own path's run: the scheduling
+    # kernels from the headline path (phase 4), the CA kernels from the
+    # autoscaler path (phase 6).
+    path_launches = {**{n: launches[n] for n in names}, **{n: auto_launches[n] for n in ca_names}}
+    for name in names + ca_names:
         r = report[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"kubernetriks_tpu_torch/ops/csrc/{meta[name][0]}",
             "replaces": meta[name][1],
-            "launches": launches[name],
+            "launches": path_launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -444,7 +710,10 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump({"card": smi, "build_s": build_s, "kernels": kernels, "main_path": main_path}, f, indent=1)
+        json.dump({
+            "card": smi, "build_s": build_s, "kernels": kernels, "main_path": main_path,
+            "autoscaler_path": autoscaler_path,
+        }, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

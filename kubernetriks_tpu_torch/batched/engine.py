@@ -8,26 +8,38 @@ window, no mesh, no buffer donation, no superspan executor or streaming
 feeder. The pod axis is 128-aligned as in the reference's default build,
 so states compare leaf for leaf.
 
+With an enabled `horizontal_pod_autoscaler` or `cluster_autoscaler`
+block the engine also builds the autoscaler tables
+(`build_autoscale_statics`, reference engine.py:395) and appends the CA's
+reserved node slots after the trace's nodes (reference engine.py:1380-
+1460), and every window runs the autoscaler passes after the scheduling
+cycle (batched/autoscale.py). Slot reclaim, the sliding pod window and
+scenario fleets are not ported.
+
 Entry points run on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no card and no explicit device they raise. On the
-card the window step goes through the three CUDA kernels (ops/); on the
-CPU through their plain PyTorch versions.
+card the window step goes through the CUDA kernels (ops/); on the CPU
+through their plain PyTorch versions.
 
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
 which tells it, per window, how many event chunks to run and whether a
-node removal is due (step.WindowPlan). The mirror is read from the device
-once, when a state is installed.
+node removal is due (step.WindowPlan). The autoscalers' due times advance
+by fixed periods, so `AutoscaleClock` mirrors them on the host with the
+same float32 pair arithmetic and decides which autoscaler passes a window
+runs, and in which windows a CA removal can take effect. The mirrors are
+read from the device once, when a state is installed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
 from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
@@ -39,15 +51,23 @@ from kubernetriks_tpu_torch.batched.state import (
     make_step_constants,
 )
 from kubernetriks_tpu_torch.batched.step import CUMSUM_MAX_K, DeviceConstants, WindowPlan, window_body
-from kubernetriks_tpu_torch.batched.timerep import INF_WIN, from_f64_np
+from kubernetriks_tpu_torch.batched.timerep import INF_WIN, TPair, from_f64_np, t_add, t_inf, t_le, t_lt, t_where
 from kubernetriks_tpu_torch.batched.trace_compile import (
     CompiledClusterTrace,
     compile_cluster_trace,
     pad_and_batch,
+    segment_pod_slots,
 )
+from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
 
 POD_ALIGN = 128
 BIG_RANK = 1 << 30
+# CA slots reserved per group = this x the group's node cap (slots are
+# never reused without reclaim; check_autoscaler_bounds raises when the
+# reserve runs dry).
+CA_SLOT_MULTIPLIER = 2
+# The metrics collector's pod-utilization cadence, which the HPA reads.
+COLLECTION_INTERVAL = 60.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,6 +96,284 @@ def _name_ranks(names) -> np.ndarray:
     return out
 
 
+def _control_law(config, C: int) -> Dict[str, np.ndarray]:
+    """The per-lane autoscaler control-law parameters, float64 seconds
+    except the tolerance/threshold and the node quota: the reference's
+    `fleet.scenario_leaves` with no scenario overrides. The CA's true
+    period is its info round trip plus scan_interval (just the round trip
+    when that overruns the scan)."""
+    hpa = config.horizontal_pod_autoscaler
+    ca = config.cluster_autoscaler
+
+    def vec(value, dtype=np.float64):
+        return np.full((C,), value, dtype)
+
+    hpa_tol = (hpa.kube_horizontal_pod_autoscaler_config or KubeHorizontalPodAutoscalerConfig()).target_threshold_tolerance
+    ca_thresh = (ca.kube_cluster_autoscaler or KubeClusterAutoscalerConfig()).scale_down_utilization_threshold
+    ca_scan = vec(float(ca.scan_interval))
+    as_to_ca = vec(float(config.as_to_ca_network_delay))
+    as_to_ps = float(config.as_to_ps_network_delay)
+    ps_to_sched = float(config.ps_to_sched_network_delay)
+    sched_to_as = float(config.sched_to_as_network_delay)
+    as_to_node = float(config.as_to_node_network_delay)
+    d_pod_enqueue = as_to_ps + ps_to_sched
+    ca_roundtrip = 2.0 * (as_to_ca + as_to_ps)
+    return {
+        "hpa_interval_s": vec(float(hpa.scan_interval)),
+        "hpa_tolerance": vec(float(hpa_tol)),
+        "hpa_enabled": vec(bool(hpa.enabled), bool),
+        "ca_threshold": vec(float(ca_thresh)),
+        "ca_max_nodes": vec(int(ca.max_node_count) if ca.enabled else 0, np.int64),
+        "d_hpa_up_s": as_to_ca + d_pod_enqueue,
+        "d_hpa_down_s": as_to_ca + as_to_ps,
+        "d_ca_up_s": 3.0 * as_to_ca + 5.0 * as_to_ps + ps_to_sched,
+        "d_ca_down_s": 3.0 * as_to_ca + 4.0 * as_to_ps + as_to_node,
+        "ca_period_s": ca_roundtrip + np.where(ca_roundtrip <= ca_scan, ca_scan, 0.0),
+        "ca_snap_s": as_to_ca + as_to_ps,
+        "ca_finish_vis_s": vec(as_to_node + as_to_ps),
+        "ca_commit_vis_s": vec(sched_to_as + as_to_ps),
+    }
+
+
+def build_autoscale_statics(
+    config,
+    compiled_traces: Sequence[CompiledClusterTrace],
+    n_pods: int,
+    n_trace_nodes: int,
+    ram_unit: int,
+    device,
+):
+    """Host-side compilation of the pod-group (HPA) and node-group (CA)
+    tables (reference `build_autoscale_statics`, engine.py:395, for
+    whole-resident traces and no scenario overrides). Returns (statics,
+    extra node cap cpu (S,), extra node cap ram (S,), extra node names):
+    the extra node slots are the CA's reserved slots, appended after the
+    trace's node slots, named "{group}_{k+1}"."""
+    C = len(compiled_traces)
+    ca_on = config.cluster_autoscaler.enabled
+    law = _control_law(config, C)
+
+    # --- HPA pod groups -----------------------------------------------------
+    Gp = max((len(c.pod_groups) for c in compiled_traces), default=0) or 1
+    U = 1
+    for c in compiled_traces:
+        for g in c.pod_groups:
+            U = max(U, len(g.cpu_units), len(g.ram_units))
+    pg = {
+        "slot_start": np.zeros((C, Gp), np.int32),
+        "slot_count": np.zeros((C, Gp), np.int32),
+        "initial": np.zeros((C, Gp), np.int32),
+        "max_pods": np.zeros((C, Gp), np.int32),
+        "target_cpu": np.zeros((C, Gp), np.float32),
+        "target_ram": np.zeros((C, Gp), np.float32),
+    }
+    pg_active_from = np.full((C, Gp), np.inf, np.float64)
+    pg_creation_s = np.zeros((C, Gp), np.float64)
+    curves = {k: np.zeros((C, Gp, U), np.float32) for k in ("cpu_dur", "cpu_load", "ram_dur", "ram_load")}
+    pg_cpu_const = np.zeros((C, Gp), bool)
+    pg_ram_const = np.zeros((C, Gp), bool)
+    pod_group_id = np.full((C, n_pods), -1, np.int32)
+    for ci, c in enumerate(compiled_traces):
+        for gi, g in enumerate(c.pod_groups):
+            pg["slot_start"][ci, gi] = g.slot_start
+            pg["slot_count"][ci, gi] = g.slot_count
+            pg["initial"][ci, gi] = g.initial
+            pg["max_pods"][ci, gi] = g.max_pods
+            pg["target_cpu"][ci, gi] = g.target_cpu
+            pg["target_ram"][ci, gi] = g.target_ram
+            # With the HPA off the group's initial pods still run, but no
+            # cycle ever acts: active_from stays +inf.
+            pg_creation_s[ci, gi] = g.creation_time
+            if law["hpa_enabled"][ci]:
+                pg_active_from[ci, gi] = g.creation_time + config.as_to_hpa_network_delay
+            for ui, (dur, load) in enumerate(g.cpu_units):
+                curves["cpu_dur"][ci, gi, ui] = dur
+                curves["cpu_load"][ci, gi, ui] = load
+            pg_cpu_const[ci, gi] = g.cpu_const
+            for ui, (dur, load) in enumerate(g.ram_units):
+                curves["ram_dur"][ci, gi, ui] = dur
+                curves["ram_load"][ci, gi, ui] = load
+            pg_ram_const[ci, gi] = g.ram_const
+            pod_group_id[ci, g.slot_start : g.slot_start + g.slot_count] = gi
+
+    # --- CA node groups, in template-name order ------------------------------
+    ca_config = config.cluster_autoscaler
+    groups = sorted(ca_config.node_groups, key=lambda g: g.node_template.metadata.name) if ca_on else []
+    Gn = len(groups) or 1
+    reserves = []
+    for g in groups:
+        cap = g.max_count if g.max_count is not None else ca_config.max_node_count
+        reserves.append(min(cap, ca_config.max_node_count) * CA_SLOT_MULTIPLIER)
+    S = sum(reserves) or 1
+    ng = {
+        "ca_start": np.zeros((C, Gn), np.int32),
+        "slot_count": np.zeros((C, Gn), np.int32),
+        "max_count": np.full((C, Gn), -1, np.int32),
+        "tmpl_cpu": np.zeros((C, Gn), np.int32),
+        "tmpl_ram": np.zeros((C, Gn), np.int32),
+    }
+    ca_slots = np.full((C, S), -1, np.int32)
+    ca_slot_group = np.full((C, S), -1, np.int32)
+    extra_cap_cpu = np.zeros((S,), np.int32)
+    extra_cap_ram = np.zeros((S,), np.int32)
+    extra_names: List[str] = []
+    cursor = 0
+    for gi, (g, reserve) in enumerate(zip(groups, reserves)):
+        name = g.node_template.metadata.name
+        if not name:
+            raise ValueError("cluster-autoscaler node templates must be named")
+        cap = g.node_template.status.capacity
+        ng["ca_start"][:, gi] = cursor
+        ng["slot_count"][:, gi] = reserve
+        ng["max_count"][:, gi] = -1 if g.max_count is None else g.max_count
+        ng["tmpl_cpu"][:, gi] = int(cap.cpu)
+        ng["tmpl_ram"][:, gi] = int(cap.ram) // ram_unit
+        for k in range(reserve):
+            ca_slots[:, cursor + k] = n_trace_nodes + cursor + k
+            ca_slot_group[:, cursor + k] = gi
+            extra_cap_cpu[cursor + k] = int(cap.cpu)
+            extra_cap_ram[cursor + k] = int(cap.ram) // ram_unit
+            extra_names.append(f"{name}_{k + 1}")
+        cursor += reserve
+
+    # --- name orders -----------------------------------------------------------
+    # The CA bin-packs its unscheduled cache in pod-name order and walks
+    # scale-down candidates and re-placements in node-name order (the
+    # storage's snapshots are name-sorted); CA slot k of group g is always
+    # named "{g}_{k+1}".
+    memo: Dict[tuple, np.ndarray] = {}
+
+    def ranks(names):
+        key = tuple(names)
+        if key not in memo:
+            memo[key] = _name_ranks(names)
+        return memo[key]
+
+    pod_name_rank = np.full((C, n_pods), BIG_RANK, np.int32)
+    for ci, trace in enumerate(compiled_traces):
+        r = ranks(trace.pod_names[:n_pods])
+        pod_name_rank[ci, : len(r)] = r
+    N_total = n_trace_nodes + (S if extra_names else 0)
+    node_name_rank = np.full((C, N_total), BIG_RANK, np.int32)
+    ca_sd_order = np.tile(np.arange(S, dtype=np.int64), (C, 1))
+    for ci, trace in enumerate(compiled_traces):
+        r = ranks(list(trace.node_names[:n_trace_nodes]) + extra_names)
+        node_name_rank[ci, : len(r)] = r
+        if extra_names:
+            ca_sd_order[ci] = np.argsort(node_name_rank[ci, n_trace_nodes:], kind="stable")
+
+    interval = config.scheduling_cycle_interval
+    dev = torch.device(device)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    def pair(x) -> TPair:
+        w, o = from_f64_np(np.asarray(x, np.float64), interval)
+        return TPair(win=t(w), off=t(o))
+
+    statics = AutoscaleStatics(
+        pg_slot_start=t(pg["slot_start"]),
+        pg_slot_count=t(pg["slot_count"]),
+        pg_initial=t(pg["initial"]),
+        pg_max_pods=t(pg["max_pods"]),
+        pg_target_cpu=t(pg["target_cpu"]),
+        pg_target_ram=t(pg["target_ram"]),
+        pg_active_from=pair(pg_active_from),
+        pg_creation_s=t(pg_creation_s),
+        pg_cpu_dur=t(curves["cpu_dur"]),
+        pg_cpu_load=t(curves["cpu_load"]),
+        pg_cpu_total=t(curves["cpu_dur"].sum(axis=-1)),
+        pg_cpu_const=t(pg_cpu_const),
+        pg_ram_dur=t(curves["ram_dur"]),
+        pg_ram_load=t(curves["ram_load"]),
+        pg_ram_total=t(curves["ram_dur"].sum(axis=-1)),
+        pg_ram_const=t(pg_ram_const),
+        pod_group_id=t(pod_group_id),
+        ng_ca_start=t(ng["ca_start"]),
+        ng_slot_count=t(ng["slot_count"]),
+        ng_max_count=t(ng["max_count"]),
+        ng_tmpl_cpu=t(ng["tmpl_cpu"]),
+        ng_tmpl_ram=t(ng["tmpl_ram"]),
+        ca_max_nodes=t(law["ca_max_nodes"].astype(np.int32)),
+        ca_slots=t(ca_slots),
+        ca_slot_group=t(ca_slot_group),
+        hpa_interval=pair(law["hpa_interval_s"]),
+        hpa_tolerance=t(law["hpa_tolerance"]),
+        ca_threshold=t(law["ca_threshold"]),
+        d_hpa_up=pair(law["d_hpa_up_s"]),
+        d_hpa_down=pair(law["d_hpa_down_s"]),
+        d_ca_up=pair(law["d_ca_up_s"]),
+        d_ca_down=pair(law["d_ca_down_s"]),
+        ca_period=pair(law["ca_period_s"]),
+        ca_snap=pair(law["ca_snap_s"]),
+        ca_finish_vis=pair(law["ca_finish_vis_s"]),
+        ca_commit_vis=pair(law["ca_commit_vis_s"]),
+        col_interval=pair(np.full((C,), COLLECTION_INTERVAL, np.float64)),
+        pod_name_rank=t(pod_name_rank),
+        node_name_rank=t(node_name_rank),
+        ca_sd_order=t(ca_sd_order),
+    )
+    return statics, extra_cap_cpu, extra_cap_ram, extra_names
+
+
+def _cpu_pair(p: TPair) -> TPair:
+    return TPair(win=p.win.cpu(), off=p.off.cpu())
+
+
+class AutoscaleClock:
+    """Host mirror of the autoscalers' due times: the HPA tick, the metrics
+    collection and the CA cycle fire time, (C,) pairs on the CPU advanced
+    with the device's own pair arithmetic (timerep, float32 tensors), so
+    they stay equal to the state's `.auto.hpa_next` / `col_next` /
+    `ca_next` without reading them back. `advance(w)` says which passes
+    window w runs — the branches the reference's `lax.cond`s take — and
+    records the windows in which a CA removal decided now can take effect
+    (a superset: every due cycle counts, whether or not it removed a
+    node)."""
+
+    def __init__(self, statics: AutoscaleStatics, interval: float, hpa_on: bool, ca_on: bool):
+        self.interval = torch.tensor(float(interval), dtype=torch.float32)
+        self.hpa_on = hpa_on
+        self.ca_on = ca_on
+        self.hpa_interval = _cpu_pair(statics.hpa_interval)
+        self.col_interval = _cpu_pair(statics.col_interval)
+        self.ca_period = _cpu_pair(statics.ca_period)
+        self.ca_snap = _cpu_pair(statics.ca_snap)
+        self.d_ca_down = _cpu_pair(statics.d_ca_down)
+        self.removal_windows = set()
+
+    def seed(self, auto) -> None:
+        """Copy the due times from a state's autoscaler leaves."""
+        self.hpa_next = _cpu_pair(auto.hpa_next)
+        self.col_next = None if auto.col_next is None else _cpu_pair(auto.col_next)
+        self.ca_next = _cpu_pair(auto.ca_next)
+
+    def advance(self, w: int):
+        """(hpa_cycle, hpa_collect, ca_due) for window w; moves the mirror
+        to where the window leaves the state."""
+        C = self.ca_next.win.shape[0]
+        T = TPair(win=torch.full((C,), w, dtype=torch.int32), off=torch.zeros((C,), dtype=torch.float32))
+        hpa_cycle = hpa_collect = False
+        if self.hpa_on:
+            due = t_le(self.hpa_next, T)
+            col_due = t_le(self.col_next, T)
+            hpa_cycle = bool(due.any())
+            hpa_collect = bool(col_due.any())
+            self.hpa_next = t_where(due, t_add(self.hpa_next, self.hpa_interval, self.interval), self.hpa_next)
+            self.col_next = t_where(col_due, t_add(self.col_next, self.col_interval, self.interval), self.col_next)
+        snap = t_add(self.ca_next, self.ca_snap, self.interval)
+        T1 = TPair(win=T.win + 1, off=T.off)
+        due = t_lt(snap, T1)
+        ca_due = bool(due.any())
+        if ca_due and self.ca_on:
+            eff = t_add(self.ca_next, self.d_ca_down, self.interval)
+            for win in torch.unique(eff.win[due]).tolist():
+                self.removal_windows.add(max(int(win) + 1, w + 1))
+        self.ca_next = t_where(due, t_add(self.ca_next, self.ca_period, self.interval), self.ca_next)
+        return hpa_cycle, hpa_collect, ca_due
+
+
 class BatchedSimulation:
     def __init__(
         self,
@@ -86,6 +384,8 @@ class BatchedSimulation:
         max_events_per_window: Optional[int] = None,
         max_pods_per_cycle: Optional[int] = None,
         scheduler_profile=None,
+        max_ca_pods_per_cycle: int = 64,
+        max_pods_per_scale_down: int = 8,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -98,6 +398,9 @@ class BatchedSimulation:
         interval = config.scheduling_cycle_interval
         compiled_traces = list(compiled_traces)
         C = len(compiled_traces)
+        # Pod groups put their reserved slots after every plain pod, the
+        # reference's canonical layout whenever groups exist.
+        compiled_traces, _ = segment_pod_slots(compiled_traces)
 
         p_max = max((c.n_pods for c in compiled_traces), default=0)
         n_pods_aligned = -(-max(p_max, 1) // POD_ALIGN) * POD_ALIGN
@@ -112,6 +415,22 @@ class BatchedSimulation:
             pod_duration,
             _,
         ) = pad_and_batch(compiled_traces, n_pods=n_pods_aligned)
+
+        # Autoscaler tables; the CA's reserved node slots follow the trace's.
+        hpa_on = config.horizontal_pod_autoscaler.enabled
+        ca_on = config.cluster_autoscaler.enabled
+        self.autoscale_statics = None
+        self.max_ca_pods_per_cycle = max_ca_pods_per_cycle
+        self.max_pods_per_scale_down = max_pods_per_scale_down
+        if hpa_on or ca_on:
+            statics, extra_cpu, extra_ram, extra_names = build_autoscale_statics(
+                config, compiled_traces, n_pods=pod_req_cpu.shape[1],
+                n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
+            )
+            self.autoscale_statics = statics
+            if ca_on and extra_names:
+                node_cap_cpu = np.concatenate([node_cap_cpu, np.tile(extra_cpu, (C, 1))], axis=1)
+                node_cap_ram = np.concatenate([node_cap_ram, np.tile(extra_ram, (C, 1))], axis=1)
 
         self.n_clusters = C
         self.n_nodes = node_cap_cpu.shape[1]
@@ -142,6 +461,37 @@ class BatchedSimulation:
             interval=interval,
             device=self.device,
         )
+        # The group-slot bounds (lo, hi) the HPA pass works on; (0, 0): the
+        # HPA can never act, its tick parks at +inf and the pass never runs.
+        self.hpa_seg = (0, 0)
+        self.clock = None
+        if self.autoscale_statics is not None:
+            st = self.autoscale_statics
+            if hpa_on and any(c.pod_groups for c in compiled_traces):
+                starts = st.pg_slot_start.cpu().numpy()
+                counts = st.pg_slot_count.cpu().numpy()
+                gmask = counts > 0
+                if gmask.any():
+                    lo = max(int(starts[gmask].min()), 0)
+                    hi = min(int((starts + counts)[gmask].max()), self.n_pods)
+                    self.hpa_seg = (lo, hi) if hi > lo else (0, 0)
+            auto = init_autoscale_state(st, collect=self.hpa_seg != (0, 0))
+            if self.hpa_seg == (0, 0):
+                auto = auto._replace(hpa_next=t_inf((C,), self.device))
+            # The trace's initial replicas are "{group}_{i}" in the i-th
+            # reserved slot.
+            gid = st.pod_group_id.cpu().numpy()
+            gidc = np.clip(gid, 0, None)
+            off = np.arange(self.n_pods, dtype=np.int32)[None, :] - np.take_along_axis(
+                st.pg_slot_start.cpu().numpy(), gidc, axis=1
+            )
+            seeded = (gid >= 0) & (off < np.take_along_axis(st.pg_initial.cpu().numpy(), gidc, axis=1))
+            hpa_idx = torch.from_numpy(np.where(seeded, off, -1).astype(np.int32)).to(self.device)
+            self.state = self.state._replace(
+                pods=self.state.pods._replace(hpa_idx=hpa_idx), auto=auto
+            )
+            self.clock = AutoscaleClock(st, interval, hpa_on=self.hpa_seg != (0, 0), ca_on=ca_on)
+            self.clock.seed(auto)
         ev_win, ev_off = from_f64_np(ev_time, interval)
         self.slab = TraceSlab.build(ev_win, ev_off, ev_kind, ev_slot, self.device)
         self._k = DeviceConstants.build(self.consts, self.device)
@@ -163,8 +513,19 @@ class BatchedSimulation:
 
         # Name-rank tables: same-window reschedules queue in (removal time,
         # node name, pod name) order, like the reference's name-sorted walks.
+        # With autoscalers on, the statics' tables (which rank the CA slot
+        # names among the trace's) take their place.
         self.node_names = [c.node_names for c in compiled_traces]
         self.pod_names = [c.pod_names for c in compiled_traces]
+        self.name_ranks = self._trace_name_ranks(C) if self.autoscale_statics is None else (
+            self.autoscale_statics.node_name_rank, self.autoscale_statics.pod_name_rank
+        )
+
+        self.next_window_idx = 0
+        self.windows_run = 0
+        self.host_syncs = 0
+
+    def _trace_name_ranks(self, C: int):
         nnr = np.full((C, self.n_nodes), BIG_RANK, np.int32)
         pnr = np.full((C, self.n_pods), BIG_RANK, np.int32)
         memo: Dict[tuple, np.ndarray] = {}
@@ -180,14 +541,10 @@ class BatchedSimulation:
             nnr[ci, : len(r)] = r
             r = ranks(self.pod_names[ci])
             pnr[ci, : min(len(r), self.n_pods)] = r[: self.n_pods]
-        self.name_ranks = (
+        return (
             torch.from_numpy(nnr).to(self.device),
             torch.from_numpy(pnr).to(self.device),
         )
-
-        self.next_window_idx = 0
-        self.windows_run = 0
-        self.host_syncs = 0
 
     def _max_events_in_any_window(self, ev_time: np.ndarray) -> int:
         """Most events falling into one (cluster, window) bucket."""
@@ -205,30 +562,35 @@ class BatchedSimulation:
     def install_state(self, state: ClusterBatchState, next_window_idx: int) -> None:
         """Continue from `state` (e.g. one carried over from the JAX engine
         by convert.state_from_numpy) at window `next_window_idx`. Reads the
-        event cursor back once to seed the host mirror. Pending autoscaler
-        effects (finite node create/remove or pod removal times) need the
-        autoscaler port and raise, as does a leaf that is not on this
-        engine's device."""
+        event cursor, the autoscalers' due times and the pending node
+        removals back once to seed the host mirrors. Raises if a leaf is
+        not on this engine's device, or if the state's autoscaler leaves do
+        not match this engine's autoscaler configuration."""
         for path, leaf in flatten(state).items():
             if leaf.device != self.device:
                 raise ValueError(
                     f"install_state: leaf {path} is on {leaf.device}, the engine "
                     f"runs on {self.device}"
                 )
-        pending = (
-            (state.nodes.create_time.win < INF_WIN).any()
-            | (state.nodes.remove_time.win < INF_WIN).any()
-            | (state.pods.removal_time.win < INF_WIN).any()
-        )
-        self.host_syncs += 1
-        if bool(pending):
-            raise NotImplementedError(
-                "state carries pending autoscaler effects; they need the "
-                "autoscaler port (ROADMAP Queue 1 item 7)"
+        if (state.auto is None) != (self.autoscale_statics is None) or (
+            state.auto is not None
+            and (state.auto.col_next is None) != (self.state.auto.col_next is None)
+        ):
+            raise ValueError(
+                "install_state: the state's autoscaler leaves do not match this "
+                "engine's autoscaler configuration"
             )
+        self.host_syncs += 1
         self.state = state
         self._cursor = state.event_cursor.cpu().numpy().astype(np.int64)
         self.next_window_idx = int(next_window_idx)
+        if self.clock is not None:
+            self.clock.seed(state.auto)
+            self.clock.removal_windows = {
+                max(int(w) + 1, self.next_window_idx)
+                for w in torch.unique(state.nodes.remove_time.win).tolist()
+                if w < INF_WIN
+            }
 
     def _count_sync(self) -> None:
         self.host_syncs += 1
@@ -258,7 +620,19 @@ class BatchedSimulation:
             (self._rm_prefix[rows, target] > self._rm_prefix[rows, self._cursor]).any()
         )
         self._cursor = target
-        return WindowPlan(n_chunks=n_chunks, removal_due=removal_due)
+        if self.clock is None:
+            return WindowPlan(n_chunks=n_chunks, removal_due=removal_due)
+        # A CA removal decided in an earlier window takes effect here.
+        removal_due = removal_due or w in self.clock.removal_windows
+        self.clock.removal_windows.discard(w)
+        hpa_cycle, hpa_collect, ca_due = self.clock.advance(w)
+        return WindowPlan(
+            n_chunks=n_chunks,
+            removal_due=removal_due,
+            hpa_cycle=hpa_cycle,
+            hpa_collect=hpa_collect,
+            ca_due=ca_due,
+        )
 
     def step_window(self) -> None:
         """Advance one scheduling window."""
@@ -275,6 +649,10 @@ class BatchedSimulation:
             conditional_move=self.conditional_move,
             name_ranks=self.name_ranks,
             sync=self._count_sync,
+            autoscale=None if self.clock is None else (
+                self.autoscale_statics, self.hpa_seg,
+                self.max_ca_pods_per_cycle, self.max_pods_per_scale_down,
+            ),
         )
         self.next_window_idx = w + 1
         self.windows_run += 1
@@ -290,8 +668,45 @@ class BatchedSimulation:
         self.host_syncs += 1
         return int(self.state.metrics.scheduling_decisions.sum())
 
+    def check_autoscaler_bounds(self) -> None:
+        """Raise when a documented autoscaler work bound was crossed, so the
+        trajectory has left the reference's semantics (reference
+        engine.py:3672): an HPA cycle wanted more replicas than the group's
+        slot reserve could seat, a CA scale-up found quota and a fitting
+        template but no reserved slot left, or a replica index reached the
+        10^8 bound of the decimal name keys."""
+        if self.autoscale_statics is None:
+            return
+        m = self.state.metrics
+        clamped = m.hpa_reserve_clamped.cpu().numpy()
+        if clamped.sum() > 0:
+            raise RuntimeError(
+                f"HPA slot reserve exhausted: {int(clamped.sum())} wanted replica(s) "
+                f"across {int((clamped > 0).sum())} cluster(s) could not be activated "
+                "because no reusable slot remained in the pod group's reserve; the "
+                "reported replica counts have diverged from the reference semantics"
+            )
+        starved = m.ca_reserve_starved.cpu().numpy()
+        if starved.sum() > 0:
+            raise RuntimeError(
+                f"CA slot reserve exhausted: {int(starved.sum())} scale-up attempt(s) "
+                f"across {int((starved > 0).sum())} cluster(s) found quota headroom and "
+                "a fitting node-group template but no reserved slot left (slots are "
+                "never reclaimed in this port); the demand starved where the "
+                "reference semantics would have provisioned a node"
+            )
+        tail_max = int(self.state.auto.hpa_tail.max())
+        if tail_max >= 10**8:
+            raise RuntimeError(
+                f"allocation-name counter overflow: hpa_tail max {tail_max} reached "
+                "the 10^8 bound of the decimal-suffix name keys"
+            )
+
     def metrics_summary(self) -> Dict:
-        """Cross-cluster reduction into the reference's printer shape."""
+        """Cross-cluster reduction into the reference's printer shape.
+        Raises via check_autoscaler_bounds when an autoscaler work bound
+        was crossed."""
+        self.check_autoscaler_bounds()
         m = self.state.metrics
 
         def host(x):

@@ -10,12 +10,14 @@ offsets, bool masks, and time as the (win, off) pairs of timerep.py.
 The state is a tree of NamedTuples of tensors. `flatten` names each leaf
 by its attribute path (".pods.queue_ts.win"), the same strings the JAX
 reference's `jax.tree_util.keystr` gives, so the two states compare leaf
-for leaf as flat numpy dicts (`compare_states`, convert.py).
+for leaf as flat numpy dicts (`compare_states`, convert.py). Optional
+subtrees (the autoscaler state `auto`, and its HPA collection latch) are
+None when absent and then have no leaves, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,8 +53,8 @@ class NodeArrays(NamedTuple):
     cap_ram: torch.Tensor  # int32 ram units
     alloc_cpu: torch.Tensor  # int32
     alloc_ram: torch.Tensor  # int32
-    # Pending autoscaler effects; +inf = none (always +inf in this port,
-    # which runs no autoscaler yet).
+    # Pending cluster-autoscaler effects (node comes up / goes down at
+    # this time); +inf = none.
     create_time: TPair
     remove_time: TPair
     crash_downtime: torch.Tensor  # float32 seconds (0: no fault injection)
@@ -74,7 +76,7 @@ class PodArrays(NamedTuple):
     start_time: TPair
     finish_time: TPair  # +inf = no pending finish
     removal_time: TPair  # pending HPA scale-down effect; +inf = none
-    hpa_idx: torch.Tensor  # int32, -1 (no HPA in this port)
+    hpa_idx: torch.Tensor  # int32 HPA replica index of the occupant; -1 = none
     restarts: torch.Tensor  # int32 (no pod faults in this port)
     will_fail: torch.Tensor  # bool
 
@@ -125,6 +127,23 @@ class MetricArrays(NamedTuple):
     pod_duration: EstArrays
 
 
+class AutoscaleState(NamedTuple):
+    """Dynamic autoscaler state (the reference's `AutoscaleState` without
+    its slot-reclaim leaves). The col_* leaves are the HPA's 60 s metrics
+    collection latch, present only when a pod group can be scaled."""
+
+    hpa_head: torch.Tensor  # (C, Gp) int32 replicas ever removed
+    hpa_tail: torch.Tensor  # (C, Gp) int32 replicas ever created
+    ca_count: torch.Tensor  # (C, Gn) int32 current CA nodes per group
+    ca_cursor: torch.Tensor  # (C, Gn) int32 next reserved slot offset
+    hpa_next: TPair  # (C,) next HPA tick
+    ca_next: TPair  # (C,) next CA cycle fire time
+    col_next: Optional[TPair] = None  # (C,) next metrics collection
+    col_run: Optional[torch.Tensor] = None  # (C, Gp) int32 running pods then
+    col_util_cpu: Optional[torch.Tensor] = None  # (C, Gp) float32
+    col_util_ram: Optional[torch.Tensor] = None  # (C, Gp) float32
+
+
 class ClusterBatchState(NamedTuple):
     """Complete batched simulation state, leading axis C everywhere."""
 
@@ -137,6 +156,7 @@ class ClusterBatchState(NamedTuple):
     nodes: NodeArrays
     pods: PodArrays
     metrics: MetricArrays
+    auto: Optional[AutoscaleState] = None  # None: no autoscaler configured
 
 
 class TraceSlab(NamedTuple):
@@ -280,7 +300,10 @@ def init_state(
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Leaves of a NamedTuple tree keyed by attribute path (".a.b")."""
+    """Leaves of a NamedTuple tree keyed by attribute path (".a.b"); None
+    subtrees have no leaves."""
+    if tree is None:
+        return {}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         out: Dict[str, torch.Tensor] = {}
         for name in tree._fields:
@@ -289,22 +312,19 @@ def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return {prefix: tree}
 
 
-def leaf_paths(cls, prefix: str = "") -> list:
-    """Every leaf path of the NamedTuple type `cls`, in field order."""
-    out = []
-    for name in cls._fields:
-        sub = _TREE_TYPES.get((cls.__name__, name))
-        path = f"{prefix}.{name}"
-        out.extend(leaf_paths(sub, path) if sub is not None else [path])
-    return out
-
-
 def unflatten(cls, leaves: Dict[str, object], prefix: str = ""):
     """Inverse of `flatten`: `cls` is the root NamedTuple type; the types
-    of nested NamedTuple fields come from `_TREE_TYPES`."""
+    of nested NamedTuple fields come from `_TREE_TYPES`. An optional field
+    with no leaf under its path is None; a missing required leaf raises
+    KeyError."""
     kwargs = {}
     for name in cls._fields:
         path = f"{prefix}.{name}"
+        if (cls.__name__, name) in _OPTIONAL_FIELDS and not any(
+            k == path or k.startswith(path + ".") for k in leaves
+        ):
+            kwargs[name] = None
+            continue
         sub = _TREE_TYPES.get((cls.__name__, name))
         kwargs[name] = unflatten(sub, leaves, path) if sub is not None else leaves[path]
     return cls(**kwargs)
@@ -331,6 +351,19 @@ _TREE_TYPES = {
     ("MetricArrays", "queue_time"): EstArrays,
     ("MetricArrays", "algo_latency"): EstArrays,
     ("MetricArrays", "pod_duration"): EstArrays,
+    ("ClusterBatchState", "auto"): AutoscaleState,
+    ("AutoscaleState", "hpa_next"): TPair,
+    ("AutoscaleState", "ca_next"): TPair,
+    ("AutoscaleState", "col_next"): TPair,
+}
+
+# Fields that may be None (absent subtrees).
+_OPTIONAL_FIELDS = {
+    ("ClusterBatchState", "auto"),
+    ("AutoscaleState", "col_next"),
+    ("AutoscaleState", "col_run"),
+    ("AutoscaleState", "col_util_cpu"),
+    ("AutoscaleState", "col_util_ram"),
 }
 
 

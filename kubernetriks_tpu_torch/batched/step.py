@@ -1,5 +1,5 @@
-"""The window step: trace-event application, pod finishes and one
-scheduling cycle for every cluster at once.
+"""The window step: trace-event application, pod finishes, one
+scheduling cycle and the autoscaler passes for every cluster at once.
 
 Port of the JAX package's `batched/step.py` along its dense-kernel branch
 (the route the reference takes at >= 128 clusters per device): the slab
@@ -14,10 +14,12 @@ What differs from the reference, and why it is exact:
   host decisions that need no device read-back: the number of event chunks
   and whether any node removal is due this window follow from the host's
   copy of the trace slab and its mirror of the event cursor (the engine
-  keeps both). Branches the reference takes only to skip work that is the
-  identity (the unschedulable wake block with no parked pod, the
-  node-removal gather with no removal) are either always computed or
-  skipped on the same host knowledge.
+  keeps both), and which autoscaler passes run follows from its mirror of
+  the autoscalers' due times (engine.AutoscaleClock). Branches the
+  reference takes only to skip work that is the identity (the
+  unschedulable wake block with no parked pod, the node-removal gather
+  with no removal) are either always computed or skipped on the same host
+  knowledge.
 - `xla_cumsum16` reproduces the bits of `jnp.cumsum` on XLA:CPU, which the
   megakernel's positional timing tables are built with (see its note).
 - Every float division divides by a float32 tensor (timerep.py note).
@@ -77,6 +79,7 @@ class DeviceConstants(NamedTuple):
     delta_reschedule: torch.Tensor
     flush_interval: torch.Tensor
     max_unschedulable_stay: torch.Tensor
+    interval64: torch.Tensor  # float64, for the HPA's elapsed-time math
 
     @staticmethod
     def build(consts: StepConstants, device) -> "DeviceConstants":
@@ -91,16 +94,22 @@ class DeviceConstants(NamedTuple):
             delta_reschedule=f32(consts.delta_reschedule),
             flush_interval=f32(consts.flush_interval),
             max_unschedulable_stay=f32(consts.max_unschedulable_stay),
+            interval64=torch.tensor(float(consts.scheduling_interval), dtype=torch.float64, device=device),
         )
 
 
 class WindowPlan(NamedTuple):
     """Host-side facts about one window, from the engine's copy of the
-    slab: how many event chunks the reference's chunk loop runs, and
-    whether a node removal applies (only then can pods be rescheduled)."""
+    slab and its autoscaler clock: how many event chunks the reference's
+    chunk loop runs, whether a node removal can apply (only then can pods
+    be rescheduled), and which autoscaler passes run: an HPA cycle, else
+    an HPA metrics collection alone, and a CA cycle."""
 
     n_chunks: int
     removal_due: bool
+    hpa_cycle: bool = False
+    hpa_collect: bool = False
+    ca_due: bool = False
 
 
 class WakeEvents(NamedTuple):
@@ -266,8 +275,8 @@ def apply_window_events(
         cursor = cursor + valid.sum(dim=1, dtype=torch.int32)
         n_creates = n_creates + is_cp.sum(dim=1, dtype=torch.int32)
 
-    # --- pending autoscaler effects (always +inf until the autoscalers
-    # are ported; kept so the state transitions match the reference) -------
+    # --- pending cluster-autoscaler node effects and HPA pod removals due
+    # this window ------------------------------------------------------------
     f32inf = torch.tensor(INF, dtype=torch.float32, device=dev)
     pend_create_row = (nodes.create_time.win < W[:, None]) & ~nodes.alive
     created = created | pend_create_row
@@ -683,16 +692,32 @@ def window_body(
     conditional_move: bool = False,
     name_ranks=None,
     sync=None,
+    autoscale=None,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: events and
-    finishes, then one cycle (reference `_window_body`, step.py:1886,
-    without autoscalers, telemetry, faults or lane clocks)."""
+    finishes, one cycle, then the autoscaler passes the plan names
+    (reference `_window_body`, step.py:1886, without slot reclaim,
+    telemetry, faults or lane clocks). `autoscale`: None, or (statics,
+    HPA group-slot bounds, CA scale-up candidates per cycle, CA pods per
+    scale-down candidate)."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
     state, wake = apply_window_events(
         state, slab, W, consts, k, max_events_per_window, plan,
         conditional_move=conditional_move, name_ranks=name_ranks,
     )
-    return run_scheduling_cycle(
+    # What the storage saw before this cycle: the CA reads it when its
+    # snapshot precedes the cycle's commit visibility.
+    pre_cycle = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
+    state = run_scheduling_cycle(
         state, W, k, max_pods_per_cycle, conditional_move, wake, sync
     )
+    if autoscale is not None and (plan.hpa_cycle or plan.hpa_collect or plan.ca_due):
+        from kubernetriks_tpu_torch.batched.autoscale import ca_pass, hpa_pass
+
+        statics, hpa_seg, k_up, k_sd = autoscale
+        if plan.hpa_cycle or plan.hpa_collect:
+            state = hpa_pass(state, statics, W, k, hpa_seg, plan.hpa_cycle)
+        if plan.ca_due:
+            state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle)
+    return state

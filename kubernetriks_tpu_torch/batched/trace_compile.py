@@ -1,19 +1,22 @@
 """Host-side trace compiler: trace events -> dense numpy slabs.
 
 Own copy of the JAX package's `batched/trace_compile.py`
-(`compile_cluster_trace`, `pad_and_batch`): names are interned to slots
-once on the host, payloads (capacities, requests, durations) are staged
-into per-slot arrays, and the device sees only (time, kind, slot) triples.
-Node re-creations of the same name get fresh slots. Pod groups raise: they
-arrive with the autoscalers (ROADMAP Queue 1 item 7).
+(`compile_cluster_trace`, `segment_pod_slots`, `pad_and_batch`): names are
+interned to slots once on the host, payloads (capacities, requests,
+durations) are staged into per-slot arrays, and the device sees only
+(time, kind, slot) triples. Node re-creations of the same name get fresh
+slots. A pod group (HPA) reserves a block of pod slots for its replicas
+and compiles its load model into a table of (duration, load) units.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import yaml
 
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
@@ -32,6 +35,44 @@ from kubernetriks_tpu_torch.core.events import (
 from kubernetriks_tpu_torch.trace.interface import TraceEvents
 
 
+# Reserved pod slots of a group = initial + this x max_pod_count.
+POD_GROUP_SLOT_MULTIPLIER = 2
+
+
+@dataclass
+class CompiledPodGroup:
+    """Host-side pod-group table for the batched HPA: reserved slot range,
+    targets, and the load curve compiled out of the nested YAML usage-model
+    config."""
+
+    name: str
+    slot_start: int
+    slot_count: int  # reserved slots = initial + multiplier x max_pod_count
+    max_pods: int
+    initial: int
+    creation_time: float
+    target_cpu: float  # <= 0 means unset
+    target_ram: float
+    cpu_units: List[Tuple[float, float]]  # (duration, load); [] = no model
+    cpu_const: bool
+    ram_units: List[Tuple[float, float]]
+    ram_const: bool
+
+
+def _compile_usage_model(model_config) -> Tuple[List[Tuple[float, float]], bool]:
+    """ResourceUsageModelConfig -> (units, is_constant). A constant model's
+    load IS the utilization; a pod_group model's load is divided by the
+    running pod count."""
+    if model_config is None:
+        return [], False
+    parsed = yaml.safe_load(model_config.config)
+    if model_config.model_name == "constant":
+        return [(1.0, float(parsed["usage"]))], True
+    if model_config.model_name == "pod_group":
+        return [(float(u["duration"]), float(u["total_load"])) for u in parsed], False
+    raise ValueError(f"unknown usage model {model_config.model_name!r}")
+
+
 @dataclass
 class CompiledClusterTrace:
     """One cluster's compiled trace + payload tables (numpy, host-side)."""
@@ -46,6 +87,7 @@ class CompiledClusterTrace:
     pod_duration: np.ndarray  # (P,) float64 (-1 for long-running)
     node_names: List[str] = field(default_factory=list)
     pod_names: List[str] = field(default_factory=list)
+    pod_groups: List[CompiledPodGroup] = field(default_factory=list)
 
     @property
     def n_events(self) -> int:
@@ -86,6 +128,8 @@ def compile_cluster_trace(
       before its node's create effect;
     - RemovePod at t takes effect at t + as_to_ps;
     - CreatePod stays at t (its queue entry is shifted on the device).
+    A CreatePodGroup at t reserves the group's replica slots (named
+    "{group}_{i}") and creates its initial replicas at t.
     """
     shift_create_node, shift_remove_node, shift_remove_pod = _event_time_shifts(config)
 
@@ -119,6 +163,7 @@ def compile_cluster_trace(
     pod_duration: List[float] = []
     pod_names: List[str] = []
     pod_slot: Dict[str, int] = {}
+    pod_groups: List[CompiledPodGroup] = []
 
     for ts, _, event in merged:
         if isinstance(event, CreateNodeRequest):
@@ -154,9 +199,48 @@ def compile_cluster_trace(
             ev_kind.append(EV_REMOVE_POD)
             ev_slot.append(pod_slot[event.pod_name])
         elif isinstance(event, CreatePodGroupRequest):
-            raise NotImplementedError(
-                "pod groups are not run by kubernetriks_tpu_torch yet "
-                "(ROADMAP Queue 1 item 7)"
+            group = event.pod_group
+            template = group.pod_template
+            if template.spec.running_duration is not None:
+                raise ValueError(
+                    f"pod group {group.name!r} has a running_duration: only "
+                    "long-running service groups are supported"
+                )
+            umc = group.resources_usage_model_config
+            cpu_units, cpu_const = _compile_usage_model(umc.cpu_config if umc else None)
+            ram_units, ram_const = _compile_usage_model(umc.ram_config if umc else None)
+            slot_start = len(pod_req_cpu)
+            # The reserve seats the initial replicas beside a full scale-up,
+            # and freed slots are reused by later scale-ups.
+            slot_count = group.initial_pod_count + POD_GROUP_SLOT_MULTIPLIER * group.max_pod_count
+            requests = template.spec.resources.requests
+            for i in range(slot_count):
+                pod_req_cpu.append(int(requests.cpu))
+                pod_req_ram.append(-(-int(requests.ram) // ram_unit))
+                pod_duration.append(-1.0)
+                name = f"{group.name}_{i}"
+                pod_slot[name] = len(pod_names)
+                pod_names.append(name)
+            for i in range(group.initial_pod_count):
+                ev_time.append(ts)
+                ev_kind.append(EV_CREATE_POD)
+                ev_slot.append(slot_start + i)
+            targets = group.target_resources_usage
+            pod_groups.append(
+                CompiledPodGroup(
+                    name=group.name,
+                    slot_start=slot_start,
+                    slot_count=slot_count,
+                    max_pods=group.max_pod_count,
+                    initial=group.initial_pod_count,
+                    creation_time=float(ts),
+                    target_cpu=float(targets.cpu_utilization or 0.0),
+                    target_ram=float(targets.ram_utilization or 0.0),
+                    cpu_units=cpu_units,
+                    cpu_const=cpu_const,
+                    ram_units=ram_units,
+                    ram_const=ram_const,
+                )
             )
         else:
             raise ValueError(
@@ -174,7 +258,79 @@ def compile_cluster_trace(
         pod_duration=np.asarray(pod_duration, np.float64).reshape(-1),
         node_names=node_names,
         pod_names=pod_names,
+        pod_groups=pod_groups,
     )
+
+
+def segment_pod_slots(
+    compiled: Sequence[CompiledClusterTrace],
+) -> Tuple[List[CompiledClusterTrace], int]:
+    """Renumber pod slots into the segmented layout the reference uses
+    whenever pod groups exist: plain (non-group) pods occupy slots [0, T)
+    in their original event order, the groups' reserved slots [T, ...),
+    where T is the batch-wide largest plain-pod count. Slot order feeds
+    order-sensitive passes (CA scale-down re-placement, same-window
+    reschedule ranking), so the port keeps the reference's layout. Event
+    order is unchanged; only slot numbers move.
+
+    Returns (renumbered traces, T); the traces are returned as they are
+    when none has pod groups."""
+    if not any(c.pod_groups for c in compiled):
+        return list(compiled), max((c.n_pods for c in compiled), default=0)
+
+    group_masks = []
+    for c in compiled:
+        is_group = np.zeros(c.n_pods, bool)
+        for g in c.pod_groups:
+            is_group[g.slot_start : g.slot_start + g.slot_count] = True
+        group_masks.append(is_group)
+    T = max(int((~m).sum()) for m in group_masks)
+
+    out: List[CompiledClusterTrace] = []
+    for c, is_group in zip(compiled, group_masks):
+        if c.n_pods == 0:
+            out.append(c)
+            continue
+        R = int(is_group.sum())
+        L = T + R
+        plain_ord = np.cumsum(~is_group) - 1
+        group_ord = np.cumsum(is_group) - 1
+        new_slot = np.where(is_group, T + group_ord, plain_ord).astype(np.int32)
+
+        req_cpu = np.zeros(L, np.int32)
+        req_ram = np.zeros(L, np.int32)
+        duration = np.full(L, -1.0, np.float64)
+        names = [""] * L
+        req_cpu[new_slot] = c.pod_req_cpu
+        req_ram[new_slot] = c.pod_req_ram
+        duration[new_slot] = c.pod_duration
+        for old, new in enumerate(new_slot):
+            names[new] = c.pod_names[old]
+
+        is_pod_ev = (c.ev_kind == EV_CREATE_POD) | (c.ev_kind == EV_REMOVE_POD)
+        ev_slot = np.where(
+            is_pod_ev, new_slot[np.clip(c.ev_slot, 0, c.n_pods - 1)], c.ev_slot
+        ).astype(np.int32)
+        groups = [
+            dataclasses.replace(g, slot_start=T + int(group_ord[g.slot_start]))
+            for g in c.pod_groups
+        ]
+        out.append(
+            CompiledClusterTrace(
+                ev_time=c.ev_time,
+                ev_kind=c.ev_kind,
+                ev_slot=ev_slot,
+                node_cap_cpu=c.node_cap_cpu,
+                node_cap_ram=c.node_cap_ram,
+                pod_req_cpu=req_cpu,
+                pod_req_ram=req_ram,
+                pod_duration=duration,
+                node_names=c.node_names,
+                pod_names=names,
+                pod_groups=groups,
+            )
+        )
+    return out, T
 
 
 def pad_and_batch(

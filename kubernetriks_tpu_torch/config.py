@@ -2,24 +2,24 @@
 
 Own copy of the JAX package's `config.py` surface for the blocks this
 port runs: the simulation name and seed, the scheduling interval, the
-scheduler profile, the conditional-move switch and the six control-plane
-network delays. The autoscaler and fault-injection blocks are parsed only
-far enough to refuse them: an enabled `horizontal_pod_autoscaler`,
-`cluster_autoscaler` or `fault_injection` block raises NotImplementedError
-naming the ROADMAP item that ports it.
+scheduler profile, the conditional-move switch, the six control-plane
+network delays, and the two autoscaler blocks (`horizontal_pod_autoscaler`,
+`cluster_autoscaler` with its node groups). The fault-injection block is
+parsed only far enough to refuse it: an enabled `fault_injection` block
+raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import yaml
 
+from kubernetriks_tpu_torch.core.types import Node
+
 # ROADMAP.md, Queue 1 items that bring the refused blocks.
 _UNPORTED_BLOCKS = {
-    "horizontal_pod_autoscaler": "ROADMAP Queue 1 item 7 (autoscalers: the composed path)",
-    "cluster_autoscaler": "ROADMAP Queue 1 item 7 (autoscalers: the composed path)",
     "fault_injection": "ROADMAP Queue 1 item 9 (chaos on device)",
 }
 
@@ -35,17 +35,123 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
 
 
 @dataclass
+class NodeGroup:
+    """A cluster-autoscaler node group: the node template and `max_count`,
+    the most nodes the autoscaler may run in the group (None: bounded only
+    by the global `max_node_count`)."""
+
+    node_count: Optional[int] = None
+    max_count: Optional[int] = None
+    node_template: Node = field(default_factory=Node)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "NodeGroup":
+        return NodeGroup(
+            node_count=d.get("node_count"),
+            max_count=d.get("max_count"),
+            node_template=Node.from_dict(d.get("node_template") or {}),
+        )
+
+
+@dataclass
+class KubeClusterAutoscalerConfig:
+    scale_down_utilization_threshold: float = 0.5
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "KubeClusterAutoscalerConfig":
+        if not d:
+            return KubeClusterAutoscalerConfig()
+        return KubeClusterAutoscalerConfig(
+            scale_down_utilization_threshold=float(
+                d.get("scale_down_utilization_threshold", 0.5)
+            )
+        )
+
+
+@dataclass
+class ClusterAutoscalerConfig:
+    enabled: bool = False
+    autoscaler_type: str = "kube_cluster_autoscaler"
+    scan_interval: float = 10.0
+    max_node_count: int = 0
+    node_groups: List[NodeGroup] = field(default_factory=list)
+    kube_cluster_autoscaler: Optional[KubeClusterAutoscalerConfig] = None
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "ClusterAutoscalerConfig":
+        if not d:
+            return ClusterAutoscalerConfig()
+        return ClusterAutoscalerConfig(
+            enabled=bool(d.get("enabled", False)),
+            autoscaler_type=d.get("autoscaler_type", d.get("type", "kube_cluster_autoscaler")),
+            scan_interval=float(d.get("scan_interval", 10.0)),
+            max_node_count=int(d.get("max_node_count", 0)),
+            node_groups=[NodeGroup.from_dict(g) for g in d.get("node_groups") or []],
+            kube_cluster_autoscaler=(
+                KubeClusterAutoscalerConfig.from_dict(d["kube_cluster_autoscaler"])
+                if d.get("kube_cluster_autoscaler") is not None
+                else None
+            ),
+        )
+
+
+@dataclass
+class KubeHorizontalPodAutoscalerConfig:
+    target_threshold_tolerance: float = 0.1
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "KubeHorizontalPodAutoscalerConfig":
+        if not d:
+            return KubeHorizontalPodAutoscalerConfig()
+        return KubeHorizontalPodAutoscalerConfig(
+            target_threshold_tolerance=float(d.get("target_threshold_tolerance", 0.1))
+        )
+
+
+@dataclass
+class HorizontalPodAutoscalerConfig:
+    enabled: bool = False
+    autoscaler_type: str = "kube_horizontal_pod_autoscaler"
+    scan_interval: float = 60.0
+    kube_horizontal_pod_autoscaler_config: Optional[KubeHorizontalPodAutoscalerConfig] = None
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "HorizontalPodAutoscalerConfig":
+        if not d:
+            return HorizontalPodAutoscalerConfig()
+        return HorizontalPodAutoscalerConfig(
+            enabled=bool(d.get("enabled", False)),
+            autoscaler_type=d.get(
+                "autoscaler_type", d.get("type", "kube_horizontal_pod_autoscaler")
+            ),
+            scan_interval=float(d.get("scan_interval", 60.0)),
+            kube_horizontal_pod_autoscaler_config=(
+                KubeHorizontalPodAutoscalerConfig.from_dict(
+                    d["kube_horizontal_pod_autoscaler_config"]
+                )
+                if d.get("kube_horizontal_pod_autoscaler_config") is not None
+                else None
+            ),
+        )
+
+
+@dataclass
 class SimulationConfig:
     sim_name: str = "kubernetriks-tpu"
     seed: int = 0
     scheduling_cycle_interval: float = 10.0
+    cluster_autoscaler: ClusterAutoscalerConfig = field(default_factory=ClusterAutoscalerConfig)
+    horizontal_pod_autoscaler: HorizontalPodAutoscalerConfig = field(
+        default_factory=HorizontalPodAutoscalerConfig
+    )
     # Scheduler profile spec; only the reference default (Fit +
     # LeastAllocatedResources) is ported (batched/pipeline.py raises on
     # anything else).
     scheduler_profile: Optional[Any] = None
     enable_unscheduled_pods_conditional_move: bool = False
     # Simulated control-plane network delays in seconds; as = api server,
-    # ps = persistent storage.
+    # ps = persistent storage, ca = cluster autoscaler, hpa = horizontal pod
+    # autoscaler.
     as_to_ps_network_delay: float = 0.0
     ps_to_sched_network_delay: float = 0.0
     sched_to_as_network_delay: float = 0.0
@@ -60,6 +166,10 @@ class SimulationConfig:
             sim_name=d.get("sim_name", "kubernetriks-tpu"),
             seed=int(d.get("seed", 0)),
             scheduling_cycle_interval=float(d.get("scheduling_cycle_interval", 10.0)),
+            cluster_autoscaler=ClusterAutoscalerConfig.from_dict(d.get("cluster_autoscaler")),
+            horizontal_pod_autoscaler=HorizontalPodAutoscalerConfig.from_dict(
+                d.get("horizontal_pod_autoscaler")
+            ),
             scheduler_profile=d.get("scheduler_profile"),
             enable_unscheduled_pods_conditional_move=bool(
                 d.get("enable_unscheduled_pods_conditional_move", False)

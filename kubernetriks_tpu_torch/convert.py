@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from kubernetriks_tpu_torch.batched.engine import resolve_device
-from kubernetriks_tpu_torch.batched.state import ClusterBatchState, flatten, leaf_paths, unflatten
+from kubernetriks_tpu_torch.batched.state import ClusterBatchState, flatten, unflatten
 
 
 def state_to_numpy(state: ClusterBatchState) -> Dict[str, np.ndarray]:
@@ -30,15 +30,16 @@ def state_to_numpy(state: ClusterBatchState) -> Dict[str, np.ndarray]:
 def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> ClusterBatchState:
     """{path: numpy array} -> the port's state on `device` (None means the
     CUDA card and raises without one; see engine.resolve_device). Every
-    leaf keeps its numpy dtype; a missing or extra leaf raises."""
-    expected = set(leaf_paths(ClusterBatchState))
-    got = set(flat)
-    if got != expected:
-        raise KeyError(
-            f"state leaves differ: missing {sorted(expected - got)}, "
-            f"unexpected {sorted(got - expected)}"
-        )
+    leaf keeps its numpy dtype; a missing or extra leaf raises. The
+    autoscaler leaves (".auto.*") come across when the state has them."""
     dev = resolve_device(device)
     leaves = {k: torch.tensor(np.asarray(v), device=dev) for k, v in flat.items()}
-    return unflatten(ClusterBatchState, leaves)
+    try:
+        state = unflatten(ClusterBatchState, leaves)
+    except KeyError as e:
+        raise KeyError(f"state leaves differ: missing {e}") from None
+    unexpected = sorted(set(flat) - set(flatten(state)))
+    if unexpected:
+        raise KeyError(f"state leaves differ: unexpected {unexpected}")
+    return state
 

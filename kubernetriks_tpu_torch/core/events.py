@@ -1,16 +1,13 @@
 """Trace-level request events: create/remove of nodes and pods.
 
 Own copy of the request events of the JAX package's `core/events.py` that
-a trace can carry. Pod groups (HPA) are parsed into CreatePodGroupRequest
-only so the trace compiler can refuse them by name.
+a trace can carry, pod groups (HPA) included.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
-
-from kubernetriks_tpu_torch.core.types import Node, Pod
+from kubernetriks_tpu_torch.core.types import Node, Pod, PodGroup
 
 
 @dataclass
@@ -35,6 +32,6 @@ class RemovePodRequest:
 
 @dataclass
 class CreatePodGroupRequest:
-    """A pod group (HPA-managed replica set). Not run by this port yet."""
+    """A pod group (HPA-managed replica set)."""
 
-    pod_group: Any
+    pod_group: PodGroup

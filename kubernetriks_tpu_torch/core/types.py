@@ -3,7 +3,9 @@
 Own copy of the JAX package's `core/types.py` object model (ObjectMeta,
 RuntimeResources with cpu millicores / ram bytes, Node with capacity and
 allocatable, Pod with requests/limits/duration), trimmed to what the trace
-readers and the trace compiler use.
+readers and the trace compiler use, plus the HPA's pod group and its
+utilization targets (the JAX package keeps those in
+`autoscalers/interface.py`).
 """
 
 from __future__ import annotations
@@ -166,5 +168,53 @@ class Pod:
                     ),
                 ),
                 running_duration=spec.get("running_duration"),
+            ),
+        )
+
+
+@dataclass
+class TargetResourcesUsage:
+    """Target cpu/ram utilization ratios in [0, 1], relative to requests;
+    None leaves the metric unset."""
+
+    cpu_utilization: Optional[float] = None
+    ram_utilization: Optional[float] = None
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "TargetResourcesUsage":
+        if not d:
+            return TargetResourcesUsage()
+        return TargetResourcesUsage(
+            cpu_utilization=d.get("cpu_utilization"),
+            ram_utilization=d.get("ram_utilization"),
+        )
+
+
+@dataclass
+class PodGroup:
+    """A set of long-running service pods the HPA scales together: the
+    trace creates `initial_pod_count` replicas of `pod_template`, and the
+    HPA keeps between them and `max_pod_count` running against the load
+    model in `resources_usage_model_config`."""
+
+    name: str
+    initial_pod_count: int
+    max_pod_count: int
+    pod_template: Pod
+    target_resources_usage: TargetResourcesUsage
+    resources_usage_model_config: Optional[RuntimeResourcesUsageModelConfig]
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "PodGroup":
+        return PodGroup(
+            name=d.get("name", ""),
+            initial_pod_count=int(d.get("initial_pod_count", 0)),
+            max_pod_count=int(d.get("max_pod_count", 0)),
+            pod_template=Pod.from_dict(d.get("pod_template") or {}),
+            target_resources_usage=TargetResourcesUsage.from_dict(
+                d.get("target_resources_usage")
+            ),
+            resources_usage_model_config=RuntimeResourcesUsageModelConfig.from_dict(
+                d.get("resources_usage_model_config")
             ),
         )

@@ -45,6 +45,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "select_cycle_commit": (
         "select_cycle_commit.cu", "ktt_select_cycle_commit", [_P] * 22 + [_I] * 4 + [_P],
     ),
+    "ca_scale_down": (
+        "ca_scale_down.cu", "ktt_ca_scale_down", [_P] * 16 + [_I] * 4 + [_P],
+    ),
+    "ca_scale_up": (
+        "ca_scale_up.cu", "ktt_ca_scale_up", [_P] * 14 + [_I] * 4 + [_P],
+    ),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -10,8 +10,8 @@ Each wrapper takes the reference wrapper's row-major operands. For tensors
 on the CPU it runs the plain version beside it (the tests' path); for CUDA
 tensors it checks device, dtype, shape and contiguity, allocates the
 outputs with torch.empty, launches the kernel on the current stream, raises
-if the launch failed, and adds one to LAUNCHES[name]. There is no fallback
-from the card to the plain version.
+if the launch failed, and adds one to LAUNCHES[name] (ops/_launch.py).
+There is no fallback from the card to the plain version.
 
 The plain versions are the reference kernels' semantics written with
 tensor ops: one-hot min/max/set updates per event, iterated first-set-slot
@@ -22,17 +22,19 @@ torch.cumsum (tie-breaks and summation order are the point).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from kubernetriks_tpu_torch.batched.pipeline import profile_fit_score
-
-LAUNCHES: Dict[str, int] = {
-    "fused_event_scatter": 0,
-    "fused_free_resources": 0,
-    "fused_select_cycle_commit": 0,
-}
+from kubernetriks_tpu_torch.ops._launch import (  # noqa: F401  (LAUNCHES, reset_launches: public here)
+    LAUNCHES,
+    SMEM_LIMIT,
+    check as _check,
+    launch as _launch,
+    on_cuda as _on_cuda,
+    reset_launches,
+)
 
 EV_CREATE_NODE = 1
 EV_REMOVE_NODE = 2
@@ -43,49 +45,7 @@ PHASE_RUNNING = 3
 
 _BIG = torch.iinfo(torch.int32).max
 _INF = float("inf")
-# Dynamic shared memory a block may use on Hopper (227 KB).
-SMEM_LIMIT = 232448
 _THREADS = 256
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-# --- launch plumbing ------------------------------------------------------
-
-
-def _check(name: str, tensors, device) -> None:
-    for arg, (t, dtype, shape) in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} is not contiguous")
-
-
-def _launch(name: str, kernel: str, args) -> None:
-    from kubernetriks_tpu_torch.ops import _build
-
-    fn = _build.kernel(kernel)
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = fn(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
 
 
 # --- 1. event scatter -----------------------------------------------------

@@ -1,9 +1,7 @@
-"""Generic YAML trace format: workload events CreatePod / RemovePod and
-cluster events CreateNode / RemoveNode, with serde-style tags
-(``event_type: !CreatePod {pod: ...}``) flattened by the tagged loader.
-
-CreatePodGroup (HPA-managed groups) raises NotImplementedError: pod groups
-arrive with the autoscalers (ROADMAP Queue 1 item 7)."""
+"""Generic YAML trace format: workload events CreatePod / RemovePod /
+CreatePodGroup (HPA-managed groups) and cluster events CreateNode /
+RemoveNode, with serde-style tags (``event_type: !CreatePod {pod: ...}``)
+flattened by the tagged loader."""
 
 from __future__ import annotations
 
@@ -12,11 +10,12 @@ from typing import Any, Dict, List
 from kubernetriks_tpu_torch.config import load_yaml_with_tags
 from kubernetriks_tpu_torch.core.events import (
     CreateNodeRequest,
+    CreatePodGroupRequest,
     CreatePodRequest,
     RemoveNodeRequest,
     RemovePodRequest,
 )
-from kubernetriks_tpu_torch.core.types import Node, Pod
+from kubernetriks_tpu_torch.core.types import Node, Pod, PodGroup
 from kubernetriks_tpu_torch.trace.interface import Trace, TraceEvents
 
 
@@ -56,9 +55,13 @@ class GenericWorkloadTrace(Trace):
                     (ts, RemovePodRequest(pod_name=event_type["pod_name"]))
                 )
             elif tag == "CreatePodGroup":
-                raise NotImplementedError(
-                    "CreatePodGroup: pod groups are not run by "
-                    "kubernetriks_tpu_torch yet (ROADMAP Queue 1 item 7)"
+                converted.append(
+                    (
+                        ts,
+                        CreatePodGroupRequest(
+                            pod_group=PodGroup.from_dict(event_type["pod_group"])
+                        ),
+                    )
                 )
             else:
                 raise ValueError(f"unknown workload event type {tag!r}")

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Where the port's main-path window time goes on the card.
+"""Where the port's window time goes on the card.
 
-    python3 profile_main_path.py [--windows 20]
+    python3 profile_main_path.py [--path headline|autoscaler] [--windows 20]
 
-Builds the headline shape (`chip_smoke.headline_sim`), steps to t=190 s as
-warm-up and keeps that state. Then it runs the same `--windows` windows
-twice from it (the state is immutable, so `install_state` replays them):
+Builds the headline shape (`chip_smoke.headline_sim`) or, with `--path
+autoscaler`, the reference's composed scenario at full width
+(`chip_smoke.composed_sim` with FULL_COMPOSED: HPA + cluster autoscaler),
+steps to the warm-up time (t=190 s; 590 s on the autoscaler path, inside
+its load burst) and keeps that state. Then it runs the same `--windows`
+windows twice from it (the state is immutable, so `install_state` replays
+them):
   1. untraced, on the host clock, ending in a synchronize;
   2. traced with torch.profiler (CPU + CUDA), again on the host clock,
      summing device kernel time per name.
@@ -15,7 +19,8 @@ difference is the profiler's own cost. Prints one JSON line: host ms per
 window (untraced and traced), device busy ms per window, the idle share,
 device kernel launches per window, and the top device ops with their
 share of busy time. The full key_averages table goes to
-chiprun_out/profile_main_path.txt. Needs a CUDA device.
+profile_<path>.txt in the output directory beside this script (the one
+chip_smoke.py writes to). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import headline_sim
+from chip_smoke import FULL_COMPOSED, composed_sim, headline_sim
 
 HERE = Path(__file__).resolve().parent
 
@@ -37,6 +42,7 @@ HERE = Path(__file__).resolve().parent
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=20)
+    ap.add_argument("--path", choices=("headline", "autoscaler"), default="headline")
     args = ap.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
@@ -51,8 +57,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     _build.build_all()
-    sim = headline_sim("cuda")
-    sim.step_until_time(190.0)
+    if args.path == "headline":
+        sim = headline_sim("cuda")
+        sim.step_until_time(190.0)
+    else:
+        sim = composed_sim("cuda", 256, **FULL_COMPOSED)
+        sim.step_until_time(590.0)
     torch.cuda.synchronize()
     state0, window0 = sim.state, sim.next_window_idx
 
@@ -92,12 +102,13 @@ def main(argv=None) -> int:
     kernels.sort(key=lambda k: -k[1])
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_main_path.txt").write_text(
+    (out_dir / f"profile_{args.path}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
     )
     busy_ms = busy_us / 1e3 / n
     print(json.dumps({
         "card": card,
+        "path": args.path,
         "windows": n,
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
@@ -109,7 +120,10 @@ def main(argv=None) -> int:
         "device_kernels_per_window": launches / n,
         "port_kernels_ms_per_window": {
             name: sum(us for k, us, _ in kernels if name in k) / 1e3 / n
-            for name in ("event_scatter_kernel", "free_resources_kernel", "select_cycle_commit_kernel")
+            for name in (
+                "event_scatter_kernel", "free_resources_kernel", "select_cycle_commit_kernel",
+                "ca_scale_down_kernel", "ca_scale_up_kernel",
+            )
         },
         "top": [
             {"name": k[:80], "ms_per_window": us / 1e3 / n, "count_per_window": c / n,

@@ -9,7 +9,7 @@ reference's XLA path and its interpret-mode megakernel path:
   (c) a mid-run handoff: the reference's state at t=60 carried over with
       convert.state_from_numpy, both engines stepped to t=300;
   (d) metrics_summary: same keys, same counters;
-  (e) the build refuses what this slice does not run.
+  (e) the build refuses what the port does not run yet.
 The card-against-CPU run is in test_torch_cuda.py.
 """
 
@@ -186,11 +186,21 @@ def test_cycle_above_the_pinned_cumsum_raises():
     ],
 )
 def test_unported_config_blocks_raise(block):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimulationConfig.from_yaml(BENCH_CONFIG + block)
+    """Only the fault-injection block is still refused; the two autoscaler
+    blocks are ported and parse."""
+    if block.startswith("fault_injection"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SimulationConfig.from_yaml(BENCH_CONFIG + block)
+        return
+    config = SimulationConfig.from_yaml(BENCH_CONFIG + block)
+    name = block.split(":")[0]
+    assert getattr(config, name).enabled
 
 
 def test_unported_profile_and_pod_groups_raise():
+    """Unported profiles raise at build; pod groups parse, and a group
+    with a finite running duration (which the reference refuses too)
+    raises at compile."""
     cluster, workload = _tiny_events()
     with pytest.raises(UnsupportedProfileError):
         build_batched_from_traces(
@@ -200,7 +210,14 @@ def test_unported_profile_and_pod_groups_raise():
 - timestamp: 1.0
   event_type:
     !CreatePodGroup
-      pod_group: {name: g}
+      pod_group:
+        name: g
+        initial_pod_count: 1
+        max_pod_count: 2
+        pod_template:
+          spec: {running_duration: 30.0}
 """
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenericWorkloadTrace.from_yaml(group).convert_to_simulator_events()
+    events = GenericWorkloadTrace.from_yaml(group).convert_to_simulator_events()
+    assert events[0][1].pod_group.name == "g"
+    with pytest.raises(ValueError, match="long-running"):
+        build_batched_from_traces(SimulationConfig(), cluster, events, device="cpu")

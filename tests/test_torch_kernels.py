@@ -1,6 +1,7 @@
-"""Kernel-level parity: each of the port's three kernels (plain PyTorch
-version on the CPU) against the JAX package's Pallas kernel in interpret
-mode, on seeded inputs at small C, N, P, K.
+"""Kernel-level parity: each of the port's three scheduling kernels (plain
+PyTorch version on the CPU) against the JAX package's Pallas kernel in
+interpret mode, on seeded inputs at small C, N, P, K (the two CA kernels'
+parity is in test_torch_autoscale.py).
 
 Tolerance: every output exactly equal, except the estimator stats rows
 (count/total/total_sq/min/max), held to rtol 1e-6 — the compare_states
@@ -14,9 +15,10 @@ versions on the card by chip_smoke.py and test_torch_cuda.py.
 import numpy as np
 import pytest
 
-from test_torch_cuda import event_inputs, free_inputs, megakernel_inputs, t as _t
+from test_torch_cuda import ca_down_inputs, ca_up_inputs, event_inputs, free_inputs, megakernel_inputs, t as _t
 from test_torch_reference import jax_kernels
 
+from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 
 SEEDS = [0, 1, 2]
@@ -69,6 +71,11 @@ def test_wrappers_count_only_kernel_launches():
     port_kernels.fused_select_cycle_commit(*(_t(a) for a in args), k_pods=K)
     port_kernels.fused_free_resources(*(_t(a) for a in free_inputs(0)))
     port_kernels.fused_event_scatter(*(_t(a) for a in event_inputs(0)))
+    args, S = ca_up_inputs(0)
+    ca_kernels.fused_ca_scale_up(*(_t(a) for a in args), n_slots=S)
+    args, K = ca_down_inputs(0)
+    ca_kernels.fused_ca_scale_down(*(_t(a) for a in args), k_sd=K)
+    assert len(port_kernels.LAUNCHES) == 5
     assert all(v == 0 for v in port_kernels.LAUNCHES.values())
 
 
@@ -78,3 +85,6 @@ def test_wrappers_refuse_other_devices():
     args = [_t(a).to("meta") for a in free_inputs(0)]
     with pytest.raises(ValueError, match="unsupported device"):
         port_kernels.fused_free_resources(*args)
+    args, K = ca_down_inputs(0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ca_kernels.fused_ca_scale_down(*(_t(a).to("meta") for a in args), k_sd=K)

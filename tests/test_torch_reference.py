@@ -143,8 +143,9 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 
 
 def test_port_main_path_loads_no_jax():
-    """The port's main path, run in a fresh interpreter, leaves no module
-    named jax* or kubernetriks_tpu.* in sys.modules."""
+    """The port's main path and its autoscaler path, run in a fresh
+    interpreter, leave no module named jax* or kubernetriks_tpu.* in
+    sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -153,6 +154,8 @@ def test_port_main_path_loads_no_jax():
         from kubernetriks_tpu_torch.convert import state_to_numpy
         from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
         import kubernetriks_tpu_torch.ops._build, kubernetriks_tpu_torch.ops.scheduler_kernel
+        import kubernetriks_tpu_torch.ops.autoscale_kernel
+        from test_torch_cuda import composed_sim
         cfg = SimulationConfig.from_yaml("sim_name: t\\nscheduling_cycle_interval: 10.0")
         sim = build_batched_from_traces(
             cfg, UniformClusterTrace(4).convert_to_simulator_events(),
@@ -161,6 +164,11 @@ def test_port_main_path_loads_no_jax():
         sim.step_until_time(90.0)
         state_to_numpy(sim.state)
         assert sim.metrics_summary()["counters"]["scheduling_decisions"] > 0
+        auto = composed_sim("cpu", 2)
+        auto.step_until_time(160.0)
+        state_to_numpy(auto.state)
+        counters = auto.metrics_summary()["counters"]
+        assert counters["total_scaled_up_pods"] > 0 and counters["total_scaled_up_nodes"] > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                      or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
@@ -169,7 +177,7 @@ def test_port_main_path_loads_no_jax():
         """
     )
     env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = os.pathsep.join([REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
