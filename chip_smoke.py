@@ -36,7 +36,24 @@ Phases; any failure exits non-zero:
      syncs per window and each kernel's launch count;
   7. card against CPU on the autoscaler path: the composed scenario at 4
      nodes and C=8 to t=400 s (CA scale-ups and a removal), final states
-     equal under compare_states.
+     equal under compare_states;
+  8. the two-kernel route (KTPU_MEGAKERNEL=0: selection + cycle, then the
+     commit scatter) on the headline shape, timed as phase 4;
+  9. the trace-replay path at the full width of the reference's Alibaba
+     replay bench (`scripts/bench_alibaba.py`): one cluster of 1 313
+     synthetic machines (seed 3, 10 % of them failing) plus 400 CA slots, ~107 k
+     pods over one simulated day, the CA on (at most 200 nodes of a 64 000
+     mCPU / 88 GiB template), the six network delays, K = 256; built and
+     run through the port's CLI functions (build_batched_simulation ->
+     run_to_completion -> metrics_summary) on the sorted cycle route;
+ 10. card against CPU on the replay and the two-kernel route: the replay
+     at the reference's own test size (100 machines, 700 tasks, 4 000 s,
+     seed 7) to completion; the headline shape at C=128 to t=60 s on the
+     two-kernel route, the megakernel route and the CPU; final states equal
+     under compare_states.
+Phase 3 also holds the three cycle-route kernels against their plain
+versions: the two-kernel route's on inputs of the headline shape built with
+KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -45,6 +62,7 @@ result. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -163,6 +181,128 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
         max_ca_pods_per_cycle=64, max_pods_per_scale_down=8,
     )
+
+
+# The reference's six network delays: the Alibaba replay bench's
+# (`scripts/bench_alibaba.py:40-45`) and its tests' (`test_util.py:10`).
+REPLAY_DELAYS = {
+    "bench": (0.050, 0.089, 0.023, 0.152, 0.67, 0.50),
+    "test": (0.050, 0.010, 0.020, 0.150, 0.30, 0.40),
+}
+
+REPLAY_CA_YAML = """cluster_autoscaler:
+  enabled: true
+  scan_interval: 10.0
+  max_node_count: 200
+  node_groups:
+  - node_template:
+      metadata:
+        name: replay_ca_node
+      status:
+        capacity:
+          cpu: 64000
+          ram: 94489280512
+"""
+
+
+def replay_config(paths, delays: str, ca: bool):
+    """The Alibaba replay's config: the trace files, a 10 s cycle, the
+    six delays and, with `ca`, the bench's cluster autoscaler."""
+    from kubernetriks_tpu_torch.config import SimulationConfig
+
+    names = ("as_to_ps", "ps_to_sched", "sched_to_as", "as_to_node", "as_to_ca", "as_to_hpa")
+    machines, tasks, instances = paths
+    text = "sim_name: alibaba_replay\nseed: 1\nscheduling_cycle_interval: 10.0\n"
+    text += "".join(f"{n}_network_delay: {d}\n" for n, d in zip(names, REPLAY_DELAYS[delays]))
+    text += (
+        "trace_config:\n  alibaba_cluster_trace_v2017:\n"
+        f"    machine_events_trace_path: {machines}\n"
+        f"    batch_task_trace_path: {tasks}\n"
+        f"    batch_instance_trace_path: {instances}\n"
+    )
+    return SimulationConfig.from_yaml(text + (REPLAY_CA_YAML if ca else ""))
+
+
+def replay_trace(name: str, **kwargs):
+    """Synthesize the Alibaba CSVs under the output directory (the
+    reference's synthesizer, byte for byte); returns their paths."""
+    from kubernetriks_tpu_torch.trace.synthetic_alibaba import write_synthetic_trace_dir
+
+    return write_synthetic_trace_dir(str(OUT_DIR / name), **kwargs)
+
+
+# The bench's replay (`scripts/bench_alibaba.py:33-35`): 1 313 machines,
+# ~53 k tasks over one day, 10 % of the machines failing, seed 3.
+FULL_REPLAY = dict(error_fraction=0.1, seed=3, horizon=86400.0)
+
+
+def replay_sim(device, paths, delays="bench", ca=True):
+    """The replay through the port's CLI functions: one cluster, K = 256."""
+    from kubernetriks_tpu_torch.cli import build_batched_simulation
+
+    return build_batched_simulation(replay_config(paths, delays, ca), 1, device=device)
+
+
+def with_megakernel_flag(value: str, build):
+    """build() with KTPU_MEGAKERNEL set to `value` (read at engine build)."""
+    old = os.environ.get("KTPU_MEGAKERNEL")
+    os.environ["KTPU_MEGAKERNEL"] = value
+    try:
+        return build()
+    finally:
+        if old is None:
+            del os.environ["KTPU_MEGAKERNEL"]
+        else:
+            os.environ["KTPU_MEGAKERNEL"] = old
+
+
+def timed_path(sim, sk, names, label):
+    """Step the headline span (to 190 s, then 200 s steps to 1200 s) with
+    the launch counts set to 0 just before; returns the run's numbers and
+    fails if a kernel in `names` never launched."""
+    sk.reset_launches()
+    sim.step_until_time(190.0)
+    before = sim.decisions_total()
+    syncs0, windows0 = sim.host_syncs, sim.windows_run
+    t0 = time.perf_counter()
+    end = 390.0
+    while end <= 1200.0:
+        sim.step_until_time(end)
+        end += 200.0
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    windows = sim.windows_run - windows0
+    syncs_per_window = (sim.host_syncs - syncs0) / max(windows, 1)
+    total = sim.decisions_total()
+    decisions = total - before
+    out = {
+        "decisions": total,
+        "timed_decisions": decisions,
+        "timed_seconds": elapsed,
+        "decisions_per_s": decisions / elapsed,
+        "windows": sim.windows_run,
+        "timed_windows": windows,
+        "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "host_syncs_per_window": syncs_per_window,
+        "launches": launches,
+        "cycle_route": sim.cycle_route,
+    }
+    print(
+        f"{label}: route {sim.cycle_route}, decisions {total} (timed {decisions} in {elapsed:.3f} s = "
+        f"{decisions / elapsed:.1f} decisions/s), windows {sim.windows_run} (timed {windows}, "
+        f"{out['ms_per_window']:.3f} ms/window), host syncs per window "
+        f"{out['host_syncs_per_window']:.3f}, launches {launches}",
+        flush=True,
+    )
+    if total <= 0:
+        fail(f"{label}: no scheduling decision")
+    if syncs_per_window != 0:
+        fail(f"{label}: the window loop read the device back {syncs_per_window} times per window")
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{label}: never launched {name}")
+    return out
 
 
 def fail(msg: str, code: int = 1):
@@ -446,6 +586,54 @@ def main() -> int:
     )
     del sim, captured
 
+    # The two-kernel route's kernels, on inputs of the headline shape built
+    # with KTPU_MEGAKERNEL=0 (the same window, t = 190 s).
+    two_names = ["fused_select_schedule_cycle", "fused_commit_scatter"]
+    sim = with_megakernel_flag("0", lambda: headline_sim(dev))
+    if sim.cycle_route != "two_kernel":
+        fail(f"KTPU_MEGAKERNEL=0 built the {sim.cycle_route} route at the headline shape")
+    captured, restore = capture_inputs(step_mod, two_names)
+    sim.step_until_time(190.0)
+    restore()
+    torch.cuda.synchronize()
+    print(f"phase 3: two-kernel route shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods}", flush=True)
+    # Selection + cycle: the megakernel's reads without the commit's pod
+    # rows; writes the node rows and 11 B per candidate row. No library
+    # call computes it.
+    args, kwargs = captured["fused_select_schedule_cycle"]
+    eligible = args[3]
+    C, N = args[1].shape
+    K = kwargs["k_pods"]
+    elig = eligible.sum(dim=1).to(torch.int64)
+    picks = torch.clamp(elig, max=K)
+    n_picks = int(picks.sum())
+    scanned = int((picks * elig - picks * (picks - 1) // 2).sum())
+    check_kernel(
+        "fused_select_schedule_cycle", sk.fused_select_schedule_cycle, sk.select_schedule_cycle_plain,
+        args, kwargs, -1, None,
+        eligible.numel() + 12 * int(elig.sum()) + 8 * n_picks + 9 * C * N + 8 * C * N + 11 * C * K,
+        3 * scanned + 16 * N * n_picks,
+    )
+    # Commit scatter: reads the two pod rows it copies through and the
+    # touched candidate rows (18 B each), the two flags of the rest; writes
+    # four pod rows. Yardstick: one scatter_ of the phase row.
+    args, kwargs = captured["fused_commit_scatter"]
+    C, K = args[0].shape
+    P = args[6].shape[1]
+    n_touched = int((args[1] | args[2]).sum())
+
+    def commit_library(a):
+        idx = torch.where(a[1] | a[2], a[0], P).long()
+        wide = torch.cat([a[6], a[6][:, :1]], dim=1)
+        vals = torch.where(a[1], sk.PHASE_RUNNING, sk.PHASE_UNSCHEDULABLE).to(torch.int32)
+        return lambda: wide.clone().scatter_(1, idx, vals)
+
+    check_kernel(
+        "fused_commit_scatter", sk.fused_commit_scatter, sk.commit_scatter_plain, args, kwargs, -1,
+        commit_library, 8 * C * P + 2 * C * K + 16 * n_touched + 16 * C * P, 0,
+    )
+    del sim, captured
+
     # The CA kernels, on inputs of the autoscaler path at full width: the
     # first window where the scale-up packs a cache pod and the first where
     # the scale-down removes a node (both launch, masked, on every window
@@ -506,6 +694,59 @@ def main() -> int:
         3 * S * n_valid,
     )
     del sim, cap_up, cap_down
+
+    # The candidate cycle, on inputs of the full-width replay: the window
+    # with the most candidates in its first 600 s.
+    t0 = time.perf_counter()
+    replay_paths = replay_trace("replay_full", **FULL_REPLAY)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = replay_sim(dev, replay_paths)
+    build_replay_s = time.perf_counter() - t0
+    most = {"n": -1}
+
+    def keep_busiest(args, outs):
+        n = int(args[3].sum())
+        if n > most["n"]:
+            most["n"] = n
+            return True
+        return False
+
+    busiest = {}
+    real_cycle = step_mod.fused_schedule_cycle
+
+    def recording(*args, **kwargs):
+        outs = real_cycle(*args, **kwargs)
+        if keep_busiest(args, outs):
+            busiest["fused_schedule_cycle"] = (args, kwargs)
+        return outs
+
+    step_mod.fused_schedule_cycle = recording
+    try:
+        sim.step_until_time(600.0)
+    finally:
+        step_mod.fused_schedule_cycle = real_cycle
+    torch.cuda.synchronize()
+    print(
+        f"phase 3: replay shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods} "
+        f"K={sim.max_pods_per_cycle} route {sim.cycle_route}; trace written in {synth_s:.2f} s, "
+        f"engine built in {build_replay_s:.2f} s; busiest window {most['n']} candidates",
+        flush=True,
+    )
+    # Reads the node rows (9N B), every valid flag, the requests of the
+    # rows up to the last valid one (8 B each); writes the node rows and
+    # 6 B per candidate row. ~16 operations per node per row. No library
+    # call computes it.
+    args, kwargs = busiest["fused_schedule_cycle"]
+    C, N = args[1].shape
+    K = args[3].shape[1]
+    live = torch.where(args[3], torch.arange(1, K + 1, device=dev), 0).amax(dim=1)
+    n_live = int(live.sum())
+    check_kernel(
+        "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
+        None, 9 * C * N + C * K + 8 * n_live + 8 * C * N + 6 * C * K, 16 * N * n_live,
+    )
+    del sim, busiest
 
     # --- 4. the main path ----------------------------------------------------
     sim = headline_sim(dev)
@@ -682,6 +923,107 @@ def main() -> int:
         fail(f"phase 7 run made no CA scale-up and removal: {counters}")
     print(f"phase 7: card == CPU under compare_states on the autoscaler path ({counters})", flush=True)
 
+    # --- 8. the two-kernel route on the headline shape -------------------------
+    sim = with_megakernel_flag("0", lambda: headline_sim(dev))
+    two_kernel_path = timed_path(
+        sim, sk, ["fused_event_scatter", "fused_free_resources"] + two_names, "phase 8"
+    )
+    if sim.cycle_route != "two_kernel" or two_kernel_path["launches"]["fused_select_cycle_commit"]:
+        fail("phase 8 did not run on the two-kernel route alone")
+    del sim
+
+    # --- 9. the trace-replay path at full width ---------------------------------
+    replay_names = [
+        "fused_event_scatter", "fused_free_resources", "fused_schedule_cycle",
+        "fused_ca_scale_down", "fused_ca_scale_up",
+    ]
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    sim = replay_sim(dev, replay_paths)
+    build_s9 = time.perf_counter() - t0
+    if sim.cycle_route != "sorted":
+        fail(f"the replay built the {sim.cycle_route} route, not the sorted one")
+    t0 = time.perf_counter()
+    sim.run_to_completion(max_time=86400.0 * 20.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    replay_launches = dict(sk.LAUNCHES)
+    summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
+    counters = summary["counters"]
+    decisions = counters["scheduling_decisions"]
+    windows = sim.windows_run
+    phase = sim.state.pods.phase[:, : sim.n_real_pods]
+    terminal = bool(((phase == 4) | (phase == 5) | (phase == 6)).all())
+    replay_path = {
+        "cycle_route": sim.cycle_route,
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "real_pods": sim.n_real_pods,
+                  "events": sim.n_events, "E": sim.max_events_per_window, "K": sim.max_pods_per_cycle},
+        "build_s": build_s9,
+        "windows": windows,
+        "wall_s": elapsed,
+        "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "decisions_per_s": decisions / elapsed,
+        "events_per_s": (sim.n_clusters * sim.n_events + decisions) / elapsed,
+        "host_syncs": sim.host_syncs,
+        "counters": counters,
+        "timings": summary["timings"],
+        "launches": replay_launches,
+    }
+    print(
+        f"phase 9: replay route {sim.cycle_route}, N={sim.n_nodes} P={sim.n_pods} "
+        f"({sim.n_real_pods} pods, {sim.n_events} events), built in {build_s9:.2f} s, windows {windows}, "
+        f"wall {elapsed:.3f} s = {replay_path['ms_per_window']:.3f} ms/window, "
+        f"{replay_path['decisions_per_s']:.1f} decisions/s, {replay_path['events_per_s']:.1f} events/s, "
+        f"pods_succeeded {counters['pods_succeeded']}, scaled-up nodes {counters['total_scaled_up_nodes']}, "
+        f"host syncs {sim.host_syncs}, launches {replay_launches}",
+        flush=True,
+    )
+    if not terminal:
+        fail("the replay ended with a pod that is not terminal")
+    if decisions <= 0:
+        fail("the replay made no scheduling decision")
+    for name in replay_names:
+        if replay_launches[name] <= 0:
+            fail(f"the replay never launched {name}")
+    del sim, phase
+
+    # --- 10. card against CPU: the replay and the two-kernel route ----------------
+    small_paths = replay_trace("replay_small", n_machines=100, n_tasks=700, horizon=4000.0, seed=7)
+    finals = {}
+    sk.reset_launches()
+    for where in ("cuda", "cpu"):
+        s10 = replay_sim(where, small_paths, delays="test", ca=False)
+        s10.run_to_completion()
+        finals[where] = (state_to_numpy(s10.state), s10.metrics_summary()["counters"], s10.next_window_idx)
+    if sk.LAUNCHES["fused_schedule_cycle"] <= 0:
+        fail("phase 10 card replay did not launch fused_schedule_cycle")
+    bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+    if bad or finals["cuda"][2] != finals["cpu"][2]:
+        fail(f"replay: card and CPU differ at {bad} (windows {finals['cuda'][2]} vs {finals['cpu'][2]})")
+    counters = finals["cuda"][1]
+    if counters["pods_succeeded"] <= 500:
+        fail(f"phase 10 replay made too little progress: {counters}")
+    print(f"phase 10: replay card == CPU under compare_states ({counters})", flush=True)
+    finals = {}
+    runs = (("cuda", "0"), ("cuda", "1"), ("cpu", "0"))
+    for where, flag in runs:
+        s10 = with_megakernel_flag(flag, lambda: headline_sim(where, n_clusters=128))
+        s10.step_until_time(60.0)
+        finals[(where, s10.cycle_route)] = state_to_numpy(s10.state)
+    want = {("cuda", "two_kernel"), ("cuda", "megakernel"), ("cpu", "two_kernel")}
+    if set(finals) != want:
+        fail(f"phase 10 routes were {sorted(finals)}")
+    ref = finals[("cuda", "two_kernel")]
+    for key in (("cuda", "megakernel"), ("cpu", "two_kernel")):
+        bad = compare_states(ref, finals[key])
+        if bad:
+            fail(f"two-kernel route on the card differs from {key} at {bad}")
+    print(
+        "phase 10: headline at C=128 to t=60 s: two-kernel route on the card == megakernel route on "
+        f"the card == two-kernel route on the CPU ({int(ref['.metrics.scheduling_decisions'].sum())} decisions)",
+        flush=True,
+    )
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -689,12 +1031,21 @@ def main() -> int:
         "fused_select_cycle_commit": ("select_cycle_commit.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:1139"),
         "fused_ca_scale_down": ("ca_scale_down.cu", "kubernetriks_tpu/ops/autoscale_kernel.py:177"),
         "fused_ca_scale_up": ("ca_scale_up.cu", "kubernetriks_tpu/ops/autoscale_kernel.py:402"),
+        "fused_select_schedule_cycle": ("select_schedule_cycle.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:336"),
+        "fused_commit_scatter": ("commit_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:828"),
+        "fused_schedule_cycle": ("schedule_cycle.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:903"),
     }
     # Each kernel's launches come from its own path's run: the scheduling
     # kernels from the headline path (phase 4), the CA kernels from the
-    # autoscaler path (phase 6).
-    path_launches = {**{n: launches[n] for n in names}, **{n: auto_launches[n] for n in ca_names}}
-    for name in names + ca_names:
+    # autoscaler path (phase 6), the two-kernel route's from phase 8, the
+    # candidate cycle from the replay (phase 9).
+    path_launches = {
+        **{n: launches[n] for n in names},
+        **{n: auto_launches[n] for n in ca_names},
+        **{n: two_kernel_path["launches"][n] for n in two_names},
+        "fused_schedule_cycle": replay_launches["fused_schedule_cycle"],
+    }
+    for name in names + ca_names + two_names + ["fused_schedule_cycle"]:
         r = report[name]
         kernels.append({
             "name": name,
@@ -712,8 +1063,9 @@ def main() -> int:
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({
             "card": smi, "build_s": build_s, "kernels": kernels, "main_path": main_path,
-            "autoscaler_path": autoscaler_path,
-        }, f, indent=1)
+            "autoscaler_path": autoscaler_path, "two_kernel_path": two_kernel_path,
+            "replay_path": replay_path,
+        }, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

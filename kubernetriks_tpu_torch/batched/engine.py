@@ -3,7 +3,8 @@ and steps it window by window.
 
 Port of the JAX package's `batched/engine.py` for whole-resident traces
 (`BatchedSimulation` slot sizing :686-1560, `step_until_time` :2504,
-`metrics_summary` :3784, `build_batched_from_traces` :4564): no sliding pod
+`run_to_completion` :3640, `metrics_summary` :3784,
+`build_batched_from_traces` :4564): no sliding pod
 window, no mesh, no buffer donation, no superspan executor or streaming
 feeder. The pod axis is 128-aligned as in the reference's default build,
 so states compare leaf for leaf.
@@ -17,9 +18,19 @@ cycle (batched/autoscale.py). Slot reclaim, the sliding pod window and
 scenario fleets are not ported.
 
 Entry points run on `torch.device("cuda")` unless the caller passes
-`device="cpu"`; with no card and no explicit device they raise. On the
+`device="cpu"`; a CUDA device where there is none raises. On the
 card the window step goes through the CUDA kernels (ops/); on the CPU
 through their plain PyTorch versions.
+
+The scheduling cycle's route (`cycle_route`, step.CYCLE_ROUTES) is fixed at
+build, as the reference fixes its kernel flags (engine.py:1505-1546):
+"megakernel" from 128 clusters on while its shared memory fits and
+KTPU_MEGAKERNEL is not 0, "two_kernel" where the flag is 0 (the selection
+kernel's shared memory is the megakernel's), else "sorted" (always below
+128 clusters: one cluster per block leaves the card idle, and the queue
+sort plus the candidate kernel's early exit is what the reference runs
+there). Nothing else picks the route, and a build or launch failure never
+changes it.
 
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
@@ -28,12 +39,14 @@ node removal is due (step.WindowPlan). The autoscalers' due times advance
 by fixed periods, so `AutoscaleClock` mirrors them on the host with the
 same float32 pair arithmetic and decides which autoscaler passes a window
 runs, and in which windows a CA removal can take effect. The mirrors are
-read from the device once, when a state is installed.
+read from the device once, when a state is installed; `run_to_completion`
+reads once per chunk of windows to test for the end of the run.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -44,6 +57,9 @@ from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
     EV_REMOVE_NODE,
+    PHASE_QUEUED,
+    PHASE_RUNNING,
+    PHASE_UNSCHEDULABLE,
     ClusterBatchState,
     TraceSlab,
     flatten,
@@ -59,32 +75,52 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     segment_pod_slots,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
+from kubernetriks_tpu_torch.ops.scheduler_kernel import (
+    SMEM_LIMIT,
+    selection_smem_bytes,
+)
 
 POD_ALIGN = 128
 BIG_RANK = 1 << 30
-# CA slots reserved per group = this x the group's node cap (slots are
-# never reused without reclaim; check_autoscaler_bounds raises when the
-# reserve runs dry).
-CA_SLOT_MULTIPLIER = 2
+# Clusters per device from which the dense cycle kernels take the cycle
+# (reference engine.py:1524).
+DENSE_CLUSTERS = 128
 # The metrics collector's pod-utilization cadence, which the HPA reads.
 COLLECTION_INTERVAL = 60.0
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as given; None means the CUDA card, and raises without one
-    (the port never carries on on the CPU unasked). A CUDA device comes
-    back with its index, as tensors report theirs."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: kubernetriks_tpu_torch runs on the card by "
-                "default; pass device='cpu' to run the plain PyTorch path"
-            )
-        device = "cuda"
-    device = torch.device(device)
+    """`device` as given; None means the CUDA card. A CUDA device raises
+    where there is none (the port never carries on on the CPU unasked), and
+    comes back with its index, as tensors report theirs."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: kubernetriks_tpu_torch runs on the card by "
+            "default; pass device='cpu' to run the plain PyTorch path"
+        )
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def flag_bool(name: str, default: bool) -> bool:
+    """An environment flag: unset gives `default`; "0", "", "false", "no"
+    and "off" (any case, trimmed) are false, anything else true (the
+    reference's flags.parse_bool)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() not in ("0", "", "false", "no", "off")
+
+
+def choose_cycle_route(n_clusters: int, n_nodes: int, n_pods: int, megakernel: bool = True) -> str:
+    """The cycle route for this shape (module note); `megakernel` is the
+    KTPU_MEGAKERNEL flag. The megakernel and the selection kernel hold the
+    same rows in shared memory, so one gate serves both."""
+    if n_clusters < DENSE_CLUSTERS or selection_smem_bytes(n_nodes, n_pods) > SMEM_LIMIT:
+        return "sorted"
+    return "megakernel" if megakernel else "two_kernel"
 
 
 def _name_ranks(names) -> np.ndarray:
@@ -142,10 +178,14 @@ def build_autoscale_statics(
     n_trace_nodes: int,
     ram_unit: int,
     device,
+    ca_slot_multiplier: int = 2,
 ):
     """Host-side compilation of the pod-group (HPA) and node-group (CA)
     tables (reference `build_autoscale_statics`, engine.py:395, for
-    whole-resident traces and no scenario overrides). Returns (statics,
+    whole-resident traces and no scenario overrides). Each CA group
+    reserves `ca_slot_multiplier` x its node cap slots (slots are never
+    reused without reclaim; check_autoscaler_bounds raises when the reserve
+    runs dry). Returns (statics,
     extra node cap cpu (S,), extra node cap ram (S,), extra node names):
     the extra node slots are the CA's reserved slots, appended after the
     trace's node slots, named "{group}_{k+1}"."""
@@ -203,7 +243,7 @@ def build_autoscale_statics(
     reserves = []
     for g in groups:
         cap = g.max_count if g.max_count is not None else ca_config.max_node_count
-        reserves.append(min(cap, ca_config.max_node_count) * CA_SLOT_MULTIPLIER)
+        reserves.append(min(cap, ca_config.max_node_count) * ca_slot_multiplier)
     S = sum(reserves) or 1
     ng = {
         "ca_start": np.zeros((C, Gn), np.int32),
@@ -386,6 +426,7 @@ class BatchedSimulation:
         scheduler_profile=None,
         max_ca_pods_per_cycle: int = 64,
         max_pods_per_scale_down: int = 8,
+        ca_slot_multiplier: int = 2,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -426,6 +467,7 @@ class BatchedSimulation:
             statics, extra_cpu, extra_ram, extra_names = build_autoscale_statics(
                 config, compiled_traces, n_pods=pod_req_cpu.shape[1],
                 n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
+                ca_slot_multiplier=ca_slot_multiplier,
             )
             self.autoscale_statics = statics
             if ca_on and extra_names:
@@ -437,6 +479,8 @@ class BatchedSimulation:
         self.n_pods = pod_req_cpu.shape[1]
         self.n_real_pods = p_max
         self.n_events = ev_time.shape[1]
+        finite_times = ev_time[np.isfinite(ev_time)]
+        self.last_event_time = float(finite_times.max()) if finite_times.size else 0.0
         if max_events_per_window is None:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
@@ -448,6 +492,9 @@ class BatchedSimulation:
                 f"step.xla_cumsum16 is pinned for; pass max_pods_per_cycle <= "
                 f"{CUMSUM_MAX_K} (ROADMAP Queue 3, the cumsum trap, lifts this)"
             )
+        self.cycle_route = choose_cycle_route(
+            C, self.n_nodes, self.n_pods, flag_bool("KTPU_MEGAKERNEL", True)
+        )
 
         self.state = init_state(
             C,
@@ -653,6 +700,7 @@ class BatchedSimulation:
                 self.autoscale_statics, self.hpa_seg,
                 self.max_ca_pods_per_cycle, self.max_pods_per_scale_down,
             ),
+            cycle_route=self.cycle_route,
         )
         self.next_window_idx = w + 1
         self.windows_run += 1
@@ -661,6 +709,35 @@ class BatchedSimulation:
         """Advance through every window whose cycle time is <= until_time."""
         for _ in self.window_idxs(until_time):
             self.step_window()
+
+    def run_to_completion(self, max_time: float = 1e7) -> None:
+        """Step until every trace pod has terminated (reference
+        engine.py:3640): in chunks of 64 windows (or the event chunk, if
+        larger), the run ends once it is past the last event plus one
+        interval (an event in window w applies when window w + 1 steps)
+        and no finite-duration pod is queued, parked or running. One host
+        read-back per chunk past that point, counted in host_syncs.
+        Raises once the run passes max_time with pods still live."""
+        interval = self.config.scheduling_cycle_interval
+        chunk = max(64, self.max_events_per_window)
+        while True:
+            self.step_until_time(self.next_window + chunk * interval)
+            if self.next_window <= self.last_event_time + interval:
+                continue
+            pods = self.state.pods
+            live_mask = (
+                (pods.phase == PHASE_QUEUED)
+                | (pods.phase == PHASE_UNSCHEDULABLE)
+                | ((pods.phase == PHASE_RUNNING) & (pods.duration.win >= 0))
+            )
+            self.host_syncs += 1
+            live = int(live_mask.sum())
+            if live == 0:
+                return
+            if self.next_window > max_time:
+                raise RuntimeError(
+                    f"run_to_completion exceeded max_time={max_time}; {live} pods still live"
+                )
 
     # --- readout ------------------------------------------------------------
 

@@ -1,11 +1,18 @@
 """The window step: trace-event application, pod finishes, one
 scheduling cycle and the autoscaler passes for every cluster at once.
 
-Port of the JAX package's `batched/step.py` along its dense-kernel branch
-(the route the reference takes at >= 128 clusters per device): the slab
-events of a window apply in chunks through `fused_event_scatter`, freed
-resources return through `fused_free_resources`, and the cycle's
-selection, fit/score/place and commit run in `fused_select_cycle_commit`.
+Port of the JAX package's `batched/step.py` along its kernel branches: the
+slab events of a window apply in chunks through `fused_event_scatter`,
+freed resources return through `fused_free_resources`, and the scheduling
+cycle runs on the route the engine chose at build (`CYCLE_ROUTES`; the
+reference's `_run_scheduling_cycle`, step.py:1466):
+- "megakernel": selection, fit/score/place and commit in
+  `fused_select_cycle_commit` (dense batches, >= 128 clusters);
+- "two_kernel": `fused_select_schedule_cycle` then `fused_commit_scatter`
+  (the reference's KTPU_MEGAKERNEL=0 route);
+- "sorted": the queue sorted on the device, its top K through
+  `fused_schedule_cycle`, the decisions committed with scatters (below
+  128 clusters: the trace-replay shape).
 Times are the (win, off) pairs of timerep.py; values applied inside a
 window are float32 seconds relative to the previous window's start.
 
@@ -21,7 +28,11 @@ What differs from the reference, and why it is exact:
   with no removal) are either always computed or skipped on the same host
   knowledge.
 - `xla_cumsum16` reproduces the bits of `jnp.cumsum` on XLA:CPU, which the
-  megakernel's positional timing tables are built with (see its note).
+  cycle's timing (the megakernel's positional tables, `cycle_timing`) is
+  built with (see its note).
+- The queue sort orders offsets by their int32 bits, as the kernels'
+  argmin does: `jax.lax.sort` puts -0.0 before +0.0, `torch.sort` calls
+  them equal, and the bits keep the reference's order.
 - Every float division divides by a float32 tensor (timerep.py note).
 """
 
@@ -56,15 +67,20 @@ from kubernetriks_tpu_torch.batched.timerep import (
     t_where,
 )
 from kubernetriks_tpu_torch.ops.scheduler_kernel import (
+    commit_scatter_plain,
+    fused_commit_scatter,
     fused_event_scatter,
     fused_free_resources,
+    fused_schedule_cycle,
     fused_select_cycle_commit,
+    fused_select_schedule_cycle,
 )
 
 INF = float("inf")
 INT32_MAX = torch.iinfo(torch.int32).max
 CUMSUM_BLOCK = 16
 CUMSUM_MAX_K = 256
+CYCLE_ROUTES = ("megakernel", "two_kernel", "sorted")
 
 
 class DeviceConstants(NamedTuple):
@@ -168,6 +184,14 @@ def t_seconds_f32(a: TPair, interval: torch.Tensor) -> torch.Tensor:
 def _rel_seconds(t: TPair, base_win: torch.Tensor, interval: torch.Tensor) -> torch.Tensor:
     """Pair -> float32 seconds relative to base_win * interval."""
     return (t.win - base_win).to(torch.float32) * interval + t.off
+
+
+def lexsort_time_i32(t: TPair, seq: torch.Tensor) -> torch.Tensor:
+    """Row-wise stable argsort by (time pair, seq) -> int32 slots: the
+    active queue's order (reference step.py:86). The offset sorts by its
+    int32 bits (non-negative float32 offsets order like their bits, and
+    -0.0 comes before +0.0 as in `jax.lax.sort`)."""
+    return stable_lexsort((t.win, t.off.contiguous().view(torch.int32), seq)).to(torch.int32)
 
 
 def stable_lexsort(keys) -> torch.Tensor:
@@ -616,27 +640,125 @@ def commit_scattered_tail(
     )
 
 
-def run_scheduling_cycle(
+class CycleCandidates(NamedTuple):
+    """One cycle's compacted candidates per cluster (reference step.py:1093)."""
+
+    pods: object  # PodArrays with the queue's wake/flush moves applied
+    last_flush_win: torch.Tensor
+    cand: torch.Tensor  # (C, K) int32 pod slots in queue order
+    valid: torch.Tensor  # (C, K) bool
+    req_cpu: torch.Tensor  # (C, K) int32
+    req_ram: torch.Tensor  # (C, K) int32
+    waited: torch.Tensor  # (C, K) float32 queue wait at the cycle: T - initial_attempt_ts
+
+
+def cycle_timing(valid, waited, pod_sched_time, k: DeviceConstants):
+    """(pod_queue_time, start_s, park_s), each (C, K) float32 (reference
+    step.py:1107): the simulated cycle duration is a prefix sum of the
+    per-candidate scheduling time over the valid mask (xla_cumsum16, the
+    bits of `jnp.cumsum`); start and park are offsets from the cycle time."""
+    step_dur = torch.where(valid, pod_sched_time[:, None], 0.0)
+    cd_post = xla_cumsum16(step_dur)
+    pod_queue_time = waited + (cd_post - step_dur)
+    return pod_queue_time, cd_post + k.delta_bind_start, cd_post
+
+
+def _est_add_reduced(est: EstArrays, values: torch.Tensor, mask: torch.Tensor) -> EstArrays:
+    """Fold a (C, K) masked batch of samples into the (C,) estimator
+    accumulators (reference step.py:98). The float32 sums run in PyTorch's
+    order, not XLA's: equal within compare_states' rtol 1e-6."""
+    maskf = mask.to(torch.float32)
+    return EstArrays(
+        count=est.count + mask.sum(dim=1, dtype=torch.int32),
+        total=est.total + (values * maskf).sum(dim=1),
+        total_sq=est.total_sq + (values * values * maskf).sum(dim=1),
+        minimum=torch.minimum(est.minimum, torch.where(mask, values, INF).amin(dim=1)),
+        maximum=torch.maximum(est.maximum, torch.where(mask, values, -INF).amax(dim=1)),
+    )
+
+
+def decision_metrics(metrics, assign_k, pod_queue_time_k, pod_sched_time):
+    """One cycle's decisions folded into the metric accumulators
+    (reference step.py:1127)."""
+    C, K = assign_k.shape
+    return metrics._replace(
+        scheduling_decisions=metrics.scheduling_decisions + assign_k.sum(dim=1, dtype=torch.int32),
+        queue_time=_est_add_reduced(metrics.queue_time, pod_queue_time_k, assign_k),
+        algo_latency=_est_add_reduced(
+            metrics.algo_latency, pod_sched_time[:, None].expand(C, K), assign_k
+        ),
+    )
+
+
+def candidates_from_slots(pods, last_flush_win, cand, valid, W, k: DeviceConstants) -> CycleCandidates:
+    """CycleCandidates from chosen slots: the gathers and the `waited`
+    formula shared by the sorted and the two-kernel routes (reference
+    step.py:1214)."""
+    idx = cand.long()
+    init_win = torch.gather(pods.initial_attempt_ts.win, 1, idx)
+    init_off = torch.gather(pods.initial_attempt_ts.off, 1, idx)
+    waited = (W[:, None] - init_win).to(torch.float32) * k.interval - init_off
+    return CycleCandidates(
+        pods=pods,
+        last_flush_win=last_flush_win,
+        cand=cand.to(torch.int32),
+        valid=valid,
+        req_cpu=torch.gather(pods.req_cpu, 1, idx),
+        req_ram=torch.gather(pods.req_ram, 1, idx),
+        waited=waited,
+    )
+
+
+def prepare_cycle(state, W, k: DeviceConstants, K: int, conditional_move=False, wake=None, sync=None):
+    """prepare_queue, the queue sort and the top-K compaction (reference
+    step.py:1242). K above the pod slot count takes every slot."""
+    C, P = state.pods.phase.shape
+    pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
+    sort_t = t_where(eligible, pods.queue_ts, t_inf((C, P), pods.phase.device))
+    sort_seq = torch.where(eligible, pods.queue_seq, INT32_MAX)
+    cand = lexsort_time_i32(sort_t, sort_seq)[:, :K].contiguous()
+    return candidates_from_slots(
+        pods, last_flush_win, cand, torch.gather(eligible, 1, cand.long()), W, k
+    )
+
+
+def commit_cycle(
     state: ClusterBatchState,
+    cc: CycleCandidates,
     W: torch.Tensor,
     k: DeviceConstants,
-    max_pods_per_cycle: int,
-    conditional_move: bool = False,
-    wake: Optional[WakeEvents] = None,
-    sync=None,
+    alloc_cpu,
+    alloc_ram,
+    metrics,
+    assign_k,
+    park_k,
+    best_k,
+    start_s_k,
+    park_s_k,
+    use_kernel: bool = False,
 ) -> ClusterBatchState:
-    """One scheduling cycle at window W for every cluster: the megakernel
-    branch of the reference's `_run_scheduling_cycle` (step.py:1519-1604).
-    The positional timing tables (cycle duration prefix sums) are built
-    with xla_cumsum16; valid decisions form a position prefix, so table
-    value k is the reference's cycle_timing value for the k-th pick."""
-    C, P = state.pods.phase.shape
-    interval = k.interval
-    K = max_pods_per_cycle
-    alive = state.nodes.alive
-    alive_count = alive.sum(dim=1, dtype=torch.int32).to(torch.float32)
-    pod_sched_time = k.time_per_node * alive_count  # (C,)
+    """Scatter the K decisions per cluster into the (C, P) pod rows and
+    write the post-cycle state (reference step.py:1386): through
+    `fused_commit_scatter` on the two-kernel route, else with scatters
+    (the reference's XLA branch, the kernel's plain version)."""
+    commit = fused_commit_scatter if use_kernel else commit_scatter_plain
+    phase, node, start_tmp, park_tmp = commit(
+        cc.cand, assign_k, park_k, best_k, start_s_k.contiguous(), park_s_k.contiguous(),
+        cc.pods.phase, cc.pods.node,
+    )
+    return commit_scattered_tail(
+        state, cc.pods, cc.last_flush_win, W, k, alloc_cpu, alloc_ram,
+        metrics, phase, node, start_tmp, park_tmp,
+    )
 
+
+def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync):
+    """The megakernel route (reference step.py:1519-1604). The positional
+    timing tables (cycle duration prefix sums) are built with
+    xla_cumsum16; valid decisions form a position prefix, so table value k
+    is the reference's cycle_timing value for the k-th pick."""
+    C = state.pods.phase.shape[0]
+    interval = k.interval
     pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
     waited_p = (W[:, None] - pods.initial_attempt_ts.win).to(torch.float32) * interval - pods.initial_attempt_ts.off
     full_dur = pod_sched_time[:, None].expand(C, K).contiguous()
@@ -645,7 +767,7 @@ def run_scheduling_cycle(
     start_t = (cd_post + k.delta_bind_start).contiguous()
     park_t = cd_post.contiguous()
     alloc_cpu, alloc_ram, phase, node, start_tmp, park_tmp, qstats = fused_select_cycle_commit(
-        alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
+        state.nodes.alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
         pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
         pods.req_cpu, pods.req_ram, waited_p, pods.phase, pods.node,
         qpre_t, start_t, park_t, k_pods=K,
@@ -680,6 +802,52 @@ def run_scheduling_cycle(
     )
 
 
+def run_scheduling_cycle(
+    state: ClusterBatchState,
+    W: torch.Tensor,
+    k: DeviceConstants,
+    max_pods_per_cycle: int,
+    route: str = "megakernel",
+    conditional_move: bool = False,
+    wake: Optional[WakeEvents] = None,
+    sync=None,
+) -> ClusterBatchState:
+    """One scheduling cycle at window W for every cluster along `route`
+    (one of CYCLE_ROUTES; reference `_run_scheduling_cycle`, step.py:1466).
+    The two-kernel and sorted routes share the timing and metric tail
+    (reference step.py:1722-1738)."""
+    K = max_pods_per_cycle
+    alive = state.nodes.alive
+    alive_count = alive.sum(dim=1, dtype=torch.int32).to(torch.float32)
+    pod_sched_time = k.time_per_node * alive_count  # (C,)
+
+    if route == "megakernel":
+        return _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync)
+    if route == "two_kernel":
+        pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
+        cand, valid, assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_select_schedule_cycle(
+            alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
+            pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
+            pods.req_cpu, pods.req_ram, k_pods=K,
+        )
+        cc = candidates_from_slots(pods, last_flush_win, cand, valid, W, k)
+    elif route == "sorted":
+        cc = prepare_cycle(state, W, k, K, conditional_move, wake, sync)
+        assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_schedule_cycle(
+            alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, cc.valid, cc.req_cpu, cc.req_ram,
+        )
+    else:
+        raise ValueError(f"unknown cycle route {route!r} (one of {CYCLE_ROUTES})")
+    park_k = cc.valid & ~fitany_k
+    pod_queue_time_k, start_s_k, park_s_k = cycle_timing(cc.valid, cc.waited, pod_sched_time, k)
+    metrics = decision_metrics(state.metrics, assign_k, pod_queue_time_k, pod_sched_time)
+    return commit_cycle(
+        state, cc, W, k, alloc_cpu, alloc_ram, metrics,
+        assign_k, park_k, best_k, start_s_k, park_s_k,
+        use_kernel=route == "two_kernel",
+    )
+
+
 def window_body(
     state: ClusterBatchState,
     slab: TraceSlab,
@@ -693,13 +861,14 @@ def window_body(
     name_ranks=None,
     sync=None,
     autoscale=None,
+    cycle_route: str = "megakernel",
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: events and
     finishes, one cycle, then the autoscaler passes the plan names
     (reference `_window_body`, step.py:1886, without slot reclaim,
     telemetry, faults or lane clocks). `autoscale`: None, or (statics,
     HPA group-slot bounds, CA scale-up candidates per cycle, CA pods per
-    scale-down candidate)."""
+    scale-down candidate). `cycle_route`: see run_scheduling_cycle."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
     state, wake = apply_window_events(
@@ -710,7 +879,7 @@ def window_body(
     # snapshot precedes the cycle's commit visibility.
     pre_cycle = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
     state = run_scheduling_cycle(
-        state, W, k, max_pods_per_cycle, conditional_move, wake, sync
+        state, W, k, max_pods_per_cycle, cycle_route, conditional_move, wake, sync
     )
     if autoscale is not None and (plan.hpa_cycle or plan.hpa_collect or plan.ca_due):
         from kubernetriks_tpu_torch.batched.autoscale import ca_pass, hpa_pass

@@ -1,0 +1,156 @@
+"""Command line: run a simulation from a config file on the card.
+
+    python -m kubernetriks_tpu_torch.cli --config-file <yaml>
+        [--clusters N] [--max-pods-per-cycle K] [--report json|table]
+        [--device cuda|cpu]
+
+The batched subset of the JAX package's `cli.py` (:60-237): load the
+config, build the traces its `trace_config` names (an Alibaba v2017 trace
+XOR a generic YAML trace), replicate them over N clusters in one
+BatchedSimulation, run until every pod has terminated, and print the
+metrics report. The traces always go through the event objects
+(`build_traces`); the JAX package's native CSV feeder is ROADMAP Queue 1
+item 11. The run is on the CUDA card unless `--device cpu` is given.
+
+Options the port does not run yet are refused, naming the ROADMAP item
+that brings them: `--backend scalar`, `--pod-window`, `--gauge-csv`,
+`--metrics-export` and a `--profile` other than the default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+from kubernetriks_tpu_torch.config import SimulationConfig
+from kubernetriks_tpu_torch.trace.interface import EmptyTrace
+
+# Options refused, with the ROADMAP item that ports each.
+UNPORTED_OPTIONS = {
+    "backend": "ROADMAP Queue 1 item 17 (the port's CLI runs the batched backend only)",
+    "pod_window": "ROADMAP Queue 1 item 8 (sliding pod window)",
+    "gauge_csv": "ROADMAP Queue 1 item 10 (telemetry)",
+    "metrics_export": "ROADMAP Queue 1 item 10 (telemetry)",
+    "profile": "ROADMAP Queue 1 item 6 (scheduler profiles)",
+}
+
+
+def build_traces(config: SimulationConfig):
+    """(cluster trace, workload trace) of the config's trace source."""
+    trace_config = config.trace_config
+    if trace_config is None:
+        return EmptyTrace(), EmptyTrace()
+    alibaba = trace_config.alibaba_cluster_trace_v2017
+    generic = trace_config.generic_trace
+    if (alibaba is None) == (generic is None):
+        raise ValueError("exactly one of alibaba_cluster_trace_v2017 or generic_trace must be set")
+    if generic is not None:
+        from kubernetriks_tpu_torch.trace.generic import GenericClusterTrace, GenericWorkloadTrace
+
+        return (
+            GenericClusterTrace.from_file(generic.cluster_trace_path),
+            GenericWorkloadTrace.from_file(generic.workload_trace_path),
+        )
+    from kubernetriks_tpu_torch.trace.alibaba import AlibabaClusterTraceV2017, AlibabaWorkloadTraceV2017
+
+    cluster = (
+        AlibabaClusterTraceV2017.from_file(alibaba.machine_events_trace_path)
+        if alibaba.machine_events_trace_path
+        else EmptyTrace()
+    )
+    workload = AlibabaWorkloadTraceV2017.from_files(
+        alibaba.batch_instance_trace_path, alibaba.batch_task_trace_path
+    )
+    return cluster, workload
+
+
+def build_batched_simulation(
+    config: SimulationConfig,
+    n_clusters: int,
+    max_pods_per_cycle: int = 0,
+    device=None,
+    **engine_kwargs,
+):
+    """A BatchedSimulation of the config's traces over n_clusters clusters.
+    max_pods_per_cycle 0 bounds each cycle at 256 pods, as the JAX
+    package's CLI does (the engine takes every slot when there are fewer).
+    `device`: see engine.resolve_device. engine_kwargs go to the engine
+    (e.g. ca_slot_multiplier)."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+
+    cluster_trace, workload_trace = build_traces(config)
+    return build_batched_from_traces(
+        config,
+        cluster_trace.convert_to_simulator_events(),
+        workload_trace.convert_to_simulator_events(),
+        n_clusters=n_clusters,
+        device=device,
+        max_pods_per_cycle=max_pods_per_cycle or 256,
+        **engine_kwargs,
+    )
+
+
+def run_batched(config: SimulationConfig, args) -> int:
+    from kubernetriks_tpu_torch.metrics.render import render_metrics
+
+    log = logging.getLogger(__name__)
+    sim = build_batched_simulation(config, args.clusters, args.max_pods_per_cycle, device=args.device)
+    log.info(
+        "batched run on %s: %d clusters x %d node slots x %d pod slots, cycle route %s",
+        sim.device, sim.n_clusters, sim.n_nodes, sim.n_pods, sim.cycle_route,
+    )
+    t0 = time.perf_counter()
+    sim.run_to_completion()
+    summary = sim.metrics_summary()
+    elapsed = time.perf_counter() - t0
+    decisions = summary["counters"]["scheduling_decisions"]
+    log.info(
+        "Processed %d scheduling decisions in %.2fs (%.0f decisions/s)",
+        decisions, elapsed, decisions / max(elapsed, 1e-9),
+    )
+    print(render_metrics(summary, args.report))
+    return 0
+
+
+def _refuse_unported(args) -> None:
+    given = {
+        "backend": args.backend != "batched",
+        "pod_window": bool(args.pod_window),
+        "gauge_csv": args.gauge_csv is not None,
+        "metrics_export": args.metrics_export is not None,
+        "profile": args.profile not in (None, "default"),
+    }
+    for option, item in UNPORTED_OPTIONS.items():
+        if given[option]:
+            flag = "--" + option.replace("_", "-")
+            raise SystemExit(f"kubernetriks_tpu_torch.cli: {flag} is not ported yet: {item}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="kubernetriks-tpu simulator, PyTorch port (batched backend)")
+    parser.add_argument("--config-file", required=True, help="Path to YAML config")
+    parser.add_argument("--backend", choices=("scalar", "batched"), default="batched",
+                        help="only 'batched' runs here")
+    parser.add_argument("--clusters", type=int, default=1,
+                        help="number of identical clusters stepped in lockstep")
+    parser.add_argument("--max-pods-per-cycle", type=int, default=0,
+                        help="per-cycle scheduling work bound (0 = 256)")
+    parser.add_argument("--report", choices=("json", "table"), default="json",
+                        help="end-of-run report format")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda; 'cpu' runs the plain PyTorch path)")
+    parser.add_argument("--pod-window", type=int, default=0, help="not ported")
+    parser.add_argument("--profile", default=None, help="not ported (only 'default')")
+    parser.add_argument("--gauge-csv", default=None, help="not ported")
+    parser.add_argument("--metrics-export", default=None, help="not ported")
+    args = parser.parse_args(argv)
+    _refuse_unported(args)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    config = SimulationConfig.from_file(args.config_file)
+    return run_batched(config, args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
 """Simulation configuration: one YAML document -> SimulationConfig.
 
 Own copy of the JAX package's `config.py` surface for the blocks this
-port runs: the simulation name and seed, the scheduling interval, the
-scheduler profile, the conditional-move switch, the six control-plane
+port runs: the simulation name and seed, the trace source (`trace_config`:
+an Alibaba v2017 trace or a generic YAML trace), the scheduling interval,
+the scheduler profile, the conditional-move switch, the six control-plane
 network delays, and the two autoscaler blocks (`horizontal_pod_autoscaler`,
 `cluster_autoscaler` with its node groups). The fault-injection block is
 parsed only far enough to refuse it: an enabled `fault_injection` block
@@ -136,9 +137,58 @@ class HorizontalPodAutoscalerConfig:
 
 
 @dataclass
+class AlibabaWorkloadTraceV2017Paths:
+    batch_instance_trace_path: str = ""
+    batch_task_trace_path: str = ""
+    machine_events_trace_path: Optional[str] = None
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "AlibabaWorkloadTraceV2017Paths":
+        return AlibabaWorkloadTraceV2017Paths(
+            batch_instance_trace_path=d.get("batch_instance_trace_path", ""),
+            batch_task_trace_path=d.get("batch_task_trace_path", ""),
+            machine_events_trace_path=d.get("machine_events_trace_path"),
+        )
+
+
+@dataclass
+class GenericTracePaths:
+    workload_trace_path: str = ""
+    cluster_trace_path: str = ""
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "GenericTracePaths":
+        return GenericTracePaths(
+            workload_trace_path=d.get("workload_trace_path", ""),
+            cluster_trace_path=d.get("cluster_trace_path", ""),
+        )
+
+
+@dataclass
+class TraceConfig:
+    """The trace source: exactly one of the two may be set (checked where
+    the traces are built, cli.build_traces)."""
+
+    alibaba_cluster_trace_v2017: Optional[AlibabaWorkloadTraceV2017Paths] = None
+    generic_trace: Optional[GenericTracePaths] = None
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> Optional["TraceConfig"]:
+        if not d:
+            return None
+        alibaba = d.get("alibaba_cluster_trace_v2017")
+        generic = d.get("generic_trace")
+        return TraceConfig(
+            alibaba_cluster_trace_v2017=AlibabaWorkloadTraceV2017Paths.from_dict(alibaba) if alibaba else None,
+            generic_trace=GenericTracePaths.from_dict(generic) if generic else None,
+        )
+
+
+@dataclass
 class SimulationConfig:
     sim_name: str = "kubernetriks-tpu"
     seed: int = 0
+    trace_config: Optional[TraceConfig] = None
     scheduling_cycle_interval: float = 10.0
     cluster_autoscaler: ClusterAutoscalerConfig = field(default_factory=ClusterAutoscalerConfig)
     horizontal_pod_autoscaler: HorizontalPodAutoscalerConfig = field(
@@ -165,6 +215,7 @@ class SimulationConfig:
         return SimulationConfig(
             sim_name=d.get("sim_name", "kubernetriks-tpu"),
             seed=int(d.get("seed", 0)),
+            trace_config=TraceConfig.from_dict(d.get("trace_config")),
             scheduling_cycle_interval=float(d.get("scheduling_cycle_interval", 10.0)),
             cluster_autoscaler=ClusterAutoscalerConfig.from_dict(d.get("cluster_autoscaler")),
             horizontal_pod_autoscaler=HorizontalPodAutoscalerConfig.from_dict(

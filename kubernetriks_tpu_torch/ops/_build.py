@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ops/csrc/ compiles with nvcc into its own shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-loaded with ctypes. All sources compile at once, one nvcc process each,
-into ops/build/ (listed in .gitignore), named by a hash of the source and
-the flags so an edited source rebuilds. Nothing is built on import: the
+Each `.cu` source under ops/csrc/ compiles with nvcc into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), loaded with ctypes; the `.cuh` headers there hold device code
+the sources share. All sources compile at once, one nvcc process each,
+into ops/build/ (listed in .gitignore), named by a hash of the source, the
+headers and the flags so an edited source or header rebuilds. Nothing is built on import: the
 first launch (or `build_all()`) builds.
 
 Flags: sm_90a (Hopper), -O3, and --fmad=false so no multiply-add is
@@ -51,6 +52,15 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "ca_scale_up": (
         "ca_scale_up.cu", "ktt_ca_scale_up", [_P] * 14 + [_I] * 4 + [_P],
     ),
+    "schedule_cycle": (
+        "schedule_cycle.cu", "ktt_schedule_cycle", [_P] * 11 + [_I] * 3 + [_P],
+    ),
+    "select_schedule_cycle": (
+        "select_schedule_cycle.cu", "ktt_select_schedule_cycle", [_P] * 16 + [_I] * 4 + [_P],
+    ),
+    "commit_scatter": (
+        "commit_scatter.cu", "ktt_commit_scatter", [_P] * 12 + [_I] * 3 + [_P],
+    ),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
@@ -69,8 +79,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers it may include and the flags."""
     src = (CSRC / KERNELS[name][0]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

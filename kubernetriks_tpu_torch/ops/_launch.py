@@ -17,6 +17,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_select_cycle_commit": 0,
     "fused_ca_scale_down": 0,
     "fused_ca_scale_up": 0,
+    "fused_schedule_cycle": 0,
+    "fused_select_schedule_cycle": 0,
+    "fused_commit_scatter": 0,
 }
 
 # Dynamic shared memory a block may use on Hopper (227 KB).

@@ -73,8 +73,14 @@ def ca_scale_down_plain(
         )
         eligible = cand_alive[:, s] & br & not_pending[rows, slotc] & (util < th)
         attempt = eligible & (cnt[:, s] <= k_sd)
+        # A candidate no cluster attempts, and pod rows no attempting
+        # cluster holds, change nothing: skip them.
+        if not bool(attempt.any()):
+            continue
+        held = (pv0[:, s * k_sd : (s + 1) * k_sd] & attempt[:, None]).any(dim=0)
+        k_n = int(torch.where(held, torch.arange(1, k_sd + 1, device=dev), 0).max()) if k_sd else 0
         vc, vr, ok = vcpu, vram, attempt
-        for k in range(k_sd):
+        for k in range(k_n):
             j = s * k_sd + k
             pv = pv0[:, j] & attempt
             rc = pr_cpu[:, j : j + 1]

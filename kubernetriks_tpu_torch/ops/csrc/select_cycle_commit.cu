@@ -32,59 +32,17 @@
 // mask sit in shared memory (4(2N+3P) + N + P bytes: ~29 KB at the
 // headline shape; the wrapper refuses shapes above 227 KB), so each of
 // the K picks is two block-wide reductions over shared memory (warp
-// shuffles, then one pass over the per-warp results) and one serial
-// commit. The full-width outputs (phase, node, start, park) are written
-// once by coalesced strided copies before the picks; each pick then
-// touches one pod slot.
+// shuffles, then one pass over the per-warp results; cycle_common.cuh,
+// shared with the two-kernel route's selection kernel and the sorted
+// route's candidate kernel) and one serial commit. The full-width outputs
+// (phase, node, start, park) are written once by coalesced strided copies
+// before the picks; each pick then touches one pod slot.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "cycle_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPhaseUnschedulable = 2;
-constexpr int kPhaseRunning = 3;
-constexpr int32_t kBig = 0x7fffffff;
-
-struct Key {
-  int32_t win, off, seq, slot;
-};
-
-__device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
-  if (a.win != b.win) return a.win < b.win;
-  if (a.off != b.off) return a.off < b.off;
-  if (a.seq != b.seq) return a.seq < b.seq;
-  return a.slot < b.slot;
-}
-
-__device__ __forceinline__ Key shfl_key(const Key& k, int delta) {
-  Key o;
-  o.win = __shfl_down_sync(0xffffffffu, k.win, delta);
-  o.off = __shfl_down_sync(0xffffffffu, k.off, delta);
-  o.seq = __shfl_down_sync(0xffffffffu, k.seq, delta);
-  o.slot = __shfl_down_sync(0xffffffffu, k.slot, delta);
-  return o;
-}
-
-// (score, node) pairs: the greater score wins, equal scores go to the
-// higher node slot — the reference's last-max-wins argmax.
-__device__ __forceinline__ bool node_better(float s, int n, float bs, int bn) {
-  return s > bs || (s == bs && n > bn);
-}
-
-// Score of pipeline.py `_score_least_allocated`, masked by the fit filter.
-__device__ __forceinline__ float least_allocated(int32_t cpu, int32_t ram,
-                                                 int32_t rc, int32_t rr) {
-  const float cpu_f = (float)cpu, ram_f = (float)ram;
-  const float cs = cpu > 0 ? __fdiv_rn(__fmul_rn(__fsub_rn(cpu_f, (float)rc), 100.0f), cpu_f)
-                           : -INFINITY;
-  const float rs = ram > 0 ? __fdiv_rn(__fmul_rn(__fsub_rn(ram_f, (float)rr), 100.0f), ram_f)
-                           : -INFINITY;
-  return __fmul_rn(__fadd_rn(cs, rs), 0.5f);
-}
+using namespace ktt;
 
 __global__ void select_cycle_commit_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
@@ -107,23 +65,13 @@ __global__ void select_cycle_commit_kernel(
   int32_t* s_seq = s_off + P;
   uint8_t* s_alive = reinterpret_cast<uint8_t*>(s_seq + P);
   uint8_t* s_rem = s_alive + N;
-
-  __shared__ Key w_key[kWarps];
-  __shared__ float w_score[kWarps];
-  __shared__ int w_node[kWarps];
-  __shared__ int w_fit[kWarps];
-  __shared__ int s_count;
-  __shared__ int s_slot, s_rc, s_rr;
+  __shared__ Scratch scratch;
 
   const size_t c = blockIdx.x;
   const size_t nb = c * (size_t)N, pb = c * (size_t)P, kb = c * (size_t)K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
 
-  for (int i = tid; i < N; i += kThreads) {
-    s_cpu[i] = alloc_cpu[nb + i];
-    s_ram[i] = alloc_ram[nb + i];
-    s_alive[i] = alive[nb + i];
-  }
+  load_nodes(alive + nb, alloc_cpu + nb, alloc_ram + nb, N, s_cpu, s_ram, s_alive);
   int depth = 0;
   for (int p = tid; p < P; p += kThreads) {
     s_win[p] = qwin[pb + p];
@@ -137,85 +85,24 @@ __global__ void select_cycle_commit_kernel(
     start_out[pb + p] = INFINITY;
     park_out[pb + p] = INFINITY;
   }
-  for (int d = 16; d > 0; d >>= 1) depth += __shfl_down_sync(0xffffffffu, depth, d);
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  if (lane == 0) atomicAdd(&s_count, depth);
-  __syncthreads();
-  const int picks = s_count < K ? s_count : K;
+  depth = block_sum(depth, scratch);  // its syncs also publish the rows
+  const int picks = depth < K ? depth : K;
 
   float cnt = 0.0f, tot = 0.0f, tsq = 0.0f, mn = INFINITY, mx = -INFINITY;
   for (int k = 0; k < picks; ++k) {
-    // 1. Lexicographic argmin over the remaining eligible pods.
-    Key best = {kBig, kBig, kBig, kBig};
-    for (int p = tid; p < P; p += kThreads) {
-      if (!s_rem[p]) continue;
-      const Key cand = {s_win[p], s_off[p], s_seq[p], p};
-      if (key_less(cand, best)) best = cand;
-    }
-    for (int d = 16; d > 0; d >>= 1) {
-      const Key o = shfl_key(best, d);
-      if (key_less(o, best)) best = o;
-    }
-    if (lane == 0) w_key[warp] = best;
-    __syncthreads();
-    if (tid == 0) {
-      Key b = w_key[0];
-      for (int w = 1; w < kWarps; ++w)
-        if (key_less(w_key[w], b)) b = w_key[w];
-      // picks <= this cluster's eligible count, so b is a real pod.
-      s_slot = b.slot;
-      s_rc = req_cpu[pb + b.slot];
-      s_rr = req_ram[pb + b.slot];
-    }
-    __syncthreads();
-    const int slot = s_slot, rc = s_rc, rr = s_rr;
-
+    // 1. The next pod in queue order (picks <= the eligible count, so a
+    //    real pod).
+    const int slot = block_select(s_win, s_off, s_seq, s_rem, P, scratch);
+    const int32_t rc = req_cpu[pb + slot], rr = req_ram[pb + slot];
     // 2. Fit + score over the nodes; last-max-wins argmax.
-    float bscore = -INFINITY;
-    int bnode = -1, anyfit = 0;
-    for (int n = tid; n < N; n += kThreads) {
-      const int32_t cpu = s_cpu[n], ram = s_ram[n];
-      const bool fit = s_alive[n] && rc <= cpu && rr <= ram;
-      const float score = fit ? least_allocated(cpu, ram, rc, rr) : -INFINITY;
-      anyfit |= fit ? 1 : 0;
-      if (node_better(score, n, bscore, bnode)) {
-        bscore = score;
-        bnode = n;
-      }
-    }
-    for (int d = 16; d > 0; d >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, bscore, d);
-      const int on = __shfl_down_sync(0xffffffffu, bnode, d);
-      anyfit |= __shfl_down_sync(0xffffffffu, anyfit, d);
-      if (node_better(os, on, bscore, bnode)) {
-        bscore = os;
-        bnode = on;
-      }
-    }
-    if (lane == 0) {
-      w_score[warp] = bscore;
-      w_node[warp] = bnode;
-      w_fit[warp] = anyfit;
-    }
-    __syncthreads();
-
+    const Decision d = block_fit_argmax(s_cpu, s_ram, s_alive, N, rc, rr, scratch);
     // 3. Commit, in pick order, by one thread.
     if (tid == 0) {
-      float bs = w_score[0];
-      int bn = w_node[0], fit = w_fit[0];
-      for (int w = 1; w < kWarps; ++w) {
-        fit |= w_fit[w];
-        if (node_better(w_score[w], w_node[w], bs, bn)) {
-          bs = w_score[w];
-          bn = w_node[w];
-        }
-      }
-      if (fit) {
-        s_cpu[bn] -= rc;
-        s_ram[bn] -= rr;
+      if (d.anyfit) {
+        s_cpu[d.best] -= rc;
+        s_ram[d.best] -= rr;
         phase_out[pb + slot] = kPhaseRunning;
-        node_out[pb + slot] = bn;
+        node_out[pb + slot] = d.best;
         start_out[pb + slot] = start_t[kb + k];
         const float q = __fadd_rn(waited[pb + slot], qpre_t[kb + k]);
         cnt = __fadd_rn(cnt, 1.0f);
@@ -259,12 +146,8 @@ extern "C" int ktt_select_cycle_commit(
     int K, void* stream) {
   if (C <= 0) return 0;
   const size_t smem = sizeof(int32_t) * (2 * (size_t)N + 3 * (size_t)P) + (size_t)N + (size_t)P;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        select_cycle_commit_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(select_cycle_commit_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   select_cycle_commit_kernel<<<C, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)alive, (const int32_t*)alloc_cpu,
       (const int32_t*)alloc_ram, (const uint8_t*)eligible,

@@ -1,10 +1,18 @@
-"""The three kernels of the dense scheduling path: wrapper, plain PyTorch
-version and launch count of each.
+"""The six kernels of the scheduling path: wrapper, plain PyTorch version
+and launch count of each.
 
-| wrapper                     | CUDA source (ops/csrc/)  | replaces (kubernetriks_tpu/ops/scheduler_kernel.py) |
-| fused_event_scatter         | event_scatter.cu         | `fused_event_scatter` (:671, kernel `_event_kernel` :596)        |
-| fused_free_resources        | free_resources.cu        | `fused_free_resources` (:513, kernel `_free_kernel` :435)        |
-| fused_select_cycle_commit   | select_cycle_commit.cu   | `fused_select_cycle_commit` (:1139, kernel :1010)                |
+| wrapper                     | CUDA source (ops/csrc/)    | replaces (kubernetriks_tpu/ops/scheduler_kernel.py) |
+| fused_event_scatter         | event_scatter.cu           | `fused_event_scatter` (:671, kernel `_event_kernel` :596)        |
+| fused_free_resources        | free_resources.cu          | `fused_free_resources` (:513, kernel `_free_kernel` :435)        |
+| fused_select_cycle_commit   | select_cycle_commit.cu     | `fused_select_cycle_commit` (:1139, kernel :1010)                |
+| fused_schedule_cycle        | schedule_cycle.cu          | `fused_schedule_cycle` (:903, kernel `_cycle_kernel` :152)       |
+| fused_select_schedule_cycle | select_schedule_cycle.cu   | `fused_select_schedule_cycle` (:336, kernel :239)                |
+| fused_commit_scatter        | commit_scatter.cu          | `fused_commit_scatter` (:828, kernel `_commit_kernel` :767)      |
+
+The first three carry every window; the cycle itself runs on one of three
+routes (engine.BatchedSimulation.cycle_route): the megakernel, the
+two-kernel route (selection + cycle, then the commit scatter) or the sorted
+route (a queue sort on the device, then the candidate cycle).
 
 Each wrapper takes the reference wrapper's row-major operands. For tensors
 on the CPU it runs the plain version beside it (the tests' path); for CUDA
@@ -18,6 +26,12 @@ tensor ops: one-hot min/max/set updates per event, iterated first-set-slot
 extraction with one-hot adds, and the iterated lexicographic argmin with
 the last-max-wins node argmax. They never call torch.argmax, torch.sort or
 torch.cumsum (tie-breaks and summation order are the point).
+
+The cycle kernels' early exit is per cluster: a cluster's loop ends at its
+own last valid candidate (or its own queue depth). The Pallas kernels bound
+the loop by the deepest cluster of their 128-cluster lane tile, a layout
+choice of the TPU; the rows in between are never read (every consumer gates
+on `valid`), and a lone cluster's bound is its own there too.
 """
 
 from __future__ import annotations
@@ -220,6 +234,42 @@ def fused_free_resources(
 # --- 3. selection + cycle + commit megakernel -----------------------------
 
 
+def _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram):
+    """One queue pick per cluster: the remaining eligible pod with the
+    least (queue win, offset bits, seq), lowest slot if the whole key ties
+    (the stable sort's order). Returns (sel one-hot (C, P), slot (C, 1),
+    valid (C, 1), its cpu and ram requests (C, 1))."""
+    C, P = rem.shape
+    iota_p = torch.arange(P, dtype=torch.int32, device=rem.device)[None, :].expand(C, P)
+    m = rem
+    for key in (qwin, qbits, qseq, iota_p):
+        low = torch.where(m, key, _BIG).amin(dim=1, keepdim=True)
+        m = m & (key == low)
+    valid = m.any(dim=1, keepdim=True)
+    seli = m.to(torch.int32)
+    slot = torch.where(m, iota_p, -1).amax(dim=1, keepdim=True)
+    rc = (seli * req_cpu).amax(dim=1, keepdim=True)
+    rr = (seli * req_ram).amax(dim=1, keepdim=True)
+    return m, slot, valid, rc, rr
+
+
+def _fit_score_place(alive, cpu, ram, rc, rr, valid):
+    """The decision core of every cycle kernel (reference `_fit_score_place`,
+    ops/scheduler_kernel.py:118): the profile's fit mask and score on every
+    node for the (C, 1) request, the last node of maximal score (ties go to
+    the highest slot; with no fit every node scores -inf, so the last node),
+    and the allocatables with the request deducted from that node where
+    `valid` and some node fits. Returns (any_fit, best, cpu, ram)."""
+    N = cpu.shape[1]
+    iota_n = torch.arange(N, dtype=torch.int32, device=cpu.device)[None, :]
+    fit, score = profile_fit_score(alive, cpu, ram, rc, rr)
+    max_score = score.amax(dim=1, keepdim=True)
+    best = torch.where(score == max_score, iota_n, -1).amax(dim=1, keepdim=True)
+    any_fit = fit.any(dim=1, keepdim=True)
+    upd = valid & any_fit & (iota_n == best)
+    return any_fit, best, cpu - torch.where(upd, rc, 0), ram - torch.where(upd, rr, 0)
+
+
 def select_cycle_commit_plain(
     alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram,
     waited, phase, node, qpre_t, start_t, park_t, k_pods: int,
@@ -231,10 +281,7 @@ def select_cycle_commit_plain(
     start (assigned) or park (no node fits) offset; fold the queue-time
     estimator over the assignments in pick order."""
     C, P = eligible.shape
-    N = alloc_cpu.shape[1]
     dev = eligible.device
-    iota_p = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
-    iota_n = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
     qbits = qoff.contiguous().view(torch.int32)
     cpu, ram = alloc_cpu, alloc_ram
     start = torch.full((C, P), _INF, dtype=torch.float32, device=dev)
@@ -243,24 +290,10 @@ def select_cycle_commit_plain(
     rem = eligible.clone()
     depth = int(eligible.sum(dim=1).max()) if C and P else 0
     for k in range(min(depth, k_pods)):
-        m = rem
-        for key in (qwin, qbits, qseq, iota_p.expand(C, P)):
-            low = torch.where(m, key, _BIG).amin(dim=1, keepdim=True)
-            m = m & (key == low)
-        sel = m
-        valid = sel.any(dim=1, keepdim=True)
-        seli = sel.to(torch.int32)
-        rc = (seli * req_cpu).amax(dim=1, keepdim=True)
-        rr = (seli * req_ram).amax(dim=1, keepdim=True)
-        fit, score = profile_fit_score(alive, cpu, ram, rc, rr)
-        max_score = score.amax(dim=1, keepdim=True)
-        best = torch.where(score == max_score, iota_n, -1).amax(dim=1, keepdim=True)
-        any_fit = fit.any(dim=1, keepdim=True)
+        sel, _, valid, rc, rr = _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram)
+        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid)
         assign = valid & any_fit
         park = valid & ~any_fit
-        upd = assign & (iota_n == best)
-        cpu = cpu - torch.where(upd, rc, 0)
-        ram = ram - torch.where(upd, rr, 0)
         new_phase = torch.where(assign, PHASE_RUNNING, PHASE_UNSCHEDULABLE).to(torch.int32)
         phase = torch.where(sel & (assign | park), new_phase, phase)
         node = torch.where(sel & assign, best, node)
@@ -272,9 +305,11 @@ def select_cycle_commit_plain(
     return cpu, ram, phase, node, start, park_out, torch.cat(stats, dim=1)
 
 
-def select_commit_smem_bytes(N: int, P: int) -> int:
-    """Shared memory of one megakernel block: the cluster's two allocatable
-    rows, three queue-key rows and the alive/remaining masks."""
+def selection_smem_bytes(N: int, P: int) -> int:
+    """Shared memory of one block of a kernel that selects from the queue
+    (the megakernel, the two-kernel route's selection kernel): the
+    cluster's two allocatable rows, three queue-key rows and the
+    alive/remaining masks."""
     return 4 * (2 * N + 3 * P) + N + P
 
 
@@ -317,7 +352,7 @@ def fused_select_cycle_commit(
         "qpre_t": (qpre_t, f32, (C, K)), "start_t": (start_t, f32, (C, K)),
         "park_t": (park_t, f32, (C, K)),
     }, alive.device)
-    smem = select_commit_smem_bytes(N, P)
+    smem = selection_smem_bytes(N, P)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"fused_select_cycle_commit: N={N}, P={P} need {smem} B of shared "
@@ -335,5 +370,239 @@ def fused_select_cycle_commit(
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
             pod_req_cpu, pod_req_ram, waited, phase, node, qpre_t, start_t, park_t,
             *outs, C, N, P, K,
+        ])
+    return outs
+
+
+# --- 4. candidate cycle (the sorted route) ----------------------------------
+
+
+def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram):
+    """K pre-sorted candidates per cluster, in row order up to the
+    cluster's last valid row: fit and score each on every node, take the
+    last node of maximal score, deduct it where the row is valid and some
+    node fits. Rows at or past the cluster's bound stay zero. Returns
+    (assign, fit_any, best (C, K), alloc_cpu, alloc_ram)."""
+    C, K = valid.shape
+    dev = valid.device
+    iota_k = torch.arange(1, K + 1, dtype=torch.int32, device=dev)[None, :]
+    k_bound = torch.where(valid, iota_k, 0).amax(dim=1, keepdim=True) if K else None
+    steps = int(k_bound.max()) if C and K else 0
+    cpu, ram = alloc_cpu, alloc_ram
+    cols = {"assign": [], "fit": [], "best": []}
+    for k in range(steps):
+        live = k < k_bound
+        v = valid[:, k : k + 1] & live
+        any_fit, best, cpu, ram = _fit_score_place(
+            alive, cpu, ram, req_cpu[:, k : k + 1], req_ram[:, k : k + 1], v
+        )
+        cols["assign"].append(v & any_fit)
+        cols["fit"].append(any_fit & live)
+        cols["best"].append(torch.where(live, best, 0).to(torch.int32))
+    assign = torch.zeros((C, K), dtype=torch.bool, device=dev)
+    fit_any = torch.zeros((C, K), dtype=torch.bool, device=dev)
+    best = torch.zeros((C, K), dtype=torch.int32, device=dev)
+    if steps:
+        assign[:, :steps] = torch.cat(cols["assign"], dim=1)
+        fit_any[:, :steps] = torch.cat(cols["fit"], dim=1)
+        best[:, :steps] = torch.cat(cols["best"], dim=1)
+    return assign, fit_any, best, cpu, ram
+
+
+def schedule_cycle_smem_bytes(N: int) -> int:
+    """Shared memory of one candidate-cycle block: the cluster's two
+    allocatable rows and its alive mask."""
+    return 9 * N
+
+
+def fused_schedule_cycle(
+    alive: torch.Tensor,  # (C, N) bool
+    alloc_cpu: torch.Tensor,  # (C, N) int32
+    alloc_ram: torch.Tensor,  # (C, N) int32
+    valid: torch.Tensor,  # (C, K) bool
+    req_cpu: torch.Tensor,  # (C, K) int32
+    req_ram: torch.Tensor,  # (C, K) int32
+):
+    """(assign (C, K) bool, fit_any (C, K) bool, best (C, K) int32,
+    alloc_cpu, alloc_ram)."""
+    if not _on_cuda(alive):
+        return schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram)
+    C, K = valid.shape
+    N = alloc_cpu.shape[1]
+    i32, b = torch.int32, torch.bool
+    _check("fused_schedule_cycle", {
+        "alive": (alive, b, (C, N)), "alloc_cpu": (alloc_cpu, i32, (C, N)),
+        "alloc_ram": (alloc_ram, i32, (C, N)), "valid": (valid, b, (C, K)),
+        "req_cpu": (req_cpu, i32, (C, K)), "req_ram": (req_ram, i32, (C, K)),
+    }, alive.device)
+    smem = schedule_cycle_smem_bytes(N)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_schedule_cycle: N={N} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    outs = (
+        torch.empty((C, K), dtype=b, device=alive.device),
+        torch.empty((C, K), dtype=b, device=alive.device),
+        torch.empty((C, K), dtype=i32, device=alive.device),
+        torch.empty_like(alloc_cpu), torch.empty_like(alloc_ram),
+    )
+    if C:
+        _launch("fused_schedule_cycle", "schedule_cycle", [
+            alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, *outs, C, N, K,
+        ])
+    return outs
+
+
+# --- 5. selection + cycle (the two-kernel route, first half) ---------------
+
+
+def select_schedule_cycle_plain(
+    alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram, k_pods: int,
+):
+    """The megakernel's selection and cycle without the commit: up to K
+    times per cluster, pick the next pod in queue order and place it as the
+    candidate cycle does. Returns (cand, valid, assign, fit_any, best (C, K),
+    alloc_cpu, alloc_ram); rows past the cluster's queue depth are zero."""
+    C, P = eligible.shape
+    K = int(k_pods)
+    dev = eligible.device
+    qbits = qoff.contiguous().view(torch.int32)
+    cpu, ram = alloc_cpu, alloc_ram
+    rem = eligible.clone()
+    depth = int(eligible.sum(dim=1).max()) if C and P else 0
+    steps = min(depth, K)
+    cols = {"cand": [], "valid": [], "assign": [], "fit": [], "best": []}
+    for _ in range(steps):
+        sel, slot, valid, rc, rr = _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram)
+        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid)
+        cols["cand"].append(torch.where(valid, slot, 0).to(torch.int32))
+        cols["valid"].append(valid)
+        cols["assign"].append(valid & any_fit)
+        cols["fit"].append(valid & any_fit)
+        cols["best"].append(torch.where(valid, best, 0).to(torch.int32))
+        rem = rem & ~sel
+    outs = [
+        torch.zeros((C, K), dtype=torch.int32, device=dev),
+        torch.zeros((C, K), dtype=torch.bool, device=dev),
+        torch.zeros((C, K), dtype=torch.bool, device=dev),
+        torch.zeros((C, K), dtype=torch.bool, device=dev),
+        torch.zeros((C, K), dtype=torch.int32, device=dev),
+    ]
+    if steps:
+        for out, key in zip(outs, ("cand", "valid", "assign", "fit", "best")):
+            out[:, :steps] = torch.cat(cols[key], dim=1)
+    return (*outs, cpu, ram)
+
+
+def fused_select_schedule_cycle(
+    alive: torch.Tensor,  # (C, N) bool
+    alloc_cpu: torch.Tensor,  # (C, N) int32
+    alloc_ram: torch.Tensor,  # (C, N) int32
+    eligible: torch.Tensor,  # (C, P) bool
+    qwin: torch.Tensor,  # (C, P) int32
+    qoff: torch.Tensor,  # (C, P) float32 (non-negative)
+    qseq: torch.Tensor,  # (C, P) int32
+    pod_req_cpu: torch.Tensor,  # (C, P) int32
+    pod_req_ram: torch.Tensor,  # (C, P) int32
+    k_pods: int,
+):
+    """(cand (C, K) int32, valid (C, K) bool, assign (C, K) bool, fit_any
+    (C, K) bool, best (C, K) int32, alloc_cpu, alloc_ram); invalid rows
+    are zero."""
+    if not _on_cuda(alive):
+        return select_schedule_cycle_plain(
+            alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
+            pod_req_cpu, pod_req_ram, k_pods,
+        )
+    C, P = eligible.shape
+    N = alloc_cpu.shape[1]
+    K = int(k_pods)
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    _check("fused_select_schedule_cycle", {
+        "alive": (alive, b, (C, N)), "alloc_cpu": (alloc_cpu, i32, (C, N)),
+        "alloc_ram": (alloc_ram, i32, (C, N)), "eligible": (eligible, b, (C, P)),
+        "qwin": (qwin, i32, (C, P)), "qoff": (qoff, f32, (C, P)), "qseq": (qseq, i32, (C, P)),
+        "pod_req_cpu": (pod_req_cpu, i32, (C, P)), "pod_req_ram": (pod_req_ram, i32, (C, P)),
+    }, alive.device)
+    smem = selection_smem_bytes(N, P)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_select_schedule_cycle: N={N}, P={P} need {smem} B of shared "
+            f"memory per cluster (limit {SMEM_LIMIT})"
+        )
+    dev = alive.device
+    outs = (
+        torch.empty((C, K), dtype=i32, device=dev),
+        torch.empty((C, K), dtype=b, device=dev),
+        torch.empty((C, K), dtype=b, device=dev),
+        torch.empty((C, K), dtype=b, device=dev),
+        torch.empty((C, K), dtype=i32, device=dev),
+        torch.empty_like(alloc_cpu), torch.empty_like(alloc_ram),
+    )
+    if C:
+        _launch("fused_select_schedule_cycle", "select_schedule_cycle", [
+            alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
+            pod_req_cpu, pod_req_ram, *outs, C, N, P, K,
+        ])
+    return outs
+
+
+# --- 6. decision commit (the two-kernel route, second half) ----------------
+
+
+def commit_scatter_plain(cand, assign, park, best, start_s, park_s, phase, node):
+    """The cycle's K decisions per cluster written into the (C, P) pod
+    rows: RUNNING on `best` with its start offset where assigned,
+    UNSCHEDULABLE with its park offset where parked; start/park rows are
+    +inf where untouched. Candidate slots are unique within a cycle, so the
+    writes are order-free; rows that touch nothing write into a spare
+    column P, which is dropped."""
+    C, P = phase.shape
+    dev = phase.device
+    touched = assign | park
+    cand = cand.long()
+
+    def scatter(base, mask, values):
+        wide = torch.cat([base, base[:, :1]], dim=1)
+        return wide.scatter(1, torch.where(mask, cand, P), values.to(base.dtype))[:, :P].contiguous()
+
+    inf = torch.full((C, P), _INF, dtype=torch.float32, device=dev)
+    new_phase = torch.where(assign, PHASE_RUNNING, PHASE_UNSCHEDULABLE).to(torch.int32)
+    return (
+        scatter(phase, touched, new_phase),
+        scatter(node, assign, best),
+        scatter(inf, assign, start_s),
+        scatter(inf, park, park_s),
+    )
+
+
+def fused_commit_scatter(
+    cand: torch.Tensor,  # (C, K) int32 pod slots, unique per cluster
+    assign: torch.Tensor,  # (C, K) bool
+    park: torch.Tensor,  # (C, K) bool
+    best: torch.Tensor,  # (C, K) int32 node slots
+    start_s: torch.Tensor,  # (C, K) float32 start offsets
+    park_s: torch.Tensor,  # (C, K) float32 park offsets
+    phase: torch.Tensor,  # (C, P) int32
+    node: torch.Tensor,  # (C, P) int32
+):
+    """(phase, node, start_tmp, park_tmp) with the decisions applied;
+    start_tmp/park_tmp are +inf where untouched."""
+    if not _on_cuda(phase):
+        return commit_scatter_plain(cand, assign, park, best, start_s, park_s, phase, node)
+    C, K = cand.shape
+    P = phase.shape[1]
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    _check("fused_commit_scatter", {
+        "cand": (cand, i32, (C, K)), "assign": (assign, b, (C, K)), "park": (park, b, (C, K)),
+        "best": (best, i32, (C, K)), "start_s": (start_s, f32, (C, K)),
+        "park_s": (park_s, f32, (C, K)), "phase": (phase, i32, (C, P)), "node": (node, i32, (C, P)),
+    }, phase.device)
+    outs = (
+        torch.empty_like(phase), torch.empty_like(node),
+        torch.empty((C, P), dtype=f32, device=phase.device),
+        torch.empty((C, P), dtype=f32, device=phase.device),
+    )
+    if C:
+        _launch("fused_commit_scatter", "commit_scatter", [
+            cand, assign, park, best, start_s, park_s, phase, node, *outs, C, P, K,
         ])
     return outs

@@ -16,3 +16,13 @@ class Trace:
 
     def event_count(self) -> int:
         raise NotImplementedError
+
+
+class EmptyTrace(Trace):
+    """A trace with no events (a config that names no cluster trace)."""
+
+    def convert_to_simulator_events(self) -> TraceEvents:
+        return []
+
+    def event_count(self) -> int:
+        return 0

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the port's window time goes on the card.
 
-    python3 profile_main_path.py [--path headline|autoscaler] [--windows 20]
+    python3 profile_main_path.py [--path headline|autoscaler|replay] [--windows 20]
 
-Builds the headline shape (`chip_smoke.headline_sim`) or, with `--path
-autoscaler`, the reference's composed scenario at full width
+Builds the headline shape (`chip_smoke.headline_sim`), with `--path
+autoscaler` the reference's composed scenario at full width
 (`chip_smoke.composed_sim` with FULL_COMPOSED: HPA + cluster autoscaler),
-steps to the warm-up time (t=190 s; 590 s on the autoscaler path, inside
-its load burst) and keeps that state. Then it runs the same `--windows`
+or with `--path replay` the full-width Alibaba trace replay
+(`chip_smoke.replay_sim` on FULL_REPLAY: one cluster, the sorted cycle
+route, the CA on), steps to the warm-up time (t=190 s; 590 s on the
+autoscaler path, inside its load burst; 43 200 s, mid-day, on the replay)
+and keeps that state. Then it runs the same `--windows`
 windows twice from it (the state is immutable, so `install_state` replays
 them):
   1. untraced, on the host clock, ending in a synchronize;
@@ -34,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import FULL_COMPOSED, composed_sim, headline_sim
+from chip_smoke import FULL_COMPOSED, FULL_REPLAY, composed_sim, headline_sim, replay_sim, replay_trace
 
 HERE = Path(__file__).resolve().parent
 
@@ -42,7 +45,7 @@ HERE = Path(__file__).resolve().parent
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=20)
-    ap.add_argument("--path", choices=("headline", "autoscaler"), default="headline")
+    ap.add_argument("--path", choices=("headline", "autoscaler", "replay"), default="headline")
     args = ap.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
@@ -60,9 +63,12 @@ def main(argv=None) -> int:
     if args.path == "headline":
         sim = headline_sim("cuda")
         sim.step_until_time(190.0)
-    else:
+    elif args.path == "autoscaler":
         sim = composed_sim("cuda", 256, **FULL_COMPOSED)
         sim.step_until_time(590.0)
+    else:
+        sim = replay_sim("cuda", replay_trace("replay_full", **FULL_REPLAY))
+        sim.step_until_time(43200.0)
     torch.cuda.synchronize()
     state0, window0 = sim.state, sim.next_window_idx
 
@@ -110,6 +116,7 @@ def main(argv=None) -> int:
         "card": card,
         "path": args.path,
         "windows": n,
+        "cycle_route": sim.cycle_route,
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},
@@ -119,10 +126,11 @@ def main(argv=None) -> int:
         "device_idle_share": (1.0 - busy_ms / traced_ms) if busy_us > 0 else None,
         "device_kernels_per_window": launches / n,
         "port_kernels_ms_per_window": {
-            name: sum(us for k, us, _ in kernels if name in k) / 1e3 / n
+            name: sum(us for k, us, _ in kernels if f"::{name}(" in k or k.startswith(f"{name}(")) / 1e3 / n
             for name in (
                 "event_scatter_kernel", "free_resources_kernel", "select_cycle_commit_kernel",
-                "ca_scale_down_kernel", "ca_scale_up_kernel",
+                "ca_scale_down_kernel", "ca_scale_up_kernel", "schedule_cycle_kernel",
+                "select_schedule_cycle_kernel", "commit_fill_kernel", "commit_scatter_kernel",
             )
         },
         "top": [

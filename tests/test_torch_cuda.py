@@ -153,6 +153,44 @@ def megakernel_inputs(seed, C=4, N=8, P=24, K=6):
     ), K
 
 
+def cycle_inputs(seed, C=5, N=8, K=6):
+    """Candidate-cycle operands: valid rows a prefix per cluster, as the
+    queue sort leaves them (a lane with none, a lane with all K), requests
+    past the prefix from other pods, ties in node scores and requests that
+    fit nowhere."""
+    rng = np.random.default_rng(seed)
+    alive = rng.random((C, N)) < 0.8
+    alloc_cpu = rng.choice([0, 4000, 8000, 16000], (C, N)).astype(np.int32)
+    alloc_ram = rng.choice([0, 4096, 8192, 16384], (C, N)).astype(np.int32)
+    n_valid = rng.integers(1, K, C)
+    n_valid[0] = K
+    n_valid[1:2] = 0
+    valid = np.arange(K)[None, :] < n_valid[:, None]
+    req_cpu = rng.choice([1000, 2000, 4000, 12000], (C, K)).astype(np.int32)
+    req_ram = rng.choice([1024, 2048, 4096, 12288], (C, K)).astype(np.int32)
+    return alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram
+
+
+def commit_inputs(seed, C=5, P=24, K=6):
+    """Commit-scatter operands: unique candidate slots per cluster, a valid
+    prefix split into assigned and parked rows (a lane with none), and
+    pod rows to write into."""
+    rng = np.random.default_rng(seed)
+    cand = np.stack([rng.permutation(P)[:K] for _ in range(C)]).astype(np.int32)
+    n_valid = rng.integers(0, K + 1, C)
+    n_valid[1] = 0
+    valid = np.arange(K)[None, :] < n_valid[:, None]
+    fits = rng.random((C, K)) < 0.6
+    assign = valid & fits
+    park = valid & ~fits
+    best = rng.integers(0, 8, (C, K)).astype(np.int32)
+    start_s = rng.uniform(0.0, 1.0, (C, K)).astype(np.float32)
+    park_s = rng.uniform(0.0, 1.0, (C, K)).astype(np.float32)
+    phase = rng.integers(0, 4, (C, P)).astype(np.int32)
+    node = rng.integers(-1, 8, (C, P)).astype(np.int32)
+    return cand, assign, park, best, start_s, park_s, phase, node
+
+
 def ca_down_inputs(seed, C=5, N=12, S=8, K=4):
     """Scale-down kernel operands: lanes with the branch off, candidates
     over and under the threshold, pending ones, dead ones, padding slots,
@@ -283,12 +321,39 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_cycle_route_kernels_match_plain_versions(cuda_device, seed):
+    """The sorted and two-kernel routes' kernels equal their plain versions
+    exactly on the same card inputs, at the test shapes and at the replay's
+    and the headline's widths, and count one launch per call."""
+    margs, K = megakernel_inputs(seed)
+    wide, K_wide = megakernel_inputs(seed, C=8, N=256, P=2048, K=64)
+    cases = [
+        ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed), {}),
+        ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, C=1, N=1713, K=256), {}),
+        ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9], {"k_pods": K}),
+        ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, wide[:9], {"k_pods": K_wide}),
+        ("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed), {}),
+        ("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed, C=64, P=2048, K=64), {}),
+    ]
+    for name, plain, args, kwargs in cases:
+        port_kernels.reset_launches()
+        dev_args = [t(a).to(cuda_device) for a in args]
+        got = getattr(port_kernels, name)(*dev_args, **kwargs)
+        torch.cuda.synchronize()
+        assert port_kernels.LAUNCHES[name] == 1
+        want = plain(*dev_args, **kwargs)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (name, i)
+
+
+@pytest.mark.cuda
 def test_card_run_matches_cpu_run(cuda_device):
-    """On the card the main path goes through the three CUDA kernels and
-    ends in the CPU run's state."""
+    """On the card the main path (below 128 clusters: the sorted route)
+    goes through its three CUDA kernels and ends in the CPU run's state."""
     port_kernels.reset_launches()
     card = state_to_numpy(_churn_sim(cuda_device, 600.0).state)
-    scheduling = ("fused_event_scatter", "fused_free_resources", "fused_select_cycle_commit")
+    scheduling = ("fused_event_scatter", "fused_free_resources", "fused_schedule_cycle")
     assert all(port_kernels.LAUNCHES[n] > 0 for n in scheduling), port_kernels.LAUNCHES
     assert compare_states(state_to_numpy(_churn_sim("cpu", 600.0).state), card) == []
 

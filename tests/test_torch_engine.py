@@ -76,6 +76,17 @@ def test_main_path_matches_xla_and_megakernel(main_runs, monkeypatch):
     assert port.host_syncs == 0
 
 
+def test_forced_megakernel_route_matches_reference(main_runs):
+    """Below 128 clusters the engine takes the sorted route; forced after
+    the build, the megakernel route (its plain version on the CPU) ends in
+    the same state as the reference's XLA path."""
+    port = build_port_engine(BENCH_CONFIG, MAIN, 4, 8)
+    assert port.cycle_route == "sorted"
+    port.cycle_route = "megakernel"
+    port.step_until_time(150.0)
+    assert compare_states(main_runs[150.0], state_to_numpy(port.state)) == []
+
+
 @pytest.mark.parametrize(
     "seed,conditional_move", [(3, False), (17, False), (5, True)]
 )

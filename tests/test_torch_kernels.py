@@ -1,7 +1,17 @@
-"""Kernel-level parity: each of the port's three scheduling kernels (plain
+"""Kernel-level parity: each of the port's six scheduling kernels (plain
 PyTorch version on the CPU) against the JAX package's Pallas kernel in
 interpret mode, on seeded inputs at small C, N, P, K (the two CA kernels'
-parity is in test_torch_autoscale.py).
+parity is in test_torch_autoscale.py). The three cycle-route kernels are
+also held against the XLA formulations they replace: the lax.scan cycle
+(reference step.py:1683-1718) after the queue sort, and commit_cycle's
+scatters (step.py:1436-1457).
+
+The Pallas cycle kernels bound their loop by the deepest cluster of a
+128-cluster lane tile; the port's, like the Pallas kernel on a lone
+cluster, by each cluster's own. So the cycle kernels are compared with the
+Pallas kernel run one cluster at a time on every output, and with the
+batched call on every row a consumer reads (valid rows, and the
+allocatables).
 
 Tolerance: every output exactly equal, except the estimator stats rows
 (count/total/total_sq/min/max), held to rtol 1e-6 — the compare_states
@@ -15,8 +25,24 @@ versions on the card by chip_smoke.py and test_torch_cuda.py.
 import numpy as np
 import pytest
 
-from test_torch_cuda import ca_down_inputs, ca_up_inputs, event_inputs, free_inputs, megakernel_inputs, t as _t
+from test_torch_cuda import (
+    ca_down_inputs,
+    ca_up_inputs,
+    commit_inputs,
+    cycle_inputs,
+    event_inputs,
+    free_inputs,
+    megakernel_inputs,
+    t as _t,
+)
 from test_torch_reference import jax_kernels
+
+import jax
+import jax.numpy as jnp
+from kubernetriks_tpu.batched.pipeline import DEFAULT_PROFILE as JAX_DEFAULT_PROFILE
+from kubernetriks_tpu.batched.pipeline import profile_fit_score as jax_profile_fit_score
+from kubernetriks_tpu.batched.step import lexsort_time_i32 as jax_lexsort
+from kubernetriks_tpu.batched.timerep import TPair as JaxTPair
 
 from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
@@ -63,19 +89,132 @@ def test_select_cycle_commit_matches_pallas(seed):
     assert (phase_out[args[3]] == 3).any() and (phase_out[args[3]] == 2).any()
 
 
+def _per_cluster(fn, args, **kwargs):
+    """The Pallas kernel run on one cluster at a time, outputs stacked."""
+    outs = [fn(*(a[c : c + 1] for a in args), **kwargs) for c in range(args[0].shape[0])]
+    return [np.concatenate([np.asarray(o[i]) for o in outs]) for i in range(len(outs[0]))]
+
+
+def _scan_cycle(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram):
+    """The reference's lax.scan cycle (step.py:1683-1718) over K sorted
+    candidates: (assign, park, best, alloc_cpu, alloc_ram)."""
+    C, N = alloc_cpu.shape
+    alive = jnp.asarray(alive)
+
+    def body(carry, xs):
+        cpu, ram = carry
+        v, rc, rr = xs
+        fit, score = jax_profile_fit_score(JAX_DEFAULT_PROFILE, alive, cpu, ram, rc[:, None], rr[:, None])
+        best = jnp.int32(N - 1) - jax.lax.argmax(score[:, ::-1], 1, jnp.int32)
+        any_fit = fit.any(axis=1)
+        assign = v & any_fit
+        rows = jnp.arange(C, dtype=jnp.int32)
+        best_c = jnp.clip(best, 0, None)
+        cpu = cpu.at[rows, best_c].add(jnp.where(assign, -rc, 0))
+        ram = ram.at[rows, best_c].add(jnp.where(assign, -rr, 0))
+        return (cpu, ram), (assign, v & ~any_fit, best)
+
+    xs = (jnp.asarray(valid).T, jnp.asarray(req_cpu).T, jnp.asarray(req_ram).T)
+    (cpu, ram), outs = jax.lax.scan(body, (jnp.asarray(alloc_cpu), jnp.asarray(alloc_ram)), xs)
+    return [np.asarray(o).T for o in outs] + [np.asarray(cpu), np.asarray(ram)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_schedule_cycle_matches_pallas_and_scan(seed):
+    args = cycle_inputs(seed)
+    valid = args[3]
+    got = [g.numpy() for g in port_kernels.fused_schedule_cycle(*(_t(a) for a in args))]
+    _assert_outputs([_t(g) for g in got], _per_cluster(jax_kernels.fused_schedule_cycle, args, interpret=True))
+    # The batched Pallas call: every row a consumer reads.
+    want = [np.asarray(w) for w in jax_kernels.fused_schedule_cycle(*args, interpret=True)]
+    np.testing.assert_array_equal(got[0], want[0])
+    for i in (1, 2):
+        np.testing.assert_array_equal(got[i][valid], want[i][valid])
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[4], want[4])
+    # The lax.scan formulation: park = valid & ~fit_any on valid rows.
+    assign, park, best, cpu, ram = _scan_cycle(*args)
+    np.testing.assert_array_equal(got[0], assign)
+    np.testing.assert_array_equal((valid & ~got[1]), park)
+    np.testing.assert_array_equal(got[2][valid], best[valid])
+    np.testing.assert_array_equal(got[3], cpu)
+    np.testing.assert_array_equal(got[4], ram)
+    assert got[0].any() and park.any()
+    # Rows past a cluster's last valid row stay zero.
+    assert not got[1][1].any() and not got[2][1].any()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_select_schedule_cycle_matches_pallas_and_sorted_scan(seed):
+    margs, K = megakernel_inputs(seed)
+    args = margs[:9]
+    got = [g.numpy() for g in port_kernels.fused_select_schedule_cycle(*(_t(a) for a in args), k_pods=K)]
+    _assert_outputs(
+        [_t(g) for g in got],
+        _per_cluster(jax_kernels.fused_select_schedule_cycle, args, k_pods=K, interpret=True),
+    )
+    # The sorted route: the queue sort's top K, then the lax.scan cycle.
+    alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram = args
+    C, P = eligible.shape
+    inf_win = np.int32(1 << 29)
+    order = np.asarray(jax_lexsort(
+        JaxTPair(jnp.where(eligible, qwin, inf_win), jnp.where(eligible, qoff, 0.0)),
+        jnp.where(eligible, qseq, np.iinfo(np.int32).max),
+    ))[:, :K]
+    valid = np.take_along_axis(eligible, order, 1)
+    assign, park, best, cpu, ram = _scan_cycle(
+        alive, alloc_cpu, alloc_ram, valid,
+        np.take_along_axis(req_cpu, order, 1), np.take_along_axis(req_ram, order, 1),
+    )
+    np.testing.assert_array_equal(got[1], valid)
+    np.testing.assert_array_equal(got[0][valid], order[valid])
+    np.testing.assert_array_equal(got[2], assign)
+    np.testing.assert_array_equal(valid & ~got[3], park)
+    np.testing.assert_array_equal(got[4][valid], best[valid])
+    np.testing.assert_array_equal(got[5], cpu)
+    np.testing.assert_array_equal(got[6], ram)
+
+
+def _xla_commit(cand, assign, park, best, start_s, park_s, phase, node):
+    """commit_cycle's XLA scatters (reference step.py:1436-1457)."""
+    C, P = phase.shape
+    rows = jnp.arange(C, dtype=jnp.int32)[:, None]
+    new_phase = jnp.where(assign, 3, jnp.where(park, 2, -1)).astype(jnp.int32)
+    touched = assign | park
+    inf = jnp.float32(np.inf)
+    return [np.asarray(x) for x in (
+        jnp.asarray(phase).at[rows, jnp.where(touched, cand, P)].set(jnp.where(touched, new_phase, 0), mode="drop"),
+        jnp.asarray(node).at[rows, jnp.where(assign, cand, P)].set(jnp.where(assign, best, 0), mode="drop"),
+        jnp.full((C, P), inf).at[rows, jnp.where(assign, cand, P)].set(jnp.where(assign, start_s, inf), mode="drop"),
+        jnp.full((C, P), inf).at[rows, jnp.where(park, cand, P)].set(jnp.where(park, park_s, inf), mode="drop"),
+    )]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_commit_scatter_matches_pallas_and_xla(seed):
+    args = commit_inputs(seed)
+    got = port_kernels.fused_commit_scatter(*(_t(a) for a in args))
+    _assert_outputs(got, jax_kernels.fused_commit_scatter(*args, interpret=True))
+    _assert_outputs(got, _xla_commit(*args))
+    assert (got[2].numpy() < np.inf).any() and (got[3].numpy() < np.inf).any()
+
+
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions and count
     nothing: a count means a CUDA launch."""
     port_kernels.reset_launches()
     args, K = megakernel_inputs(0)
     port_kernels.fused_select_cycle_commit(*(_t(a) for a in args), k_pods=K)
+    port_kernels.fused_select_schedule_cycle(*(_t(a) for a in args[:9]), k_pods=K)
+    port_kernels.fused_schedule_cycle(*(_t(a) for a in cycle_inputs(0)))
+    port_kernels.fused_commit_scatter(*(_t(a) for a in commit_inputs(0)))
     port_kernels.fused_free_resources(*(_t(a) for a in free_inputs(0)))
     port_kernels.fused_event_scatter(*(_t(a) for a in event_inputs(0)))
     args, S = ca_up_inputs(0)
     ca_kernels.fused_ca_scale_up(*(_t(a) for a in args), n_slots=S)
     args, K = ca_down_inputs(0)
     ca_kernels.fused_ca_scale_down(*(_t(a) for a in args), k_sd=K)
-    assert len(port_kernels.LAUNCHES) == 5
+    assert len(port_kernels.LAUNCHES) == 8
     assert all(v == 0 for v in port_kernels.LAUNCHES.values())
 
 

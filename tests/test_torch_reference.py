@@ -142,13 +142,14 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
     assert compare_states(jax_state_to_numpy(sim.state), state_to_numpy(port.state)) == []
 
 
-def test_port_main_path_loads_no_jax():
-    """The port's main path and its autoscaler path, run in a fresh
-    interpreter, leave no module named jax* or kubernetriks_tpu.* in
-    sys.modules."""
+def test_port_main_path_loads_no_jax(tmp_path):
+    """The port's main path, its autoscaler path, the trace replay and the
+    CLI, run in a fresh interpreter, leave no module named jax* or
+    kubernetriks_tpu.* in sys.modules."""
     code = textwrap.dedent(
         """
         import sys
+        import tempfile
         from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
         from kubernetriks_tpu_torch.config import SimulationConfig
         from kubernetriks_tpu_torch.convert import state_to_numpy
@@ -169,6 +170,21 @@ def test_port_main_path_loads_no_jax():
         state_to_numpy(auto.state)
         counters = auto.metrics_summary()["counters"]
         assert counters["total_scaled_up_pods"] > 0 and counters["total_scaled_up_nodes"] > 0
+        from kubernetriks_tpu_torch import cli
+        from kubernetriks_tpu_torch.trace.synthetic_alibaba import write_synthetic_trace_dir
+        machines, tasks, instances = write_synthetic_trace_dir(
+            tempfile.mkdtemp(), n_machines=10, n_tasks=30, horizon=600.0, error_fraction=0.1, seed=3)
+        config_path = tempfile.mktemp(suffix=".yaml")
+        with open(config_path, "w") as f:
+            f.write("sim_name: t\\ntrace_config:\\n  alibaba_cluster_trace_v2017:\\n"
+                    f"    machine_events_trace_path: {machines}\\n"
+                    f"    batch_task_trace_path: {tasks}\\n"
+                    f"    batch_instance_trace_path: {instances}\\n")
+        replay = cli.build_batched_simulation(SimulationConfig.from_file(config_path), 1, device="cpu")
+        replay.run_to_completion()
+        assert replay.cycle_route == "sorted"
+        assert replay.metrics_summary()["counters"]["pods_succeeded"] == replay.n_real_pods
+        assert cli.main(["--config-file", config_path, "--device", "cpu", "--report", "table"]) == 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                      or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
@@ -178,6 +194,7 @@ def test_port_main_path_loads_no_jax():
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([REPO, os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])
+    env["TMPDIR"] = str(tmp_path)
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
