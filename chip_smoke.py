@@ -5,7 +5,7 @@
 
 Phases; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the five CUDA kernels from ops/csrc with nvcc (one process each,
+  2. build the eight CUDA kernels from ops/csrc with nvcc (one process each,
      all at once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      inputs captured from its path at that path's shapes — the three
@@ -53,7 +53,10 @@ Phases; any failure exits non-zero:
      under compare_states.
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
-KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay.
+KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay;
+and the two redesigned cycle kernels above K = 256: the megakernel with
+K = P = 2 048 on a seeded deep queue over the headline's captured rows, the
+candidate cycle with K = 1 024 rows over the replay's captured node rows.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -430,6 +433,80 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def deep_queue(args, kwargs, seed: int = 11):
+    """The megakernel's captured operands with K = P and a deep queue: 60 %
+    of the pod slots eligible, queue keys (win 0-2, offsets among 0.0,
+    -0.0, 0.5 and 2.25, a unique seq) and requests (1, 4 or 8 times the
+    largest captured one, or 17 times its cpu, which fits no headline
+    node) drawn from `seed`, the positional tables built as the engine
+    builds them. Node and pod rows as captured."""
+    from kubernetriks_tpu_torch.batched.step import xla_cumsum16
+
+    alive, acpu, aram, eligible = args[:4]
+    base_cpu, base_ram = int(args[7].max()), int(args[8].max())
+    waited, phase, node, _, start_t, park_t = args[9:]
+    C, P = eligible.shape
+    dev = eligible.device
+    g = torch.Generator().manual_seed(seed)
+    elig = torch.rand((C, P), generator=g) < 0.6
+    qwin = torch.randint(0, 3, (C, P), generator=g, dtype=torch.int32)
+    qoff = torch.tensor([0.0, -0.0, 0.5, 2.25])[torch.randint(0, 4, (C, P), generator=g)]
+    qseq = torch.argsort(torch.rand((C, P), generator=g), dim=1).to(torch.int32)
+    pick = torch.randint(0, 4, (C, P), generator=g)
+    req_cpu = (torch.tensor([1, 4, 8, 17], dtype=torch.int32) * base_cpu)[pick]
+    req_ram = (torch.tensor([1, 4, 8, 1], dtype=torch.int32) * base_ram)[pick]
+    dur = park_t[:, :1].expand(C, P).contiguous()  # the first table entry is one pod's time
+    cd_post = xla_cumsum16(dur)
+    bind = (start_t[:, :1] - park_t[:, :1]).contiguous()
+    ops = [t.to(dev) for t in (elig, qwin, qoff, qseq, req_cpu, req_ram)]
+    return (
+        alive, acpu, aram, *ops, waited, phase, node,
+        (cd_post - dur).contiguous(), (cd_post + bind).contiguous(), cd_post.contiguous(),
+    ), {"k_pods": P}
+
+
+def long_cycle(args, K: int, n_valid: int = 1000, seed: int = 12):
+    """The candidate cycle's captured node rows with K candidate rows, the
+    first n_valid valid, their requests drawn from `seed` among the
+    captured valid rows' requests."""
+    alive, acpu, aram, valid, req_cpu, req_ram = args
+    C = valid.shape[0]
+    dev = valid.device
+    g = torch.Generator().manual_seed(seed)
+    pool = torch.nonzero(valid.reshape(-1)).reshape(-1).cpu()
+    pick = pool[torch.randint(0, len(pool), (C * K,), generator=g)].to(dev)
+    rows = (torch.arange(K, device=dev) < n_valid).expand(C, K).contiguous()
+    return (
+        alive, acpu, aram, rows,
+        req_cpu.reshape(-1)[pick].reshape(C, K).contiguous(),
+        req_ram.reshape(-1)[pick].reshape(C, K).contiguous(),
+    )
+
+
+def chain_floors(sk, dev, n: int = 1024) -> dict:
+    """Microseconds per candidate of the cycle kernels' dependent chains at
+    their least work, from one cluster of 32 always-fitting nodes (one
+    block of the fewest threads the kernel runs): the candidate cycle over
+    n valid rows (the decision pass the megakernel runs too), and the
+    two-kernel route's selection kernel over n eligible pods with K = n
+    (its queue pick and decision pass, per pick)."""
+    g = torch.Generator().manual_seed(13)
+    N = 32
+    alive = torch.ones((1, N), dtype=torch.bool)
+    cap = torch.full((1, N), 1 << 30, dtype=torch.int32)
+    req = torch.randint(1, 100, (1, n), generator=g, dtype=torch.int32)
+    ones = torch.ones((1, n), dtype=torch.bool)
+    cyc = [x.to(dev) for x in (alive, cap, cap.clone(), ones, req, req.clone())]
+    seq = torch.argsort(torch.rand((1, n), generator=g), dim=1).to(torch.int32)
+    zeros = torch.zeros((1, n), dtype=torch.int32)
+    sel = [x.to(dev) for x in (alive, cap, cap.clone(), ones, zeros, zeros.float(), seq, req, req.clone())]
+    return {
+        "fused_schedule_cycle": 1e3 * graph_ms([lambda: sk.fused_schedule_cycle(*cyc)]) / n,
+        "fused_select_schedule_cycle": 1e3 * graph_ms(
+            [lambda: sk.fused_select_schedule_cycle(*sel, k_pods=n)]) / n,
+    }
+
+
 def main() -> int:
     if not (HERE / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
         fail("the kubernetriks_tpu_torch package is not beside this script", 2)
@@ -489,7 +566,7 @@ def main() -> int:
             for _ in range(n - 1)
         ]
 
-    def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops):
+    def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops, label=None):
         outs_k = as_tuple(kernel_fn(*args, **kwargs))
         torch.cuda.synchronize()
         outs_p = as_tuple(plain_fn(*args, **kwargs))
@@ -503,7 +580,8 @@ def main() -> int:
         library_ms = graph_ms([library(a) for a in sets]) if library else None
         bytes_s = need_bytes / HBM_BYTES_PER_S
         ops_s = ops / FP32_OPS_PER_S
-        report[name] = {
+        label = label or name
+        report[label] = {
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
@@ -515,10 +593,10 @@ def main() -> int:
         }
         lib = f"{library_ms:.4f}" if library_ms is not None else "n/a"
         print(
-            f"  {name}: agrees with its plain version (tolerance: outputs exact, stats rows "
+            f"  {label}: agrees with its plain version (tolerance: outputs exact, stats rows "
             f"rtol 1e-6; max abs err {err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib} ms, bound {report[name]['bound_ms']:.4f} ms "
-            f"({report[name]['bound_by']}: {need_bytes} B, {ops} ops)",
+            f"library {lib} ms, bound {report[label]['bound_ms']:.4f} ms "
+            f"({report[label]['bound_by']}: {need_bytes} B, {ops} ops)",
             flush=True,
         )
 
@@ -568,21 +646,32 @@ def main() -> int:
     # Megakernel; no single library call computes it. Per pick: three key
     # compares per remaining eligible pod, ~16 operations per node (fit,
     # score, argmax).
+    def megakernel_need(args, K):
+        eligible = args[3]
+        C, N = args[1].shape
+        P = eligible.shape[1]
+        elig = eligible.sum(dim=1).to(torch.int64)
+        picks = torch.clamp(elig, max=K)
+        n_picks = int(picks.sum())
+        scanned = int((picks * elig - picks * (picks - 1) // 2).sum())
+        return (
+            eligible.numel() + 12 * int(elig.sum()) + 24 * n_picks + 9 * C * N + 8 * C * P
+            + 8 * C * N + 16 * C * P + 20 * C,
+            3 * scanned + 16 * N * n_picks,
+        )
+
     args, kwargs = captured["fused_select_cycle_commit"]
-    eligible = args[3]
-    C, N = args[1].shape
-    P = eligible.shape[1]
-    K = kwargs["k_pods"]
-    elig = eligible.sum(dim=1).to(torch.int64)
-    picks = torch.clamp(elig, max=K)
-    n_picks = int(picks.sum())
-    scanned = int((picks * elig - picks * (picks - 1) // 2).sum())
     check_kernel(
         "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
-        args, kwargs, 6, None,
-        eligible.numel() + 12 * int(elig.sum()) + 24 * n_picks + 9 * C * N + 8 * C * P
-        + 8 * C * N + 16 * C * P + 20 * C,
-        3 * scanned + 16 * N * n_picks,
+        args, kwargs, 6, None, *megakernel_need(args, kwargs["k_pods"]),
+    )
+    # K = P: the cycle size the engine takes when none is given, on a deep
+    # queue, so the kernel orders it in several batches.
+    args, kwargs = deep_queue(args, kwargs)
+    check_kernel(
+        "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
+        args, kwargs, 6, None, *megakernel_need(args, kwargs["k_pods"]),
+        label=f"fused_select_cycle_commit (K=P={kwargs['k_pods']}, deep queue)",
     )
     del sim, captured
 
@@ -737,16 +826,32 @@ def main() -> int:
     # rows up to the last valid one (8 B each); writes the node rows and
     # 6 B per candidate row. ~16 operations per node per row. No library
     # call computes it.
+    def cycle_need(args):
+        C, N = args[1].shape
+        K = args[3].shape[1]
+        live = torch.where(args[3], torch.arange(1, K + 1, device=dev), 0).amax(dim=1)
+        n_live = int(live.sum())
+        return 9 * C * N + C * K + 8 * n_live + 8 * C * N + 6 * C * K, 16 * N * n_live
+
     args, kwargs = busiest["fused_schedule_cycle"]
-    C, N = args[1].shape
-    K = args[3].shape[1]
-    live = torch.where(args[3], torch.arange(1, K + 1, device=dev), 0).amax(dim=1)
-    n_live = int(live.sum())
     check_kernel(
         "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
-        None, 9 * C * N + C * K + 8 * n_live + 8 * C * N + 6 * C * K, 16 * N * n_live,
+        None, *cycle_need(args),
+    )
+    # K = 1 024 rows, 1 000 of them valid, on the replay's node rows: two
+    # tiles of the kernel's candidate buffer.
+    args = long_cycle(args, 1024)
+    check_kernel(
+        "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
+        None, *cycle_need(args), label="fused_schedule_cycle (K=1024, 1000 valid rows)",
     )
     del sim, busiest
+    floors = chain_floors(sk, dev)
+    print(
+        "phase 3: chain floor per candidate (one cluster, 32 nodes, 1 024 candidates): "
+        + ", ".join(f"{k} {v:.4f} us" for k, v in floors.items()),
+        flush=True,
+    )
 
     # --- 4. the main path ----------------------------------------------------
     sim = headline_sim(dev)
@@ -1062,7 +1167,8 @@ def main() -> int:
         })
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump({
-            "card": smi, "build_s": build_s, "kernels": kernels, "main_path": main_path,
+            "card": smi, "build_s": build_s, "kernels": kernels, "chain_floor_us": floors,
+            "checks": report, "main_path": main_path,
             "autoscaler_path": autoscaler_path, "two_kernel_path": two_kernel_path,
             "replay_path": replay_path,
         }, f, indent=1, default=float)

@@ -24,12 +24,13 @@ through their plain PyTorch versions.
 
 The scheduling cycle's route (`cycle_route`, step.CYCLE_ROUTES) is fixed at
 build, as the reference fixes its kernel flags (engine.py:1505-1546):
-"megakernel" from 128 clusters on while its shared memory fits and
-KTPU_MEGAKERNEL is not 0, "two_kernel" where the flag is 0 (the selection
-kernel's shared memory is the megakernel's), else "sorted" (always below
-128 clusters: one cluster per block leaves the card idle, and the queue
-sort plus the candidate kernel's early exit is what the reference runs
-there). Nothing else picks the route, and a build or launch failure never
+"megakernel" from 128 clusters on while the two-kernel route's selection
+kernel fits its shared memory (the reference's megakernel gate, kept for
+both dense routes so a flag never changes which shapes run dense) and
+KTPU_MEGAKERNEL is not 0, "two_kernel" where the flag is 0, else "sorted"
+(always below 128 clusters: one cluster per block leaves the card idle,
+and the queue sort plus the candidate kernel's early exit is what the
+reference runs there). Nothing else picks the route, and a build or launch failure never
 changes it.
 
 The window loop reads nothing back from the device: the engine keeps the
@@ -66,7 +67,7 @@ from kubernetriks_tpu_torch.batched.state import (
     init_state,
     make_step_constants,
 )
-from kubernetriks_tpu_torch.batched.step import CUMSUM_MAX_K, DeviceConstants, WindowPlan, window_body
+from kubernetriks_tpu_torch.batched.step import DeviceConstants, WindowPlan, window_body
 from kubernetriks_tpu_torch.batched.timerep import INF_WIN, TPair, from_f64_np, t_add, t_inf, t_le, t_lt, t_where
 from kubernetriks_tpu_torch.batched.trace_compile import (
     CompiledClusterTrace,
@@ -116,8 +117,8 @@ def flag_bool(name: str, default: bool) -> bool:
 
 def choose_cycle_route(n_clusters: int, n_nodes: int, n_pods: int, megakernel: bool = True) -> str:
     """The cycle route for this shape (module note); `megakernel` is the
-    KTPU_MEGAKERNEL flag. The megakernel and the selection kernel hold the
-    same rows in shared memory, so one gate serves both."""
+    KTPU_MEGAKERNEL flag. One gate, the selection kernel's shared memory,
+    serves both dense routes."""
     if n_clusters < DENSE_CLUSTERS or selection_smem_bytes(n_nodes, n_pods) > SMEM_LIMIT:
         return "sorted"
     return "megakernel" if megakernel else "two_kernel"
@@ -485,13 +486,6 @@ class BatchedSimulation:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
-        if self.max_pods_per_cycle > CUMSUM_MAX_K:
-            raise ValueError(
-                f"max_pods_per_cycle={self.max_pods_per_cycle} (the pod slot count "
-                f"when not given) is above {CUMSUM_MAX_K}, the largest cycle "
-                f"step.xla_cumsum16 is pinned for; pass max_pods_per_cycle <= "
-                f"{CUMSUM_MAX_K} (ROADMAP Queue 3, the cumsum trap, lifts this)"
-            )
         self.cycle_route = choose_cycle_route(
             C, self.n_nodes, self.n_pods, flag_bool("KTPU_MEGAKERNEL", True)
         )

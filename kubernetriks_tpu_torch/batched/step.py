@@ -79,7 +79,6 @@ from kubernetriks_tpu_torch.ops.scheduler_kernel import (
 INF = float("inf")
 INT32_MAX = torch.iinfo(torch.int32).max
 CUMSUM_BLOCK = 16
-CUMSUM_MAX_K = 256
 CYCLE_ROUTES = ("megakernel", "two_kernel", "sorted")
 
 
@@ -143,18 +142,16 @@ def xla_cumsum16(x: torch.Tensor) -> torch.Tensor:
     """Row-wise float32 prefix sum with the bits of `jnp.cumsum` on XLA:CPU.
 
     XLA lowers the cumsum to a reduce_window and rewrites it into a blocked
-    scan with blocks of 16: inside each block a sequential prefix sum, and
-    each later block gets the sequential sum of the earlier block totals
-    added (`blk + carry`). That order differs from a plain sequential sum
-    (`torch.cumsum`, `np.cumsum`) in the last bit on most rows, and the
-    result becomes pod start times, which parity requires exactly equal.
-    This function adds in that order with elementwise adds, so it gives the
-    same bits on the CPU and on the card. Pinned against `jnp.cumsum` for
-    K up to 256; above that XLA's rewrite may recurse, so it raises.
+    scan with blocks of 16: inside each block a sequential prefix sum; the
+    block totals are scanned by the same blocked scheme (recursively, once
+    there are more than 16 blocks); each later block then gets the scanned
+    total of the blocks before it added (`blk + carry`). That order differs
+    from a plain sequential sum (`torch.cumsum`, `np.cumsum`) in the last
+    bit on most rows, and the result becomes pod start times, which parity
+    requires exactly equal. This function adds in that order with
+    elementwise adds, so it gives the same bits on the CPU and on the card.
     """
     C, K = x.shape
-    if K > CUMSUM_MAX_K:
-        raise ValueError(f"xla_cumsum16: K={K} > {CUMSUM_MAX_K} is not pinned against XLA")
     if K == 0:
         return x
     nb = -(-K // CUMSUM_BLOCK)
@@ -168,12 +165,10 @@ def xla_cumsum16(x: torch.Tensor) -> torch.Tensor:
         acc = acc + xb[:, :, j]
         cols.append(acc)
     pre = torch.stack(cols, dim=2)  # (C, nb, 16) in-block prefix sums
-    out = [pre[:, 0]]
-    carry = pre[:, 0, -1]
-    for b in range(1, nb):
-        out.append(pre[:, b] + carry[:, None])
-        carry = carry + pre[:, b, -1]
-    return torch.cat(out, dim=1)[:, :K]
+    if nb > 1:
+        carry = xla_cumsum16(pre[:, :, -1].contiguous())  # (C, nb) scanned block totals
+        pre = torch.cat([pre[:, :1], pre[:, 1:] + carry[:, :-1, None]], dim=1)
+    return pre.reshape(C, nb * CUMSUM_BLOCK)[:, :K]
 
 
 def t_seconds_f32(a: TPair, interval: torch.Tensor) -> torch.Tensor:

@@ -16,16 +16,20 @@
 // K = 256) the function must read the node rows (9N B) and the candidates
 // up to the last valid one (9 B each), and write two node rows (8N B) and
 // 6 B per candidate row: ~30 KB, ~0.01 us at 3.35 TB/s. What bounds it is
-// latency: each candidate is a block-wide pass over the N nodes and a
-// reduction, one after another, and at C = 1 one block runs on one of the
-// 132 SMs.
+// latency: each candidate depends on the deduction of the one before, and
+// at C = 1 one block runs on one of the 132 SMs. The floor of that chain is
+// one score, two warp-max steps, one barrier and two more warp-max steps
+// per candidate.
 //
-// Design: one block of 256 threads per cluster (cycle_common.cuh). The
-// allocatable rows and the alive mask sit in shared memory (9N B: 15 KB at
-// N = 1 713), so a candidate is one pass over shared memory, a warp
-// shuffle reduction of (score, node) and one pass over the per-warp
-// results; thread 0 deducts and writes the row. The loop stops at the
-// cluster's own last valid row, the early exit of the Pallas kernel.
+// Design: one block per cluster of cycle_threads(N) threads (864 at
+// N = 1 713), each holding at most two node slots in registers
+// (cycle_common.cuh `NodeRegs`); the candidates' valid flags and requests
+// are staged in shared memory a tile of kTile rows at a time, so no global
+// load sits in the per-candidate chain. Per candidate: the register
+// decision pass (one barrier), the owner of the chosen node deducts in its
+// registers, thread 0 records the row in shared memory; each tile's rows
+// are written out once, coalesced. The loop stops at the cluster's own last
+// valid row, the early exit of the Pallas kernel.
 
 #include "cycle_common.cuh"
 
@@ -33,60 +37,72 @@ namespace {
 
 using namespace ktt;
 
-__global__ void schedule_cycle_kernel(
+constexpr int kTile = 512;
+
+template <int SLOTS>
+__global__ void __launch_bounds__(kMaxCycleThreads) schedule_cycle_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
     const int32_t* __restrict__ alloc_ram, const uint8_t* __restrict__ valid,
     const int32_t* __restrict__ req_cpu, const int32_t* __restrict__ req_ram,
     uint8_t* __restrict__ assign_out, uint8_t* __restrict__ fitany_out,
     int32_t* __restrict__ best_out, int32_t* __restrict__ cpu_out,
     int32_t* __restrict__ ram_out, int N, int K) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_cpu = smem;
-  int32_t* s_ram = s_cpu + N;
-  uint8_t* s_alive = reinterpret_cast<uint8_t*>(s_ram + N);
-  __shared__ Scratch scratch;
+  __shared__ int32_t s_rc[kTile], s_rr[kTile], s_best[kTile];
+  __shared__ uint8_t s_valid[kTile], s_assign[kTile], s_fit[kTile];
+  __shared__ Partials part;
   __shared__ int s_live;
 
   const size_t c = blockIdx.x;
   const size_t nb = c * (size_t)N, kb = c * (size_t)K;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
 
-  load_nodes(alive + nb, alloc_cpu + nb, alloc_ram + nb, N, s_cpu, s_ram, s_alive);
+  NodeRegs<SLOTS> nodes;
+  nodes.load(alive + nb, alloc_cpu + nb, alloc_ram + nb, N);
   // The bound: last valid row + 1.
   if (tid == 0) s_live = 0;
   __syncthreads();
   int live = 0;
-  for (int k = tid; k < K; k += kThreads)
+  for (int k = tid; k < K; k += T)
     if (valid[kb + k]) live = k + 1;
-  if (live) atomicMax(&s_live, live);
+  live = __reduce_max_sync(0xffffffffu, live);
+  if ((tid & 31) == 0 && live) atomicMax(&s_live, live);
   __syncthreads();
   const int bound = s_live;
-  for (int k = bound + tid; k < K; k += kThreads) {
+  for (int k = bound + tid; k < K; k += T) {
     assign_out[kb + k] = 0;
     fitany_out[kb + k] = 0;
     best_out[kb + k] = 0;
   }
 
-  for (int k = 0; k < bound; ++k) {
-    const int32_t rc = req_cpu[kb + k], rr = req_ram[kb + k];
-    const Decision d = block_fit_argmax(s_cpu, s_ram, s_alive, N, rc, rr, scratch);
-    if (tid == 0) {
-      const bool assign = valid[kb + k] && d.anyfit;
-      if (assign) {
-        s_cpu[d.best] -= rc;
-        s_ram[d.best] -= rr;
-      }
-      assign_out[kb + k] = assign ? 1 : 0;
-      fitany_out[kb + k] = d.anyfit ? 1 : 0;
-      best_out[kb + k] = d.best;
+  int buf = 0;
+  for (int t0 = 0; t0 < bound; t0 += kTile) {
+    const int n = bound - t0 < kTile ? bound - t0 : kTile;
+    for (int i = tid; i < n; i += T) {
+      s_valid[i] = valid[kb + t0 + i];
+      s_rc[i] = req_cpu[kb + t0 + i];
+      s_rr[i] = req_ram[kb + t0 + i];
     }
     __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const int32_t rc = s_rc[i], rr = s_rr[i];
+      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf);
+      buf ^= 1;
+      const bool assign = s_valid[i] && d.anyfit;
+      if (assign) nodes.deduct(d.best, rc, rr);
+      if (tid == 0) {
+        s_assign[i] = assign ? 1 : 0;
+        s_fit[i] = d.anyfit ? 1 : 0;
+        s_best[i] = d.best;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < n; i += T) {
+      assign_out[kb + t0 + i] = s_assign[i];
+      fitany_out[kb + t0 + i] = s_fit[i];
+      best_out[kb + t0 + i] = s_best[i];
+    }
   }
-
-  for (int i = tid; i < N; i += kThreads) {
-    cpu_out[nb + i] = s_cpu[i];
-    ram_out[nb + i] = s_ram[i];
-  }
+  nodes.store(cpu_out + nb, ram_out + nb, N);
 }
 
 }  // namespace
@@ -98,13 +114,13 @@ extern "C" int ktt_schedule_cycle(const void* alive, const void* alloc_cpu,
                                   void* cpu_out, void* ram_out, int C, int N, int K,
                                   void* stream) {
   if (C <= 0) return 0;
-  const size_t smem = 2 * sizeof(int32_t) * (size_t)N + (size_t)N;
-  const cudaError_t e = allow_smem(schedule_cycle_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  schedule_cycle_kernel<<<C, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
-      (const uint8_t*)valid, (const int32_t*)req_cpu, (const int32_t*)req_ram,
-      (uint8_t*)assign_out, (uint8_t*)fitany_out, (int32_t*)best_out,
-      (int32_t*)cpu_out, (int32_t*)ram_out, N, K);
-  return (int)cudaGetLastError();
+  const int T = cycle_threads(N);
+  return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
+    schedule_cycle_kernel<decltype(slots)::value><<<C, T, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
+        (const uint8_t*)valid, (const int32_t*)req_cpu, (const int32_t*)req_ram,
+        (uint8_t*)assign_out, (uint8_t*)fitany_out, (int32_t*)best_out,
+        (int32_t*)cpu_out, (int32_t*)ram_out, N, K);
+    return (int)cudaGetLastError();
+  });
 }

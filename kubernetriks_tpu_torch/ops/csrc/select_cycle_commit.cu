@@ -14,8 +14,9 @@
 //   3. if a node fits: deduct its allocatable, mark the pod RUNNING on it
 //      with start offset start_t[k], and fold waited + qpre_t[k] into the
 //      queue-time estimator; else park it UNSCHEDULABLE at park_t[k].
-// Picks run in order, one thread commits each, so the deductions and the
-// estimator fold happen in the reference loop's order.
+// A pick leaves the queue whatever its fit, so the K picks are the first
+// min(depth, K) eligible pods in key order, and only the placements depend
+// on each other.
 //
 // Bound on an H100: bytes. Per cluster the function must read the node
 // rows (9N B), the eligible mask (P B), the queue keys of the eligible pods
@@ -23,20 +24,26 @@
 // (24 B each) and the phase/node rows it copies through (8P B), and write
 // two node rows (8N B), four pod rows (16P B) and 5 stats: at N=256,
 // P=2048 ~56 KB per cluster, ~57 MB per launch at C=1024, ~17 us at
-// 3.35 TB/s (chip_smoke.py counts it from the run's data). The work per
-// pick (a pass over the queue keys and the N nodes) is latency-bound, not
-// rate-bound: K block-wide reductions in sequence per cluster.
+// 3.35 TB/s (chip_smoke.py counts it from the run's data). The placements
+// are a dependent chain per cluster: one score, two warp-max steps, one
+// barrier and two more warp-max steps per pick.
 //
-// Design: one block of 256 threads per cluster. The cluster's allocatable
-// rows, alive mask, the three queue-key rows and the remaining-eligible
-// mask sit in shared memory (4(2N+3P) + N + P bytes: ~29 KB at the
-// headline shape; the wrapper refuses shapes above 227 KB), so each of
-// the K picks is two block-wide reductions over shared memory (warp
-// shuffles, then one pass over the per-warp results; cycle_common.cuh,
-// shared with the two-kernel route's selection kernel and the sorted
-// route's candidate kernel) and one serial commit. The full-width outputs
-// (phase, node, start, park) are written once by coalesced strided copies
-// before the picks; each pick then touches one pod slot.
+// Design: one block per cluster of cycle_threads(N) threads (128 at
+// N = 256), the node rows in registers (cycle_common.cuh `NodeRegs`, at
+// most two slots a thread). The queue is ordered once: the eligible pods
+// are counted and compacted with a block prefix sum, their keys packed into
+// two 64-bit words and bitonic-sorted in a shared buffer of kCap entries;
+// the first min(depth, K) are the picks. Deeper queues run in batches of
+// kHalf picks: each batch keeps the kHalf least keys above the previous
+// batch's last, merging kHalf more entries per sort. A batch's requests
+// and estimator samples are gathered into shared memory, then the picks
+// run the register decision pass (one barrier each) and the owner deducts;
+// the phase/node/start/park writes of the batch follow in parallel and
+// thread 0 folds the estimator in pick order, the reference loop's float
+// order. The copy-through of the full pod rows is vectorised and
+// coalesced. Shared memory is 12 928 B whatever P and K; at N = 256 (46
+// registers a thread) ten blocks fit on an SM, so 1 024 clusters run in
+// one wave.
 
 #include "cycle_common.cuh"
 
@@ -44,7 +51,36 @@ namespace {
 
 using namespace ktt;
 
-__global__ void select_cycle_commit_kernel(
+constexpr int kCap = 512;
+constexpr int kHalf = kCap / 2;
+
+// phase/node copied through, start/park set to +inf (16-byte words when
+// the rows allow it).
+__device__ __forceinline__ void copy_through(const int32_t* phase_in, const int32_t* node_in,
+                                             int32_t* phase_out, int32_t* node_out,
+                                             float* start_out, float* park_out, int P) {
+  const uintptr_t mis = (uintptr_t)phase_in | (uintptr_t)node_in | (uintptr_t)phase_out |
+                        (uintptr_t)node_out | (uintptr_t)start_out | (uintptr_t)park_out;
+  if ((P & 3) == 0 && (mis & 15) == 0) {
+    const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+    for (int i = threadIdx.x; i < (P >> 2); i += blockDim.x) {
+      reinterpret_cast<int4*>(phase_out)[i] = reinterpret_cast<const int4*>(phase_in)[i];
+      reinterpret_cast<int4*>(node_out)[i] = reinterpret_cast<const int4*>(node_in)[i];
+      reinterpret_cast<float4*>(start_out)[i] = inf4;
+      reinterpret_cast<float4*>(park_out)[i] = inf4;
+    }
+    return;
+  }
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    phase_out[p] = phase_in[p];
+    node_out[p] = node_in[p];
+    start_out[p] = INFINITY;
+    park_out[p] = INFINITY;
+  }
+}
+
+template <int SLOTS>
+__global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
     const int32_t* __restrict__ alloc_ram, const uint8_t* __restrict__ eligible,
     const int32_t* __restrict__ qwin, const int32_t* __restrict__ qoff_bits,
@@ -57,72 +93,124 @@ __global__ void select_cycle_commit_kernel(
     int32_t* __restrict__ node_out, float* __restrict__ start_out,
     float* __restrict__ park_out, float* __restrict__ stats, int N, int P,
     int K) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_cpu = smem;
-  int32_t* s_ram = s_cpu + N;
-  int32_t* s_win = s_ram + N;
-  int32_t* s_off = s_win + P;
-  int32_t* s_seq = s_off + P;
-  uint8_t* s_alive = reinterpret_cast<uint8_t*>(s_seq + P);
-  uint8_t* s_rem = s_alive + N;
-  __shared__ Scratch scratch;
+  __shared__ uint64_t s_hi[kCap], s_lo[kCap];
+  __shared__ int32_t s_rc[kHalf], s_rr[kHalf], s_best[kHalf];
+  __shared__ float s_q[kHalf];
+  __shared__ Partials part;
+  __shared__ int s_warp[32];
 
   const size_t c = blockIdx.x;
   const size_t nb = c * (size_t)N, pb = c * (size_t)P, kb = c * (size_t)K;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const uint8_t* elig = eligible + pb;
 
-  load_nodes(alive + nb, alloc_cpu + nb, alloc_ram + nb, N, s_cpu, s_ram, s_alive);
-  int depth = 0;
-  for (int p = tid; p < P; p += kThreads) {
-    s_win[p] = qwin[pb + p];
-    s_off[p] = qoff_bits[pb + p];
-    s_seq[p] = qseq[pb + p];
-    const uint8_t e = eligible[pb + p] ? 1 : 0;
-    s_rem[p] = e;
-    depth += e;
-    phase_out[pb + p] = phase_in[pb + p];
-    node_out[pb + p] = node_in[pb + p];
-    start_out[pb + p] = INFINITY;
-    park_out[pb + p] = INFINITY;
-  }
-  depth = block_sum(depth, scratch);  // its syncs also publish the rows
-  const int picks = depth < K ? depth : K;
+  NodeRegs<SLOTS> nodes;
+  nodes.load(alive + nb, alloc_cpu + nb, alloc_ram + nb, N);
+  copy_through(phase_in + pb, node_in + pb, phase_out + pb, node_out + pb, start_out + pb,
+               park_out + pb, P);
+
+  // Pods still to pick: eligible, and past the last pick's key once there
+  // is one. This thread's pods are tid, tid + T, ...
+  bool has_last = false;
+  uint64_t last_hi = 0, last_lo = 0;
+  auto remains = [&](int p, uint64_t& hi, uint64_t& lo) {
+    if (!elig[p]) return false;
+    hi = order_hi(qwin[pb + p], qoff_bits[pb + p]);
+    lo = order_lo(qseq[pb + p], p);
+    return !has_last || order_less(last_hi, last_lo, hi, lo);
+  };
 
   float cnt = 0.0f, tot = 0.0f, tsq = 0.0f, mn = INFINITY, mx = -INFINITY;
-  for (int k = 0; k < picks; ++k) {
-    // 1. The next pod in queue order (picks <= the eligible count, so a
-    //    real pod).
-    const int slot = block_select(s_win, s_off, s_seq, s_rem, P, scratch);
-    const int32_t rc = req_cpu[pb + slot], rr = req_ram[pb + slot];
-    // 2. Fit + score over the nodes; last-max-wins argmax.
-    const Decision d = block_fit_argmax(s_cpu, s_ram, s_alive, N, rc, rr, scratch);
-    // 3. Commit, in pick order, by one thread.
+  int picks = -1, done = 0, buf = 0;
+  for (;;) {
+    // Count and place this thread's remaining pods in the compaction order.
+    int mine = 0;
+    for (int p = tid; p < P; p += T) {
+      uint64_t hi, lo;
+      mine += remains(p, hi, lo) ? 1 : 0;
+    }
+    int M;
+    const int first = block_exclusive_scan(mine, s_warp, M);
+    if (picks < 0) picks = M < K ? M : K;  // M is the queue depth here
+    if (done >= picks) break;
+
+    // The least keys among the M remaining, sorted into s_hi/s_lo[0..):
+    // all of them when M <= kCap, else the least kHalf, merging kHalf more
+    // entries into the upper half per sort.
+    for (int w0 = 0, base = 0; w0 < M; base = kHalf) {
+      const int w1 = w0 + (kCap - base);
+      const int count = (M < w1 ? M : w1) - w0;
+      const int n = base ? kCap : pow2_ceil(count);
+      for (int i = base + count + tid; i < n; i += T) {
+        s_hi[i] = ~0ull;
+        s_lo[i] = ~0ull;
+      }
+      if (first < w1 && first + mine > w0) {
+        int idx = first;
+        for (int p = tid; p < P && idx < w1; p += T) {
+          uint64_t hi, lo;
+          if (!remains(p, hi, lo)) continue;
+          if (idx >= w0) {
+            s_hi[base + idx - w0] = hi;
+            s_lo[base + idx - w0] = lo;
+          }
+          ++idx;
+        }
+      }
+      __syncthreads();
+      block_bitonic_sort(s_hi, s_lo, n);
+      w0 = w1;
+    }
+
+    // This batch's picks: requests and estimator samples to shared memory.
+    const int batch = picks - done < kHalf ? picks - done : kHalf;
+    for (int i = tid; i < batch; i += T) {
+      const int slot = (int)(uint32_t)s_lo[i];
+      s_rc[i] = req_cpu[pb + slot];
+      s_rr[i] = req_ram[pb + slot];
+      s_q[i] = __fadd_rn(waited[pb + slot], qpre_t[kb + done + i]);
+    }
+    __syncthreads();
+    for (int i = 0; i < batch; ++i) {
+      const int32_t rc = s_rc[i], rr = s_rr[i];
+      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf);
+      buf ^= 1;
+      if (d.anyfit) nodes.deduct(d.best, rc, rr);
+      if (tid == 0) s_best[i] = d.anyfit ? d.best : -1;
+    }
+    __syncthreads();
+    for (int i = tid; i < batch; i += T) {
+      const size_t at = pb + (uint32_t)s_lo[i];
+      const int best = s_best[i];
+      if (best >= 0) {
+        phase_out[at] = kPhaseRunning;
+        node_out[at] = best;
+        start_out[at] = start_t[kb + done + i];
+      } else {
+        phase_out[at] = kPhaseUnschedulable;
+        park_out[at] = park_t[kb + done + i];
+      }
+    }
     if (tid == 0) {
-      if (d.anyfit) {
-        s_cpu[d.best] -= rc;
-        s_ram[d.best] -= rr;
-        phase_out[pb + slot] = kPhaseRunning;
-        node_out[pb + slot] = d.best;
-        start_out[pb + slot] = start_t[kb + k];
-        const float q = __fadd_rn(waited[pb + slot], qpre_t[kb + k]);
+      for (int i = 0; i < batch; ++i) {
+        if (s_best[i] < 0) continue;
+        const float q = s_q[i];
         cnt = __fadd_rn(cnt, 1.0f);
         tot = __fadd_rn(tot, q);
         tsq = __fadd_rn(tsq, __fmul_rn(q, q));
         mn = fminf(mn, q);
         mx = fmaxf(mx, q);
-      } else {
-        phase_out[pb + slot] = kPhaseUnschedulable;
-        park_out[pb + slot] = park_t[kb + k];
       }
-      s_rem[slot] = 0;
     }
+    last_hi = s_hi[batch - 1];
+    last_lo = s_lo[batch - 1];
+    has_last = true;
+    done += batch;
     __syncthreads();
+    if (done >= picks) break;
   }
 
-  for (int i = tid; i < N; i += kThreads) {
-    cpu_out[nb + i] = s_cpu[i];
-    ram_out[nb + i] = s_ram[i];
-  }
+  nodes.store(cpu_out + nb, ram_out + nb, N);
   if (tid == 0) {
     float* s = stats + c * 5;
     s[0] = cnt;
@@ -145,17 +233,17 @@ extern "C" int ktt_select_cycle_commit(
     void* start_out, void* park_out, void* stats, int C, int N, int P,
     int K, void* stream) {
   if (C <= 0) return 0;
-  const size_t smem = sizeof(int32_t) * (2 * (size_t)N + 3 * (size_t)P) + (size_t)N + (size_t)P;
-  const cudaError_t e = allow_smem(select_cycle_commit_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  select_cycle_commit_kernel<<<C, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)alive, (const int32_t*)alloc_cpu,
-      (const int32_t*)alloc_ram, (const uint8_t*)eligible,
-      (const int32_t*)qwin, (const int32_t*)qoff, (const int32_t*)qseq,
-      (const int32_t*)req_cpu, (const int32_t*)req_ram, (const float*)waited,
-      (const int32_t*)phase, (const int32_t*)node, (const float*)qpre_t,
-      (const float*)start_t, (const float*)park_t, (int32_t*)cpu_out,
-      (int32_t*)ram_out, (int32_t*)phase_out, (int32_t*)node_out,
-      (float*)start_out, (float*)park_out, (float*)stats, N, P, K);
-  return (int)cudaGetLastError();
+  const int T = cycle_threads(N);
+  return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
+    select_cycle_commit_kernel<decltype(slots)::value><<<C, T, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)alive, (const int32_t*)alloc_cpu,
+        (const int32_t*)alloc_ram, (const uint8_t*)eligible,
+        (const int32_t*)qwin, (const int32_t*)qoff, (const int32_t*)qseq,
+        (const int32_t*)req_cpu, (const int32_t*)req_ram, (const float*)waited,
+        (const int32_t*)phase, (const int32_t*)node, (const float*)qpre_t,
+        (const float*)start_t, (const float*)park_t, (int32_t*)cpu_out,
+        (int32_t*)ram_out, (int32_t*)phase_out, (int32_t*)node_out,
+        (float*)start_out, (float*)park_out, (float*)stats, N, P, K);
+    return (int)cudaGetLastError();
+  });
 }

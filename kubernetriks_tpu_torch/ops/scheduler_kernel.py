@@ -306,11 +306,21 @@ def select_cycle_commit_plain(
 
 
 def selection_smem_bytes(N: int, P: int) -> int:
-    """Shared memory of one block of a kernel that selects from the queue
-    (the megakernel, the two-kernel route's selection kernel): the
-    cluster's two allocatable rows, three queue-key rows and the
-    alive/remaining masks."""
+    """Shared memory of one block of the two-kernel route's selection
+    kernel: the cluster's two allocatable rows, three queue-key rows and
+    the alive/remaining masks. The engine's route gate."""
     return 4 * (2 * N + 3 * P) + N + P
+
+
+# Node slots the register-resident cycle kernels (the megakernel, the
+# candidate cycle) hold per cluster: 1 024 threads of 32 slots
+# (ops/csrc/cycle_common.cuh).
+CYCLE_MAX_NODES = 1024 * 32
+
+
+def _check_cycle_nodes(name: str, N: int) -> None:
+    if N > CYCLE_MAX_NODES:
+        raise ValueError(f"{name}: N={N} node slots exceed the kernel's {CYCLE_MAX_NODES}")
 
 
 def fused_select_cycle_commit(
@@ -352,12 +362,7 @@ def fused_select_cycle_commit(
         "qpre_t": (qpre_t, f32, (C, K)), "start_t": (start_t, f32, (C, K)),
         "park_t": (park_t, f32, (C, K)),
     }, alive.device)
-    smem = selection_smem_bytes(N, P)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_select_cycle_commit: N={N}, P={P} need {smem} B of shared "
-            f"memory per cluster (limit {SMEM_LIMIT})"
-        )
+    _check_cycle_nodes("fused_select_cycle_commit", N)
     outs = (
         torch.empty_like(alloc_cpu), torch.empty_like(alloc_ram),
         torch.empty_like(phase), torch.empty_like(node),
@@ -409,12 +414,6 @@ def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram):
     return assign, fit_any, best, cpu, ram
 
 
-def schedule_cycle_smem_bytes(N: int) -> int:
-    """Shared memory of one candidate-cycle block: the cluster's two
-    allocatable rows and its alive mask."""
-    return 9 * N
-
-
 def fused_schedule_cycle(
     alive: torch.Tensor,  # (C, N) bool
     alloc_cpu: torch.Tensor,  # (C, N) int32
@@ -435,9 +434,7 @@ def fused_schedule_cycle(
         "alloc_ram": (alloc_ram, i32, (C, N)), "valid": (valid, b, (C, K)),
         "req_cpu": (req_cpu, i32, (C, K)), "req_ram": (req_ram, i32, (C, K)),
     }, alive.device)
-    smem = schedule_cycle_smem_bytes(N)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_schedule_cycle: N={N} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    _check_cycle_nodes("fused_schedule_cycle", N)
     outs = (
         torch.empty((C, K), dtype=b, device=alive.device),
         torch.empty((C, K), dtype=b, device=alive.device),

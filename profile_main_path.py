@@ -42,6 +42,12 @@ from chip_smoke import FULL_COMPOSED, FULL_REPLAY, composed_sim, headline_sim, r
 HERE = Path(__file__).resolve().parent
 
 
+def _is_kernel(key: str, name: str) -> bool:
+    """Whether a profiler row is `name`'s kernel (plain or a template
+    instance, with or without its namespace)."""
+    return any(f"::{name}{post}" in key or key.startswith(f"{name}{post}") for post in ("(", "<"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=20)
@@ -126,7 +132,7 @@ def main(argv=None) -> int:
         "device_idle_share": (1.0 - busy_ms / traced_ms) if busy_us > 0 else None,
         "device_kernels_per_window": launches / n,
         "port_kernels_ms_per_window": {
-            name: sum(us for k, us, _ in kernels if f"::{name}(" in k or k.startswith(f"{name}(")) / 1e3 / n
+            name: sum(us for k, us, _ in kernels if _is_kernel(k, name)) / 1e3 / n
             for name in (
                 "event_scatter_kernel", "free_resources_kernel", "select_cycle_commit_kernel",
                 "ca_scale_down_kernel", "ca_scale_up_kernel", "schedule_cycle_kernel",

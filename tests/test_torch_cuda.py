@@ -122,7 +122,13 @@ def free_inputs(seed, C=4, N=8, P=24):
     return freed, node, req_cpu, req_ram, finishes, value, alloc_cpu, alloc_ram
 
 
-def megakernel_inputs(seed, C=4, N=8, P=24, K=6):
+def megakernel_inputs(seed, C=4, N=8, P=24, K=6, edges=False):
+    """Megakernel operands. With `edges` (C >= 7) lanes 0, 2, 4, 5 and 6
+    are replaced by the cases each design must hold exactly: queue keys
+    tied on (win, off, seq) so the slot decides (0), offsets of -0.0 and
+    +0.0 (2), nothing fits (4: best is the last node), all scores equal
+    (5: the last node wins) and every node dead (6); lane 1 has no
+    eligible pod, lane 3 fewer than K."""
     rng = np.random.default_rng(seed)
     alive = rng.random((C, N)) < 0.8
     # Few distinct allocatables and requests: equal scores on several
@@ -142,6 +148,14 @@ def megakernel_inputs(seed, C=4, N=8, P=24, K=6):
     waited = rng.uniform(0.0, 50.0, (C, P)).astype(np.float32)
     phase = rng.integers(0, 4, (C, P)).astype(np.int32)
     node = rng.integers(-1, N, (C, P)).astype(np.int32)
+    if edges:
+        qwin[0], qoff[0], qseq[0] = 1, np.float32(0.5), 7
+        qwin[2] = 0
+        qoff[2] = rng.choice(np.float32([-0.0, 0.0]), P)
+        alloc_cpu[4] = 0
+        alive[5] = True
+        alloc_cpu[5], alloc_ram[5] = 16000, 16384
+        alive[6] = False
     step = rng.uniform(1e-6, 1e-5, (C, 1)).astype(np.float32)
     cd_post = np.cumsum(np.broadcast_to(step, (C, K)), axis=1).astype(np.float32)
     qpre_t = (cd_post - step).astype(np.float32)
@@ -153,11 +167,13 @@ def megakernel_inputs(seed, C=4, N=8, P=24, K=6):
     ), K
 
 
-def cycle_inputs(seed, C=5, N=8, K=6):
+def cycle_inputs(seed, C=5, N=8, K=6, edges=False):
     """Candidate-cycle operands: valid rows a prefix per cluster, as the
     queue sort leaves them (a lane with none, a lane with all K), requests
     past the prefix from other pods, ties in node scores and requests that
-    fit nowhere."""
+    fit nowhere. With `edges` (C >= 5) lanes 2, 3 and 4 are replaced by a
+    lane where nothing fits (best is the last node), one where all scores
+    are equal (the last node wins) and one with every node dead."""
     rng = np.random.default_rng(seed)
     alive = rng.random((C, N)) < 0.8
     alloc_cpu = rng.choice([0, 4000, 8000, 16000], (C, N)).astype(np.int32)
@@ -168,6 +184,11 @@ def cycle_inputs(seed, C=5, N=8, K=6):
     valid = np.arange(K)[None, :] < n_valid[:, None]
     req_cpu = rng.choice([1000, 2000, 4000, 12000], (C, K)).astype(np.int32)
     req_ram = rng.choice([1024, 2048, 4096, 12288], (C, K)).astype(np.int32)
+    if edges:
+        alloc_cpu[2] = 0
+        alive[3] = True
+        alloc_cpu[3], alloc_ram[3] = 16000, 16384
+        alive[4] = False
     return alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram
 
 
@@ -299,12 +320,22 @@ def test_autoscaler_state_handoff_on_card(cuda_device):
 @pytest.mark.parametrize("seed", [5, 6])
 def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     """Each CUDA kernel equals its plain version on the same card inputs
-    (stats rows to rtol 1e-6) and counts exactly one launch."""
-    margs, K = megakernel_inputs(seed)
+    (stats rows to rtol 1e-6) and counts exactly one launch; the
+    megakernel also on the edge lanes (megakernel_inputs), at the
+    headline's widths with depth above K, and with K = P = 2 048 (the
+    queue ordered in several batches)."""
+    mega = [
+        megakernel_inputs(seed),
+        megakernel_inputs(seed, C=8, edges=True),
+        megakernel_inputs(seed, C=8, N=256, P=2048, K=64, edges=True),
+        megakernel_inputs(seed, C=8, N=256, P=2048, K=2048, edges=True),
+    ]
     cases = [
         ("fused_event_scatter", port_kernels.event_scatter_plain, event_inputs(seed), {}, None),
         ("fused_free_resources", port_kernels.free_resources_plain, free_inputs(seed), {}, 2),
-        ("fused_select_cycle_commit", port_kernels.select_cycle_commit_plain, margs, {"k_pods": K}, 6),
+    ] + [
+        ("fused_select_cycle_commit", port_kernels.select_cycle_commit_plain, margs, {"k_pods": K}, 6)
+        for margs, K in mega
     ]
     for name, plain, args, kwargs, stats_idx in cases:
         port_kernels.reset_launches()
@@ -325,12 +356,17 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
 def test_cycle_route_kernels_match_plain_versions(cuda_device, seed):
     """The sorted and two-kernel routes' kernels equal their plain versions
     exactly on the same card inputs, at the test shapes and at the replay's
-    and the headline's widths, and count one launch per call."""
+    and the headline's widths, and count one launch per call; the
+    candidate cycle also on the edge lanes (cycle_inputs), at the replay's
+    N = 1 713 (not a multiple of its block) with K = 1 024."""
     margs, K = megakernel_inputs(seed)
     wide, K_wide = megakernel_inputs(seed, C=8, N=256, P=2048, K=64)
     cases = [
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed), {}),
+        ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, edges=True), {}),
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, C=1, N=1713, K=256), {}),
+        ("fused_schedule_cycle", port_kernels.schedule_cycle_plain,
+         cycle_inputs(seed, N=1713, K=1024, edges=True), {}),
         ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9], {"k_pods": K}),
         ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, wide[:9], {"k_pods": K_wide}),
         ("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed), {}),

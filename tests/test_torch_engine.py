@@ -180,12 +180,37 @@ def test_install_state_on_another_device_raises(main_runs):
         port.install_state(state_from_numpy(main_runs[60.0], "meta"), main_runs["next60.0"])
 
 
-def test_cycle_above_the_pinned_cumsum_raises():
-    cluster, workload = _tiny_events()
-    with pytest.raises(ValueError, match="max_pods_per_cycle=257 .* above 256"):
-        build_batched_from_traces(
-            SimulationConfig(), cluster, workload, device="cpu", max_pods_per_cycle=257
-        )
+# A burst of ~600 pods in the first 15 s: the first cycle picks ~400 of
+# them (more than 256, so the cycle's prefix sums recurse), and the cycles
+# after it park the pods past the nodes' capacity (512 pods of 1 000 mCPU
+# on 8 nodes of 64 000).
+BURST = TraceSpec(
+    n_nodes=8,
+    poisson=dict(POISSON, rate_per_second=40.0, horizon=15.0, cpu=1000, ram=1024**3),
+)
+
+
+@pytest.fixture(scope="module")
+def burst_reference():
+    """The reference's XLA run of BURST at its default cycle size (every
+    pod slot), to t=40 s."""
+    jx = build_jax_engine(BENCH_CONFIG, BURST, 2, None, "xla")
+    jx.step_until_time(40.0)
+    return jax_state_to_numpy(jx.state)
+
+
+@pytest.mark.parametrize("route", ["sorted", "megakernel", "two_kernel"])
+def test_default_cycle_size_above_256_matches_reference(burst_reference, route):
+    """Without max_pods_per_cycle the cycle takes every pod slot (P > 256
+    here), as in the reference; each route, forced after the build, ends
+    in the reference's state."""
+    port = build_port_engine(BENCH_CONFIG, BURST, 2, None)
+    assert port.max_pods_per_cycle == port.n_pods > 256
+    port.cycle_route = route
+    port.step_until_time(10.0)
+    assert port.metrics_summary()["counters"]["scheduling_decisions"] > 256
+    port.step_until_time(40.0)
+    assert compare_states(burst_reference, state_to_numpy(port.state)) == []
 
 
 @pytest.mark.parametrize(

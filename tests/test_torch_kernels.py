@@ -89,6 +89,20 @@ def test_select_cycle_commit_matches_pallas(seed):
     assert (phase_out[args[3]] == 3).any() and (phase_out[args[3]] == 2).any()
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_select_cycle_commit_edge_lanes_match_pallas(seed):
+    """The edge lanes (megakernel_inputs): -0.0 before +0.0, nothing
+    fitting, equal scores, dead nodes. Lane 0's whole-key ties are left
+    out: the reference takes queue seqs as unique per cluster (its pick is
+    one-hot only then), so only the port's two versions are held there
+    (test_torch_cuda.py)."""
+    args, K = megakernel_inputs(seed, C=8, edges=True)
+    args = tuple(a[1:] for a in args)
+    want = jax_kernels.fused_select_cycle_commit(*args, k_pods=K, interpret=True)
+    got = port_kernels.fused_select_cycle_commit(*(_t(a) for a in args), k_pods=K)
+    _assert_outputs(got, want, stats_idx=6)
+
+
 def _per_cluster(fn, args, **kwargs):
     """The Pallas kernel run on one cluster at a time, outputs stacked."""
     outs = [fn(*(a[c : c + 1] for a in args), **kwargs) for c in range(args[0].shape[0])]
@@ -142,6 +156,16 @@ def test_schedule_cycle_matches_pallas_and_scan(seed):
     assert got[0].any() and park.any()
     # Rows past a cluster's last valid row stay zero.
     assert not got[1][1].any() and not got[2][1].any()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_schedule_cycle_edge_lanes_match_pallas(seed):
+    """The edge lanes (cycle_inputs): nothing fitting, equal scores, dead
+    nodes; against the Pallas kernel one cluster at a time."""
+    args = cycle_inputs(seed, edges=True)
+    got = port_kernels.fused_schedule_cycle(*(_t(a) for a in args))
+    _assert_outputs(got, _per_cluster(jax_kernels.fused_schedule_cycle, args, interpret=True))
+    assert (got[2][2][args[3][2]] == args[1].shape[1] - 1).all()  # nothing fits: the last node
 
 
 @pytest.mark.parametrize("seed", SEEDS)
