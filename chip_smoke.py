@@ -57,6 +57,10 @@ KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay;
 and the two redesigned cycle kernels above K = 256: the megakernel with
 K = P = 2 048 on a seeded deep queue over the headline's captured rows, the
 candidate cycle with K = 1 024 rows over the replay's captured node rows.
+The event scatter, the free kernel and both CA kernels are held and timed
+at the replay's shape too (C = 1, N = 1 713, P = 107 136), on their busiest
+calls in its first 600 s; the kernels' JSON line carries these as extra
+entries labelled "(replay)", with the replay's launch counts.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -606,43 +610,47 @@ def main() -> int:
 
     # Event scatter. Yardstick: one scatter_reduce_ "amin" of the pod
     # create times (the largest of the five accumulators).
-    args, kwargs = captured["fused_event_scatter"]
-    ev_kind, ev_slot, ev_valid = args[0], args[1], args[4]
-    C, N = args[5].shape
-    P = args[7].shape[1]
-    n_valid = int(ev_valid.sum())
+    def check_event_scatter(args, kwargs, label=None):
+        ev_valid = args[4]
+        C, N = args[5].shape
+        P = args[7].shape[1]
+        n_valid = int(ev_valid.sum())
 
-    def event_library(a):
-        cp = a[4] & (a[0] == sk.EV_CREATE_POD) & (a[1] >= 0) & (a[1] < P)
-        acc = torch.cat([a[7], torch.full_like(a[7][:, :1], float("inf"))], dim=1)
-        idx = torch.where(cp, a[1], P).long()
-        return lambda: acc.clone().scatter_reduce_(1, idx, a[2], "amin")
+        def event_library(a):
+            cp = a[4] & (a[0] == sk.EV_CREATE_POD) & (a[1] >= 0) & (a[1] < P)
+            acc = torch.cat([a[7], torch.full_like(a[7][:, :1], float("inf"))], dim=1)
+            idx = torch.where(cp, a[1], P).long()
+            return lambda: acc.clone().scatter_reduce_(1, idx, a[2], "amin")
 
-    check_kernel(
-        "fused_event_scatter", sk.fused_event_scatter, sk.event_scatter_plain, args, kwargs, -1,
-        event_library,
-        ev_valid.numel() + 16 * n_valid + 2 * C * (5 * N + 12 * P),
-        n_valid,
-    )
+        check_kernel(
+            "fused_event_scatter", sk.fused_event_scatter, sk.event_scatter_plain, args, kwargs, -1,
+            event_library,
+            ev_valid.numel() + 16 * n_valid + 2 * C * (5 * N + 12 * P),
+            n_valid, label=label,
+        )
+
     # Free resources. Yardstick: one scatter_add_ of the cpu requests.
-    args, kwargs = captured["fused_free_resources"]
-    freed, finishes = args[0], args[4]
-    C, N = args[6].shape
-    n_freed = int(freed.sum())
-    n_fin = int((freed & finishes).sum())
+    def check_free_resources(args, kwargs, label=None):
+        freed, finishes = args[0], args[4]
+        C, N = args[6].shape
+        n_freed = int(freed.sum())
+        n_fin = int((freed & finishes).sum())
 
-    def free_library(a):
-        idx = torch.where(a[0] & (a[1] >= 0) & (a[1] < N), a[1], N).long()
-        src = torch.where(a[0], a[2], 0)
-        acpu = torch.cat([a[6], torch.zeros_like(a[6][:, :1])], dim=1)
-        return lambda: acpu.clone().scatter_add_(1, idx, src)
+        def free_library(a):
+            idx = torch.where(a[0] & (a[1] >= 0) & (a[1] < N), a[1], N).long()
+            src = torch.where(a[0], a[2], 0)
+            acpu = torch.cat([a[6], torch.zeros_like(a[6][:, :1])], dim=1)
+            return lambda: acpu.clone().scatter_add_(1, idx, src)
 
-    check_kernel(
-        "fused_free_resources", sk.fused_free_resources, sk.free_resources_plain, args, kwargs, 2,
-        free_library,
-        freed.numel() + 13 * n_freed + 4 * n_fin + 16 * C * N + 20 * C,
-        5 * n_fin + 2 * n_freed,
-    )
+        check_kernel(
+            "fused_free_resources", sk.fused_free_resources, sk.free_resources_plain, args, kwargs, 2,
+            free_library,
+            freed.numel() + 13 * n_freed + 4 * n_fin + 16 * C * N + 20 * C,
+            5 * n_fin + 2 * n_freed, label=label,
+        )
+
+    check_event_scatter(*captured["fused_event_scatter"])
+    check_free_resources(*captured["fused_free_resources"])
     # Megakernel; no single library call computes it. Per pick: three key
     # compares per remaining eligible pod, ~16 operations per node (fit,
     # score, argmax).
@@ -755,73 +763,92 @@ def main() -> int:
     # candidate rows (9 B) and, for each alive candidate, its pod entries
     # (9 B each, up to K); it writes S flags. Operations: ~5 per node per
     # pod entry (fit tests and the argmin).
-    args, kwargs = cap_down["fused_ca_scale_down"]
-    br = args[0][:, 0]
-    C, N = args[2].shape
-    S = args[9].shape[1]
-    K = kwargs["k_sd"]
-    n_br = int(br.sum())
-    entries = int((torch.clamp(args[11], max=K) * (args[10] & br[:, None])).sum())
-    check_kernel(
-        "fused_ca_scale_down", ak.fused_ca_scale_down, ak.ca_scale_down_plain, args, kwargs, -1,
-        None, C + n_br * (4 + 22 * N + 9 * S) + 9 * entries + C * S, 5 * N * entries,
-    )
+    def check_ca_scale_down(args, kwargs, label=None):
+        br = args[0][:, 0]
+        C, N = args[2].shape
+        S = args[9].shape[1]
+        K = kwargs["k_sd"]
+        n_br = int(br.sum())
+        entries = int((torch.clamp(args[11], max=K) * (args[10] & br[:, None])).sum())
+        check_kernel(
+            "fused_ca_scale_down", ak.fused_ca_scale_down, ak.ca_scale_down_plain, args, kwargs, -1,
+            None, C + n_br * (4 + 22 * N + 9 * S) + 9 * entries + C * S, 5 * N * entries, label=label,
+        )
+
     # Scale-up. Reads the quota, and for clusters with a valid candidate
     # the seven group rows (28 B each) and the valid candidates (9 B); the
     # validity flags of the rest; writes S flags, Gn counts and one count.
     # Operations: 3 compares per slot per valid candidate.
-    args, kwargs = cap_up["fused_ca_scale_up"]
-    cvalid = args[8]
-    C, G = args[1].shape
-    Kc = cvalid.shape[1]
-    S = kwargs["n_slots"]
-    n_valid = int(cvalid.sum())
-    n_active = int(cvalid.any(dim=1).sum())
-    check_kernel(
-        "fused_ca_scale_up", ak.fused_ca_scale_up, ak.ca_scale_up_plain, args, kwargs, -1,
-        None, 4 * C + n_active * 28 * G + C * Kc + 8 * n_valid + C * (S + 4 * G + 4),
-        3 * S * n_valid,
-    )
+    def check_ca_scale_up(args, kwargs, label=None):
+        cvalid = args[8]
+        C, G = args[1].shape
+        Kc = cvalid.shape[1]
+        S = kwargs["n_slots"]
+        n_valid = int(cvalid.sum())
+        n_active = int(cvalid.any(dim=1).sum())
+        check_kernel(
+            "fused_ca_scale_up", ak.fused_ca_scale_up, ak.ca_scale_up_plain, args, kwargs, -1,
+            None, 4 * C + n_active * 28 * G + C * Kc + 8 * n_valid + C * (S + 4 * G + 4),
+            3 * S * n_valid, label=label,
+        )
+
+    check_ca_scale_down(*cap_down["fused_ca_scale_down"])
+    check_ca_scale_up(*cap_up["fused_ca_scale_up"])
     del sim, cap_up, cap_down
 
-    # The candidate cycle, on inputs of the full-width replay: the window
-    # with the most candidates in its first 600 s.
+    # The replay's kernels, on inputs of the full-width replay in its first
+    # 600 s, each from its busiest call: the candidate cycle's window with
+    # the most candidates, the event chunk with the most valid events, the
+    # window that frees the most pods, and the CA kernels' windows with the
+    # most candidates on their branch (both launch, masked, on every window
+    # where a CA cycle is due).
     t0 = time.perf_counter()
     replay_paths = replay_trace("replay_full", **FULL_REPLAY)
     synth_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sim = replay_sim(dev, replay_paths)
     build_replay_s = time.perf_counter() - t0
-    most = {"n": -1}
+    sizes = {
+        (step_mod, "fused_schedule_cycle"): lambda a: int(a[3].sum()),
+        (step_mod, "fused_event_scatter"): lambda a: int(a[4].sum()),
+        (step_mod, "fused_free_resources"): lambda a: int(a[0].sum()),
+        (autoscale_mod, "fused_ca_scale_down"): lambda a: int((a[0] & a[10]).sum()),
+        (autoscale_mod, "fused_ca_scale_up"): lambda a: int(a[8].sum()),
+    }
+    busiest, most = {}, {name: -1 for _, name in sizes}
 
-    def keep_busiest(args, outs):
-        n = int(args[3].sum())
-        if n > most["n"]:
-            most["n"] = n
-            return True
-        return False
+    def recording(name, real, size):
+        def wrapped(*args, **kwargs):
+            outs = real(*args, **kwargs)
+            n = size(args)
+            if n > most[name]:
+                most[name] = n
+                busiest[name] = (args, kwargs)
+            return outs
 
-    busiest = {}
-    real_cycle = step_mod.fused_schedule_cycle
+        return wrapped
 
-    def recording(*args, **kwargs):
-        outs = real_cycle(*args, **kwargs)
-        if keep_busiest(args, outs):
-            busiest["fused_schedule_cycle"] = (args, kwargs)
-        return outs
-
-    step_mod.fused_schedule_cycle = recording
+    reals = {key: getattr(*key) for key in sizes}
+    for (mod, name), size in sizes.items():
+        setattr(mod, name, recording(name, reals[(mod, name)], size))
     try:
         sim.step_until_time(600.0)
     finally:
-        step_mod.fused_schedule_cycle = real_cycle
+        for (mod, name), real in reals.items():
+            setattr(mod, name, real)
     torch.cuda.synchronize()
     print(
         f"phase 3: replay shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods} "
-        f"K={sim.max_pods_per_cycle} route {sim.cycle_route}; trace written in {synth_s:.2f} s, "
-        f"engine built in {build_replay_s:.2f} s; busiest window {most['n']} candidates",
+        f"K={sim.max_pods_per_cycle} E={sim.max_events_per_window} route {sim.cycle_route}; trace "
+        f"written in {synth_s:.2f} s, engine built in {build_replay_s:.2f} s; busiest calls {most}",
         flush=True,
     )
+    if len(busiest) != len(sizes):
+        fail(f"the replay's first 600 s never called {sorted(set(most) - set(busiest))}")
+    check_event_scatter(*busiest["fused_event_scatter"], label="fused_event_scatter (replay)")
+    check_free_resources(*busiest["fused_free_resources"], label="fused_free_resources (replay)")
+    check_ca_scale_down(*busiest["fused_ca_scale_down"], label="fused_ca_scale_down (replay)")
+    check_ca_scale_up(*busiest["fused_ca_scale_up"], label="fused_ca_scale_up (replay)")
     # Reads the node rows (9N B), every valid flag, the requests of the
     # rows up to the last valid one (8 B each); writes the node rows and
     # 6 B per candidate row. ~16 operations per node per row. No library
@@ -1150,14 +1177,22 @@ def main() -> int:
         **{n: two_kernel_path["launches"][n] for n in two_names},
         "fused_schedule_cycle": replay_launches["fused_schedule_cycle"],
     }
-    for name in names + ca_names + two_names + ["fused_schedule_cycle"]:
-        r = report[name]
+    # The replay-shape entries of the kernels that also run at other
+    # shapes, with the replay's launches (phase 9).
+    replay_labels = {
+        f"{n} (replay)": n
+        for n in ("fused_event_scatter", "fused_free_resources", "fused_ca_scale_down", "fused_ca_scale_up")
+    }
+    path_launches.update({label: replay_launches[n] for label, n in replay_labels.items()})
+    for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels):
+        name = replay_labels.get(label, label)
+        r = report[label]
         kernels.append({
-            "name": name,
+            "name": label,
             "route": "cuda",
             "source": f"kubernetriks_tpu_torch/ops/csrc/{meta[name][0]}",
             "replaces": meta[name][1],
-            "launches": path_launches[name],
+            "launches": path_launches[label],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

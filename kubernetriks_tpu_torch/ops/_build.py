@@ -41,7 +41,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
         "event_scatter.cu", "ktt_event_scatter", [_P] * 15 + [_I] * 4 + [_P],
     ),
     "free_resources": (
-        "free_resources.cu", "ktt_free_resources", [_P] * 11 + [_I] * 3 + [_P],
+        "free_resources.cu", "ktt_free_resources", [_P] * 13 + [_I] * 3 + [_P],
     ),
     "select_cycle_commit": (
         "select_cycle_commit.cu", "ktt_select_cycle_commit", [_P] * 22 + [_I] * 4 + [_P],

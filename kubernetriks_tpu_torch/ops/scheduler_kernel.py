@@ -36,7 +36,7 @@ on `valid`), and a lone cluster's bound is its own there too.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -59,7 +59,15 @@ PHASE_RUNNING = 3
 
 _BIG = torch.iinfo(torch.int32).max
 _INF = float("inf")
-_THREADS = 256
+
+# Slots a block of event_scatter.cu takes (its kTile); pod rows a block of
+# free_resources.cu takes: a cluster of at most FREE_TILE_SMALL rows is one
+# block, larger ones take tiles of FREE_TILE (its kSmallTile and kTile).
+EVENT_TILE = 1024
+FREE_TILE_SMALL = 2048
+FREE_TILE = 4096
+# Blocks a grid may have along y, where both kernels put their tiles.
+_MAX_TILES = 65535
 
 
 # --- 1. event scatter -----------------------------------------------------
@@ -128,6 +136,8 @@ def fused_event_scatter(
         "node_removal": (node_removal, f32, (C, N)), "pod_create": (pod_create, f32, (C, P)),
         "pod_create_seq": (pod_create_seq, i32, (C, P)), "pod_removal": (pod_removal, f32, (C, P)),
     }, created.device)
+    if -(-max(N, P) // EVENT_TILE) > _MAX_TILES:
+        raise ValueError(f"fused_event_scatter: N={N}, P={P} need more than {_MAX_TILES} tiles")
     outs = (
         torch.empty_like(created), torch.empty_like(node_removal),
         torch.empty_like(pod_create), torch.empty_like(pod_create_seq),
@@ -193,6 +203,43 @@ def free_resources_plain(freed, node, req_cpu, req_ram, finishes, value, alloc_c
     return alloc_cpu, alloc_ram, torch.cat(stats, dim=1)
 
 
+def free_layout(N: int, P: int) -> Tuple[int, int, bool, int]:
+    """(pod rows a tile, tiles per cluster, whether the allocatable rows
+    sit in shared memory, shared bytes a block) of free_resources.cu's
+    launch. A cluster of one tile keeps its two allocatable rows in shared
+    memory where they fit; otherwise the node sums go through the
+    cross-block scratch, whose shared memory (the tiles' value offsets)
+    grows with P, not N: so any N runs, and only a P of more than ~2e8
+    rows is refused."""
+    tile = FREE_TILE_SMALL if P <= FREE_TILE_SMALL else FREE_TILE
+    tiles = max(1, -(-P // tile))
+    vals = 4 * tile
+    smem_nodes = tiles == 1 and vals + 8 * N <= SMEM_LIMIT
+    return tile, tiles, smem_nodes, vals + (8 * N if smem_nodes else 4 * (tiles + 1))
+
+
+# Module-level because the wrapper's signature carries no state.
+_FREE_SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _free_scratch(device, C: int, N: int, tile: int, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """free_resources.cu's cross-block scratch for the current stream and
+    this shape: the counters (a ticket per cluster, then its cpu and ram
+    node sums), allocated zeroed once and left zero by every launch; and
+    the tiles' finished counts and compacted values, written before they
+    are read. One per stream, so calls in flight on two streams never
+    share one; one per shape, so a captured CUDA graph keeps its own."""
+    key = (device.index, torch.cuda.current_stream().cuda_stream, C, N, T)
+    scratch = _FREE_SCRATCH.get(key)
+    if scratch is None:
+        scratch = (
+            torch.zeros(C * (1 + 2 * N), dtype=torch.int32, device=device),
+            torch.empty(C * T * (1 + tile), dtype=torch.int32, device=device),
+        )
+        _FREE_SCRATCH[key] = scratch
+    return scratch
+
+
 def fused_free_resources(
     freed: torch.Tensor,  # (C, P) bool
     node: torch.Tensor,  # (C, P) int32 (>= 0 for freed pods)
@@ -217,16 +264,18 @@ def fused_free_resources(
         "finishes": (finishes, b, (C, P)), "value": (value, f32, (C, P)),
         "alloc_cpu": (alloc_cpu, i32, (C, N)), "alloc_ram": (alloc_ram, i32, (C, N)),
     }, freed.device)
-    smem = 8 * N + 4 * _THREADS
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_free_resources: N={N} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    tile, T, smem_nodes, smem = free_layout(N, P)
+    if smem > SMEM_LIMIT or T > _MAX_TILES:
+        raise ValueError(f"fused_free_resources: P={P} needs {T} tiles and {smem} B of shared memory "
+                         f"(limits {_MAX_TILES} and {SMEM_LIMIT})")
     acpu = torch.empty_like(alloc_cpu)
     aram = torch.empty_like(alloc_ram)
     stats = torch.empty((C, 5), dtype=f32, device=freed.device)
     if C:
+        counters, tiles = (None, None) if smem_nodes else _free_scratch(freed.device, C, N, tile, T)
         _launch("fused_free_resources", "free_resources", [
             freed, node, req_cpu, req_ram, finishes, value, alloc_cpu, alloc_ram,
-            acpu, aram, stats, C, N, P,
+            acpu, aram, stats, counters, tiles, C, N, P,
         ])
     return acpu, aram, stats
 

@@ -122,6 +122,75 @@ def free_inputs(seed, C=4, N=8, P=24):
     return freed, node, req_cpu, req_ram, finishes, value, alloc_cpu, alloc_ram
 
 
+def event_inputs_wide(seed, C=2, E=64, N=301, P=4999):
+    """event_inputs at widths that span several of event_scatter.cu's
+    tiles: every lane's valid prefix holds events on both sides of every
+    tile boundary (once with a pod kind, once with a node kind), at the row
+    ends and out of range (-1, N, P, 1 << 29), a few slots repeated with
+    other times and seqs (the min/max combine in chunk order), and a run of
+    12 consecutive slots three times over, as a chunk's creations come
+    (many events on one warp, several on one thread); the rest are random
+    slots, and each lane leaves 0-3 events invalid at its end. E grows to
+    hold them."""
+    rng = np.random.default_rng(seed)
+    tile = port_kernels.EVENT_TILE
+    edges = [r for b in range(tile, max(N, P) + 1, tile) for r in (b - 1, b)]
+    pool = np.array(edges + [0, N - 1, N, P - 1, P, -1, 1 << 29], np.int64)
+    must = 2 * len(pool) + 8 + 36
+    E = max(E, must + 8)
+    kind = rng.integers(0, 5, (C, E)).astype(np.int32)
+    slot = rng.integers(-2, max(N, P) + 3, (C, E)).astype(np.int32)
+    for c in range(C):
+        dups = rng.choice(pool, 8)
+        run = np.tile(int(rng.integers(0, min(N, P) - 12)) + np.arange(12), 3)
+        lane_slots = np.concatenate([pool, pool, dups, run])
+        lane_kinds = np.concatenate([
+            rng.integers(3, 5, len(pool)), rng.integers(1, 3, len(pool)), rng.integers(1, 5, 8),
+            rng.integers(1, 5, 36),
+        ])
+        order = rng.permutation(must)
+        slot[c, :must] = lane_slots[order]
+        kind[c, :must] = lane_kinds[order]
+    rel = rng.choice(np.float32([0.0, 0.5, 3.25, 7.0]), (C, E)).astype(np.float32)
+    seq = rng.integers(0, 100, (C, E)).astype(np.int32)
+    valid = np.arange(E)[None, :] < (E - rng.integers(0, 4, C))[:, None]
+    created = rng.random((C, N)) < 0.3
+    nrm = np.where(rng.random((C, N)) < 0.5, np.inf, rng.uniform(0, 9, (C, N))).astype(np.float32)
+    pcr = np.where(rng.random((C, P)) < 0.7, np.inf, rng.uniform(0, 9, (C, P))).astype(np.float32)
+    pseq = rng.integers(0, 50, (C, P)).astype(np.int32)
+    prm = np.where(rng.random((C, P)) < 0.7, np.inf, rng.uniform(0, 9, (C, P))).astype(np.float32)
+    return kind, slot, rel, seq, valid, created, nrm, pcr, pseq, prm
+
+
+def free_inputs_wide(seed, C=2, N=301, P=4999, dense_tile=None, idle=()):
+    """free_inputs at widths that span several of free_resources.cu's
+    tiles: freed pods on both sides of every tile boundary, at the row
+    ends and across a 16-row run, and eight scattered ones per tile, most
+    of them finished (the fold runs over several tiles in slot order);
+    with `dense_tile` every pod of that tile of lane 0 freed; the lanes in
+    `idle` free nothing."""
+    rng = np.random.default_rng(seed)
+    tile = port_kernels.FREE_TILE
+    n_tiles = -(-P // tile)
+    freed = np.zeros((C, P), bool)
+    edges = [r for b in range(tile, P, tile) for r in (b - 1, b)] + [0, 15, 16, 17, P - 1]
+    for c in range(C):
+        freed[c, edges] = True
+        freed[c, rng.integers(0, P, 8 * n_tiles)] = True
+    if dense_tile is not None:
+        freed[0, dense_tile * tile : (dense_tile + 1) * tile] = True
+    freed[list(idle)] = False
+    node = np.where(freed, rng.integers(0, N, (C, P)), rng.integers(-1, N, (C, P))).astype(np.int32)
+    node[:, 0] = N - 1
+    req_cpu = rng.choice([500, 1000, 4000], (C, P)).astype(np.int32)
+    req_ram = rng.choice([256, 1024, 8192], (C, P)).astype(np.int32)
+    finishes = freed & (rng.random((C, P)) < 0.7)
+    value = rng.uniform(30.0, 120.0, (C, P)).astype(np.float32)
+    alloc_cpu = rng.integers(0, 64000, (C, N)).astype(np.int32)
+    alloc_ram = rng.integers(0, 131072, (C, N)).astype(np.int32)
+    return freed, node, req_cpu, req_ram, finishes, value, alloc_cpu, alloc_ram
+
+
 def megakernel_inputs(seed, C=4, N=8, P=24, K=6, edges=False):
     """Megakernel operands. With `edges` (C >= 7) lanes 0, 2, 4, 5 and 6
     are replaced by the cases each design must hold exactly: queue keys
@@ -349,6 +418,48 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
                 torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
             else:
                 assert torch.equal(g, w), (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_tiled_event_and_free_kernels_match_plain_versions(cuda_device, seed):
+    """The two kernels that spread a cluster over tiles equal their plain
+    versions on the same card inputs (outputs exact, stats rows to rtol
+    1e-6) and count one launch per call: at the replay's width (N = 1 713,
+    P = 107 136) with C = 1 and 2, at the headline's (N = 256, P = 2 048),
+    and at N and P that are not multiples of 16 (clusters 1 and 2 start
+    unaligned, so the vector loads fall back); the free kernel also with
+    one tile wholly freed, a cluster that frees nothing, one block of each
+    size (P = 2 048 and 3 001), and node rows too wide for shared memory
+    (the cross-block path at one tile). Each case runs twice, so the free kernel's scratch
+    shows that it leaves itself zero."""
+    plain_ev, plain_free = port_kernels.event_scatter_plain, port_kernels.free_resources_plain
+    cases = [
+        ("fused_event_scatter", plain_ev, event_inputs_wide(seed, C=1, E=320, N=1713, P=107136), None),
+        ("fused_event_scatter", plain_ev, event_inputs_wide(seed, C=2, E=320, N=1713, P=107136), None),
+        ("fused_event_scatter", plain_ev, event_inputs_wide(seed, C=3, N=2053, P=9001), None),
+        ("fused_event_scatter", plain_ev, event_inputs_wide(seed, C=8, N=256, P=2048), None),
+        ("fused_free_resources", plain_free, free_inputs_wide(seed, C=1, N=1713, P=107136), 2),
+        ("fused_free_resources", plain_free,
+         free_inputs_wide(seed, C=2, N=1713, P=107136, dense_tile=3, idle=(1,)), 2),
+        ("fused_free_resources", plain_free, free_inputs_wide(seed, C=3, N=301, P=9001, idle=(1,)), 2),
+        ("fused_free_resources", plain_free, free_inputs_wide(seed, C=2, N=30000, P=600), 2),
+        ("fused_free_resources", plain_free, free_inputs_wide(seed, C=8, N=256, P=2048), 2),
+        ("fused_free_resources", plain_free, free_inputs_wide(seed, C=3, N=301, P=3001, idle=(1,)), 2),
+    ]
+    for name, plain, args, stats_idx in cases:
+        dev_args = [t(a).to(cuda_device) for a in args]
+        want = plain(*dev_args)
+        for _ in range(2):
+            port_kernels.reset_launches()
+            got = getattr(port_kernels, name)(*dev_args)
+            torch.cuda.synchronize()
+            assert port_kernels.LAUNCHES[name] == 1
+            for i, (g, w) in enumerate(zip(got, want)):
+                if i == stats_idx:
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+                else:
+                    assert torch.equal(g, w), (name, args[0].shape, i)
 
 
 @pytest.mark.cuda

@@ -31,7 +31,9 @@ from test_torch_cuda import (
     commit_inputs,
     cycle_inputs,
     event_inputs,
+    event_inputs_wide,
     free_inputs,
+    free_inputs_wide,
     megakernel_inputs,
     t as _t,
 )
@@ -48,6 +50,16 @@ from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 
 SEEDS = [0, 1, 2]
+# The event and free tests' cases: the small generators at SEEDS, and the
+# wide ones at C = 2 over a few thousand rows (several tiles of the tiled
+# CUDA kernels, N and P not multiples of 16).
+WIDE_SEEDS = [3, 4]
+
+
+def _small_and_wide():
+    return [pytest.param(s, False, id=str(s)) for s in SEEDS] + [
+        pytest.param(s, True, id=f"wide-{s}") for s in WIDE_SEEDS
+    ]
 
 
 def _assert_outputs(port_outs, jax_outs, stats_idx=None):
@@ -62,17 +74,17 @@ def _assert_outputs(port_outs, jax_outs, stats_idx=None):
             np.testing.assert_array_equal(p, j.astype(p.dtype), err_msg=f"output {i}")
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_event_scatter_matches_pallas(seed):
-    args = event_inputs(seed)
+@pytest.mark.parametrize("seed, wide", _small_and_wide())
+def test_event_scatter_matches_pallas(seed, wide):
+    args = event_inputs_wide(seed) if wide else event_inputs(seed)
     want = jax_kernels.fused_event_scatter(*args, interpret=True)
     got = port_kernels.fused_event_scatter(*(_t(a) for a in args))
     _assert_outputs(got, want)
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_free_resources_matches_pallas(seed):
-    args = free_inputs(seed)
+@pytest.mark.parametrize("seed, wide", _small_and_wide())
+def test_free_resources_matches_pallas(seed, wide):
+    args = free_inputs_wide(seed) if wide else free_inputs(seed)
     want = jax_kernels.fused_free_resources(*args, interpret=True)
     got = port_kernels.fused_free_resources(*(_t(a) for a in args))
     _assert_outputs(got, want, stats_idx=2)
@@ -221,6 +233,20 @@ def test_commit_scatter_matches_pallas_and_xla(seed):
     _assert_outputs(got, jax_kernels.fused_commit_scatter(*args, interpret=True))
     _assert_outputs(got, _xla_commit(*args))
     assert (got[2].numpy() < np.inf).any() and (got[3].numpy() < np.inf).any()
+
+
+@pytest.mark.parametrize("N, P, want", [
+    (256, 2048, (2048, 1, True, 4 * 2048 + 8 * 256)),  # the headline: one block of 128 threads
+    (301, 3001, (4096, 1, True, 4 * 4096 + 8 * 301)),  # one block of 256 threads
+    (1713, 107136, (4096, 27, False, 4 * 4096 + 4 * 28)),  # the replay: the cross-block step
+    (30000, 600, (2048, 1, False, 4 * 2048 + 4 * 2)),  # node rows too wide for shared memory
+])
+def test_free_layout_picks_the_block_and_the_node_path(N, P, want):
+    """The free kernel's launch layout as its wrapper reckons it (the CUDA
+    side computes the same from N and P): the block size by P, the node
+    rows in shared memory only for one tile that fits, and no refusal for
+    any N."""
+    assert port_kernels.free_layout(N, P) == want
 
 
 def test_wrappers_count_only_kernel_launches():
