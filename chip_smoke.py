@@ -60,7 +60,11 @@ candidate cycle with K = 1 024 rows over the replay's captured node rows.
 The event scatter, the free kernel and both CA kernels are held and timed
 at the replay's shape too (C = 1, N = 1 713, P = 107 136), on their busiest
 calls in its first 600 s; the kernels' JSON line carries these as extra
-entries labelled "(replay)", with the replay's launch counts.
+entries labelled "(replay)", with the replay's launch counts. Those calls
+attempt nothing, so both CA kernels are also held and timed at the replay's
+width on seeded walks that work (the tests' generators: a scale-down where
+about half the candidates attempt, with rollbacks; a scale-up packing 64
+valid cache rows), in chip_smoke.json's checks only.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -758,21 +762,31 @@ def main() -> int:
         flush=True,
     )
     # Scale-down. What the function must read: the branch flag of every
-    # cluster; for clusters on the branch, the threshold, seven node rows
-    # (alive, not-pending: 1 B; capacities, allocatables, rank: 4 B), the
-    # candidate rows (9 B) and, for each alive candidate, its pod entries
-    # (9 B each, up to K); it writes S flags. Operations: ~5 per node per
-    # pod entry (fit tests and the argmin).
+    # cluster; for clusters on the branch, the threshold and the candidate
+    # rows (9 B); at the slots of the candidates alive, in range and with
+    # at most K pods, not-pending (1 B), and where that is set (statically
+    # eligible) the capacities and allocatables (16 B); for clusters with a
+    # statically eligible candidate, four node rows (alive: 1 B;
+    # allocatables, rank: 4 B) and those candidates' pod entries (9 B
+    # each); it writes S flags. Operations: ~5 per node per pod entry (fit
+    # tests and the argmin).
     def check_ca_scale_down(args, kwargs, label=None):
         br = args[0][:, 0]
         C, N = args[2].shape
         S = args[9].shape[1]
         K = kwargs["k_sd"]
+        slot, cnt = args[9], args[11]
+        pre = br[:, None] & args[10] & (slot >= 0) & (slot < N) & (cnt <= K)
+        elig = pre & torch.gather(args[3], 1, slot.clamp(0, N - 1).long())
         n_br = int(br.sum())
-        entries = int((torch.clamp(args[11], max=K) * (args[10] & br[:, None])).sum())
+        entries = int((cnt.clamp(0, K) * elig).sum())
+        need = (
+            C + n_br * (4 + 9 * S) + int(pre.sum()) + 16 * int(elig.sum())
+            + 13 * N * int(elig.any(dim=1).sum()) + 9 * entries + C * S
+        )
         check_kernel(
             "fused_ca_scale_down", ak.fused_ca_scale_down, ak.ca_scale_down_plain, args, kwargs, -1,
-            None, C + n_br * (4 + 22 * N + 9 * S) + 9 * entries + C * S, 5 * N * entries, label=label,
+            None, need, 5 * N * entries, label=label,
         )
 
     # Scale-up. Reads the quota, and for clusters with a valid candidate
@@ -849,6 +863,31 @@ def main() -> int:
     check_free_resources(*busiest["fused_free_resources"], label="fused_free_resources (replay)")
     check_ca_scale_down(*busiest["fused_ca_scale_down"], label="fused_ca_scale_down (replay)")
     check_ca_scale_up(*busiest["fused_ca_scale_up"], label="fused_ca_scale_up (replay)")
+    # Those calls attempt nothing (no candidate eligible, no valid cache
+    # row), so the CA kernels are also held and timed at the replay's
+    # width on walks that work: seeded inputs from ca_inputs.py (the tests
+    # use the same generators), a scale-down where about half the
+    # candidates attempt, with rollbacks, and a scale-up packing 64 valid
+    # rows. Kept in the checks only: the replay's count of such calls is
+    # not known.
+    from ca_inputs import ca_down_inputs, ca_up_inputs
+
+    args, kwargs = busiest["fused_ca_scale_down"]
+    args, K = ca_down_inputs(
+        11, C=1, N=args[2].shape[1], S=args[9].shape[1], K=kwargs["k_sd"], edge="attempting"
+    )
+    check_ca_scale_down(
+        tuple(torch.from_numpy(a).to(dev) for a in args), {"k_sd": K},
+        label="fused_ca_scale_down (replay width, attempting)",
+    )
+    args, kwargs = busiest["fused_ca_scale_up"]
+    args, S = ca_up_inputs(
+        11, C=1, G=args[1].shape[1], K=args[8].shape[1], S=kwargs["n_slots"], edge="all_valid"
+    )
+    check_ca_scale_up(
+        tuple(torch.from_numpy(a).to(dev) for a in args), {"n_slots": S},
+        label="fused_ca_scale_up (replay width, packing)",
+    )
     # Reads the node rows (9N B), every valid flag, the requests of the
     # rows up to the last valid one (8 B each); writes the node rows and
     # 6 B per candidate row. ~16 operations per node per row. No library

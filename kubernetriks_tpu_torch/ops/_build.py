@@ -47,7 +47,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
         "select_cycle_commit.cu", "ktt_select_cycle_commit", [_P] * 22 + [_I] * 4 + [_P],
     ),
     "ca_scale_down": (
-        "ca_scale_down.cu", "ktt_ca_scale_down", [_P] * 16 + [_I] * 4 + [_P],
+        "ca_scale_down.cu", "ktt_ca_scale_down", [_P] * 16 + [_I] * 7 + [_P],
     ),
     "ca_scale_up": (
         "ca_scale_up.cu", "ktt_ca_scale_up", [_P] * 14 + [_I] * 4 + [_P],

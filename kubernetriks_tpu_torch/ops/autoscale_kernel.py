@@ -27,13 +27,27 @@ from kubernetriks_tpu_torch.ops._launch import LAUNCHES, SMEM_LIMIT, check, laun
 
 __all__ = [
     "LAUNCHES",
+    "ca_down_layout",
     "ca_scale_down_plain",
     "ca_scale_up_plain",
+    "ca_up_smem",
     "fused_ca_scale_down",
     "fused_ca_scale_up",
 ]
 
 _BIG = torch.iinfo(torch.int32).max
+
+# Node slots a thread of the scale-down block scans per re-placement. On
+# an H100, 4 and 8 ran the replay-width walk within 4 % of each other, 2
+# and 16 slower, and 4 was the faster where no candidate attempts
+# (PERF.md); at N = 96 both give one warp.
+_CA_DOWN_NODES_PER_THREAD = 4
+# Node slots a thread at most (a template instantiation each, in registers):
+# 32 slots of 1 024 threads, 32 768 node slots a cluster.
+_CA_DOWN_MAX_NPT = 32
+# Static shared memory of the scale-down block (the warps' keys), kept out
+# of the dynamic budget.
+_CA_DOWN_STATIC_SMEM = 1024
 
 
 # --- scale-down ---------------------------------------------------------------
@@ -99,6 +113,26 @@ def ca_scale_down_plain(
     return removed
 
 
+def ca_down_layout(N: int, S: int, K: int):
+    """(threads a block, node slots a thread, candidate positions a window,
+    dynamic shared bytes) of ca_scale_down.cu's launch. About
+    _CA_DOWN_NODES_PER_THREAD node slots a thread, in whole warps from one
+    to 32 (one warp at the autoscaler's N = 96, 448 threads at the replay's
+    N = 1 713), the slots a thread (held in registers) rounded up to a
+    power of two; a window holds every candidate where shared memory takes
+    their pod tables beside one byte a node slot (35 + 8K B a candidate),
+    else as many as fit. The wrapper refuses more than _CA_DOWN_MAX_NPT
+    slots a thread (32 768 node slots)."""
+    threads = min(1024, max(32, 32 * -(-N // (32 * _CA_DOWN_NODES_PER_THREAD))))
+    npt = 1
+    while npt * threads < N:
+        npt *= 2
+    nodes = N + 4 * K
+    per = 35 + 8 * K
+    window = min(S, (SMEM_LIMIT - _CA_DOWN_STATIC_SMEM - nodes) // per)
+    return threads, npt, window, nodes + max(window, 0) * per
+
+
 def fused_ca_scale_down(
     branch: torch.Tensor,  # (C, 1) bool
     thresh: torch.Tensor,  # (C, 1) float32
@@ -137,15 +171,16 @@ def fused_ca_scale_down(
         "pr_cpu": (pr_cpu, i32, (C, S * K)), "pr_ram": (pr_ram, i32, (C, S * K)),
         "pv0": (pv0, b, (C, S * K)),
     }, alive.device)
-    smem = 4 * (3 * N + 3 * K) + N
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_ca_scale_down: N={N}, K={K} need {smem} B of shared memory (limit {SMEM_LIMIT})")
+    threads, npt, window, smem = ca_down_layout(N, S, K)
+    if (S and window < 1) or npt > _CA_DOWN_MAX_NPT:
+        raise ValueError(f"fused_ca_scale_down: N={N}, K={K} exceed the kernel's 32 768 node slots "
+                         f"or {SMEM_LIMIT} B of shared memory")
     removed = torch.empty((C, S), dtype=b, device=alive.device)
     if C:
         launch("fused_ca_scale_down", "ca_scale_down", [
             branch, thresh, alive, not_pending, cap_cpu, cap_ram, vcpu, vram,
             name_rank, slot_perm, cand_alive, cnt, pr_cpu, pr_ram, pv0, removed,
-            C, N, S, K,
+            C, N, S, K, threads, npt, window,
         ])
     return removed
 
@@ -209,6 +244,14 @@ def ca_scale_up_plain(
     return planned, g_planned, starved
 
 
+def ca_up_smem(S: int, G: int, K: int) -> int:
+    """Dynamic shared bytes of ca_scale_up.cu's warp: the valid candidates'
+    requests and the planned-node list (5 x 4 B a cache row, for K + 1 rows
+    rounded up to whole warps), the group rows (8 x 4 B a group) and the S
+    planned flags."""
+    return 4 * (5 * ((K + 32) // 32 * 32) + 8 * G) + S
+
+
 def fused_ca_scale_up(
     max_nodes: torch.Tensor,  # (C, 1) int32 global CA node quota
     ca_count: torch.Tensor,  # (C, Gn) int32
@@ -242,7 +285,7 @@ def fused_ca_scale_up(
         "cvalid": (cvalid, b, (C, K)), "creq_cpu": (creq_cpu, i32, (C, K)),
         "creq_ram": (creq_ram, i32, (C, K)),
     }, ca_count.device)
-    smem = 4 * (3 * S + G)
+    smem = ca_up_smem(S, G, K)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fused_ca_scale_up: S={S}, Gn={G} need {smem} B of shared memory (limit {SMEM_LIMIT})")
     dev = ca_count.device

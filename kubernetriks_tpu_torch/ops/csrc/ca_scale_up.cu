@@ -9,18 +9,33 @@
 // the full template allocatable: the triggering pod is not packed into it
 // (a reference quirk). Opens stop at the global CA node quota, which counts
 // CA nodes only. An open blocked only by a consumed slot reserve counts as
-// reserve-starved.
+// reserve-starved. Like the reference, the walk takes every valid row; the
+// engine's rows are a prefix (the cache sort puts the valid pods first).
 //
-// Bound on an H100: bytes. Per cluster the function reads seven group rows
-// (28 Gn B), the cache prefix (9 B per candidate) and writes S flags, Gn
-// counts and one counter: ~0.7 KB per cluster at Gn=1, K=64, S=64, ~0.2 MB
-// per launch at C=256 (chip_smoke.py counts it from the run's data). The
-// pack is a serial chain over the candidates, so latency bounds it.
+// Bound on an H100: bytes, far below one launch. Per cluster the function
+// reads the quota and the K validity flags; with a valid candidate, seven
+// group rows (28 Gn B) and the valid candidates' requests (8 B each); it
+// writes S flags, Gn counts and one counter: ~0.5 KB at the Alibaba replay
+// (C=1, Gn=1, K=64, S=400) with no valid candidate, ~0.1 ns at 3.35 TB/s
+// (chip_smoke.py counts it from the run's data). The pack is a serial
+// chain over the valid candidates, so its latency bounds the kernel.
 //
-// Design: one warp per cluster (one block of 32 threads): the planned
-// slots' plan order and virtual allocatables sit in shared memory; each
-// candidate is one butterfly warp-min over the S slots' plan order, and
-// lane 0 runs the (few) groups serially when a node has to open. Integer
+// Design: one warp per cluster (a block of 32 threads).
+//   1. One coalesced pass over the validity row, ballots compacting the
+//      valid candidates in order. With none valid the outputs are written
+//      0 and the warp returns: the group rows are never read.
+//   2. One more round trip stages the valid candidates' requests and the
+//      Gn group rows in shared memory; a warp reduction sums the CA counts.
+//   3. Walk the valid list. The planned nodes are kept as a list in plan
+//      order (at most one a candidate), entry p owned by lane p % 32: the
+//      first fit is a ballot over the list, and the owning lane deducts.
+//      Group g's row is owned by lane g % 32: a ballot picks the first
+//      accepting group, another says whether any group with a reserve
+//      would accept (starvation), and the owner opens the slot and
+//      broadcasts it. An open on a slot already planned replaces that
+//      entry, as the reference overwrites the slot's plan order.
+// Every shared value is read and written by its owning lane alone, except
+// the staged requests, written once before a __syncwarp. Integer
 // arithmetic only.
 
 #include <cuda_runtime.h>
@@ -28,11 +43,10 @@
 
 namespace {
 
-constexpr int kBig = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int warp_min_all(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ int sub_wrap(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
 }
 
 __global__ void ca_scale_up_kernel(
@@ -44,82 +58,152 @@ __global__ void ca_scale_up_kernel(
     const int32_t* __restrict__ creq_ram, uint8_t* __restrict__ planned_out,
     int32_t* __restrict__ gpl_out, int32_t* __restrict__ starved_out,
     int S, int G, int K) {
+  // The per-row arrays hold KP >= K + 1 entries, a whole number of warps,
+  // so a lane reads its entry of a 32-entry chunk, and the next
+  // candidate's request, without a bound test.
+  const int KP = (K + 32) & ~31;
   extern __shared__ int32_t smem[];
-  int32_t* s_seq = smem;      // S plan order; kBig = not planned
-  int32_t* s_pc = s_seq + S;  // S virtual allocatable cpu
-  int32_t* s_pr = s_pc + S;   // S virtual allocatable ram
-  int32_t* s_gpl = s_pr + S;  // G opened per group
-  __shared__ int s_total, s_counter, s_starved;
+  int32_t* s_rc = smem;            // KP staged requests of the valid candidates
+  int32_t* s_rr = s_rc + KP;
+  int32_t* s_ppc = s_rr + KP;      // KP planned nodes in plan order: allocatable
+  int32_t* s_ppr = s_ppc + KP;
+  int32_t* s_pslot = s_ppr + KP;   // KP their slot, -1 once replaced
+  int32_t* s_gcnt = s_pslot + KP;  // G group rows
+  int32_t* s_gcur = s_gcnt + G;
+  int32_t* s_gmax = s_gcur + G;
+  int32_t* s_gslots = s_gmax + G;
+  int32_t* s_gtc = s_gslots + G;
+  int32_t* s_gtr = s_gtc + G;
+  int32_t* s_gstart = s_gtr + G;
+  int32_t* s_gpl = s_gstart + G;  // G opened per group
+  uint8_t* s_pl = reinterpret_cast<uint8_t*>(s_gpl + G);  // S planned flags
 
   const size_t c = blockIdx.x;
   const size_t sb = c * (size_t)S, gb = c * (size_t)G, kb = c * (size_t)K;
   const int lane = threadIdx.x;
+  const unsigned below = (1u << lane) - 1u;
 
-  for (int s = lane; s < S; s += 32) {
-    s_seq[s] = kBig;
-    s_pc[s] = 0;
-    s_pr[s] = 0;
-  }
-  for (int g = lane; g < G; g += 32) s_gpl[g] = 0;
-  if (lane == 0) {
-    int total = 0;
-    for (int g = 0; g < G; ++g) total += ca_count[gb + g];
-    s_total = total;
-    s_counter = 0;
-    s_starved = 0;
-  }
-  __syncwarp();
-
+  // 1. The validity row, compacted in order (positions into s_rc for now).
   const int quota = max_nodes[c];
-  for (int k = 0; k < K; ++k) {
-    if (!cvalid[kb + k]) continue;  // uniform across the warp
-    const int rc = creq_cpu[kb + k], rr = creq_ram[kb + k];
-    int best = kBig;
-    for (int s = lane; s < S; s += 32) {
-      if (s_seq[s] != kBig && rc <= s_pc[s] && rr <= s_pr[s]) best = min(best, s_seq[s]);
-    }
-    best = warp_min_all(best);
-    if (best != kBig) {
-      // Plan orders are unique among planned slots: one lane deducts.
-      for (int s = lane; s < S; s += 32) {
-        if (s_seq[s] == best) {
-          s_pc[s] -= rc;
-          s_pr[s] -= rr;
-        }
+  int n_valid = 0;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    const bool v = k < K && cvalid[kb + k];
+    const unsigned b = __ballot_sync(kFull, v);
+    if (v) s_rc[n_valid + __popc(b & below)] = k;
+    n_valid += __popc(b);
+  }
+  if (n_valid == 0) {
+    for (int s = lane; s < S; s += 32) planned_out[sb + s] = 0;
+    for (int g = lane; g < G; g += 32) gpl_out[gb + g] = 0;
+    if (lane == 0) starved_out[c] = 0;
+    return;
+  }
+
+  // 2. The valid candidates' requests, the group rows, each on its owning
+  // lane, and the CA node total, in one round trip.
+  __syncwarp();
+  for (int i = lane; i < n_valid; i += 32) {
+    const int k = s_rc[i];
+    s_rc[i] = creq_cpu[kb + k];
+    s_rr[i] = creq_ram[kb + k];
+  }
+  int total = 0;
+  for (int g = lane; g < G; g += 32) {
+    const int cnt = ca_count[gb + g];
+    s_gcnt[g] = cnt;
+    s_gcur[g] = ca_cursor[gb + g];
+    s_gmax[g] = ng_max[gb + g];
+    s_gslots[g] = ng_slots[gb + g];
+    s_gtc[g] = tmpl_cpu[gb + g];
+    s_gtr[g] = tmpl_ram[gb + g];
+    s_gstart[g] = ng_start[gb + g];
+    s_gpl[g] = 0;
+    total = (int)((unsigned)total + (unsigned)cnt);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    total = (int)((unsigned)total + (unsigned)__shfl_xor_sync(kFull, total, o));
+  __syncwarp();  // the staged requests are read by every lane
+
+  // 3. The walk. The loads of a step are issued together (no
+  // short-circuit), and the next candidate's request ahead of its turn.
+  int n_plan = 0, starved = 0;
+  int rc_next = s_rc[0], rr_next = s_rr[0];
+  for (int v = 0; v < n_valid; ++v) {
+    const int rc = rc_next, rr = rr_next;
+    rc_next = s_rc[v + 1];
+    rr_next = s_rr[v + 1];
+    int first = -1;
+    for (int p0 = 0; p0 < n_plan; p0 += 32) {
+      const int p = p0 + lane;
+      const bool fit = (p < n_plan) & (s_pslot[p] >= 0) & (rc <= s_ppc[p]) & (rr <= s_ppr[p]);
+      const unsigned b = __ballot_sync(kFull, fit);
+      if (b) {
+        first = p0 + __ffs(b) - 1;
+        break;
       }
-      __syncwarp();
+    }
+    if (first >= 0) {
+      if ((first & 31) == lane) {
+        s_ppc[first] = sub_wrap(s_ppc[first], rc);
+        s_ppr[first] = sub_wrap(s_ppr[first], rr);
+      }
       continue;
     }
-    if (lane == 0 && s_total < quota) {
-      int first = -1;
-      bool any_accepts = false;
-      for (int g = 0; g < G; ++g) {
-        const int gmax = ng_max[gb + g];
-        const bool accepts = (gmax < 0 || ca_count[gb + g] + s_gpl[g] < gmax) &&
-                             rc <= tmpl_cpu[gb + g] && rr <= tmpl_ram[gb + g];
-        if (accepts && ng_slots[gb + g] > 0) any_accepts = true;
-        if (first < 0 && accepts && ca_cursor[gb + g] + s_gpl[g] < ng_slots[gb + g]) first = g;
+    if (total >= quota) continue;
+    int g_open = -1;
+    bool any_reserve = false;
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      bool ok = false, nc = false;
+      if (g < G) {
+        const int gmax = s_gmax[g];
+        const bool accepts = (gmax < 0 || s_gcnt[g] + s_gpl[g] < gmax) &&
+                             rc <= s_gtc[g] && rr <= s_gtr[g];
+        ok = accepts && s_gcur[g] + s_gpl[g] < s_gslots[g];
+        nc = accepts && s_gslots[g] > 0;
       }
-      if (first >= 0) {
-        const int s_new = ng_start[gb + first] + ca_cursor[gb + first] + s_gpl[first];
-        if (s_new >= 0 && s_new < S) {
-          s_seq[s_new] = s_counter;
-          s_pc[s_new] = tmpl_cpu[gb + first];
-          s_pr[s_new] = tmpl_ram[gb + first];
-        }
-        s_gpl[first] += 1;
-        s_total += 1;
-        s_counter += 1;
-      } else if (any_accepts) {
-        s_starved += 1;
-      }
+      const unsigned bo = __ballot_sync(kFull, ok);
+      any_reserve |= __ballot_sync(kFull, nc) != 0;
+      if (g_open < 0 && bo) g_open = g0 + __ffs(bo) - 1;
     }
-    __syncwarp();
+    if (g_open < 0) {
+      if (any_reserve) ++starved;
+      continue;
+    }
+    const int src = g_open & 31;
+    int s_new = 0, tc = 0, tr = 0;
+    if (lane == src) {
+      s_new = s_gstart[g_open] + s_gcur[g_open] + s_gpl[g_open];
+      tc = s_gtc[g_open];
+      tr = s_gtr[g_open];
+      s_gpl[g_open] += 1;
+    }
+    s_new = __shfl_sync(kFull, s_new, src);
+    tc = __shfl_sync(kFull, tc, src);
+    tr = __shfl_sync(kFull, tr, src);
+    for (int p = lane; p < n_plan; p += 32)
+      if (s_pslot[p] == s_new) s_pslot[p] = -1;
+    if (s_new >= 0 && s_new < S) {
+      if ((n_plan & 31) == lane) {
+        s_ppc[n_plan] = tc;
+        s_ppr[n_plan] = tr;
+        s_pslot[n_plan] = s_new;
+      }
+      ++n_plan;
+    }
+    ++total;
   }
 
-  for (int s = lane; s < S; s += 32) planned_out[sb + s] = s_seq[s] != kBig;
+  for (int s = lane; s < S; s += 32) s_pl[s] = 0;
+  __syncwarp();
+  for (int p = lane; p < n_plan; p += 32)
+    if (s_pslot[p] >= 0) s_pl[s_pslot[p]] = 1;
+  __syncwarp();
+  for (int s = lane; s < S; s += 32) planned_out[sb + s] = s_pl[s];
   for (int g = lane; g < G; g += 32) gpl_out[gb + g] = s_gpl[g];
-  if (lane == 0) starved_out[c] = s_starved;
+  if (lane == 0) starved_out[c] = starved;
 }
 
 }  // namespace
@@ -131,7 +215,8 @@ extern "C" int ktt_ca_scale_up(
     const void* creq_cpu, const void* creq_ram, void* planned, void* gpl,
     void* starved, int C, int S, int G, int K, void* stream) {
   if (C <= 0) return 0;
-  const size_t smem = sizeof(int32_t) * (3 * (size_t)S + (size_t)G);
+  // ca_up_smem in ops/autoscale_kernel.py reckons the same bytes.
+  const size_t smem = sizeof(int32_t) * (5 * (size_t)((K + 32) & ~31) + 8 * (size_t)G) + (size_t)S;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         ca_scale_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

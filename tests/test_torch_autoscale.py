@@ -37,7 +37,8 @@ from kubernetriks_tpu.batched import trace_compile as jax_tc  # noqa: E402
 from kubernetriks_tpu.config import SimulationConfig as JaxConfig  # noqa: E402
 
 from chip_smoke import composed_config_yaml, composed_workload_yaml  # noqa: E402
-from test_torch_cuda import ca_down_inputs, ca_up_inputs, t as _t  # noqa: E402
+from ca_inputs import ca_down_inputs, ca_up_inputs  # noqa: E402
+from test_torch_cuda import t as _t  # noqa: E402
 
 from kubernetriks_tpu_torch.batched import trace_compile as port_tc
 from kubernetriks_tpu_torch.batched.state import compare_states
@@ -113,14 +114,24 @@ def _jax(config_yaml, spec, C, K, path="xla", monkeypatch=None):
 # --- (a) the CA kernels -------------------------------------------------------
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_ca_scale_down_plain_matches_pallas(seed):
-    """Exact: removed flags in name-order positions."""
-    args, K = ca_down_inputs(seed)
+@pytest.mark.parametrize("seed, edge", [
+    (0, None), (1, None), (2, None), (3, "crossing"), (4, "target"),
+], ids=["0", "1", "2", "crossing-3", "target-4"])
+def test_ca_scale_down_plain_matches_pallas(seed, edge):
+    """Exact: removed flags in name-order positions. "crossing": lane 0's
+    first removal deducts onto its second candidate, which the threshold
+    then refuses though its starting utilization is under it; "target":
+    lane 0's second candidate re-places its pod onto the first, already
+    removed (the walk keeps removed candidates alive as targets)."""
+    args, K = ca_down_inputs(seed, edge=edge)
     want = np.asarray(jax_ca_kernels.fused_ca_scale_down(*args, k_sd=K, interpret=True))
     got = port_ca_kernels.fused_ca_scale_down(*(_t(a) for a in args), k_sd=K).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.any() and not want.all()
+    if edge == "crossing":
+        assert want[0, 0] and not want[0, 1]
+    elif edge == "target":
+        assert want[0, 0] and want[0, 1] and not want[0, 2:].any()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

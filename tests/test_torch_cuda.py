@@ -4,7 +4,8 @@ port only — no jax — so it also runs on a machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-It also holds the seeded input generators the CPU parity tests share."""
+It also holds the seeded input generators the CPU parity tests share (the
+CA kernels' are in ca_inputs.py, beside chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 from kubernetriks_tpu_torch.trace.generic import GenericClusterTrace, GenericWorkloadTrace
 
+from ca_inputs import ca_down_inputs, ca_up_inputs
 from chip_smoke import composed_sim  # noqa: F401  (the composed scenario, shared)
 
 DELAYS = """sim_name: test_kubernetriks
@@ -281,89 +283,68 @@ def commit_inputs(seed, C=5, P=24, K=6):
     return cand, assign, park, best, start_s, park_s, phase, node
 
 
-def ca_down_inputs(seed, C=5, N=12, S=8, K=4):
-    """Scale-down kernel operands: lanes with the branch off, candidates
-    over and under the threshold, pending ones, dead ones, padding slots,
-    candidates with more than K pods, equal-allocatable targets (name rank
-    decides) and pods that fit nowhere."""
-    rng = np.random.default_rng(seed)
-    branch = rng.random((C, 1)) < 0.8
-    branch[0, 0] = True
-    branch[1, 0] = False
-    thresh = rng.choice(np.float32([0.3, 0.5, 0.7]), (C, 1)).astype(np.float32)
-    alive = rng.random((C, N)) < 0.85
-    not_pending = rng.random((C, N)) < 0.85
-    cap_cpu = rng.choice([16000, 32000], (C, N)).astype(np.int32)
-    cap_ram = rng.choice([32768, 65536], (C, N)).astype(np.int32)
-    # Candidates (the last S node slots) mostly lightly used; the rest
-    # anywhere from empty to full.
-    used = rng.choice([0.0, 0.1, 0.25, 0.6, 0.9], (C, N))
-    used[:, N - S :] = rng.choice([0.0, 0.05, 0.2, 0.45, 0.8], (C, S))
-    vcpu = (cap_cpu * (1.0 - used)).astype(np.int32)
-    vram = (cap_ram * (1.0 - used)).astype(np.int32)
-    name_rank = np.stack([rng.permutation(N) for _ in range(C)]).astype(np.int32)
-    slot_perm = np.stack([rng.permutation(np.arange(N - S, N)) for _ in range(C)]).astype(np.int32)
-    slot_perm[2, -2:] = -1  # padding slots
-    slotc = np.clip(slot_perm, 0, N - 1)
-    cand_alive = (slot_perm >= 0) & np.take_along_axis(alive, slotc, axis=1)
-    cnt = rng.integers(0, K + 2, (C, S)).astype(np.int32)
-    pr_cpu = rng.choice([1000, 2000, 4000, 8000, 20000], (C, S * K)).astype(np.int32)
-    pr_ram = rng.choice([1024, 2048, 4096, 16384], (C, S * K)).astype(np.int32)
-    pv0 = (np.arange(K)[None, None, :] < cnt[:, :, None]).reshape(C, S * K)
-    return (
-        branch, thresh, alive, not_pending, cap_cpu, cap_ram, vcpu, vram, name_rank,
-        slot_perm, cand_alive, cnt, pr_cpu, pr_ram, pv0,
-    ), K
-
-
-def ca_up_inputs(seed, C=5, G=2, K=8, S=8):
-    """Scale-up kernel operands: an unbounded group and a bounded one,
-    lanes whose quota stops the opens, a lane with no valid candidate, a
-    lane whose reserve is consumed (starvation) and pods no template
-    holds."""
-    rng = np.random.default_rng(seed)
-    max_nodes = np.array([[8], [2], [8], [0], [8]], np.int32)[:C]
-    ca_count = rng.integers(0, 2, (C, G)).astype(np.int32)
-    ca_cursor = (ca_count + rng.integers(0, 2, (C, G))).astype(np.int32)
-    ng_max = np.tile(np.array([-1, 3], np.int32)[:G], (C, 1))
-    ng_slots = np.full((C, G), S // G, np.int32)
-    ng_start = np.tile(np.arange(G, dtype=np.int32) * (S // G), (C, 1))
-    ca_cursor[4] = ng_slots[4]  # reserve consumed on lane 4
-    tmpl_cpu = np.tile(np.array([16000, 32000], np.int32)[:G], (C, 1))
-    tmpl_ram = np.tile(np.array([32768, 65536], np.int32)[:G], (C, 1))
-    n_valid = rng.integers(1, K + 1, C)
-    n_valid[2] = 0
-    cvalid = np.arange(K)[None, :] < n_valid[:, None]
-    creq_cpu = rng.choice([2000, 6000, 12000, 24000, 40000], (C, K)).astype(np.int32)
-    creq_ram = rng.choice([2048, 8192, 24576, 49152], (C, K)).astype(np.int32)
-    return (
-        max_nodes, ca_count, ca_cursor, ng_max, ng_slots, tmpl_cpu, tmpl_ram, ng_start,
-        cvalid, creq_cpu, creq_ram,
-    ), S
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [5, 6])
 def test_ca_kernels_match_plain_versions(cuda_device, seed):
     """Each CA kernel equals its plain version exactly on the same card
-    inputs, at the test shapes and at the composed path's widths (N=96,
-    S=64, K_sd=8; Gn=1, K_up=64), and counts one launch per call."""
+    inputs, at the test shapes, at the composed path's widths (N=96, S=64,
+    K_sd=8; Gn=1, K_up=64) and at the replay's (C = 1 and 2, N = 1 713 (not
+    a multiple of the block), S = 400), on the generators' edge cases
+    (branch off, nothing eligible, everything eligible, a removal pushing a
+    later candidate over the threshold, a removed node as a later target,
+    more than K and no pods, negative requests, K = 12, blocks of 1 024
+    threads with 8 and 16 node slots a thread; no valid cache row, all
+    valid, a consumed reserve with Gn = 2, opens on planned slots), and
+    counts one launch per call. Each call runs twice: nothing may carry
+    over between calls."""
     cases = []
-    for kw in ({}, {"C": 64, "N": 96, "S": 64, "K": 8}):
+    down = [{}, {"C": 64, "N": 96, "S": 64, "K": 8}, {"N": 97, "S": 40, "K": 8},
+            {"C": 1, "N": 1713, "S": 400, "K": 8}, {"C": 2, "N": 1713, "S": 400, "K": 8}]
+    for edge in ("crossing", "target", "branch_off", "none_eligible", "all_eligible", "attempting", "negative"):
+        down += [{"edge": edge}, {"C": 2, "N": 1713, "S": 400, "K": 8, "edge": edge}]
+    # K = 12 pod rows a candidate, and blocks of 32 warps with 8 and 16 node
+    # slots a thread.
+    down += [{"N": 97, "S": 40, "K": 12, "edge": "attempting"},
+             {"C": 2, "N": 1713, "S": 400, "K": 12, "edge": "attempting"},
+             {"C": 2, "N": 5000, "S": 300, "K": 8, "edge": "attempting"},
+             {"C": 1, "N": 12000, "S": 100, "K": 8, "edge": "attempting"}]
+    for kw in down:
         args, K = ca_down_inputs(seed, **kw)
         cases.append(("fused_ca_scale_down", ca_kernels.ca_scale_down_plain, args, {"k_sd": K}))
-    for kw in ({}, {"C": 5, "G": 1, "K": 64, "S": 64}):
+    up = [{}, {"C": 5, "G": 1, "K": 64, "S": 64}, {"C": 1, "G": 1, "K": 64, "S": 400},
+          {"C": 2, "G": 1, "K": 64, "S": 400}, {"C": 40, "G": 2, "K": 70, "S": 400}]
+    for edge in ("none_valid", "all_valid", "overlap"):
+        up += [{"edge": edge}, {"C": 2, "G": 1, "K": 64, "S": 400, "edge": edge}]
+    for kw in up:
         args, S = ca_up_inputs(seed, **kw)
         cases.append(("fused_ca_scale_up", ca_kernels.ca_scale_up_plain, args, {"n_slots": S}))
     for name, plain, args, kwargs in cases:
-        port_kernels.reset_launches()
         dev_args = [t(a).to(cuda_device) for a in args]
-        got = getattr(ca_kernels, name)(*dev_args, **kwargs)
-        torch.cuda.synchronize()
-        assert port_kernels.LAUNCHES[name] == 1
         want = plain(*dev_args, **kwargs)
-        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
-            assert torch.equal(g, w), name
+        for _ in range(2):
+            port_kernels.reset_launches()
+            got = getattr(ca_kernels, name)(*dev_args, **kwargs)
+            torch.cuda.synchronize()
+            assert port_kernels.LAUNCHES[name] == 1
+            for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_ca_scale_down_in_narrow_windows(cuda_device, monkeypatch):
+    """With the shared-memory budget cut so a window holds a few
+    candidates, the scale-down walks S in several windows (the node rows
+    loaded once, in the first window that has an eligible candidate) and
+    still equals its plain version."""
+    args, K = ca_down_inputs(7, C=2, N=1713, S=400, K=8, edge="attempting")
+    threads, npt, window, smem = ca_kernels.ca_down_layout(1713, 400, 8)
+    budget = ca_kernels._CA_DOWN_STATIC_SMEM + smem - (35 + 8 * 8) * (window - 37)
+    monkeypatch.setattr(ca_kernels, "SMEM_LIMIT", budget)
+    assert ca_kernels.ca_down_layout(1713, 400, 8)[2] == 37
+    dev_args = [t(a).to(cuda_device) for a in args]
+    got = ca_kernels.fused_ca_scale_down(*dev_args, k_sd=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ca_kernels.ca_scale_down_plain(*dev_args, k_sd=K))
 
 
 @pytest.mark.cuda

@@ -18,16 +18,15 @@ Tolerance: every output exactly equal, except the estimator stats rows
 policy for float32 metric accumulators. Inputs carry ties in node scores
 and queue keys (broken by queue seq, unique per pod as in real states),
 lanes with no eligible pod, and event slots out of range (generators in
-test_torch_cuda.py). The CUDA kernels are held against these plain
+test_torch_cuda.py and ca_inputs.py). The CUDA kernels are held against these plain
 versions on the card by chip_smoke.py and test_torch_cuda.py.
 """
 
 import numpy as np
 import pytest
 
+from ca_inputs import ca_down_inputs, ca_up_inputs
 from test_torch_cuda import (
-    ca_down_inputs,
-    ca_up_inputs,
     commit_inputs,
     cycle_inputs,
     event_inputs,
@@ -247,6 +246,25 @@ def test_free_layout_picks_the_block_and_the_node_path(N, P, want):
     rows in shared memory only for one tile that fits, and no refusal for
     any N."""
     assert port_kernels.free_layout(N, P) == want
+
+
+@pytest.mark.parametrize("N, S, K, want", [
+    (96, 64, 8, (32, 4, 64, 96 + 32 + 64 * 99)),  # the autoscaler path: one warp
+    (1713, 400, 8, (448, 4, 400, 1713 + 32 + 400 * 99)),  # the replay: 448 threads
+    (1713, 5000, 8, (448, 4, 2319, 1713 + 32 + 2319 * 99)),  # windows of 2 319 candidates
+    (97, 40, 8, (32, 4, 40, 97 + 32 + 40 * 99)),  # N not a multiple of the block
+    (4096, 64, 8, (1024, 4, 64, 4096 + 32 + 64 * 99)),  # the largest block
+    (12000, 64, 8, (1024, 16, 64, 12000 + 32 + 64 * 99)),  # 16 slots a thread
+    (40000, 10, 8, (1024, 64, 10, 40000 + 32 + 10 * 99)),  # 64 slots a thread: refused
+    (70000, 10, 8, (1024, 128, 10, 70000 + 32 + 10 * 99)),  # beyond 32 slots a thread: refused
+])
+def test_ca_down_layout_picks_the_block_and_the_window(N, S, K, want):
+    """The scale-down kernel's launch layout as its wrapper reckons it (the
+    CUDA side takes it as given): ~4 node slots a thread in whole warps,
+    rounded up to a power of two (the wrapper refuses more than 32), and
+    every candidate in one window where shared memory holds their pod
+    tables, else windows of as many as fit."""
+    assert ca_kernels.ca_down_layout(N, S, K) == want
 
 
 def test_wrappers_count_only_kernel_launches():
