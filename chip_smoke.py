@@ -54,9 +54,10 @@ Phases; any failure exits non-zero:
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
 KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay;
-and the two redesigned cycle kernels above K = 256: the megakernel with
-K = P = 2 048 on a seeded deep queue over the headline's captured rows, the
-candidate cycle with K = 1 024 rows over the replay's captured node rows.
+and the three redesigned cycle kernels above K = 256: the megakernel and
+the two-kernel route's selection with K = P = 2 048 on a seeded deep queue
+over the headline's captured rows, the candidate cycle with K = 1 024 rows
+over the replay's captured node rows.
 The event scatter, the free kernel and both CA kernels are held and timed
 at the replay's shape too (C = 1, N = 1 713, P = 107 136), on their busiest
 calls in its first 600 s; the kernels' JSON line carries these as extra
@@ -73,6 +74,7 @@ result. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -497,7 +499,7 @@ def chain_floors(sk, dev, n: int = 1024) -> dict:
     block of the fewest threads the kernel runs): the candidate cycle over
     n valid rows (the decision pass the megakernel runs too), and the
     two-kernel route's selection kernel over n eligible pods with K = n
-    (its queue pick and decision pass, per pick)."""
+    (its share of the queue ordering and its decision pass, per pick)."""
     g = torch.Generator().manual_seed(13)
     N = 32
     alive = torch.ones((1, N), dtype=torch.bool)
@@ -655,35 +657,43 @@ def main() -> int:
 
     check_event_scatter(*captured["fused_event_scatter"])
     check_free_resources(*captured["fused_free_resources"])
-    # Megakernel; no single library call computes it. Per pick: three key
-    # compares per remaining eligible pod, ~16 operations per node (fit,
-    # score, argmax).
-    def megakernel_need(args, K):
+    # The two selecting kernels' least work. Bytes: the eligible mask, the
+    # eligible pods' keys and requests (12 B each), each pick's requests
+    # again (8 B), the node rows read (9 B a node) and written (8 B).
+    # Operations: ordering the first `picks` of `depth` keys needs at least
+    # log2(depth! / (depth - picks)!) compares of ~3 operations (the count
+    # of distinct outcomes), and each pick ~16 operations per node (fit,
+    # score, argmax). The megakernel's commit adds 16 B a pick, the pod
+    # rows (read 8 B, written 16 B a slot) and the stats rows; the
+    # selection kernel writes 11 B a candidate row instead. No single
+    # library call computes either.
+    def selection_need(args, K, commit=False):
         eligible = args[3]
         C, N = args[1].shape
         P = eligible.shape[1]
-        elig = eligible.sum(dim=1).to(torch.int64)
-        picks = torch.clamp(elig, max=K)
+        depth = eligible.sum(dim=1).to(torch.float64)
+        picks = torch.clamp(depth, max=K)
         n_picks = int(picks.sum())
-        scanned = int((picks * elig - picks * (picks - 1) // 2).sum())
-        return (
-            eligible.numel() + 12 * int(elig.sum()) + 24 * n_picks + 9 * C * N + 8 * C * P
-            + 8 * C * N + 16 * C * P + 20 * C,
-            3 * scanned + 16 * N * n_picks,
+        compares = float(
+            ((torch.lgamma(depth + 1) - torch.lgamma(depth - picks + 1)) / math.log(2)).sum()
         )
+        need = eligible.numel() + 12 * int(depth.sum()) + 8 * n_picks + 17 * C * N
+        need += 16 * n_picks + 24 * C * P + 20 * C if commit else 11 * C * K
+        return need, int(3 * compares) + 16 * N * n_picks
 
     args, kwargs = captured["fused_select_cycle_commit"]
     check_kernel(
         "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
-        args, kwargs, 6, None, *megakernel_need(args, kwargs["k_pods"]),
+        args, kwargs, 6, None, *selection_need(args, kwargs["k_pods"], commit=True),
     )
     # K = P: the cycle size the engine takes when none is given, on a deep
-    # queue, so the kernel orders it in several batches.
-    args, kwargs = deep_queue(args, kwargs)
+    # queue, so the kernel orders it in several batches. The two-kernel
+    # route's selection is held on the same queue below.
+    deep_args, deep_kwargs = deep_queue(args, kwargs)
     check_kernel(
         "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
-        args, kwargs, 6, None, *megakernel_need(args, kwargs["k_pods"]),
-        label=f"fused_select_cycle_commit (K=P={kwargs['k_pods']}, deep queue)",
+        deep_args, deep_kwargs, 6, None, *selection_need(deep_args, deep_kwargs["k_pods"], commit=True),
+        label=f"fused_select_cycle_commit (K=P={deep_kwargs['k_pods']}, deep queue)",
     )
     del sim, captured
 
@@ -698,23 +708,18 @@ def main() -> int:
     restore()
     torch.cuda.synchronize()
     print(f"phase 3: two-kernel route shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods}", flush=True)
-    # Selection + cycle: the megakernel's reads without the commit's pod
-    # rows; writes the node rows and 11 B per candidate row. No library
-    # call computes it.
     args, kwargs = captured["fused_select_schedule_cycle"]
-    eligible = args[3]
-    C, N = args[1].shape
-    K = kwargs["k_pods"]
-    elig = eligible.sum(dim=1).to(torch.int64)
-    picks = torch.clamp(elig, max=K)
-    n_picks = int(picks.sum())
-    scanned = int((picks * elig - picks * (picks - 1) // 2).sum())
     check_kernel(
         "fused_select_schedule_cycle", sk.fused_select_schedule_cycle, sk.select_schedule_cycle_plain,
-        args, kwargs, -1, None,
-        eligible.numel() + 12 * int(elig.sum()) + 8 * n_picks + 9 * C * N + 8 * C * N + 11 * C * K,
-        3 * scanned + 16 * N * n_picks,
+        args, kwargs, -1, None, *selection_need(args, kwargs["k_pods"]),
     )
+    # The megakernel's deep queue (K = P, several batches).
+    check_kernel(
+        "fused_select_schedule_cycle", sk.fused_select_schedule_cycle, sk.select_schedule_cycle_plain,
+        deep_args[:9], deep_kwargs, -1, None, *selection_need(deep_args, deep_kwargs["k_pods"]),
+        label=f"fused_select_schedule_cycle (K=P={deep_kwargs['k_pods']}, deep queue)",
+    )
+    del deep_args
     # Commit scatter: reads the two pod rows it copies through and the
     # touched candidate rows (18 B each), the two flags of the rest; writes
     # four pod rows. Yardstick: one scatter_ of the phase row.
@@ -921,34 +926,7 @@ def main() -> int:
 
     # --- 4. the main path ----------------------------------------------------
     sim = headline_sim(dev)
-    sk.reset_launches()
-    sim.step_until_time(190.0)
-    before = sim.decisions_total()
-    syncs0, windows0 = sim.host_syncs, sim.windows_run
-    t0 = time.perf_counter()
-    end = 390.0
-    while end <= 1200.0:
-        sim.step_until_time(end)
-        end += 200.0
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
-    windows = sim.windows_run - windows0
-    syncs_per_window = (sim.host_syncs - syncs0) / max(windows, 1)
-    total = sim.decisions_total()
-    decisions = total - before
-    print(
-        f"phase 4: decisions {total} (timed {decisions} in {elapsed:.3f} s = "
-        f"{decisions / elapsed:.1f} decisions/s), windows {sim.windows_run} "
-        f"(timed {windows}, {1e3 * elapsed / max(windows, 1):.3f} ms/window), "
-        f"host syncs per window {syncs_per_window:.3f}, launches {launches}",
-        flush=True,
-    )
-    if total <= 0:
-        fail("the main path made no scheduling decision")
-    for name in names:
-        if launches[name] <= 0:
-            fail(f"the main path never launched {name}")
+    main_path = timed_path(sim, sk, names, "phase 4")
     # Conservation: every node's used capacity is the sum of the requests
     # of the pods running on it; every cluster (same trace) ends identical.
     st = sim.state
@@ -973,16 +951,6 @@ def main() -> int:
         if not bool(torch.isfinite(est.total).all()):
             fail("non-finite estimator sums")
     print("phase 4: state checks passed", flush=True)
-    main_path = {
-        "decisions": total,
-        "timed_decisions": decisions,
-        "timed_seconds": elapsed,
-        "decisions_per_s": decisions / elapsed,
-        "windows": sim.windows_run,
-        "timed_windows": windows,
-        "host_syncs_per_window": syncs_per_window,
-        "launches": launches,
-    }
     del sim, st
 
     # --- 5. card against CPU ---------------------------------------------------
@@ -1211,7 +1179,7 @@ def main() -> int:
     # autoscaler path (phase 6), the two-kernel route's from phase 8, the
     # candidate cycle from the replay (phase 9).
     path_launches = {
-        **{n: launches[n] for n in names},
+        **{n: main_path["launches"][n] for n in names},
         **{n: auto_launches[n] for n in ca_names},
         **{n: two_kernel_path["launches"][n] for n in two_names},
         "fused_schedule_cycle": replay_launches["fused_schedule_cycle"],

@@ -23,15 +23,15 @@ card the window step goes through the CUDA kernels (ops/); on the CPU
 through their plain PyTorch versions.
 
 The scheduling cycle's route (`cycle_route`, step.CYCLE_ROUTES) is fixed at
-build, as the reference fixes its kernel flags (engine.py:1505-1546):
-"megakernel" from 128 clusters on while the two-kernel route's selection
-kernel fits its shared memory (the reference's megakernel gate, kept for
-both dense routes so a flag never changes which shapes run dense) and
-KTPU_MEGAKERNEL is not 0, "two_kernel" where the flag is 0, else "sorted"
-(always below 128 clusters: one cluster per block leaves the card idle,
-and the queue sort plus the candidate kernel's early exit is what the
-reference runs there). Nothing else picks the route, and a build or launch failure never
-changes it.
+build, as the reference fixes its kernel flags (engine.py:1505-1546): from
+128 clusters on, "megakernel", or "two_kernel" where KTPU_MEGAKERNEL is 0;
+below that "sorted" (one cluster per block leaves the card idle, and the
+queue sort plus the candidate kernel's early exit is what the reference
+runs there). The reference also gates its megakernel on its selection
+kernel fitting its memory; the port's dense kernels use a fixed amount of
+shared memory whatever the shape, so the cluster count alone decides.
+Nothing else picks the route, and a build or launch failure never changes
+it.
 
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
@@ -76,10 +76,6 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     segment_pod_slots,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
-from kubernetriks_tpu_torch.ops.scheduler_kernel import (
-    SMEM_LIMIT,
-    selection_smem_bytes,
-)
 
 POD_ALIGN = 128
 BIG_RANK = 1 << 30
@@ -115,11 +111,10 @@ def flag_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() not in ("0", "", "false", "no", "off")
 
 
-def choose_cycle_route(n_clusters: int, n_nodes: int, n_pods: int, megakernel: bool = True) -> str:
-    """The cycle route for this shape (module note); `megakernel` is the
-    KTPU_MEGAKERNEL flag. One gate, the selection kernel's shared memory,
-    serves both dense routes."""
-    if n_clusters < DENSE_CLUSTERS or selection_smem_bytes(n_nodes, n_pods) > SMEM_LIMIT:
+def choose_cycle_route(n_clusters: int, megakernel: bool = True) -> str:
+    """The cycle route for a batch of n_clusters (module note);
+    `megakernel` is the KTPU_MEGAKERNEL flag."""
+    if n_clusters < DENSE_CLUSTERS:
         return "sorted"
     return "megakernel" if megakernel else "two_kernel"
 
@@ -486,9 +481,7 @@ class BatchedSimulation:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
-        self.cycle_route = choose_cycle_route(
-            C, self.n_nodes, self.n_pods, flag_bool("KTPU_MEGAKERNEL", True)
-        )
+        self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL", True))
 
         self.state = init_state(
             C,

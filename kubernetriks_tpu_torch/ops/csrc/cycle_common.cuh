@@ -1,20 +1,17 @@
 // Device code shared by the three scheduling-cycle kernels
 // (select_cycle_commit.cu, select_schedule_cycle.cu, schedule_cycle.cu):
-// the queue key order, the bit-exact LeastAllocatedResources score, and the
-// passes every cycle is made of — the queue pick and the decision pass
-// (fit + score on every node, last-max-wins argmax). One definition, so
-// the kernels cannot drift apart, as the reference's `_argmin_select`
-// (ops/scheduler_kernel.py:986) and `_fit_score_place` (:118) are shared
-// by its Pallas kernels.
+// the bit-exact LeastAllocatedResources score, the decision pass (fit +
+// score on every node, last-max-wins argmax) and the queue's order. One
+// definition, so the kernels cannot drift apart, as the reference's
+// `_argmin_select` (ops/scheduler_kernel.py:986) and `_fit_score_place`
+// (:118) are shared by its Pallas kernels.
 //
-// Two generations live here. The block passes over shared memory
-// (block_select, block_fit_argmax: one block of kThreads threads per
-// cluster, the cluster's rows in shared memory, every thread ending with
-// the result read from per-warp slots; the caller must __syncthreads()
-// before the next pass reuses them) serve select_schedule_cycle.cu. The
-// register-resident decision pass (NodeRegs) and the queue ordered once by
-// a block sort (order_hi/order_lo, block_bitonic_sort) serve the
-// candidate cycle and the megakernel.
+// A block of cycle_threads(N) threads runs one cluster. The node rows sit
+// in registers (NodeRegs) and each placement is one register pass with one
+// barrier. The two selecting kernels order the queue once per cycle
+// (order_queue): the eligible pods' keys, packed into two 64-bit words
+// (order_hi/order_lo), bitonic-sorted in shared memory a batch of picks at
+// a time. Shared memory is fixed; none of it grows with N, P or K.
 
 #pragma once
 
@@ -26,39 +23,8 @@
 
 namespace ktt {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kPhaseUnschedulable = 2;
 constexpr int kPhaseRunning = 3;
-constexpr int32_t kBig = 0x7fffffff;
-
-// A queue entry's order: (queue win, queue offset as int32 bits, queue
-// seq, slot). Non-negative float32 offsets order like their bit patterns.
-struct Key {
-  int32_t win, off, seq, slot;
-};
-
-__device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
-  if (a.win != b.win) return a.win < b.win;
-  if (a.off != b.off) return a.off < b.off;
-  if (a.seq != b.seq) return a.seq < b.seq;
-  return a.slot < b.slot;
-}
-
-__device__ __forceinline__ Key shfl_key(const Key& k, int delta) {
-  Key o;
-  o.win = __shfl_down_sync(0xffffffffu, k.win, delta);
-  o.off = __shfl_down_sync(0xffffffffu, k.off, delta);
-  o.seq = __shfl_down_sync(0xffffffffu, k.seq, delta);
-  o.slot = __shfl_down_sync(0xffffffffu, k.slot, delta);
-  return o;
-}
-
-// (score, node) pairs: the greater score wins, equal scores go to the
-// higher node slot — the reference's last-max-wins argmax.
-__device__ __forceinline__ bool node_better(float s, int n, float bs, int bn) {
-  return s > bs || (s == bs && n > bn);
-}
 
 // Score of pipeline.py `_score_least_allocated`, op for op: IEEE
 // subtract, multiply and divide with no contraction (nvcc --fmad=false).
@@ -72,109 +38,21 @@ __device__ __forceinline__ float least_allocated(int32_t cpu, int32_t ram,
   return __fmul_rn(__fadd_rn(cs, rs), 0.5f);
 }
 
-// Shared-memory slots of the per-warp partial results.
-struct Scratch {
-  Key key[kWarps];
-  float score[kWarps];
-  int node[kWarps];
-  int fit[kWarps];
-  int count;
-};
-
-// Block-wide sum of one int per thread (every thread gets the total).
-__device__ __forceinline__ int block_sum(int v, Scratch& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-  if (lane == 0) s.node[warp] = v;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < kWarps; ++w) total += s.node[w];
-  __syncthreads();
-  return total;
-}
-
-// The queue pick: the slot of the remaining eligible pod with the least
-// Key, or -1 when none remains.
-__device__ __forceinline__ int block_select(const int32_t* s_win, const int32_t* s_off,
-                                            const int32_t* s_seq, const uint8_t* s_rem,
-                                            int P, Scratch& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Key best = {kBig, kBig, kBig, kBig};
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    if (!s_rem[p]) continue;
-    const Key cand = {s_win[p], s_off[p], s_seq[p], p};
-    if (key_less(cand, best)) best = cand;
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    const Key o = shfl_key(best, d);
-    if (key_less(o, best)) best = o;
-  }
-  if (lane == 0) s.key[warp] = best;
-  __syncthreads();
-  Key b = s.key[0];
-  for (int w = 1; w < kWarps; ++w)
-    if (key_less(s.key[w], b)) b = s.key[w];
-  return b.slot == kBig ? -1 : b.slot;
-}
-
 struct Decision {
   int best;    // last node of maximal score (N - 1 when nothing fits)
   int anyfit;  // 1 when some alive node fits the request
 };
 
-// The decision pass for one request (rc, rr) over the cluster's nodes.
-__device__ __forceinline__ Decision block_fit_argmax(const int32_t* s_cpu, const int32_t* s_ram,
-                                                     const uint8_t* s_alive, int N,
-                                                     int32_t rc, int32_t rr, Scratch& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float bscore = -INFINITY;
-  int bnode = -1, anyfit = 0;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const int32_t cpu = s_cpu[n], ram = s_ram[n];
-    const bool fit = s_alive[n] && rc <= cpu && rr <= ram;
-    const float score = fit ? least_allocated(cpu, ram, rc, rr) : -INFINITY;
-    anyfit |= fit ? 1 : 0;
-    if (node_better(score, n, bscore, bnode)) {
-      bscore = score;
-      bnode = n;
-    }
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, bscore, d);
-    const int on = __shfl_down_sync(0xffffffffu, bnode, d);
-    anyfit |= __shfl_down_sync(0xffffffffu, anyfit, d);
-    if (node_better(os, on, bscore, bnode)) {
-      bscore = os;
-      bnode = on;
-    }
-  }
-  if (lane == 0) {
-    s.score[warp] = bscore;
-    s.node[warp] = bnode;
-    s.fit[warp] = anyfit;
-  }
-  __syncthreads();
-  float bs = s.score[0];
-  Decision out = {s.node[0], s.fit[0]};
-  for (int w = 1; w < kWarps; ++w) {
-    out.anyfit |= s.fit[w];
-    if (node_better(s.score[w], s.node[w], bs, out.best)) {
-      bs = s.score[w];
-      out.best = s.node[w];
-    }
-  }
-  return out;
-}
-
 // --- The register-resident decision pass ------------------------------------
-// (schedule_cycle.cu and select_cycle_commit.cu.) A block of T threads
-// (cycle_threads) holds the cluster's node rows in registers: thread t owns
-// slots t, t + T, ... (SLOTS of them, cycle_slots). One candidate is a fit +
-// score over the owned slots, a warp max by `redux.sync` on an orderable
-// score key and then on the node, one barrier (`__syncthreads_or`, which
-// also yields any-fit), and the same two-step max over the per-warp
-// partials, done by every warp at once so that no second barrier is
-// needed. The owner of the chosen node deducts in its registers.
+// A block of T threads (cycle_threads) holds the cluster's node rows in
+// registers: thread t owns slots t, t + T, ... (SLOTS of them,
+// cycle_slots). One candidate is a fit + score over the owned slots, a warp
+// max by `redux.sync` on an orderable score key and then on the node, one
+// barrier (`__syncthreads_or`, which also yields any-fit), and the same
+// two-step max over the per-warp partials, done by every warp at once so
+// that no second barrier is needed. The owner of the chosen node deducts in
+// its registers. With no fit every slot below N keys -inf and the last one,
+// N - 1, wins; slots at or past N take no part.
 
 constexpr int kMaxCycleThreads = 1024;
 constexpr int kMaxCycleSlots = 32;
@@ -284,9 +162,11 @@ struct NodeRegs {
   }
 };
 
-// --- The queue order as sortable words (select_cycle_commit.cu) -------------
-// A queue entry's Key as two unsigned words whose lexicographic order is
-// key_less's: (win, off bits) and (seq, slot), signed words biased by 2^31.
+// --- The queue order as sortable words ---------------------------------------
+// A queue entry's order (queue win, queue offset as int32 bits, queue seq,
+// slot) as two unsigned words compared lexicographically: (win, off bits)
+// and (seq, slot), signed words biased by 2^31. -0.0 comes before +0.0:
+// its int32 bits are the least.
 
 __device__ __forceinline__ uint64_t order_hi(int32_t win, int32_t off_bits) {
   return ((uint64_t)((uint32_t)win ^ 0x80000000u) << 32) | ((uint32_t)off_bits ^ 0x80000000u);
@@ -350,6 +230,156 @@ __device__ __forceinline__ int pow2_ceil(int n) {
   return p;
 }
 
+// --- The queue ordered once per cycle ---------------------------------------
+// A pick leaves the queue whatever its fit, so a cycle's picks are the
+// first min(depth, K) eligible pods in queue order and only the placements
+// depend on each other. A queue of at most kQueueCap pods is counted,
+// compacted with a block prefix sum and bitonic-sorted once. A deeper queue
+// runs in batches of kQueueBatch picks. For each batch up to kQueueBatch
+// threads walk their own slots once, all at the same time, and offer the
+// pods past the previous batch's last key that are less than the batch's
+// current kQueueBatch-th least key; the offers fill the buffer's upper half
+// (a window) and each window is sorted with the lower half, which ends as
+// the batch's picks. So a batch costs one pass over the slots spread over
+// the block, and the least-key filter leaves most windows after the first
+// few empty (no sort).
+
+constexpr int kQueueCap = 512;
+constexpr int kQueueBatch = kQueueCap / 2;
+constexpr uint64_t kNoKey = ~0ull;  // above every real key: slot < 2^32 - 1
+
+struct QueueOrder {
+  uint64_t hi[kQueueCap], lo[kQueueCap];
+  int warp[32];
+};
+
+// The slot of a batch's i-th pick.
+__device__ __forceinline__ int pick_slot(const QueueOrder& q, int i) {
+  return (int)(uint32_t)q.lo[i];
+}
+
+// Calls `batch(done, n)` for each batch of the cluster's picks, in pick
+// order: picks done .. done + n - 1 are the pods pick_slot(q, 0 .. n - 1),
+// which hold until `batch` returns. Every thread of the block calls it and
+// `batch`; `batch` may hold barriers and must not write `q`. The operands
+// are the cluster's rows. Returns the number of picks, min(depth, K).
+template <typename Batch>
+__device__ __forceinline__ int order_queue(const uint8_t* __restrict__ elig,
+                                           const int32_t* __restrict__ qwin,
+                                           const int32_t* __restrict__ qoff_bits,
+                                           const int32_t* __restrict__ qseq, int P, int K,
+                                           QueueOrder& q, Batch&& batch) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  // The depth: the mask alone, so that its loads are all in flight together.
+  int mine = 0;
+  for (int p = tid; p < P; p += T) mine += elig[p] ? 1 : 0;
+  int M;
+  const int first = block_exclusive_scan(mine, q.warp, M);
+  const int picks = M < K ? M : K;
+  if (picks == 0) return 0;
+
+  if (M <= kQueueCap) {
+    // Every eligible pod, in this thread's compaction range, then one sort.
+    const int n = pow2_ceil(M);
+    for (int i = M + tid; i < n; i += T) {
+      q.hi[i] = kNoKey;
+      q.lo[i] = kNoKey;
+    }
+    for (int p = tid, idx = first; idx < first + mine; p += T) {
+      if (!elig[p]) continue;
+      q.hi[idx] = order_hi(qwin[p], qoff_bits[p]);
+      q.lo[idx] = order_lo(qseq[p], p);
+      ++idx;
+    }
+    __syncthreads();
+    block_bitonic_sort(q.hi, q.lo, n);
+    const int n0 = picks < kQueueBatch ? picks : kQueueBatch;
+    batch(0, n0);
+    __syncthreads();
+    if (picks > n0) {
+      for (int i = tid; i < picks - n0; i += T) {
+        q.hi[i] = q.hi[kQueueBatch + i];
+        q.lo[i] = q.lo[kQueueBatch + i];
+      }
+      __syncthreads();
+      batch(n0, picks - n0);
+      __syncthreads();
+    }
+    return picks;
+  }
+
+  // The first S = min(T, kQueueBatch) threads walk the slots (stride S) and
+  // offer at positions j * S + tid for j < J of the upper half; the batch's
+  // first window, with nothing held yet, fills the whole buffer (j < 2J).
+  const int S = T < kQueueBatch ? T : kQueueBatch;
+  const int J = kQueueBatch / S;
+
+  uint64_t last_hi = 0, last_lo = 0;
+  for (int done = 0; done < picks;) {
+    int p = tid < S ? tid : P;  // this thread's next slot
+    bool wide = true;
+    for (;;) {
+      const int Jw = wide ? 2 * J : J, cap = wide ? kQueueCap : kQueueBatch;
+      uint64_t* const w_hi = wide ? q.hi : q.hi + kQueueBatch;
+      uint64_t* const w_lo = wide ? q.lo : q.lo + kQueueBatch;
+      // Offers must be less than the batch's kQueueBatch-th least key so
+      // far (kNoKey until that many are held).
+      const uint64_t bh = wide ? kNoKey : q.hi[kQueueBatch - 1];
+      const uint64_t bl = wide ? kNoKey : q.lo[kQueueBatch - 1];
+      int got = 0;
+      while (got < Jw && p < P) {
+        // Four slots' mask and keys in flight at once.
+        uint8_t e[4];
+        int32_t w[4], o[4], s[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int pp = p + u * S;
+          const bool in = pp < P;
+          e[u] = in ? elig[pp] : 0;
+          w[u] = in ? qwin[pp] : 0;
+          o[u] = in ? qoff_bits[pp] : 0;
+          s[u] = in ? qseq[pp] : 0;
+        }
+        int u = 0;
+        for (; u < 4 && got < Jw; ++u) {
+          const int pp = p + u * S;
+          if (!e[u]) continue;
+          const uint64_t hi = order_hi(w[u], o[u]), lo = order_lo(s[u], pp);
+          if ((done == 0 || order_less(last_hi, last_lo, hi, lo)) &&
+              order_less(hi, lo, bh, bl)) {
+            w_hi[got * S + tid] = hi;
+            w_lo[got * S + tid] = lo;
+            ++got;
+          }
+        }
+        p += u * S;
+      }
+      if (tid < S) {
+        for (int j = got; j < Jw; ++j) {
+          w_hi[j * S + tid] = kNoKey;
+          w_lo[j * S + tid] = kNoKey;
+        }
+      }
+      for (int i = Jw * S + tid; i < cap; i += T) {  // positions no thread owns
+        w_hi[i] = kNoKey;
+        w_lo[i] = kNoKey;
+      }
+      const int any = __syncthreads_or(got);
+      if (any) block_bitonic_sort(q.hi, q.lo, kQueueCap);
+      wide = false;
+      if (!__syncthreads_or(p < P)) break;
+    }
+
+    const int n = picks - done < kQueueBatch ? picks - done : kQueueBatch;
+    batch(done, n);
+    last_hi = q.hi[n - 1];
+    last_lo = q.lo[n - 1];
+    done += n;
+    __syncthreads();
+  }
+  return picks;
+}
+
 // Launch `kernel_for<SLOTS>` with the slot count `slots` (a power of two
 // up to kMaxCycleSlots): `launch` is called with a std::integral_constant.
 template <typename Launch>
@@ -363,25 +393,6 @@ inline int dispatch_slots(int slots, Launch&& launch) {
     case 32: return launch(std::integral_constant<int, 32>());
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Copy a cluster's node rows into shared memory.
-__device__ __forceinline__ void load_nodes(const uint8_t* alive, const int32_t* alloc_cpu,
-                                           const int32_t* alloc_ram, int N, int32_t* s_cpu,
-                                           int32_t* s_ram, uint8_t* s_alive) {
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    s_cpu[i] = alloc_cpu[i];
-    s_ram[i] = alloc_ram[i];
-    s_alive[i] = alive[i] ? 1 : 0;
-  }
-}
-
-// Raise a kernel's dynamic shared-memory limit when it needs more than
-// the default 48 KB.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace ktt

@@ -30,29 +30,26 @@
 //
 // Design: one block per cluster of cycle_threads(N) threads (128 at
 // N = 256), the node rows in registers (cycle_common.cuh `NodeRegs`, at
-// most two slots a thread). The queue is ordered once: the eligible pods
-// are counted and compacted with a block prefix sum, their keys packed into
-// two 64-bit words and bitonic-sorted in a shared buffer of kCap entries;
-// the first min(depth, K) are the picks. Deeper queues run in batches of
-// kHalf picks: each batch keeps the kHalf least keys above the previous
-// batch's last, merging kHalf more entries per sort. A batch's requests
+// most two slots a thread). The queue is ordered once (cycle_common.cuh
+// `order_queue`, shared with select_schedule_cycle.cu): the eligible pods
+// counted and compacted, their keys bitonic-sorted in a shared buffer of
+// 512 entries; a deeper queue in batches of 256 picks, each batch one pass
+// of the whole block over the slots that sorts only the keys below the
+// batch's current 256th least. A batch's requests
 // and estimator samples are gathered into shared memory, then the picks
 // run the register decision pass (one barrier each) and the owner deducts;
 // the phase/node/start/park writes of the batch follow in parallel and
 // thread 0 folds the estimator in pick order, the reference loop's float
 // order. The copy-through of the full pod rows is vectorised and
-// coalesced. Shared memory is 12 928 B whatever P and K; at N = 256 (46
-// registers a thread) ten blocks fit on an SM, so 1 024 clusters run in
-// one wave.
+// coalesced. Shared memory is 12 928 B whatever P and K; at N = 256 (128
+// threads of at most 64 registers; chip_smoke.py prints ptxas's count) at
+// least eight blocks share an SM, so 1 024 clusters run in one wave.
 
 #include "cycle_common.cuh"
 
 namespace {
 
 using namespace ktt;
-
-constexpr int kCap = 512;
-constexpr int kHalf = kCap / 2;
 
 // phase/node copied through, start/park set to +inf (16-byte words when
 // the rows allow it).
@@ -93,79 +90,26 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     int32_t* __restrict__ node_out, float* __restrict__ start_out,
     float* __restrict__ park_out, float* __restrict__ stats, int N, int P,
     int K) {
-  __shared__ uint64_t s_hi[kCap], s_lo[kCap];
-  __shared__ int32_t s_rc[kHalf], s_rr[kHalf], s_best[kHalf];
-  __shared__ float s_q[kHalf];
+  __shared__ QueueOrder q;
+  __shared__ int32_t s_rc[kQueueBatch], s_rr[kQueueBatch], s_best[kQueueBatch];
+  __shared__ float s_q[kQueueBatch];
   __shared__ Partials part;
-  __shared__ int s_warp[32];
 
   const size_t c = blockIdx.x;
   const size_t nb = c * (size_t)N, pb = c * (size_t)P, kb = c * (size_t)K;
   const int tid = threadIdx.x, T = blockDim.x;
-  const uint8_t* elig = eligible + pb;
 
   NodeRegs<SLOTS> nodes;
   nodes.load(alive + nb, alloc_cpu + nb, alloc_ram + nb, N);
   copy_through(phase_in + pb, node_in + pb, phase_out + pb, node_out + pb, start_out + pb,
                park_out + pb, P);
 
-  // Pods still to pick: eligible, and past the last pick's key once there
-  // is one. This thread's pods are tid, tid + T, ...
-  bool has_last = false;
-  uint64_t last_hi = 0, last_lo = 0;
-  auto remains = [&](int p, uint64_t& hi, uint64_t& lo) {
-    if (!elig[p]) return false;
-    hi = order_hi(qwin[pb + p], qoff_bits[pb + p]);
-    lo = order_lo(qseq[pb + p], p);
-    return !has_last || order_less(last_hi, last_lo, hi, lo);
-  };
-
   float cnt = 0.0f, tot = 0.0f, tsq = 0.0f, mn = INFINITY, mx = -INFINITY;
-  int picks = -1, done = 0, buf = 0;
-  for (;;) {
-    // Count and place this thread's remaining pods in the compaction order.
-    int mine = 0;
-    for (int p = tid; p < P; p += T) {
-      uint64_t hi, lo;
-      mine += remains(p, hi, lo) ? 1 : 0;
-    }
-    int M;
-    const int first = block_exclusive_scan(mine, s_warp, M);
-    if (picks < 0) picks = M < K ? M : K;  // M is the queue depth here
-    if (done >= picks) break;
-
-    // The least keys among the M remaining, sorted into s_hi/s_lo[0..):
-    // all of them when M <= kCap, else the least kHalf, merging kHalf more
-    // entries into the upper half per sort.
-    for (int w0 = 0, base = 0; w0 < M; base = kHalf) {
-      const int w1 = w0 + (kCap - base);
-      const int count = (M < w1 ? M : w1) - w0;
-      const int n = base ? kCap : pow2_ceil(count);
-      for (int i = base + count + tid; i < n; i += T) {
-        s_hi[i] = ~0ull;
-        s_lo[i] = ~0ull;
-      }
-      if (first < w1 && first + mine > w0) {
-        int idx = first;
-        for (int p = tid; p < P && idx < w1; p += T) {
-          uint64_t hi, lo;
-          if (!remains(p, hi, lo)) continue;
-          if (idx >= w0) {
-            s_hi[base + idx - w0] = hi;
-            s_lo[base + idx - w0] = lo;
-          }
-          ++idx;
-        }
-      }
-      __syncthreads();
-      block_bitonic_sort(s_hi, s_lo, n);
-      w0 = w1;
-    }
-
+  int buf = 0;
+  order_queue(eligible + pb, qwin + pb, qoff_bits + pb, qseq + pb, P, K, q, [&](int done, int batch) {
     // This batch's picks: requests and estimator samples to shared memory.
-    const int batch = picks - done < kHalf ? picks - done : kHalf;
     for (int i = tid; i < batch; i += T) {
-      const int slot = (int)(uint32_t)s_lo[i];
+      const int slot = pick_slot(q, i);
       s_rc[i] = req_cpu[pb + slot];
       s_rr[i] = req_ram[pb + slot];
       s_q[i] = __fadd_rn(waited[pb + slot], qpre_t[kb + done + i]);
@@ -180,7 +124,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     }
     __syncthreads();
     for (int i = tid; i < batch; i += T) {
-      const size_t at = pb + (uint32_t)s_lo[i];
+      const size_t at = pb + pick_slot(q, i);
       const int best = s_best[i];
       if (best >= 0) {
         phase_out[at] = kPhaseRunning;
@@ -194,21 +138,15 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     if (tid == 0) {
       for (int i = 0; i < batch; ++i) {
         if (s_best[i] < 0) continue;
-        const float q = s_q[i];
+        const float w = s_q[i];
         cnt = __fadd_rn(cnt, 1.0f);
-        tot = __fadd_rn(tot, q);
-        tsq = __fadd_rn(tsq, __fmul_rn(q, q));
-        mn = fminf(mn, q);
-        mx = fmaxf(mx, q);
+        tot = __fadd_rn(tot, w);
+        tsq = __fadd_rn(tsq, __fmul_rn(w, w));
+        mn = fminf(mn, w);
+        mx = fmaxf(mx, w);
       }
     }
-    last_hi = s_hi[batch - 1];
-    last_lo = s_lo[batch - 1];
-    has_last = true;
-    done += batch;
-    __syncthreads();
-    if (done >= picks) break;
-  }
+  });
 
   nodes.store(cpu_out + nb, ram_out + nb, N);
   if (tid == 0) {

@@ -354,16 +354,8 @@ def select_cycle_commit_plain(
     return cpu, ram, phase, node, start, park_out, torch.cat(stats, dim=1)
 
 
-def selection_smem_bytes(N: int, P: int) -> int:
-    """Shared memory of one block of the two-kernel route's selection
-    kernel: the cluster's two allocatable rows, three queue-key rows and
-    the alive/remaining masks. The engine's route gate."""
-    return 4 * (2 * N + 3 * P) + N + P
-
-
-# Node slots the register-resident cycle kernels (the megakernel, the
-# candidate cycle) hold per cluster: 1 024 threads of 32 slots
-# (ops/csrc/cycle_common.cuh).
+# Node slots the register-resident cycle kernels (all three) hold per
+# cluster: 1 024 threads of 32 slots (ops/csrc/cycle_common.cuh).
 CYCLE_MAX_NODES = 1024 * 32
 
 
@@ -568,12 +560,7 @@ def fused_select_schedule_cycle(
         "qwin": (qwin, i32, (C, P)), "qoff": (qoff, f32, (C, P)), "qseq": (qseq, i32, (C, P)),
         "pod_req_cpu": (pod_req_cpu, i32, (C, P)), "pod_req_ram": (pod_req_ram, i32, (C, P)),
     }, alive.device)
-    smem = selection_smem_bytes(N, P)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_select_schedule_cycle: N={N}, P={P} need {smem} B of shared "
-            f"memory per cluster (limit {SMEM_LIMIT})"
-        )
+    _check_cycle_nodes("fused_select_schedule_cycle", N)
     dev = alive.device
     outs = (
         torch.empty((C, K), dtype=i32, device=dev),

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Where the port's window time goes on the card.
 
-    python3 profile_main_path.py [--path headline|autoscaler|replay] [--windows 20]
+    python3 profile_main_path.py [--path headline|autoscaler|replay|deep]
+        [--windows 20] [--repeats 1] [--route sorted|megakernel|two_kernel]
+        [--k K] [--package-root DIR]
 
 Builds the headline shape (`chip_smoke.headline_sim`), with `--path
 autoscaler` the reference's composed scenario at full width
 (`chip_smoke.composed_sim` with FULL_COMPOSED: HPA + cluster autoscaler),
-or with `--path replay` the full-width Alibaba trace replay
+with `--path replay` the full-width Alibaba trace replay
 (`chip_smoke.replay_sim` on FULL_REPLAY: one cluster, the sorted cycle
-route, the CA on), steps to the warm-up time (t=190 s; 590 s on the
-autoscaler path, inside its load burst; 43 200 s, mid-day, on the replay)
-and keeps that state. Then it runs the same `--windows`
-windows twice from it (the state is immutable, so `install_state` replays
-them):
-  1. untraced, on the host clock, ending in a synchronize;
+route, the CA on), or with `--path deep` a deep queue past the reference's
+shared-memory route gate (deep_sim: 128 clusters of 8 nodes, ~20 480 pods,
+K pods per cycle, K = P by default). `--route` overrides the route the
+engine chose at build (the tests do the same), so the routes can be timed
+on one shape. Steps to the warm-up time (t=190 s; 590 s on the autoscaler
+path, inside its load burst; 43 200 s, mid-day, on the replay; 300 s on
+the deep path, ~5 000 pods queued a cluster) and keeps that state. Then it
+runs the same `--windows` windows from it (the state is immutable, so
+`install_state` replays them):
+  1. untraced, on the host clock, ending in a synchronize, `--repeats`
+     times (the first is `host_ms_per_window`, all are listed);
   2. traced with torch.profiler (CPU + CUDA), again on the host clock,
      summing device kernel time per name.
 The device's idle share is 1 - busy / wall, both from the traced windows;
@@ -23,7 +30,9 @@ window (untraced and traced), device busy ms per window, the idle share,
 device kernel launches per window, and the top device ops with their
 share of busy time. The full key_averages table goes to
 profile_<path>.txt in the output directory beside this script (the one
-chip_smoke.py writes to). Needs a CUDA device.
+chip_smoke.py writes to). `--package-root` imports the package and
+chip_smoke.py from DIR instead of this checkout, so one call on the card
+can time two checkouts on the same windows. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,8 +46,6 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import FULL_COMPOSED, FULL_REPLAY, composed_sim, headline_sim, replay_sim, replay_trace
-
 HERE = Path(__file__).resolve().parent
 
 
@@ -48,13 +55,47 @@ def _is_kernel(key: str, name: str) -> bool:
     return any(f"::{name}{post}" in key or key.startswith(f"{name}{post}") for post in ("(", "<"))
 
 
+def deep_sim(device, k_pods=None, n_clusters: int = 128, rate: float = 20.48):
+    """A deep queue at a batch the dense routes take: 128 clusters of 8
+    headline nodes, Poisson pods at 20.48/s for 1000 s (~20 480 pod slots,
+    past the reference's shared-memory gate at ~17 900; the headline's
+    seed, requests and durations), k_pods pods per cycle (None: every
+    slot). Each cluster runs 128 pods at a time, so ~18 pods a second
+    queue up."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    config = SimulationConfig.from_yaml("sim_name: deep\nseed: 1\nscheduling_cycle_interval: 10.0")
+    return build_batched_from_traces(
+        config,
+        UniformClusterTrace(8, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
+        PoissonWorkloadTrace(
+            rate_per_second=rate, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
+            duration_range=(30.0, 120.0),
+        ).convert_to_simulator_events(),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=k_pods,
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=20)
-    ap.add_argument("--path", choices=("headline", "autoscaler", "replay"), default="headline")
+    ap.add_argument("--repeats", type=int, default=1)
+    ap.add_argument("--path", choices=("headline", "autoscaler", "replay", "deep"), default="headline")
+    ap.add_argument("--route", choices=("sorted", "megakernel", "two_kernel"), default=None)
+    ap.add_argument("--k", type=int, default=None, help="pods per cycle on the deep path (default: P)")
+    ap.add_argument("--package-root", default=str(HERE))
     args = ap.parse_args(argv)
 
+    root = Path(args.package_root).resolve()
+    if not (root / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
+        print(f"profile_main_path: no kubernetriks_tpu_torch under {root}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
     from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import FULL_COMPOSED, FULL_REPLAY, composed_sim, headline_sim, replay_sim, replay_trace
 
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -66,15 +107,16 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     _build.build_all()
-    if args.path == "headline":
-        sim = headline_sim("cuda")
-        sim.step_until_time(190.0)
-    elif args.path == "autoscaler":
-        sim = composed_sim("cuda", 256, **FULL_COMPOSED)
-        sim.step_until_time(590.0)
-    else:
-        sim = replay_sim("cuda", replay_trace("replay_full", **FULL_REPLAY))
-        sim.step_until_time(43200.0)
+    build, warm_up = {
+        "headline": (lambda: headline_sim("cuda"), 190.0),
+        "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED), 590.0),
+        "replay": (lambda: replay_sim("cuda", replay_trace("replay_full", **FULL_REPLAY)), 43200.0),
+        "deep": (lambda: deep_sim("cuda", args.k), 300.0),
+    }[args.path]
+    sim = build()
+    if args.route:
+        sim.cycle_route = args.route
+    sim.step_until_time(warm_up)
     torch.cuda.synchronize()
     state0, window0 = sim.state, sim.next_window_idx
 
@@ -87,8 +129,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
-    host_ms = timed_windows()
-    sim.install_state(state0, window0)
+    host_ms = []
+    for _ in range(max(1, args.repeats)):
+        host_ms.append(timed_windows())
+        sim.install_state(state0, window0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = timed_windows()
@@ -126,7 +170,9 @@ def main(argv=None) -> int:
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},
-        "host_ms_per_window": host_ms,
+        "package": str(root),
+        "host_ms_per_window": host_ms[0],
+        "host_ms_per_window_repeats": host_ms,
         "traced_host_ms_per_window": traced_ms,
         "device_busy_ms_per_window": busy_ms if busy_us > 0 else None,
         "device_idle_share": (1.0 - busy_ms / traced_ms) if busy_us > 0 else None,

@@ -373,12 +373,20 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     (stats rows to rtol 1e-6) and counts exactly one launch; the
     megakernel also on the edge lanes (megakernel_inputs), at the
     headline's widths with depth above K, and with K = P = 2 048 (the
-    queue ordered in several batches)."""
+    queue ordered in several batches), with a queue of 257-512 pods and
+    K = P (one sort, two batches), at N = 300 and N = 1 713 on a deep queue
+    (160 and 864 threads: windows of one offer a thread, and a last group
+    of 96 threads), and at C = 128 with P = 20 480 and K = 1 024 (a shape
+    past the old selection kernel's shared memory, which now runs dense)."""
     mega = [
         megakernel_inputs(seed),
         megakernel_inputs(seed, C=8, edges=True),
         megakernel_inputs(seed, C=8, N=256, P=2048, K=64, edges=True),
         megakernel_inputs(seed, C=8, N=256, P=2048, K=2048, edges=True),
+        megakernel_inputs(seed, C=8, N=256, P=640, K=640, edges=True),
+        megakernel_inputs(seed, C=8, N=300, P=2048, K=2048, edges=True),
+        megakernel_inputs(seed, C=8, N=1713, P=2048, K=512, edges=True),
+        megakernel_inputs(seed, C=128, N=8, P=20480, K=1024),
     ]
     cases = [
         ("fused_event_scatter", port_kernels.event_scatter_plain, event_inputs(seed), {}, None),
@@ -450,17 +458,32 @@ def test_cycle_route_kernels_match_plain_versions(cuda_device, seed):
     exactly on the same card inputs, at the test shapes and at the replay's
     and the headline's widths, and count one launch per call; the
     candidate cycle also on the edge lanes (cycle_inputs), at the replay's
-    N = 1 713 (not a multiple of its block) with K = 1 024."""
-    margs, K = megakernel_inputs(seed)
-    wide, K_wide = megakernel_inputs(seed, C=8, N=256, P=2048, K=64)
+    N = 1 713 (not a multiple of its block) with K = 1 024; the selection
+    kernel also on the edge lanes (megakernel_inputs), with K = P = 2 048
+    at the headline's width (the queue ordered in several batches), with a
+    queue of 257-512 pods and K = P, at N = 300 and N = 1 713 on a deep
+    queue, and at C = 128, N = 8, P = 20 480, K = 1 024 (past its old
+    shared-memory limit)."""
+    selection = [
+        megakernel_inputs(seed),
+        megakernel_inputs(seed, C=8, edges=True),
+        megakernel_inputs(seed, C=8, N=256, P=2048, K=64),
+        megakernel_inputs(seed, C=8, N=256, P=2048, K=2048, edges=True),
+        megakernel_inputs(seed, C=8, N=256, P=640, K=640, edges=True),
+        megakernel_inputs(seed, C=8, N=300, P=2048, K=2048, edges=True),
+        megakernel_inputs(seed, C=8, N=1713, P=2048, K=512, edges=True),
+        megakernel_inputs(seed, C=128, N=8, P=20480, K=1024),
+    ]
     cases = [
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed), {}),
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, edges=True), {}),
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, C=1, N=1713, K=256), {}),
         ("fused_schedule_cycle", port_kernels.schedule_cycle_plain,
          cycle_inputs(seed, N=1713, K=1024, edges=True), {}),
-        ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9], {"k_pods": K}),
-        ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, wide[:9], {"k_pods": K_wide}),
+    ] + [
+        ("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9], {"k_pods": K})
+        for margs, K in selection
+    ] + [
         ("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed), {}),
         ("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed, C=64, P=2048, K=64), {}),
     ]

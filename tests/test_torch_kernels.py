@@ -210,6 +210,24 @@ def test_select_schedule_cycle_matches_pallas_and_sorted_scan(seed):
     np.testing.assert_array_equal(got[6], ram)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_select_schedule_cycle_edge_lanes_match_pallas(seed):
+    """The edge lanes (megakernel_inputs) through the two-kernel route's
+    selection: -0.0 before +0.0, no eligible pod, fewer eligible pods than
+    K, nothing fitting and every node dead (best is the last node), equal
+    scores; against the Pallas kernel one cluster at a time. Lane 0's
+    whole-key ties are left out, as in the megakernel's edge-lane test."""
+    margs, K = megakernel_inputs(seed, C=8, edges=True)
+    args = tuple(a[1:] for a in margs[:9])
+    got = port_kernels.fused_select_schedule_cycle(*(_t(a) for a in args), k_pods=K)
+    _assert_outputs(got, _per_cluster(jax_kernels.fused_select_schedule_cycle, args, k_pods=K, interpret=True))
+    valid, best = got[1].numpy(), got[4].numpy()
+    N = args[1].shape[1]
+    for lane in (3, 5):  # nothing fits; every node dead
+        assert valid[lane].any() and (best[lane][valid[lane]] == N - 1).all()
+    assert not valid[0].any() and not got[0][0].any()  # no eligible pod: zero rows
+
+
 def _xla_commit(cand, assign, park, best, start_s, park_s, phase, node):
     """commit_cycle's XLA scatters (reference step.py:1436-1457)."""
     C, P = phase.shape

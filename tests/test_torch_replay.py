@@ -26,6 +26,7 @@ oracle's duration stats to the reference test's rel 1e-5 / 1e-4 (float32
 batched sums against float64 scalar sums).
 """
 
+import inspect
 import json
 import logging
 
@@ -63,7 +64,6 @@ from kubernetriks_tpu_torch.batched.state import compare_states, flatten
 from kubernetriks_tpu_torch.batched.trace_compile import compile_cluster_trace as port_compile
 from kubernetriks_tpu_torch.config import SimulationConfig as PortConfig
 from kubernetriks_tpu_torch.convert import state_to_numpy
-from kubernetriks_tpu_torch.ops.scheduler_kernel import SMEM_LIMIT, selection_smem_bytes
 from kubernetriks_tpu_torch.trace import synthetic_alibaba as port_synth
 from kubernetriks_tpu_torch.trace.alibaba import (
     AlibabaClusterTraceV2017 as PortAlibabaCluster,
@@ -342,14 +342,14 @@ def test_cycle_route_choice(monkeypatch):
     monkeypatch.setenv("KTPU_MEGAKERNEL", "0")
     assert build_port_engine(BENCH_CONFIG, DENSE, 128, 8).cycle_route == "two_kernel"
     monkeypatch.delenv("KTPU_MEGAKERNEL")
-    # Past the dense kernels' shared memory the route is the sorted one,
-    # with or without the flag; below 128 clusters it always is.
-    P_over = next(p for p in range(128, 1 << 20, 128) if selection_smem_bytes(8, p) > SMEM_LIMIT)
-    assert choose_cycle_route(128, 8, P_over - 128) == "megakernel"
-    assert choose_cycle_route(128, 8, P_over - 128, megakernel=False) == "two_kernel"
-    assert choose_cycle_route(128, 8, P_over) == "sorted"
-    assert choose_cycle_route(128, 8, P_over, megakernel=False) == "sorted"
-    assert choose_cycle_route(127, 8, 128) == "sorted"
+    # The dense kernels' shared memory is fixed whatever the shape, so the
+    # cluster count and the flag alone decide: a P past the old selection
+    # kernel's limit (20 480 pod slots at N = 8) runs dense too.
+    assert list(inspect.signature(choose_cycle_route).parameters) == ["n_clusters", "megakernel"]
+    assert choose_cycle_route(128) == "megakernel"
+    assert choose_cycle_route(128, megakernel=False) == "two_kernel"
+    assert choose_cycle_route(127) == "sorted"
+    assert choose_cycle_route(127, megakernel=False) == "sorted"
 
 
 # --- the CLI ----------------------------------------------------------------------
