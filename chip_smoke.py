@@ -8,7 +8,8 @@ Phases; any failure exits non-zero:
   2. build the eight CUDA kernels from ops/csrc with nvcc (one process each,
      all at once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
-     inputs captured from its path at that path's shapes — the three
+     inputs captured (cloned) from its path, run without graphs, at that
+     path's shapes — the three
      scheduling kernels from the headline path at t = 190 s (1024 clusters
      x 256 nodes, K = 64), the two cluster-autoscaler kernels from the
      autoscaler path at the first window where each acts (256 clusters x
@@ -20,9 +21,12 @@ Phases; any failure exits non-zero:
   4. the headline path — the headline bench shape: 1024 uniform clusters of
      256 nodes (64 000 mCPU, 128 GiB), Poisson pods at 2/s for 1000 s (seed
      3, 4000 mCPU, 8 GiB, 30-120 s), default profile, 64 pods per cycle;
-     build, step to 190 s, then 200 s steps to 1200 s; decisions, rate,
-     windows, host syncs per window and each kernel's launch count, with
-     conservation checks on the final state;
+     build, capture every window piece's CUDA graph (precompile_pieces),
+     step to 190 s, then 200 s steps to 1200 s on the graph executor;
+     decisions, rate, windows, host syncs per window, captures, replays,
+     the graph pool's bytes and each kernel's launch count, with
+     conservation checks on the final state; the timed span fails on an
+     eager window, a capture or a host read;
   5. card against CPU: a 300 s trace with a node removal at C=8, N=16, run
      through the kernels on the card and through the plain path on the CPU,
      final states equal under compare_states;
@@ -31,9 +35,8 @@ Phases; any failure exits non-zero:
      clusters of 32 nodes (64 000 mCPU, 128 GiB) plus 64 CA slots, Poisson
      pods at 1.5/s for 1000 s (16 000 mCPU, 32 GiB), one HPA group (8 to 64
      pods, cpu target 0.5, load 4/24/2 over 300/300/400 s), the CA at a
-     10 s scan; build, step to 190 s, then 200 s steps to 1200 s; the HPA
-     and CA counters, the autoscaler bounds, every cluster equal, host
-     syncs per window and each kernel's launch count;
+     10 s scan; timed as phase 4; the HPA and CA counters, the
+     autoscaler bounds, every cluster equal;
   7. card against CPU on the autoscaler path: the composed scenario at 4
      nodes and C=8 to t=400 s (CA scale-ups and a removal), final states
      equal under compare_states;
@@ -45,12 +48,21 @@ Phases; any failure exits non-zero:
      pods over one simulated day, the CA on (at most 200 nodes of a 64 000
      mCPU / 88 GiB template), the six network delays, K = 256; built and
      run through the port's CLI functions (build_batched_simulation ->
-     run_to_completion -> metrics_summary) on the sorted cycle route;
+     precompile_pieces -> run_to_completion -> metrics_summary) on the
+     sorted cycle route and the graph executor (no eager window, at most
+     run_to_completion's one host read per 64 windows);
  10. card against CPU on the replay and the two-kernel route: the replay
      at the reference's own test size (100 machines, 700 tasks, 4 000 s,
      seed 7) to completion; the headline shape at C=128 to t=60 s on the
      two-kernel route, the megakernel route and the CPU; final states equal
-     under compare_states.
+     under compare_states;
+ 11. the graph executor against eager windows (graphs=False) on the card:
+     the headline at C=128 to 300 s on both dense routes (the two-kernel
+     route forced after the build), the autoscaler path to 1200 s and the
+     full-width replay to 2000 s; every leaf equal bit for bit, every
+     kernel launched as often, host ms a window of both, captures,
+     replays and the graph pool's bytes.
+The card runs of phases 5, 7 and 10 replay graphs too (fails otherwise).
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
 KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay;
@@ -90,11 +102,12 @@ L2_BYTES = 50 * 1024**2  # H100 L2 cache
 OUT_DIR = HERE / "chiprun_out"
 
 
-def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256):
+def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256, **engine_kwargs):
     """The reference's headline bench shape (`bench.py:92` `run_shape`):
     n_clusters uniform clusters of n_nodes nodes (64 000 mCPU, 128 GiB),
     Poisson pods at 2/s for 1000 s (seed 3, 4000 mCPU, 8 GiB, 30-120 s),
-    default profile, 64 pods per cycle. profile_main_path.py uses it too."""
+    default profile, 64 pods per cycle. profile_main_path.py uses it too.
+    engine_kwargs go to the engine (e.g. graphs=False)."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -107,7 +120,7 @@ def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256):
             rate_per_second=2.0, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
             duration_range=(30.0, 120.0),
         ).convert_to_simulator_events(),
-        n_clusters=n_clusters, device=device, max_pods_per_cycle=64,
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=64, **engine_kwargs,
     )
 
 
@@ -169,7 +182,7 @@ def composed_workload_yaml(max_group_pods: int, burst) -> str:
 
 
 def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_group_pods=16,
-                 burst=(90.0, 90.0, 120.0), k=8):
+                 burst=(90.0, 90.0, 120.0), k=8, **engine_kwargs):
     """The reference's composed scenario (`bench.py:198` `_composed_inputs`)
     on the port: n_nodes uniform nodes, Poisson plain pods (seed 3, 16 000
     mCPU / 32 GiB, 30-120 s) beside one HPA pod group, the CA allowed
@@ -192,7 +205,7 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
         SimulationConfig.from_yaml(composed_config_yaml(n_nodes)), cluster,
         sorted(plain + group, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
-        max_ca_pods_per_cycle=64, max_pods_per_scale_down=8,
+        max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, **engine_kwargs,
     )
 
 
@@ -218,11 +231,9 @@ REPLAY_CA_YAML = """cluster_autoscaler:
 """
 
 
-def replay_config(paths, delays: str, ca: bool):
-    """The Alibaba replay's config: the trace files, a 10 s cycle, the
-    six delays and, with `ca`, the bench's cluster autoscaler."""
-    from kubernetriks_tpu_torch.config import SimulationConfig
-
+def replay_config_yaml(paths, delays: str, ca: bool) -> str:
+    """The Alibaba replay's config as YAML: the trace files, a 10 s cycle,
+    the six delays and, with `ca`, the bench's cluster autoscaler."""
     names = ("as_to_ps", "ps_to_sched", "sched_to_as", "as_to_node", "as_to_ca", "as_to_hpa")
     machines, tasks, instances = paths
     text = "sim_name: alibaba_replay\nseed: 1\nscheduling_cycle_interval: 10.0\n"
@@ -233,7 +244,14 @@ def replay_config(paths, delays: str, ca: bool):
         f"    batch_task_trace_path: {tasks}\n"
         f"    batch_instance_trace_path: {instances}\n"
     )
-    return SimulationConfig.from_yaml(text + (REPLAY_CA_YAML if ca else ""))
+    return text + (REPLAY_CA_YAML if ca else "")
+
+
+def replay_config(paths, delays: str, ca: bool):
+    """replay_config_yaml's config, parsed."""
+    from kubernetriks_tpu_torch.config import SimulationConfig
+
+    return SimulationConfig.from_yaml(replay_config_yaml(paths, delays, ca))
 
 
 def replay_trace(name: str, **kwargs):
@@ -249,11 +267,11 @@ def replay_trace(name: str, **kwargs):
 FULL_REPLAY = dict(error_fraction=0.1, seed=3, horizon=86400.0)
 
 
-def replay_sim(device, paths, delays="bench", ca=True):
+def replay_sim(device, paths, delays="bench", ca=True, **engine_kwargs):
     """The replay through the port's CLI functions: one cluster, K = 256."""
     from kubernetriks_tpu_torch.cli import build_batched_simulation
 
-    return build_batched_simulation(replay_config(paths, delays, ca), 1, device=device)
+    return build_batched_simulation(replay_config(paths, delays, ca), 1, device=device, **engine_kwargs)
 
 
 def with_megakernel_flag(value: str, build):
@@ -269,14 +287,110 @@ def with_megakernel_flag(value: str, build):
             os.environ["KTPU_MEGAKERNEL"] = old
 
 
+def graph_report(sim, stats: dict) -> dict:
+    """The window executor's counts over a run (`stats`: the change in
+    sim.dispatch_stats) and the graphs' memory pool."""
+    return {**stats, "graphs": sim.graphs, "graph_pool_bytes": sim.graph_pool_bytes()}
+
+
+def check_graph_run(label, sim, stats: dict, syncs: int, windows: int, max_syncs: int = 0):
+    """Fail unless a run went through the graph executor alone: graphs on,
+    no eager window, no capture inside it (precompile_pieces took them
+    all), and at most `max_syncs` host reads."""
+    if not sim.graphs:
+        fail(f"{label}: the engine runs without graphs")
+    if stats["eager_windows"] or stats["graph_windows"] != windows:
+        fail(f"{label}: {stats['eager_windows']} eager window(s), {stats['graph_windows']} of {windows} on graphs")
+    if stats["captures"]:
+        fail(f"{label}: {stats['captures']} capture(s) inside the timed run")
+    if syncs > max_syncs:
+        fail(f"{label}: the window loop read the device back {syncs} times in {windows} windows")
+
+
+def ran_on_graphs(label, sim):
+    """Fail unless every window of a card run replayed graphs."""
+    stats = sim.dispatch_stats
+    if not sim.graphs or stats["eager_windows"] or stats["graph_windows"] != sim.windows_run:
+        fail(f"{label}: the card run did not go through the graph executor alone ({stats})")
+
+
+def graph_eager_pair(label, sk, build, until: float, route=None) -> dict:
+    """Build twice (`build(graphs)`), optionally force the cycle route,
+    step both to `until`: once replaying the window graphs (captured up
+    front), once eagerly (graphs=False). Fails unless every leaf of the two
+    final states is equal bit for bit, each kernel launched as often, and
+    the graph run had no eager window and no host read. Returns each run's
+    host ms a window (from window 0, ending in a synchronize) and counts."""
+    from kubernetriks_tpu_torch.batched.state import flatten
+
+    runs = {}
+    for graphs in (True, False):
+        sim = build(graphs)
+        if route:
+            sim.cycle_route = route
+        captured = sim.precompile_pieces()
+        sk.reset_launches()
+        syncs0 = sim.host_syncs
+        t0 = time.perf_counter()
+        sim.step_until_time(until)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        stats = dict(sim.dispatch_stats)
+        stats["captures"] -= captured
+        runs[graphs] = {
+            "state": flatten(sim.state),
+            "launches": dict(sk.LAUNCHES),
+            "host_ms_per_window": 1e3 * elapsed / max(sim.windows_run, 1),
+            "windows": sim.windows_run,
+            "syncs": sim.host_syncs - syncs0,
+            "stats": stats,
+            "precompiled_graphs": captured,
+            "graph_pool_bytes": sim.graph_pool_bytes(),
+            "route": sim.cycle_route,
+        }
+        if graphs:
+            check_graph_run(label, sim, stats, runs[graphs]["syncs"], sim.windows_run)
+        del sim
+    g, e = runs[True], runs[False]
+    bad = [p for p in g["state"] if not torch.equal(g["state"][p], e["state"][p])]
+    if bad:
+        fail(f"{label}: graph and eager runs differ at {bad}")
+    if g["launches"] != e["launches"]:
+        fail(f"{label}: launches differ: graphs {g['launches']}, eager {e['launches']}")
+    out = {
+        "route": g["route"],
+        "windows": g["windows"],
+        "graph_host_ms_per_window": g["host_ms_per_window"],
+        "eager_host_ms_per_window": e["host_ms_per_window"],
+        "graphs_captured": g["precompiled_graphs"],
+        "replays": g["stats"]["replays"],
+        "graph_pool_bytes": g["graph_pool_bytes"],
+        "launches": g["launches"],
+    }
+    print(
+        f"{label}: graph run == eager run bit for bit over {g['windows']} windows (route {g['route']}), "
+        f"launches equal, host ms a window {g['host_ms_per_window']:.3f} (graphs) against "
+        f"{e['host_ms_per_window']:.3f} (eager), {out['graphs_captured']} graphs, {out['replays']} replays, "
+        f"pool {out['graph_pool_bytes']} B",
+        flush=True,
+    )
+    return out
+
+
 def timed_path(sim, sk, names, label):
-    """Step the headline span (to 190 s, then 200 s steps to 1200 s) with
-    the launch counts set to 0 just before; returns the run's numbers and
-    fails if a kernel in `names` never launched."""
+    """Capture every window piece (precompile_pieces), step the headline
+    span (to 190 s, then 200 s steps to 1200 s) with the launch counts set
+    to 0 just before; returns the run's numbers and fails if a kernel in
+    `names` never launched, or if the timed span ran an eager window, a
+    capture or a host read."""
+    t0 = time.perf_counter()
+    captured = sim.precompile_pieces()
+    capture_s = time.perf_counter() - t0
     sk.reset_launches()
     sim.step_until_time(190.0)
     before = sim.decisions_total()
     syncs0, windows0 = sim.host_syncs, sim.windows_run
+    stats0 = dict(sim.dispatch_stats)
     t0 = time.perf_counter()
     end = 390.0
     while end <= 1200.0:
@@ -286,7 +400,8 @@ def timed_path(sim, sk, names, label):
     elapsed = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     windows = sim.windows_run - windows0
-    syncs_per_window = (sim.host_syncs - syncs0) / max(windows, 1)
+    syncs = sim.host_syncs - syncs0
+    graph = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
     total = sim.decisions_total()
     decisions = total - before
     out = {
@@ -297,21 +412,24 @@ def timed_path(sim, sk, names, label):
         "windows": sim.windows_run,
         "timed_windows": windows,
         "ms_per_window": 1e3 * elapsed / max(windows, 1),
-        "host_syncs_per_window": syncs_per_window,
+        "host_syncs_per_window": syncs / max(windows, 1),
         "launches": launches,
         "cycle_route": sim.cycle_route,
+        "precompiled_graphs": captured,
+        "precompile_s": capture_s,
+        "graph": graph,
     }
     print(
         f"{label}: route {sim.cycle_route}, decisions {total} (timed {decisions} in {elapsed:.3f} s = "
         f"{decisions / elapsed:.1f} decisions/s), windows {sim.windows_run} (timed {windows}, "
         f"{out['ms_per_window']:.3f} ms/window), host syncs per window "
-        f"{out['host_syncs_per_window']:.3f}, launches {launches}",
+        f"{out['host_syncs_per_window']:.3f}, {captured} graphs captured up front in {capture_s:.2f} s, "
+        f"timed span: {graph}, launches {launches}",
         flush=True,
     )
     if total <= 0:
         fail(f"{label}: no scheduling decision")
-    if syncs_per_window != 0:
-        fail(f"{label}: the window loop read the device back {syncs_per_window} times per window")
+    check_graph_run(label, sim, graph, syncs, windows)
     for name in names:
         if launches[name] <= 0:
             fail(f"{label}: never launched {name}")
@@ -329,7 +447,9 @@ def graph_ms(fns, inner: int = 12, reps: int = 5) -> float:
     once), captured in a CUDA graph and replayed `reps` times between CUDA
     events. Without the graph a short kernel's time would be the host's
     launch cost (the wrapper's checks and allocations take longer than the
-    kernel runs)."""
+    kernel runs). The calls are warmed on the stream they are captured on:
+    the free kernel's scratch is per stream and must exist before a
+    capture."""
     inner = max(inner, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -338,7 +458,7 @@ def graph_ms(fns, inner: int = 12, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(inner):
             fns[i % len(fns)]()
     graph.replay()
@@ -369,16 +489,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kept(args):
+    """A call's arguments, each tensor cloned: the engine updates its state
+    and the window's accumulators in place, so a reference would not keep
+    what the call saw."""
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
 def capture_inputs(step_mod, names):
     """Wrap the step module's kernel wrappers so the last call's arguments
-    are kept (the port never updates a tensor in place, so references
-    suffice)."""
+    are kept (cloned). The engine must run without graphs (graphs=False):
+    a replay calls no wrapper."""
     captured = {}
     originals = {n: getattr(step_mod, n) for n in names}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            captured[name] = (args, kwargs)
+            captured[name] = (kept(args), kwargs)
             return fn(*args, **kwargs)
 
         return wrapped
@@ -395,12 +522,14 @@ def capture_inputs(step_mod, names):
 
 def capture_first(mod, name, acts):
     """Wrap `mod.name` so the arguments of the first call whose outputs
-    satisfy `acts(args, outs)` are kept (reading the outputs synchronizes,
-    so this runs only in a capture pass). Returns (captured, restore)."""
+    satisfy `acts(args, outs)` are kept, cloned (reading the outputs
+    synchronizes, so this runs only in a capture pass, on an engine built
+    with graphs=False). Returns (captured, restore)."""
     captured = {}
     real = getattr(mod, name)
 
     def wrapped(*args, **kwargs):
+        args = kept(args)
         outs = real(*args, **kwargs)
         if name not in captured and acts(args, outs):
             captured[name] = (args, kwargs)
@@ -553,7 +682,7 @@ def main() -> int:
     from kubernetriks_tpu_torch.batched import step as step_mod
 
     names = ["fused_event_scatter", "fused_free_resources", "fused_select_cycle_commit"]
-    sim = headline_sim(dev)
+    sim = headline_sim(dev, graphs=False)
     captured, restore = capture_inputs(step_mod, names)
     sim.step_until_time(190.0)
     restore()
@@ -700,7 +829,7 @@ def main() -> int:
     # The two-kernel route's kernels, on inputs of the headline shape built
     # with KTPU_MEGAKERNEL=0 (the same window, t = 190 s).
     two_names = ["fused_select_schedule_cycle", "fused_commit_scatter"]
-    sim = with_megakernel_flag("0", lambda: headline_sim(dev))
+    sim = with_megakernel_flag("0", lambda: headline_sim(dev, graphs=False))
     if sim.cycle_route != "two_kernel":
         fail(f"KTPU_MEGAKERNEL=0 built the {sim.cycle_route} route at the headline shape")
     captured, restore = capture_inputs(step_mod, two_names)
@@ -747,7 +876,7 @@ def main() -> int:
     from kubernetriks_tpu_torch.batched import autoscale as autoscale_mod
     from kubernetriks_tpu_torch.ops import autoscale_kernel as ak
 
-    sim = composed_sim(dev, 256, **FULL_COMPOSED)
+    sim = composed_sim(dev, 256, **FULL_COMPOSED, graphs=False)
     cap_up, restore_up = capture_first(
         autoscale_mod, "fused_ca_scale_up", lambda a, o: bool(a[8].any()) and bool(o[0].any())
     )
@@ -825,7 +954,7 @@ def main() -> int:
     replay_paths = replay_trace("replay_full", **FULL_REPLAY)
     synth_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sim = replay_sim(dev, replay_paths)
+    sim = replay_sim(dev, replay_paths, graphs=False)
     build_replay_s = time.perf_counter() - t0
     sizes = {
         (step_mod, "fused_schedule_cycle"): lambda a: int(a[3].sum()),
@@ -842,7 +971,7 @@ def main() -> int:
             n = size(args)
             if n > most[name]:
                 most[name] = n
-                busiest[name] = (args, kwargs)
+                busiest[name] = (kept(args), kwargs)
             return outs
 
         return wrapped
@@ -978,6 +1107,8 @@ def main() -> int:
             config, list(cluster), list(workload), n_clusters=8, device=where, max_pods_per_cycle=64,
         )
         s.step_until_time(400.0)
+        if where == "cuda":
+            ran_on_graphs("phase 5", s)
         finals[where] = (state_to_numpy(s.state), s.metrics_summary()["counters"])
     bad = compare_states(finals["cuda"][0], finals["cpu"][0])
     if bad:
@@ -989,39 +1120,14 @@ def main() -> int:
 
     # --- 6. the autoscaler path -----------------------------------------------
     ca_names = ["fused_ca_scale_down", "fused_ca_scale_up"]
-    sk.reset_launches()
     sim = composed_sim(dev, 256, **FULL_COMPOSED)
-    sim.step_until_time(190.0)
-    before = sim.decisions_total()
-    syncs0, windows0 = sim.host_syncs, sim.windows_run
-    t0 = time.perf_counter()
-    end = 390.0
-    while end <= 1200.0:
-        sim.step_until_time(end)
-        end += 200.0
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    auto_launches = dict(sk.LAUNCHES)
-    windows = sim.windows_run - windows0
-    auto_syncs = (sim.host_syncs - syncs0) / max(windows, 1)
-    total = sim.decisions_total()
-    decisions = total - before
+    autoscaler_path = timed_path(sim, sk, names + ca_names, "phase 6")
+    auto_launches = autoscaler_path["launches"]
     auto_counters = sim.metrics_summary()["counters"]  # raises if an autoscaler bound was crossed
-    print(
-        f"phase 6: decisions {total} (timed {decisions} in {elapsed:.3f} s = "
-        f"{decisions / elapsed:.1f} decisions/s), windows {sim.windows_run} "
-        f"(timed {windows}, {1e3 * elapsed / max(windows, 1):.3f} ms/window), "
-        f"host syncs per window {auto_syncs:.3f}, launches {auto_launches}, counters {auto_counters}",
-        flush=True,
-    )
+    print(f"phase 6: counters {auto_counters}", flush=True)
     for key in ("total_scaled_up_pods", "total_scaled_down_pods", "total_scaled_up_nodes", "total_scaled_down_nodes"):
         if auto_counters[key] <= 0:
             fail(f"the autoscaler path made no {key}")
-    for name in names + ca_names:
-        if auto_launches[name] <= 0:
-            fail(f"the autoscaler path never launched {name}")
-    if auto_syncs != 0:
-        fail(f"the autoscaler path read the device back {auto_syncs} times per window")
     st = sim.state
     for path, leaf in flatten(st.metrics).items():
         if not bool((leaf == leaf[:1]).all()) and leaf.dtype == torch.int32:
@@ -1030,19 +1136,8 @@ def main() -> int:
         if not bool((leaf == leaf[:1]).all()):
             fail("clusters replaying the same trace diverged")
     print("phase 6: autoscaler bounds and state checks passed", flush=True)
-    autoscaler_path = {
-        "decisions": total,
-        "timed_decisions": decisions,
-        "timed_seconds": elapsed,
-        "decisions_per_s": decisions / elapsed,
-        "windows": sim.windows_run,
-        "timed_windows": windows,
-        "ms_per_window": 1e3 * elapsed / max(windows, 1),
-        "host_syncs_per_window": auto_syncs,
-        "launches": auto_launches,
-        "counters": auto_counters,
-        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "hpa_seg": list(sim.hpa_seg)},
-    }
+    autoscaler_path["counters"] = auto_counters
+    autoscaler_path["shape"] = {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "hpa_seg": list(sim.hpa_seg)}
     del sim, st
 
     # --- 7. card against CPU on the autoscaler path -----------------------------
@@ -1051,6 +1146,8 @@ def main() -> int:
     for where in ("cuda", "cpu"):
         s7 = composed_sim(where, 8)
         s7.step_until_time(400.0)
+        if where == "cuda":
+            ran_on_graphs("phase 7", s7)
         finals[where] = (state_to_numpy(s7.state), s7.metrics_summary()["counters"])
     if sk.LAUNCHES["fused_ca_scale_down"] <= 0 or sk.LAUNCHES["fused_ca_scale_up"] <= 0:
         fail("phase 7 card run did not launch both CA kernels")
@@ -1076,17 +1173,26 @@ def main() -> int:
         "fused_event_scatter", "fused_free_resources", "fused_schedule_cycle",
         "fused_ca_scale_down", "fused_ca_scale_up",
     ]
-    sk.reset_launches()
     t0 = time.perf_counter()
     sim = replay_sim(dev, replay_paths)
     build_s9 = time.perf_counter() - t0
     if sim.cycle_route != "sorted":
         fail(f"the replay built the {sim.cycle_route} route, not the sorted one")
     t0 = time.perf_counter()
+    captured9 = sim.precompile_pieces()
+    capture_s9 = time.perf_counter() - t0
+    sk.reset_launches()
+    syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
+    t0 = time.perf_counter()
     sim.run_to_completion(max_time=86400.0 * 20.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     replay_launches = dict(sk.LAUNCHES)
+    graph9 = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
+    # run_to_completion reads the device once per chunk of 64 windows past
+    # the last event; the window loop itself never does.
+    check_graph_run("phase 9", sim, graph9, sim.host_syncs - syncs0, sim.windows_run,
+                    max_syncs=-(-sim.windows_run // 64))
     summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
     counters = summary["counters"]
     decisions = counters["scheduling_decisions"]
@@ -1104,6 +1210,9 @@ def main() -> int:
         "decisions_per_s": decisions / elapsed,
         "events_per_s": (sim.n_clusters * sim.n_events + decisions) / elapsed,
         "host_syncs": sim.host_syncs,
+        "precompiled_graphs": captured9,
+        "precompile_s": capture_s9,
+        "graph": graph9,
         "counters": counters,
         "timings": summary["timings"],
         "launches": replay_launches,
@@ -1114,7 +1223,8 @@ def main() -> int:
         f"wall {elapsed:.3f} s = {replay_path['ms_per_window']:.3f} ms/window, "
         f"{replay_path['decisions_per_s']:.1f} decisions/s, {replay_path['events_per_s']:.1f} events/s, "
         f"pods_succeeded {counters['pods_succeeded']}, scaled-up nodes {counters['total_scaled_up_nodes']}, "
-        f"host syncs {sim.host_syncs}, launches {replay_launches}",
+        f"host syncs {sim.host_syncs}, {captured9} graphs captured up front in {capture_s9:.2f} s, "
+        f"run: {graph9}, launches {replay_launches}",
         flush=True,
     )
     if not terminal:
@@ -1133,6 +1243,8 @@ def main() -> int:
     for where in ("cuda", "cpu"):
         s10 = replay_sim(where, small_paths, delays="test", ca=False)
         s10.run_to_completion()
+        if where == "cuda":
+            ran_on_graphs("phase 10", s10)
         finals[where] = (state_to_numpy(s10.state), s10.metrics_summary()["counters"], s10.next_window_idx)
     if sk.LAUNCHES["fused_schedule_cycle"] <= 0:
         fail("phase 10 card replay did not launch fused_schedule_cycle")
@@ -1148,6 +1260,8 @@ def main() -> int:
     for where, flag in runs:
         s10 = with_megakernel_flag(flag, lambda: headline_sim(where, n_clusters=128))
         s10.step_until_time(60.0)
+        if where == "cuda":
+            ran_on_graphs("phase 10", s10)
         finals[(where, s10.cycle_route)] = state_to_numpy(s10.state)
     want = {("cuda", "two_kernel"), ("cuda", "megakernel"), ("cpu", "two_kernel")}
     if set(finals) != want:
@@ -1162,6 +1276,20 @@ def main() -> int:
         f"the card == two-kernel route on the CPU ({int(ref['.metrics.scheduling_decisions'].sum())} decisions)",
         flush=True,
     )
+
+    # --- 11. the graph executor against eager windows on the card ----------------
+    graph_vs_eager = {
+        "headline C=128 megakernel": graph_eager_pair(
+            "phase 11 headline megakernel", sk, lambda g: headline_sim(dev, n_clusters=128, graphs=g),
+            300.0, "megakernel"),
+        "headline C=128 two_kernel": graph_eager_pair(
+            "phase 11 headline two-kernel", sk, lambda g: headline_sim(dev, n_clusters=128, graphs=g),
+            300.0, "two_kernel"),
+        "autoscaler": graph_eager_pair(
+            "phase 11 autoscaler", sk, lambda g: composed_sim(dev, 256, **FULL_COMPOSED, graphs=g), 1200.0),
+        "replay to 2000 s": graph_eager_pair(
+            "phase 11 replay", sk, lambda g: replay_sim(dev, replay_paths, graphs=g), 2000.0),
+    }
 
     kernels = []
     meta = {
@@ -1212,7 +1340,7 @@ def main() -> int:
             "card": smi, "build_s": build_s, "kernels": kernels, "chain_floor_us": floors,
             "checks": report, "main_path": main_path,
             "autoscaler_path": autoscaler_path, "two_kernel_path": two_kernel_path,
-            "replay_path": replay_path,
+            "replay_path": replay_path, "graph_vs_eager": graph_vs_eager,
         }, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -174,18 +174,14 @@ def _curve_load(dur, load, total, elapsed):
     return torch.where(in_unit, load, 0.0).sum(dim=-1).to(torch.float32)
 
 
-def decimal_string_key(idx: torch.Tensor) -> torch.Tensor:
+def decimal_string_key(idx: torch.Tensor, pow10: torch.Tensor) -> torch.Tensor:
     """int32 key whose order is the lexicographic order of str(idx) for
     0 <= idx < 10^8 ("g_10" < "g_2"): the value left-aligned to 8 digits,
-    shorter first on ties."""
+    shorter first on ties. `pow10`: the digit scales (DeviceConstants)."""
     idx = torch.clamp(idx, min=0)
     digits = torch.ones_like(idx)
     for bound in (10, 100, 1_000, 10_000, 100_000, 1_000_000, 10_000_000):
         digits = digits + (idx >= bound).to(torch.int32)
-    pow10 = torch.tensor(
-        [0, 10_000_000, 1_000_000, 100_000, 10_000, 1_000, 100, 10, 1],
-        dtype=torch.int32, device=idx.device,
-    )
     return (idx * pow10[digits.long()] * 16 + digits).to(torch.int32)
 
 
@@ -233,13 +229,14 @@ def _latch_collection(auto: AutoscaleState, st, W, interval, run_per_group, util
     )
 
 
-def _hpa_cycle(pods, queue_seq_counter, auto: AutoscaleState, st: AutoscaleStatics, W, interval, interval64, lo: int):
+def _hpa_cycle(pods, queue_seq_counter, auto: AutoscaleState, st: AutoscaleStatics, W, k, lo: int):
     """The HPA cycle body over the pod slice [lo, lo + P) (reference
-    `_hpa_pass_body`). Returns (pods', auto', scaled_up, scaled_down,
+    `_hpa_pass_body`); `k`: step.DeviceConstants. Returns (pods', auto', scaled_up, scaled_down,
     reserve_clamped, n_activated), the last four (C,) int32."""
     C, P = pods.phase.shape
     Gp = st.pg_slot_start.shape[1]
     dev = pods.phase.device
+    interval, interval64 = k.interval, k.interval64
     T = _window_pair(W)
     due = t_le(auto.hpa_next, T)
     active = due[:, None] & t_le(st.pg_active_from, _col(T))
@@ -326,7 +323,7 @@ def _hpa_cycle(pods, queue_seq_counter, auto: AutoscaleState, st: AutoscaleStati
         & ~activate
     )
     sort_gid = torch.where(live, gid_c, Gp)
-    sort_key = torch.where(live, decimal_string_key(pods.hpa_idx), 1 << 30)
+    sort_key = torch.where(live, decimal_string_key(pods.hpa_idx, k.pow10), 1 << 30)
     s_slot = stable_lexsort((sort_gid, sort_key))
     s_gid = torch.gather(sort_gid, 1, s_slot)
     # Sorted position minus the group's first sorted position.
@@ -391,7 +388,7 @@ def hpa_pass(
         _, latched = _latch_collection(auto, st, W, interval, run_per_group, util_cpu, util_ram)
         return state._replace(auto=auto._replace(**latched))
     sub2, auto2, up_s, down_s, clamp_s, n_up = _hpa_cycle(
-        sub, state.queue_seq_counter, auto, st, W, interval, interval64, lo
+        sub, state.queue_seq_counter, auto, st, W, k, lo
     )
 
     def put(full, part):

@@ -6,7 +6,8 @@ Port of the JAX package's `batched/engine.py` for whole-resident traces
 `run_to_completion` :3640, `metrics_summary` :3784,
 `build_batched_from_traces` :4564): no sliding pod
 window, no mesh, no buffer donation, no superspan executor or streaming
-feeder. The pod axis is 128-aligned as in the reference's default build,
+feeder; windows go through graphs.WindowExecutor (`_dispatch_windows`,
+:1965). The pod axis is 128-aligned as in the reference's default build,
 so states compare leaf for leaf.
 
 With an enabled `horizontal_pod_autoscaler` or `cluster_autoscaler`
@@ -33,6 +34,15 @@ shared memory whatever the shape, so the cluster count alone decides.
 Nothing else picks the route, and a build or launch failure never changes
 it.
 
+The state lies in fixed buffers (`state` is read-only; `install_state`
+copies into them): on the card each window replays CUDA graphs of its
+pieces (graphs.py) in the order of its plan, captured lazily or up front
+with `precompile_pieces`. The `graphs` build argument chooses that (the
+reference's `superspan=` argument, engine.py:866-885): None, the default,
+means on for the card; off, or on the CPU, the same pieces run
+uncaptured. Asking for graphs on the CPU raises. `dispatch_stats` counts captures, replays and windows run
+through graphs or eagerly (the conditional move's windows always are).
+
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
 which tells it, per window, how many event chunks to run and whether a
@@ -54,6 +64,7 @@ import numpy as np
 import torch
 
 from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
+from kubernetriks_tpu_torch.batched.graphs import CudaGraphs, WindowExecutor
 from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
@@ -63,6 +74,7 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
     TraceSlab,
+    copy_state_into,
     flatten,
     init_state,
     make_step_constants,
@@ -423,8 +435,17 @@ class BatchedSimulation:
         max_ca_pods_per_cycle: int = 64,
         max_pods_per_scale_down: int = 8,
         ca_slot_multiplier: int = 2,
+        graphs: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"graphs=True needs the card: CUDA graphs do not run on {self.device} "
+                "(pass graphs=False)"
+            )
+        self.graphs = bool(graphs)
         self.config = config
         if scheduler_profile is None:
             scheduler_profile = config.scheduler_profile
@@ -483,7 +504,7 @@ class BatchedSimulation:
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
         self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL", True))
 
-        self.state = init_state(
+        state = init_state(
             C,
             self.n_nodes,
             self.n_pods,
@@ -521,9 +542,7 @@ class BatchedSimulation:
             )
             seeded = (gid >= 0) & (off < np.take_along_axis(st.pg_initial.cpu().numpy(), gidc, axis=1))
             hpa_idx = torch.from_numpy(np.where(seeded, off, -1).astype(np.int32)).to(self.device)
-            self.state = self.state._replace(
-                pods=self.state.pods._replace(hpa_idx=hpa_idx), auto=auto
-            )
+            state = state._replace(pods=state.pods._replace(hpa_idx=hpa_idx), auto=auto)
             self.clock = AutoscaleClock(st, interval, hpa_on=self.hpa_seg != (0, 0), ca_on=ca_on)
             self.clock.seed(auto)
         ev_win, ev_off = from_f64_np(ev_time, interval)
@@ -558,6 +577,9 @@ class BatchedSimulation:
         self.next_window_idx = 0
         self.windows_run = 0
         self.host_syncs = 0
+        self.dispatch_stats = {"captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0}
+        self._state = state
+        self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
 
     def _trace_name_ranks(self, C: int):
         nnr = np.full((C, self.n_nodes), BIG_RANK, np.int32)
@@ -593,13 +615,21 @@ class BatchedSimulation:
 
     # --- state ------------------------------------------------------------
 
+    @property
+    def state(self) -> ClusterBatchState:
+        """The simulation state: fixed buffers, updated in place by every
+        window (copy it, e.g. with state.clone_state, to keep a snapshot).
+        Read-only: `install_state` copies another state into it."""
+        return self._state
+
     def install_state(self, state: ClusterBatchState, next_window_idx: int) -> None:
         """Continue from `state` (e.g. one carried over from the JAX engine
-        by convert.state_from_numpy) at window `next_window_idx`. Reads the
-        event cursor, the autoscalers' due times and the pending node
-        removals back once to seed the host mirrors. Raises if a leaf is
-        not on this engine's device, or if the state's autoscaler leaves do
-        not match this engine's autoscaler configuration."""
+        by convert.state_from_numpy) at window `next_window_idx`: its leaves
+        are copied into the engine's buffers. Reads the event cursor, the
+        autoscalers' due times and the pending node removals back once to
+        seed the host mirrors. Raises if a leaf is not on this engine's
+        device or differs in shape or dtype, or if the state's autoscaler
+        leaves do not match this engine's autoscaler configuration."""
         for path, leaf in flatten(state).items():
             if leaf.device != self.device:
                 raise ValueError(
@@ -614,8 +644,9 @@ class BatchedSimulation:
                 "install_state: the state's autoscaler leaves do not match this "
                 "engine's autoscaler configuration"
             )
+        copy_state_into(self._state, state)
+        self._executor.bufs.acc.reset_()
         self.host_syncs += 1
-        self.state = state
         self._cursor = state.event_cursor.cpu().numpy().astype(np.int64)
         self.next_window_idx = int(next_window_idx)
         if self.clock is not None:
@@ -668,18 +699,18 @@ class BatchedSimulation:
             ca_due=ca_due,
         )
 
-    def step_window(self) -> None:
-        """Advance one scheduling window."""
-        w = self.next_window_idx
-        self.state = window_body(
-            self.state,
+    def _window_body(self, state: ClusterBatchState, w: int, plan: WindowPlan) -> ClusterBatchState:
+        """Window w on `state` as one eager step (step.window_body): the
+        conditional move's windows, which read the device back."""
+        return window_body(
+            state,
             self.slab,
             w,
             self.consts,
             self._k,
             self.max_events_per_window,
             self.max_pods_per_cycle,
-            self._plan(w),
+            plan,
             conditional_move=self.conditional_move,
             name_ranks=self.name_ranks,
             sync=self._count_sync,
@@ -689,13 +720,38 @@ class BatchedSimulation:
             ),
             cycle_route=self.cycle_route,
         )
-        self.next_window_idx = w + 1
-        self.windows_run += 1
+
+    def _dispatch_windows(self, idxs: Sequence[int]) -> None:
+        """Plan windows `idxs` on the host and run them through the window
+        executor (reference `_dispatch_windows`, engine.py:1965)."""
+        idxs = [int(w) for w in idxs]
+        if not idxs:
+            return
+        self._executor.run_windows([(w, self._plan(w)) for w in idxs])
+        self.next_window_idx = idxs[-1] + 1
+        self.windows_run += len(idxs)
+
+    def precompile_pieces(self) -> int:
+        """Capture every window piece the engine's plans can reach on its
+        current cycle route, so that no capture lands inside a timed span
+        (the counterpart of the reference's precompile_chunks, engine.py:
+        2064). Returns the number of graphs captured; 0 with graphs off."""
+        if not self.graphs:
+            return 0
+        return self._executor.capture(self._executor.reachable_keys())
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory held by the window graphs' memory pool."""
+        backend = self._executor.backend
+        return backend.pool_bytes() if backend is not None else 0
+
+    def step_window(self) -> None:
+        """Advance one scheduling window."""
+        self._dispatch_windows([self.next_window_idx])
 
     def step_until_time(self, until_time: float) -> None:
         """Advance through every window whose cycle time is <= until_time."""
-        for _ in self.window_idxs(until_time):
-            self.step_window()
+        self._dispatch_windows(self.window_idxs(until_time))
 
     def run_to_completion(self, max_time: float = 1e7) -> None:
         """Step until every trace pod has terminated (reference

@@ -1,0 +1,275 @@
+"""The window executor: each window's work as a few pieces, replayed on the
+card from CUDA graphs in the order the window's plan gives.
+
+Port of the JAX package's chunked window dispatch: `step.run_windows`
+(kubernetriks_tpu/batched/step.py:2504, jitted at :2586) scans a chunk of
+windows in one compiled program, `engine._dispatch_windows`
+(engine.py:1965) cuts a span into such chunks, and `precompile_chunks`
+(engine.py:2064) compiles every program shape up front against a scratch
+copy of the state, so no compile lands in a timed region. On the card the
+counterpart of one compiled program is a CUDA graph: launched op by op from
+Python, a window costs the host several times the device's time.
+
+A window's work varies with its plan (step.WindowPlan, a host fact), so one
+graph per window would not do. It is cut into two pieces, each captured
+once per key:
+
+- ("chunk",): one event chunk (step.event_chunk). A window replays it
+  `n_chunks` times: a chunk reads only the device cursor, so one graph
+  serves every chunk.
+- ("end", route, removal_due, hpa, ca): the rest of the window, which
+  always runs back to back: the events' tail (step.events_tail), the
+  cycle of `route`, the HPA pass (`hpa`: None for none, False for the
+  metrics collection alone, True for the cycle) and, with `ca`, the CA
+  pass. One end graph a window, so the state is copied back once a
+  window; at most 12 end graphs a route.
+
+`piece_schedule` names a window's pieces from its plan and the route.
+The route is read from the engine at every window, so a route forced
+after the build captures its own end graphs: a graph of another route
+never runs. Everything else a graph reads from the engine (its sizes, K,
+E, the slab and the tables) is fixed at build.
+
+Fixed buffers. A graph reads and writes the addresses it was captured on,
+so everything that lives from one piece to the next lies in buffers that
+never move (`WindowBuffers`): the engine's state, the event accumulators
+the chunks fill and the end piece reads (and resets), and the window index
+W (one (C,) int32 buffer, filled before each window's replays). Each piece
+computes its outputs as the eager step does and ends by copying them into
+the very buffers it read (state.copy_state_into). Its intermediates are
+dead once that copy is done, so all graphs share one memory pool.
+
+Capture. Warm-up executes, capture does not: a piece first runs once on a
+scratch copy of the buffers, on the capture stream (that builds and loads
+the kernels, sets their shared-memory attributes and allocates the free
+kernel's per-stream scratch outside the graph), then is captured on the
+real buffers. A failed capture or replay raises; nothing falls back to
+eager launches.
+
+Launch counts. A replay bypasses the wrappers that count kernel launches
+(ops/_launch.LAUNCHES), so each graph keeps the counts its capture added,
+the warm-up's and the capture's own are taken back out, and every replay
+adds them: a run counts what an eager run of the same windows counts.
+
+Without a capture backend (on the CPU, or with graphs off) the executor
+runs the same pieces uncaptured, in the same order on the same buffers.
+Windows with the conditional move stay eager (step.window_body), counted
+in the engine's dispatch_stats: they read the device back.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Dict, Iterable, List, NamedTuple, Tuple
+
+import torch
+
+from kubernetriks_tpu_torch.batched.autoscale import ca_pass, hpa_pass
+from kubernetriks_tpu_torch.batched.state import ClusterBatchState, clone_state, copy_state_into, flatten, storages
+from kubernetriks_tpu_torch.batched.step import (
+    EventAccumulators,
+    WindowPlan,
+    event_chunk,
+    events_tail,
+    run_scheduling_cycle,
+)
+from kubernetriks_tpu_torch.ops._launch import LAUNCHES
+
+Key = Tuple
+
+
+class WindowBuffers(NamedTuple):
+    """Everything that lives from one piece to the next, at fixed
+    addresses."""
+
+    state: ClusterBatchState
+    acc: EventAccumulators
+    W: torch.Tensor  # (C,) int32 the window being run
+
+
+def piece_schedule(plan: WindowPlan, route: str) -> List[Key]:
+    """The pieces window `plan` runs on `route`, in order (step.window_body's
+    order)."""
+    hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
+    return [("chunk",)] * plan.n_chunks + [("end", route, plan.removal_due, hpa, plan.ca_due)]
+
+
+class CudaGraphs:
+    """The capture backend on the card: one capture stream, on which the
+    warm-ups run too (the free kernel's scratch is per stream), and one
+    memory pool for every graph."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def warm(self, fn: Callable[[], None]) -> None:
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def capture(self, fn: Callable[[], None]):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            fn()
+        return graph
+
+    def pool_bytes(self) -> int:
+        """Device memory the graphs' pool holds."""
+        pool = tuple(self.pool)
+        return sum(
+            seg["total_size"]
+            for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool
+        )
+
+
+class WindowExecutor:
+    """Runs an engine's windows as pieces over fixed buffers, replayed from
+    CUDA graphs when a capture backend is given (module note).
+    `dispatch_stats` is the engine's: captures, replays, graph_windows and
+    eager_windows are counted here."""
+
+    def __init__(self, sim, backend=None):
+        self.sim = sim
+        self.backend = backend
+        state = sim.state
+        C, P = state.pods.phase.shape
+        N = state.nodes.alive.shape[1]
+        dev = state.time.device
+        self.bufs = WindowBuffers(
+            state=state,
+            acc=EventAccumulators.fresh(C, N, P, dev),
+            W=torch.zeros((C,), dtype=torch.int32, device=dev),
+        )
+        leaves = [t for t in flatten(self.bufs).values() if t.numel()]
+        self._fixed = storages(leaves)
+        if len(self._fixed) != len(leaves):
+            raise ValueError("WindowExecutor: two buffers share memory; each must own its own")
+        self._bodies: Dict[Key, Callable[[WindowBuffers], None]] = {}
+        self.graphs: Dict[Key, Tuple[object, Dict[str, int]]] = {}
+
+    # --- the pieces ----------------------------------------------------------
+
+    def _copy_back(self, dst, src) -> None:
+        copy_state_into(dst, src, self._fixed)
+
+    def _body(self, key: Key) -> Callable[[WindowBuffers], None]:
+        """The piece `key` as a function of the buffers it reads and writes."""
+        run = self._bodies.get(key)
+        if run is None:
+            run = self._bodies[key] = self._make_body(key)
+        return run
+
+    def _make_body(self, key: Key) -> Callable[[WindowBuffers], None]:
+        sim = self.sim
+        k = sim._k
+        kind = key[0]
+        if kind == "chunk":
+            def run(b: WindowBuffers) -> None:
+                cursor, acc, _ = event_chunk(
+                    b.state, sim.slab, b.W, sim.consts, k, sim.max_events_per_window, b.acc
+                )
+                b.state.event_cursor.copy_(cursor)
+                self._copy_back(b.acc, acc)
+        elif kind == "end":
+            route, removal_due, hpa, ca_due = key[1:]
+
+            def run(b: WindowBuffers) -> None:
+                state, _ = events_tail(b.state, b.acc, b.W, k, removal_due, name_ranks=sim.name_ranks)
+                # What the storage saw before this cycle: the CA reads it
+                # when its snapshot precedes the cycle's commit visibility.
+                pre = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
+                state = run_scheduling_cycle(state, b.W, k, sim.max_pods_per_cycle, route)
+                if hpa is not None:
+                    state = hpa_pass(state, sim.autoscale_statics, b.W, k, sim.hpa_seg, hpa)
+                if ca_due:
+                    state = ca_pass(
+                        state, sim.autoscale_statics, b.W, k,
+                        sim.max_ca_pods_per_cycle, sim.max_pods_per_scale_down, pre,
+                    )
+                self._copy_back(b.state, state)
+                b.acc.reset_()
+        else:
+            raise ValueError(f"unknown window piece {key!r}")
+        return run
+
+    # --- capture and replay ----------------------------------------------------
+
+    def reachable_keys(self) -> List[Key]:
+        """Every piece the engine's plans can reach on its current route: a
+        superset read from the build (the trace's node removals, the
+        autoscalers), not from a dry run of the plans. None with the
+        conditional move, whose windows run eagerly."""
+        sim = self.sim
+        clock = sim.clock
+        if sim.conditional_move:
+            return []
+        removals = [False]
+        if bool(sim._rm_prefix[:, -1].any()) or (clock is not None and clock.ca_on):
+            removals.append(True)
+        hpas, cas = [None], [False]
+        if clock is not None:
+            if clock.hpa_on:
+                hpas += [False, True]
+            if clock.ca_on:
+                cas.append(True)
+        route = sim.cycle_route
+        keys: List[Key] = [("chunk",)]
+        keys += [("end", route, rm, hpa, ca) for rm in removals for hpa in hpas for ca in cas]
+        return keys
+
+    def capture(self, keys: Iterable[Key]) -> int:
+        """Warm and capture each of `keys` not captured yet (the
+        counterpart of the reference's precompile_chunks); returns how many
+        were captured. One scratch copy of the buffers serves the warm-ups."""
+        todo = [key for key in dict.fromkeys(keys) if key not in self.graphs]
+        if not todo:
+            return 0
+        if self.backend is None:
+            raise RuntimeError("WindowExecutor.capture: no capture backend (graphs are off)")
+        scratch = clone_state(self.bufs)
+        for key in todo:
+            body = self._body(key)
+            before = dict(LAUNCHES)
+            try:
+                self.backend.warm(partial(body, scratch))
+                warmed = dict(LAUNCHES)
+                graph = self.backend.capture(partial(body, self.bufs))
+                delta = {n: LAUNCHES[n] - warmed[n] for n in LAUNCHES if LAUNCHES[n] != warmed[n]}
+            finally:
+                LAUNCHES.update(before)
+            self.graphs[key] = (graph, delta)
+            self.sim.dispatch_stats["captures"] += 1
+        return len(todo)
+
+    def _run(self, key: Key) -> None:
+        if self.backend is None:
+            self._body(key)(self.bufs)
+            return
+        entry = self.graphs.get(key)
+        if entry is None:
+            self.capture([key])
+            entry = self.graphs[key]
+        graph, delta = entry
+        graph.replay()
+        for name, n in delta.items():
+            LAUNCHES[name] += n
+        self.sim.dispatch_stats["replays"] += 1
+
+    def run_windows(self, windows: Iterable[Tuple[int, WindowPlan]]) -> None:
+        """Advance the engine's state through `windows`, (index, plan) in
+        order (the reference's run_windows over a chunk of window indices)."""
+        sim = self.sim
+        stats = sim.dispatch_stats
+        for w, plan in windows:
+            if sim.conditional_move:
+                copy_state_into(self.bufs.state, sim._window_body(self.bufs.state, w, plan))
+                stats["eager_windows"] += 1
+                continue
+            self.bufs.W.fill_(w)
+            for key in piece_schedule(plan, sim.cycle_route):
+                self._run(key)
+            stats["graph_windows" if self.backend is not None else "eager_windows"] += 1

@@ -17,7 +17,7 @@ None when absent and then have no leaves, as in the reference.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Set
 
 import numpy as np
 import torch
@@ -244,8 +244,8 @@ def init_state(
     C, N, P = n_clusters, n_nodes, n_pods
     dev = torch.device(device)
 
-    def i32(x):
-        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+    def i32(x):  # a copy: no two leaves share memory (they are updated in place)
+        return torch.tensor(np.asarray(x, np.int32), device=dev)
 
     def zeros_i32(shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -265,7 +265,7 @@ def init_state(
         phase=zeros_i32((C, P)),
         req_cpu=i32(pod_req_cpu),
         req_ram=i32(pod_req_ram),
-        duration=TPair(win=i32(dwin), off=torch.as_tensor(doff, device=dev)),
+        duration=TPair(win=i32(dwin), off=torch.tensor(doff, device=dev)),
         queue_ts=t_zeros((C, P), dev),
         queue_seq=zeros_i32((C, P)),
         initial_attempt_ts=t_zeros((C, P), dev),
@@ -310,6 +310,55 @@ def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(flatten(getattr(tree, name), f"{prefix}.{name}"))
         return out
     return {prefix: tree}
+
+
+def clone_state(tree):
+    """A copy of a NamedTuple tree, every leaf cloned (None subtrees stay
+    None): a snapshot that later in-place steps do not touch."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[clone_state(getattr(tree, f)) for f in tree._fields])
+    return tree.clone()
+
+
+def copy_state_into(dst, src, fixed: Optional[Set[int]] = None) -> int:
+    """Copy every leaf of the tree `src` into the leaf of the same path of
+    `dst`, in place, so `dst` keeps its tensors (and their addresses, which
+    a captured CUDA graph reads). A leaf that already is dst's own tensor
+    is skipped. Raises if the leaf sets, shapes or dtypes differ, or if a
+    src leaf lies in the memory of another destination (`fixed`: the
+    storage addresses of every buffer that must not be a source; by
+    default dst's leaves'): copying into that one first would overwrite it.
+    Returns the number of leaves copied."""
+    d, s = flatten(dst), flatten(src)
+    if set(d) != set(s):
+        raise ValueError(f"copy_state_into: leaf sets differ: {sorted(set(d) ^ set(s))}")
+    if fixed is None:
+        fixed = storages(d.values())
+    pending = []
+    for path, t in s.items():
+        tgt = d[path]
+        if t is tgt:
+            continue
+        if t.shape != tgt.shape or t.dtype != tgt.dtype:
+            raise ValueError(
+                f"copy_state_into: leaf {path} is {t.dtype}{tuple(t.shape)}, "
+                f"the buffer {tgt.dtype}{tuple(tgt.shape)}"
+            )
+        if t.numel() and t.untyped_storage().data_ptr() in fixed and (
+            t.untyped_storage().data_ptr() != tgt.untyped_storage().data_ptr()
+        ):
+            raise ValueError(f"copy_state_into: the new {path} lies in another buffer's memory")
+        pending.append((tgt, t))
+    for tgt, t in pending:
+        tgt.copy_(t)
+    return len(pending)
+
+
+def storages(tensors) -> Set[int]:
+    """The storage addresses of the non-empty tensors."""
+    return {t.untyped_storage().data_ptr() for t in tensors if t.numel()}
 
 
 def unflatten(cls, leaves: Dict[str, object], prefix: str = ""):

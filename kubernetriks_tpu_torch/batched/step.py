@@ -15,6 +15,9 @@ reference's `_run_scheduling_cycle`, step.py:1466):
   128 clusters: the trace-replay shape).
 Times are the (win, off) pairs of timerep.py; values applied inside a
 window are float32 seconds relative to the previous window's start.
+`window_body` runs a window as one eager function; the window executor
+(graphs.py) runs the same functions as pieces: `event_chunk` per chunk,
+`events_tail`, `run_scheduling_cycle`, then the autoscaler passes.
 
 What differs from the reference, and why it is exact:
 - The reference's data-dependent `lax.cond` / `while_loop` branches become
@@ -85,7 +88,9 @@ CYCLE_ROUTES = ("megakernel", "two_kernel", "sorted")
 class DeviceConstants(NamedTuple):
     """StepConstants as 0-dim float32 tensors on the state's device: every
     float op of the step then has tensor operands only, the same float32
-    values the reference gets from `jnp.float32(consts.x)`."""
+    values the reference gets from `jnp.float32(consts.x)`. Also the
+    constant tables the step reads, built once so that no window copies a
+    host value to the device (a CUDA graph cannot capture such a copy)."""
 
     interval: torch.Tensor
     time_per_node: torch.Tensor
@@ -95,6 +100,8 @@ class DeviceConstants(NamedTuple):
     flush_interval: torch.Tensor
     max_unschedulable_stay: torch.Tensor
     interval64: torch.Tensor  # float64, for the HPA's elapsed-time math
+    inf: torch.Tensor  # float32 +inf
+    pow10: torch.Tensor  # (9,) int32 decimal_string_key's digit scales
 
     @staticmethod
     def build(consts: StepConstants, device) -> "DeviceConstants":
@@ -110,6 +117,11 @@ class DeviceConstants(NamedTuple):
             flush_interval=f32(consts.flush_interval),
             max_unschedulable_stay=f32(consts.max_unschedulable_stay),
             interval64=torch.tensor(float(consts.scheduling_interval), dtype=torch.float64, device=device),
+            inf=f32(INF),
+            pow10=torch.tensor(
+                [0, 10_000_000, 1_000_000, 100_000, 10_000, 1_000, 100, 10, 1],
+                dtype=torch.int32, device=device,
+            ),
         )
 
 
@@ -223,6 +235,107 @@ def _onehot_min(acc, slots, mask, values):
     return acc
 
 
+class EventAccumulators(NamedTuple):
+    """What a window's event chunks gather for its tail (the chunk loop's
+    carry in the reference's `_apply_window_events_work`, step.py:274):
+    per node slot, created this window and the earliest removal; per pod
+    slot, the earliest create time with its queue sequence number and the
+    earliest removal; per cluster, the pod creations so far. Times are
+    float32 seconds from the window base, +inf = none."""
+
+    created: torch.Tensor  # (C, N) bool
+    node_removal: torch.Tensor  # (C, N) float32
+    pod_create: torch.Tensor  # (C, P) float32
+    pod_create_seq: torch.Tensor  # (C, P) int32
+    pod_removal: torch.Tensor  # (C, P) float32
+    n_creates: torch.Tensor  # (C,) int32
+
+    @staticmethod
+    def fresh(C: int, N: int, P: int, device) -> "EventAccumulators":
+        acc = EventAccumulators(
+            created=torch.empty((C, N), dtype=torch.bool, device=device),
+            node_removal=torch.empty((C, N), dtype=torch.float32, device=device),
+            pod_create=torch.empty((C, P), dtype=torch.float32, device=device),
+            pod_create_seq=torch.empty((C, P), dtype=torch.int32, device=device),
+            pod_removal=torch.empty((C, P), dtype=torch.float32, device=device),
+            n_creates=torch.empty((C,), dtype=torch.int32, device=device),
+        )
+        acc.reset_()
+        return acc
+
+    def reset_(self) -> None:
+        """Back to the start of a window, in place."""
+        self.created.fill_(False)
+        self.node_removal.fill_(INF)
+        self.pod_create.fill_(INF)
+        self.pod_create_seq.fill_(0)
+        self.pod_removal.fill_(INF)
+        self.n_creates.fill_(0)
+
+
+def event_chunk(
+    state: ClusterBatchState,
+    slab: TraceSlab,
+    W: torch.Tensor,
+    consts: StepConstants,
+    k: DeviceConstants,
+    max_events_per_window: int,
+    acc: EventAccumulators,
+    node_create_rel: Optional[torch.Tensor] = None,
+):
+    """One chunk of up to E slab events per cluster from the state's event
+    cursor, those with effect time before the cycle time W * interval (the
+    reference's chunk-loop body). Reads only the device cursor, so the same
+    call serves every chunk of every window. Returns (the cursor past the
+    applied events, acc with them folded in, node_create_rel: with
+    conditional move, the earliest creation of each node this window)."""
+    C = state.time.shape[0]
+    dev = state.time.device
+    E_total = slab.packed.shape[1]
+    E = max_events_per_window
+    rows = torch.arange(C, device=dev)[:, None]
+    base = W - 1  # the window the applied events fall in
+    cursor = state.event_cursor
+    offs = cursor[:, None] + torch.arange(E, dtype=torch.int32, device=dev)[None, :]
+    pk = slab.packed[rows, offs.clamp(0, E_total - 1).long()]  # (C, E, 4)
+    ev_win = pk[..., 0]
+    ev_off = pk[..., 1].contiguous().view(torch.float32)
+    ev_k = pk[..., 2].contiguous()
+    ev_s_raw = pk[..., 3]
+    valid = (offs < E_total) & (ev_win < W[:, None])
+    # Pod event slots are global; the device slot subtracts pod_base
+    # (0 on whole-trace runs). Negative slots drop.
+    is_pod_ev = (ev_k == EV_CREATE_POD) | (ev_k == EV_REMOVE_POD)
+    seg_shift = torch.where(
+        ev_s_raw < consts.trace_pod_bound,
+        state.pod_base[:, None],
+        consts.resident_shift,
+    )
+    ev_s = torch.where(is_pod_ev, ev_s_raw - seg_shift, ev_s_raw)
+    ev_s = torch.where(is_pod_ev & (ev_s < 0), 1 << 29, ev_s).to(torch.int32)
+    ev_rel = (ev_win - base[:, None]).to(torch.float32) * k.interval + ev_off
+    is_cp = valid & (ev_k == EV_CREATE_POD)
+    # Queue sequence numbers follow slab order across chunks. An integer
+    # prefix count: exact in any summation order.
+    create_rank = torch.cumsum(is_cp, dim=1, dtype=torch.int32) - 1
+    ev_seq = (state.queue_seq_counter[:, None] + acc.n_creates[:, None] + create_rank).to(torch.int32)
+    created, node_removal, pod_create, pod_create_seq, pod_removal = fused_event_scatter(
+        ev_k, ev_s, ev_rel, ev_seq, valid,
+        acc.created, acc.node_removal, acc.pod_create, acc.pod_create_seq, acc.pod_removal,
+    )
+    if node_create_rel is not None:
+        is_cn = valid & (ev_k == EV_CREATE_NODE)
+        node_create_rel = _onehot_min(node_create_rel, ev_s, is_cn, ev_rel)
+    return (
+        cursor + valid.sum(dim=1, dtype=torch.int32),
+        EventAccumulators(
+            created, node_removal, pod_create, pod_create_seq, pod_removal,
+            acc.n_creates + is_cp.sum(dim=1, dtype=torch.int32),
+        ),
+        node_create_rel,
+    )
+
+
 def apply_window_events(
     state: ClusterBatchState,
     slab: TraceSlab,
@@ -237,66 +350,54 @@ def apply_window_events(
     """Apply every trace event with effect time strictly before the cycle
     time W * interval, and resolve every pod finish due in the window
     (reference `_apply_window_events_work`, step.py:274, along its kernel
-    branches). Returns (state, WakeEvents or None)."""
+    branches): plan.n_chunks event chunks, then the tail. Returns (state,
+    WakeEvents or None)."""
+    C, P = state.pods.phase.shape
+    N = state.nodes.alive.shape[1]
+    dev = state.time.device
+    acc = EventAccumulators.fresh(C, N, P, dev)
+    node_create_rel = (
+        torch.full((C, N), INF, dtype=torch.float32, device=dev) if conditional_move else None
+    )
+    for _ in range(plan.n_chunks):
+        cursor, acc, node_create_rel = event_chunk(
+            state, slab, W, consts, k, max_events_per_window, acc, node_create_rel
+        )
+        state = state._replace(event_cursor=cursor)
+    return events_tail(
+        state, acc, W, k, plan.removal_due, conditional_move, name_ranks, node_create_rel
+    )
+
+
+def events_tail(
+    state: ClusterBatchState,
+    acc: EventAccumulators,
+    W: torch.Tensor,
+    k: DeviceConstants,
+    removal_due: bool,
+    conditional_move: bool = False,
+    name_ranks=None,
+    node_create_rel: Optional[torch.Tensor] = None,
+):
+    """The window's events after its chunks: the pending autoscaler node
+    effects and pod removals due, creations, pod finishes against node and
+    pod removals, freed resources back to their nodes, and reschedules of
+    the pods of removed nodes (reference step.py:274, after the chunk
+    loop). `removal_due`: whether a node removal can apply this window
+    (step.WindowPlan). Returns (state, WakeEvents or None)."""
     pods, nodes, metrics = state.pods, state.nodes, state.metrics
     C, P = pods.phase.shape
     N = nodes.alive.shape[1]
     dev = pods.phase.device
-    E_total = slab.packed.shape[1]
-    E = max_events_per_window
     interval = k.interval
-    rows = torch.arange(C, device=dev)[:, None]
     base = W - 1  # the window the applied events fall in
-
-    # --- the window's slab events, E at a time -----------------------------
-    cursor = state.event_cursor
-    created = torch.zeros((C, N), dtype=torch.bool, device=dev)
-    node_removal = torch.full((C, N), INF, dtype=torch.float32, device=dev)
-    pod_create = torch.full((C, P), INF, dtype=torch.float32, device=dev)
-    pod_create_seq = torch.zeros((C, P), dtype=torch.int32, device=dev)
-    pod_removal = torch.full((C, P), INF, dtype=torch.float32, device=dev)
-    n_creates = torch.zeros((C,), dtype=torch.int32, device=dev)
-    node_create_rel = (
-        torch.full((C, N), INF, dtype=torch.float32, device=dev) if conditional_move else None
-    )
-    ar_e = torch.arange(E, dtype=torch.int32, device=dev)[None, :]
-    for _ in range(plan.n_chunks):
-        offs = cursor[:, None] + ar_e
-        pk = slab.packed[rows, offs.clamp(0, E_total - 1).long()]  # (C, E, 4)
-        ev_win = pk[..., 0]
-        ev_off = pk[..., 1].contiguous().view(torch.float32)
-        ev_k = pk[..., 2].contiguous()
-        ev_s_raw = pk[..., 3]
-        valid = (offs < E_total) & (ev_win < W[:, None])
-        # Pod event slots are global; the device slot subtracts pod_base
-        # (0 on whole-trace runs). Negative slots drop.
-        is_pod_ev = (ev_k == EV_CREATE_POD) | (ev_k == EV_REMOVE_POD)
-        seg_shift = torch.where(
-            ev_s_raw < consts.trace_pod_bound,
-            state.pod_base[:, None],
-            consts.resident_shift,
-        )
-        ev_s = torch.where(is_pod_ev, ev_s_raw - seg_shift, ev_s_raw)
-        ev_s = torch.where(is_pod_ev & (ev_s < 0), 1 << 29, ev_s).to(torch.int32)
-        ev_rel = (ev_win - base[:, None]).to(torch.float32) * interval + ev_off
-        is_cp = valid & (ev_k == EV_CREATE_POD)
-        # Queue sequence numbers follow slab order across chunks. An integer
-        # prefix count: exact in any summation order.
-        create_rank = torch.cumsum(is_cp, dim=1, dtype=torch.int32) - 1
-        ev_seq = (state.queue_seq_counter[:, None] + n_creates[:, None] + create_rank).to(torch.int32)
-        created, node_removal, pod_create, pod_create_seq, pod_removal = fused_event_scatter(
-            ev_k, ev_s, ev_rel, ev_seq, valid,
-            created, node_removal, pod_create, pod_create_seq, pod_removal,
-        )
-        if conditional_move:
-            is_cn = valid & (ev_k == EV_CREATE_NODE)
-            node_create_rel = _onehot_min(node_create_rel, ev_s, is_cn, ev_rel)
-        cursor = cursor + valid.sum(dim=1, dtype=torch.int32)
-        n_creates = n_creates + is_cp.sum(dim=1, dtype=torch.int32)
+    created, node_removal = acc.created, acc.node_removal
+    pod_create, pod_create_seq, pod_removal = acc.pod_create, acc.pod_create_seq, acc.pod_removal
+    n_creates = acc.n_creates
 
     # --- pending cluster-autoscaler node effects and HPA pod removals due
     # this window ------------------------------------------------------------
-    f32inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+    f32inf = k.inf
     pend_create_row = (nodes.create_time.win < W[:, None]) & ~nodes.alive
     created = created | pend_create_row
     if conditional_move:
@@ -341,7 +442,7 @@ def apply_window_events(
 
     # --- running pods: finish vs node removal vs pod removal ----------------
     running = phase == PHASE_RUNNING
-    if plan.removal_due:
+    if removal_due:
         node_idx = pods.node.clamp(min=0).long()
         pod_node_removal = torch.where(
             pods.node >= 0, torch.gather(node_removal, 1, node_idx), f32inf
@@ -390,7 +491,7 @@ def apply_window_events(
     # (removal time, node name, pod name) order.
     pod_node = pods.node
     n_rescheds = torch.zeros((C,), dtype=torch.int32, device=dev)
-    if plan.removal_due:
+    if removal_due:
         big = 1 << 30
         node_c2 = pods.node.clamp(0, N - 1).long()
         if name_ranks is not None:
@@ -473,7 +574,6 @@ def apply_window_events(
             removal_time=pod_removal_time,
         ),
         metrics=metrics,
-        event_cursor=cursor,
         queue_seq_counter=state.queue_seq_counter + n_creates + n_rescheds,
         requeue_signal=state.requeue_signal | any_created_node | any_freed,
         time=torch.maximum(state.time, W),

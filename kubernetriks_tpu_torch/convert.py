@@ -23,8 +23,9 @@ from kubernetriks_tpu_torch.batched.state import ClusterBatchState, flatten, unf
 
 
 def state_to_numpy(state: ClusterBatchState) -> Dict[str, np.ndarray]:
-    """The port's state as {path: numpy array} (copied to the host)."""
-    return {k: v.detach().cpu().numpy() for k, v in flatten(state).items()}
+    """The port's state as {path: numpy array}, copied to the host (a
+    copy on the CPU too: the engine's state is updated in place)."""
+    return {k: v.detach().to("cpu", copy=True).numpy() for k, v in flatten(state).items()}
 
 
 def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> ClusterBatchState:

@@ -228,10 +228,18 @@ def _free_scratch(device, C: int, N: int, tile: int, T: int) -> Tuple[torch.Tens
     node sums), allocated zeroed once and left zero by every launch; and
     the tiles' finished counts and compacted values, written before they
     are read. One per stream, so calls in flight on two streams never
-    share one; one per shape, so a captured CUDA graph keeps its own."""
+    share one; one per shape, so a captured CUDA graph keeps its own. The
+    window executor warms every piece on its capture stream first, so the
+    zero-fill never lands in a graph; a capture that finds no scratch
+    raises."""
     key = (device.index, torch.cuda.current_stream().cuda_stream, C, N, T)
     scratch = _FREE_SCRATCH.get(key)
     if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_free_resources: no scratch for this stream and shape; "
+                "launch once on the capture stream before capturing"
+            )
         scratch = (
             torch.zeros(C * (1 + 2 * N), dtype=torch.int32, device=device),
             torch.empty(C * T * (1 + tile), dtype=torch.int32, device=device),

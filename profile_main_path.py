@@ -3,7 +3,7 @@
 
     python3 profile_main_path.py [--path headline|autoscaler|replay|deep]
         [--windows 20] [--repeats 1] [--route sorted|megakernel|two_kernel]
-        [--k K] [--package-root DIR]
+        [--executor eager|graphs] [--k K] [--package-root DIR]
 
 Builds the headline shape (`chip_smoke.headline_sim`), with `--path
 autoscaler` the reference's composed scenario at full width
@@ -14,11 +14,15 @@ route, the CA on), or with `--path deep` a deep queue past the reference's
 shared-memory route gate (deep_sim: 128 clusters of 8 nodes, ~20 480 pods,
 K pods per cycle, K = P by default). `--route` overrides the route the
 engine chose at build (the tests do the same), so the routes can be timed
-on one shape. Steps to the warm-up time (t=190 s; 590 s on the autoscaler
+on one shape. `--executor` builds the engine with its window graphs
+(`graphs`: every piece captured before the warm-up, precompile_pieces) or
+without (`eager`: the same pieces launched op by op); left out, the
+engine's default (graphs on the card; a checkout that predates the window
+executor has only eager windows). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
 path, inside its load burst; 43 200 s, mid-day, on the replay; 300 s on
-the deep path, ~5 000 pods queued a cluster) and keeps that state. Then it
-runs the same `--windows` windows from it (the state is immutable, so
-`install_state` replays them):
+the deep path, ~5 000 pods queued a cluster) and keeps a copy of that
+state. Then it runs the same `--windows` windows from it (`install_state`
+puts the copy back before each repeat):
   1. untraced, on the host clock, ending in a synchronize, `--repeats`
      times (the first is `host_ms_per_window`, all are listed);
   2. traced with torch.profiler (CPU + CUDA), again on the host clock,
@@ -27,9 +31,10 @@ The device's idle share is 1 - busy / wall, both from the traced windows;
 the untraced wall time of the same windows is printed beside it, and the
 difference is the profiler's own cost. Prints one JSON line: host ms per
 window (untraced and traced), device busy ms per window, the idle share,
-device kernel launches per window, and the top device ops with their
-share of busy time. The full key_averages table goes to
-profile_<path>.txt in the output directory beside this script (the one
+device kernel launches per window, the executor's counts
+(`dispatch_stats`, the graph pool's bytes), the top host rows (self CPU
+time a window) and the top device ops with their share of busy time. The full key_averages table goes to
+profile_<path>_<route>_<executor>.txt in the output directory beside this script (the one
 chip_smoke.py writes to). `--package-root` imports the package and
 chip_smoke.py from DIR instead of this checkout, so one call on the card
 can time two checkouts on the same windows. Needs a CUDA device.
@@ -55,7 +60,19 @@ def _is_kernel(key: str, name: str) -> bool:
     return any(f"::{name}{post}" in key or key.startswith(f"{name}{post}") for post in ("(", "<"))
 
 
-def deep_sim(device, k_pods=None, n_clusters: int = 128, rate: float = 20.48):
+def clone_tree(tree):
+    """A copy of a state tree (NamedTuples of tensors), every leaf cloned:
+    the engine updates its state in place. Kept here rather than taken from
+    the package, since `--package-root` may time a checkout without
+    `state.clone_state`."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*[clone_tree(x) for x in tree])
+    return tree.clone()
+
+
+def deep_sim(device, k_pods=None, n_clusters: int = 128, rate: float = 20.48, **engine_kwargs):
     """A deep queue at a batch the dense routes take: 128 clusters of 8
     headline nodes, Poisson pods at 20.48/s for 1000 s (~20 480 pod slots,
     past the reference's shared-memory gate at ~17 900; the headline's
@@ -74,7 +91,7 @@ def deep_sim(device, k_pods=None, n_clusters: int = 128, rate: float = 20.48):
             rate_per_second=rate, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
             duration_range=(30.0, 120.0),
         ).convert_to_simulator_events(),
-        n_clusters=n_clusters, device=device, max_pods_per_cycle=k_pods,
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=k_pods, **engine_kwargs,
     )
 
 
@@ -84,6 +101,7 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--path", choices=("headline", "autoscaler", "replay", "deep"), default="headline")
     ap.add_argument("--route", choices=("sorted", "megakernel", "two_kernel"), default=None)
+    ap.add_argument("--executor", choices=("eager", "graphs"), default=None)
     ap.add_argument("--k", type=int, default=None, help="pods per cycle on the deep path (default: P)")
     ap.add_argument("--package-root", default=str(HERE))
     args = ap.parse_args(argv)
@@ -107,18 +125,23 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     _build.build_all()
+    kw = {} if args.executor is None else {"graphs": args.executor == "graphs"}
     build, warm_up = {
-        "headline": (lambda: headline_sim("cuda"), 190.0),
-        "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED), 590.0),
-        "replay": (lambda: replay_sim("cuda", replay_trace("replay_full", **FULL_REPLAY)), 43200.0),
-        "deep": (lambda: deep_sim("cuda", args.k), 300.0),
+        "headline": (lambda: headline_sim("cuda", **kw), 190.0),
+        "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED, **kw), 590.0),
+        "replay": (lambda: replay_sim("cuda", replay_trace("replay_full", **FULL_REPLAY), **kw), 43200.0),
+        "deep": (lambda: deep_sim("cuda", args.k, **kw), 300.0),
     }[args.path]
     sim = build()
     if args.route:
         sim.cycle_route = args.route
+    executor = "graphs" if getattr(sim, "graphs", False) else "eager"
+    precompile = getattr(sim, "precompile_pieces", None)
+    captured = precompile() if precompile else 0
     sim.step_until_time(warm_up)
     torch.cuda.synchronize()
-    state0, window0 = sim.state, sim.next_window_idx
+    state0, window0 = clone_tree(sim.state), sim.next_window_idx
+    stats0 = dict(getattr(sim, "dispatch_stats", {}))
 
     n = args.windows
 
@@ -134,6 +157,7 @@ def main(argv=None) -> int:
         host_ms.append(timed_windows())
         sim.install_state(state0, window0)
     torch.cuda.synchronize()
+    stats = {k: v - stats0[k] for k, v in getattr(sim, "dispatch_stats", {}).items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = timed_windows()
     events = prof.key_averages()
@@ -153,12 +177,18 @@ def main(argv=None) -> int:
         us = dev_us(e)
         if us > 0 and e.self_cpu_time_total == 0:
             kernels.append((e.key, us, e.count))
+    # Host rows: what the host spends a window on (the planning's CPU ops,
+    # the launches, the graph replays).
+    host_rows = sorted(
+        ((e.key, e.self_cpu_time_total, e.count) for e in events if e.self_cpu_time_total > 0),
+        key=lambda r: -r[1],
+    )
     busy_us = sum(us for _, us, _ in kernels)
     launches = sum(c for _, _, c in kernels)
     kernels.sort(key=lambda k: -k[1])
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"profile_{args.path}.txt").write_text(
+    (out_dir / f"profile_{args.path}_{sim.cycle_route}_{executor}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
     )
     busy_ms = busy_us / 1e3 / n
@@ -167,6 +197,10 @@ def main(argv=None) -> int:
         "path": args.path,
         "windows": n,
         "cycle_route": sim.cycle_route,
+        "executor": executor,
+        "graphs_captured_up_front": captured,
+        "dispatch_stats_timed": stats,
+        "graph_pool_bytes": sim.graph_pool_bytes() if hasattr(sim, "graph_pool_bytes") else 0,
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},
@@ -185,6 +219,10 @@ def main(argv=None) -> int:
                 "select_schedule_cycle_kernel", "commit_fill_kernel", "commit_scatter_kernel",
             )
         },
+        "top_host": [
+            {"name": k[:80], "ms_per_window": us / 1e3 / n, "count_per_window": c / n}
+            for k, us, c in host_rows[:12]
+        ],
         "top": [
             {"name": k[:80], "ms_per_window": us / 1e3 / n, "count_per_window": c / n,
              "share_of_busy": us / busy_us}

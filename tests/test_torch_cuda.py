@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
-from kubernetriks_tpu_torch.batched.state import compare_states
+from kubernetriks_tpu_torch.batched.state import compare_states, flatten
 from kubernetriks_tpu_torch.config import SimulationConfig
 from kubernetriks_tpu_torch.convert import state_from_numpy, state_to_numpy
 from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
@@ -531,3 +531,120 @@ def test_cpu_state_into_cuda_engine_raises(cuda_device):
         sim.install_state(state_from_numpy(flat, "cpu"), 7)
     sim.install_state(state_from_numpy(flat), 7)
     assert sim.state.pods.phase.device.type == "cuda"
+
+
+# --- the graph executor against eager windows ------------------------------------
+
+
+def _graph_and_eager(build, until, route=None, switch=None):
+    """The same windows on the card twice: replaying the window graphs
+    (every reachable piece captured up front) and eagerly (graphs=False).
+    `until` None runs to completion. `switch`: (time, route) to force
+    another route at `time` on both. Returns [(sim, launches, host syncs)] for the graph run, then the
+    eager one."""
+    runs = []
+    for graphs in (True, False):
+        sim = build(graphs)
+        if route:
+            sim.cycle_route = route
+        sim.precompile_pieces()
+        port_kernels.reset_launches()
+        syncs = sim.host_syncs
+        if switch:
+            sim.step_until_time(switch[0])
+            sim.cycle_route = switch[1]
+        if until is None:
+            sim.run_to_completion()
+        else:
+            sim.step_until_time(until)
+        torch.cuda.synchronize()
+        runs.append((sim, dict(port_kernels.LAUNCHES), sim.host_syncs - syncs))
+    return runs
+
+
+def _assert_graph_run_equals_eager_run(runs, max_syncs=0):
+    (g, g_launches, g_syncs), (e, e_launches, e_syncs) = runs
+    assert g.graphs and not e.graphs
+    stats = g.dispatch_stats
+    assert stats["eager_windows"] == 0 and stats["graph_windows"] == g.windows_run > 0
+    assert stats["replays"] > g.windows_run and e.dispatch_stats["replays"] == 0
+    assert g.windows_run == e.windows_run
+    fg, fe = flatten(g.state), flatten(e.state)
+    assert [p for p in fg if not torch.equal(fg[p], fe[p])] == []
+    assert g_launches == e_launches and sum(g_launches.values()) > 0
+    assert g_syncs == e_syncs <= max_syncs
+
+
+def _churn_build(device, **kwargs):
+    cluster_yaml, workload_yaml = churn_yaml(3)
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml(DELAYS),
+        GenericClusterTrace.from_yaml(cluster_yaml).convert_to_simulator_events(),
+        GenericWorkloadTrace.from_yaml(workload_yaml).convert_to_simulator_events(),
+        n_clusters=4, device=device, max_pods_per_cycle=8, **kwargs,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["megakernel", "two_kernel", "sorted"])
+def test_graph_run_equals_eager_run_on_every_route(cuda_device, route):
+    """Bit for bit, with the node removal's reschedules (the end piece on
+    both of its removal keys): the same kernels and torch ops run in the same
+    order, and every cross-block sum is integer or slot-ordered."""
+    runs = _graph_and_eager(lambda g: _churn_build(cuda_device, graphs=g), 600.0, route)
+    _assert_graph_run_equals_eager_run(runs)
+    assert ("end", route, True, None, False) in runs[0][0]._executor.graphs
+
+
+@pytest.mark.cuda
+def test_autoscaler_graph_run_equals_eager_run(cuda_device):
+    runs = _graph_and_eager(lambda g: composed_sim(cuda_device, 8, graphs=g), 400.0)
+    _assert_graph_run_equals_eager_run(runs)
+    assert runs[0][1]["fused_ca_scale_down"] > 0 and runs[0][1]["fused_ca_scale_up"] > 0
+    counters = runs[0][0].metrics_summary()["counters"]
+    assert counters["total_scaled_down_nodes"] > 0 and counters["total_scaled_up_nodes"] > 0
+
+
+@pytest.mark.cuda
+def test_replay_graph_run_equals_eager_run(cuda_device, tmp_path):
+    """A short replay with the CA on, to completion (one host read per 64
+    windows past the last event, on both runs)."""
+    from chip_smoke import replay_sim
+    from kubernetriks_tpu_torch.trace.synthetic_alibaba import write_synthetic_trace_dir
+
+    paths = write_synthetic_trace_dir(str(tmp_path), n_machines=100, n_tasks=700, horizon=4000.0, seed=7)
+    runs = _graph_and_eager(lambda g: replay_sim(cuda_device, paths, delays="test", graphs=g), None)
+    _assert_graph_run_equals_eager_run(runs, max_syncs=-(-runs[0][0].windows_run // 64))
+    assert runs[0][1]["fused_schedule_cycle"] > 0
+
+
+@pytest.mark.cuda
+def test_a_route_forced_after_the_build_recaptures(cuda_device):
+    """The sorted route's graphs, then the megakernel's after the route is
+    forced mid-run: a stale end graph never runs again."""
+    runs = _graph_and_eager(
+        lambda g: _churn_build(cuda_device, graphs=g), 400.0, switch=(150.0, "megakernel")
+    )
+    _assert_graph_run_equals_eager_run(runs)
+    graphs = runs[0][0]._executor.graphs
+    assert ("end", "sorted", False, None, False) in graphs and ("end", "megakernel", False, None, False) in graphs
+    assert runs[0][1]["fused_select_cycle_commit"] == 25 and runs[0][1]["fused_schedule_cycle"] == 16
+
+
+@pytest.mark.cuda
+def test_ca_scale_down_above_48_kb_captures(cuda_device):
+    """A scale-down launch that sets its kernel's dynamic shared-memory
+    attribute (above 48 KB: every launch calls cudaFuncSetAttribute) is
+    accepted by a CUDA graph capture, and its replay equals the plain
+    version."""
+    args, K = ca_down_inputs(7, C=2, N=1713, S=512, K=8, edge="attempting")
+    assert ca_kernels.ca_down_layout(1713, 512, 8)[3] > 48 * 1024
+    dev_args = [t(a).to(cuda_device) for a in args]
+    ca_kernels.fused_ca_scale_down(*dev_args, k_sd=K)  # warm-up, as the executor's
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ca_kernels.fused_ca_scale_down(*dev_args, k_sd=K)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ca_kernels.ca_scale_down_plain(*dev_args, k_sd=K))
