@@ -36,10 +36,21 @@ Phases; any failure exits non-zero:
      pods at 1.5/s for 1000 s (16 000 mCPU, 32 GiB), one HPA group (8 to 64
      pods, cpu target 0.5, load 4/24/2 over 300/300/400 s), the CA at a
      10 s scan; timed as phase 4; the HPA and CA counters, the
-     autoscaler bounds, every cluster equal;
+     autoscaler bounds, every cluster equal; device busy ms a window from
+     a second run of the timed windows under torch.profiler;
+ 6w. the same line through the reference's sliding pod window
+     (`bench.py:266` pod_window=512: P = 512 + the HPA ring), timed as
+     phase 4 on the graph executor with one host read a span (a slide or
+     a growth) and none inside it; slides, growths, final window, device P,
+     reads a span, host and device busy ms a window, replays a window and
+     decisions/s beside phase 6's; its counters and metric leaves equal
+     phase 6's (compare_states), every slot the window holds is in the
+     phase of its global slot in phase 6 and every slot it slid past is
+     terminal there;
   7. card against CPU on the autoscaler path: the composed scenario at 4
      nodes and C=8 to t=400 s (CA scale-ups and a removal), final states
-     equal under compare_states;
+     equal under compare_states; again through an 8-slot pod window (it
+     slides and grows);
   8. the two-kernel route (KTPU_MEGAKERNEL=0: selection + cycle, then the
      commit scatter) on the headline shape, timed as phase 4;
   9. the trace-replay path at the full width of the reference's Alibaba
@@ -50,7 +61,13 @@ Phases; any failure exits non-zero:
      run through the port's CLI functions (build_batched_simulation ->
      precompile_pieces -> run_to_completion -> metrics_summary) on the
      sorted cycle route and the graph executor (no eager window, at most
-     run_to_completion's one host read per 64 windows);
+     run_to_completion's one host read per 64 windows); device busy ms a
+     window over 100 traced windows from 43 200 s of a second run;
+ 9w. the same replay through a sliding pod window of 4 096 slots (the
+     reference README's) to completion: its counters and window count
+     equal phase 9's, every pod terminal, one host read a span (and
+     run_to_completion's own); growths, final window, wall seconds, ms and
+     busy ms a window beside phase 9's;
  10. card against CPU on the replay and the two-kernel route: the replay
      at the reference's own test size (100 machines, 700 tasks, 4 000 s,
      seed 7) to completion; the headline shape at C=128 to t=60 s on the
@@ -59,9 +76,11 @@ Phases; any failure exits non-zero:
  11. the graph executor against eager windows (graphs=False) on the card:
      the headline at C=128 to 300 s on both dense routes (the two-kernel
      route forced after the build), the autoscaler path to 1200 s and the
-     full-width replay to 2000 s; every leaf equal bit for bit, every
-     kernel launched as often, host ms a window of both, captures,
-     replays and the graph pool's bytes.
+     full-width replay to 2000 s, and through sliding pod windows that
+     slide and grow: the autoscaler path through 128 slots to 1200 s and
+     phase 10's replay through 64 to 4 550 s; every leaf equal bit for
+     bit, every kernel launched as often, as many host reads, host ms a
+     window of both, captures, replays and the graph pool's bytes.
 The card runs of phases 5, 7 and 10 replay graphs too (fails otherwise).
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
@@ -77,7 +96,13 @@ entries labelled "(replay)", with the replay's launch counts. Those calls
 attempt nothing, so both CA kernels are also held and timed at the replay's
 width on seeded walks that work (the tests' generators: a scale-down where
 about half the candidates attempt, with rollbacks; a scale-up packing 64
-valid cache rows), in chip_smoke.json's checks only.
+valid cache rows), in chip_smoke.json's checks only. The event scatter,
+the free kernel and the megakernel are held and timed at the composed
+line's windowed width too (phase 6w's, on its last calls to 590 s), and
+the event scatter, the free kernel and the candidate cycle at the windowed
+replay's (phase 9w's, on its busiest calls in its first 600 s): entries
+labelled "(composed, pod_window=512)" and "(replay, pod_window=4096)",
+with the launches of phases 6w and 9w.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -154,6 +179,12 @@ COMPOSED_GROUP_YAML = """events:
 # The reference's composed line at its own width (`bench.py:260`
 # `run_composed` defaults); composed_sim's defaults are a toy cut of it.
 FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, burst=(300.0, 300.0, 400.0), k=64)
+# The sliding pod windows: the composed line's (`bench.py:266`) and the
+# replay's (the reference README streams the Alibaba replay through 4 096).
+COMPOSED_POD_WINDOW = 512
+REPLAY_POD_WINDOW = 4096
+WINDOWED_COMPOSED = f"pod_window={COMPOSED_POD_WINDOW}"
+WINDOWED_REPLAY = f"pod_window={REPLAY_POD_WINDOW}"
 
 
 def composed_config_yaml(n_nodes: int) -> str:
@@ -314,7 +345,85 @@ def ran_on_graphs(label, sim):
         fail(f"{label}: the card run did not go through the graph executor alone ({stats})")
 
 
-def graph_eager_pair(label, sk, build, until: float, route=None) -> dict:
+def check_sliding_run(label, sim, stats: dict, syncs: int, windows: int, max_completion_reads: int = 0):
+    """Fail unless a run through the sliding pod window went through the
+    graph executor alone and read the device once a span: host reads ==
+    slides + growths (+ at most `max_completion_reads`, run_to_completion's
+    own), at least one slide, no eager window, and no capture but the ones
+    a growth takes again."""
+    if not sim.graphs:
+        fail(f"{label}: the engine runs without graphs")
+    if stats["eager_windows"] or stats["graph_windows"] != windows:
+        fail(f"{label}: {stats['eager_windows']} eager window(s), {stats['graph_windows']} of {windows} on graphs")
+    spans = stats["slides"] + stats["grows"]
+    if stats["slides"] <= 0:
+        fail(f"{label}: the window never slid")
+    if not spans <= syncs <= spans + max_completion_reads:
+        fail(f"{label}: {syncs} host reads for {stats['slides']} slides and {stats['grows']} growths")
+    if stats["captures"] and not stats["grows"]:
+        fail(f"{label}: {stats['captures']} capture(s) inside the timed run without a growth")
+
+
+def sliding_report(sim, stats: dict, syncs: int, windows: int) -> dict:
+    """The window's counts over a run: slides, growths, host reads (a span
+    each, plus run_to_completion's own where it ran), the final width and
+    the device pod axis."""
+    spans = stats["slides"] + stats["grows"]
+    return {
+        "pod_window": sim.pod_window, "P": sim.n_pods, "pod_base": sim._pod_base,
+        "slides": stats["slides"], "grows": stats["grows"], "host_reads": syncs,
+        "host_reads_per_span": syncs / max(spans, 1), "replays_per_window": stats["replays"] / max(windows, 1),
+    }
+
+
+def metric_leaves(state) -> dict:
+    """The state's `.metrics.` leaves as numpy (compare_states' form): the
+    per-cluster counters and estimator accumulators, whatever the pod
+    axis's layout."""
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    return {k: v for k, v in state_to_numpy(state).items() if k.startswith(".metrics.")}
+
+
+def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
+    """Device busy ms a window of a freshly built engine's windows from
+    `warm_until` to `until` on the graph executor, traced with
+    torch.profiler (CPU + CUDA): the device rows' kernel time over the
+    windows, beside the traced host ms a window (the profiler's own cost
+    included). Fails if the trace holds no device time. Returns the
+    numbers and the engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim = build()
+    sim.precompile_pieces()
+    sim.step_until_time(warm_until)
+    torch.cuda.synchronize()
+    w0 = sim.windows_run
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step_until_time(until)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    n = max(sim.windows_run - w0, 1)
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+        if us > 0 and e.self_cpu_time_total == 0:  # device rows (the aten rows repeat their time)
+            busy_us += us
+            kernels += e.count
+    if busy_us <= 0:
+        fail(f"{label}: the profiler saw no device time")
+    out = {
+        "windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n,
+        "traced_host_ms_per_window": 1e3 * traced / n,
+    }
+    print(f"{label}: device busy {out['busy_ms_per_window']:.4f} ms a window over {n} traced windows "
+          f"({out['kernels_per_window']:.1f} kernels a window, traced host {out['traced_host_ms_per_window']:.3f} ms)",
+          flush=True)
+    return out, sim
+
+
+def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool = False) -> dict:
     """Build twice (`build(graphs)`), optionally force the cycle route,
     step both to `until`: once replaying the window graphs (captured up
     front), once eagerly (graphs=False). Fails unless every leaf of the two
@@ -348,7 +457,12 @@ def graph_eager_pair(label, sk, build, until: float, route=None) -> dict:
             "graph_pool_bytes": sim.graph_pool_bytes(),
             "route": sim.cycle_route,
         }
-        if graphs:
+        if graphs and sliding:
+            check_sliding_run(label, sim, stats, runs[graphs]["syncs"], sim.windows_run)
+            if not stats["grows"]:
+                fail(f"{label}: the window never grew")
+            runs[graphs]["sliding"] = sliding_report(sim, stats, runs[graphs]["syncs"], sim.windows_run)
+        elif graphs:
             check_graph_run(label, sim, stats, runs[graphs]["syncs"], sim.windows_run)
         del sim
     g, e = runs[True], runs[False]
@@ -357,6 +471,8 @@ def graph_eager_pair(label, sk, build, until: float, route=None) -> dict:
         fail(f"{label}: graph and eager runs differ at {bad}")
     if g["launches"] != e["launches"]:
         fail(f"{label}: launches differ: graphs {g['launches']}, eager {e['launches']}")
+    if g["syncs"] != e["syncs"]:
+        fail(f"{label}: host reads differ: graphs {g['syncs']}, eager {e['syncs']}")
     out = {
         "route": g["route"],
         "windows": g["windows"],
@@ -366,12 +482,13 @@ def graph_eager_pair(label, sk, build, until: float, route=None) -> dict:
         "replays": g["stats"]["replays"],
         "graph_pool_bytes": g["graph_pool_bytes"],
         "launches": g["launches"],
+        "sliding": g.get("sliding"),
     }
     print(
         f"{label}: graph run == eager run bit for bit over {g['windows']} windows (route {g['route']}), "
         f"launches equal, host ms a window {g['host_ms_per_window']:.3f} (graphs) against "
         f"{e['host_ms_per_window']:.3f} (eager), {out['graphs_captured']} graphs, {out['replays']} replays, "
-        f"pool {out['graph_pool_bytes']} B",
+        f"pool {out['graph_pool_bytes']} B" + (f", window {out['sliding']}" if sliding else ""),
         flush=True,
     )
     return out
@@ -382,7 +499,8 @@ def timed_path(sim, sk, names, label):
     span (to 190 s, then 200 s steps to 1200 s) with the launch counts set
     to 0 just before; returns the run's numbers and fails if a kernel in
     `names` never launched, or if the timed span ran an eager window, a
-    capture or a host read."""
+    capture or a host read (through the sliding pod window: a read other
+    than one a span, or a capture without a growth)."""
     t0 = time.perf_counter()
     captured = sim.precompile_pieces()
     capture_s = time.perf_counter() - t0
@@ -429,7 +547,12 @@ def timed_path(sim, sk, names, label):
     )
     if total <= 0:
         fail(f"{label}: no scheduling decision")
-    check_graph_run(label, sim, graph, syncs, windows)
+    if sim.pod_window is None:
+        check_graph_run(label, sim, graph, syncs, windows)
+    else:
+        check_sliding_run(label, sim, graph, syncs, windows)
+        out["window"] = sliding_report(sim, graph, syncs, windows)
+        print(f"{label}: window {out['window']}", flush=True)
     for name in names:
         if launches[name] <= 0:
             fail(f"{label}: never launched {name}")
@@ -644,6 +767,152 @@ def chain_floors(sk, dev, n: int = 1024) -> dict:
         "fused_select_schedule_cycle": 1e3 * graph_ms(
             [lambda: sk.fused_select_schedule_cycle(*sel, k_pods=n)]) / n,
     }
+
+
+def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) -> dict:
+    """Phase 6w: the composed line at full width through its sliding pod
+    window (COMPOSED_POD_WINDOW), timed as phase 6 (timed_path: one read a
+    span, no other), then held against the whole-resident run of phase 6
+    (`whole`: its summary, metric leaves, final phase rows and numbers):
+    the same counters and estimators (compare_states on the metric
+    leaves), every slot the window holds in the phase of its global slot,
+    every slot it slid past terminal. Device busy from a second run of the
+    same windows, which must end in the same state, and then the slide
+    piece's own cost (slide_piece_cost). `must_launch`: the kernels the
+    path must launch."""
+    from kubernetriks_tpu_torch.batched.state import compare_states, flatten
+
+    def build():
+        return composed_sim(dev, n_clusters, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW)
+
+    sim = build()
+    out = timed_path(sim, sk, must_launch, "phase 6w")
+    summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
+    if summary["counters"] != whole["summary"]["counters"]:
+        fail(f"phase 6w: counters differ from phase 6: {summary['counters']} vs {whole['summary']['counters']}")
+    bad = compare_states(whole["metrics"], metric_leaves(sim.state))
+    if bad:
+        fail(f"phase 6w: metric leaves differ from phase 6 at {bad}")
+    # Every slot the window holds has the phase of its global slot in the
+    # whole-resident run ([plain slots | ring], 128-aligned), and every
+    # slot the window slid past is terminal there.
+    W, T, base = sim.pod_window, sim.consts.trace_pod_bound, sim._pod_base
+    R = sim.n_pods - W
+    ph, whole_phase = sim.state.pods.phase, whole["phase"]
+    plain = max(0, min(W, T - base))
+    if not (torch.equal(ph[:, :plain], whole_phase[:, base : base + plain])
+            and torch.equal(ph[:, W:], whole_phase[:, T : T + R])
+            and bool((ph[:, plain:W] == 0).all())):
+        fail("phase 6w: a slot's phase differs from its global slot's in phase 6")
+    gone = whole_phase[:, :base]
+    if not bool(((gone == 4) | (gone == 5) | (gone == 6)).all()):
+        fail("phase 6w: the window slid past a slot that is not terminal")
+    out["counters"] = summary["counters"]
+    out["timings"] = summary["timings"]
+    out["shape"] = {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "W": W, "T": T,
+                    "hpa_seg": list(sim.hpa_seg), "K": sim.max_pods_per_cycle}
+    final = flatten(sim.state)
+    del sim, ph
+    out["busy"], again = profiled_busy(build, 190.0, 1190.0, "phase 6w")
+    if [p for p, leaf in flatten(again.state).items() if not torch.equal(leaf, final[p])]:
+        fail("phase 6w: a second run of the same windows ended in another state")
+    out["slide_piece"] = slide_piece_cost(again)
+    del again
+    ref = whole["path"]
+    print(
+        f"phase 6w: pod_window={COMPOSED_POD_WINDOW} (final W {out['window']['pod_window']}, device P "
+        f"{out['shape']['P']}): {out['window']['slides']} slides, {out['window']['grows']} growths, "
+        f"{out['window']['host_reads_per_span']:.3f} host reads a span, host {out['ms_per_window']:.3f} ms a window "
+        f"(phase 6 {ref['ms_per_window']:.3f}), device busy {out['busy']['busy_ms_per_window']:.4f} ms a window "
+        f"(phase 6 {ref['busy']['busy_ms_per_window']:.4f}), {out['window']['replays_per_window']:.3f} replays a "
+        f"window, {out['decisions_per_s']:.1f} decisions/s over t = 190 -> 1200 s (phase 6 "
+        f"{ref['decisions_per_s']:.1f}); counters, metric leaves and every slot's phase equal phase 6's; "
+        f"the slide piece alone: {out['slide_piece']}",
+        flush=True,
+    )
+    return out
+
+
+def slide_piece_cost(sim, reps: int = 20) -> dict:
+    """The slide piece's graph replayed `reps` times on its own, after the
+    run (each replay slides the window further, or not at all): host
+    microseconds a launch (cudaGraphLaunch, asynchronous) and device
+    microseconds a replay (CUDA events around the replays). What fusing
+    the slide into the end graph could save is bounded by the first."""
+    graph, _ = sim._executor.graphs[("slide", sim.pod_window)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        graph.replay()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return {"host_us_per_launch": 1e6 * host / reps, "device_us_per_replay": 1e3 * start.elapsed_time(end) / reps}
+
+
+def replay_window_phase(dev, sk, paths, whole: dict, must_launch) -> dict:
+    """Phase 9w: the replay of phase 9 through its sliding pod window
+    (REPLAY_POD_WINDOW) to completion on the graph executor (one read a
+    span, and run_to_completion's own), its counters and window count equal
+    to phase 9's (`whole`), every pod terminal; device busy from 100
+    traced windows of a second run from 43 200 s."""
+    t0 = time.perf_counter()
+    sim = replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW)
+    build_s = time.perf_counter() - t0
+    captured = sim.precompile_pieces()
+    sk.reset_launches()
+    syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
+    t0 = time.perf_counter()
+    sim.run_to_completion(max_time=86400.0 * 20.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
+    syncs = sim.host_syncs - syncs0
+    check_sliding_run("phase 9w", sim, stats, syncs, sim.windows_run,
+                      max_completion_reads=-(-sim.windows_run // 64))
+    summary = sim.metrics_summary()
+    if summary["counters"] != whole["counters"]:
+        fail(f"phase 9w: counters differ from phase 9: {summary['counters']} vs {whole['counters']}")
+    if sim.windows_run != whole["windows"]:
+        fail(f"phase 9w: {sim.windows_run} windows, phase 9 {whole['windows']}")
+    W, base = sim.pod_window, sim._pod_base
+    ph = sim.state.pods.phase[:, : max(0, min(W, sim.n_real_pods - base))]
+    if not bool(((ph == 4) | (ph == 5) | (ph == 6)).all()):
+        fail("phase 9w: the replay ended with a pod that is not terminal")
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"phase 9w: never launched {name}")
+    out = {
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "W": W, "T": sim.consts.trace_pod_bound},
+        "build_s": build_s,
+        "windows": sim.windows_run,
+        "wall_s": elapsed,
+        "ms_per_window": 1e3 * elapsed / max(sim.windows_run, 1),
+        "decisions_per_s": summary["counters"]["scheduling_decisions"] / elapsed,
+        "precompiled_graphs": captured,
+        "graph": graph_report(sim, stats),
+        "window": sliding_report(sim, stats, syncs, sim.windows_run),
+        "counters": summary["counters"],
+        "timings": summary["timings"],
+        "launches": launches,
+    }
+    del sim, ph
+    out["busy"], _ = profiled_busy(
+        lambda: replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW), 43200.0, 44200.0, "phase 9w")
+    print(
+        f"phase 9w: replay through pod_window={REPLAY_POD_WINDOW} to completion: {out['windows']} windows in "
+        f"{elapsed:.3f} s = {out['ms_per_window']:.3f} ms a window (phase 9 {whole['wall_s']:.3f} s = "
+        f"{whole['ms_per_window']:.3f}), device busy {out['busy']['busy_ms_per_window']:.4f} ms a window from "
+        f"43 200 s (phase 9 {whole['busy']['busy_ms_per_window']:.4f}), window {out['window']}, counters equal "
+        f"phase 9's, launches {launches}",
+        flush=True,
+    )
+    return out
 
 
 def main() -> int:
@@ -944,6 +1213,28 @@ def main() -> int:
     check_ca_scale_up(*cap_up["fused_ca_scale_up"])
     del sim, cap_up, cap_down
 
+    # The composed line through its pod window (pod_window=512: P = 648,
+    # the window and the HPA ring): the pod-side kernels on the last calls
+    # to t = 590 s, inside the load burst. The CA kernels' operands are
+    # node rows and per-candidate pod entries, whose widths the window
+    # does not change.
+    sim = composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, graphs=False)
+    captured, restore = capture_inputs(step_mod, names)
+    sim.step_until_time(590.0)
+    restore()
+    torch.cuda.synchronize()
+    print(f"phase 3: composed through pod_window={COMPOSED_POD_WINDOW}: C={sim.n_clusters} N={sim.n_nodes} "
+          f"P={sim.n_pods} K={sim.max_pods_per_cycle}", flush=True)
+    check_event_scatter(*captured["fused_event_scatter"], label=f"fused_event_scatter (composed, {WINDOWED_COMPOSED})")
+    check_free_resources(*captured["fused_free_resources"], label=f"fused_free_resources (composed, {WINDOWED_COMPOSED})")
+    args, kwargs = captured["fused_select_cycle_commit"]
+    check_kernel(
+        "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
+        args, kwargs, 6, None, *selection_need(args, kwargs["k_pods"], commit=True),
+        label=f"fused_select_cycle_commit (composed, {WINDOWED_COMPOSED})",
+    )
+    del sim, captured
+
     # The replay's kernels, on inputs of the full-width replay in its first
     # 600 s, each from its busiest call: the candidate cycle's window with
     # the most candidates, the event chunk with the most valid events, the
@@ -963,36 +1254,43 @@ def main() -> int:
         (autoscale_mod, "fused_ca_scale_down"): lambda a: int((a[0] & a[10]).sum()),
         (autoscale_mod, "fused_ca_scale_up"): lambda a: int(a[8].sum()),
     }
-    busiest, most = {}, {name: -1 for _, name in sizes}
 
-    def recording(name, real, size):
-        def wrapped(*args, **kwargs):
-            outs = real(*args, **kwargs)
-            n = size(args)
-            if n > most[name]:
-                most[name] = n
-                busiest[name] = (kept(args), kwargs)
-            return outs
+    def record_busiest(sim, until):
+        """Each kernel's busiest call (by `sizes`) in sim's windows to
+        `until` (graphs off), cloned: (busiest, sizes seen)."""
+        busiest, most = {}, {name: -1 for _, name in sizes}
 
-        return wrapped
+        def recording(name, real, size):
+            def wrapped(*args, **kwargs):
+                outs = real(*args, **kwargs)
+                n = size(args)
+                if n > most[name]:
+                    most[name] = n
+                    busiest[name] = (kept(args), kwargs)
+                return outs
 
-    reals = {key: getattr(*key) for key in sizes}
-    for (mod, name), size in sizes.items():
-        setattr(mod, name, recording(name, reals[(mod, name)], size))
-    try:
-        sim.step_until_time(600.0)
-    finally:
-        for (mod, name), real in reals.items():
-            setattr(mod, name, real)
-    torch.cuda.synchronize()
+            return wrapped
+
+        reals = {key: getattr(*key) for key in sizes}
+        for (mod, name), size in sizes.items():
+            setattr(mod, name, recording(name, reals[(mod, name)], size))
+        try:
+            sim.step_until_time(until)
+        finally:
+            for (mod, name), real in reals.items():
+                setattr(mod, name, real)
+        torch.cuda.synchronize()
+        if len(busiest) != len(sizes):
+            fail(f"the replay's first {until} s never called {sorted(set(most) - set(busiest))}")
+        return busiest, most
+
+    busiest, most = record_busiest(sim, 600.0)
     print(
         f"phase 3: replay shapes C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods} "
         f"K={sim.max_pods_per_cycle} E={sim.max_events_per_window} route {sim.cycle_route}; trace "
         f"written in {synth_s:.2f} s, engine built in {build_replay_s:.2f} s; busiest calls {most}",
         flush=True,
     )
-    if len(busiest) != len(sizes):
-        fail(f"the replay's first 600 s never called {sorted(set(most) - set(busiest))}")
     check_event_scatter(*busiest["fused_event_scatter"], label="fused_event_scatter (replay)")
     check_free_resources(*busiest["fused_free_resources"], label="fused_free_resources (replay)")
     check_ca_scale_down(*busiest["fused_ca_scale_down"], label="fused_ca_scale_down (replay)")
@@ -1044,6 +1342,20 @@ def main() -> int:
     check_kernel(
         "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
         None, *cycle_need(args), label="fused_schedule_cycle (K=1024, 1000 valid rows)",
+    )
+    del sim, busiest
+    # The replay through its pod window (pod_window=4096: P = 4 096, 8 192
+    # after a growth): the pod-side kernels on their busiest calls in the
+    # first 600 s, at the window's width.
+    sim = replay_sim(dev, replay_paths, pod_window=REPLAY_POD_WINDOW, graphs=False)
+    busiest, most = record_busiest(sim, 600.0)
+    print(f"phase 3: replay through pod_window={REPLAY_POD_WINDOW}: P={sim.n_pods}; busiest calls {most}", flush=True)
+    check_event_scatter(*busiest["fused_event_scatter"], label=f"fused_event_scatter (replay, {WINDOWED_REPLAY})")
+    check_free_resources(*busiest["fused_free_resources"], label=f"fused_free_resources (replay, {WINDOWED_REPLAY})")
+    args, kwargs = busiest["fused_schedule_cycle"]
+    check_kernel(
+        "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
+        None, *cycle_need(args), label=f"fused_schedule_cycle (replay, {WINDOWED_REPLAY})",
     )
     del sim, busiest
     floors = chain_floors(sk, dev)
@@ -1138,7 +1450,18 @@ def main() -> int:
     print("phase 6: autoscaler bounds and state checks passed", flush=True)
     autoscaler_path["counters"] = auto_counters
     autoscaler_path["shape"] = {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "hpa_seg": list(sim.hpa_seg)}
+    whole_summary = sim.metrics_summary()
+    whole_metrics = metric_leaves(st)
+    whole_phase = st.pods.phase.clone()
     del sim, st
+    autoscaler_path["busy"], _ = profiled_busy(
+        lambda: composed_sim(dev, 256, **FULL_COMPOSED), 190.0, 1190.0, "phase 6")
+
+    windowed_composed = composed_window_phase(
+        dev, sk, names + ca_names,
+        {"summary": whole_summary, "metrics": whole_metrics, "phase": whole_phase, "path": autoscaler_path},
+    )
+    del whole_phase
 
     # --- 7. card against CPU on the autoscaler path -----------------------------
     finals = {}
@@ -1158,6 +1481,23 @@ def main() -> int:
     if counters["total_scaled_down_nodes"] <= 0 or counters["total_scaled_up_nodes"] <= 0:
         fail(f"phase 7 run made no CA scale-up and removal: {counters}")
     print(f"phase 7: card == CPU under compare_states on the autoscaler path ({counters})", flush=True)
+    # The same through an 8-slot pod window: it slides and grows.
+    finals = {}
+    for where in ("cuda", "cpu"):
+        s7 = composed_sim(where, 8, pod_window=8)
+        s7.step_until_time(400.0)
+        if where == "cuda":
+            ran_on_graphs("phase 7w", s7)
+        finals[where] = (state_to_numpy(s7.state), dict(s7.dispatch_stats), s7.pod_window)
+    bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+    if bad:
+        fail(f"phase 7w: card and CPU states differ at {bad}")
+    stats = finals["cuda"][1]
+    if not stats["slides"] or not stats["grows"] or (stats["slides"], stats["grows"]) != (
+            finals["cpu"][1]["slides"], finals["cpu"][1]["grows"]):
+        fail(f"phase 7w: slides and growths {stats} on the card, {finals['cpu'][1]} on the CPU")
+    print(f"phase 7w: card == CPU under compare_states through pod_window=8 ({stats['slides']} slides, "
+          f"{stats['grows']} growths, final W {finals['cuda'][2]})", flush=True)
 
     # --- 8. the two-kernel route on the headline shape -------------------------
     sim = with_megakernel_flag("0", lambda: headline_sim(dev))
@@ -1235,6 +1575,9 @@ def main() -> int:
         if replay_launches[name] <= 0:
             fail(f"the replay never launched {name}")
     del sim, phase
+    replay_path["busy"], _ = profiled_busy(lambda: replay_sim(dev, replay_paths), 43200.0, 44200.0, "phase 9")
+
+    windowed_replay = replay_window_phase(dev, sk, replay_paths, replay_path, replay_names)
 
     # --- 10. card against CPU: the replay and the two-kernel route ----------------
     small_paths = replay_trace("replay_small", n_machines=100, n_tasks=700, horizon=4000.0, seed=7)
@@ -1289,6 +1632,13 @@ def main() -> int:
             "phase 11 autoscaler", sk, lambda g: composed_sim(dev, 256, **FULL_COMPOSED, graphs=g), 1200.0),
         "replay to 2000 s": graph_eager_pair(
             "phase 11 replay", sk, lambda g: replay_sim(dev, replay_paths, graphs=g), 2000.0),
+        "autoscaler through pod_window=128": graph_eager_pair(
+            "phase 11 autoscaler pod_window=128", sk,
+            lambda g: composed_sim(dev, 256, **FULL_COMPOSED, pod_window=128, graphs=g), 1200.0, sliding=True),
+        "small replay through pod_window=64": graph_eager_pair(
+            "phase 11 small replay pod_window=64", sk,
+            lambda g: replay_sim(dev, small_paths, delays="test", ca=False, pod_window=64, graphs=g), 4550.0,
+            sliding=True),
     }
 
     kernels = []
@@ -1319,6 +1669,16 @@ def main() -> int:
         for n in ("fused_event_scatter", "fused_free_resources", "fused_ca_scale_down", "fused_ca_scale_up")
     }
     path_launches.update({label: replay_launches[n] for label, n in replay_labels.items()})
+    # The windowed entries, with the launches of the run through the window
+    # (phases 6w and 9w).
+    for n in names:
+        label = f"{n} (composed, {WINDOWED_COMPOSED})"
+        replay_labels[label] = n
+        path_launches[label] = windowed_composed["launches"][n]
+    for n in ("fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"):
+        label = f"{n} (replay, {WINDOWED_REPLAY})"
+        replay_labels[label] = n
+        path_launches[label] = windowed_replay["launches"][n]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels):
         name = replay_labels.get(label, label)
         r = report[label]
@@ -1341,6 +1701,7 @@ def main() -> int:
             "checks": report, "main_path": main_path,
             "autoscaler_path": autoscaler_path, "two_kernel_path": two_kernel_path,
             "replay_path": replay_path, "graph_vs_eager": graph_vs_eager,
+            "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
         }, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,22 +1,34 @@
 """Batched simulation engine: builds the device state from compiled traces
 and steps it window by window.
 
-Port of the JAX package's `batched/engine.py` for whole-resident traces
-(`BatchedSimulation` slot sizing :686-1560, `step_until_time` :2504,
-`run_to_completion` :3640, `metrics_summary` :3784,
-`build_batched_from_traces` :4564): no sliding pod
-window, no mesh, no buffer donation, no superspan executor or streaming
-feeder; windows go through graphs.WindowExecutor (`_dispatch_windows`,
-:1965). The pod axis is 128-aligned as in the reference's default build,
-so states compare leaf for leaf.
+Port of the JAX package's `batched/engine.py` (`BatchedSimulation` slot
+sizing :686-1560, `step_until_time` :2504, `run_to_completion` :3640,
+`metrics_summary` :3784, `build_batched_from_traces` :4564): no mesh, no
+buffer donation, no superspan executor or streaming feeder; windows go
+through graphs.WindowExecutor (`_dispatch_windows`, :1965). A
+whole-resident pod axis is 128-aligned as in the reference's default
+build, so states compare leaf for leaf.
+
+The sliding pod window (`pod_window=W`, reference engine.py:1168-1380,
+:2533-2610, :3139-3460): the device pod axis is [window over the plain
+pod slots [pod_base, pod_base + W) | the pod groups' resident ring], at
+its exact width. Windows run in spans up to the last window whose pod
+creations fit the device window; after each span the slide piece
+computes, quantizes and applies the shift on the device (step.slide_*,
+refilled from the whole-trace payload kept on the device) and the host
+reads the shift back: one read a span, none inside it. Where no slide is
+possible the window doubles (`_grow_pod_window`); K and the cycle route
+keep their build values. The whole-trace payload must fit
+SLIDE_PAYLOAD_BUDGET_BYTES on the device, or the build raises (bounded
+staging is the streaming feeder's, ROADMAP Queue 1 item 11).
 
 With an enabled `horizontal_pod_autoscaler` or `cluster_autoscaler`
 block the engine also builds the autoscaler tables
 (`build_autoscale_statics`, reference engine.py:395) and appends the CA's
 reserved node slots after the trace's nodes (reference engine.py:1380-
 1460), and every window runs the autoscaler passes after the scheduling
-cycle (batched/autoscale.py). Slot reclaim, the sliding pod window and
-scenario fleets are not ported.
+cycle (batched/autoscale.py). Slot reclaim and scenario fleets are not
+ported.
 
 Entry points run on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; a CUDA device where there is none raises. On the
@@ -51,7 +63,8 @@ by fixed periods, so `AutoscaleClock` mirrors them on the host with the
 same float32 pair arithmetic and decides which autoscaler passes a window
 runs, and in which windows a CA removal can take effect. The mirrors are
 read from the device once, when a state is installed; `run_to_completion`
-reads once per chunk of windows to test for the end of the run.
+reads once per chunk of windows to test for the end of the run, and the
+sliding pod window once a span, for its shift.
 """
 
 from __future__ import annotations
@@ -68,29 +81,41 @@ from kubernetriks_tpu_torch.batched.graphs import CudaGraphs, WindowExecutor
 from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
+    EV_CREATE_POD,
     EV_REMOVE_NODE,
     PHASE_QUEUED,
     PHASE_RUNNING,
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
+    PodArrays,
     TraceSlab,
     copy_state_into,
+    duration_pair_np,
     flatten,
+    fresh_pods_np,
     init_state,
     make_step_constants,
+    unflatten,
 )
 from kubernetriks_tpu_torch.batched.step import DeviceConstants, WindowPlan, window_body
 from kubernetriks_tpu_torch.batched.timerep import INF_WIN, TPair, from_f64_np, t_add, t_inf, t_le, t_lt, t_where
 from kubernetriks_tpu_torch.batched.trace_compile import (
+    BIG_RANK,
+    NO_CREATE,
+    ArrayPayloadSource,
     CompiledClusterTrace,
+    _pad_cols,
     compile_cluster_trace,
     pad_and_batch,
     segment_pod_slots,
+    stage_segment,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
 
 POD_ALIGN = 128
-BIG_RANK = 1 << 30
+# Device bytes the whole-trace slide payload may take (reference
+# engine.py:103); over it the build raises.
+SLIDE_PAYLOAD_BUDGET_BYTES = 2 << 30
 # Clusters per device from which the dense cycle kernels take the cycle
 # (reference engine.py:1524).
 DENSE_CLUSTERS = 128
@@ -187,10 +212,16 @@ def build_autoscale_statics(
     ram_unit: int,
     device,
     ca_slot_multiplier: int = 2,
+    pod_slot_offset: int = 0,
+    sliding: bool = False,
 ):
     """Host-side compilation of the pod-group (HPA) and node-group (CA)
-    tables (reference `build_autoscale_statics`, engine.py:395, for
-    whole-resident traces and no scenario overrides). Each CA group
+    tables (reference `build_autoscale_statics`, engine.py:395, with no
+    scenario overrides), in device pod slots: `pod_slot_offset` is the
+    global-to-device shift of the resident pod-group ring under a sliding
+    pod window (0 whole-resident), and with `sliding` the pod-name ranks
+    start at BIG_RANK, for the engine to fill from the window's slice
+    (BatchedSimulation._refresh_name_ranks). Each CA group
     reserves `ca_slot_multiplier` x its node cap slots (slots are never
     reused without reclaim; check_autoscaler_bounds raises when the reserve
     runs dry). Returns (statics,
@@ -223,7 +254,7 @@ def build_autoscale_statics(
     pod_group_id = np.full((C, n_pods), -1, np.int32)
     for ci, c in enumerate(compiled_traces):
         for gi, g in enumerate(c.pod_groups):
-            pg["slot_start"][ci, gi] = g.slot_start
+            pg["slot_start"][ci, gi] = g.slot_start - pod_slot_offset
             pg["slot_count"][ci, gi] = g.slot_count
             pg["initial"][ci, gi] = g.initial
             pg["max_pods"][ci, gi] = g.max_pods
@@ -242,7 +273,8 @@ def build_autoscale_statics(
                 curves["ram_dur"][ci, gi, ui] = dur
                 curves["ram_load"][ci, gi, ui] = load
             pg_ram_const[ci, gi] = g.ram_const
-            pod_group_id[ci, g.slot_start : g.slot_start + g.slot_count] = gi
+            dev_start = g.slot_start - pod_slot_offset
+            pod_group_id[ci, dev_start : dev_start + g.slot_count] = gi
 
     # --- CA node groups, in template-name order ------------------------------
     ca_config = config.cluster_autoscaler
@@ -298,9 +330,10 @@ def build_autoscale_statics(
         return memo[key]
 
     pod_name_rank = np.full((C, n_pods), BIG_RANK, np.int32)
-    for ci, trace in enumerate(compiled_traces):
-        r = ranks(trace.pod_names[:n_pods])
-        pod_name_rank[ci, : len(r)] = r
+    if not sliding and pod_slot_offset == 0:
+        for ci, trace in enumerate(compiled_traces):
+            r = ranks(trace.pod_names[:n_pods])
+            pod_name_rank[ci, : len(r)] = r
     N_total = n_trace_nodes + (S if extra_names else 0)
     node_name_rank = np.full((C, N_total), BIG_RANK, np.int32)
     ca_sd_order = np.tile(np.arange(S, dtype=np.int64), (C, 1))
@@ -436,6 +469,7 @@ class BatchedSimulation:
         max_pods_per_scale_down: int = 8,
         ca_slot_multiplier: int = 2,
         graphs: Optional[bool] = None,
+        pod_window: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         if graphs is None:
@@ -458,10 +492,17 @@ class BatchedSimulation:
         C = len(compiled_traces)
         # Pod groups put their reserved slots after every plain pod, the
         # reference's canonical layout whenever groups exist.
-        compiled_traces, _ = segment_pod_slots(compiled_traces)
+        has_groups = any(c.pod_groups for c in compiled_traces)
+        compiled_traces, trace_pod_bound = segment_pod_slots(compiled_traces)
+        # The sliding pod window (module note); 0 or less means
+        # whole-resident, and so does a trace of pod groups alone.
+        if pod_window is not None and (pod_window <= 0 or (has_groups and trace_pod_bound == 0)):
+            pod_window = None
 
         p_max = max((c.n_pods for c in compiled_traces), default=0)
-        n_pods_aligned = -(-max(p_max, 1) // POD_ALIGN) * POD_ALIGN
+        # Whole-resident runs 128-align the pod axis; the window keeps exact
+        # widths (reference engine.py:1206-1213).
+        n_pods_aligned = None if pod_window is not None else -(-max(p_max, 1) // POD_ALIGN) * POD_ALIGN
         (
             ev_time,
             ev_kind,
@@ -473,6 +514,14 @@ class BatchedSimulation:
             pod_duration,
             _,
         ) = pad_and_batch(compiled_traces, n_pods=n_pods_aligned)
+        self.pod_window = None
+        self._pod_base = 0
+        if pod_window is not None:
+            T = trace_pod_bound if has_groups else pod_req_cpu.shape[1]
+            pod_req_cpu, pod_req_ram, pod_duration = self._window_layout(
+                compiled_traces, T, min(pod_window, T), ev_time, ev_kind, ev_slot,
+                pod_req_cpu, pod_req_ram, pod_duration,
+            )
 
         # Autoscaler tables; the CA's reserved node slots follow the trace's.
         hpa_on = config.horizontal_pod_autoscaler.enabled
@@ -484,7 +533,8 @@ class BatchedSimulation:
             statics, extra_cpu, extra_ram, extra_names = build_autoscale_statics(
                 config, compiled_traces, n_pods=pod_req_cpu.shape[1],
                 n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
-                ca_slot_multiplier=ca_slot_multiplier,
+                ca_slot_multiplier=ca_slot_multiplier, pod_slot_offset=self.consts.resident_shift,
+                sliding=self.pod_window is not None,
             )
             self.autoscale_statics = statics
             if ca_on and extra_names:
@@ -501,6 +551,8 @@ class BatchedSimulation:
         if max_events_per_window is None:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
+        # K is fixed here: a growth of the pod window does not change it
+        # (reference engine.py:1486).
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
         self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL", True))
 
@@ -567,18 +619,27 @@ class BatchedSimulation:
         # Name-rank tables: same-window reschedules queue in (removal time,
         # node name, pod name) order, like the reference's name-sorted walks.
         # With autoscalers on, the statics' tables (which rank the CA slot
-        # names among the trace's) take their place.
+        # names among the trace's) take their place. Under the window
+        # without autoscalers the reference keeps none (engine.py:1736-
+        # 1741): such reschedules queue in slot order.
         self.node_names = [c.node_names for c in compiled_traces]
         self.pod_names = [c.pod_names for c in compiled_traces]
-        self.name_ranks = self._trace_name_ranks(C) if self.autoscale_statics is None else (
-            self.autoscale_statics.node_name_rank, self.autoscale_statics.pod_name_rank
-        )
+        self.name_ranks = None
+        if self.autoscale_statics is not None:
+            self.name_ranks = (self.autoscale_statics.node_name_rank, self.autoscale_statics.pod_name_rank)
+        elif self.pod_window is None:
+            self.name_ranks = self._trace_name_ranks(C)
 
         self.next_window_idx = 0
         self.windows_run = 0
         self.host_syncs = 0
-        self.dispatch_stats = {"captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0}
+        self.dispatch_stats = {
+            "captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0, "slides": 0, "grows": 0,
+        }
         self._state = state
+        if self.pod_window is not None:
+            self._refresh_name_ranks()
+            self._init_slide_payload()
         self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
 
     def _trace_name_ranks(self, C: int):
@@ -613,6 +674,158 @@ class BatchedSimulation:
         _, per_key = np.unique(keys, return_counts=True)
         return int(per_key.max())
 
+    # --- the sliding pod window ---------------------------------------------
+
+    def _window_layout(self, compiled_traces, T, W, ev_time, ev_kind, ev_slot, pod_req_cpu, pod_req_ram, pod_duration):
+        """Set up the sliding pod window of width W over the T plain pod
+        slots (reference engine.py:1301-1380): the host tables the slides
+        read (each plain slot's create window, the whole-trace payload and
+        pod-name ranks) and StepConstants' segment mapping. Returns the
+        device pod payload [window over plain slots [0, W) | resident
+        pod-group ring]."""
+        C = len(compiled_traces)
+        self.pod_window = W
+        self.consts = self.consts._replace(trace_pod_bound=T, resident_shift=T - W)
+        # Window of each plain slot's create event (slots are assigned in
+        # event order, so rows are nondecreasing): the capacity lookup.
+        ev_win, _ = from_f64_np(ev_time, self.config.scheduling_cycle_interval)
+        create_win = np.full((C, T), NO_CREATE, np.int32)
+        is_cp = (ev_kind == EV_CREATE_POD) & (ev_slot < T)
+        create_win[np.broadcast_to(np.arange(C)[:, None], ev_kind.shape)[is_cp], ev_slot[is_cp]] = ev_win[is_cp]
+        self._pod_create_win = create_win
+        self._payload_source = ArrayPayloadSource({
+            "req_cpu": pod_req_cpu[:, :T], "req_ram": pod_req_ram[:, :T], "duration": pod_duration[:, :T],
+        })
+        # Whole-trace pod-name ranks (global slots): the window's slice
+        # moves with every slide, so name-ordered passes order as in a
+        # whole-resident run.
+        P_full = pod_req_cpu.shape[1]
+        self._pod_name_rank_full = np.full((C, P_full), BIG_RANK, np.int32)
+        memo: Dict[int, np.ndarray] = {}
+        for ci, trace in enumerate(compiled_traces):
+            if id(trace) not in memo:
+                memo[id(trace)] = _name_ranks(trace.pod_names)
+            r = memo[id(trace)]
+            self._pod_name_rank_full[ci, : len(r)] = r
+        return tuple(np.concatenate([a[:, :W], a[:, T:]], axis=1) for a in (pod_req_cpu, pod_req_ram, pod_duration))
+
+    def _check_slide_budget(self, W: int) -> None:
+        """Raise unless the slide payload at window width W fits its device
+        budget: requests, duration pair and create window (and the name
+        ranks with the autoscalers) over T + W columns (reference
+        engine.py:1805)."""
+        C, T = self._pod_create_win.shape
+        need = C * (T + W) * 4 * (5 + (self.autoscale_statics is not None))
+        if need > SLIDE_PAYLOAD_BUDGET_BYTES:
+            raise ValueError(
+                f"pod_window={W}: the whole-trace slide payload needs {need} bytes on the device, "
+                f"over its {SLIDE_PAYLOAD_BUDGET_BYTES}-byte budget; bounded staging of the payload "
+                "is ROADMAP Queue 1 item 11 (streaming feeder); run whole-resident (no pod_window) "
+                "or a shorter trace"
+            )
+
+    def _init_slide_payload(self) -> None:
+        """Put the whole-trace slide payload on the device (reference
+        `_init_device_slide`, engine.py:1820): stage_segment's columns
+        [0, T + W), so a slide's refill reads past the trace's end only
+        padding. Raises over the budget (no host slide path)."""
+        W = self.pod_window
+        T = self.consts.trace_pod_bound
+        self._check_slide_budget(W)
+        has_rank = self.autoscale_statics is not None
+        seg = stage_segment(
+            self._payload_source, self._pod_create_win,
+            self._pod_name_rank_full[:, :T] if has_rank else None, 0, T + W,
+        )
+        dwin, doff = duration_pair_np(seg.pop("duration"), self.config.scheduling_cycle_interval)
+        seg["dur_win"], seg["dur_off"] = dwin, doff
+        self._slide_payload = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in seg.items()}
+
+    def _pod_capacity_window(self) -> int:
+        """The last window that can run before a pod creation would land
+        past the device window (reference engine.py:3139): slots are
+        created in event order, so the first slot past it bounds every
+        cluster."""
+        L = self._pod_base + self.pod_window
+        if L >= self._pod_create_win.shape[1]:
+            return 1 << 30
+        return int(self._pod_create_win[:, L].min())
+
+    def _refresh_name_ranks(self) -> None:
+        """Write the window's slice of the whole-trace pod-name ranks into
+        the statics' rank tensor, in place: the captured graphs read that
+        tensor (reference engine.py:3148-3175). Window slots past the plain
+        segment rank BIG_RANK, as the slide payload pads them (no event
+        creates such a slot, so no pass reads its rank)."""
+        if self.autoscale_statics is None:
+            return
+        W, T = self.pod_window, self.consts.trace_pod_bound
+        full = self._pod_name_rank_full
+        win = _pad_cols(full[:, :T], self._pod_base, W, BIG_RANK, np.int32)
+        ranks = np.concatenate([win, full[:, T:]], axis=1)
+        self.autoscale_statics.pod_name_rank.copy_(torch.from_numpy(ranks))
+
+    def _slide(self) -> bool:
+        """Slide the window on the device past its leading terminal slots
+        and read the shift back: the span's one host read. False when no
+        slide was possible (the state is unchanged)."""
+        s = self._executor.slide()
+        self.host_syncs += 1
+        if s <= 0:
+            return False
+        self._pod_base += s
+        self.dispatch_stats["slides"] += 1
+        return True
+
+    def _grow_pod_window(self) -> bool:
+        """Double the window in place when the live pods outgrow it
+        (reference `_grow_pod_window_impl`, engine.py:3354): fresh slots
+        for global plain slots [pod_base + W, pod_base + new_W), with the
+        constructor init_state uses, go in between the window and the
+        ring, which moves right with its statics; the name ranks and the
+        payload follow the new width, and the executor rebuilds its
+        buffers at the new P and captures again. K stays at its build
+        value, and so does the cycle route, which the cluster count alone
+        decides (choose_cycle_route). Returns False when the window
+        already covers the whole plain segment."""
+        W, T = self.pod_window, self.consts.trace_pod_bound
+        if W >= T:
+            return False
+        new_W = min(2 * W, T)
+        insert = new_W - W
+        self._check_slide_budget(new_W)
+        C = self.n_clusters
+        cols = self._payload_source.segment(self._pod_base + W, insert)
+        fresh = fresh_pods_np(
+            cols["req_cpu"], cols["req_ram"], cols["duration"], self.config.scheduling_cycle_interval, self.device
+        )
+
+        def widen(a, b):
+            return torch.cat([a[:, :W], b, a[:, W:]], dim=1)
+
+        old = flatten(self._state.pods)
+        new = flatten(fresh)
+        self._state = self._state._replace(pods=unflatten(PodArrays, {p: widen(old[p], new[p]) for p in old}))
+        self.pod_window = new_W
+        self.n_pods += insert
+        self.consts = self.consts._replace(resident_shift=T - new_W)
+        st = self.autoscale_statics
+        if st is not None:
+            gap = torch.full((C, insert), -1, dtype=torch.int32, device=self.device)
+            st = self.autoscale_statics = st._replace(
+                pod_group_id=widen(st.pod_group_id, gap),
+                pg_slot_start=st.pg_slot_start + insert,
+                pod_name_rank=torch.empty((C, self.n_pods), dtype=torch.int32, device=self.device),
+            )
+            self.name_ranks = (st.node_name_rank, st.pod_name_rank)
+            if self.hpa_seg != (0, 0):
+                self.hpa_seg = (self.hpa_seg[0] + insert, self.hpa_seg[1] + insert)
+            self._refresh_name_ranks()
+        self._init_slide_payload()
+        self.dispatch_stats["grows"] += 1
+        self._executor.rebuild()
+        return True
+
     # --- state ------------------------------------------------------------
 
     @property
@@ -644,10 +857,18 @@ class BatchedSimulation:
                 "install_state: the state's autoscaler leaves do not match this "
                 "engine's autoscaler configuration"
             )
+        if self.pod_window is not None:
+            # A state saved after growths: grow to its width first (its
+            # leaves then replace every slot).
+            while state.pods.phase.shape[1] > self.n_pods and self._grow_pod_window():
+                pass
         copy_state_into(self._state, state)
         self._executor.bufs.acc.reset_()
         self.host_syncs += 1
         self._cursor = state.event_cursor.cpu().numpy().astype(np.int64)
+        if self.pod_window is not None:
+            self._pod_base = int(state.pod_base[0])
+            self._refresh_name_ranks()
         self.next_window_idx = int(next_window_idx)
         if self.clock is not None:
             self.clock.seed(state.auto)
@@ -721,15 +942,38 @@ class BatchedSimulation:
             cycle_route=self.cycle_route,
         )
 
-    def _dispatch_windows(self, idxs: Sequence[int]) -> None:
-        """Plan windows `idxs` on the host and run them through the window
-        executor (reference `_dispatch_windows`, engine.py:1965)."""
-        idxs = [int(w) for w in idxs]
-        if not idxs:
+    def _run_span(self, first: int, last: int) -> None:
+        """Plan windows first..last on the host and run them through the
+        window executor (reference `_dispatch_windows`, engine.py:1965)."""
+        if last < first:
             return
-        self._executor.run_windows([(w, self._plan(w)) for w in idxs])
-        self.next_window_idx = idxs[-1] + 1
-        self.windows_run += len(idxs)
+        self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
+        self.next_window_idx = last + 1
+        self.windows_run += last - first + 1
+
+    def _dispatch_windows(self, idxs: Sequence[int]) -> None:
+        """Run windows `idxs` (consecutive, from next_window_idx). Under the
+        sliding pod window, in spans up to the last window whose pod
+        creations fit the device window, each followed by a slide, or a
+        growth where no slide is possible (reference `_step_until_time`,
+        engine.py:2533-2610): one host read a span, none inside it."""
+        if len(idxs) == 0:
+            return
+        target = int(idxs[-1])
+        if self.pod_window is None:
+            self._run_span(int(idxs[0]), target)
+            return
+        while self.next_window_idx <= target:
+            sub = min(target, self._pod_capacity_window())
+            self._run_span(self.next_window_idx, sub)
+            if sub >= target:
+                return
+            if not self._slide() and not self._grow_pod_window():
+                raise RuntimeError(
+                    f"pod_window={self.pod_window} is too small: window {sub + 1} needs pod slots "
+                    "beyond the device window and no leading pod is terminal yet, and the window "
+                    "already covers the whole plain trace segment"
+                )
 
     def precompile_pieces(self) -> int:
         """Capture every window piece the engine's plans can reach on its
@@ -746,8 +990,15 @@ class BatchedSimulation:
         return backend.pool_bytes() if backend is not None else 0
 
     def step_window(self) -> None:
-        """Advance one scheduling window."""
-        self._dispatch_windows([self.next_window_idx])
+        """Advance one scheduling window (under the pod window, without a
+        slide: it raises where the window would need one)."""
+        w = self.next_window_idx
+        if self.pod_window is not None and w > self._pod_capacity_window():
+            raise RuntimeError(
+                "step_window would apply a pod creation beyond the sliding pod window; "
+                "use step_until_time (which slides the window) or a larger pod_window"
+            )
+        self._run_span(w, w)
 
     def step_until_time(self, until_time: float) -> None:
         """Advance through every window whose cycle time is <= until_time."""

@@ -24,11 +24,23 @@ once per key:
   pass. One end graph a window, so the state is copied back once a
   window; at most 12 end graphs a route.
 
+Under the sliding pod window one more piece runs between spans:
+
+- ("slide", W): the slide of the W-slot window (step.slide_shift_core,
+  quantize_shift, slide_apply), its shift left in a device word that
+  `slide` copies to a pinned host word and waits for: the span's one host
+  read. It moves the autoscaler statics' pod-name ranks in place (they
+  are WindowBuffers.rank), since the end graphs read that tensor.
+
+A growth of the window changes the pod axis, so `rebuild` binds new
+buffers at the new width and captures again every piece it held.
+
 `piece_schedule` names a window's pieces from its plan and the route.
 The route is read from the engine at every window, so a route forced
 after the build captures its own end graphs: a graph of another route
 never runs. Everything else a graph reads from the engine (its sizes, K,
-E, the slab and the tables) is fixed at build.
+E, the slab and the tables) is fixed at build, or until a growth of the
+pod window rebuilds the executor.
 
 Fixed buffers. A graph reads and writes the addresses it was captured on,
 so everything that lives from one piece to the next lies in buffers that
@@ -60,7 +72,7 @@ in the engine's dispatch_stats: they read the device back.
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Iterable, List, NamedTuple, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,7 +83,10 @@ from kubernetriks_tpu_torch.batched.step import (
     WindowPlan,
     event_chunk,
     events_tail,
+    quantize_shift,
     run_scheduling_cycle,
+    slide_apply,
+    slide_shift_core,
 )
 from kubernetriks_tpu_torch.ops._launch import LAUNCHES
 
@@ -85,6 +100,10 @@ class WindowBuffers(NamedTuple):
     state: ClusterBatchState
     acc: EventAccumulators
     W: torch.Tensor  # (C,) int32 the window being run
+    shift: torch.Tensor  # (1,) int32 the last slide's shift
+    # The autoscaler statics' windowed pod-name ranks (the tensor itself),
+    # which a slide moves; None without autoscalers or without the window.
+    rank: Optional[torch.Tensor] = None
 
 
 def piece_schedule(plan: WindowPlan, route: str) -> List[Key]:
@@ -135,14 +154,28 @@ class WindowExecutor:
     def __init__(self, sim, backend=None):
         self.sim = sim
         self.backend = backend
+        dev = sim.state.time.device
+        # The slide's shift comes back through one pinned host word (an
+        # ordinary one on the CPU), copied without blocking, then waited on.
+        self._shift_host = torch.zeros((1,), dtype=torch.int32, pin_memory=dev.type == "cuda")
+        self._shift_event = torch.cuda.Event() if dev.type == "cuda" else None
+        self._bind_buffers()
+
+    def _bind_buffers(self) -> None:
+        """Fixed buffers around the engine's current state (and its slide
+        ranks); drops every piece and graph built on earlier ones."""
+        sim = self.sim
         state = sim.state
         C, P = state.pods.phase.shape
         N = state.nodes.alive.shape[1]
         dev = state.time.device
+        sliding = sim.pod_window is not None and sim.autoscale_statics is not None
         self.bufs = WindowBuffers(
             state=state,
             acc=EventAccumulators.fresh(C, N, P, dev),
             W=torch.zeros((C,), dtype=torch.int32, device=dev),
+            shift=torch.zeros((1,), dtype=torch.int32, device=dev),
+            rank=sim.autoscale_statics.pod_name_rank if sliding else None,
         )
         leaves = [t for t in flatten(self.bufs).values() if t.numel()]
         self._fixed = storages(leaves)
@@ -150,6 +183,18 @@ class WindowExecutor:
             raise ValueError("WindowExecutor: two buffers share memory; each must own its own")
         self._bodies: Dict[Key, Callable[[WindowBuffers], None]] = {}
         self.graphs: Dict[Key, Tuple[object, Dict[str, int]]] = {}
+
+    def rebuild(self) -> None:
+        """New buffers at the engine's new pod width, after a growth of the
+        pod window, and captures again every piece captured before (the
+        slide at the new width)."""
+        keys = [key for key in self.graphs if key[0] != "slide"]
+        had_slide = len(keys) < len(self.graphs)
+        self._bind_buffers()
+        if had_slide:
+            keys.append(("slide", self.sim.pod_window))
+        if keys:
+            self.capture(keys)
 
     # --- the pieces ----------------------------------------------------------
 
@@ -192,6 +237,19 @@ class WindowExecutor:
                     )
                 self._copy_back(b.state, state)
                 b.acc.reset_()
+        elif kind == "slide":
+            W = key[1]
+
+            def run(b: WindowBuffers) -> None:
+                pay = sim._slide_payload
+                base = b.state.pod_base[0]
+                s = quantize_shift(slide_shift_core(b.state.pods.phase[:, :W], pay["create_win"], base), W)
+                pods, rank = slide_apply(b.state.pods, b.rank, pay, base, s, W)
+                self._copy_back(b.state.pods, pods)
+                if rank is not None:
+                    b.rank.copy_(rank)
+                b.state.pod_base.add_(s)
+                b.shift.copy_(s)
         else:
             raise ValueError(f"unknown window piece {key!r}")
         return run
@@ -219,6 +277,8 @@ class WindowExecutor:
         route = sim.cycle_route
         keys: List[Key] = [("chunk",)]
         keys += [("end", route, rm, hpa, ca) for rm in removals for hpa in hpas for ca in cas]
+        if sim.pod_window is not None:
+            keys.append(("slide", sim.pod_window))
         return keys
 
     def capture(self, keys: Iterable[Key]) -> int:
@@ -258,6 +318,16 @@ class WindowExecutor:
         for name, n in delta.items():
             LAUNCHES[name] += n
         self.sim.dispatch_stats["replays"] += 1
+
+    def slide(self) -> int:
+        """Run the slide piece and read its shift back (0: no slide was
+        possible, and the state is as it was)."""
+        self._run(("slide", self.sim.pod_window))
+        self._shift_host.copy_(self.bufs.shift, non_blocking=True)
+        if self._shift_event is not None:
+            self._shift_event.record()
+            self._shift_event.synchronize()
+        return int(self._shift_host[0])
 
     def run_windows(self, windows: Iterable[Tuple[int, WindowPlan]]) -> None:
         """Advance the engine's state through `windows`, (index, plan) in

@@ -226,6 +226,53 @@ def duration_pair_np(pod_duration: np.ndarray, interval: float):
     )
 
 
+def fresh_pod_arrays(
+    C: int, P: int, req_cpu: torch.Tensor, req_ram: torch.Tensor, duration: TPair
+) -> PodArrays:
+    """Pod slots in their pristine state (EMPTY, never created) around the
+    given (C, P) payload tensors, which become leaves as they are: the one
+    source of fresh-slot defaults, shared by init_state and the sliding pod
+    window's refill and growth (reference `fresh_pod_arrays`, state.py:411)."""
+    dev = req_cpu.device
+
+    def zeros_i32():
+        return torch.zeros((C, P), dtype=torch.int32, device=dev)
+
+    return PodArrays(
+        phase=zeros_i32(),
+        req_cpu=req_cpu,
+        req_ram=req_ram,
+        duration=duration,
+        queue_ts=t_zeros((C, P), dev),
+        queue_seq=zeros_i32(),
+        initial_attempt_ts=t_zeros((C, P), dev),
+        attempts=zeros_i32(),
+        node=torch.full((C, P), -1, dtype=torch.int32, device=dev),
+        start_time=t_zeros((C, P), dev),
+        finish_time=t_inf((C, P), dev),
+        removal_time=t_inf((C, P), dev),
+        hpa_idx=torch.full((C, P), -1, dtype=torch.int32, device=dev),
+        restarts=zeros_i32(),
+        will_fail=torch.zeros((C, P), dtype=torch.bool, device=dev),
+    )
+
+
+def fresh_pods_np(req_cpu: np.ndarray, req_ram: np.ndarray, duration: np.ndarray, interval: float, device) -> PodArrays:
+    """fresh_pod_arrays around host payload columns (float64 durations, < 0
+    a long-running service), copied to `device`."""
+    dwin, doff = duration_pair_np(duration, interval)
+    dev = torch.device(device)
+    C, P = np.shape(req_cpu)
+
+    def copy(x, dtype):  # a copy: no two leaves share memory (they are updated in place)
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    return fresh_pod_arrays(
+        C, P, copy(req_cpu, np.int32), copy(req_ram, np.int32),
+        TPair(win=copy(dwin, np.int32), off=copy(doff, np.float32)),
+    )
+
+
 def init_state(
     n_clusters: int,
     n_nodes: int,
@@ -250,7 +297,6 @@ def init_state(
     def zeros_i32(shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
 
-    dwin, doff = duration_pair_np(pod_duration, interval)
     nodes = NodeArrays(
         alive=torch.zeros((C, N), dtype=torch.bool, device=dev),
         cap_cpu=i32(node_cap_cpu),
@@ -261,23 +307,7 @@ def init_state(
         remove_time=t_inf((C, N), dev),
         crash_downtime=torch.zeros((C, N), dtype=torch.float32, device=dev),
     )
-    pods = PodArrays(
-        phase=zeros_i32((C, P)),
-        req_cpu=i32(pod_req_cpu),
-        req_ram=i32(pod_req_ram),
-        duration=TPair(win=i32(dwin), off=torch.tensor(doff, device=dev)),
-        queue_ts=t_zeros((C, P), dev),
-        queue_seq=zeros_i32((C, P)),
-        initial_attempt_ts=t_zeros((C, P), dev),
-        attempts=zeros_i32((C, P)),
-        node=torch.full((C, P), -1, dtype=torch.int32, device=dev),
-        start_time=t_zeros((C, P), dev),
-        finish_time=t_inf((C, P), dev),
-        removal_time=t_inf((C, P), dev),
-        hpa_idx=torch.full((C, P), -1, dtype=torch.int32, device=dev),
-        restarts=zeros_i32((C, P)),
-        will_fail=torch.zeros((C, P), dtype=torch.bool, device=dev),
-    )
+    pods = fresh_pods_np(pod_req_cpu, pod_req_ram, pod_duration, interval, dev)
     counters = {name: zeros_i32((C,)) for name in MetricArrays._fields[:17]}
     counters["node_downtime_s"] = torch.zeros((C,), dtype=torch.float32, device=dev)
     metrics = MetricArrays(

@@ -17,7 +17,9 @@ Times are the (win, off) pairs of timerep.py; values applied inside a
 window are float32 seconds relative to the previous window's start.
 `window_body` runs a window as one eager function; the window executor
 (graphs.py) runs the same functions as pieces: `event_chunk` per chunk,
-`events_tail`, `run_scheduling_cycle`, then the autoscaler passes.
+`events_tail`, `run_scheduling_cycle`, then the autoscaler passes; and,
+between spans of the sliding pod window, its slide (`slide_shift_core`,
+`quantize_shift`, `slide_apply`).
 
 What differs from the reference, and why it is exact:
 - The reference's data-dependent `lax.cond` / `while_loop` branches become
@@ -50,6 +52,7 @@ from kubernetriks_tpu_torch.batched.state import (
     EV_CREATE_POD,
     EV_REMOVE_POD,
     PHASE_EMPTY,
+    PHASE_FAILED,
     PHASE_QUEUED,
     PHASE_REMOVED,
     PHASE_RUNNING,
@@ -57,8 +60,10 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
     EstArrays,
+    PodArrays,
     StepConstants,
     TraceSlab,
+    fresh_pod_arrays,
 )
 from kubernetriks_tpu_torch.batched.timerep import (
     TPair,
@@ -985,3 +990,80 @@ def window_body(
         if plan.ca_due:
             state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle)
     return state
+
+
+# --- the sliding pod window's slide -------------------------------------------
+# Plain tensor functions of fixed shapes with the shift a device tensor, so
+# the window executor captures one slide graph per window width (reference
+# `_slide_shift_core`, `_quantize_shift_device`, `_slide_apply_traced`,
+# step.py:2601-2710). The device pod axis is [window over the plain slots
+# [pod_base, pod_base + W) | resident pod-group ring]; the payload tensors
+# cover the whole plain segment, padded to T + W columns
+# (trace_compile.stage_segment).
+
+
+def slide_shift_core(phase: torch.Tensor, create_win: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """The shift the window can take: the leading run of terminal or
+    padding slots, the least over the clusters of each row's first
+    blocking slot. `phase` is the window's (C, W) rows; `create_win` the
+    payload's create windows, read at columns [base, base + W) (base a
+    0-dim int32 tensor, clamped as a dynamic slice clamps). An EMPTY slot
+    blocks while its create event is pending, and a padding slot (no create
+    event) never does. Returns a 0-dim int32 tensor in [0, W]."""
+    C, W = phase.shape
+    iota = torch.arange(W, dtype=torch.int32, device=phase.device)
+    start = base.clamp(0, create_win.shape[1] - W)
+    seg = torch.gather(create_win, 1, (start + iota).long()[None, :].expand(C, W))
+    terminal = (phase == PHASE_SUCCEEDED) | (phase == PHASE_REMOVED) | (phase == PHASE_FAILED)
+    padding = (phase == PHASE_EMPTY) & (seg == torch.iinfo(torch.int32).max)
+    first = torch.where(terminal | padding, W, iota[None, :]).amin(dim=1)
+    return first.amin().to(torch.int32)
+
+
+def quantize_shift(s0: torch.Tensor, W: int) -> torch.Tensor:
+    """The shift taken, from a small set of amounts: W/2, W/4 or W/8 where
+    s0 reaches them, else the largest power of two not above s0; 0 stays 0
+    (no slide possible: the engine grows the window)."""
+    quantum = max(W // 8, 1)
+    v = s0
+    for sh in (1, 2, 4, 8, 16):
+        v = v | (v >> sh)
+    s = torch.where(s0 >= quantum, quantum, v - (v >> 1))
+    if W // 4 > 0:
+        s = torch.where(s0 >= W // 4, W // 4, s)
+    if W // 2 > 0:
+        s = torch.where(s0 >= W // 2, W // 2, s)
+    return s.to(torch.int32)
+
+
+def slide_apply(pods: PodArrays, rank: Optional[torch.Tensor], pay, base: torch.Tensor, s: torch.Tensor, W: int):
+    """The window slid by s slots (s == 0 is the identity), as gathers:
+    window slots [0, W - s) take slots [s, W), the refill slots [W - s, W)
+    take payload columns base + W .. base + W + s - 1 through
+    fresh_pod_arrays, the constructor init_state uses, and the resident
+    ring (slots >= W) stays. `pay`: the payload tensors (req_cpu, req_ram,
+    dur_win, dur_off, rank), (C, T + W). `rank`: the device pod-name ranks,
+    which move with the pods, or None. Returns (pods, rank or None)."""
+    C, P = pods.phase.shape
+    idx = torch.arange(P, dtype=torch.int32, device=pods.phase.device)[None, :]
+    in_window = idx < W
+    refill = in_window & (idx >= W - s)
+    src_old = torch.where(in_window & ~refill, idx + s, idx).long().expand(C, P)
+    pay_col = (base + s + idx).clamp(0, pay["req_cpu"].shape[1] - 1).long().expand(C, P)
+
+    def pg(a):
+        return torch.gather(a, 1, pay_col)
+
+    fresh = fresh_pod_arrays(
+        C, P, pg(pay["req_cpu"]), pg(pay["req_ram"]), TPair(win=pg(pay["dur_win"]), off=pg(pay["dur_off"]))
+    )
+
+    def move(old, fr):
+        return torch.where(refill, fr, torch.gather(old, 1, src_old))
+
+    new_pods = PodArrays(*[
+        TPair(move(o.win, f.win), move(o.off, f.off)) if isinstance(o, TPair) else move(o, f)
+        for o, f in zip(pods, fresh)
+    ])
+    new_rank = None if rank is None else move(rank, pg(pay["rank"]))
+    return new_pods, new_rank

@@ -7,6 +7,8 @@ durations) are staged into per-slot arrays, and the device sees only
 (time, kind, slot) triples. Node re-creations of the same name get fresh
 slots. A pod group (HPA) reserves a block of pod slots for its replicas
 and compiles its load model into a table of (duration, load) units.
+`ArrayPayloadSource` and `stage_segment` cut the sliding pod window's
+refill payload out of the whole-trace arrays.
 """
 
 from __future__ import annotations
@@ -381,3 +383,59 @@ def pad_and_batch(
         pod_duration,
         node_crash_downtime,
     )
+
+
+# --- the sliding pod window's payload ------------------------------------------
+
+NO_CREATE = np.iinfo(np.int32).max  # create window of a slot no event creates
+BIG_RANK = 1 << 30  # name rank of a slot without a trace name
+
+
+def _pad_cols(arr: np.ndarray, lo: int, width: int, fill, dtype) -> np.ndarray:
+    """arr[:, lo:lo + width] as `dtype`, right-padded with `fill` past arr's
+    columns."""
+    out = np.full((arr.shape[0], width), fill, dtype)
+    src = arr[:, lo : lo + width]
+    out[:, : src.shape[1]] = src
+    return out
+
+
+class ArrayPayloadSource:
+    """The refill payload of the trace's plain pod slots, from whole-trace
+    host arrays {"req_cpu", "req_ram", "duration"} of shape (C, T)
+    (reference `ArrayPayloadSource`, trace_compile.py:569). `segment(lo,
+    width)` gives columns [lo, lo + width) with the fresh-slot padding past
+    the trace's end: request 0, duration -1.0 (the long-running-service
+    sentinel), so a padding slot never finishes and is never created."""
+
+    def __init__(self, full_pods: Dict[str, np.ndarray]) -> None:
+        self.full_pods = full_pods
+
+    def segment(self, lo: int, width: int) -> Dict[str, np.ndarray]:
+        full = self.full_pods
+        return {
+            "req_cpu": _pad_cols(full["req_cpu"], lo, width, 0, np.int32),
+            "req_ram": _pad_cols(full["req_ram"], lo, width, 0, np.int32),
+            "duration": _pad_cols(full["duration"], lo, width, -1.0, np.float64),
+        }
+
+
+def stage_segment(
+    payload: ArrayPayloadSource,
+    create_win: np.ndarray,
+    rank_full: Optional[np.ndarray],
+    lo: int,
+    width: int,
+) -> Dict[str, np.ndarray]:
+    """Payload columns [lo, lo + width) of the plain pod segment for the
+    slide (reference `stage_segment`, trace_compile.py:615): the requests
+    and float64 durations of `payload`, each slot's create window
+    (`create_win`, (C, T); NO_CREATE past the trace) and, with
+    `rank_full`, its pod-name rank (BIG_RANK past the trace). The one owner
+    of the padding rules, so the engine's device payload and its refill
+    and growth slots agree slot for slot."""
+    out = payload.segment(lo, width)
+    out["create_win"] = _pad_cols(create_win, lo, width, NO_CREATE, np.int32)
+    if rank_full is not None:
+        out["rank"] = _pad_cols(rank_full, lo, width, BIG_RANK, np.int32)
+    return out

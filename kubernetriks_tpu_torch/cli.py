@@ -1,8 +1,8 @@
 """Command line: run a simulation from a config file on the card.
 
     python -m kubernetriks_tpu_torch.cli --config-file <yaml>
-        [--clusters N] [--max-pods-per-cycle K] [--report json|table]
-        [--device cuda|cpu]
+        [--clusters N] [--max-pods-per-cycle K] [--pod-window W]
+        [--report json|table] [--device cuda|cpu]
 
 The batched subset of the JAX package's `cli.py` (:60-237): load the
 config, build the traces its `trace_config` names (an Alibaba v2017 trace
@@ -12,9 +12,11 @@ metrics report. The traces always go through the event objects
 (`build_traces`); the JAX package's native CSV feeder is ROADMAP Queue 1
 item 11. The run is on the CUDA card unless `--device cpu` is given.
 
-Options the port does not run yet are refused, naming the ROADMAP item
-that brings them: `--backend scalar`, `--pod-window`, `--gauge-csv`,
-`--metrics-export` and a `--profile` other than the default.
+`--pod-window W` runs the sliding pod window of W plain pod slots (0, the
+default, keeps the whole trace resident). Options the port does not run
+yet are refused, naming the ROADMAP item that brings them: `--backend
+scalar`, `--gauge-csv`, `--metrics-export` and a `--profile` other than
+the default.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from kubernetriks_tpu_torch.trace.interface import EmptyTrace
 # Options refused, with the ROADMAP item that ports each.
 UNPORTED_OPTIONS = {
     "backend": "ROADMAP Queue 1 item 17 (the port's CLI runs the batched backend only)",
-    "pod_window": "ROADMAP Queue 1 item 8 (sliding pod window)",
     "gauge_csv": "ROADMAP Queue 1 item 10 (telemetry)",
     "metrics_export": "ROADMAP Queue 1 item 10 (telemetry)",
     "profile": "ROADMAP Queue 1 item 6 (scheduler profiles)",
@@ -96,7 +97,8 @@ def run_batched(config: SimulationConfig, args) -> int:
     from kubernetriks_tpu_torch.metrics.render import render_metrics
 
     log = logging.getLogger(__name__)
-    sim = build_batched_simulation(config, args.clusters, args.max_pods_per_cycle, device=args.device)
+    kwargs = {"pod_window": args.pod_window} if args.pod_window else {}
+    sim = build_batched_simulation(config, args.clusters, args.max_pods_per_cycle, device=args.device, **kwargs)
     log.info(
         "batched run on %s: %d clusters x %d node slots x %d pod slots, cycle route %s",
         sim.device, sim.n_clusters, sim.n_nodes, sim.n_pods, sim.cycle_route,
@@ -117,7 +119,6 @@ def run_batched(config: SimulationConfig, args) -> int:
 def _refuse_unported(args) -> None:
     given = {
         "backend": args.backend != "batched",
-        "pod_window": bool(args.pod_window),
         "gauge_csv": args.gauge_csv is not None,
         "metrics_export": args.metrics_export is not None,
         "profile": args.profile not in (None, "default"),
@@ -141,7 +142,8 @@ def main(argv=None) -> int:
                         help="end-of-run report format")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; 'cpu' runs the plain PyTorch path)")
-    parser.add_argument("--pod-window", type=int, default=0, help="not ported")
+    parser.add_argument("--pod-window", type=int, default=0,
+                        help="sliding pod window of this many plain pod slots (0 = whole trace resident)")
     parser.add_argument("--profile", default=None, help="not ported (only 'default')")
     parser.add_argument("--gauge-csv", default=None, help="not ported")
     parser.add_argument("--metrics-export", default=None, help="not ported")

@@ -3,7 +3,7 @@
 
     python3 profile_main_path.py [--path headline|autoscaler|replay|deep]
         [--windows 20] [--repeats 1] [--route sorted|megakernel|two_kernel]
-        [--executor eager|graphs] [--k K] [--package-root DIR]
+        [--executor eager|graphs] [--k K] [--pod-window W] [--package-root DIR]
 
 Builds the headline shape (`chip_smoke.headline_sim`), with `--path
 autoscaler` the reference's composed scenario at full width
@@ -18,7 +18,11 @@ on one shape. `--executor` builds the engine with its window graphs
 (`graphs`: every piece captured before the warm-up, precompile_pieces) or
 without (`eager`: the same pieces launched op by op); left out, the
 engine's default (graphs on the card; a checkout that predates the window
-executor has only eager windows). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
+executor has only eager windows). `--pod-window W` builds the path with
+a sliding pod window of W plain pod slots (the composed line's is 512,
+the replay's 4 096): its windows then run through step_until_time, which
+slides the window between spans, and a growth inside the timed windows
+raises (a repeat could not restore the narrower state). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
 path, inside its load burst; 43 200 s, mid-day, on the replay; 300 s on
 the deep path, ~5 000 pods queued a cluster) and keeps a copy of that
 state. Then it runs the same `--windows` windows from it (`install_state`
@@ -34,7 +38,7 @@ window (untraced and traced), device busy ms per window, the idle share,
 device kernel launches per window, the executor's counts
 (`dispatch_stats`, the graph pool's bytes), the top host rows (self CPU
 time a window) and the top device ops with their share of busy time. The full key_averages table goes to
-profile_<path>_<route>_<executor>.txt in the output directory beside this script (the one
+profile_<path>_<route>_<executor>[_w<W>].txt in the output directory beside this script (the one
 chip_smoke.py writes to). `--package-root` imports the package and
 chip_smoke.py from DIR instead of this checkout, so one call on the card
 can time two checkouts on the same windows. Needs a CUDA device.
@@ -103,6 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--route", choices=("sorted", "megakernel", "two_kernel"), default=None)
     ap.add_argument("--executor", choices=("eager", "graphs"), default=None)
     ap.add_argument("--k", type=int, default=None, help="pods per cycle on the deep path (default: P)")
+    ap.add_argument("--pod-window", type=int, default=0, help="sliding pod window (0: whole-resident)")
     ap.add_argument("--package-root", default=str(HERE))
     args = ap.parse_args(argv)
 
@@ -126,6 +131,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     _build.build_all()
     kw = {} if args.executor is None else {"graphs": args.executor == "graphs"}
+    if args.pod_window:
+        kw["pod_window"] = args.pod_window
     build, warm_up = {
         "headline": (lambda: headline_sim("cuda", **kw), 190.0),
         "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED, **kw), 590.0),
@@ -144,13 +151,23 @@ def main(argv=None) -> int:
     stats0 = dict(getattr(sim, "dispatch_stats", {}))
 
     n = args.windows
+    sliding = getattr(sim, "pod_window", None) is not None
+    interval = sim.config.scheduling_cycle_interval
 
     def timed_windows() -> float:
+        grows = sim.dispatch_stats["grows"] if sliding else 0
         t0 = time.perf_counter()
-        for _ in range(n):
-            sim.step_window()
+        if sliding:
+            sim.step_until_time(sim.next_window + (n - 1) * interval)
+        else:
+            for _ in range(n):
+                sim.step_window()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
+        elapsed = (time.perf_counter() - t0) * 1e3 / n
+        if sliding and sim.dispatch_stats["grows"] != grows:
+            raise SystemExit("profile_main_path: the pod window grew inside the timed windows; "
+                             "take a wider --pod-window or fewer --windows")
+        return elapsed
 
     host_ms = []
     for _ in range(max(1, args.repeats)):
@@ -188,7 +205,8 @@ def main(argv=None) -> int:
     kernels.sort(key=lambda k: -k[1])
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"profile_{args.path}_{sim.cycle_route}_{executor}.txt").write_text(
+    window = f"_w{args.pod_window}" if args.pod_window else ""
+    (out_dir / f"profile_{args.path}_{sim.cycle_route}_{executor}{window}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
     )
     busy_ms = busy_us / 1e3 / n
@@ -201,6 +219,7 @@ def main(argv=None) -> int:
         "graphs_captured_up_front": captured,
         "dispatch_stats_timed": stats,
         "graph_pool_bytes": sim.graph_pool_bytes() if hasattr(sim, "graph_pool_bytes") else 0,
+        "pod_window": getattr(sim, "pod_window", None),
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},

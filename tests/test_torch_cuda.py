@@ -648,3 +648,62 @@ def test_ca_scale_down_above_48_kb_captures(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, ca_kernels.ca_scale_down_plain(*dev_args, k_sd=K))
+
+
+# --- the sliding pod window -----------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_kernels_match_plain_versions_at_a_windowed_pod_width(cuda_device, seed):
+    """The sliding pod window keeps the pod axis at its exact width, the
+    window plus the pod-group ring: here 250 + 5 = 255 slots, not a
+    multiple of 4 (every cluster's rows after the first start unaligned,
+    so the event scatter's 16-byte loads and the megakernel's vector copy
+    fall back) nor of 256 (the queue's last batch is short). The event
+    scatter, the free kernel and the three cycle-route kernels equal their
+    plain versions (outputs exact, stats rows to rtol 1e-6), one launch a
+    call."""
+    P = 255
+    cases = [
+        ("fused_event_scatter", port_kernels.event_scatter_plain, event_inputs_wide(seed, C=3, N=96, P=P), {}, None),
+        ("fused_free_resources", port_kernels.free_resources_plain, free_inputs_wide(seed, C=3, N=96, P=P), {}, 2),
+    ]
+    for C, K in ((8, 64), (8, P)):
+        margs, _ = megakernel_inputs(seed, C=C, N=96, P=P, K=K, edges=True)
+        cases.append(("fused_select_cycle_commit", port_kernels.select_cycle_commit_plain, margs, {"k_pods": K}, 6))
+        cases.append(("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9],
+                      {"k_pods": K}, None))
+    cases.append(("fused_commit_scatter", port_kernels.commit_scatter_plain, commit_inputs(seed, C=8, P=P, K=64),
+                  {}, None))
+    cases.append(("fused_schedule_cycle", port_kernels.schedule_cycle_plain, cycle_inputs(seed, N=96, K=64, edges=True),
+                  {}, None))
+    for name, plain, args, kwargs, stats_idx in cases:
+        port_kernels.reset_launches()
+        dev_args = [t(a).to(cuda_device) for a in args]
+        got = getattr(port_kernels, name)(*dev_args, **kwargs)
+        torch.cuda.synchronize()
+        assert port_kernels.LAUNCHES[name] == 1
+        want = plain(*dev_args, **kwargs)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i == stats_idx:
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+            else:
+                assert torch.equal(g, w), (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["megakernel", "sorted"])
+def test_sliding_graph_run_equals_eager_run(cuda_device, route):
+    """The composed toy through an 8-slot pod window (it slides and grows
+    twice): the slide piece and the pieces captured again after each
+    growth replay what the eager run does, bit for bit, with equal launch
+    counts; each run reads the device once a span."""
+    runs = _graph_and_eager(lambda g: composed_sim(cuda_device, 8, pod_window=8, graphs=g), 400.0, route)
+    g = runs[0][0]
+    stats = g.dispatch_stats
+    assert stats["slides"] > 0 and stats["grows"] > 0
+    _assert_graph_run_equals_eager_run(runs, max_syncs=stats["slides"] + stats["grows"])
+    assert runs[0][2] == stats["slides"] + stats["grows"]
+    assert ("slide", g.pod_window) in g._executor.graphs
+    assert g.pod_window > 8 and g.n_pods == runs[1][0].n_pods

@@ -143,9 +143,10 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 
 
 def test_port_main_path_loads_no_jax(tmp_path):
-    """The port's main path, its autoscaler path, the trace replay and the
-    CLI, run in a fresh interpreter, leave no module named jax* or
-    kubernetriks_tpu.* in sys.modules."""
+    """The port's main path, its autoscaler path (whole-resident and through
+    the sliding pod window), the trace replay and the CLI, run in a fresh
+    interpreter, leave no module named jax* or kubernetriks_tpu.* in
+    sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -170,6 +171,11 @@ def test_port_main_path_loads_no_jax(tmp_path):
         state_to_numpy(auto.state)
         counters = auto.metrics_summary()["counters"]
         assert counters["total_scaled_up_pods"] > 0 and counters["total_scaled_up_nodes"] > 0
+        sliding = composed_sim("cpu", 2, pod_window=8)
+        sliding.step_until_time(400.0)
+        assert sliding.dispatch_stats["slides"] > 0 and sliding.dispatch_stats["grows"] > 0
+        state_to_numpy(sliding.state)
+        sliding.metrics_summary()
         from kubernetriks_tpu_torch import cli
         from kubernetriks_tpu_torch.trace.synthetic_alibaba import write_synthetic_trace_dir
         machines, tasks, instances = write_synthetic_trace_dir(

@@ -392,7 +392,7 @@ def test_cli_matches_reference_cli(tmp_path, capsys, restore_logging, clusters):
 
 @pytest.mark.parametrize(
     "option",
-    [["--backend", "scalar"], ["--pod-window", "512"], ["--gauge-csv", "g.csv"],
+    [["--backend", "scalar"], ["--profile", "balanced_packing"], ["--gauge-csv", "g.csv"],
      ["--metrics-export", "stem"], ["--profile", "best_fit"]],
 )
 def test_cli_refuses_unported_options(tmp_path, option):
