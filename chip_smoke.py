@@ -5,8 +5,9 @@
 
 Phases; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the eight CUDA kernels from ops/csrc with nvcc (one process each,
-     all at once), timed;
+  2. build the eight CUDA kernels and the graph_if helper (the window
+     executor's conditional node) from ops/csrc with nvcc (one process
+     each, all at once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      inputs captured (cloned) from its path, run without graphs, at that
      path's shapes — the three
@@ -31,7 +32,8 @@ Phases; any failure exits non-zero:
      through the kernels on the card and through the plain path on the CPU,
      final states equal under compare_states;
   6. the autoscaler path — the reference's composed scenario (`bench.py:260`
-     `run_composed` defaults, whole-resident, no slot reclaim): 256
+     `run_composed` defaults, whole-resident, CA slot reclaim on: the
+     card's default, which the run checks): 256
      clusters of 32 nodes (64 000 mCPU, 128 GiB) plus 64 CA slots, Poisson
      pods at 1.5/s for 1000 s (16 000 mCPU, 32 GiB), one HPA group (8 to 64
      pods, cpu target 0.5, load 4/24/2 over 300/300/400 s), the CA at a
@@ -47,10 +49,14 @@ Phases; any failure exits non-zero:
      phase 6's (compare_states), every slot the window holds is in the
      phase of its global slot in phase 6 and every slot it slid past is
      terminal there;
-  7. card against CPU on the autoscaler path: the composed scenario at 4
-     nodes and C=8 to t=400 s (CA scale-ups and a removal), final states
-     equal under compare_states; again through an 8-slot pod window (it
-     slides and grows);
+ 6r. phase 6w's line again with slot reclaim off, timed the same way: its
+     counters (but the slots reclaimed) and metric leaves equal phase
+     6w's; slots reclaimed, host and device busy ms a window of both;
+  7. card against CPU on the autoscaler path, slot reclaim on both sides
+     and again off on both: the composed scenario at 4 nodes and C=8 to
+     t=400 s (CA scale-ups and a removal), final states equal under
+     compare_states; again through an 8-slot pod window (it slides and
+     grows), reclaim on;
   8. the two-kernel route (KTPU_MEGAKERNEL=0: selection + cycle, then the
      commit scatter) on the headline shape, timed as phase 4;
   9. the trace-replay path at the full width of the reference's Alibaba
@@ -78,9 +84,25 @@ Phases; any failure exits non-zero:
      route forced after the build), the autoscaler path to 1200 s and the
      full-width replay to 2000 s, and through sliding pod windows that
      slide and grow: the autoscaler path through 128 slots to 1200 s and
-     phase 10's replay through 64 to 4 550 s; every leaf equal bit for
-     bit, every kernel launched as often, as many host reads, host ms a
-     window of both, captures, replays and the graph pool's bytes.
+     phase 10's replay through 64 to 4 550 s, and the endurance churn at
+     C=4 through 24 waves (slot reclaim's piece in every window); every
+     leaf equal bit for bit, every kernel launched as often, as many host
+     reads, host ms a window of both, captures, replays and the graph
+     pool's bytes;
+ 12. the endurance churn — the reference's endurance line (`bench.py:540-
+     760` `run_endurance`: 8 nodes of 16 000 mCPU / 32 GiB, Poisson pods
+     at 0.25/s, churn waves of 24 000 mCPU pods 160 s apart that fit only
+     the CA's 32 000 mCPU template, a 2-slot CA reserve, pod_window=128,
+     K = 32; no fault injection, streaming feeder or telemetry) at 256
+     clusters through 96 waves (15 390 s) on the graph executor with slot
+     reclaim: finishes with the bounds clean, at least 3x the reserve in
+     allocations and slots reclaimed on every cluster, one host read a
+     span; a second run read once a wave shows the dynamic scale-down
+     order away from the static table; busy ms a window over waves 40-50;
+     without reclaim the churn raises; at C=4, 24 waves (the reference
+     bench's defaults) card == CPU, reclaim on both sides, and again
+     through 76 waves, past wave 74's pair (ca_node_99, ca_node_100: the
+     scale-down walks it out of slot order, which the CPU run must show).
 The card runs of phases 5, 7 and 10 replay graphs too (fails otherwise).
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
@@ -102,7 +124,13 @@ line's windowed width too (phase 6w's, on its last calls to 590 s), and
 the event scatter, the free kernel and the candidate cycle at the windowed
 replay's (phase 9w's, on its busiest calls in its first 600 s): entries
 labelled "(composed, pod_window=512)" and "(replay, pod_window=4096)",
-with the launches of phases 6w and 9w.
+with the launches of phases 6w and 9w. Both CA kernels are held and timed
+on the endurance churn too, on their first calls that act after slots have
+been reused (for the scale-down, a removal on a walk whose live candidates
+the dynamic name order puts in another order than the static table: wave
+74's pair, ca_node_99 and ca_node_100; for the scale-up, a cursor below
+the allocations made): entries labelled "(churn, reclaim)", with the
+launches of phase 12.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -237,6 +265,82 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
         sorted(plain + group, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
         max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, **engine_kwargs,
+    )
+
+
+# The reference's endurance line (`bench.py:547-600`, `run_endurance`)
+# without its fault block: churn waves of pods that fit only the CA's
+# template, through a 2-slot CA reserve (max_node_count 2, slot
+# multiplier 1), which only slot reclaim can carry to the end.
+ENDURANCE_CONFIG_YAML = """
+sim_name: bench_endurance
+seed: 1
+scheduling_cycle_interval: 10.0
+cluster_autoscaler:
+  enabled: true
+  scan_interval: 10.0
+  max_node_count: 2
+  node_groups:
+  - node_template:
+      metadata: {name: ca_node}
+      status: {capacity: {cpu: 32000, ram: 68719476736}}
+"""
+
+
+def endurance_churn_yaml(n_waves: int, spacing: float, t0: float = 30.0) -> str:
+    """The reference's `_endurance_churn_events` as a generic workload:
+    each wave's 24 000 mCPU pod fits only the CA template (the base nodes
+    have 16 000), runs min(60, spacing / 2) s and retires before the next
+    wave; every third wave sends two pods 7 s apart, the second running
+    14 s longer, so two CA nodes coexist."""
+    events, pod = [], 0
+    for k in range(n_waves):
+        t = t0 + k * spacing
+        for j in range(2 if k % 3 == 2 else 1):
+            events.append(
+                f"""
+- timestamp: {round(t + 7.0 * j, 1)}
+  event_type:
+    !CreatePod
+      pod:
+        metadata:
+          name: churn_{pod:04d}
+        spec:
+          resources:
+            requests: {{cpu: 24000, ram: 25769803776}}
+            limits: {{cpu: 24000, ram: 25769803776}}
+          running_duration: {round(min(60.0, spacing / 2) + 14.0 * j, 1)}
+"""
+            )
+            pod += 1
+    return "events:" + "".join(events)
+
+
+def endurance_sim(device, n_clusters: int = 4, n_waves: int = 24, n_nodes: int = 8, spacing: float = 160.0,
+                  rate: float = 0.25, pod_window=128, **engine_kwargs):
+    """The reference's endurance line (`run_endurance` defaults: 4 clusters
+    of 8 nodes of 16 000 mCPU / 32 GiB, 24 waves 160 s apart from t = 30 s,
+    Poisson plain pods at 0.25/s to 60 s before the horizon, seed 3, 2 000
+    mCPU / 4 GiB, 20-60 s, K = 32, pod_window=128, ca_slot_multiplier 1)
+    without fault injection, the streaming feeder or telemetry.
+    engine_kwargs go to the engine (e.g. reclaim=, graphs=)."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+    from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
+
+    horizon = 30.0 + n_waves * spacing
+    plain = PoissonWorkloadTrace(
+        rate_per_second=rate, horizon=horizon - 60.0, seed=3, cpu=2000, ram=4 * 1024**3,
+        duration_range=(20.0, 60.0), name_prefix="plain",
+    ).convert_to_simulator_events()
+    churn = GenericWorkloadTrace.from_yaml(endurance_churn_yaml(n_waves, spacing)).convert_to_simulator_events()
+    engine_kwargs.setdefault("ca_slot_multiplier", 1)
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml(ENDURANCE_CONFIG_YAML),
+        UniformClusterTrace(n_nodes, cpu=16000, ram=32 * 1024**3).convert_to_simulator_events(),
+        sorted(plain + churn, key=lambda e: e[0]),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=32, pod_window=pod_window, **engine_kwargs,
     )
 
 
@@ -423,12 +527,13 @@ def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
     return out, sim
 
 
-def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool = False) -> dict:
+def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool = False, must_grow: bool = True) -> dict:
     """Build twice (`build(graphs)`), optionally force the cycle route,
     step both to `until`: once replaying the window graphs (captured up
     front), once eagerly (graphs=False). Fails unless every leaf of the two
     final states is equal bit for bit, each kernel launched as often, and
-    the graph run had no eager window and no host read. Returns each run's
+    the graph run had no eager window and no host read (`sliding`: one a
+    span, and with `must_grow` at least one growth). Returns each run's
     host ms a window (from window 0, ending in a synchronize) and counts."""
     from kubernetriks_tpu_torch.batched.state import flatten
 
@@ -459,7 +564,7 @@ def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool =
         }
         if graphs and sliding:
             check_sliding_run(label, sim, stats, runs[graphs]["syncs"], sim.windows_run)
-            if not stats["grows"]:
+            if must_grow and not stats["grows"]:
                 fail(f"{label}: the window never grew")
             runs[graphs]["sliding"] = sliding_report(sim, stats, runs[graphs]["syncs"], sim.windows_run)
         elif graphs:
@@ -779,7 +884,7 @@ def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) ->
     every slot it slid past terminal. Device busy from a second run of the
     same windows, which must end in the same state, and then the slide
     piece's own cost (slide_piece_cost). `must_launch`: the kernels the
-    path must launch."""
+    path must launch. Returns the numbers and the run's metric leaves."""
     from kubernetriks_tpu_torch.batched.state import compare_states, flatten
 
     def build():
@@ -811,6 +916,8 @@ def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) ->
     out["timings"] = summary["timings"]
     out["shape"] = {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "W": W, "T": T,
                     "hpa_seg": list(sim.hpa_seg), "K": sim.max_pods_per_cycle}
+    out["reclaim"] = sim.reclaim
+    metrics = metric_leaves(sim.state)
     final = flatten(sim.state)
     del sim, ph
     out["busy"], again = profiled_busy(build, 190.0, 1190.0, "phase 6w")
@@ -830,7 +937,264 @@ def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) ->
         f"the slide piece alone: {out['slide_piece']}",
         flush=True,
     )
+    return out, metrics
+
+
+def composed_reclaim_pair(dev, sk, must_launch, on: dict, on_metrics: dict) -> dict:
+    """Phase 6r: phase 6w's line again with slot reclaim off (reclaim=False;
+    phase 6w ran the card's default, on), timed as phase 6w: the same
+    counters but the slots reclaimed, and the same metric leaves
+    (compare_states). Prints both runs' slots reclaimed, host and device
+    busy ms a window."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+
+    def build():
+        return composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, reclaim=False)
+
+    sim = build()
+    if sim.reclaim or not on["reclaim"]:
+        fail(f"phase 6r: reclaim {on['reclaim']} in phase 6w, {sim.reclaim} here")
+    out = timed_path(sim, sk, must_launch, "phase 6r")
+    counters = sim.metrics_summary()["counters"]
+    want = dict(on["counters"])
+    reclaimed = want.pop("ca_slots_reclaimed")
+    if counters != want:
+        fail(f"phase 6r: counters differ from phase 6w's: {counters} vs {want}")
+    bad = compare_states(on_metrics, metric_leaves(sim.state))
+    if bad:
+        fail(f"phase 6r: metric leaves differ from phase 6w's at {bad}")
+    del sim
+    out["busy"], _ = profiled_busy(build, 190.0, 1190.0, "phase 6r")
+    out["counters"] = counters
+    print(
+        f"phase 6r: the composed line through pod_window={COMPOSED_POD_WINDOW} with reclaim on (phase 6w): "
+        f"{reclaimed} slots reclaimed, host {on['ms_per_window']:.4f} ms a window, device busy "
+        f"{on['busy']['busy_ms_per_window']:.4f} ms a window ({on['busy']['kernels_per_window']:.1f} kernels); "
+        f"off: host {out['ms_per_window']:.4f} ms a window, device busy {out['busy']['busy_ms_per_window']:.4f} ms "
+        f"a window ({out['busy']['kernels_per_window']:.1f} kernels); counters and metric leaves equal",
+        flush=True,
+    )
     return out
+
+
+def churn_phase(dev, sk, must_launch) -> dict:
+    """Phase 12: the reference's endurance churn (endurance_sim) at
+    ENDURANCE_CLUSTERS clusters through ENDURANCE_WAVES waves on the graph
+    executor with the card's default, slot reclaim on: timed from window 0
+    with the launch counts set to 0 just before, one host read a span (the
+    pod window's) and none inside it. It must finish with the autoscaler
+    bounds clean, every cluster's allocations at least 3x its static
+    reserve (the reference's gate, `bench.py:619`) and slots reclaimed on
+    every cluster. A second run, read once a wave mid-wave, must show the
+    dynamic scale-down order (ca_name_order) away from the static table at
+    least once; a third, traced, gives device busy ms a window over waves
+    40-50; without reclaim the same churn must raise; and at the reference
+    bench's own size (4 clusters, 24 waves), and through REORDER_WAVES
+    waves, the card's final state must equal the CPU's, reclaim on both
+    sides, the longer CPU run removing a node on a reordered walk."""
+    from kubernetriks_tpu_torch.batched.autoscale import ca_name_order
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    horizon = 30.0 + ENDURANCE_WAVES * 160.0
+
+    def build(**kwargs):
+        return endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, **kwargs)
+
+    sim = build()
+    if not sim.reclaim or not sim.graphs:
+        fail(f"phase 12: the card engine built with reclaim {sim.reclaim}, graphs {sim.graphs}")
+    t0 = time.perf_counter()
+    captured = sim.precompile_pieces()
+    capture_s = time.perf_counter() - t0
+    sk.reset_launches()
+    syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
+    t0 = time.perf_counter()
+    sim.step_until_time(horizon)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
+    syncs, windows = sim.host_syncs - syncs0, sim.windows_run
+    check_sliding_run("phase 12", sim, stats, syncs, windows)
+    summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
+    st = sim.autoscale_statics
+    reserve = st.ng_slot_count.sum(dim=1).cpu()
+    total = sim.state.auto.ca_total.sum(dim=1).cpu()
+    reclaimed = torch.from_numpy(sim.ca_slots_reclaimed())
+    if not bool((total >= 3 * reserve).all()):
+        fail(f"phase 12: allocations {total.min().item()} under 3x the reserve {reserve.max().item()}")
+    if not bool((reclaimed > 0).all()):
+        fail("phase 12: a cluster reclaimed no slot")
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"phase 12: never launched {name}")
+    auto = sim.state.auto
+    for leaf in (auto.ca_total, auto.ca_alloc, auto.ca_reclaimed, sim.state.pods.phase, sim.state.nodes.alive):
+        if not bool((leaf == leaf[:1]).all()):
+            fail("phase 12: clusters replaying the same trace diverged")
+    counters = summary["counters"]
+    out = {
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "K": sim.max_pods_per_cycle,
+                  "reserve": int(reserve[0]), "waves": ENDURANCE_WAVES, "horizon_s": horizon},
+        "windows": windows, "wall_s": elapsed, "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "decisions_per_s": counters["scheduling_decisions"] / elapsed,
+        "precompiled_graphs": captured, "precompile_s": capture_s,
+        "window": sliding_report(sim, stats, syncs, windows), "graph": graph_report(sim, stats),
+        "allocations_per_cluster": int(total[0]), "reclaimed_per_cluster": int(reclaimed[0]),
+        "counters": counters, "launches": launches,
+    }
+    del sim, auto
+    # The dynamic name order, read once a wave (a separate run: the reads
+    # would stall the timed one).
+    sim = build()
+    sim.precompile_pieces()
+    st = sim.autoscale_statics
+    apart = []
+    for k in range(ENDURANCE_WAVES):
+        sim.step_until_time(30.0 + k * 160.0 + 50.0)
+        sd_order, _ = ca_name_order(sim.state.auto, st, sim._k)
+        if not torch.equal(sd_order, st.ca_sd_order):
+            apart.append(k)
+    if not apart:
+        fail("phase 12: the dynamic scale-down order never left the static table")
+    out["waves_with_dynamic_order"] = apart
+    del sim
+    out["busy"], _ = profiled_busy(build, 30.0 + 40 * 160.0, 30.0 + 50 * 160.0, "phase 12")
+    # Without reclaim the same churn runs the 2-slot reserve dry.
+    off = build(reclaim=False)
+    off.step_until_time(30.0 + 6 * 160.0)
+    try:
+        off.metrics_summary()
+        fail("phase 12: the churn without reclaim did not raise")
+    except RuntimeError as e:
+        if "CA slot reserve exhausted" not in str(e):
+            raise
+        out["without_reclaim"] = str(e).split(";")[0]
+    del off
+    # Card against CPU at the reference bench's own size, reclaim on both;
+    # again through REORDER_WAVES waves, past the pair whose names straddle
+    # 99 / 100, where the CPU run must remove a node on a reordered walk.
+    for n_waves in (24, REORDER_WAVES):
+        finals = {}
+        for where in ("cuda", "cpu"):
+            s = endurance_sim(where, 4, n_waves, reclaim=True)
+            reordered, restore = count_reordered_removals(s)
+            try:
+                s.step_until_time(30.0 + n_waves * 160.0)
+            finally:
+                restore()
+            if where == "cuda":
+                ran_on_graphs("phase 12", s)
+            finals[where] = (state_to_numpy(s.state), s.metrics_summary()["counters"], reordered[0])
+        bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+        if bad:
+            fail(f"phase 12: churn at C=4, {n_waves} waves: card and CPU states differ at {bad}")
+        out[f"card_cpu_counters_{n_waves}_waves"] = finals["cuda"][1]
+    out["cpu_reordered_removals"] = finals["cpu"][2]
+    if not finals["cpu"][2]:
+        fail(f"phase 12: the CPU churn through {REORDER_WAVES} waves removed no node on a reordered walk")
+    print(
+        f"phase 12: endurance churn, {ENDURANCE_CLUSTERS} clusters x {out['shape']['N']} node slots, "
+        f"{ENDURANCE_WAVES} waves to {horizon:.0f} s through a {out['shape']['reserve']}-slot CA reserve: "
+        f"{windows} windows in {elapsed:.3f} s = {out['ms_per_window']:.4f} ms a window, device busy "
+        f"{out['busy']['busy_ms_per_window']:.4f} ms a window, {out['decisions_per_s']:.1f} decisions/s, "
+        f"{out['allocations_per_cluster']} allocations and {out['reclaimed_per_cluster']} slots reclaimed a "
+        f"cluster, bounds clean, window {out['window']}, dynamic name order off the static table in waves "
+        f"{apart}; without reclaim: {out['without_reclaim']}; at C=4 card == CPU through 24 waves "
+        f"({out['card_cpu_counters_24_waves']}) and through {REORDER_WAVES} waves "
+        f"({out['cpu_reordered_removals']} scale-down calls removing on a reordered walk on the CPU); "
+        f"launches {launches}",
+        flush=True,
+    )
+    return out
+
+
+# The churn phase's scale (ENDUR_r01.json's wave count, 15 390 simulated s).
+ENDURANCE_CLUSTERS = 256
+ENDURANCE_WAVES = 96
+# Wave 74's pair is allocated as ca_node_99 and ca_node_100: the first two
+# coexisting CA nodes whose names leave allocation order.
+REORDER_WAVES = 76
+
+
+def count_reordered_removals(sim):
+    """Count, in a list of one, the scale-down calls of `sim` (uncaptured:
+    a replayed graph bypasses the wrapper) that remove a node while they
+    walk the live candidates in another order than the static table.
+    Returns (count, restore)."""
+    from kubernetriks_tpu_torch.batched import autoscale as autoscale_mod
+
+    count = [0]
+    real = autoscale_mod.fused_ca_scale_down
+    st = sim.autoscale_statics
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if not args[2].is_cuda:
+            count[0] += int((scale_down_walk_reordered(args, st) & out.any(dim=1)).sum())
+        return out
+
+    autoscale_mod.fused_ca_scale_down = wrapped
+    return count, lambda: setattr(autoscale_mod, "fused_ca_scale_down", real)
+CHURN_LABELS = {n: f"{n} (churn, reclaim)" for n in ("fused_ca_scale_down", "fused_ca_scale_up")}
+
+
+def live_walk(slot_perm, alive):
+    """The live candidates' node slots in the walk order `slot_perm` ((C,
+    S), -1 padded) gives them, first in each row, -1 after them."""
+    live = (slot_perm >= 0) & torch.gather(alive, 1, slot_perm.clamp(min=0).long())
+    first = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    return torch.where(torch.gather(live, 1, first), torch.gather(slot_perm, 1, first), -1)
+
+
+def scale_down_walk_reordered(args, st):
+    """(C,) bool: where the scale-down call `args` (fused_ca_scale_down's
+    positional arguments) walks its live candidates in another order than
+    the static name table `st.ca_sd_order` would."""
+    static = torch.gather(st.ca_slots, 1, st.ca_sd_order).to(args[9].dtype)
+    return (live_walk(args[9], args[2]) != live_walk(static, args[2])).any(dim=1)
+
+
+def churn_ca_inputs(dev):
+    """The two CA kernels' arguments on the endurance churn (256 clusters,
+    graphs off) once slots have been reused: the first scale-down that
+    removes a node while it walks the live candidates in another order
+    than the static table would (two coexisting CA nodes whose names
+    straddle a digit boundary, "ca_node_100" < "ca_node_99": wave 74's
+    pair), and the first scale-up that opens a node with the cursor below
+    the allocations made (slots returned). Cloned, as capture_first keeps
+    them. Returns ({name: (args, kwargs)}, the engine's shapes)."""
+    from kubernetriks_tpu_torch.batched import autoscale as autoscale_mod
+
+    sim = endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, graphs=False)
+    st, auto = sim.autoscale_statics, sim.state.auto  # the engine's fixed buffers
+    reserve = st.ng_slot_count.sum(dim=1)
+
+    def reused():
+        return bool((auto.ca_total.sum(dim=1) > reserve).any())
+
+    cap_up, restore_up = capture_first(
+        autoscale_mod, "fused_ca_scale_up",
+        lambda a, o: bool(a[8].any()) and bool(o[0].any()) and reused() and bool((a[2] < auto.ca_total).any()),
+    )
+    cap_down, restore_down = capture_first(
+        autoscale_mod, "fused_ca_scale_down",
+        lambda a, o: bool(o.any()) and reused() and bool(scale_down_walk_reordered(a, st).any()),
+    )
+    try:
+        for k in range(ENDURANCE_WAVES):
+            sim.step_until_time(30.0 + (k + 1) * 160.0)
+            if "fused_ca_scale_up" in cap_up and "fused_ca_scale_down" in cap_down:
+                break
+    finally:
+        restore_up()
+        restore_down()
+    torch.cuda.synchronize()
+    if "fused_ca_scale_up" not in cap_up or "fused_ca_scale_down" not in cap_down:
+        fail(f"the churn never scaled up and down on reused slots (captured {list(cap_up) + list(cap_down)})")
+    shape = {"C": sim.n_clusters, "N": sim.n_nodes, "S": st.ca_slots.shape[1], "t": sim.next_window}
+    return {**cap_up, **cap_down}, shape
 
 
 def slide_piece_cost(sim, reps: int = 20) -> dict:
@@ -1213,6 +1577,14 @@ def main() -> int:
     check_ca_scale_up(*cap_up["fused_ca_scale_up"])
     del sim, cap_up, cap_down
 
+    # The CA kernels on the endurance churn once slots have been reused:
+    # the dynamic name key and slot order, a cursor pulled back.
+    churn_caps, churn_shape = churn_ca_inputs(dev)
+    print(f"phase 3: endurance churn with slot reclaim: {churn_shape}", flush=True)
+    check_ca_scale_down(*churn_caps["fused_ca_scale_down"], label=CHURN_LABELS["fused_ca_scale_down"])
+    check_ca_scale_up(*churn_caps["fused_ca_scale_up"], label=CHURN_LABELS["fused_ca_scale_up"])
+    del churn_caps
+
     # The composed line through its pod window (pod_window=512: P = 648,
     # the window and the HPA ring): the pod-side kernels on the last calls
     # to t = 590 s, inside the load burst. The CA kernels' operands are
@@ -1433,6 +1805,8 @@ def main() -> int:
     # --- 6. the autoscaler path -----------------------------------------------
     ca_names = ["fused_ca_scale_down", "fused_ca_scale_up"]
     sim = composed_sim(dev, 256, **FULL_COMPOSED)
+    if not sim.reclaim:
+        fail(f"phase 6: the card engine built without slot reclaim ({sim.reclaim_unsupported})")
     autoscaler_path = timed_path(sim, sk, names + ca_names, "phase 6")
     auto_launches = autoscaler_path["launches"]
     auto_counters = sim.metrics_summary()["counters"]  # raises if an autoscaler bound was crossed
@@ -1457,34 +1831,37 @@ def main() -> int:
     autoscaler_path["busy"], _ = profiled_busy(
         lambda: composed_sim(dev, 256, **FULL_COMPOSED), 190.0, 1190.0, "phase 6")
 
-    windowed_composed = composed_window_phase(
+    windowed_composed, windowed_metrics = composed_window_phase(
         dev, sk, names + ca_names,
         {"summary": whole_summary, "metrics": whole_metrics, "phase": whole_phase, "path": autoscaler_path},
     )
     del whole_phase
+    composed_reclaim_off = composed_reclaim_pair(dev, sk, names + ca_names, windowed_composed, windowed_metrics)
 
     # --- 7. card against CPU on the autoscaler path -----------------------------
-    finals = {}
-    sk.reset_launches()
-    for where in ("cuda", "cpu"):
-        s7 = composed_sim(where, 8)
-        s7.step_until_time(400.0)
-        if where == "cuda":
-            ran_on_graphs("phase 7", s7)
-        finals[where] = (state_to_numpy(s7.state), s7.metrics_summary()["counters"])
-    if sk.LAUNCHES["fused_ca_scale_down"] <= 0 or sk.LAUNCHES["fused_ca_scale_up"] <= 0:
-        fail("phase 7 card run did not launch both CA kernels")
-    bad = compare_states(finals["cuda"][0], finals["cpu"][0])
-    if bad:
-        fail(f"autoscaler path: card and CPU states differ at {bad}")
-    counters = finals["cuda"][1]
-    if counters["total_scaled_down_nodes"] <= 0 or counters["total_scaled_up_nodes"] <= 0:
-        fail(f"phase 7 run made no CA scale-up and removal: {counters}")
-    print(f"phase 7: card == CPU under compare_states on the autoscaler path ({counters})", flush=True)
+    for reclaim in (True, False):
+        finals = {}
+        sk.reset_launches()
+        for where in ("cuda", "cpu"):
+            s7 = composed_sim(where, 8, reclaim=reclaim)
+            s7.step_until_time(400.0)
+            if where == "cuda":
+                ran_on_graphs("phase 7", s7)
+            finals[where] = (state_to_numpy(s7.state), s7.metrics_summary()["counters"])
+        if sk.LAUNCHES["fused_ca_scale_down"] <= 0 or sk.LAUNCHES["fused_ca_scale_up"] <= 0:
+            fail(f"phase 7 card run (reclaim {reclaim}) did not launch both CA kernels")
+        bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+        if bad:
+            fail(f"autoscaler path, reclaim {reclaim}: card and CPU states differ at {bad}")
+        counters = finals["cuda"][1]
+        if counters["total_scaled_down_nodes"] <= 0 or counters["total_scaled_up_nodes"] <= 0:
+            fail(f"phase 7 run (reclaim {reclaim}) made no CA scale-up and removal: {counters}")
+        print(f"phase 7: card == CPU under compare_states on the autoscaler path, reclaim {reclaim} "
+              f"({counters})", flush=True)
     # The same through an 8-slot pod window: it slides and grows.
     finals = {}
     for where in ("cuda", "cpu"):
-        s7 = composed_sim(where, 8, pod_window=8)
+        s7 = composed_sim(where, 8, pod_window=8, reclaim=True)
         s7.step_until_time(400.0)
         if where == "cuda":
             ran_on_graphs("phase 7w", s7)
@@ -1639,7 +2016,13 @@ def main() -> int:
             "phase 11 small replay pod_window=64", sk,
             lambda g: replay_sim(dev, small_paths, delays="test", ca=False, pod_window=64, graphs=g), 4550.0,
             sliding=True),
+        "endurance churn C=4, 24 waves": graph_eager_pair(
+            "phase 11 endurance churn", sk, lambda g: endurance_sim(dev, 4, 24, graphs=g), 30.0 + 24 * 160.0,
+            sliding=True, must_grow=False),
     }
+
+    # --- 12. the endurance churn through slot reclaim ------------------------------
+    churn_path = churn_phase(dev, sk, names + ca_names)
 
     kernels = []
     meta = {
@@ -1679,6 +2062,11 @@ def main() -> int:
         label = f"{n} (replay, {WINDOWED_REPLAY})"
         replay_labels[label] = n
         path_launches[label] = windowed_replay["launches"][n]
+    # The CA kernels on the churn's reused slots, with the launches of the
+    # churn's run (phase 12).
+    for n, label in CHURN_LABELS.items():
+        replay_labels[label] = n
+        path_launches[label] = churn_path["launches"][n]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels):
         name = replay_labels.get(label, label)
         r = report[label]
@@ -1702,6 +2090,7 @@ def main() -> int:
             "autoscaler_path": autoscaler_path, "two_kernel_path": two_kernel_path,
             "replay_path": replay_path, "graph_vs_eager": graph_vs_eager,
             "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
+            "composed_reclaim_off": composed_reclaim_off, "churn": churn_path,
         }, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -1,12 +1,15 @@
 """The autoscaler passes: the horizontal pod autoscaler (HPA) and the
 cluster autoscaler (CA) as masked tensor passes over every cluster at once.
 
-Port of the JAX package's `batched/autoscale.py` without slot reclaim
-(`ca_reclaim_pass`, `ca_name_order`): the statics and state tables, the
-HPA control law with its 60 s metrics-collection latch (`hpa_pass`), and
-the CA cycle (`ca_pass`) with its bin-packing scale-up and simulated
-re-placement scale-down, which run in the two CUDA kernels of
-ops/autoscale_kernel.py.
+Port of the JAX package's `batched/autoscale.py`: the statics and state
+tables, the HPA control law with its 60 s metrics-collection latch
+(`hpa_pass`), the CA cycle (`ca_pass`) with its bin-packing scale-up and
+simulated re-placement scale-down, which run in the two CUDA kernels of
+ops/autoscale_kernel.py, and CA slot reclaim: the compaction that returns
+retired reserve slots to their group (`ca_reclaim_pass`) and the name
+orders of the live CA nodes derived from their allocation indices
+(`ca_name_order`), which the scale-down walk and the same-window
+reschedule ranking read in place of the static tables.
 
 What differs from the reference, and why it is exact:
 - The reference branches on device data (`lax.cond`): whether an HPA
@@ -18,7 +21,15 @@ What differs from the reference, and why it is exact:
   scale-up / scale-down choice does depend on data: both bodies run on
   every due CA window under their per-cluster branch masks, and a body
   under an all-false mask returns exactly the reference's skip-branch
-  zeros (no candidate is valid, no node is attempted).
+  zeros (no candidate is valid, no node is attempted). Under reclaim the
+  dynamic name orders are computed on every due CA window, where the
+  reference computes them inside its scale-down branch only: they are
+  pure functions of the state, so the walk sees the same orders.
+- The reference guards the reclaim compaction with a `lax.cond` on "some
+  slot is dead"; the port computes it on every window the engine runs it
+  in. With nothing retired the permutation is the identity (occupied
+  slots are always a prefix of their group), so the pass is then a
+  bit-exact no-op.
 - Integer sums and counts (per-group and per-node) are scatter-adds and
   integer prefix sums, exact in any order; the node-grouping sort of the
   scale-down is one stable sort on a combined (node, running-first) key.
@@ -29,7 +40,7 @@ What differs from the reference, and why it is exact:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,8 +75,8 @@ INF = float("inf")
 
 class AutoscaleStatics(NamedTuple):
     """Build-time autoscaler tables, all on the engine's device, leading
-    axis C (the reference's `AutoscaleStatics` without the reclaim
-    tables). Pairs are (C,) TPairs; control-law parameters are per lane."""
+    axis C (the reference's `AutoscaleStatics`). Pairs are (C,) TPairs;
+    control-law parameters are per lane."""
 
     # HPA pod groups: (C, Gp).
     pg_slot_start: torch.Tensor  # int32 first reserved pod slot
@@ -112,14 +123,30 @@ class AutoscaleStatics(NamedTuple):
     pod_name_rank: torch.Tensor  # (C, P) int32
     node_name_rank: torch.Tensor  # (C, N) int32
     ca_sd_order: torch.Tensor  # (C, S) int64
+    # Slot reclaim's name classes (None: reclaim unsupported). Each trace
+    # node is a class of one name, each CA group the family of names
+    # "{group}_{d}"; the build checked that no class interleaves another,
+    # so a name's order is its class's static rank, then, within a group,
+    # the decimal order of its suffix.
+    ca_slot_class: Optional[torch.Tensor] = None  # (C, S) int32 class rank of the slot's group
+    ca_class_start: Optional[torch.Tensor] = None  # (C, Gn) int32 first class-sorted slot position
+    node_class_key: Optional[torch.Tensor] = None  # (C, N) int32 class rank * (S + 1)
 
 
-def init_autoscale_state(st: AutoscaleStatics, collect: bool) -> AutoscaleState:
+def init_autoscale_state(st: AutoscaleStatics, collect: bool, reclaim: bool = False) -> AutoscaleState:
     """Fresh autoscaler state; `collect` arms the HPA collection latch (the
-    engine sets it whenever a pod group can be scaled)."""
+    engine sets it whenever a pod group can be scaled), `reclaim` the CA
+    slot-reclaim leaves (it needs the statics' name-class tables)."""
     C, Gp = st.pg_slot_start.shape
     Gn = st.ng_ca_start.shape[1]
+    S = st.ca_slots.shape[1]
     dev = st.pg_slot_start.device
+    if reclaim and st.ca_slot_class is None:
+        raise ValueError(
+            "init_autoscale_state(reclaim=True) needs the statics' name-class tables "
+            "(ca_slot_class, ca_class_start, node_class_key), which the engine builds "
+            "only when the node-name classes do not interleave"
+        )
 
     def zeros(shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -132,6 +159,9 @@ def init_autoscale_state(st: AutoscaleStatics, collect: bool) -> AutoscaleState:
         ca_cursor=zeros((C, Gn)),
         hpa_next=t_zeros((C,), dev),
         ca_next=t_zeros((C,), dev),
+        ca_alloc=torch.full((C, S), -1, dtype=torch.int32, device=dev) if reclaim else None,
+        ca_total=zeros((C, Gn)) if reclaim else None,
+        ca_reclaimed=zeros((C,)) if reclaim else None,
         col_next=t_zeros((C,), dev) if collect else None,
         col_run=zeros((C, Gp)) if collect else None,
         col_util_cpu=zeros((C, Gp), torch.float32) if collect else None,
@@ -174,15 +204,53 @@ def _curve_load(dur, load, total, elapsed):
     return torch.where(in_unit, load, 0.0).sum(dim=-1).to(torch.float32)
 
 
-def decimal_string_key(idx: torch.Tensor, pow10: torch.Tensor) -> torch.Tensor:
+def decimal_string_key(idx: torch.Tensor, k) -> torch.Tensor:
     """int32 key whose order is the lexicographic order of str(idx) for
     0 <= idx < 10^8 ("g_10" < "g_2"): the value left-aligned to 8 digits,
-    shorter first on ties. `pow10`: the digit scales (DeviceConstants)."""
+    shorter first on ties. `k`: step.DeviceConstants (the digit counts'
+    bounds and the digit scales)."""
     idx = torch.clamp(idx, min=0)
-    digits = torch.ones_like(idx)
-    for bound in (10, 100, 1_000, 10_000, 100_000, 1_000_000, 10_000_000):
-        digits = digits + (idx >= bound).to(torch.int32)
-    return (idx * pow10[digits.long()] * 16 + digits).to(torch.int32)
+    digits = torch.bucketize(idx, k.decimal_bounds, right=True) + 1  # int64: the bounds <= idx, plus one
+    return (idx * k.pow10[digits] * 16 + digits).to(torch.int32)
+
+
+def ca_name_order(auto: AutoscaleState, st: AutoscaleStatics, k):
+    """The name orders of the live CA nodes under slot reclaim (reference
+    `ca_name_order`): (sd_order (C, S) int64, the CA slots in node-name
+    order, in place of st.ca_sd_order; node_key (C, N) int32, whose order
+    over alive nodes is their name order, in place of st.node_name_rank).
+    An occupant is named "{group}_{alloc + 1}": one stable sort of the
+    slots by (class, decimal suffix) gives each occupant's rank within its
+    group, added to its class's static key. Free slots sort after their
+    group's occupants and keep the class key; they are dead, and every
+    reader masks them by liveness first. `k`: step.DeviceConstants."""
+    C, S = auto.ca_alloc.shape
+    Gn = st.ca_class_start.shape[1]
+    N = st.node_class_key.shape[1]
+    dev = auto.ca_alloc.device
+    occupied = auto.ca_alloc >= 0
+    suffix = torch.where(occupied, decimal_string_key(auto.ca_alloc + 1, k), BIG_I32)
+    # One stable sort by (class, suffix), both non-negative int32.
+    sd_order = torch.sort((st.ca_slot_class.long() << 31) + suffix, dim=1, stable=True).indices
+    iota = torch.arange(S, dtype=torch.int32, device=dev).expand(C, S)
+    pos = torch.empty((C, S), dtype=torch.int32, device=dev).scatter_(1, sd_order, iota)
+    gidc = st.ca_slot_group.clamp(0, Gn - 1).long()
+    within = torch.where(occupied, pos - torch.gather(st.ca_class_start, 1, gidc), 0)
+    tgt = torch.where(occupied & (st.ca_slots >= 0), st.ca_slots, N).long()
+    pad = torch.zeros((C, 1), dtype=torch.int32, device=dev)
+    node_key = torch.cat([st.node_class_key, pad], dim=1).scatter_add_(1, tgt, within)[:, :N]
+    return sd_order, node_key
+
+
+def reclaim_name_orders(auto: Optional[AutoscaleState], st: AutoscaleStatics, k, needed: bool):
+    """ca_name_order's orders for a window's events and CA pass, computed
+    once from the autoscaler state its reclaim pass left (neither the
+    events nor the HPA pass change the CA leaves): None without slot
+    reclaim, or where the window `needed` neither (no removal can apply,
+    no CA cycle is due)."""
+    if not needed or auto is None or auto.ca_alloc is None:
+        return None
+    return ca_name_order(auto, st, k)
 
 
 # --- HPA ----------------------------------------------------------------------
@@ -323,7 +391,7 @@ def _hpa_cycle(pods, queue_seq_counter, auto: AutoscaleState, st: AutoscaleStati
         & ~activate
     )
     sort_gid = torch.where(live, gid_c, Gp)
-    sort_key = torch.where(live, decimal_string_key(pods.hpa_idx, k.pow10), 1 << 30)
+    sort_key = torch.where(live, decimal_string_key(pods.hpa_idx, k), 1 << 30)
     s_slot = stable_lexsort((sort_gid, sort_key))
     s_gid = torch.gather(sort_gid, 1, s_slot)
     # Sorted position minus the group's first sorted position.
@@ -457,12 +525,17 @@ def ca_scale_up(state, auto, st: AutoscaleStatics, branch, K_up: int, phase_v, a
     )
 
 
-def ca_scale_down(state, st: AutoscaleStatics, branch, K_sd: int, phase_v, alloc_cpu_v, alloc_ram_v, snap: TPair, interval):
+def ca_scale_down(
+    state, st: AutoscaleStatics, branch, K_sd: int, phase_v, alloc_cpu_v, alloc_ram_v, snap: TPair, interval,
+    sd_order: torch.Tensor, node_key: torch.Tensor,
+):
     """Threshold + simulated re-placement scale-down (reference
     `_ca_scale_down`, its default descatter path): the storage-visible
     allocatables and each candidate's pod table here, the name-ordered
-    candidate walk in the scale-down kernel. Returns (removed (C, S) bool,
-    removed per group (C, Gn) int32)."""
+    candidate walk in the scale-down kernel. `sd_order`, `node_key`: the
+    CA slots in name order and the nodes' name key (the static tables, or
+    ca_name_order's under reclaim). Returns (removed (C, S) bool, removed
+    per group (C, Gn) int32)."""
     pods, nodes = state.pods, state.nodes
     C, P = pods.phase.shape
     N = nodes.alive.shape[1]
@@ -495,7 +568,6 @@ def ca_scale_down(state, st: AutoscaleStatics, branch, K_sd: int, phase_v, alloc
     rc_sorted = torch.gather(pods.req_cpu, 1, perm)
     rr_sorted = torch.gather(pods.req_ram, 1, perm)
 
-    sd_order = st.ca_sd_order
     slot_perm = torch.gather(st.ca_slots, 1, sd_order)
     slotc = torch.clamp(slot_perm, 0, N - 1).long()
     cand_alive = (slot_perm >= 0) & torch.gather(nodes.alive, 1, slotc)
@@ -509,7 +581,7 @@ def ca_scale_down(state, st: AutoscaleStatics, branch, K_sd: int, phase_v, alloc
         st.ca_threshold.to(torch.float32)[:, None].contiguous(),
         nodes.alive, nodes.remove_time.win >= INF_WIN,
         nodes.cap_cpu, nodes.cap_ram, alloc_cpu_v.contiguous(), alloc_ram_v.contiguous(),
-        st.node_name_rank, slot_perm.contiguous(), cand_alive.contiguous(), cnt_perm.contiguous(),
+        node_key.contiguous(), slot_perm.contiguous(), cand_alive.contiguous(), cnt_perm.contiguous(),
         torch.gather(rc_sorted, 1, take), torch.gather(rr_sorted, 1, take), pv0.contiguous(),
         k_sd=K_sd,
     )
@@ -525,6 +597,7 @@ def ca_pass(
     K_up: int,
     K_sd: int,
     pre,
+    orders=None,
 ) -> ClusterBatchState:
     """One CA cycle on the clusters whose cycle is due at window W
     (reference `ca_pass`). The cycle fired at `auto.ca_next` (c_k) reads
@@ -533,7 +606,10 @@ def ca_pass(
     alloc_ram captured before the scheduling cycle) is the storage's view.
     Scale-up runs where the unscheduled cache is non-empty, scale-down
     elsewhere; the engine calls this only on windows where some cluster's
-    cycle is due. `k`: step.DeviceConstants."""
+    cycle is due. Under slot reclaim (the state's ca_alloc leaves) the
+    scale-down walks the live nodes' dynamic name orders and the scale-up
+    stamps each opened slot's allocation index; `orders`: ca_name_order's
+    for this state where the caller has them. `k`: step.DeviceConstants."""
     pods, nodes, auto = state.pods, state.nodes, state.auto
     interval = k.interval
     C, N = nodes.alive.shape
@@ -553,8 +629,14 @@ def ca_pass(
     planned, planned_per_group, starved = ca_scale_up(
         state, auto, st, due & any_unsched, K_up, phase_v, attempts_v
     )
+    reclaim = auto.ca_alloc is not None
+    if reclaim:
+        sd_order, node_key = ca_name_order(auto, st, k) if orders is None else orders
+    else:
+        sd_order, node_key = st.ca_sd_order, st.node_name_rank
     removed, removed_per_group = ca_scale_down(
-        state, st, due & ~any_unsched, K_sd, phase_v, alloc_cpu_v, alloc_ram_v, snap, interval
+        state, st, due & ~any_unsched, K_sd, phase_v, alloc_cpu_v, alloc_ram_v, snap, interval,
+        sd_order, node_key,
     )
 
     # Planned slots come alive, removed ones go down, at their effect times.
@@ -576,13 +658,141 @@ def ca_pass(
         scaled_down_nodes=m.scaled_down_nodes + removed.sum(dim=1, dtype=torch.int32),
         ca_reserve_starved=m.ca_reserve_starved + starved,
     )
-    auto = auto._replace(
+    new_auto = auto._replace(
         ca_count=auto.ca_count + planned_per_group - removed_per_group,
         ca_cursor=auto.ca_cursor + planned_per_group,
         ca_next=t_where(due, t_add(c_k, st.ca_period, interval), c_k),
     )
+    if reclaim:
+        # The scale-up opens offsets [cursor, cursor + planned) of each
+        # group's reserve in slot order, which is allocation order: an
+        # opened slot's allocation index is the group's total so far plus
+        # its offset past the cursor.
+        Gn = st.ng_ca_start.shape[1]
+        S = planned.shape[1]
+        gidc = st.ca_slot_group.clamp(0, Gn - 1).long()
+        iota_s = torch.arange(S, dtype=torch.int32, device=planned.device)
+        alloc_new = (
+            torch.gather(auto.ca_total, 1, gidc) + iota_s - torch.gather(st.ng_ca_start, 1, gidc)
+            - torch.gather(auto.ca_cursor, 1, gidc)
+        )
+        new_auto = new_auto._replace(
+            ca_alloc=torch.where(planned, alloc_new, auto.ca_alloc).to(torch.int32),
+            ca_total=auto.ca_total + planned_per_group,
+        )
     return state._replace(
         nodes=nodes._replace(create_time=create_time, remove_time=remove_time),
         metrics=metrics,
-        auto=auto,
+        auto=new_auto,
     )
+
+
+def ca_dead_slots(state: ClusterBatchState, st: AutoscaleStatics) -> torch.Tensor:
+    """(C, S) bool: the occupied CA slots whose node is dead with no
+    pending create or remove effect, reclaim's candidates (reference
+    `ca_reclaim_pass`'s cheap predicate, (C, S) gathers only). With none
+    anywhere the compaction is the identity: the reference skips it then
+    (`lax.cond(dead.any(), ...)`), and so does the graph executor."""
+    nodes = state.nodes
+    N = nodes.alive.shape[1]
+    slotc = st.ca_slots.clamp(0, N - 1).long()
+
+    def at_slots(a):
+        return torch.gather(a, 1, slotc)
+
+    return (
+        (state.auto.ca_alloc >= 0) & (st.ca_slots >= 0) & ~at_slots(nodes.alive)
+        & (at_slots(nodes.create_time.win) >= INF_WIN) & (at_slots(nodes.remove_time.win) >= INF_WIN)
+    )
+
+
+def ca_reclaim_pass(
+    state: ClusterBatchState, st: AutoscaleStatics, W: torch.Tensor, k, dead: Optional[torch.Tensor] = None
+) -> ClusterBatchState:
+    """CA slot reclaim (reference `ca_reclaim_pass`): return every retired
+    reserve slot to its group by a stable compaction, so ca_cursor is the
+    live occupancy and sustained churn never runs the reserve dry (the
+    scalar simulator reuses its node components the same way). The window
+    runs it first, before its events. A state without the reclaim leaves
+    comes back as it is. `dead`: ca_dead_slots(state, st) where the caller
+    has it. `k`: step.DeviceConstants.
+
+    A slot retires when its node's removal has drained: the node is dead
+    with no pending create or remove effect, no RUNNING pod binds it, and
+    no SUCCEEDED pod on it has a finish whose storage visibility (finish
+    + ca_finish_vis) is still after (W, 0), which a later CA snapshot could
+    still see as running. Keepers pack to the front of their group in slot
+    order, so slot order among live CA nodes stays allocation order; the CA
+    node segment and every pod's node pointer follow the move (a pointer of
+    a pod already past the horizon follows its retired slot, and nothing
+    reads it again); retired slots come back at full allocatable and
+    allocation index -1. Caps are uniform within a group and the crash
+    payload is zero on CA slots, so neither moves. Fixed shapes, no host
+    branch: with nothing retired the permutation is the identity and the
+    pass returns its input's values bit for bit."""
+    auto = state.auto
+    if auto is None or auto.ca_alloc is None:
+        return state
+    nodes, pods = state.nodes, state.pods
+    C, S = auto.ca_alloc.shape
+    N = nodes.alive.shape[1]
+    Gn = st.ng_ca_start.shape[1]
+    n_trace = N - S
+    dev = auto.ca_alloc.device
+    slotc = st.ca_slots.clamp(0, N - 1).long()
+    if dead is None:
+        dead = ca_dead_slots(state, st)
+    occupied = auto.ca_alloc >= 0
+    # Pods still bound to a node: RUNNING ones, and SUCCEEDED ones whose
+    # finish the storage has not seen by the window's start.
+    succ_vis = t_add(
+        t_add(pods.start_time, pods.duration, k.interval), _col(st.ca_finish_vis), k.interval
+    )
+    blocking = (
+        (pods.phase == PHASE_RUNNING)
+        | ((pods.phase == PHASE_SUCCEEDED) & ~t_le(succ_vis, _col(_window_pair(W))))
+    ) & (pods.node >= 0)
+    tgt = torch.where(blocking, pods.node, N).long()
+    node_blocked = torch.zeros((C, N + 1), dtype=torch.bool, device=dev).scatter_(
+        1, tgt, torch.ones_like(blocking)
+    )[:, :N]
+    retired = dead & ~torch.gather(node_blocked, 1, slotc)
+    keep = occupied & ~retired
+
+    # Keepers first within each group, in slot order (each group's slots
+    # are contiguous): one stable sort by (group, kept first).
+    grp = torch.where(st.ca_slot_group >= 0, st.ca_slot_group, Gn)
+    order = torch.sort(grp * 2 + (~keep).to(torch.int32), dim=1, stable=True).indices
+    iota = torch.arange(S, dtype=torch.int32, device=dev).expand(C, S)
+    inv = torch.empty((C, S), dtype=torch.int32, device=dev).scatter_(1, order, iota)
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    retired_n = take(retired)
+
+    def moved(a, fresh=None):
+        seg = take(a[:, n_trace:])
+        if fresh is not None:
+            seg = torch.where(retired_n, fresh[:, n_trace:], seg)
+        return torch.cat([a[:, :n_trace], seg], dim=1)
+
+    node_ptr = pods.node
+    pod_node = torch.where(
+        node_ptr >= n_trace,
+        n_trace + torch.gather(inv, 1, (node_ptr - n_trace).clamp(0, S - 1).long()),
+        node_ptr,
+    )
+    new_nodes = nodes._replace(
+        alive=moved(nodes.alive),
+        alloc_cpu=moved(nodes.alloc_cpu, nodes.cap_cpu),
+        alloc_ram=moved(nodes.alloc_ram, nodes.cap_ram),
+        create_time=TPair(win=moved(nodes.create_time.win), off=moved(nodes.create_time.off)),
+        remove_time=TPair(win=moved(nodes.remove_time.win), off=moved(nodes.remove_time.off)),
+    )
+    new_auto = auto._replace(
+        ca_alloc=torch.where(retired_n, -1, take(auto.ca_alloc)),
+        ca_cursor=_group_sum(keep, grp, Gn),
+        ca_reclaimed=auto.ca_reclaimed + retired.sum(dim=1, dtype=torch.int32),
+    )
+    return state._replace(nodes=new_nodes, pods=pods._replace(node=pod_node), auto=new_auto)

@@ -27,8 +27,12 @@ block the engine also builds the autoscaler tables
 (`build_autoscale_statics`, reference engine.py:395) and appends the CA's
 reserved node slots after the trace's nodes (reference engine.py:1380-
 1460), and every window runs the autoscaler passes after the scheduling
-cycle (batched/autoscale.py). Slot reclaim and scenario fleets are not
-ported.
+cycle (batched/autoscale.py). CA slot reclaim (`reclaim=`, reference
+engine.py:1021-1049, 1408-1436) returns retired reserve slots to their
+group at the head of every window (the reference's default period, 1):
+on by default on the card, off on the CPU, and off, with a RuntimeWarning,
+where the node names make its name orders unsound (an explicit
+reclaim=True raises there). Scenario fleets are not ported.
 
 Entry points run on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; a CUDA device where there is none raises. On the
@@ -71,6 +75,7 @@ from __future__ import annotations
 
 import math
 import os
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -165,6 +170,101 @@ def _name_ranks(names) -> np.ndarray:
     return out
 
 
+def _reclaim_class_tables(compiled_traces, group_names, reserves, n_trace_nodes: int, S: int):
+    """Slot reclaim's static name-class tables (reference
+    `_reclaim_class_tables`, engine.py:298): one class per trace node and
+    one per CA group, the decimal name family "{group}_{d}" (d >= 1),
+    which covers the interval ["{group}_1", "{group}_:") since ':' follows
+    '9'. A node's name order is then its class's rank, then the suffix's
+    decimal order within a group, provided no class interleaves another,
+    which this checks for each cluster. Returns (ca_slot_class (C, S),
+    ca_class_start (C, Gn), node_class_key (C, N), None), or (None, None,
+    None, reason) where the name sets make that decomposition unsound."""
+    C = len(compiled_traces)
+    Gn = len(group_names)
+    fams = [(f"{name}_1", f"{name}_:") for name in group_names]
+    for i in range(Gn):
+        for j in range(i + 1, Gn):
+            if fams[i][0] < fams[j][1] and fams[j][0] < fams[i][1]:
+                return None, None, None, (
+                    f"CA node-group name families {group_names[i]!r} and "
+                    f"{group_names[j]!r} interleave lexicographically"
+                )
+    ca_slot_class = np.zeros((C, S), np.int32)
+    ca_class_start = np.zeros((C, Gn), np.int32)
+    node_class_key = np.full((C, n_trace_nodes + S), BIG_RANK, np.int32)
+    memo: Dict[int, tuple] = {}
+    for ci, trace in enumerate(compiled_traces):
+        names = list(trace.node_names[:n_trace_nodes])
+        got = memo.get(id(trace))
+        if got is None:
+            for t in names:
+                for gi, (lo, hi) in enumerate(fams):
+                    if lo <= t < hi:
+                        return None, None, None, (
+                            f"trace node name {t!r} falls inside CA group "
+                            f"{group_names[gi]!r}'s name family"
+                        )
+            # The class order: trace names, and each family by its first
+            # name (disjoint intervals: every present and future name).
+            entries = [(t, ("t", slot)) for slot, t in enumerate(names)]
+            entries += [(fams[gi][0], ("f", gi)) for gi in range(Gn)]
+            entries.sort(key=lambda e: e[0])
+            if len(entries) * (S + 1) >= (1 << 31) - (S + 1):
+                return None, None, None, (
+                    f"{len(entries)} name classes x (S + 1 = {S + 1}) overflows the int32 name-key space"
+                )
+            trace_rank = np.full(n_trace_nodes, -1, np.int64)
+            fam_rank = np.zeros(Gn, np.int64)
+            for rank, (_, tag) in enumerate(entries):
+                if tag[0] == "t":
+                    trace_rank[tag[1]] = rank
+                else:
+                    fam_rank[tag[1]] = rank
+            got = memo[id(trace)] = (trace_rank, fam_rank)
+        trace_rank, fam_rank = got
+        nk = node_class_key[ci]
+        named = trace_rank >= 0
+        nk[:n_trace_nodes][named] = (trace_rank[named] * (S + 1)).astype(np.int32)
+        cursor = 0
+        for gi, reserve in enumerate(reserves):
+            ca_slot_class[ci, cursor : cursor + reserve] = fam_rank[gi]
+            nk[n_trace_nodes + cursor : n_trace_nodes + cursor + reserve] = fam_rank[gi] * (S + 1)
+            cursor += reserve
+        # Each group's first position among the slots sorted by class: the
+        # groups in class order, their reserves' widths summed.
+        pos = 0
+        for gi in np.argsort(fam_rank, kind="stable"):
+            ca_class_start[ci, gi] = pos
+            pos += reserves[gi]
+    return ca_slot_class, ca_class_start, node_class_key, None
+
+
+def decide_reclaim(requested: Optional[bool], on_card: bool, ca_on: bool, unsupported: Optional[str]) -> bool:
+    """Whether CA slot reclaim runs (reference engine.py:1408-1436):
+    `requested` None means on for the card and off on the CPU. Where the
+    build does not support it (`unsupported`: the reason), an explicit
+    True raises and the default turns it off, with a RuntimeWarning when
+    the CA is on."""
+    want = on_card if requested is None else bool(requested)
+    if want and unsupported is not None:
+        if requested:
+            raise ValueError(
+                f"reclaim=True is unsupported for this build: {unsupported}; the allocation-name "
+                "order decomposition would be unsound. Rename the conflicting nodes or groups, "
+                "or run without reclaim"
+            )
+        if ca_on:
+            warnings.warn(
+                f"CA slot reclaim, on by default on the card, is off: {unsupported}; the CA "
+                "reserve stays monotone (check_autoscaler_bounds raises when it runs dry)",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        want = False
+    return want
+
+
 def _control_law(config, C: int) -> Dict[str, np.ndarray]:
     """The per-lane autoscaler control-law parameters, float64 seconds
     except the tolerance/threshold and the node quota: the reference's
@@ -222,12 +322,14 @@ def build_autoscale_statics(
     pod window (0 whole-resident), and with `sliding` the pod-name ranks
     start at BIG_RANK, for the engine to fill from the window's slice
     (BatchedSimulation._refresh_name_ranks). Each CA group
-    reserves `ca_slot_multiplier` x its node cap slots (slots are never
-    reused without reclaim; check_autoscaler_bounds raises when the reserve
-    runs dry). Returns (statics,
-    extra node cap cpu (S,), extra node cap ram (S,), extra node names):
-    the extra node slots are the CA's reserved slots, appended after the
-    trace's node slots, named "{group}_{k+1}"."""
+    reserves `ca_slot_multiplier` x its node cap slots (without slot
+    reclaim a slot is used once; check_autoscaler_bounds raises when the
+    reserve runs dry). Slot reclaim's name-class tables are built where
+    the CA has a reserve and the names allow them (_reclaim_class_tables),
+    else left None. Returns (statics, extra node cap cpu (S,), extra node
+    cap ram (S,), extra node names, why reclaim cannot run on this build
+    or None): the extra node slots are the CA's reserved slots, appended
+    after the trace's node slots, named "{group}_{k+1}"."""
     C = len(compiled_traces)
     ca_on = config.cluster_autoscaler.enabled
     law = _control_law(config, C)
@@ -343,6 +445,16 @@ def build_autoscale_statics(
         if extra_names:
             ca_sd_order[ci] = np.argsort(node_name_rank[ci, n_trace_nodes:], kind="stable")
 
+    rc_tables = (None, None, None)
+    if ca_on and extra_names:
+        *rc_tables, reclaim_reason = _reclaim_class_tables(
+            compiled_traces, [g.node_template.metadata.name for g in groups], reserves, n_trace_nodes, S
+        )
+    elif ca_on:
+        reclaim_reason = "the CA reserve is empty (no named node groups)"
+    else:
+        reclaim_reason = "the cluster autoscaler is disabled"
+
     interval = config.scheduling_cycle_interval
     dev = torch.device(device)
 
@@ -394,8 +506,12 @@ def build_autoscale_statics(
         pod_name_rank=t(pod_name_rank),
         node_name_rank=t(node_name_rank),
         ca_sd_order=t(ca_sd_order),
+        **{
+            name: None if table is None else t(table)
+            for name, table in zip(("ca_slot_class", "ca_class_start", "node_class_key"), rc_tables)
+        },
     )
-    return statics, extra_cap_cpu, extra_cap_ram, extra_names
+    return statics, extra_cap_cpu, extra_cap_ram, extra_names, reclaim_reason
 
 
 def _cpu_pair(p: TPair) -> TPair:
@@ -470,6 +586,7 @@ class BatchedSimulation:
         ca_slot_multiplier: int = 2,
         graphs: Optional[bool] = None,
         pod_window: Optional[int] = None,
+        reclaim: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
         if graphs is None:
@@ -529,14 +646,18 @@ class BatchedSimulation:
         self.autoscale_statics = None
         self.max_ca_pods_per_cycle = max_ca_pods_per_cycle
         self.max_pods_per_scale_down = max_pods_per_scale_down
+        self.reclaim = False
+        # Why reclaim cannot run on this build (None: it can).
+        self.reclaim_unsupported = "no autoscaler is configured"
         if hpa_on or ca_on:
-            statics, extra_cpu, extra_ram, extra_names = build_autoscale_statics(
+            statics, extra_cpu, extra_ram, extra_names, self.reclaim_unsupported = build_autoscale_statics(
                 config, compiled_traces, n_pods=pod_req_cpu.shape[1],
                 n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
                 ca_slot_multiplier=ca_slot_multiplier, pod_slot_offset=self.consts.resident_shift,
                 sliding=self.pod_window is not None,
             )
             self.autoscale_statics = statics
+            self.reclaim = decide_reclaim(reclaim, self.device.type == "cuda", ca_on, self.reclaim_unsupported)
             if ca_on and extra_names:
                 node_cap_cpu = np.concatenate([node_cap_cpu, np.tile(extra_cpu, (C, 1))], axis=1)
                 node_cap_ram = np.concatenate([node_cap_ram, np.tile(extra_ram, (C, 1))], axis=1)
@@ -582,7 +703,7 @@ class BatchedSimulation:
                     lo = max(int(starts[gmask].min()), 0)
                     hi = min(int((starts + counts)[gmask].max()), self.n_pods)
                     self.hpa_seg = (lo, hi) if hi > lo else (0, 0)
-            auto = init_autoscale_state(st, collect=self.hpa_seg != (0, 0))
+            auto = init_autoscale_state(st, collect=self.hpa_seg != (0, 0), reclaim=self.reclaim)
             if self.hpa_seg == (0, 0):
                 auto = auto._replace(hpa_next=t_inf((C,), self.device))
             # The trace's initial replicas are "{group}_{i}" in the i-th
@@ -851,7 +972,10 @@ class BatchedSimulation:
                 )
         if (state.auto is None) != (self.autoscale_statics is None) or (
             state.auto is not None
-            and (state.auto.col_next is None) != (self.state.auto.col_next is None)
+            and (
+                (state.auto.col_next is None) != (self.state.auto.col_next is None)
+                or (state.auto.ca_alloc is None) != (self.state.auto.ca_alloc is None)
+            )
         ):
             raise ValueError(
                 "install_state: the state's autoscaler leaves do not match this "
@@ -918,6 +1042,7 @@ class BatchedSimulation:
             hpa_cycle=hpa_cycle,
             hpa_collect=hpa_collect,
             ca_due=ca_due,
+            reclaim=self.reclaim,
         )
 
     def _window_body(self, state: ClusterBatchState, w: int, plan: WindowPlan) -> ClusterBatchState:
@@ -1045,7 +1170,8 @@ class BatchedSimulation:
         engine.py:3672): an HPA cycle wanted more replicas than the group's
         slot reserve could seat, a CA scale-up found quota and a fitting
         template but no reserved slot left, or a replica index reached the
-        10^8 bound of the decimal name keys."""
+        10^8 bound of the decimal name keys (an HPA replica index or, under
+        slot reclaim, a CA group's allocation count)."""
         if self.autoscale_statics is None:
             return
         m = self.state.metrics
@@ -1059,22 +1185,45 @@ class BatchedSimulation:
             )
         starved = m.ca_reserve_starved.cpu().numpy()
         if starved.sum() > 0:
+            if self.reclaim:
+                hint = (
+                    "slot reclaim is on, so every retired slot was already returned: live "
+                    "demand (with removals still inside their visibility horizon) filled the "
+                    "reserve. Raise ca_slot_multiplier (build argument) to widen it"
+                )
+            else:
+                hint = (
+                    "slots are not reclaimed on this build: raise ca_slot_multiplier (build "
+                    "argument) to widen the reserve, or build with reclaim=True so retired "
+                    "slots return to it"
+                )
             raise RuntimeError(
                 f"CA slot reserve exhausted: {int(starved.sum())} scale-up attempt(s) "
                 f"across {int((starved > 0).sum())} cluster(s) found quota headroom and "
-                "a fitting node-group template but no reserved slot left (slots are "
-                "never reclaimed in this port); the demand starved where the "
-                "reference semantics would have provisioned a node"
+                "a fitting node-group template but no reserved slot left; the demand "
+                "starved where the reference semantics would have provisioned a node. "
+                + hint
             )
-        tail_max = int(self.state.auto.hpa_tail.max())
-        if tail_max >= 10**8:
+        auto = self.state.auto
+        tail_max = int(auto.hpa_tail.max())
+        total_max = 0 if auto.ca_total is None else int(auto.ca_total.max())
+        if max(tail_max, total_max) >= 10**8:
             raise RuntimeError(
-                f"allocation-name counter overflow: hpa_tail max {tail_max} reached "
-                "the 10^8 bound of the decimal-suffix name keys"
+                f"allocation-name counter overflow: hpa_tail max {tail_max}, ca_total max "
+                f"{total_max} reached the 10^8 bound of the decimal-suffix name keys"
             )
 
+    def ca_slots_reclaimed(self) -> np.ndarray:
+        """(C,) CA reserve slots the reclaim compaction returned (zeros
+        when reclaim is off)."""
+        auto = self.state.auto
+        if auto is None or auto.ca_reclaimed is None:
+            return np.zeros(self.n_clusters, np.int32)
+        return auto.ca_reclaimed.cpu().numpy()
+
     def metrics_summary(self) -> Dict:
-        """Cross-cluster reduction into the reference's printer shape.
+        """Cross-cluster reduction into the reference's printer shape, with
+        the CA slots reclaimed among the counters when reclaim runs.
         Raises via check_autoscaler_bounds when an autoscaler work bound
         was crossed."""
         self.check_autoscaler_bounds()
@@ -1118,6 +1267,7 @@ class BatchedSimulation:
                 "pod_interruptions": total(m.pod_interruptions),
                 "pod_restarts": total(m.pod_restarts),
                 "pods_failed": total(m.pods_failed),
+                **({"ca_slots_reclaimed": int(self.ca_slots_reclaimed().sum())} if self.reclaim else {}),
             },
             "timings": {
                 "pod_duration": est(m.pod_duration),

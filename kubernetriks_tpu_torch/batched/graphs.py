@@ -11,9 +11,20 @@ counterpart of one compiled program is a CUDA graph: launched op by op from
 Python, a window costs the host several times the device's time.
 
 A window's work varies with its plan (step.WindowPlan, a host fact), so one
-graph per window would not do. It is cut into two pieces, each captured
-once per key:
+graph per window would not do. It is cut into pieces, each captured once
+per key:
 
+- ("reclaim",): CA slot reclaim, first in every window under reclaim,
+  before the event chunks: the dead-slot predicate
+  (autoscale.ca_dead_slots), then ca_reclaim_pass's compaction in a
+  conditional node that runs only where some slot is dead, as the
+  reference's lax.cond does, so a quiet window pays only the predicate.
+  The reference runs it at the head of its window body, after the
+  previous span's slide, so a SUCCEEDED pod still in flight blocks
+  retirement only while the window holds it. A piece of its own rather
+  than a head variant of the chunk piece, since a window with no event
+  chunk runs it too, and folding it into the previous window's end graph
+  would run it before a slide instead of after.
 - ("chunk",): one event chunk (step.event_chunk). A window replays it
   `n_chunks` times: a chunk reads only the device cursor, so one graph
   serves every chunk.
@@ -76,7 +87,13 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from kubernetriks_tpu_torch.batched.autoscale import ca_pass, hpa_pass
+from kubernetriks_tpu_torch.batched.autoscale import (
+    ca_dead_slots,
+    ca_pass,
+    ca_reclaim_pass,
+    hpa_pass,
+    reclaim_name_orders,
+)
 from kubernetriks_tpu_torch.batched.state import ClusterBatchState, clone_state, copy_state_into, flatten, storages
 from kubernetriks_tpu_torch.batched.step import (
     EventAccumulators,
@@ -110,7 +127,8 @@ def piece_schedule(plan: WindowPlan, route: str) -> List[Key]:
     """The pieces window `plan` runs on `route`, in order (step.window_body's
     order)."""
     hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
-    return [("chunk",)] * plan.n_chunks + [("end", route, plan.removal_due, hpa, plan.ca_due)]
+    head = [("reclaim",)] if plan.reclaim else []
+    return head + [("chunk",)] * plan.n_chunks + [("end", route, plan.removal_due, hpa, plan.ca_due)]
 
 
 class CudaGraphs:
@@ -122,6 +140,13 @@ class CudaGraphs:
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
+        self._capturing = None  # the graph being captured
+        # Conditional bodies (when): captured on a stream and into a pool
+        # of their own while the piece's capture is open, then copied into
+        # its graph; each is kept, with the memory its capture took.
+        self.body_stream = torch.cuda.Stream(device)
+        self.body_pool = torch.cuda.graph_pool_handle()
+        self._bodies: List[torch.cuda.CUDAGraph] = []
 
     def warm(self, fn: Callable[[], None]) -> None:
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -131,9 +156,43 @@ class CudaGraphs:
 
     def capture(self, fn: Callable[[], None]):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            fn()
+        self._capturing = graph
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                fn()
+        finally:
+            self._capturing = None
         return graph
+
+    def when(self, pred: torch.Tensor, fn: Callable[[], None]) -> None:
+        """Inside a capture, `fn`'s work becomes the body of a conditional
+        node that a replay runs only where the (0-d bool, on the card) flag
+        `pred` is set when the node is reached: the reference's lax.cond,
+        with no read by the host. A warm-up runs `fn` as it is.
+
+        `fn` is captured as a graph of its own first (kept, never replayed
+        alone), on the body stream into the body pool, so the open
+        capture's stream and pool are untouched; ops/csrc/graph_if.cu then
+        appends the flag's set kernel and the IF node holding a copy of it
+        to the open capture."""
+        if self._capturing is None:
+            fn()
+            return
+        from kubernetriks_tpu_torch.ops import _build
+
+        body = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(self.body_stream):
+            body.capture_begin(pool=self.body_pool)
+            try:
+                fn()
+            finally:
+                body.capture_end()
+        self._bodies.append(body)
+        rc = _build.kernel("graph_if")(
+            pred.data_ptr(), body.raw_cuda_graph(), torch.cuda.current_stream(self.device).cuda_stream
+        )
+        if rc != 0:
+            raise RuntimeError(f"CudaGraphs.when: adding the conditional node failed with cudaError {rc}")
 
     def pool_bytes(self) -> int:
         """Device memory the graphs' pool holds."""
@@ -201,6 +260,16 @@ class WindowExecutor:
     def _copy_back(self, dst, src) -> None:
         copy_state_into(dst, src, self._fixed)
 
+    def _when(self, pred: torch.Tensor, fn: Callable[[], None]) -> None:
+        """`fn` where the device flag `pred` is set: a conditional node of
+        the graph being captured (CudaGraphs.when); uncaptured, `fn` runs
+        whatever `pred` holds, so it must leave the buffers as they are
+        where `pred` is false."""
+        if self.backend is None:
+            fn()
+        else:
+            self.backend.when(pred, fn)
+
     def _body(self, key: Key) -> Callable[[WindowBuffers], None]:
         """The piece `key` as a function of the buffers it reads and writes."""
         run = self._bodies.get(key)
@@ -219,11 +288,25 @@ class WindowExecutor:
                 )
                 b.state.event_cursor.copy_(cursor)
                 self._copy_back(b.acc, acc)
+        elif kind == "reclaim":
+            st = sim.autoscale_statics
+
+            def run(b: WindowBuffers) -> None:
+                dead = ca_dead_slots(b.state, st)
+
+                def compact() -> None:
+                    self._copy_back(b.state, ca_reclaim_pass(b.state, st, b.W, k, dead))
+
+                self._when(dead.any(), compact)
         elif kind == "end":
             route, removal_due, hpa, ca_due = key[1:]
 
             def run(b: WindowBuffers) -> None:
-                state, _ = events_tail(b.state, b.acc, b.W, k, removal_due, name_ranks=sim.name_ranks)
+                orders = reclaim_name_orders(b.state.auto, sim.autoscale_statics, k, removal_due or ca_due)
+                state, _ = events_tail(
+                    b.state, b.acc, b.W, k, removal_due, name_ranks=sim.name_ranks,
+                    node_key=None if orders is None else orders[1],
+                )
                 # What the storage saw before this cycle: the CA reads it
                 # when its snapshot precedes the cycle's commit visibility.
                 pre = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
@@ -233,7 +316,7 @@ class WindowExecutor:
                 if ca_due:
                     state = ca_pass(
                         state, sim.autoscale_statics, b.W, k,
-                        sim.max_ca_pods_per_cycle, sim.max_pods_per_scale_down, pre,
+                        sim.max_ca_pods_per_cycle, sim.max_pods_per_scale_down, pre, orders,
                     )
                 self._copy_back(b.state, state)
                 b.acc.reset_()
@@ -275,7 +358,8 @@ class WindowExecutor:
             if clock.ca_on:
                 cas.append(True)
         route = sim.cycle_route
-        keys: List[Key] = [("chunk",)]
+        keys: List[Key] = [("reclaim",)] if sim.reclaim else []
+        keys.append(("chunk",))
         keys += [("end", route, rm, hpa, ca) for rm in removals for hpa in hpas for ca in cas]
         if sim.pod_window is not None:
             keys.append(("slide", sim.pod_window))

@@ -128,8 +128,11 @@ class MetricArrays(NamedTuple):
 
 
 class AutoscaleState(NamedTuple):
-    """Dynamic autoscaler state (the reference's `AutoscaleState` without
-    its slot-reclaim leaves). The col_* leaves are the HPA's 60 s metrics
+    """Dynamic autoscaler state (the reference's `AutoscaleState`). The
+    ca_alloc / ca_total / ca_reclaimed leaves are CA slot reclaim's,
+    present only when the engine runs it; without them ca_cursor is the
+    monotone next-slot cursor, with them the live occupancy of each
+    group's reserve. The col_* leaves are the HPA's 60 s metrics
     collection latch, present only when a pod group can be scaled."""
 
     hpa_head: torch.Tensor  # (C, Gp) int32 replicas ever removed
@@ -138,6 +141,12 @@ class AutoscaleState(NamedTuple):
     ca_cursor: torch.Tensor  # (C, Gn) int32 next reserved slot offset
     hpa_next: TPair  # (C,) next HPA tick
     ca_next: TPair  # (C,) next CA cycle fire time
+    # The occupant's allocation index (names are "{group}_{alloc + 1}");
+    # -1 a free slot. Occupied slots are each group's reserve prefix
+    # [ng_ca_start, ng_ca_start + ca_cursor), in allocation order.
+    ca_alloc: Optional[torch.Tensor] = None  # (C, S) int32
+    ca_total: Optional[torch.Tensor] = None  # (C, Gn) int32 allocations ever made
+    ca_reclaimed: Optional[torch.Tensor] = None  # (C,) int32 slots returned to the reserve
     col_next: Optional[TPair] = None  # (C,) next metrics collection
     col_run: Optional[torch.Tensor] = None  # (C, Gp) int32 running pods then
     col_util_cpu: Optional[torch.Tensor] = None  # (C, Gp) float32
@@ -439,6 +448,9 @@ _TREE_TYPES = {
 # Fields that may be None (absent subtrees).
 _OPTIONAL_FIELDS = {
     ("ClusterBatchState", "auto"),
+    ("AutoscaleState", "ca_alloc"),
+    ("AutoscaleState", "ca_total"),
+    ("AutoscaleState", "ca_reclaimed"),
     ("AutoscaleState", "col_next"),
     ("AutoscaleState", "col_run"),
     ("AutoscaleState", "col_util_cpu"),

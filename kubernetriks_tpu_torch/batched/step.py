@@ -16,7 +16,8 @@ reference's `_run_scheduling_cycle`, step.py:1466):
 Times are the (win, off) pairs of timerep.py; values applied inside a
 window are float32 seconds relative to the previous window's start.
 `window_body` runs a window as one eager function; the window executor
-(graphs.py) runs the same functions as pieces: `event_chunk` per chunk,
+(graphs.py) runs the same functions as pieces: under CA slot reclaim
+`autoscale.ca_reclaim_pass` first, then `event_chunk` per chunk,
 `events_tail`, `run_scheduling_cycle`, then the autoscaler passes; and,
 between spans of the sliding pod window, its slide (`slide_shift_core`,
 `quantize_shift`, `slide_apply`).
@@ -107,6 +108,7 @@ class DeviceConstants(NamedTuple):
     interval64: torch.Tensor  # float64, for the HPA's elapsed-time math
     inf: torch.Tensor  # float32 +inf
     pow10: torch.Tensor  # (9,) int32 decimal_string_key's digit scales
+    decimal_bounds: torch.Tensor  # (7,) int32 10 .. 10^7, decimal_string_key's digit counts
 
     @staticmethod
     def build(consts: StepConstants, device) -> "DeviceConstants":
@@ -127,6 +129,7 @@ class DeviceConstants(NamedTuple):
                 [0, 10_000_000, 1_000_000, 100_000, 10_000, 1_000, 100, 10, 1],
                 dtype=torch.int32, device=device,
             ),
+            decimal_bounds=torch.tensor([10**e for e in range(1, 8)], dtype=torch.int32, device=device),
         )
 
 
@@ -135,13 +138,15 @@ class WindowPlan(NamedTuple):
     slab and its autoscaler clock: how many event chunks the reference's
     chunk loop runs, whether a node removal can apply (only then can pods
     be rescheduled), and which autoscaler passes run: an HPA cycle, else
-    an HPA metrics collection alone, and a CA cycle."""
+    an HPA metrics collection alone, a CA cycle, and CA slot reclaim's
+    compaction before the window's events."""
 
     n_chunks: int
     removal_due: bool
     hpa_cycle: bool = False
     hpa_collect: bool = False
     ca_due: bool = False
+    reclaim: bool = False
 
 
 class WakeEvents(NamedTuple):
@@ -351,6 +356,7 @@ def apply_window_events(
     plan: WindowPlan,
     conditional_move: bool = False,
     name_ranks=None,
+    node_key=None,
 ):
     """Apply every trace event with effect time strictly before the cycle
     time W * interval, and resolve every pod finish due in the window
@@ -370,7 +376,7 @@ def apply_window_events(
         )
         state = state._replace(event_cursor=cursor)
     return events_tail(
-        state, acc, W, k, plan.removal_due, conditional_move, name_ranks, node_create_rel
+        state, acc, W, k, plan.removal_due, conditional_move, name_ranks, node_create_rel, node_key
     )
 
 
@@ -383,13 +389,18 @@ def events_tail(
     conditional_move: bool = False,
     name_ranks=None,
     node_create_rel: Optional[torch.Tensor] = None,
+    node_key: Optional[torch.Tensor] = None,
 ):
     """The window's events after its chunks: the pending autoscaler node
     effects and pod removals due, creations, pod finishes against node and
     pod removals, freed resources back to their nodes, and reschedules of
     the pods of removed nodes (reference step.py:274, after the chunk
     loop). `removal_due`: whether a node removal can apply this window
-    (step.WindowPlan). Returns (state, WakeEvents or None)."""
+    (step.WindowPlan). `name_ranks`: (node, pod) name ranks for the
+    reschedules' order; `node_key`: under CA slot reclaim, the nodes'
+    current name key (autoscale.ca_name_order's, from the autoscaler
+    state the window's reclaim pass left, which events do not change) in
+    place of the static node ranks. Returns (state, WakeEvents or None)."""
     pods, nodes, metrics = state.pods, state.nodes, state.metrics
     C, P = pods.phase.shape
     N = nodes.alive.shape[1]
@@ -501,6 +512,8 @@ def events_tail(
         node_c2 = pods.node.clamp(0, N - 1).long()
         if name_ranks is not None:
             node_name_rank, pod_name_rank = name_ranks
+            if node_key is not None:
+                node_name_rank = node_key
             nr = torch.gather(node_name_rank, 1, node_c2)
             k3 = torch.where(rescheds, pod_name_rank, big)
         else:
@@ -963,17 +976,26 @@ def window_body(
     autoscale=None,
     cycle_route: str = "megakernel",
 ) -> ClusterBatchState:
-    """Advance every cluster through scheduling window `w`: events and
-    finishes, one cycle, then the autoscaler passes the plan names
-    (reference `_window_body`, step.py:1886, without slot reclaim,
-    telemetry, faults or lane clocks). `autoscale`: None, or (statics,
-    HPA group-slot bounds, CA scale-up candidates per cycle, CA pods per
-    scale-down candidate). `cycle_route`: see run_scheduling_cycle."""
+    """Advance every cluster through scheduling window `w`: CA slot
+    reclaim's compaction where the plan runs it, events and finishes, one
+    cycle, then the autoscaler passes the plan names (reference
+    `_window_body`, step.py:1886, without telemetry, faults or lane
+    clocks). `autoscale`: None, or (statics, HPA group-slot bounds, CA
+    scale-up candidates per cycle, CA pods per scale-down candidate).
+    `cycle_route`: see run_scheduling_cycle."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
+    orders = None
+    if autoscale is not None:
+        from kubernetriks_tpu_torch.batched.autoscale import ca_reclaim_pass, reclaim_name_orders
+
+        if plan.reclaim:
+            state = ca_reclaim_pass(state, autoscale[0], W, k)
+        orders = reclaim_name_orders(state.auto, autoscale[0], k, plan.removal_due or plan.ca_due)
     state, wake = apply_window_events(
         state, slab, W, consts, k, max_events_per_window, plan,
         conditional_move=conditional_move, name_ranks=name_ranks,
+        node_key=None if orders is None else orders[1],
     )
     # What the storage saw before this cycle: the CA reads it when its
     # snapshot precedes the cycle's commit visibility.
@@ -988,7 +1010,7 @@ def window_body(
         if plan.hpa_cycle or plan.hpa_collect:
             state = hpa_pass(state, statics, W, k, hpa_seg, plan.hpa_cycle)
         if plan.ca_due:
-            state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle)
+            state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle, orders)
     return state
 
 

@@ -24,7 +24,10 @@ from kubernetriks_tpu_torch.batched.state import ClusterBatchState, flatten, unf
 
 def state_to_numpy(state: ClusterBatchState) -> Dict[str, np.ndarray]:
     """The port's state as {path: numpy array}, copied to the host (a
-    copy on the CPU too: the engine's state is updated in place)."""
+    copy on the CPU too: the engine's state is updated in place). Any
+    tree of NamedTuples flattens the same way, so the autoscaler statics
+    (".ca_slot_class", ".node_class_key", ...) compare with the JAX
+    engine's under compare_states too."""
     return {k: v.detach().to("cpu", copy=True).numpy() for k, v in flatten(state).items()}
 
 
@@ -32,7 +35,9 @@ def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> ClusterBatchSt
     """{path: numpy array} -> the port's state on `device` (None means the
     CUDA card and raises without one; see engine.resolve_device). Every
     leaf keeps its numpy dtype; a missing or extra leaf raises. The
-    autoscaler leaves (".auto.*") come across when the state has them."""
+    autoscaler leaves (".auto.*") come across when the state has them,
+    CA slot reclaim's (".auto.ca_alloc", ".auto.ca_total",
+    ".auto.ca_reclaimed") among them."""
     dev = resolve_device(device)
     leaves = {k: torch.tensor(np.asarray(v), device=dev) for k, v in flat.items()}
     try:

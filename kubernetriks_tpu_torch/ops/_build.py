@@ -63,6 +63,14 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     ),
 }
 
+# Launch plumbing that is no kernel of the reference's: name -> the same
+# triple (the last pointer the stream). graph_if: a conditional node in a
+# capturing graph (graphs.py).
+HELPERS: Dict[str, Tuple[str, str, List]] = {
+    "graph_if": ("graph_if.cu", "ktt_graph_if", [_P] * 3),
+}
+_SOURCES = {**KERNELS, **HELPERS}
+
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 build_log: Dict[str, str] = {}
 
@@ -81,18 +89,18 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     """The library's path, named by a hash of its source, the shared
     headers it may include and the flags."""
-    src = (CSRC / KERNELS[name][0]).read_bytes()
+    src = (CSRC / _SOURCES[name][0]).read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def build_all() -> float:
-    """Compile every kernel whose library is missing, all nvcc processes
-    started together. Returns the wall seconds spent; raises with nvcc's
-    output if any build fails."""
+    """Compile every kernel and helper whose library is missing, all nvcc
+    processes started together. Returns the wall seconds spent; raises
+    with nvcc's output if any build fails."""
     t0 = time.perf_counter()
-    todo = [n for n in KERNELS if not _lib_path(n).exists()]
+    todo = [n for n in _SOURCES if not _lib_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,7 +109,7 @@ def build_all() -> float:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / _SOURCES[name][0])]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
@@ -119,14 +127,15 @@ def build_all() -> float:
 
 
 def kernel(name: str):
-    """The C entry point of kernel `name` (built on first use). Its
-    arguments are device pointers and ints as in KERNELS, then the CUDA
-    stream; it returns cudaGetLastError() after the launch."""
+    """The C entry point of kernel or helper `name` (built on first use).
+    Its arguments are device pointers and ints as in KERNELS (HELPERS),
+    then the CUDA stream; it returns a cudaError_t (a kernel's:
+    cudaGetLastError() after the launch)."""
     fn = _loaded.get(name)
     if fn is None:
         build_all()
         lib = ctypes.CDLL(str(_lib_path(name)))
-        _, symbol, argtypes = KERNELS[name]
+        _, symbol, argtypes = _SOURCES[name]
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,7 +3,8 @@
 
     python3 profile_main_path.py [--path headline|autoscaler|replay|deep]
         [--windows 20] [--repeats 1] [--route sorted|megakernel|two_kernel]
-        [--executor eager|graphs] [--k K] [--pod-window W] [--package-root DIR]
+        [--executor eager|graphs] [--k K] [--pod-window W] [--reclaim on|off]
+        [--package-root DIR]
 
 Builds the headline shape (`chip_smoke.headline_sim`), with `--path
 autoscaler` the reference's composed scenario at full width
@@ -22,7 +23,9 @@ executor has only eager windows). `--pod-window W` builds the path with
 a sliding pod window of W plain pod slots (the composed line's is 512,
 the replay's 4 096): its windows then run through step_until_time, which
 slides the window between spans, and a growth inside the timed windows
-raises (a repeat could not restore the narrower state). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
+raises (a repeat could not restore the narrower state). `--reclaim`
+builds the autoscaler paths with CA slot reclaim on or off; left out, the
+engine's default (on for the card). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
 path, inside its load burst; 43 200 s, mid-day, on the replay; 300 s on
 the deep path, ~5 000 pods queued a cluster) and keeps a copy of that
 state. Then it runs the same `--windows` windows from it (`install_state`
@@ -108,6 +111,7 @@ def main(argv=None) -> int:
     ap.add_argument("--executor", choices=("eager", "graphs"), default=None)
     ap.add_argument("--k", type=int, default=None, help="pods per cycle on the deep path (default: P)")
     ap.add_argument("--pod-window", type=int, default=0, help="sliding pod window (0: whole-resident)")
+    ap.add_argument("--reclaim", choices=("on", "off"), default=None, help="CA slot reclaim (default: the engine's)")
     ap.add_argument("--package-root", default=str(HERE))
     args = ap.parse_args(argv)
 
@@ -133,6 +137,8 @@ def main(argv=None) -> int:
     kw = {} if args.executor is None else {"graphs": args.executor == "graphs"}
     if args.pod_window:
         kw["pod_window"] = args.pod_window
+    if args.reclaim:
+        kw["reclaim"] = args.reclaim == "on"
     build, warm_up = {
         "headline": (lambda: headline_sim("cuda", **kw), 190.0),
         "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED, **kw), 590.0),
@@ -206,6 +212,7 @@ def main(argv=None) -> int:
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     window = f"_w{args.pod_window}" if args.pod_window else ""
+    window += "_reclaim" if getattr(sim, "reclaim", False) else ""
     (out_dir / f"profile_{args.path}_{sim.cycle_route}_{executor}{window}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
     )
@@ -220,6 +227,7 @@ def main(argv=None) -> int:
         "dispatch_stats_timed": stats,
         "graph_pool_bytes": sim.graph_pool_bytes() if hasattr(sim, "graph_pool_bytes") else 0,
         "pod_window": getattr(sim, "pod_window", None),
+        "reclaim": getattr(sim, "reclaim", False),
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},

@@ -20,7 +20,7 @@ from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 from kubernetriks_tpu_torch.trace.generic import GenericClusterTrace, GenericWorkloadTrace
 
 from ca_inputs import ca_down_inputs, ca_up_inputs
-from chip_smoke import composed_sim  # noqa: F401  (the composed scenario, shared)
+from chip_smoke import REORDER_WAVES, composed_sim, endurance_sim  # noqa: F401  (the scenarios, shared)
 
 DELAYS = """sim_name: test_kubernetriks
 seed: 123
@@ -348,15 +348,18 @@ def test_ca_scale_down_in_narrow_windows(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_autoscaler_state_handoff_on_card(cuda_device):
+@pytest.mark.parametrize("reclaim", [True, False])
+def test_autoscaler_state_handoff_on_card(cuda_device, reclaim):
     """A CPU run's state with pending autoscaler effects, installed into a
     card engine, runs on through both CA kernels to the CPU run's end
-    state."""
-    cpu = composed_sim("cpu", 2)
+    state, with slot reclaim on both sides (the card's default) and off on
+    both."""
+    cpu = composed_sim("cpu", 2, reclaim=reclaim)
     cpu.step_until_time(280.0)
     flat = state_to_numpy(cpu.state)
     assert (flat[".nodes.remove_time.win"] < 1 << 29).any()  # a CA removal pending
-    card = composed_sim(cuda_device, 2)
+    card = composed_sim(cuda_device, 2, **({} if reclaim else {"reclaim": False}))
+    assert card.reclaim == reclaim
     card.install_state(state_from_numpy(flat), cpu.next_window_idx)
     port_kernels.reset_launches()
     card.step_until_time(400.0)
@@ -707,3 +710,77 @@ def test_sliding_graph_run_equals_eager_run(cuda_device, route):
     assert runs[0][2] == stats["slides"] + stats["grows"]
     assert ("slide", g.pod_window) in g._executor.graphs
     assert g.pod_window > 8 and g.n_pods == runs[1][0].n_pods
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_waves", [24, REORDER_WAVES])
+def test_endurance_churn_card_matches_cpu(cuda_device, n_waves):
+    """The reference's endurance churn at its own defaults (4 clusters, 24
+    waves through a 2-slot CA reserve, pod_window=128), and through wave
+    74's pair (ca_node_99 and ca_node_100, walked out of slot order by the
+    scale-down), with slot reclaim on both sides: the card's final state
+    equals the CPU's; slots were reclaimed, the reserve was overrun 3
+    times over and the bounds hold."""
+    finals = {}
+    for device in (cuda_device, "cpu"):
+        sim = endurance_sim(device, n_waves=n_waves, reclaim=True)
+        sim.step_until_time(30.0 + n_waves * 160.0)
+        counters = sim.metrics_summary()["counters"]
+        finals[str(device)] = state_to_numpy(sim.state)
+    assert compare_states(finals[str(cuda_device)], finals["cpu"]) == []
+    reserve = int(sim.autoscale_statics.ng_slot_count[0].sum())
+    assert (sim.state.auto.ca_total >= 3 * reserve).all() and counters["ca_slots_reclaimed"] > 0
+
+
+@pytest.mark.cuda
+def test_endurance_churn_graph_run_equals_eager_run(cuda_device):
+    """The same churn on the card, replayed from graphs and eagerly: the
+    reclaim piece and every other replay equal the eager run bit for bit,
+    launches and host reads (one a span of the pod window) included."""
+    runs = _graph_and_eager(lambda g: endurance_sim(cuda_device, graphs=g), 30.0 + 24 * 160.0)
+    g = runs[0][0]
+    assert g.reclaim and ("reclaim",) in g._executor.graphs
+    stats = g.dispatch_stats
+    _assert_graph_run_equals_eager_run(runs, max_syncs=stats["slides"] + stats["grows"])
+    assert int(g.ca_slots_reclaimed().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_conditional_node_runs_its_body_only_where_the_flag_is_set(cuda_device):
+    """CudaGraphs.when inside a capture: the body (a sort, a gather and a
+    copy into a fixed buffer, as reclaim's compaction does) runs on a
+    replay only where the device flag computed before it is set, and a
+    replay reads nothing back."""
+    from kubernetriks_tpu_torch.batched.graphs import CudaGraphs
+
+    backend = CudaGraphs(torch.device(cuda_device))
+    src = torch.arange(64, dtype=torch.int32, device=cuda_device).flip(0).contiguous()
+    out = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    gate = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def piece():
+        flag = gate > 0
+
+        def body():
+            order = torch.sort(src, stable=True).indices
+            out.copy_(torch.gather(src, 0, order) + gate)
+
+        backend.when(flag, body)
+
+    backend.warm(piece)  # uncaptured: the body runs whatever the flag
+    want = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(out, want)
+    graph = backend.capture(piece)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not out.any()
+    gate.fill_(5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want + 5)
+    gate.fill_(0)
+    out.fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool((out == -1).all())

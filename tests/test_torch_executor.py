@@ -57,6 +57,9 @@ TOY_REPLAY = dict(n_machines=20, n_tasks=120, horizon=1500.0, seed=7, error_frac
     (WindowPlan(2, True, hpa_collect=True, ca_due=True), "sorted",
      [("chunk",)] * 2 + [("end", "sorted", True, False, True)]),
     (WindowPlan(0, False, hpa_cycle=True, hpa_collect=True), "sorted", [("end", "sorted", False, True, False)]),
+    (WindowPlan(0, True, ca_due=True, reclaim=True), "sorted", [("reclaim",), ("end", "sorted", True, None, True)]),
+    (WindowPlan(2, False, reclaim=True), "megakernel",
+     [("reclaim",)] + [("chunk",)] * 2 + [("end", "megakernel", False, None, False)]),
 ])
 def test_piece_schedule(plan, route, want):
     assert piece_schedule(plan, route) == want
@@ -200,9 +203,18 @@ class StubGraphs:
 
     def __init__(self):
         self.executor = None
+        # Conditional bodies run and skipped.
+        self.bodies = {True: 0, False: 0}
 
     def warm(self, fn):
         fn()
+
+    def when(self, pred, fn):
+        # A conditional node's body runs where its flag is set.
+        taken = bool(pred)
+        self.bodies[taken] += 1
+        if taken:
+            fn()
 
     def capture(self, fn):
         bufs = self.executor.bufs

@@ -144,9 +144,9 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 
 def test_port_main_path_loads_no_jax(tmp_path):
     """The port's main path, its autoscaler path (whole-resident and through
-    the sliding pod window), the trace replay and the CLI, run in a fresh
-    interpreter, leave no module named jax* or kubernetriks_tpu.* in
-    sys.modules."""
+    the sliding pod window), the endurance churn with slot reclaim, the
+    trace replay and the CLI, run in a fresh interpreter, leave no module
+    named jax* or kubernetriks_tpu.* in sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -176,6 +176,10 @@ def test_port_main_path_loads_no_jax(tmp_path):
         assert sliding.dispatch_stats["slides"] > 0 and sliding.dispatch_stats["grows"] > 0
         state_to_numpy(sliding.state)
         sliding.metrics_summary()
+        from chip_smoke import endurance_sim
+        churn = endurance_sim("cpu", 1, 4, reclaim=True)
+        churn.step_until_time(30.0 + 4 * 160.0)
+        assert churn.metrics_summary()["counters"]["ca_slots_reclaimed"] > 0
         from kubernetriks_tpu_torch import cli
         from kubernetriks_tpu_torch.trace.synthetic_alibaba import write_synthetic_trace_dir
         machines, tasks, instances = write_synthetic_trace_dir(
