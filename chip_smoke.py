@@ -5,9 +5,10 @@
 
 Phases; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the eight CUDA kernels and the graph_if helper (the window
-     executor's conditional node) from ops/csrc with nvcc (one process
-     each, all at once), timed;
+  2. build the eight CUDA kernels of the TPU kernels, the chaos engine's
+     commit-time draw (pod_attempt_draw.cu) and the graph_if helper (the
+     window executor's conditional node) from ops/csrc with nvcc (one
+     process each, all at once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      inputs captured (cloned) from its path, run without graphs, at that
      path's shapes — the three
@@ -93,9 +94,12 @@ Phases; any failure exits non-zero:
      760` `run_endurance`: 8 nodes of 16 000 mCPU / 32 GiB, Poisson pods
      at 0.25/s, churn waves of 24 000 mCPU pods 160 s apart that fit only
      the CA's 32 000 mCPU template, a 2-slot CA reserve, pod_window=128,
-     K = 32; no fault injection, streaming feeder or telemetry) at 256
-     clusters through 96 waves (15 390 s) on the graph executor with slot
-     reclaim: finishes with the bounds clean, at least 3x the reserve in
+     K = 32; its fault block on and ca_slot_multiplier 2, as the
+     reference's long runs take them; no streaming feeder or telemetry)
+     at 256 clusters (each with its own crash chains, build timed) through
+     96 waves (15 390 s) on the graph executor with slot reclaim: finishes
+     with the bounds clean, crashes and restarts seen, at least 3x the
+     reserve in
      allocations and slots reclaimed on every cluster, one host read a
      span; a second run read once a wave shows the dynamic scale-down
      order away from the static table; busy ms a window over waves 40-50;
@@ -103,6 +107,20 @@ Phases; any failure exits non-zero:
      bench's defaults) card == CPU, reclaim on both sides, and again
      through 76 waves, past wave 74's pair (ca_node_99, ca_node_100: the
      scale-down walks it out of slot order, which the CPU run must show).
+ 13. scheduler profiles: under best_fit and balanced_packing, the headline
+     shape on the graph executor timed as phase 4 (megakernel) and as
+     phase 8 (two-kernel route), and the full replay timed to completion
+     as phase 9 (sorted route); card == CPU
+     for best_fit, balanced_packing and a custom profile
+     (BalancedResourceAllocation at weight 2.0) at C=128 on the megakernel
+     route and at C=8 on the sorted and two-kernel routes;
+ 14. the chaos engine: the composed line through pod_window=512 with the
+     reference bench's fault block (node crash chains, CrashLoopBackOff)
+     on the graph executor, timed as phase 6w (one host read a span),
+     faults shown, device busy and kernels a window beside phase 6w's;
+     card == CPU at C=8 to t=400 s with faults and with faults plus
+     best_fit; graph == eager bit for bit under faults through
+     pod_window=512 (slides and a growth) to t=1 200 s.
 The card runs of phases 5, 7 and 10 replay graphs too (fails otherwise).
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
@@ -114,7 +132,18 @@ over the replay's captured node rows.
 The event scatter, the free kernel and both CA kernels are held and timed
 at the replay's shape too (C = 1, N = 1 713, P = 107 136), on their busiest
 calls in its first 600 s; the kernels' JSON line carries these as extra
-entries labelled "(replay)", with the replay's launch counts. Those calls
+entries labelled "(replay)", with the replay's launch counts. The three cycle
+kernels are held and timed under best_fit and balanced_packing too (their
+general instantiation) on the same captured inputs: entries labelled with
+the profile, with the launches of phase 13's timed run of that route
+under it. Every kernel of the fault path is held and timed on it (phase
+14's line to 590 s): the event scatter on its chunk with the most
+crashes, the free kernel on its call freeing the most failing or removed
+attempts, the megakernel on its deepest queue, the CA kernels on their
+calls with the most candidates on their branch, and the commit-time draw
+against its plain version, bit for bit (its call with the most attempts
+starting): entries labelled "(composed, faults)", with phase 14's
+launches. The replay's CA calls
 attempt nothing, so both CA kernels are also held and timed at the replay's
 width on seeded walks that work (the tests' generators: a scale-down where
 about half the candidates attempt, with rollbacks; a scale-up packing 64
@@ -125,7 +154,8 @@ the event scatter, the free kernel and the candidate cycle at the windowed
 replay's (phase 9w's, on its busiest calls in its first 600 s): entries
 labelled "(composed, pod_window=512)" and "(replay, pod_window=4096)",
 with the launches of phases 6w and 9w. Both CA kernels are held and timed
-on the endurance churn too, on their first calls that act after slots have
+on the endurance churn too (phase 12's settings: faults on, slot
+multiplier 2), on their first calls that act after slots have
 been reused (for the scale-down, a removal on a walk whose live candidates
 the dynamic name order puts in another order than the static table: wave
 74's pair, ca_node_99 and ca_node_100; for the scale-up, a cursor below
@@ -213,6 +243,24 @@ COMPOSED_POD_WINDOW = 512
 REPLAY_POD_WINDOW = 4096
 WINDOWED_COMPOSED = f"pod_window={COMPOSED_POD_WINDOW}"
 WINDOWED_REPLAY = f"pod_window={REPLAY_POD_WINDOW}"
+# The non-default scheduler profiles the cycle kernels are held and timed
+# under (phase 3) and whose paths phase 13 runs; the custom one is the
+# tests' (tests/test_torch_profiles.py).
+KERNEL_PROFILES = ("best_fit", "balanced_packing")
+CUSTOM_PROFILE = {"filters": ["Fit"], "score": [{"name": "BalancedResourceAllocation", "weight": 2.0}]}
+FAULTS_LABEL = "composed, faults"
+
+
+def profile_node_ops(profile) -> int:
+    """Operations a node of a cycle kernel's decision pass takes for one
+    candidate under `profile`: fit and argmax (8), each LeastAllocated or
+    MostAllocated score (8), each BalancedResourceAllocation score (5), a
+    weight's multiply and each sum's add (1 each). The default: 16."""
+    ops = 8
+    for i, (name, weight) in enumerate(profile.scores):
+        ops += 5 if name == "BalancedResourceAllocation" else 8
+        ops += (weight != 1.0) + (i > 0)
+    return ops
 
 
 def composed_config_yaml(n_nodes: int) -> str:
@@ -240,13 +288,28 @@ def composed_workload_yaml(max_group_pods: int, burst) -> str:
     return COMPOSED_GROUP_YAML.format(max_pods=max_group_pods, d1=burst[0], d2=burst[1], d3=burst[2])
 
 
+# The reference bench's fault block (`bench.py:157-166` FAULTS_YAML), which
+# its composed line takes with faults on and its endurance line always.
+FAULTS_YAML = """
+fault_injection:
+  enabled: true
+  node:
+    mttf: 900.0
+    mttr: 120.0
+  pod:
+    fail_prob: 0.05
+    restart_limit: 3
+"""
+
+
 def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_group_pods=16,
-                 burst=(90.0, 90.0, 120.0), k=8, **engine_kwargs):
+                 burst=(90.0, 90.0, 120.0), k=8, faults=False, **engine_kwargs):
     """The reference's composed scenario (`bench.py:198` `_composed_inputs`)
     on the port: n_nodes uniform nodes, Poisson plain pods (seed 3, 16 000
     mCPU / 32 GiB, 30-120 s) beside one HPA pod group, the CA allowed
     n_nodes nodes of the 64 000 mCPU template; max_ca_pods_per_cycle 64,
-    max_pods_per_scale_down 8. FULL_COMPOSED gives the reference's width."""
+    max_pods_per_scale_down 8. FULL_COMPOSED gives the reference's width;
+    `faults` adds FAULTS_YAML (each cluster then has its own crash chains)."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -261,17 +324,17 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
         composed_workload_yaml(max_group_pods, burst)
     ).convert_to_simulator_events()
     return build_batched_from_traces(
-        SimulationConfig.from_yaml(composed_config_yaml(n_nodes)), cluster,
+        SimulationConfig.from_yaml(composed_config_yaml(n_nodes) + (FAULTS_YAML if faults else "")), cluster,
         sorted(plain + group, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
         max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, **engine_kwargs,
     )
 
 
-# The reference's endurance line (`bench.py:547-600`, `run_endurance`)
-# without its fault block: churn waves of pods that fit only the CA's
-# template, through a 2-slot CA reserve (max_node_count 2, slot
-# multiplier 1), which only slot reclaim can carry to the end.
+# The reference's endurance line (`bench.py:547-600`, `run_endurance`):
+# churn waves of pods that fit only the CA's template, through a 2-slot CA
+# reserve a slot multiplier (max_node_count 2), which only slot reclaim can
+# carry to the end; its fault block is FAULTS_YAML.
 ENDURANCE_CONFIG_YAML = """
 sim_name: bench_endurance
 seed: 1
@@ -317,13 +380,15 @@ def endurance_churn_yaml(n_waves: int, spacing: float, t0: float = 30.0) -> str:
 
 
 def endurance_sim(device, n_clusters: int = 4, n_waves: int = 24, n_nodes: int = 8, spacing: float = 160.0,
-                  rate: float = 0.25, pod_window=128, **engine_kwargs):
+                  rate: float = 0.25, pod_window=128, faults=False, **engine_kwargs):
     """The reference's endurance line (`run_endurance` defaults: 4 clusters
     of 8 nodes of 16 000 mCPU / 32 GiB, 24 waves 160 s apart from t = 30 s,
     Poisson plain pods at 0.25/s to 60 s before the horizon, seed 3, 2 000
-    mCPU / 4 GiB, 20-60 s, K = 32, pod_window=128, ca_slot_multiplier 1)
-    without fault injection, the streaming feeder or telemetry.
-    engine_kwargs go to the engine (e.g. reclaim=, graphs=)."""
+    mCPU / 4 GiB, 20-60 s, K = 32, pod_window=128, ca_slot_multiplier 1),
+    with its fault block where `faults` (the reference runs it with faults
+    on, and with ca_slot_multiplier 2 on its long runs, `bench.py:610,
+    688`), without the streaming feeder or telemetry. engine_kwargs go to
+    the engine (e.g. reclaim=, graphs=, ca_slot_multiplier=)."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -337,7 +402,7 @@ def endurance_sim(device, n_clusters: int = 4, n_waves: int = 24, n_nodes: int =
     churn = GenericWorkloadTrace.from_yaml(endurance_churn_yaml(n_waves, spacing)).convert_to_simulator_events()
     engine_kwargs.setdefault("ca_slot_multiplier", 1)
     return build_batched_from_traces(
-        SimulationConfig.from_yaml(ENDURANCE_CONFIG_YAML),
+        SimulationConfig.from_yaml(ENDURANCE_CONFIG_YAML + (FAULTS_YAML if faults else "")),
         UniformClusterTrace(n_nodes, cpu=16000, ram=32 * 1024**3).convert_to_simulator_events(),
         sorted(plain + churn, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=32, pod_window=pod_window, **engine_kwargs,
@@ -664,6 +729,65 @@ def timed_path(sim, sk, names, label):
     return out
 
 
+def timed_replay(sim, sk, names, label) -> dict:
+    """Capture every window piece, run the replay to completion on the
+    graph executor with the launch counts set to 0 just before, and check
+    the run: graphs alone (run_to_completion reads the device once per
+    chunk of 64 windows past the last event; the window loop itself
+    never does), every pod terminal, some decision, every kernel in
+    `names` launched. Returns the run's numbers."""
+    t0 = time.perf_counter()
+    captured = sim.precompile_pieces()
+    capture_s = time.perf_counter() - t0
+    sk.reset_launches()
+    syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
+    t0 = time.perf_counter()
+    sim.run_to_completion(max_time=86400.0 * 20.0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    graph = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
+    check_graph_run(label, sim, graph, sim.host_syncs - syncs0, sim.windows_run,
+                    max_syncs=-(-sim.windows_run // 64))
+    summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
+    counters = summary["counters"]
+    decisions = counters["scheduling_decisions"]
+    windows = sim.windows_run
+    phase = sim.state.pods.phase[:, : sim.n_real_pods]
+    if not bool(((phase == 4) | (phase == 5) | (phase == 6)).all()):
+        fail(f"{label}: the replay ended with a pod that is not terminal")
+    if decisions <= 0:
+        fail(f"{label}: the replay made no scheduling decision")
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{label}: the replay never launched {name}")
+    return {
+        "cycle_route": sim.cycle_route,
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "real_pods": sim.n_real_pods,
+                  "events": sim.n_events, "E": sim.max_events_per_window, "K": sim.max_pods_per_cycle},
+        "windows": windows,
+        "wall_s": elapsed,
+        "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "decisions_per_s": decisions / elapsed,
+        "events_per_s": (sim.n_clusters * sim.n_events + decisions) / elapsed,
+        "host_syncs": sim.host_syncs,
+        "precompiled_graphs": captured,
+        "precompile_s": capture_s,
+        "graph": graph,
+        "counters": counters,
+        "timings": summary["timings"],
+        "launches": launches,
+    }
+
+
+T0 = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The script's elapsed seconds as a phase starts."""
+    print(f"-- {phase} at {time.perf_counter() - T0:.1f} s", flush=True)
+
+
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(code)
@@ -977,9 +1101,147 @@ def composed_reclaim_pair(dev, sk, must_launch, on: dict, on_metrics: dict) -> d
     return out
 
 
+def profiles_phase(dev, sk, names, two_names, replay_paths, replay_names, ref: dict) -> dict:
+    """Phase 13: scheduler profiles, each of KERNEL_PROFILES on the three
+    cycle routes' timed paths: the headline shape on the graph executor
+    timed as phase 4 (the megakernel route) and as phase 8 (the two-kernel
+    route; timed_path: no eager window, capture or host read in the timed
+    span), and the full replay timed to completion as phase 9 (the sorted
+    route), beside phase 9's numbers (`ref`); the kernels' line takes the
+    profiled rows' launches from these runs. Then card == CPU under
+    compare_states for the named profiles and the custom one: the headline
+    at C = 128 to t = 60 s on the megakernel route, and at C = 8 to
+    t = 200 s on the sorted and the two-kernel routes (forced after the
+    build)."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    out = {"timed": {}, "two_kernel": {}, "replay": {}, "card_cpu": {}}
+    for prof in KERNEL_PROFILES:
+        sim = headline_sim(dev, scheduler_profile=prof)
+        out["timed"][prof] = timed_path(sim, sk, names, f"phase 13 {prof}")
+        if sim.profile.name != prof:
+            fail(f"phase 13: the engine runs profile {sim.profile.name}, not {prof}")
+        del sim
+        sim = with_megakernel_flag("0", lambda: headline_sim(dev, scheduler_profile=prof))
+        out["two_kernel"][prof] = timed_path(
+            sim, sk, ["fused_event_scatter", "fused_free_resources"] + two_names, f"phase 13 {prof} two-kernel"
+        )
+        if sim.cycle_route != "two_kernel" or out["two_kernel"][prof]["launches"]["fused_select_cycle_commit"]:
+            fail(f"phase 13: {prof} did not run on the two-kernel route alone")
+        del sim
+        sim = replay_sim(dev, replay_paths, scheduler_profile=prof)
+        if sim.cycle_route != "sorted":
+            fail(f"phase 13: the replay under {prof} built the {sim.cycle_route} route, not the sorted one")
+        run = out["replay"][prof] = timed_replay(sim, sk, replay_names, f"phase 13 {prof} replay")
+        print(
+            f"phase 13 {prof} replay: {run['windows']} windows in {run['wall_s']:.3f} s = "
+            f"{run['ms_per_window']:.3f} ms a window (phase 9 {ref['ms_per_window']:.3f}), "
+            f"{run['decisions_per_s']:.1f} decisions/s, pods_succeeded {run['counters']['pods_succeeded']} "
+            f"(phase 9 {ref['counters']['pods_succeeded']}), run: {run['graph']}, launches {run['launches']}",
+            flush=True,
+        )
+        del sim
+    for prof in KERNEL_PROFILES + ("custom",):
+        spec = CUSTOM_PROFILE if prof == "custom" else prof
+        for C, route, until in ((128, "megakernel", 60.0), (8, "sorted", 200.0), (8, "two_kernel", 200.0)):
+            finals = {}
+            for where in ("cuda", "cpu"):
+                s = headline_sim(where, n_clusters=C, scheduler_profile=spec)
+                s.cycle_route = route
+                s.step_until_time(until)
+                if where == "cuda":
+                    ran_on_graphs(f"phase 13 {prof} {route}", s)
+                finals[where] = state_to_numpy(s.state)
+                del s
+            bad = compare_states(finals["cuda"], finals["cpu"])
+            if bad:
+                fail(f"phase 13: {prof} on the {route} route at C={C}: card and CPU differ at {bad}")
+            decisions = int(finals["cuda"][".metrics.scheduling_decisions"].sum())
+            out["card_cpu"][f"{prof} {route} C={C}"] = decisions
+            print(f"phase 13: {prof} on the {route} route at C={C} to t={until:.0f} s: card == CPU under "
+                  f"compare_states ({decisions} decisions)", flush=True)
+    return out
+
+
+def faults_phase(dev, sk, names, ref: dict) -> dict:
+    """Phase 14: the chaos engine. The composed line with FAULTS_YAML on
+    the graph executor (each of the 256 clusters with its own crash
+    chains). Failed attempts wait in the queue for their backoff, so the
+    live pods outgrow COMPOSED_POD_WINDOW: a first run through it to
+    1 200 s gives the width the window grows to, and the timed engine is
+    built at that width, so no growth (whose captures would land in the
+    span) happens inside it. Timed as phase 6w (timed_path: one host read
+    a span, no eager window) beside phase 6w's numbers (`ref`), faults
+    shown; device busy and kernels a window from a traced second run;
+    card == CPU under compare_states at C = 8 to t = 400 s with faults,
+    and with faults and best_fit (slot reclaim on both sides); the graph
+    run equal to the eager run bit for bit under faults through
+    COMPOSED_POD_WINDOW to t = 1 200 s, across its slides and growth."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    def build_at(width, graphs=True):
+        return composed_sim(dev, 256, **FULL_COMPOSED, pod_window=width, faults=True, graphs=graphs)
+
+    t0 = time.perf_counter()
+    probe = build_at(COMPOSED_POD_WINDOW)
+    build_s = time.perf_counter() - t0
+    probe.step_until_time(1200.0)
+    width, grows = probe.pod_window, probe.dispatch_stats["grows"]
+    del probe
+
+    def build():
+        return build_at(width)
+
+    sim = build()
+    out = timed_path(sim, sk, names + ["pod_attempt_draw"], "phase 14")
+    out["build_s"] = build_s
+    out["grown_from"] = {"pod_window": COMPOSED_POD_WINDOW, "to": width, "grows": grows}
+    counters = sim.metrics_summary()["counters"]
+    out["counters"] = counters
+    if counters["pod_interruptions"] + counters["pods_failed"] <= 0 or counters["node_crashes"] <= 0:
+        fail(f"phase 14: the fault run showed no fault: {counters}")
+    del sim
+    out["busy"], _ = profiled_busy(build, 190.0, 1190.0, "phase 14")
+    print(
+        f"phase 14: composed with faults through {WINDOWED_COMPOSED} (grown to {width} in {grows} growth(s) by "
+        f"1 200 s; timed at {width}), built in {build_s:.2f} s: host "
+        f"{out['ms_per_window']:.3f} ms a window (phase 6w {ref['ms_per_window']:.3f}), device busy "
+        f"{out['busy']['busy_ms_per_window']:.4f} ms a window (phase 6w {ref['busy']['busy_ms_per_window']:.4f}), "
+        f"{out['busy']['kernels_per_window']:.1f} kernels a window (phase 6w "
+        f"{ref['busy']['kernels_per_window']:.1f}), {out['decisions_per_s']:.1f} decisions/s; counters {counters}",
+        flush=True,
+    )
+    out["card_cpu"] = {}
+    for label, kwargs in (("faults", {}), ("faults + best_fit", {"scheduler_profile": "best_fit"})):
+        finals = {}
+        for where in ("cuda", "cpu"):
+            s = composed_sim(where, 8, faults=True, reclaim=True, **kwargs)
+            s.step_until_time(400.0)
+            if where == "cuda":
+                ran_on_graphs(f"phase 14 {label}", s)
+            finals[where] = (state_to_numpy(s.state), s.metrics_summary()["counters"])
+            del s
+        bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+        if bad:
+            fail(f"phase 14: {label}: card and CPU differ at {bad}")
+        c = finals["cuda"][1]
+        if c["pod_interruptions"] + c["pods_failed"] <= 0:
+            fail(f"phase 14: {label}: the C=8 run showed no fault: {c}")
+        out["card_cpu"][label] = c
+        print(f"phase 14: {label} at C=8 to t=400 s: card == CPU under compare_states ({c})", flush=True)
+    out["graph_vs_eager"] = graph_eager_pair(
+        "phase 14 graph == eager under faults", sk, lambda g: build_at(COMPOSED_POD_WINDOW, g), 1200.0,
+        sliding=True)
+    return out
+
+
 def churn_phase(dev, sk, must_launch) -> dict:
     """Phase 12: the reference's endurance churn (endurance_sim) at
-    ENDURANCE_CLUSTERS clusters through ENDURANCE_WAVES waves on the graph
+    ENDURANCE_CLUSTERS clusters through ENDURANCE_WAVES waves, as the
+    reference runs it: its fault block on (each cluster with its own crash
+    chains) and ca_slot_multiplier 2 (ENDURANCE_KWARGS), on the graph
     executor with the card's default, slot reclaim on: timed from window 0
     with the launch counts set to 0 just before, one host read a span (the
     pod window's) and none inside it. It must finish with the autoscaler
@@ -999,9 +1261,11 @@ def churn_phase(dev, sk, must_launch) -> dict:
     horizon = 30.0 + ENDURANCE_WAVES * 160.0
 
     def build(**kwargs):
-        return endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, **kwargs)
+        return endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, **ENDURANCE_KWARGS, **kwargs)
 
+    t0 = time.perf_counter()
     sim = build()
+    build_s = time.perf_counter() - t0
     if not sim.reclaim or not sim.graphs:
         fail(f"phase 12: the card engine built with reclaim {sim.reclaim}, graphs {sim.graphs}")
     t0 = time.perf_counter()
@@ -1029,14 +1293,13 @@ def churn_phase(dev, sk, must_launch) -> dict:
     for name in must_launch:
         if launches[name] <= 0:
             fail(f"phase 12: never launched {name}")
-    auto = sim.state.auto
-    for leaf in (auto.ca_total, auto.ca_alloc, auto.ca_reclaimed, sim.state.pods.phase, sim.state.nodes.alive):
-        if not bool((leaf == leaf[:1]).all()):
-            fail("phase 12: clusters replaying the same trace diverged")
     counters = summary["counters"]
+    if counters["node_crashes"] <= 0 or counters["pod_restarts"] <= 0:
+        fail(f"phase 12: the churn with faults showed no crash or restart: {counters}")
     out = {
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "K": sim.max_pods_per_cycle,
                   "reserve": int(reserve[0]), "waves": ENDURANCE_WAVES, "horizon_s": horizon},
+        "build_s": build_s,
         "windows": windows, "wall_s": elapsed, "ms_per_window": 1e3 * elapsed / max(windows, 1),
         "decisions_per_s": counters["scheduling_decisions"] / elapsed,
         "precompiled_graphs": captured, "precompile_s": capture_s,
@@ -1044,7 +1307,7 @@ def churn_phase(dev, sk, must_launch) -> dict:
         "allocations_per_cluster": int(total[0]), "reclaimed_per_cluster": int(reclaimed[0]),
         "counters": counters, "launches": launches,
     }
-    del sim, auto
+    del sim
     # The dynamic name order, read once a wave (a separate run: the reads
     # would stall the timed one).
     sim = build()
@@ -1078,7 +1341,7 @@ def churn_phase(dev, sk, must_launch) -> dict:
     for n_waves in (24, REORDER_WAVES):
         finals = {}
         for where in ("cuda", "cpu"):
-            s = endurance_sim(where, 4, n_waves, reclaim=True)
+            s = endurance_sim(where, 4, n_waves, reclaim=True, **ENDURANCE_KWARGS)
             reordered, restore = count_reordered_removals(s)
             try:
                 s.step_until_time(30.0 + n_waves * 160.0)
@@ -1095,7 +1358,8 @@ def churn_phase(dev, sk, must_launch) -> dict:
     if not finals["cpu"][2]:
         fail(f"phase 12: the CPU churn through {REORDER_WAVES} waves removed no node on a reordered walk")
     print(
-        f"phase 12: endurance churn, {ENDURANCE_CLUSTERS} clusters x {out['shape']['N']} node slots, "
+        f"phase 12: endurance churn with faults, {ENDURANCE_CLUSTERS} clusters x {out['shape']['N']} node slots "
+        f"(built in {build_s:.2f} s), "
         f"{ENDURANCE_WAVES} waves to {horizon:.0f} s through a {out['shape']['reserve']}-slot CA reserve: "
         f"{windows} windows in {elapsed:.3f} s = {out['ms_per_window']:.4f} ms a window, device busy "
         f"{out['busy']['busy_ms_per_window']:.4f} ms a window, {out['decisions_per_s']:.1f} decisions/s, "
@@ -1110,9 +1374,12 @@ def churn_phase(dev, sk, must_launch) -> dict:
     return out
 
 
-# The churn phase's scale (ENDUR_r01.json's wave count, 15 390 simulated s).
+# The churn phase's scale (ENDUR_r01.json's wave count, 15 390 simulated s)
+# and the reference's settings of its long endurance runs (`bench.py:610,
+# 688`): faults on, a slot multiplier of 2.
 ENDURANCE_CLUSTERS = 256
 ENDURANCE_WAVES = 96
+ENDURANCE_KWARGS = {"faults": True, "ca_slot_multiplier": 2}
 # Wave 74's pair is allocated as ca_node_99 and ca_node_100: the first two
 # coexisting CA nodes whose names leave allocation order.
 REORDER_WAVES = 76
@@ -1157,8 +1424,9 @@ def scale_down_walk_reordered(args, st):
 
 
 def churn_ca_inputs(dev):
-    """The two CA kernels' arguments on the endurance churn (256 clusters,
-    graphs off) once slots have been reused: the first scale-down that
+    """The two CA kernels' arguments on the endurance churn as phase 12
+    runs it (ENDURANCE_CLUSTERS clusters, ENDURANCE_KWARGS: faults on,
+    slot multiplier 2; graphs off) once slots have been reused: the first scale-down that
     removes a node while it walks the live candidates in another order
     than the static table would (two coexisting CA nodes whose names
     straddle a digit boundary, "ca_node_100" < "ca_node_99": wave 74's
@@ -1167,7 +1435,7 @@ def churn_ca_inputs(dev):
     them. Returns ({name: (args, kwargs)}, the engine's shapes)."""
     from kubernetriks_tpu_torch.batched import autoscale as autoscale_mod
 
-    sim = endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, graphs=False)
+    sim = endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, graphs=False, **ENDURANCE_KWARGS)
     st, auto = sim.autoscale_statics, sim.state.auto  # the engine's fixed buffers
     reserve = st.ng_slot_count.sum(dim=1)
 
@@ -1297,6 +1565,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # --- 2. build -----------------------------------------------------------
+    stamp("phase 2")
     from kubernetriks_tpu_torch.ops import _build
     from kubernetriks_tpu_torch.ops import scheduler_kernel as sk
 
@@ -1312,6 +1581,7 @@ def main() -> int:
         _build.kernel(name)
 
     # --- 3. kernels against their plain versions -----------------------------
+    stamp("phase 3")
     from kubernetriks_tpu_torch.batched import step as step_mod
 
     names = ["fused_event_scatter", "fused_free_resources", "fused_select_cycle_commit"]
@@ -1339,16 +1609,19 @@ def main() -> int:
         ]
 
     def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops, label=None):
+        # `terms`, a cycle kernel's launch arguments for its profile, is
+        # the wrapper's alone: the plain version reads `profile`.
+        plain_kwargs = {k: v for k, v in kwargs.items() if k != "terms"}
         outs_k = as_tuple(kernel_fn(*args, **kwargs))
         torch.cuda.synchronize()
-        outs_p = as_tuple(plain_fn(*args, **kwargs))
+        outs_p = as_tuple(plain_fn(*args, **plain_kwargs))
         torch.cuda.synchronize()
         err = max_abs_err(outs_k, outs_p)
         if not outputs_agree(outs_k, outs_p, stats_idx):
             fail(f"{name}: kernel disagrees with its plain version (max abs err {err})")
         sets = copies_of(args)
         ms = graph_ms([lambda a=a: kernel_fn(*a, **kwargs) for a in sets])
-        plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: plain_fn(*args, **plain_kwargs), reps=3, warmup=1)
         library_ms = graph_ms([library(a) for a in sets]) if library else None
         bytes_s = need_bytes / HBM_BYTES_PER_S
         ops_s = ops / FP32_OPS_PER_S
@@ -1417,6 +1690,29 @@ def main() -> int:
             5 * n_fin + 2 * n_freed, label=label,
         )
 
+    # The commit-time draw. Reads the start offsets and will_fail flags of
+    # every slot (5 B), the pod bases, and for the slots that draw (an
+    # attempt starting on a plain slot of finite duration) the restarts
+    # and the duration window (8 B) and, where the attempt fails, the
+    # duration offset (4 B); writes 5 B a slot. Operations: ~170 integer
+    # operations a drawing slot (two threefry blocks of 20 rounds),
+    # counted at the float32 rate (the card's table has no integer rate).
+    # No PyTorch call computes threefry.
+    from kubernetriks_tpu_torch.ops import chaos_kernel as ck
+
+    def check_attempt_draw(args, kwargs, label):
+        start, restarts, dur_win = args[0], args[1], args[2]
+        C, P = start.shape
+        plain = torch.arange(P, device=start.device)[None, :] < args[7]
+        draws = (start < float("inf")) & plain & (dur_win >= 0)
+        n_draw = int(draws.sum())
+        wf, _ = ck.pod_attempt_draw(*args, **kwargs)
+        n_fail = int((wf & draws).sum())
+        check_kernel(
+            "pod_attempt_draw", ck.pod_attempt_draw, ck.pod_attempt_draw_plain, args, kwargs, -1, None,
+            5 * C * P + 4 * C + 8 * n_draw + 4 * n_fail + 5 * C * P, 170 * n_draw, label=label,
+        )
+
     check_event_scatter(*captured["fused_event_scatter"])
     check_free_resources(*captured["fused_free_resources"])
     # The two selecting kernels' least work. Bytes: the eligible mask, the
@@ -1429,7 +1725,7 @@ def main() -> int:
     # rows (read 8 B, written 16 B a slot) and the stats rows; the
     # selection kernel writes 11 B a candidate row instead. No single
     # library call computes either.
-    def selection_need(args, K, commit=False):
+    def selection_need(args, K, commit=False, node_ops=16):
         eligible = args[3]
         C, N = args[1].shape
         P = eligible.shape[1]
@@ -1441,12 +1737,32 @@ def main() -> int:
         )
         need = eligible.numel() + 12 * int(depth.sum()) + 8 * n_picks + 17 * C * N
         need += 16 * n_picks + 24 * C * P + 20 * C if commit else 11 * C * K
-        return need, int(3 * compares) + 16 * N * n_picks
+        return need, int(3 * compares) + node_ops * N * n_picks
+
+    from kubernetriks_tpu_torch.batched.pipeline import compile_profile
+
+    def check_profiled(name, kernel_fn, plain_fn, args, kwargs, stats_idx, need_of, label_of):
+        """The cycle kernel `name` under each of KERNEL_PROFILES (its
+        general instantiation) on the same captured inputs, against its
+        plain version; need_of(args, node_ops) gives the bound's bytes and
+        operations."""
+        for prof_name in KERNEL_PROFILES:
+            prof = compile_profile(prof_name)
+            terms = sk.profile_terms(prof, dev)  # built before graph_ms captures the launches
+            check_kernel(
+                name, kernel_fn, plain_fn, args, {**kwargs, "profile": prof, "terms": terms}, stats_idx, None,
+                *need_of(args, profile_node_ops(prof)), label=label_of(prof_name),
+            )
 
     args, kwargs = captured["fused_select_cycle_commit"]
     check_kernel(
         "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
         args, kwargs, 6, None, *selection_need(args, kwargs["k_pods"], commit=True),
+    )
+    check_profiled(
+        "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain, args, kwargs, 6,
+        lambda a, ops: selection_need(a, kwargs["k_pods"], commit=True, node_ops=ops),
+        lambda p: f"fused_select_cycle_commit ({p})",
     )
     # K = P: the cycle size the engine takes when none is given, on a deep
     # queue, so the kernel orders it in several batches. The two-kernel
@@ -1459,6 +1775,7 @@ def main() -> int:
     )
     del sim, captured
 
+    stamp("phase 3: the two-kernel route")
     # The two-kernel route's kernels, on inputs of the headline shape built
     # with KTPU_MEGAKERNEL=0 (the same window, t = 190 s).
     two_names = ["fused_select_schedule_cycle", "fused_commit_scatter"]
@@ -1474,6 +1791,11 @@ def main() -> int:
     check_kernel(
         "fused_select_schedule_cycle", sk.fused_select_schedule_cycle, sk.select_schedule_cycle_plain,
         args, kwargs, -1, None, *selection_need(args, kwargs["k_pods"]),
+    )
+    check_profiled(
+        "fused_select_schedule_cycle", sk.fused_select_schedule_cycle, sk.select_schedule_cycle_plain,
+        args, kwargs, -1, lambda a, ops: selection_need(a, kwargs["k_pods"], node_ops=ops),
+        lambda p: f"fused_select_schedule_cycle ({p})",
     )
     # The megakernel's deep queue (K = P, several batches).
     check_kernel(
@@ -1502,6 +1824,7 @@ def main() -> int:
     )
     del sim, captured
 
+    stamp("phase 3: the CA kernels")
     # The CA kernels, on inputs of the autoscaler path at full width: the
     # first window where the scale-up packs a cache pod and the first where
     # the scale-down removes a node (both launch, masked, on every window
@@ -1577,6 +1900,7 @@ def main() -> int:
     check_ca_scale_up(*cap_up["fused_ca_scale_up"])
     del sim, cap_up, cap_down
 
+    stamp("phase 3: the churn's CA kernels")
     # The CA kernels on the endurance churn once slots have been reused:
     # the dynamic name key and slot order, a cursor pulled back.
     churn_caps, churn_shape = churn_ca_inputs(dev)
@@ -1585,6 +1909,7 @@ def main() -> int:
     check_ca_scale_up(*churn_caps["fused_ca_scale_up"], label=CHURN_LABELS["fused_ca_scale_up"])
     del churn_caps
 
+    stamp("phase 3: the composed line's window")
     # The composed line through its pod window (pod_window=512: P = 648,
     # the window and the HPA ring): the pod-side kernels on the last calls
     # to t = 590 s, inside the load burst. The CA kernels' operands are
@@ -1607,6 +1932,7 @@ def main() -> int:
     )
     del sim, captured
 
+    stamp("phase 3: the replay")
     # The replay's kernels, on inputs of the full-width replay in its first
     # 600 s, each from its busiest call: the candidate cycle's window with
     # the most candidates, the event chunk with the most valid events, the
@@ -1627,7 +1953,7 @@ def main() -> int:
         (autoscale_mod, "fused_ca_scale_up"): lambda a: int(a[8].sum()),
     }
 
-    def record_busiest(sim, until):
+    def record_busiest(sim, until, sizes=sizes):
         """Each kernel's busiest call (by `sizes`) in sim's windows to
         `until` (graphs off), cloned: (busiest, sizes seen)."""
         busiest, most = {}, {name: -1 for _, name in sizes}
@@ -1696,17 +2022,21 @@ def main() -> int:
     # rows up to the last valid one (8 B each); writes the node rows and
     # 6 B per candidate row. ~16 operations per node per row. No library
     # call computes it.
-    def cycle_need(args):
+    def cycle_need(args, node_ops=16):
         C, N = args[1].shape
         K = args[3].shape[1]
         live = torch.where(args[3], torch.arange(1, K + 1, device=dev), 0).amax(dim=1)
         n_live = int(live.sum())
-        return 9 * C * N + C * K + 8 * n_live + 8 * C * N + 6 * C * K, 16 * N * n_live
+        return 9 * C * N + C * K + 8 * n_live + 8 * C * N + 6 * C * K, node_ops * N * n_live
 
     args, kwargs = busiest["fused_schedule_cycle"]
     check_kernel(
         "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
         None, *cycle_need(args),
+    )
+    check_profiled(
+        "fused_schedule_cycle", sk.fused_schedule_cycle, sk.schedule_cycle_plain, args, kwargs, -1,
+        cycle_need, lambda p: f"fused_schedule_cycle ({p})",
     )
     # K = 1 024 rows, 1 000 of them valid, on the replay's node rows: two
     # tiles of the kernel's candidate buffer.
@@ -1716,6 +2046,7 @@ def main() -> int:
         None, *cycle_need(args), label="fused_schedule_cycle (K=1024, 1000 valid rows)",
     )
     del sim, busiest
+    stamp("phase 3: the replay's window")
     # The replay through its pod window (pod_window=4096: P = 4 096, 8 192
     # after a growth): the pod-side kernels on their busiest calls in the
     # first 600 s, at the window's width.
@@ -1730,6 +2061,49 @@ def main() -> int:
         None, *cycle_need(args), label=f"fused_schedule_cycle (replay, {WINDOWED_REPLAY})",
     )
     del sim, busiest
+    stamp("phase 3: the fault path")
+    # The fault path: the composed line through its pod window with the
+    # reference bench's fault block, to t = 590 s; every kernel it runs on
+    # its busiest call: the event scatter on its chunk with the most node
+    # removals (the line's only node removals in the slab are crashes;
+    # recoveries reach the kernel as creations), the free kernel on its
+    # call that frees the most pods which are not real finishes (failing
+    # attempts, with removed ones), the megakernel on its deepest queue,
+    # the CA kernels on their calls with the most candidates on their
+    # branch, and the commit-time draw on its call with the most attempts
+    # starting.
+    t0 = time.perf_counter()
+    sim = composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, faults=True, graphs=False)
+    build_faults_s = time.perf_counter() - t0
+    busiest, most = record_busiest(sim, 590.0, {
+        (step_mod, "fused_event_scatter"): lambda a: int((a[4] & (a[0] == sk.EV_REMOVE_NODE)).sum()),
+        (step_mod, "fused_free_resources"): lambda a: int((a[0] & ~a[4]).sum()),
+        (step_mod, "fused_select_cycle_commit"): lambda a: int(a[3].sum()),
+        (autoscale_mod, "fused_ca_scale_down"): sizes[(autoscale_mod, "fused_ca_scale_down")],
+        (autoscale_mod, "fused_ca_scale_up"): sizes[(autoscale_mod, "fused_ca_scale_up")],
+        (step_mod, "pod_attempt_draw"): lambda a: int((a[0] < float("inf")).sum()),
+    })
+    counters = sim.metrics_summary()["counters"]
+    print(f"phase 3: composed with faults through {WINDOWED_COMPOSED}: C={sim.n_clusters} N={sim.n_nodes} "
+          f"P={sim.n_pods} K={sim.max_pods_per_cycle} S={sim.autoscale_statics.ca_slots.shape[1]}, built "
+          f"(per-cluster crash chains) in {build_faults_s:.2f} s; busiest calls {most}; to 590 s: {counters}",
+          flush=True)
+    if counters["pod_restarts"] <= 0 or most["fused_free_resources"] <= 0:
+        fail("phase 3: the fault path freed no failing attempt by 590 s")
+    if most["fused_event_scatter"] <= 0:
+        fail("phase 3: no event chunk of the fault path to 590 s held a crash")
+    check_event_scatter(*busiest["fused_event_scatter"], label=f"fused_event_scatter ({FAULTS_LABEL})")
+    check_free_resources(*busiest["fused_free_resources"], label=f"fused_free_resources ({FAULTS_LABEL})")
+    args, kwargs = busiest["fused_select_cycle_commit"]
+    check_kernel(
+        "fused_select_cycle_commit", sk.fused_select_cycle_commit, sk.select_cycle_commit_plain,
+        args, kwargs, 6, None, *selection_need(args, kwargs["k_pods"], commit=True),
+        label=f"fused_select_cycle_commit ({FAULTS_LABEL})",
+    )
+    check_ca_scale_down(*busiest["fused_ca_scale_down"], label=f"fused_ca_scale_down ({FAULTS_LABEL})")
+    check_ca_scale_up(*busiest["fused_ca_scale_up"], label=f"fused_ca_scale_up ({FAULTS_LABEL})")
+    check_attempt_draw(*busiest["pod_attempt_draw"], label=f"pod_attempt_draw ({FAULTS_LABEL})")
+    del sim, busiest
     floors = chain_floors(sk, dev)
     print(
         "phase 3: chain floor per candidate (one cluster, 32 nodes, 1 024 candidates): "
@@ -1738,6 +2112,7 @@ def main() -> int:
     )
 
     # --- 4. the main path ----------------------------------------------------
+    stamp("phase 4")
     sim = headline_sim(dev)
     main_path = timed_path(sim, sk, names, "phase 4")
     # Conservation: every node's used capacity is the sum of the requests
@@ -1767,6 +2142,7 @@ def main() -> int:
     del sim, st
 
     # --- 5. card against CPU ---------------------------------------------------
+    stamp("phase 5")
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.batched.state import compare_states, flatten
     from kubernetriks_tpu_torch.config import SimulationConfig
@@ -1803,6 +2179,7 @@ def main() -> int:
     print(f"phase 5: card == CPU under compare_states ({counters})", flush=True)
 
     # --- 6. the autoscaler path -----------------------------------------------
+    stamp("phase 6")
     ca_names = ["fused_ca_scale_down", "fused_ca_scale_up"]
     sim = composed_sim(dev, 256, **FULL_COMPOSED)
     if not sim.reclaim:
@@ -1839,6 +2216,7 @@ def main() -> int:
     composed_reclaim_off = composed_reclaim_pair(dev, sk, names + ca_names, windowed_composed, windowed_metrics)
 
     # --- 7. card against CPU on the autoscaler path -----------------------------
+    stamp("phase 7")
     for reclaim in (True, False):
         finals = {}
         sk.reset_launches()
@@ -1877,6 +2255,7 @@ def main() -> int:
           f"{stats['grows']} growths, final W {finals['cuda'][2]})", flush=True)
 
     # --- 8. the two-kernel route on the headline shape -------------------------
+    stamp("phase 8")
     sim = with_megakernel_flag("0", lambda: headline_sim(dev))
     two_kernel_path = timed_path(
         sim, sk, ["fused_event_scatter", "fused_free_resources"] + two_names, "phase 8"
@@ -1886,6 +2265,7 @@ def main() -> int:
     del sim
 
     # --- 9. the trace-replay path at full width ---------------------------------
+    stamp("phase 9")
     replay_names = [
         "fused_event_scatter", "fused_free_resources", "fused_schedule_cycle",
         "fused_ca_scale_down", "fused_ca_scale_up",
@@ -1895,68 +2275,27 @@ def main() -> int:
     build_s9 = time.perf_counter() - t0
     if sim.cycle_route != "sorted":
         fail(f"the replay built the {sim.cycle_route} route, not the sorted one")
-    t0 = time.perf_counter()
-    captured9 = sim.precompile_pieces()
-    capture_s9 = time.perf_counter() - t0
-    sk.reset_launches()
-    syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
-    t0 = time.perf_counter()
-    sim.run_to_completion(max_time=86400.0 * 20.0)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    replay_launches = dict(sk.LAUNCHES)
-    graph9 = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
-    # run_to_completion reads the device once per chunk of 64 windows past
-    # the last event; the window loop itself never does.
-    check_graph_run("phase 9", sim, graph9, sim.host_syncs - syncs0, sim.windows_run,
-                    max_syncs=-(-sim.windows_run // 64))
-    summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
-    counters = summary["counters"]
-    decisions = counters["scheduling_decisions"]
-    windows = sim.windows_run
-    phase = sim.state.pods.phase[:, : sim.n_real_pods]
-    terminal = bool(((phase == 4) | (phase == 5) | (phase == 6)).all())
-    replay_path = {
-        "cycle_route": sim.cycle_route,
-        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "real_pods": sim.n_real_pods,
-                  "events": sim.n_events, "E": sim.max_events_per_window, "K": sim.max_pods_per_cycle},
-        "build_s": build_s9,
-        "windows": windows,
-        "wall_s": elapsed,
-        "ms_per_window": 1e3 * elapsed / max(windows, 1),
-        "decisions_per_s": decisions / elapsed,
-        "events_per_s": (sim.n_clusters * sim.n_events + decisions) / elapsed,
-        "host_syncs": sim.host_syncs,
-        "precompiled_graphs": captured9,
-        "precompile_s": capture_s9,
-        "graph": graph9,
-        "counters": counters,
-        "timings": summary["timings"],
-        "launches": replay_launches,
-    }
+    replay_path = {"build_s": build_s9, **timed_replay(sim, sk, replay_names, "phase 9")}
+    replay_launches = replay_path["launches"]
+    counters = replay_path["counters"]
     print(
         f"phase 9: replay route {sim.cycle_route}, N={sim.n_nodes} P={sim.n_pods} "
-        f"({sim.n_real_pods} pods, {sim.n_events} events), built in {build_s9:.2f} s, windows {windows}, "
-        f"wall {elapsed:.3f} s = {replay_path['ms_per_window']:.3f} ms/window, "
-        f"{replay_path['decisions_per_s']:.1f} decisions/s, {replay_path['events_per_s']:.1f} events/s, "
-        f"pods_succeeded {counters['pods_succeeded']}, scaled-up nodes {counters['total_scaled_up_nodes']}, "
-        f"host syncs {sim.host_syncs}, {captured9} graphs captured up front in {capture_s9:.2f} s, "
-        f"run: {graph9}, launches {replay_launches}",
+        f"({sim.n_real_pods} pods, {sim.n_events} events), built in {build_s9:.2f} s, windows "
+        f"{replay_path['windows']}, wall {replay_path['wall_s']:.3f} s = {replay_path['ms_per_window']:.3f} "
+        f"ms/window, {replay_path['decisions_per_s']:.1f} decisions/s, {replay_path['events_per_s']:.1f} "
+        f"events/s, pods_succeeded {counters['pods_succeeded']}, scaled-up nodes "
+        f"{counters['total_scaled_up_nodes']}, host syncs {sim.host_syncs}, {replay_path['precompiled_graphs']} "
+        f"graphs captured up front in {replay_path['precompile_s']:.2f} s, run: {replay_path['graph']}, "
+        f"launches {replay_launches}",
         flush=True,
     )
-    if not terminal:
-        fail("the replay ended with a pod that is not terminal")
-    if decisions <= 0:
-        fail("the replay made no scheduling decision")
-    for name in replay_names:
-        if replay_launches[name] <= 0:
-            fail(f"the replay never launched {name}")
-    del sim, phase
+    del sim
     replay_path["busy"], _ = profiled_busy(lambda: replay_sim(dev, replay_paths), 43200.0, 44200.0, "phase 9")
 
     windowed_replay = replay_window_phase(dev, sk, replay_paths, replay_path, replay_names)
 
     # --- 10. card against CPU: the replay and the two-kernel route ----------------
+    stamp("phase 10")
     small_paths = replay_trace("replay_small", n_machines=100, n_tasks=700, horizon=4000.0, seed=7)
     finals = {}
     sk.reset_launches()
@@ -1998,6 +2337,7 @@ def main() -> int:
     )
 
     # --- 11. the graph executor against eager windows on the card ----------------
+    stamp("phase 11")
     graph_vs_eager = {
         "headline C=128 megakernel": graph_eager_pair(
             "phase 11 headline megakernel", sk, lambda g: headline_sim(dev, n_clusters=128, graphs=g),
@@ -2022,7 +2362,16 @@ def main() -> int:
     }
 
     # --- 12. the endurance churn through slot reclaim ------------------------------
+    stamp("phase 12")
     churn_path = churn_phase(dev, sk, names + ca_names)
+
+    # --- 13. scheduler profiles ------------------------------------------------------
+    stamp("phase 13")
+    profiles_path = profiles_phase(dev, sk, names, two_names, replay_paths, replay_names, replay_path)
+
+    # --- 14. the chaos engine ----------------------------------------------------------
+    stamp("phase 14")
+    faults_path = faults_phase(dev, sk, names + ca_names, windowed_composed)
 
     kernels = []
     meta = {
@@ -2034,6 +2383,8 @@ def main() -> int:
         "fused_select_schedule_cycle": ("select_schedule_cycle.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:336"),
         "fused_commit_scatter": ("commit_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:828"),
         "fused_schedule_cycle": ("schedule_cycle.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:903"),
+        "pod_attempt_draw": (
+            "pod_attempt_draw.cu", "kubernetriks_tpu/batched/step.py:1311 (XLA in the reference, no TPU kernel)"),
     }
     # Each kernel's launches come from its own path's run: the scheduling
     # kernels from the headline path (phase 4), the CA kernels from the
@@ -2067,6 +2418,24 @@ def main() -> int:
     for n, label in CHURN_LABELS.items():
         replay_labels[label] = n
         path_launches[label] = churn_path["launches"][n]
+    # The cycle kernels under each profile, with the launches of that
+    # profile's timed runs (phase 13: the headline on the megakernel and
+    # the two-kernel routes, the replay on the sorted route).
+    for prof in KERNEL_PROFILES:
+        for n, launches in (
+            ("fused_select_cycle_commit", profiles_path["timed"][prof]["launches"]),
+            ("fused_select_schedule_cycle", profiles_path["two_kernel"][prof]["launches"]),
+            ("fused_schedule_cycle", profiles_path["replay"][prof]["launches"]),
+        ):
+            label = f"{n} ({prof})"
+            replay_labels[label] = n
+            path_launches[label] = launches[n]
+    # The fault path's entries, with the launches of phase 14's timed run.
+    for n in ("fused_event_scatter", "fused_free_resources", "fused_select_cycle_commit",
+              "fused_ca_scale_down", "fused_ca_scale_up", "pod_attempt_draw"):
+        label = f"{n} ({FAULTS_LABEL})"
+        replay_labels[label] = n
+        path_launches[label] = faults_path["launches"][n]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels):
         name = replay_labels.get(label, label)
         r = report[label]
@@ -2091,7 +2460,9 @@ def main() -> int:
             "replay_path": replay_path, "graph_vs_eager": graph_vs_eager,
             "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
             "composed_reclaim_off": composed_reclaim_off, "churn": churn_path,
+            "profiles": profiles_path, "faults": faults_path,
         }, f, indent=1, default=float)
+    stamp("the report")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -34,6 +34,14 @@ on by default on the card, off on the CPU, and off, with a RuntimeWarning,
 where the node names make its name orders unsound (an explicit
 reclaim=True raises there). Scenario fleets are not ported.
 
+The scheduler profile (`scheduler_profile=`, else the config's) is
+compiled once here (batched/pipeline.py) and runs in every cycle. With an
+enabled `fault_injection` block (chaos.py) each cluster's trace gets its
+own crash chains at build (build_batched_from_traces, keyed on the
+cluster index), and every window runs the chaos engine's step
+(step.FaultStep); which windows apply a crash is a host fact of the slab
+(step.WindowPlan.crash_due).
+
 Entry points run on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; a CUDA device where there is none raises. On the
 card the window step goes through the CUDA kernels (ops/); on the CPU
@@ -81,12 +89,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from kubernetriks_tpu_torch import chaos
 from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
 from kubernetriks_tpu_torch.batched.graphs import CudaGraphs, WindowExecutor
 from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
     EV_CREATE_POD,
+    EV_NODE_CRASH,
     EV_REMOVE_NODE,
     PHASE_QUEUED,
     PHASE_RUNNING,
@@ -102,7 +112,7 @@ from kubernetriks_tpu_torch.batched.state import (
     make_step_constants,
     unflatten,
 )
-from kubernetriks_tpu_torch.batched.step import DeviceConstants, WindowPlan, window_body
+from kubernetriks_tpu_torch.batched.step import DeviceConstants, FaultStep, WindowPlan, window_body
 from kubernetriks_tpu_torch.batched.timerep import INF_WIN, TPair, from_f64_np, t_add, t_inf, t_le, t_lt, t_where
 from kubernetriks_tpu_torch.batched.trace_compile import (
     BIG_RANK,
@@ -116,6 +126,7 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     stage_segment,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
+from kubernetriks_tpu_torch.ops.scheduler_kernel import profile_terms
 
 POD_ALIGN = 128
 # Device bytes the whole-trace slide payload may take (reference
@@ -601,6 +612,10 @@ class BatchedSimulation:
         if scheduler_profile is None:
             scheduler_profile = config.scheduler_profile
         self.profile = compile_profile(scheduler_profile)
+        # The cycle kernels' launch arguments for it, on the card before
+        # any capture (the CPU's plain versions take the profile alone).
+        self.profile_terms = profile_terms(self.profile, self.device) if self.device.type == "cuda" else None
+        self.fault_params = chaos.make_fault_params(config)
         self.conditional_move = bool(config.enable_unscheduled_pods_conditional_move)
         self.consts = make_step_constants(config)
         self.ram_unit = ram_unit
@@ -629,7 +644,7 @@ class BatchedSimulation:
             pod_req_cpu,
             pod_req_ram,
             pod_duration,
-            _,
+            node_crash_downtime,
         ) = pad_and_batch(compiled_traces, n_pods=n_pods_aligned)
         self.pod_window = None
         self._pod_base = 0
@@ -661,6 +676,10 @@ class BatchedSimulation:
             if ca_on and extra_names:
                 node_cap_cpu = np.concatenate([node_cap_cpu, np.tile(extra_cpu, (C, 1))], axis=1)
                 node_cap_ram = np.concatenate([node_cap_ram, np.tile(extra_ram, (C, 1))], axis=1)
+                # The CA's reserved slots never crash.
+                node_crash_downtime = np.concatenate(
+                    [node_crash_downtime, np.zeros((C, len(extra_cpu)), np.float32)], axis=1
+                )
 
         self.n_clusters = C
         self.n_nodes = node_cap_cpu.shape[1]
@@ -688,6 +707,7 @@ class BatchedSimulation:
             pod_duration,
             interval=interval,
             device=self.device,
+            node_crash_downtime=node_crash_downtime,
         )
         # The group-slot bounds (lo, hi) the HPA pass works on; (0, 0): the
         # HPA can never act, its tick parks at +inf and the pass never runs.
@@ -722,19 +742,21 @@ class BatchedSimulation:
         self.slab = TraceSlab.build(ev_win, ev_off, ev_kind, ev_slot, self.device)
         self._k = DeviceConstants.build(self.consts, self.device)
 
-        # Host copy of the slab's window column, as two lookup tables:
+        # Host copy of the slab's window column, as lookup tables:
         # _due_upto[c, w] = events of cluster c with window < w (clamped at
-        # the last finite window), _rm_prefix[c, i] = node removals among
-        # the first i slab events.
+        # the last finite window), _rm_prefix[c, i] = node removals (trace
+        # removals and crashes) among the first i slab events,
+        # _crash_prefix[c, i] the crashes among them.
         finite = ev_win < INF_WIN
         self._wmax = int(ev_win[finite].max()) + 1 if finite.any() else 0
         bucket = np.clip(ev_win, -1, self._wmax - 1) + 1
         flat = (np.arange(C)[:, None] * (self._wmax + 1) + bucket)[finite]
         hist = np.bincount(flat, minlength=C * (self._wmax + 1)).reshape(C, self._wmax + 1)
         self._due_upto = np.cumsum(hist, axis=1)
-        self._rm_prefix = np.concatenate(
-            [np.zeros((C, 1), np.int64), np.cumsum(ev_kind == EV_REMOVE_NODE, axis=1)], axis=1
-        )
+        zero = np.zeros((C, 1), np.int64)
+        is_crash = ev_kind == EV_NODE_CRASH
+        self._rm_prefix = np.concatenate([zero, np.cumsum((ev_kind == EV_REMOVE_NODE) | is_crash, axis=1)], axis=1)
+        self._crash_prefix = np.concatenate([zero, np.cumsum(is_crash, axis=1)], axis=1)
         self._cursor = np.zeros(C, np.int64)
 
         # Name-rank tables: same-window reschedules queue in (removal time,
@@ -761,7 +783,26 @@ class BatchedSimulation:
         if self.pod_window is not None:
             self._refresh_name_ranks()
             self._init_slide_payload()
+        self.faults = self._fault_step()
         self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
+
+    def _fault_step(self) -> Optional[FaultStep]:
+        """The chaos engine's window constants (None: faults off); the
+        plain segment's width follows the pod window's growths."""
+        fp = self.fault_params
+        if fp is None:
+            return None
+
+        def f32(x):
+            return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+
+        return FaultStep(
+            params=fp,
+            interval=float(self.config.scheduling_cycle_interval),
+            plain_width=int(self.consts.trace_pod_bound - self.consts.resident_shift),
+            backoff_base=f32(fp.backoff_base),
+            backoff_cap=f32(fp.backoff_cap),
+        )
 
     def _trace_name_ranks(self, C: int):
         nnr = np.full((C, self.n_nodes), BIG_RANK, np.int32)
@@ -930,6 +971,7 @@ class BatchedSimulation:
         self.pod_window = new_W
         self.n_pods += insert
         self.consts = self.consts._replace(resident_shift=T - new_W)
+        self.faults = self._fault_step()
         st = self.autoscale_statics
         if st is not None:
             gap = torch.full((C, insert), -1, dtype=torch.int32, device=self.device)
@@ -1029,9 +1071,12 @@ class BatchedSimulation:
         removal_due = bool(
             (self._rm_prefix[rows, target] > self._rm_prefix[rows, self._cursor]).any()
         )
+        crash_due = bool(
+            (self._crash_prefix[rows, target] > self._crash_prefix[rows, self._cursor]).any()
+        )
         self._cursor = target
         if self.clock is None:
-            return WindowPlan(n_chunks=n_chunks, removal_due=removal_due)
+            return WindowPlan(n_chunks=n_chunks, removal_due=removal_due, crash_due=crash_due)
         # A CA removal decided in an earlier window takes effect here.
         removal_due = removal_due or w in self.clock.removal_windows
         self.clock.removal_windows.discard(w)
@@ -1043,6 +1088,7 @@ class BatchedSimulation:
             hpa_collect=hpa_collect,
             ca_due=ca_due,
             reclaim=self.reclaim,
+            crash_due=crash_due,
         )
 
     def _window_body(self, state: ClusterBatchState, w: int, plan: WindowPlan) -> ClusterBatchState:
@@ -1065,6 +1111,9 @@ class BatchedSimulation:
                 self.max_ca_pods_per_cycle, self.max_pods_per_scale_down,
             ),
             cycle_route=self.cycle_route,
+            profile=self.profile,
+            faults=self.faults,
+            profile_terms=self.profile_terms,
         )
 
     def _run_span(self, first: int, last: int) -> None:
@@ -1286,10 +1335,27 @@ def build_batched_from_traces(
     **kwargs,
 ) -> BatchedSimulation:
     """Replicate one (cluster trace, workload trace) pair across n_clusters
-    — the homogeneous-batch benchmark shape. `device`: see resolve_device."""
+    — the homogeneous-batch benchmark shape. `device`: see resolve_device.
+
+    With node faults configured, each cluster gets its own crash chains
+    (chaos.inject_node_faults keyed on the cluster index; reference
+    engine.py:4581-4640), so the trace is compiled once per cluster.
+    Scenario seeds (fleets) are not ported."""
     device = resolve_device(device)
     ram_unit = kwargs.pop("ram_unit", DEFAULT_RAM_UNIT)
-    compiled = compile_cluster_trace(cluster_events, workload_events, config, ram_unit=ram_unit)
-    return BatchedSimulation(
-        config, [compiled] * n_clusters, device=device, ram_unit=ram_unit, **kwargs
-    )
+    fault_cfg = getattr(config, "fault_injection", None)
+    if chaos.has_node_faults(fault_cfg):
+        seed = fault_cfg.seed if fault_cfg.seed is not None else config.seed
+        horizon = chaos.fault_horizon(fault_cfg, cluster_events, workload_events)
+        compiled_list = [
+            compile_cluster_trace(
+                chaos.inject_node_faults(
+                    cluster_events, fault_cfg, seed, c, horizon, config.scheduling_cycle_interval
+                ),
+                workload_events, config, ram_unit=ram_unit,
+            )
+            for c in range(n_clusters)
+        ]
+    else:
+        compiled_list = [compile_cluster_trace(cluster_events, workload_events, config, ram_unit=ram_unit)] * n_clusters
+    return BatchedSimulation(config, compiled_list, device=device, ram_unit=ram_unit, **kwargs)

@@ -32,8 +32,10 @@ per key:
   always runs back to back: the events' tail (step.events_tail), the
   cycle of `route`, the HPA pass (`hpa`: None for none, False for the
   metrics collection alone, True for the cycle) and, with `ca`, the CA
-  pass. One end graph a window, so the state is copied back once a
-  window; at most 12 end graphs a route.
+  pass; a sixth element, "crash", where a chaos-engine crash applies
+  (its accounting and the crash-caused reschedules run). One end graph a
+  window, so the state is copied back once a window; at most 12 end
+  graphs a route, 18 with node faults.
 
 Under the sliding pod window one more piece runs between spans:
 
@@ -128,7 +130,8 @@ def piece_schedule(plan: WindowPlan, route: str) -> List[Key]:
     order)."""
     hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
     head = [("reclaim",)] if plan.reclaim else []
-    return head + [("chunk",)] * plan.n_chunks + [("end", route, plan.removal_due, hpa, plan.ca_due)]
+    end = ("end", route, plan.removal_due, hpa, plan.ca_due) + (("crash",) if plan.crash_due else ())
+    return head + [("chunk",)] * plan.n_chunks + [end]
 
 
 class CudaGraphs:
@@ -229,9 +232,10 @@ class WindowExecutor:
         N = state.nodes.alive.shape[1]
         dev = state.time.device
         sliding = sim.pod_window is not None and sim.autoscale_statics is not None
+        node_faults = sim.faults is not None and sim.faults.params.node_faults
         self.bufs = WindowBuffers(
             state=state,
-            acc=EventAccumulators.fresh(C, N, P, dev),
+            acc=EventAccumulators.fresh(C, N, P, dev, node_faults=node_faults),
             W=torch.zeros((C,), dtype=torch.int32, device=dev),
             shift=torch.zeros((1,), dtype=torch.int32, device=dev),
             rank=sim.autoscale_statics.pod_name_rank if sliding else None,
@@ -299,18 +303,22 @@ class WindowExecutor:
 
                 self._when(dead.any(), compact)
         elif kind == "end":
-            route, removal_due, hpa, ca_due = key[1:]
+            route, removal_due, hpa, ca_due = key[1:5]
+            crash_due = key[5:] == ("crash",)
 
             def run(b: WindowBuffers) -> None:
                 orders = reclaim_name_orders(b.state.auto, sim.autoscale_statics, k, removal_due or ca_due)
                 state, _ = events_tail(
                     b.state, b.acc, b.W, k, removal_due, name_ranks=sim.name_ranks,
-                    node_key=None if orders is None else orders[1],
+                    node_key=None if orders is None else orders[1], faults=sim.faults, crash_due=crash_due,
                 )
                 # What the storage saw before this cycle: the CA reads it
                 # when its snapshot precedes the cycle's commit visibility.
                 pre = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
-                state = run_scheduling_cycle(state, b.W, k, sim.max_pods_per_cycle, route)
+                state = run_scheduling_cycle(
+                    state, b.W, k, sim.max_pods_per_cycle, route, profile=sim.profile, faults=sim.faults,
+                    profile_terms=sim.profile_terms,
+                )
                 if hpa is not None:
                     state = hpa_pass(state, sim.autoscale_statics, b.W, k, sim.hpa_seg, hpa)
                 if ca_due:
@@ -357,10 +365,17 @@ class WindowExecutor:
                 hpas += [False, True]
             if clock.ca_on:
                 cas.append(True)
+        crashes = bool(sim._crash_prefix[:, -1].any())
         route = sim.cycle_route
         keys: List[Key] = [("reclaim",)] if sim.reclaim else []
         keys.append(("chunk",))
-        keys += [("end", route, rm, hpa, ca) for rm in removals for hpa in hpas for ca in cas]
+        keys += [
+            ("end", route, rm, hpa, ca) + crash
+            for rm in removals
+            for crash in ([(), ("crash",)] if rm and crashes else [()])
+            for hpa in hpas
+            for ca in cas
+        ]
         if sim.pod_window is not None:
             keys.append(("slide", sim.pod_window))
         return keys

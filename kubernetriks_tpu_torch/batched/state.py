@@ -39,6 +39,8 @@ EV_CREATE_NODE = 1
 EV_REMOVE_NODE = 2
 EV_CREATE_POD = 3
 EV_REMOVE_POD = 4
+EV_NODE_CRASH = 5  # chaos: remove semantics, with crash accounting
+EV_NODE_RECOVER = 6  # chaos: create semantics on a fresh slot
 
 DEFAULT_RAM_UNIT = 1024 * 1024  # 1 MiB
 
@@ -57,7 +59,7 @@ class NodeArrays(NamedTuple):
     # this time); +inf = none.
     create_time: TPair
     remove_time: TPair
-    crash_downtime: torch.Tensor  # float32 seconds (0: no fault injection)
+    crash_downtime: torch.Tensor  # float32 seconds: a crashing slot's repair span (0 otherwise)
 
 
 class PodArrays(NamedTuple):
@@ -77,7 +79,7 @@ class PodArrays(NamedTuple):
     finish_time: TPair  # +inf = no pending finish
     removal_time: TPair  # pending HPA scale-down effect; +inf = none
     hpa_idx: torch.Tensor  # int32 HPA replica index of the occupant; -1 = none
-    restarts: torch.Tensor  # int32 (no pod faults in this port)
+    restarts: torch.Tensor  # int32 CrashLoopBackOff restarts so far
     will_fail: torch.Tensor  # bool
 
 
@@ -293,10 +295,12 @@ def init_state(
     pod_duration: np.ndarray,
     interval: float,
     device,
+    node_crash_downtime: Optional[np.ndarray] = None,
 ) -> ClusterBatchState:
     """The initial state with pre-staged payloads (all slots start
     EMPTY/dead; trace events bring them to life). pod_duration: float64
-    seconds, < 0 marks a long-running service."""
+    seconds, < 0 marks a long-running service. node_crash_downtime: (C, N)
+    float32 repair span of each crashing slot (zeros without faults)."""
     C, N, P = n_clusters, n_nodes, n_pods
     dev = torch.device(device)
 
@@ -314,7 +318,11 @@ def init_state(
         alloc_ram=i32(node_cap_ram),
         create_time=t_inf((C, N), dev),
         remove_time=t_inf((C, N), dev),
-        crash_downtime=torch.zeros((C, N), dtype=torch.float32, device=dev),
+        crash_downtime=(
+            torch.zeros((C, N), dtype=torch.float32, device=dev)
+            if node_crash_downtime is None
+            else torch.tensor(np.asarray(node_crash_downtime, np.float32), device=dev)
+        ),
     )
     pods = fresh_pods_np(pod_req_cpu, pod_req_ram, pod_duration, interval, dev)
     counters = {name: zeros_i32((C,)) for name in MetricArrays._fields[:17]}

@@ -40,6 +40,27 @@ What differs from the reference, and why it is exact:
   argmin does: `jax.lax.sort` puts -0.0 before +0.0, `torch.sort` calls
   them equal, and the bits keep the reference's order.
 - Every float division divides by a float32 tensor (timerep.py note).
+
+The scheduler profile (batched/pipeline.py) reaches every cycle route's
+kernel as `profile`. With the chaos engine on (`faults`, a FaultStep;
+reference step.py:304-310, 424-433, 536-557, 657-921, 1311-1360):
+- crashes and recoveries are slab events: a recovery is applied as a node
+  creation and a crash as a node removal by `fused_event_scatter` (the
+  kinds are mapped before the kernel; min and set commute, so the
+  accumulators end as the reference's separate scatter and merge leave
+  them), while the chunk keeps the crashes' own removal times apart
+  (`EventAccumulators.crash_rm`) for the crash accounting and the
+  crash-caused reschedules, which run only in windows whose plan holds a
+  crash (`WindowPlan.crash_due`, a host fact from the slab: the
+  reference's `lax.cond(crashed_now.any())`);
+- failing attempts free their resources like finishes, but only real
+  finishes fold into the duration estimator; a failed attempt retries
+  after the CrashLoopBackOff backoff or fails for good past the restart
+  limit;
+- each attempt that starts draws its failure at commit
+  (`commit_scattered_tail`, ops/chaos_kernel.py `pod_attempt_draw`),
+  keyed on the pod's global plain slot, so the draw follows the pod
+  through the sliding pod window.
 """
 
 from __future__ import annotations
@@ -48,9 +69,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from kubernetriks_tpu_torch.batched.pipeline import DEFAULT_PROFILE
 from kubernetriks_tpu_torch.batched.state import (
     EV_CREATE_NODE,
     EV_CREATE_POD,
+    EV_NODE_CRASH,
+    EV_NODE_RECOVER,
+    EV_REMOVE_NODE,
     EV_REMOVE_POD,
     PHASE_EMPTY,
     PHASE_FAILED,
@@ -75,6 +100,7 @@ from kubernetriks_tpu_torch.batched.timerep import (
     t_norm,
     t_where,
 )
+from kubernetriks_tpu_torch.ops.chaos_kernel import pod_attempt_draw
 from kubernetriks_tpu_torch.ops.scheduler_kernel import (
     commit_scatter_plain,
     fused_commit_scatter,
@@ -139,7 +165,8 @@ class WindowPlan(NamedTuple):
     chunk loop runs, whether a node removal can apply (only then can pods
     be rescheduled), and which autoscaler passes run: an HPA cycle, else
     an HPA metrics collection alone, a CA cycle, and CA slot reclaim's
-    compaction before the window's events."""
+    compaction before the window's events; and whether a chaos-engine
+    crash applies (a removal, so removal_due then holds too)."""
 
     n_chunks: int
     removal_due: bool
@@ -147,6 +174,21 @@ class WindowPlan(NamedTuple):
     hpa_collect: bool = False
     ca_due: bool = False
     reclaim: bool = False
+    crash_due: bool = False
+
+
+class FaultStep(NamedTuple):
+    """The chaos engine's constants of a window (None in its place: faults
+    off): the fault parameters (chaos.FaultParams), the scheduling interval
+    and the width of the device pod axis's plain segment (the commit draw's
+    launch arguments), and the backoff's float32 constants on the state's
+    device."""
+
+    params: object  # chaos.FaultParams
+    interval: float
+    plain_width: int
+    backoff_base: torch.Tensor  # 0-dim float32
+    backoff_cap: torch.Tensor  # 0-dim float32
 
 
 class WakeEvents(NamedTuple):
@@ -191,6 +233,15 @@ def xla_cumsum16(x: torch.Tensor) -> torch.Tensor:
         carry = xla_cumsum16(pre[:, :, -1].contiguous())  # (C, nb) scanned block totals
         pre = torch.cat([pre[:, :1], pre[:, 1:] + carry[:, :-1, None]], dim=1)
     return pre.reshape(C, nb * CUMSUM_BLOCK)[:, :K]
+
+
+def exp2_int(k: torch.Tensor) -> torch.Tensor:
+    """2.0 ** k in float32 for int32 k >= 0, exactly (+inf from 128 on):
+    the power of two built from its exponent bits, so no exp2 rounding on
+    any device. XLA:CPU's jnp.exp2 is exact up to k = 12 only; the
+    reference's restart limits keep its backoffs below that."""
+    bits = ((k.clamp(0, 127) + 127) << 23).to(torch.int32)
+    return torch.where(k >= 128, float("inf"), bits.view(torch.float32))
 
 
 def t_seconds_f32(a: TPair, interval: torch.Tensor) -> torch.Tensor:
@@ -251,7 +302,9 @@ class EventAccumulators(NamedTuple):
     per node slot, created this window and the earliest removal; per pod
     slot, the earliest create time with its queue sequence number and the
     earliest removal; per cluster, the pod creations so far. Times are
-    float32 seconds from the window base, +inf = none."""
+    float32 seconds from the window base, +inf = none. With node faults,
+    also the crashes' removal times (included in node_removal too) and
+    the recoveries so far."""
 
     created: torch.Tensor  # (C, N) bool
     node_removal: torch.Tensor  # (C, N) float32
@@ -259,9 +312,11 @@ class EventAccumulators(NamedTuple):
     pod_create_seq: torch.Tensor  # (C, P) int32
     pod_removal: torch.Tensor  # (C, P) float32
     n_creates: torch.Tensor  # (C,) int32
+    crash_rm: Optional[torch.Tensor] = None  # (C, N) float32
+    n_recover: Optional[torch.Tensor] = None  # (C,) int32
 
     @staticmethod
-    def fresh(C: int, N: int, P: int, device) -> "EventAccumulators":
+    def fresh(C: int, N: int, P: int, device, node_faults: bool = False) -> "EventAccumulators":
         acc = EventAccumulators(
             created=torch.empty((C, N), dtype=torch.bool, device=device),
             node_removal=torch.empty((C, N), dtype=torch.float32, device=device),
@@ -269,6 +324,8 @@ class EventAccumulators(NamedTuple):
             pod_create_seq=torch.empty((C, P), dtype=torch.int32, device=device),
             pod_removal=torch.empty((C, P), dtype=torch.float32, device=device),
             n_creates=torch.empty((C,), dtype=torch.int32, device=device),
+            crash_rm=torch.empty((C, N), dtype=torch.float32, device=device) if node_faults else None,
+            n_recover=torch.empty((C,), dtype=torch.int32, device=device) if node_faults else None,
         )
         acc.reset_()
         return acc
@@ -281,6 +338,9 @@ class EventAccumulators(NamedTuple):
         self.pod_create_seq.fill_(0)
         self.pod_removal.fill_(INF)
         self.n_creates.fill_(0)
+        if self.crash_rm is not None:
+            self.crash_rm.fill_(INF)
+            self.n_recover.fill_(0)
 
 
 def event_chunk(
@@ -329,6 +389,19 @@ def event_chunk(
     # prefix count: exact in any summation order.
     create_rank = torch.cumsum(is_cp, dim=1, dtype=torch.int32) - 1
     ev_seq = (state.queue_seq_counter[:, None] + acc.n_creates[:, None] + create_rank).to(torch.int32)
+    crash_rm, n_recover = acc.crash_rm, acc.n_recover
+    if crash_rm is not None:
+        # A recovery applies as a creation, a crash as a removal (module
+        # note); the crashes' own times go to crash_rm (slot N drops).
+        is_crash = valid & (ev_k == EV_NODE_CRASH)
+        is_recover = valid & (ev_k == EV_NODE_RECOVER)
+        ev_k = torch.where(is_recover, EV_CREATE_NODE, torch.where(is_crash, EV_REMOVE_NODE, ev_k)).to(torch.int32)
+        N = crash_rm.shape[1]
+        wide = torch.cat([crash_rm, torch.full((C, 1), INF, dtype=torch.float32, device=dev)], dim=1)
+        crash_rm = wide.scatter_reduce(
+            1, torch.where(is_crash, ev_s, N).long(), torch.where(is_crash, ev_rel, INF), "amin"
+        )[:, :N]
+        n_recover = n_recover + is_recover.sum(dim=1, dtype=torch.int32)
     created, node_removal, pod_create, pod_create_seq, pod_removal = fused_event_scatter(
         ev_k, ev_s, ev_rel, ev_seq, valid,
         acc.created, acc.node_removal, acc.pod_create, acc.pod_create_seq, acc.pod_removal,
@@ -340,7 +413,7 @@ def event_chunk(
         cursor + valid.sum(dim=1, dtype=torch.int32),
         EventAccumulators(
             created, node_removal, pod_create, pod_create_seq, pod_removal,
-            acc.n_creates + is_cp.sum(dim=1, dtype=torch.int32),
+            acc.n_creates + is_cp.sum(dim=1, dtype=torch.int32), crash_rm, n_recover,
         ),
         node_create_rel,
     )
@@ -357,6 +430,7 @@ def apply_window_events(
     conditional_move: bool = False,
     name_ranks=None,
     node_key=None,
+    faults: Optional[FaultStep] = None,
 ):
     """Apply every trace event with effect time strictly before the cycle
     time W * interval, and resolve every pod finish due in the window
@@ -366,7 +440,7 @@ def apply_window_events(
     C, P = state.pods.phase.shape
     N = state.nodes.alive.shape[1]
     dev = state.time.device
-    acc = EventAccumulators.fresh(C, N, P, dev)
+    acc = EventAccumulators.fresh(C, N, P, dev, node_faults=faults is not None and faults.params.node_faults)
     node_create_rel = (
         torch.full((C, N), INF, dtype=torch.float32, device=dev) if conditional_move else None
     )
@@ -376,7 +450,8 @@ def apply_window_events(
         )
         state = state._replace(event_cursor=cursor)
     return events_tail(
-        state, acc, W, k, plan.removal_due, conditional_move, name_ranks, node_create_rel, node_key
+        state, acc, W, k, plan.removal_due, conditional_move, name_ranks, node_create_rel, node_key,
+        faults, plan.crash_due,
     )
 
 
@@ -390,6 +465,8 @@ def events_tail(
     name_ranks=None,
     node_create_rel: Optional[torch.Tensor] = None,
     node_key: Optional[torch.Tensor] = None,
+    faults: Optional[FaultStep] = None,
+    crash_due: bool = False,
 ):
     """The window's events after its chunks: the pending autoscaler node
     effects and pod removals due, creations, pod finishes against node and
@@ -400,7 +477,8 @@ def events_tail(
     reschedules' order; `node_key`: under CA slot reclaim, the nodes'
     current name key (autoscale.ca_name_order's, from the autoscaler
     state the window's reclaim pass left, which events do not change) in
-    place of the static node ranks. Returns (state, WakeEvents or None)."""
+    place of the static node ranks. `faults`, `crash_due`: the chaos
+    engine (module note). Returns (state, WakeEvents or None)."""
     pods, nodes, metrics = state.pods, state.nodes, state.metrics
     C, P = pods.phase.shape
     N = nodes.alive.shape[1]
@@ -438,6 +516,20 @@ def events_tail(
         torch.where(pend_prm_due, _rel_seconds(pods.removal_time, base[:, None], interval), f32inf),
     )
     pod_removal_time = t_where(pend_prm_due, t_inf((C, P), dev), pods.removal_time)
+
+    node_faults = faults is not None and faults.params.node_faults
+    pod_faults = faults is not None and faults.params.pod_faults
+    if node_faults:
+        # Crash accounting (the slot's pre-sampled repair span is its
+        # downtime; a slot crashes at most once: recoveries open new ones).
+        metrics = metrics._replace(node_recoveries=metrics.node_recoveries + acc.n_recover)
+        if crash_due:
+            crashed_now = acc.crash_rm < f32inf
+            metrics = metrics._replace(
+                node_crashes=metrics.node_crashes + crashed_now.sum(dim=1, dtype=torch.int32),
+                node_downtime_s=metrics.node_downtime_s
+                + torch.where(crashed_now, nodes.crash_downtime, 0.0).sum(dim=1),
+            )
 
     # --- creations ----------------------------------------------------------
     alive = nodes.alive | created
@@ -478,13 +570,33 @@ def events_tail(
     rescheds = interrupted & (pod_node_removal < pod_removal)
     removed_running = interrupted & (pod_removal <= pod_node_removal)
 
+    # Chaos: a finishing attempt whose draw failed fails at its finish
+    # time; it frees its resources like a finish, but only real finishes
+    # count and fold into the duration estimator.
+    if pod_faults:
+        fails = finishes & pods.will_fail
+        real_fin = finishes & ~pods.will_fail
+    else:
+        fails = None
+        real_fin = finishes
+    if node_faults and crash_due:
+        # Crash-caused reschedules: the pod's earliest node removal is its
+        # node's crash (a tie counts as the crash).
+        pod_crash_rm = torch.where(
+            pods.node >= 0, torch.gather(acc.crash_rm, 1, pods.node.clamp(min=0).long()), f32inf
+        )
+        crash_caused = rescheds & (pod_crash_rm <= pod_node_removal)
+        metrics = metrics._replace(
+            pod_interruptions=metrics.pod_interruptions + crash_caused.sum(dim=1, dtype=torch.int32)
+        )
+
     # Freed resources back to their nodes + the finished pods' duration
     # estimator fold (one kernel).
     freed = finishes | removed_running
     duration_s = t_seconds_f32(pods.duration, interval)
     alloc_cpu, alloc_ram, dur_stats = fused_free_resources(
         freed, pods.node, pods.req_cpu, pods.req_ram,
-        finishes, duration_s, alloc_cpu, alloc_ram,
+        real_fin, duration_s, alloc_cpu, alloc_ram,
     )
     n_done = dur_stats[:, 0].to(torch.int32)
     est = metrics.pod_duration
@@ -500,7 +612,7 @@ def events_tail(
         ),
         processed_nodes=metrics.processed_nodes + created.sum(dim=1, dtype=torch.int32),
     )
-    phase = torch.where(finishes, PHASE_SUCCEEDED, phase).to(torch.int32)
+    phase = torch.where(real_fin, PHASE_SUCCEEDED, phase).to(torch.int32)
     finish_time = t_where(finishes, t_inf((C, P), dev), pods.finish_time)
 
     # Reschedule pods of removed nodes. Same-window reschedules queue in
@@ -540,6 +652,54 @@ def events_tail(
         pod_node = torch.where(rescheds, -1, pods.node).to(torch.int32)
         n_rescheds = rescheds.sum(dim=1, dtype=torch.int32)
 
+    # Chaos: the failing attempts' CrashLoopBackOff (reference
+    # step.py:818-890): a retry re-enters the queue at fail + min(base *
+    # 2^restarts, cap), no earlier than the failure's own delivery
+    # (delta_reschedule), with a fresh initial-attempt time; past the
+    # restart limit the pod fails for good.
+    restarts = pods.restarts
+    will_fail = pods.will_fail
+    queue_seq_counter = state.queue_seq_counter + n_creates + n_rescheds
+    if pod_faults:
+        new_restarts = pods.restarts + 1
+        retry = fails & (new_restarts <= faults.params.restart_limit)
+        perma = fails & ~retry
+        fail_rel = _rel_seconds(pods.finish_time, base[:, None], interval)
+        backoff = torch.minimum(faults.backoff_base * exp2_int(pods.restarts), faults.backoff_cap)
+        retry_ts = t_norm(
+            base_p,
+            torch.where(retry, fail_rel + torch.maximum(backoff, k.delta_reschedule), 0.0),
+            interval,
+        )
+        # Same-window retries queue in (fail time, pod name) order.
+        big = 1 << 30
+        k2 = (
+            torch.where(retry, name_ranks[1], big)
+            if name_ranks is not None
+            else torch.zeros((C, P), dtype=torch.int32, device=dev)
+        )
+        fail_rank = _stable_queue_rank((torch.where(retry, fail_rel, f32inf), k2))
+        phase = torch.where(retry, PHASE_QUEUED, torch.where(perma, PHASE_FAILED, phase)).to(torch.int32)
+        queue_ts = t_where(retry, retry_ts, queue_ts)
+        queue_seq = torch.where(
+            retry,
+            state.queue_seq_counter[:, None] + n_creates[:, None] + n_rescheds[:, None] + fail_rank,
+            queue_seq,
+        ).to(torch.int32)
+        initial_attempt_ts = t_where(retry, retry_ts, initial_attempt_ts)
+        attempts = torch.where(retry, 1, attempts).to(torch.int32)
+        pod_node = torch.where(fails, -1, pod_node).to(torch.int32)
+        restarts = torch.where(fails, new_restarts, pods.restarts).to(torch.int32)
+        will_fail = will_fail & ~fails
+        n_fail_retries = retry.sum(dim=1, dtype=torch.int32)
+        queue_seq_counter = queue_seq_counter + n_fail_retries
+        n_perma = perma.sum(dim=1, dtype=torch.int32)
+        metrics = metrics._replace(
+            pod_restarts=metrics.pod_restarts + n_fail_retries,
+            pods_failed=metrics.pods_failed + n_perma,
+            terminated_pods=metrics.terminated_pods + n_perma,
+        )
+
     # Removed-while-running pods terminate as removed.
     n_removed_running = removed_running.sum(dim=1, dtype=torch.int32)
     metrics = metrics._replace(
@@ -559,6 +719,9 @@ def events_tail(
 
     any_created_node = created.any(dim=1)
     any_freed = (n_done > 0) | (n_removed_running > 0)
+    if pod_faults:
+        # A failing attempt wakes the unschedulable queue like a finish.
+        any_freed = any_freed | fails.any(dim=1)
 
     wake = None
     if conditional_move:
@@ -590,9 +753,11 @@ def events_tail(
             node=pod_node,
             finish_time=finish_time,
             removal_time=pod_removal_time,
+            restarts=restarts,
+            will_fail=will_fail,
         ),
         metrics=metrics,
-        queue_seq_counter=state.queue_seq_counter + n_creates + n_rescheds,
+        queue_seq_counter=queue_seq_counter,
         requeue_signal=state.requeue_signal | any_created_node | any_freed,
         time=torch.maximum(state.time, W),
     )
@@ -718,11 +883,14 @@ def commit_scattered_tail(
     node,
     start_tmp,
     park_tmp,
+    faults: Optional[FaultStep] = None,
 ) -> ClusterBatchState:
     """Bottom half of the decision commit (reference step.py:1271): rebuild
     absolute start/finish/park pairs from the float32 second offsets the
     megakernel scattered (+inf = untouched) and write the post-cycle
-    state."""
+    state. With pod faults, every attempt that starts draws its failure
+    here (reference step.py:1311-1360, ops/chaos_kernel.py): a failing
+    attempt's finish time becomes its fail time and will_fail is set."""
     C, P = pods.phase.shape
     dev = pods.phase.device
     interval = k.interval
@@ -733,6 +901,15 @@ def commit_scattered_tail(
     finish_pair = t_add(start_pair, pods.duration, interval)
     start_time = t_where(started, start_pair, pods.start_time)
     finish_val = t_where(service, t_inf((C, P), dev), finish_pair)
+    fault_fields = {}
+    if faults is not None and faults.params.pod_faults:
+        fp = faults.params
+        will_fail, fail_rel = pod_attempt_draw(
+            start_tmp, pods.restarts, pods.duration.win, pods.duration.off, pods.will_fail,
+            state.pod_base, fp.seed, min(faults.plain_width, P), fp.fail_prob, faults.interval,
+        )
+        finish_val = t_where(started & will_fail, t_norm(Wp, fail_rel, interval), finish_val)
+        fault_fields["will_fail"] = will_fail
     finish_time = t_where(started, finish_val, pods.finish_time)
     parked = park_tmp < INF
     park_pair = t_norm(Wp, torch.where(parked, park_tmp, 0.0), interval)
@@ -745,6 +922,7 @@ def commit_scattered_tail(
             node=node,
             start_time=start_time,
             finish_time=finish_time,
+            **fault_fields,
         ),
         metrics=metrics,
         requeue_signal=torch.zeros_like(state.requeue_signal),
@@ -849,6 +1027,7 @@ def commit_cycle(
     start_s_k,
     park_s_k,
     use_kernel: bool = False,
+    faults: Optional[FaultStep] = None,
 ) -> ClusterBatchState:
     """Scatter the K decisions per cluster into the (C, P) pod rows and
     write the post-cycle state (reference step.py:1386): through
@@ -861,11 +1040,11 @@ def commit_cycle(
     )
     return commit_scattered_tail(
         state, cc.pods, cc.last_flush_win, W, k, alloc_cpu, alloc_ram,
-        metrics, phase, node, start_tmp, park_tmp,
+        metrics, phase, node, start_tmp, park_tmp, faults,
     )
 
 
-def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync):
+def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync, profile, faults, terms):
     """The megakernel route (reference step.py:1519-1604). The positional
     timing tables (cycle duration prefix sums) are built with
     xla_cumsum16; valid decisions form a position prefix, so table value k
@@ -883,7 +1062,7 @@ def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake
         state.nodes.alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
         pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
         pods.req_cpu, pods.req_ram, waited_p, pods.phase, pods.node,
-        qpre_t, start_t, park_t, k_pods=K,
+        qpre_t, start_t, park_t, k_pods=K, profile=profile, terms=terms,
     )
     # Metric merge: the queue-time estimator rows from the kernel; the
     # algorithm latency adds the per-cluster pod_sched_time per assignment.
@@ -911,7 +1090,7 @@ def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake
     )
     return commit_scattered_tail(
         state, pods, last_flush_win, W, k, alloc_cpu, alloc_ram,
-        metrics, phase, node, start_tmp, park_tmp,
+        metrics, phase, node, start_tmp, park_tmp, faults,
     )
 
 
@@ -924,30 +1103,38 @@ def run_scheduling_cycle(
     conditional_move: bool = False,
     wake: Optional[WakeEvents] = None,
     sync=None,
+    profile=DEFAULT_PROFILE,
+    faults: Optional[FaultStep] = None,
+    profile_terms=None,
 ) -> ClusterBatchState:
     """One scheduling cycle at window W for every cluster along `route`
-    (one of CYCLE_ROUTES; reference `_run_scheduling_cycle`, step.py:1466).
-    The two-kernel and sorted routes share the timing and metric tail
-    (reference step.py:1722-1738)."""
+    (one of CYCLE_ROUTES; reference `_run_scheduling_cycle`, step.py:1466)
+    under the scheduler `profile`, whose kernel launch arguments are
+    `profile_terms` (scheduler_kernel.profile_terms; None: built at each
+    launch). The two-kernel and sorted routes share the timing and metric
+    tail (reference step.py:1722-1738)."""
     K = max_pods_per_cycle
     alive = state.nodes.alive
     alive_count = alive.sum(dim=1, dtype=torch.int32).to(torch.float32)
     pod_sched_time = k.time_per_node * alive_count  # (C,)
 
     if route == "megakernel":
-        return _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync)
+        return _run_megakernel_cycle(
+            state, W, k, K, pod_sched_time, conditional_move, wake, sync, profile, faults, profile_terms
+        )
     if route == "two_kernel":
         pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
         cand, valid, assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_select_schedule_cycle(
             alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
             pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
-            pods.req_cpu, pods.req_ram, k_pods=K,
+            pods.req_cpu, pods.req_ram, k_pods=K, profile=profile, terms=profile_terms,
         )
         cc = candidates_from_slots(pods, last_flush_win, cand, valid, W, k)
     elif route == "sorted":
         cc = prepare_cycle(state, W, k, K, conditional_move, wake, sync)
         assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_schedule_cycle(
             alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, cc.valid, cc.req_cpu, cc.req_ram,
+            profile=profile, terms=profile_terms,
         )
     else:
         raise ValueError(f"unknown cycle route {route!r} (one of {CYCLE_ROUTES})")
@@ -957,7 +1144,7 @@ def run_scheduling_cycle(
     return commit_cycle(
         state, cc, W, k, alloc_cpu, alloc_ram, metrics,
         assign_k, park_k, best_k, start_s_k, park_s_k,
-        use_kernel=route == "two_kernel",
+        use_kernel=route == "two_kernel", faults=faults,
     )
 
 
@@ -975,14 +1162,18 @@ def window_body(
     sync=None,
     autoscale=None,
     cycle_route: str = "megakernel",
+    profile=DEFAULT_PROFILE,
+    faults: Optional[FaultStep] = None,
+    profile_terms=None,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: CA slot
     reclaim's compaction where the plan runs it, events and finishes, one
     cycle, then the autoscaler passes the plan names (reference
-    `_window_body`, step.py:1886, without telemetry, faults or lane
-    clocks). `autoscale`: None, or (statics, HPA group-slot bounds, CA
-    scale-up candidates per cycle, CA pods per scale-down candidate).
-    `cycle_route`: see run_scheduling_cycle."""
+    `_window_body`, step.py:1886, without telemetry or lane clocks).
+    `autoscale`: None, or (statics, HPA group-slot bounds, CA scale-up
+    candidates per cycle, CA pods per scale-down candidate).
+    `cycle_route`, `profile`, `profile_terms`: see run_scheduling_cycle; `faults`: the
+    chaos engine's FaultStep or None."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
     orders = None
@@ -995,13 +1186,14 @@ def window_body(
     state, wake = apply_window_events(
         state, slab, W, consts, k, max_events_per_window, plan,
         conditional_move=conditional_move, name_ranks=name_ranks,
-        node_key=None if orders is None else orders[1],
+        node_key=None if orders is None else orders[1], faults=faults,
     )
     # What the storage saw before this cycle: the CA reads it when its
     # snapshot precedes the cycle's commit visibility.
     pre_cycle = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
     state = run_scheduling_cycle(
-        state, W, k, max_pods_per_cycle, cycle_route, conditional_move, wake, sync
+        state, W, k, max_pods_per_cycle, cycle_route, conditional_move, wake, sync, profile, faults,
+        profile_terms,
     )
     if autoscale is not None and (plan.hpa_cycle or plan.hpa_collect or plan.ca_due):
         from kubernetriks_tpu_torch.batched.autoscale import ca_pass, hpa_pass

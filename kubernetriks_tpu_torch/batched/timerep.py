@@ -107,3 +107,24 @@ def from_f64_np(t: np.ndarray, interval: float):
         off32, np.nextafter(np.float32(interval), np.float32(0.0))
     ).astype(np.float32)
     return win.astype(np.int32), off32
+
+
+def fma_f32(a, b, c):
+    """float32 a * b + c rounded once, as a fused multiply-add: the product
+    is exact in float64 and the sum is rounded to float64 and then to
+    float32; where that double rounding could differ (the float64 sum is
+    exactly halfway between two float32 values and not exact), the exact
+    error of the sum (TwoSum) picks the float32 neighbour. Finite
+    operands."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.to(torch.float32)
+    tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    r64 = r.to(torch.float64)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    fixed = torch.where(err > 0, torch.where(r64 < s, up, r), torch.where(r64 > s, down, r))
+    return torch.where(tie & (err != 0), fixed, r)

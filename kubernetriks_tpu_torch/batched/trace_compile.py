@@ -5,7 +5,8 @@ Own copy of the JAX package's `batched/trace_compile.py`
 interned to slots once on the host, payloads (capacities, requests,
 durations) are staged into per-slot arrays, and the device sees only
 (time, kind, slot) triples. Node re-creations of the same name get fresh
-slots. A pod group (HPA) reserves a block of pod slots for its replicas
+slots, and so do the chaos engine's recoveries (EV_NODE_RECOVER; its
+crashes are EV_NODE_CRASH, with each crashing slot's repair span). A pod group (HPA) reserves a block of pod slots for its replicas
 and compiles its load model into a table of (duration, load) units.
 `ArrayPayloadSource` and `stage_segment` cut the sliding pod window's
 refill payload out of the whole-trace arrays.
@@ -24,6 +25,8 @@ from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
     EV_CREATE_NODE,
     EV_CREATE_POD,
+    EV_NODE_CRASH,
+    EV_NODE_RECOVER,
     EV_REMOVE_NODE,
     EV_REMOVE_POD,
 )
@@ -90,6 +93,9 @@ class CompiledClusterTrace:
     node_names: List[str] = field(default_factory=list)
     pod_names: List[str] = field(default_factory=list)
     pod_groups: List[CompiledPodGroup] = field(default_factory=list)
+    # (N,) repair span of each slot's crash event (0 where the slot never
+    # crashes); None when no faults were injected.
+    node_crash_downtime: Optional[np.ndarray] = None
 
     @property
     def n_events(self) -> int:
@@ -166,6 +172,7 @@ def compile_cluster_trace(
     pod_names: List[str] = []
     pod_slot: Dict[str, int] = {}
     pod_groups: List[CompiledPodGroup] = []
+    node_crash_downtime: Dict[int, float] = {}
 
     for ts, _, event in merged:
         if isinstance(event, CreateNodeRequest):
@@ -176,12 +183,16 @@ def compile_cluster_trace(
             node_names.append(node.metadata.name)
             live_node_slot[node.metadata.name] = slot
             ev_time.append(ts)
-            ev_kind.append(EV_CREATE_NODE)
+            ev_kind.append(EV_NODE_RECOVER if event.recovered else EV_CREATE_NODE)
             ev_slot.append(slot)
         elif isinstance(event, RemoveNodeRequest):
             slot = live_node_slot.pop(event.node_name)
             ev_time.append(ts)
-            ev_kind.append(EV_REMOVE_NODE)
+            if event.crashed:
+                ev_kind.append(EV_NODE_CRASH)
+                node_crash_downtime[slot] = float(event.downtime_s)
+            else:
+                ev_kind.append(EV_REMOVE_NODE)
             ev_slot.append(slot)
         elif isinstance(event, CreatePodRequest):
             pod = event.pod
@@ -249,6 +260,11 @@ def compile_cluster_trace(
                 f"batched path does not support trace event {type(event).__name__}"
             )
 
+    crash_downtime = None
+    if node_crash_downtime:
+        crash_downtime = np.zeros(len(node_cap_cpu), np.float32)
+        for slot, ttr in node_crash_downtime.items():
+            crash_downtime[slot] = ttr
     return CompiledClusterTrace(
         ev_time=np.asarray(ev_time, np.float64),
         ev_kind=np.asarray(ev_kind, np.int32),
@@ -261,6 +277,7 @@ def compile_cluster_trace(
         node_names=node_names,
         pod_names=pod_names,
         pod_groups=pod_groups,
+        node_crash_downtime=crash_downtime,
     )
 
 
@@ -330,6 +347,7 @@ def segment_pod_slots(
                 node_names=c.node_names,
                 pod_names=names,
                 pod_groups=groups,
+                node_crash_downtime=c.node_crash_downtime,
             )
         )
     return out, T
@@ -345,7 +363,7 @@ def pad_and_batch(
     events (pad events: kind=EV_NONE, time=+inf; one sentinel always
     follows the last real event). Returns (ev_time, ev_kind, ev_slot,
     node_cap_cpu, node_cap_ram, pod_req_cpu, pod_req_ram, pod_duration,
-    node_crash_downtime) — the last all zeros, as no faults are injected."""
+    node_crash_downtime): the last zeros where no slot crashes."""
     C = len(compiled)
     N = n_nodes if n_nodes is not None else max((c.n_nodes for c in compiled), default=0)
     P = n_pods if n_pods is not None else max((c.n_pods for c in compiled), default=0)
@@ -371,6 +389,8 @@ def pad_and_batch(
         pod_req_cpu[i, : c.n_pods] = c.pod_req_cpu
         pod_req_ram[i, : c.n_pods] = c.pod_req_ram
         pod_duration[i, : c.n_pods] = c.pod_duration
+        if c.node_crash_downtime is not None:
+            node_crash_downtime[i, : c.n_nodes] = c.node_crash_downtime
 
     return (
         ev_time,

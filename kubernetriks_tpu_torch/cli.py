@@ -2,7 +2,7 @@
 
     python -m kubernetriks_tpu_torch.cli --config-file <yaml>
         [--clusters N] [--max-pods-per-cycle K] [--pod-window W]
-        [--report json|table] [--device cuda|cpu]
+        [--profile NAME] [--report json|table] [--device cuda|cpu]
 
 The batched subset of the JAX package's `cli.py` (:60-237): load the
 config, build the traces its `trace_config` names (an Alibaba v2017 trace
@@ -13,15 +13,19 @@ metrics report. The traces always go through the event objects
 item 11. The run is on the CUDA card unless `--device cpu` is given.
 
 `--pod-window W` runs the sliding pod window of W plain pod slots (0, the
-default, keeps the whole trace resident). Options the port does not run
-yet are refused, naming the ROADMAP item that brings them: `--backend
-scalar`, `--gauge-csv`, `--metrics-export` and a `--profile` other than
-the default.
+default, keeps the whole trace resident). `--profile NAME` runs a named
+scheduler profile (default, best_fit, balanced_packing), superseding the
+config's `scheduler_profile` block as the JAX package's CLI does
+(cli.py:269-308). A `fault_injection:` block in the config runs the
+chaos engine. Options the port does not run yet are refused, naming the
+ROADMAP item that brings them: `--backend scalar`, `--gauge-csv` and
+`--metrics-export`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 import time
@@ -34,7 +38,6 @@ UNPORTED_OPTIONS = {
     "backend": "ROADMAP Queue 1 item 17 (the port's CLI runs the batched backend only)",
     "gauge_csv": "ROADMAP Queue 1 item 10 (telemetry)",
     "metrics_export": "ROADMAP Queue 1 item 10 (telemetry)",
-    "profile": "ROADMAP Queue 1 item 6 (scheduler profiles)",
 }
 
 
@@ -121,7 +124,6 @@ def _refuse_unported(args) -> None:
         "backend": args.backend != "batched",
         "gauge_csv": args.gauge_csv is not None,
         "metrics_export": args.metrics_export is not None,
-        "profile": args.profile not in (None, "default"),
     }
     for option, item in UNPORTED_OPTIONS.items():
         if given[option]:
@@ -144,13 +146,17 @@ def main(argv=None) -> int:
                         help="torch device to run on (default cuda; 'cpu' runs the plain PyTorch path)")
     parser.add_argument("--pod-window", type=int, default=0,
                         help="sliding pod window of this many plain pod slots (0 = whole trace resident)")
-    parser.add_argument("--profile", default=None, help="not ported (only 'default')")
+    parser.add_argument("--profile", default=None,
+                        help="scheduler profile: a named profile (default, best_fit, balanced_packing) "
+                             "overriding the config's scheduler_profile block")
     parser.add_argument("--gauge-csv", default=None, help="not ported")
     parser.add_argument("--metrics-export", default=None, help="not ported")
     args = parser.parse_args(argv)
     _refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     config = SimulationConfig.from_file(args.config_file)
+    if args.profile is not None:
+        config = dataclasses.replace(config, scheduler_profile=args.profile)
     return run_batched(config, args)
 
 

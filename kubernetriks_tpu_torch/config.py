@@ -5,9 +5,10 @@ port runs: the simulation name and seed, the trace source (`trace_config`:
 an Alibaba v2017 trace or a generic YAML trace), the scheduling interval,
 the scheduler profile, the conditional-move switch, the six control-plane
 network delays, and the two autoscaler blocks (`horizontal_pod_autoscaler`,
-`cluster_autoscaler` with its node groups). The fault-injection block is
-parsed only far enough to refuse it: an enabled `fault_injection` block
-raises NotImplementedError naming the ROADMAP item that ports it.
+`cluster_autoscaler` with its node groups) and the chaos engine's
+`fault_injection` block (node crash chains, pod CrashLoopBackOff,
+correlated failure groups; kubernetriks_tpu_torch/chaos.py), with the
+reference's validation.
 """
 
 from __future__ import annotations
@@ -18,22 +19,6 @@ from typing import Any, Dict, List, Optional
 import yaml
 
 from kubernetriks_tpu_torch.core.types import Node
-
-# ROADMAP.md, Queue 1 items that bring the refused blocks.
-_UNPORTED_BLOCKS = {
-    "fault_injection": "ROADMAP Queue 1 item 9 (chaos on device)",
-}
-
-
-def _refuse_unported(d: Dict[str, Any]) -> None:
-    for key, item in _UNPORTED_BLOCKS.items():
-        block = d.get(key)
-        if block and bool(block.get("enabled", False)):
-            raise NotImplementedError(
-                f"config block {key!r} is enabled, but kubernetriks_tpu_torch "
-                f"does not run it yet: {item}"
-            )
-
 
 @dataclass
 class NodeGroup:
@@ -136,6 +121,107 @@ class HorizontalPodAutoscalerConfig:
         )
 
 
+_FAULT_DISTRIBUTIONS = ("exponential", "fixed")
+
+
+def _checked_distribution(value: Any) -> str:
+    dist = str(value)
+    if dist not in _FAULT_DISTRIBUTIONS:
+        raise ValueError(
+            f"fault_injection distribution must be one of {_FAULT_DISTRIBUTIONS}, got {dist!r}"
+        )
+    return dist
+
+
+@dataclass
+class NodeFaultConfig:
+    """Per-node crash/recovery process; mttf <= 0 disables it. Draws are
+    clamped below at one scheduling interval (chaos.py)."""
+
+    mttf: float = 0.0  # mean time to failure, seconds
+    mttr: float = 60.0  # mean time to recovery, seconds
+    distribution: str = "exponential"  # or "fixed"
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "NodeFaultConfig":
+        if not d:
+            return NodeFaultConfig()
+        return NodeFaultConfig(
+            mttf=float(d.get("mttf", 0.0)),
+            mttr=float(d.get("mttr", 60.0)),
+            distribution=_checked_distribution(d.get("distribution", "exponential")),
+        )
+
+
+@dataclass
+class PodFaultConfig:
+    """Pod failure with CrashLoopBackOff retry; fail_prob <= 0 disables it.
+    A failed attempt re-enters the queue after min(backoff_base * 2^k,
+    backoff_cap) seconds (k = restarts so far); a pod whose restart count
+    exceeds restart_limit fails for good."""
+
+    fail_prob: float = 0.0
+    backoff_base: float = 10.0
+    backoff_cap: float = 300.0
+    restart_limit: int = 5
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "PodFaultConfig":
+        if not d:
+            return PodFaultConfig()
+        return PodFaultConfig(
+            fail_prob=float(d.get("fail_prob", 0.0)),
+            backoff_base=float(d.get("backoff_base", 10.0)),
+            backoff_cap=float(d.get("backoff_cap", 300.0)),
+            restart_limit=int(d.get("restart_limit", 5)),
+        )
+
+
+@dataclass
+class FailureGroupConfig:
+    """Correlated blast-radius set: one shared crash process takes every
+    member down (and back up) together."""
+
+    members: List[str] = field(default_factory=list)
+    mttf: float = 0.0
+    mttr: float = 60.0
+    distribution: str = "exponential"
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "FailureGroupConfig":
+        return FailureGroupConfig(
+            members=[str(m) for m in d.get("members") or []],
+            mttf=float(d.get("mttf", 0.0)),
+            mttr=float(d.get("mttr", 60.0)),
+            distribution=_checked_distribution(d.get("distribution", "exponential")),
+        )
+
+
+@dataclass
+class FaultInjectionConfig:
+    """The chaos engine's block (chaos.py)."""
+
+    enabled: bool = False
+    seed: Optional[int] = None  # defaults to the simulation seed
+    horizon: Optional[float] = None  # defaults to the last trace timestamp
+    node: NodeFaultConfig = field(default_factory=NodeFaultConfig)
+    pod: PodFaultConfig = field(default_factory=PodFaultConfig)
+    failure_groups: List[FailureGroupConfig] = field(default_factory=list)
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> "FaultInjectionConfig":
+        if not d:
+            return FaultInjectionConfig()
+        return FaultInjectionConfig(
+            enabled=bool(d.get("enabled", False)),
+            seed=int(d["seed"]) if d.get("seed") is not None else None,
+            horizon=float(d["horizon"]) if d.get("horizon") is not None else None,
+            node=NodeFaultConfig.from_dict(d.get("node")),
+            pod=PodFaultConfig.from_dict(d.get("pod")),
+            failure_groups=[FailureGroupConfig.from_dict(g) for g in d.get("failure_groups") or []],
+        )
+
+
 @dataclass
 class AlibabaWorkloadTraceV2017Paths:
     batch_instance_trace_path: str = ""
@@ -194,9 +280,10 @@ class SimulationConfig:
     horizontal_pod_autoscaler: HorizontalPodAutoscalerConfig = field(
         default_factory=HorizontalPodAutoscalerConfig
     )
-    # Scheduler profile spec; only the reference default (Fit +
-    # LeastAllocatedResources) is ported (batched/pipeline.py raises on
-    # anything else).
+    fault_injection: FaultInjectionConfig = field(default_factory=FaultInjectionConfig)
+    # Scheduler profile spec: a named profile ("default", "best_fit",
+    # "balanced_packing"), an explicit {filters, score} mapping, or None
+    # (the default); compiled at engine build (batched/pipeline.py).
     scheduler_profile: Optional[Any] = None
     enable_unscheduled_pods_conditional_move: bool = False
     # Simulated control-plane network delays in seconds; as = api server,
@@ -211,7 +298,6 @@ class SimulationConfig:
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "SimulationConfig":
-        _refuse_unported(d)
         return SimulationConfig(
             sim_name=d.get("sim_name", "kubernetriks-tpu"),
             seed=int(d.get("seed", 0)),
@@ -221,6 +307,7 @@ class SimulationConfig:
             horizontal_pod_autoscaler=HorizontalPodAutoscalerConfig.from_dict(
                 d.get("horizontal_pod_autoscaler")
             ),
+            fault_injection=FaultInjectionConfig.from_dict(d.get("fault_injection")),
             scheduler_profile=d.get("scheduler_profile"),
             enable_unscheduled_pods_conditional_move=bool(
                 d.get("enable_unscheduled_pods_conditional_move", False)

@@ -69,6 +69,12 @@ class Node:
             ),
         )
 
+    def copy(self) -> "Node":
+        return Node(
+            metadata=ObjectMeta(self.metadata.name, dict(self.metadata.labels), self.metadata.creation_timestamp),
+            status=NodeStatus(allocatable=self.status.allocatable.copy(), capacity=self.status.capacity.copy()),
+        )
+
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Node":
         """Missing allocatable defaults to capacity (node templates in

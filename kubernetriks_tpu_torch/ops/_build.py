@@ -44,7 +44,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
         "free_resources.cu", "ktt_free_resources", [_P] * 13 + [_I] * 3 + [_P],
     ),
     "select_cycle_commit": (
-        "select_cycle_commit.cu", "ktt_select_cycle_commit", [_P] * 22 + [_I] * 4 + [_P],
+        "select_cycle_commit.cu", "ktt_select_cycle_commit", [_P] * 23 + [_I] * 6 + [_P],
     ),
     "ca_scale_down": (
         "ca_scale_down.cu", "ktt_ca_scale_down", [_P] * 16 + [_I] * 7 + [_P],
@@ -53,13 +53,18 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
         "ca_scale_up.cu", "ktt_ca_scale_up", [_P] * 14 + [_I] * 4 + [_P],
     ),
     "schedule_cycle": (
-        "schedule_cycle.cu", "ktt_schedule_cycle", [_P] * 11 + [_I] * 3 + [_P],
+        "schedule_cycle.cu", "ktt_schedule_cycle", [_P] * 12 + [_I] * 5 + [_P],
     ),
     "select_schedule_cycle": (
-        "select_schedule_cycle.cu", "ktt_select_schedule_cycle", [_P] * 16 + [_I] * 4 + [_P],
+        "select_schedule_cycle.cu", "ktt_select_schedule_cycle", [_P] * 17 + [_I] * 6 + [_P],
     ),
     "commit_scatter": (
         "commit_scatter.cu", "ktt_commit_scatter", [_P] * 12 + [_I] * 3 + [_P],
+    ),
+    # The chaos engine's commit-time draw: glue, no TPU kernel of the
+    # reference's (ops/chaos_kernel.py).
+    "pod_attempt_draw": (
+        "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 8 + [_I] * 6 + [_P],
     ),
 }
 

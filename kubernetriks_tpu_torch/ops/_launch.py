@@ -20,6 +20,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_schedule_cycle": 0,
     "fused_select_schedule_cycle": 0,
     "fused_commit_scatter": 0,
+    "pod_attempt_draw": 0,
 }
 
 # Dynamic shared memory a block may use on Hopper (227 KB).

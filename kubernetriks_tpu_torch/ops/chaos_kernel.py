@@ -1,0 +1,89 @@
+"""The chaos engine's commit-time draw: wrapper, plain PyTorch version and
+launch count (`LAUNCHES["pod_attempt_draw"]`).
+
+| wrapper          | CUDA source (ops/csrc/) | replaces                                            |
+| pod_attempt_draw | pod_attempt_draw.cu     | no TPU kernel: XLA glue, kubernetriks_tpu/batched/step.py:1311-1360 |
+
+For every pod slot whose attempt starts in this cycle (start_tmp < +inf),
+the CrashLoopBackOff draw `chaos.pod_attempt_uniforms(seed, cluster,
+global plain slot, restarts)` decides whether the attempt fails and at what
+fraction of its duration. The global slot is the device slot plus the
+cluster's `pod_base` (the sliding pod window), so the draw stays keyed on
+the trace slot as the window slides; only plain trace pods with a finite
+duration draw. For CPU tensors the plain version runs; CUDA tensors go to
+the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kubernetriks_tpu_torch import chaos
+from kubernetriks_tpu_torch.batched.timerep import fma_f32
+from kubernetriks_tpu_torch.ops._launch import check as _check, launch as _launch, on_cuda as _on_cuda
+
+
+def _i32(x: int) -> int:
+    """A 32-bit pattern as the signed int ctypes passes."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.array(x, dtype=np.float32).view(np.int32))
+
+
+def pod_attempt_draw_plain(start_tmp, restarts, dur_win, dur_off, will_fail, pod_base,
+                           seed: int, plain_width: int, fail_prob: float, interval: float):
+    """(will_fail_out, fail_rel), each (C, P): will_fail_out = the draw's
+    verdict where the attempt starts, else will_fail; fail_rel = start_tmp
+    + u_frac * duration seconds (one fused multiply-add, as XLA:CPU
+    contracts it) where it fails, else 0."""
+    C, P = start_tmp.shape
+    dev = start_tmp.device
+    idx = torch.arange(P, dtype=torch.int64, device=dev)[None, :].expand(C, P)
+    started = start_tmp < float("inf")
+    in_plain = idx < plain_width
+    gslot = idx + pod_base.to(torch.int64)[:, None]
+    cid = torch.arange(C, dtype=torch.int64, device=dev)[:, None].expand(C, P)
+    u_fail, u_frac = chaos.pod_attempt_uniforms(seed, cid, gslot, restarts.to(torch.int64), xp=torch)
+    prob = float(np.float32(fail_prob))
+    wf = started & in_plain & (dur_win >= 0) & (u_fail < prob)
+    dur_s = dur_win.to(torch.float32) * torch.tensor(interval, dtype=torch.float32, device=dev) + dur_off
+    fail_rel = torch.where(wf, fma_f32(u_frac, dur_s, start_tmp), torch.zeros_like(start_tmp))
+    return torch.where(started, wf, will_fail), fail_rel
+
+
+def pod_attempt_draw(
+    start_tmp: torch.Tensor,  # (C, P) float32, +inf where no attempt starts
+    restarts: torch.Tensor,  # (C, P) int32
+    dur_win: torch.Tensor,  # (C, P) int32 duration pair (win < 0: a service)
+    dur_off: torch.Tensor,  # (C, P) float32
+    will_fail: torch.Tensor,  # (C, P) bool
+    pod_base: torch.Tensor,  # (C,) int32 global slot of device slot 0
+    seed: int,
+    plain_width: int,
+    fail_prob: float,
+    interval: float,  # the scheduling interval, seconds
+):
+    """(will_fail_out (C, P) bool, fail_rel (C, P) float32)."""
+    if not _on_cuda(start_tmp):
+        return pod_attempt_draw_plain(
+            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, seed, plain_width, fail_prob, interval
+        )
+    C, P = start_tmp.shape
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    _check("pod_attempt_draw", {
+        "start_tmp": (start_tmp, f32, (C, P)), "restarts": (restarts, i32, (C, P)),
+        "dur_win": (dur_win, i32, (C, P)), "dur_off": (dur_off, f32, (C, P)),
+        "will_fail": (will_fail, b, (C, P)), "pod_base": (pod_base, i32, (C,)),
+    }, start_tmp.device)
+    will_fail_out = torch.empty_like(will_fail)
+    fail_rel = torch.empty_like(start_tmp)
+    if C * P:
+        _launch("pod_attempt_draw", "pod_attempt_draw", [
+            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, will_fail_out, fail_rel,
+            C, P, _i32(seed), int(plain_width), _f32_bits(fail_prob), _f32_bits(interval),
+        ])
+    return will_fail_out, fail_rel

@@ -1,6 +1,6 @@
 // Device code shared by the three scheduling-cycle kernels
 // (select_cycle_commit.cu, select_schedule_cycle.cu, schedule_cycle.cu):
-// the bit-exact LeastAllocatedResources score, the decision pass (fit +
+// the bit-exact scores of the scheduler profiles, the decision pass (fit +
 // score on every node, last-max-wins argmax) and the queue's order. One
 // definition, so the kernels cannot drift apart, as the reference's
 // `_argmin_select` (ops/scheduler_kernel.py:986) and `_fit_score_place`
@@ -36,6 +36,85 @@ __device__ __forceinline__ float least_allocated(int32_t cpu, int32_t ram,
   const float rs = ram > 0 ? __fdiv_rn(__fmul_rn(__fsub_rn(ram_f, (float)rr), 100.0f), ram_f)
                            : -INFINITY;
   return __fmul_rn(__fadd_rn(cs, rs), 0.5f);
+}
+
+// Score of pipeline.py `_score_most_allocated`, op for op.
+__device__ __forceinline__ float most_allocated(int32_t cpu, int32_t ram, int32_t rc, int32_t rr) {
+  const float cpu_f = (float)cpu, ram_f = (float)ram;
+  const float cs = cpu > 0 ? __fdiv_rn(__fmul_rn(__fsub_rn((float)rc, cpu_f), 100.0f), cpu_f)
+                           : -INFINITY;
+  const float rs = ram > 0 ? __fdiv_rn(__fmul_rn(__fsub_rn((float)rr, ram_f), 100.0f), ram_f)
+                           : -INFINITY;
+  return __fmul_rn(__fadd_rn(cs, rs), 0.5f);
+}
+
+// Score of pipeline.py `_score_balanced`: the divisors guarded as there
+// (1 where an allocatable is not positive), and `100 - |d| * 100` as one
+// fused multiply-add, which is what XLA:CPU, the reference's yardstick,
+// contracts it into (the intrinsic is exempt from --fmad=false).
+__device__ __forceinline__ float balanced(int32_t cpu, int32_t ram, int32_t rc, int32_t rr) {
+  const bool ok = cpu > 0 && ram > 0;
+  const float cpu_frac = __fdiv_rn((float)rc, ok ? (float)cpu : 1.0f);
+  const float ram_frac = __fdiv_rn((float)rr, ok ? (float)ram : 1.0f);
+  const float d = fabsf(__fsub_rn(cpu_frac, ram_frac));
+  return ok ? __fmaf_rn(-d, 100.0f, 100.0f) : -INFINITY;
+}
+
+// --- Scheduler profiles ------------------------------------------------------
+// A profile is a fit predicate and a score (pipeline.py `profile_fit_mask`
+// / `profile_score`). The default profile (Fit + LeastAllocatedResources,
+// weight 1.0) is its own type, so its instantiation is the expression the
+// kernels always ran. Every other profile runs TermProfile: the Fit filter
+// or none, and a list of terms (scorer id, float32 weight bits, whether to
+// multiply) in the profile's order, summed left to right after weighting;
+// no term scores 0.0. The list lies in device memory, read through the
+// read-only cache; it has no length limit.
+
+constexpr int kScoreLeast = 0;
+constexpr int kScoreMost = 1;
+constexpr int kScoreBalanced = 2;
+
+struct DefaultProfile {
+  __device__ __forceinline__ bool fit(bool alive, int32_t cpu, int32_t ram, int32_t rc,
+                                      int32_t rr) const {
+    return alive && rc <= cpu && rr <= ram;
+  }
+  __device__ __forceinline__ float score(int32_t cpu, int32_t ram, int32_t rc, int32_t rr) const {
+    return least_allocated(cpu, ram, rc, rr);
+  }
+};
+
+struct TermProfile {
+  const int32_t* __restrict__ terms;  // n_terms x (id, weight bits, multiply)
+  int n_terms;
+  int use_fit;
+
+  __device__ __forceinline__ bool fit(bool alive, int32_t cpu, int32_t ram, int32_t rc,
+                                      int32_t rr) const {
+    return alive && (!use_fit || (rc <= cpu && rr <= ram));
+  }
+  __device__ __forceinline__ float score(int32_t cpu, int32_t ram, int32_t rc, int32_t rr) const {
+    float total = 0.0f;
+    for (int i = 0; i < n_terms; ++i) {
+      const int id = __ldg(terms + 3 * i);
+      float s = id == kScoreLeast  ? least_allocated(cpu, ram, rc, rr)
+                : id == kScoreMost ? most_allocated(cpu, ram, rc, rr)
+                                   : balanced(cpu, ram, rc, rr);
+      if (__ldg(terms + 3 * i + 2)) s = __fmul_rn(s, __int_as_float(__ldg(terms + 3 * i + 1)));
+      total = i ? __fadd_rn(total, s) : s;
+    }
+    return total;
+  }
+};
+
+// Profile kinds of the C entry points: 0 the default profile, 1 a term
+// list with the Fit filter, 2 a term list with no filter; another kind is
+// refused. Each cycle kernel's library holds both instantiations.
+template <typename Launch>
+inline int dispatch_profile(int kind, const void* terms, int n_terms, Launch&& launch) {
+  if (kind == 0) return launch(DefaultProfile{});
+  if (kind == 1 || kind == 2) return launch(TermProfile{(const int32_t*)terms, n_terms, kind == 1 ? 1 : 0});
+  return (int)cudaErrorInvalidValue;
 }
 
 struct Decision {
@@ -114,11 +193,12 @@ struct NodeRegs {
     }
   }
 
-  // The decision for request (rc, rr): every thread of the block calls it
-  // (it holds one barrier) and gets the same result. `buf` alternates
-  // between consecutive calls.
+  // The decision for request (rc, rr) under `prof`: every thread of the
+  // block calls it (it holds one barrier) and gets the same result. `buf`
+  // alternates between consecutive calls.
+  template <typename Profile>
   __device__ __forceinline__ Decision fit_argmax(int N, int32_t rc, int32_t rr, Partials& part,
-                                                 int buf) const {
+                                                 int buf, const Profile& prof) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     uint32_t bkey = 0, bnode = 0;
     int fit_any = 0;
@@ -126,8 +206,8 @@ struct NodeRegs {
     for (int j = 0; j < SLOTS; ++j) {
       const int n = threadIdx.x + j * blockDim.x;
       if (n < N) {
-        const bool fit = alive[j] && rc <= cpu[j] && rr <= ram[j];
-        const uint32_t key = score_key(fit ? least_allocated(cpu[j], ram[j], rc, rr) : -INFINITY);
+        const bool fit = prof.fit(alive[j], cpu[j], ram[j], rc, rr);
+        const uint32_t key = score_key(fit ? prof.score(cpu[j], ram[j], rc, rr) : -INFINITY);
         fit_any |= fit ? 1 : 0;
         if (key >= bkey) {  // slots ascend: the last of equal scores wins
           bkey = key;

@@ -6,7 +6,7 @@
 // `_fit_score_place` :118). The caller sorts the queue and gathers the top
 // K (step.prepare_cycle), so a cluster's valid rows are a prefix. Per
 // cluster, for each row k below its last valid row + 1 (capped at K):
-//   fit mask + LeastAllocatedResources score on every node, the last node
+//   the profile's fit mask and score on every node, the last node
 //   of maximal score (ties go to the highest slot; with no fit, the last
 //   node), and, where the row is valid and some node fits, the request
 //   deducted from that node. assign = valid & fit, fit_any and best are
@@ -39,14 +39,14 @@ using namespace ktt;
 
 constexpr int kTile = 512;
 
-template <int SLOTS>
+template <int SLOTS, typename Profile>
 __global__ void __launch_bounds__(kMaxCycleThreads) schedule_cycle_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
     const int32_t* __restrict__ alloc_ram, const uint8_t* __restrict__ valid,
     const int32_t* __restrict__ req_cpu, const int32_t* __restrict__ req_ram,
     uint8_t* __restrict__ assign_out, uint8_t* __restrict__ fitany_out,
     int32_t* __restrict__ best_out, int32_t* __restrict__ cpu_out,
-    int32_t* __restrict__ ram_out, int N, int K) {
+    int32_t* __restrict__ ram_out, int N, int K, const Profile prof) {
   __shared__ int32_t s_rc[kTile], s_rr[kTile], s_best[kTile];
   __shared__ uint8_t s_valid[kTile], s_assign[kTile], s_fit[kTile];
   __shared__ Partials part;
@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) schedule_cycle_kernel(
     __syncthreads();
     for (int i = 0; i < n; ++i) {
       const int32_t rc = s_rc[i], rr = s_rr[i];
-      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf);
+      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf, prof);
       buf ^= 1;
       const bool assign = s_valid[i] && d.anyfit;
       if (assign) nodes.deduct(d.best, rc, rr);
@@ -111,16 +111,19 @@ extern "C" int ktt_schedule_cycle(const void* alive, const void* alloc_cpu,
                                   const void* alloc_ram, const void* valid,
                                   const void* req_cpu, const void* req_ram,
                                   void* assign_out, void* fitany_out, void* best_out,
-                                  void* cpu_out, void* ram_out, int C, int N, int K,
-                                  void* stream) {
+                                  void* cpu_out, void* ram_out, const void* terms, int C,
+                                  int N, int K, int profile_kind, int n_terms, void* stream) {
   if (C <= 0) return 0;
   const int T = cycle_threads(N);
-  return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
-    schedule_cycle_kernel<decltype(slots)::value><<<C, T, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
-        (const uint8_t*)valid, (const int32_t*)req_cpu, (const int32_t*)req_ram,
-        (uint8_t*)assign_out, (uint8_t*)fitany_out, (int32_t*)best_out,
-        (int32_t*)cpu_out, (int32_t*)ram_out, N, K);
-    return (int)cudaGetLastError();
+  return dispatch_profile(profile_kind, terms, n_terms, [&](auto prof) {
+    return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
+      schedule_cycle_kernel<decltype(slots)::value, decltype(prof)>
+          <<<C, T, 0, (cudaStream_t)stream>>>(
+              (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
+              (const uint8_t*)valid, (const int32_t*)req_cpu, (const int32_t*)req_ram,
+              (uint8_t*)assign_out, (uint8_t*)fitany_out, (int32_t*)best_out,
+              (int32_t*)cpu_out, (int32_t*)ram_out, N, K, prof);
+      return (int)cudaGetLastError();
+    });
   });
 }

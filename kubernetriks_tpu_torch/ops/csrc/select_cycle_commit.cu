@@ -7,10 +7,11 @@
 // decision core `_fit_score_place` :118). Per cluster, up to K times:
 //   1. pick the remaining eligible pod with the least (queue win, queue
 //      offset as int32 bits, queue seq) — the active queue's order;
-//   2. Fit mask + LeastAllocatedResources score on every node, written op
-//      for op as kubernetriks_tpu/batched/pipeline.py:97-117 (IEEE
-//      division, no contraction), and the last node of maximal score
-//      (ties go to the highest slot);
+//   2. the scheduler profile's fit mask and score on every node, written
+//      op for op as kubernetriks_tpu/batched/pipeline.py:97-285 (IEEE
+//      division, no contraction but the balanced scorer's, which XLA:CPU
+//      contracts too; cycle_common.cuh), and the last node of maximal
+//      score (ties go to the highest slot);
 //   3. if a node fits: deduct its allocatable, mark the pod RUNNING on it
 //      with start offset start_t[k], and fold waited + qpre_t[k] into the
 //      queue-time estimator; else park it UNSCHEDULABLE at park_t[k].
@@ -76,7 +77,7 @@ __device__ __forceinline__ void copy_through(const int32_t* phase_in, const int3
   }
 }
 
-template <int SLOTS>
+template <int SLOTS, typename Profile>
 __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
     const int32_t* __restrict__ alloc_ram, const uint8_t* __restrict__ eligible,
@@ -89,7 +90,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     int32_t* __restrict__ ram_out, int32_t* __restrict__ phase_out,
     int32_t* __restrict__ node_out, float* __restrict__ start_out,
     float* __restrict__ park_out, float* __restrict__ stats, int N, int P,
-    int K) {
+    int K, const Profile prof) {
   __shared__ QueueOrder q;
   __shared__ int32_t s_rc[kQueueBatch], s_rr[kQueueBatch], s_best[kQueueBatch];
   __shared__ float s_q[kQueueBatch];
@@ -117,7 +118,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_cycle_commit_kernel(
     __syncthreads();
     for (int i = 0; i < batch; ++i) {
       const int32_t rc = s_rc[i], rr = s_rr[i];
-      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf);
+      const Decision d = nodes.fit_argmax(N, rc, rr, part, buf, prof);
       buf ^= 1;
       if (d.anyfit) nodes.deduct(d.best, rc, rr);
       if (tid == 0) s_best[i] = d.anyfit ? d.best : -1;
@@ -168,20 +169,23 @@ extern "C" int ktt_select_cycle_commit(
     const void* waited, const void* phase, const void* node,
     const void* qpre_t, const void* start_t, const void* park_t,
     void* cpu_out, void* ram_out, void* phase_out, void* node_out,
-    void* start_out, void* park_out, void* stats, int C, int N, int P,
-    int K, void* stream) {
+    void* start_out, void* park_out, void* stats, const void* terms, int C, int N,
+    int P, int K, int profile_kind, int n_terms, void* stream) {
   if (C <= 0) return 0;
   const int T = cycle_threads(N);
-  return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
-    select_cycle_commit_kernel<decltype(slots)::value><<<C, T, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)alive, (const int32_t*)alloc_cpu,
-        (const int32_t*)alloc_ram, (const uint8_t*)eligible,
-        (const int32_t*)qwin, (const int32_t*)qoff, (const int32_t*)qseq,
-        (const int32_t*)req_cpu, (const int32_t*)req_ram, (const float*)waited,
-        (const int32_t*)phase, (const int32_t*)node, (const float*)qpre_t,
-        (const float*)start_t, (const float*)park_t, (int32_t*)cpu_out,
-        (int32_t*)ram_out, (int32_t*)phase_out, (int32_t*)node_out,
-        (float*)start_out, (float*)park_out, (float*)stats, N, P, K);
-    return (int)cudaGetLastError();
+  return dispatch_profile(profile_kind, terms, n_terms, [&](auto prof) {
+    return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
+      select_cycle_commit_kernel<decltype(slots)::value, decltype(prof)>
+          <<<C, T, 0, (cudaStream_t)stream>>>(
+              (const uint8_t*)alive, (const int32_t*)alloc_cpu,
+              (const int32_t*)alloc_ram, (const uint8_t*)eligible,
+              (const int32_t*)qwin, (const int32_t*)qoff, (const int32_t*)qseq,
+              (const int32_t*)req_cpu, (const int32_t*)req_ram, (const float*)waited,
+              (const int32_t*)phase, (const int32_t*)node, (const float*)qpre_t,
+              (const float*)start_t, (const float*)park_t, (int32_t*)cpu_out,
+              (int32_t*)ram_out, (int32_t*)phase_out, (int32_t*)node_out,
+              (float*)start_out, (float*)park_out, (float*)stats, N, P, K, prof);
+      return (int)cudaGetLastError();
+    });
   });
 }

@@ -36,7 +36,7 @@ namespace {
 
 using namespace ktt;
 
-template <int SLOTS>
+template <int SLOTS, typename Profile>
 __global__ void __launch_bounds__(kMaxCycleThreads) select_schedule_cycle_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ alloc_cpu,
     const int32_t* __restrict__ alloc_ram, const uint8_t* __restrict__ eligible,
@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_schedule_cycle_kernel
     uint8_t* __restrict__ valid_out, uint8_t* __restrict__ assign_out,
     uint8_t* __restrict__ fitany_out, int32_t* __restrict__ best_out,
     int32_t* __restrict__ cpu_out, int32_t* __restrict__ ram_out, int N, int P,
-    int K) {
+    int K, const Profile prof) {
   __shared__ QueueOrder q;
   __shared__ int32_t s_rc[kQueueBatch], s_rr[kQueueBatch], s_best[kQueueBatch];
   __shared__ uint8_t s_fit[kQueueBatch];
@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kMaxCycleThreads) select_schedule_cycle_kernel
         __syncthreads();
         for (int i = 0; i < batch; ++i) {
           const int32_t rc = s_rc[i], rr = s_rr[i];
-          const Decision d = nodes.fit_argmax(N, rc, rr, part, buf);
+          const Decision d = nodes.fit_argmax(N, rc, rr, part, buf, prof);
           buf ^= 1;
           if (d.anyfit) nodes.deduct(d.best, rc, rr);
           if (tid == 0) {
@@ -106,17 +106,21 @@ extern "C" int ktt_select_schedule_cycle(
     const void* eligible, const void* qwin, const void* qoff, const void* qseq,
     const void* req_cpu, const void* req_ram, void* cand_out, void* valid_out,
     void* assign_out, void* fitany_out, void* best_out, void* cpu_out,
-    void* ram_out, int C, int N, int P, int K, void* stream) {
+    void* ram_out, const void* terms, int C, int N, int P, int K, int profile_kind,
+    int n_terms, void* stream) {
   if (C <= 0) return 0;
   const int T = cycle_threads(N);
-  return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
-    select_schedule_cycle_kernel<decltype(slots)::value><<<C, T, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
-        (const uint8_t*)eligible, (const int32_t*)qwin, (const int32_t*)qoff,
-        (const int32_t*)qseq, (const int32_t*)req_cpu, (const int32_t*)req_ram,
-        (int32_t*)cand_out, (uint8_t*)valid_out, (uint8_t*)assign_out,
-        (uint8_t*)fitany_out, (int32_t*)best_out, (int32_t*)cpu_out,
-        (int32_t*)ram_out, N, P, K);
-    return (int)cudaGetLastError();
+  return dispatch_profile(profile_kind, terms, n_terms, [&](auto prof) {
+    return dispatch_slots(cycle_slots(N, T), [&](auto slots) {
+      select_schedule_cycle_kernel<decltype(slots)::value, decltype(prof)>
+          <<<C, T, 0, (cudaStream_t)stream>>>(
+              (const uint8_t*)alive, (const int32_t*)alloc_cpu, (const int32_t*)alloc_ram,
+              (const uint8_t*)eligible, (const int32_t*)qwin, (const int32_t*)qoff,
+              (const int32_t*)qseq, (const int32_t*)req_cpu, (const int32_t*)req_ram,
+              (int32_t*)cand_out, (uint8_t*)valid_out, (uint8_t*)assign_out,
+              (uint8_t*)fitany_out, (int32_t*)best_out, (int32_t*)cpu_out,
+              (int32_t*)ram_out, N, P, K, prof);
+      return (int)cudaGetLastError();
+    });
   });
 }

@@ -9,6 +9,11 @@ and launch count of each.
 | fused_select_schedule_cycle | select_schedule_cycle.cu   | `fused_select_schedule_cycle` (:336, kernel :239)                |
 | fused_commit_scatter        | commit_scatter.cu          | `fused_commit_scatter` (:828, kernel `_commit_kernel` :767)      |
 
+The three cycle kernels take the engine's scheduler profile (batched/
+pipeline.py) as a build-time profile: `profile_terms` turns it into the
+kernels' profile kind and term table (cycle_common.cuh), which the engine
+builds once and passes to every launch as `terms`.
+
 The first three carry every window; the cycle itself runs on one of three
 routes (engine.BatchedSimulation.cycle_route): the megakernel, the
 two-kernel route (selection + cycle, then the commit scatter) or the sorted
@@ -40,7 +45,13 @@ from typing import Dict, Tuple
 
 import torch
 
-from kubernetriks_tpu_torch.batched.pipeline import profile_fit_score
+from kubernetriks_tpu_torch.batched.pipeline import (
+    DEFAULT_PROFILE,
+    CompiledProfile,
+    is_default_kernel_profile,
+    kernel_terms,
+    profile_fit_score,
+)
 from kubernetriks_tpu_torch.ops._launch import (  # noqa: F401  (LAUNCHES, reset_launches: public here)
     LAUNCHES,
     SMEM_LIMIT,
@@ -310,7 +321,22 @@ def _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram):
     return m, slot, valid, rc, rr
 
 
-def _fit_score_place(alive, cpu, ram, rc, rr, valid):
+def profile_terms(profile: CompiledProfile, device):
+    """(term table or None, profile kind, term count): the cycle kernels'
+    launch arguments for `profile` on `device`. Kind 0 runs the default
+    profile's own instantiation (no table); 1 and 2 the term list with and
+    without the Fit filter. The table (int32 triples: scorer id, float32
+    weight bits, multiply) is a copy to the device, so it is built before
+    any CUDA graph capture and passed to the wrappers as `terms`."""
+    if is_default_kernel_profile(profile):
+        return None, 0, 0
+    use_fit, terms = kernel_terms(profile)
+    flat = [v for t in terms for v in t]
+    table = torch.tensor(flat or [0], dtype=torch.int32, device=device)
+    return table, 1 if use_fit else 2, len(terms)
+
+
+def _fit_score_place(alive, cpu, ram, rc, rr, valid, profile=DEFAULT_PROFILE):
     """The decision core of every cycle kernel (reference `_fit_score_place`,
     ops/scheduler_kernel.py:118): the profile's fit mask and score on every
     node for the (C, 1) request, the last node of maximal score (ties go to
@@ -319,7 +345,7 @@ def _fit_score_place(alive, cpu, ram, rc, rr, valid):
     `valid` and some node fits. Returns (any_fit, best, cpu, ram)."""
     N = cpu.shape[1]
     iota_n = torch.arange(N, dtype=torch.int32, device=cpu.device)[None, :]
-    fit, score = profile_fit_score(alive, cpu, ram, rc, rr)
+    fit, score = profile_fit_score(profile, alive, cpu, ram, rc, rr)
     max_score = score.amax(dim=1, keepdim=True)
     best = torch.where(score == max_score, iota_n, -1).amax(dim=1, keepdim=True)
     any_fit = fit.any(dim=1, keepdim=True)
@@ -329,7 +355,7 @@ def _fit_score_place(alive, cpu, ram, rc, rr, valid):
 
 def select_cycle_commit_plain(
     alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram,
-    waited, phase, node, qpre_t, start_t, park_t, k_pods: int,
+    waited, phase, node, qpre_t, start_t, park_t, k_pods: int, profile=DEFAULT_PROFILE,
 ):
     """Per cluster, up to K times: pick the eligible pod with the least
     (queue win, offset bits, seq) — lowest slot if the whole key ties —
@@ -348,7 +374,7 @@ def select_cycle_commit_plain(
     depth = int(eligible.sum(dim=1).max()) if C and P else 0
     for k in range(min(depth, k_pods)):
         sel, _, valid, rc, rr = _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram)
-        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid)
+        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid, profile)
         assign = valid & any_fit
         park = valid & ~any_fit
         new_phase = torch.where(assign, PHASE_RUNNING, PHASE_UNSCHEDULABLE).to(torch.int32)
@@ -389,6 +415,8 @@ def fused_select_cycle_commit(
     start_t: torch.Tensor,  # (C, K) float32 positional start offsets
     park_t: torch.Tensor,  # (C, K) float32 positional park offsets
     k_pods: int,
+    profile: CompiledProfile = DEFAULT_PROFILE,
+    terms=None,
 ):
     """(alloc_cpu, alloc_ram, phase, node, start_tmp, park_tmp, qstats
     (C, 5)); start/park are +inf where untouched."""
@@ -396,7 +424,7 @@ def fused_select_cycle_commit(
         return select_cycle_commit_plain(
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
             pod_req_cpu, pod_req_ram, waited, phase, node, qpre_t, start_t,
-            park_t, k_pods,
+            park_t, k_pods, profile,
         )
     C, P = eligible.shape
     N = alloc_cpu.shape[1]
@@ -420,10 +448,11 @@ def fused_select_cycle_commit(
         torch.empty((C, 5), dtype=f32, device=alive.device),
     )
     if C:
+        table, kind, n_terms = terms if terms is not None else profile_terms(profile, alive.device)
         _launch("fused_select_cycle_commit", "select_cycle_commit", [
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
             pod_req_cpu, pod_req_ram, waited, phase, node, qpre_t, start_t, park_t,
-            *outs, C, N, P, K,
+            *outs, table, C, N, P, K, kind, n_terms,
         ])
     return outs
 
@@ -431,7 +460,7 @@ def fused_select_cycle_commit(
 # --- 4. candidate cycle (the sorted route) ----------------------------------
 
 
-def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram):
+def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, profile=DEFAULT_PROFILE):
     """K pre-sorted candidates per cluster, in row order up to the
     cluster's last valid row: fit and score each on every node, take the
     last node of maximal score, deduct it where the row is valid and some
@@ -448,7 +477,7 @@ def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram):
         live = k < k_bound
         v = valid[:, k : k + 1] & live
         any_fit, best, cpu, ram = _fit_score_place(
-            alive, cpu, ram, req_cpu[:, k : k + 1], req_ram[:, k : k + 1], v
+            alive, cpu, ram, req_cpu[:, k : k + 1], req_ram[:, k : k + 1], v, profile
         )
         cols["assign"].append(v & any_fit)
         cols["fit"].append(any_fit & live)
@@ -470,11 +499,13 @@ def fused_schedule_cycle(
     valid: torch.Tensor,  # (C, K) bool
     req_cpu: torch.Tensor,  # (C, K) int32
     req_ram: torch.Tensor,  # (C, K) int32
+    profile: CompiledProfile = DEFAULT_PROFILE,
+    terms=None,
 ):
     """(assign (C, K) bool, fit_any (C, K) bool, best (C, K) int32,
     alloc_cpu, alloc_ram)."""
     if not _on_cuda(alive):
-        return schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram)
+        return schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, profile)
     C, K = valid.shape
     N = alloc_cpu.shape[1]
     i32, b = torch.int32, torch.bool
@@ -491,8 +522,9 @@ def fused_schedule_cycle(
         torch.empty_like(alloc_cpu), torch.empty_like(alloc_ram),
     )
     if C:
+        table, kind, n_terms = terms if terms is not None else profile_terms(profile, alive.device)
         _launch("fused_schedule_cycle", "schedule_cycle", [
-            alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, *outs, C, N, K,
+            alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, *outs, table, C, N, K, kind, n_terms,
         ])
     return outs
 
@@ -502,6 +534,7 @@ def fused_schedule_cycle(
 
 def select_schedule_cycle_plain(
     alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq, req_cpu, req_ram, k_pods: int,
+    profile=DEFAULT_PROFILE,
 ):
     """The megakernel's selection and cycle without the commit: up to K
     times per cluster, pick the next pod in queue order and place it as the
@@ -518,7 +551,7 @@ def select_schedule_cycle_plain(
     cols = {"cand": [], "valid": [], "assign": [], "fit": [], "best": []}
     for _ in range(steps):
         sel, slot, valid, rc, rr = _argmin_select(rem, qwin, qbits, qseq, req_cpu, req_ram)
-        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid)
+        any_fit, best, cpu, ram = _fit_score_place(alive, cpu, ram, rc, rr, valid, profile)
         cols["cand"].append(torch.where(valid, slot, 0).to(torch.int32))
         cols["valid"].append(valid)
         cols["assign"].append(valid & any_fit)
@@ -549,6 +582,8 @@ def fused_select_schedule_cycle(
     pod_req_cpu: torch.Tensor,  # (C, P) int32
     pod_req_ram: torch.Tensor,  # (C, P) int32
     k_pods: int,
+    profile: CompiledProfile = DEFAULT_PROFILE,
+    terms=None,
 ):
     """(cand (C, K) int32, valid (C, K) bool, assign (C, K) bool, fit_any
     (C, K) bool, best (C, K) int32, alloc_cpu, alloc_ram); invalid rows
@@ -556,7 +591,7 @@ def fused_select_schedule_cycle(
     if not _on_cuda(alive):
         return select_schedule_cycle_plain(
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
-            pod_req_cpu, pod_req_ram, k_pods,
+            pod_req_cpu, pod_req_ram, k_pods, profile,
         )
     C, P = eligible.shape
     N = alloc_cpu.shape[1]
@@ -579,9 +614,10 @@ def fused_select_schedule_cycle(
         torch.empty_like(alloc_cpu), torch.empty_like(alloc_ram),
     )
     if C:
+        table, kind, n_terms = terms if terms is not None else profile_terms(profile, alive.device)
         _launch("fused_select_schedule_cycle", "select_schedule_cycle", [
             alive, alloc_cpu, alloc_ram, eligible, qwin, qoff, qseq,
-            pod_req_cpu, pod_req_ram, *outs, C, N, P, K,
+            pod_req_cpu, pod_req_ram, *outs, table, C, N, P, K, kind, n_terms,
         ])
     return outs
 

@@ -784,3 +784,103 @@ def test_conditional_node_runs_its_body_only_where_the_flag_is_set(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert bool((out == -1).all())
+
+
+PROFILE_SPECS = {
+    "best_fit": "best_fit",
+    "balanced_packing": "balanced_packing",
+    "custom": {"filters": ["Fit"], "score": [{"name": "BalancedResourceAllocation", "weight": 2.0}]},
+    "no_filter_three_terms": {
+        "filters": [],
+        "score": ["LeastAllocatedResources", "MostAllocatedResources", {"name": "BalancedResourceAllocation",
+                                                                        "weight": 0.3}],
+    },
+    "scoreless": {"filters": ["Fit"], "score": []},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PROFILE_SPECS))
+def test_profiled_cycle_kernels_match_plain_versions(cuda_device, name):
+    """The three cycle kernels' general instantiation equals their plain
+    versions under each profile, bit for bit (stats rows rtol 1e-6), on
+    the edge lanes, at the headline's widths, with K = P = 2 048 and at
+    the replay's N = 1 713, and counts one launch per call."""
+    from kubernetriks_tpu_torch.batched.pipeline import compile_profile
+
+    prof = compile_profile(PROFILE_SPECS[name])
+    cases = []
+    for margs, K in (
+        megakernel_inputs(5, C=8, edges=True),
+        megakernel_inputs(5, C=8, N=256, P=2048, K=64),
+        megakernel_inputs(5, C=8, N=256, P=2048, K=2048, edges=True),
+        megakernel_inputs(5, C=8, N=1713, P=2048, K=512, edges=True),
+    ):
+        cases.append(("fused_select_cycle_commit", port_kernels.select_cycle_commit_plain, margs, {"k_pods": K}, 6))
+        cases.append(("fused_select_schedule_cycle", port_kernels.select_schedule_cycle_plain, margs[:9],
+                      {"k_pods": K}, -1))
+    for args in (cycle_inputs(5, edges=True), cycle_inputs(5, C=1, N=1713, K=256),
+                 cycle_inputs(5, N=1713, K=1024, edges=True)):
+        cases.append(("fused_schedule_cycle", port_kernels.schedule_cycle_plain, args, {}, -1))
+    for kernel, plain, args, kwargs, stats_idx in cases:
+        port_kernels.reset_launches()
+        dev_args = [t(a).to(cuda_device) for a in args]
+        got = getattr(port_kernels, kernel)(*dev_args, **kwargs, profile=prof)
+        torch.cuda.synchronize()
+        assert port_kernels.LAUNCHES[kernel] == 1
+        want = plain(*dev_args, **kwargs, profile=prof)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i == stats_idx:
+                assert torch.allclose(g, w, rtol=1e-6, atol=0.0), (kernel, i)
+            else:
+                assert torch.equal(g, w), (kernel, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_attempt_draw_kernel_matches_plain_version(cuda_device, seed):
+    """The commit-time draw's CUDA kernel equals its plain version bit for
+    bit (will_fail and the float32 fail times), on slots that start or
+    not, plain or ring, services and finite durations, seeds with the top
+    bit set, and pod bases near 2^31; one launch a call."""
+    from kubernetriks_tpu_torch.ops import chaos_kernel
+
+    rng = np.random.default_rng(seed)
+    for C, P, W in ((3, 40, 30), (64, 2048, 1900), (1, 107136, 107136)):
+        start = np.where(rng.random((C, P)) < 0.5, rng.uniform(0.0, 2.0, (C, P)), np.inf).astype(np.float32)
+        restarts = rng.integers(0, 6, (C, P)).astype(np.int32)
+        dwin = np.where(rng.random((C, P)) < 0.1, -1, rng.integers(0, 500, (C, P))).astype(np.int32)
+        doff = rng.uniform(0.0, 10.0, (C, P)).astype(np.float32)
+        will_fail = rng.random((C, P)) < 0.3
+        pod_base = rng.integers(0, 2**31 - 2 * P, C).astype(np.int32)
+        dev_args = [torch.from_numpy(a).to(cuda_device) for a in (start, restarts, dwin, doff, will_fail, pod_base)]
+        for fseed, prob in ((7, 0.3), (0xFFFFFFF0, 0.05), (123, 1.0)):
+            kw = dict(seed=fseed, plain_width=W, fail_prob=prob, interval=10.0)
+            port_kernels.reset_launches()
+            got = chaos_kernel.pod_attempt_draw(*dev_args, **kw)
+            torch.cuda.synchronize()
+            assert port_kernels.LAUNCHES["pod_attempt_draw"] == 1
+            want = chaos_kernel.pod_attempt_draw_plain(*dev_args, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+            assert bool(got[0].any())
+
+
+@pytest.mark.cuda
+def test_fault_run_on_card_matches_cpu(cuda_device):
+    """The composed toy with the reference bench's fault block and
+    best_fit, through an 8-slot pod window with slot reclaim on both
+    sides, on the card (graphs) equals the CPU run, with faults shown and
+    the commit-time draw launched."""
+    finals = {}
+    for where in (cuda_device, "cpu"):
+        sim = composed_sim(where, 4, faults=True, pod_window=8, scheduler_profile="best_fit", reclaim=True)
+        port_kernels.reset_launches()
+        sim.step_until_time(600.0)
+        if where != "cpu":
+            assert port_kernels.LAUNCHES["pod_attempt_draw"] > 0
+            assert port_kernels.LAUNCHES["fused_select_cycle_commit"] == 0  # sorted route below 128
+        finals[where] = (state_to_numpy(sim.state), sim.metrics_summary()["counters"])
+    assert compare_states(finals["cpu"][0], finals[cuda_device][0]) == []
+    counters = finals["cpu"][1]
+    assert counters["pod_interruptions"] + counters["pods_failed"] > 0 and counters["node_crashes"] > 0

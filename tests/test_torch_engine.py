@@ -9,7 +9,8 @@ reference's XLA path and its interpret-mode megakernel path:
   (c) a mid-run handoff: the reference's state at t=60 carried over with
       convert.state_from_numpy, both engines stepped to t=300;
   (d) metrics_summary: same keys, same counters;
-  (e) the build refuses what the port does not run yet.
+  (e) the config blocks all parse, and the build refuses a profile the
+      device path cannot run.
 The card-against-CPU run is in test_torch_cuda.py.
 """
 
@@ -222,25 +223,32 @@ def test_default_cycle_size_above_256_matches_reference(burst_reference, route):
     ],
 )
 def test_unported_config_blocks_raise(block):
-    """Only the fault-injection block is still refused; the two autoscaler
-    blocks are ported and parse."""
-    if block.startswith("fault_injection"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SimulationConfig.from_yaml(BENCH_CONFIG + block)
-        return
+    """No config block is refused any more: the two autoscaler blocks and
+    the fault-injection block parse, and an enabled fault-injection block
+    runs (its crash chains compiled into the trace at build)."""
     config = SimulationConfig.from_yaml(BENCH_CONFIG + block)
     name = block.split(":")[0]
     assert getattr(config, name).enabled
+    if name == "fault_injection":
+        assert config.fault_injection.node.mttf == 900.0
+        config.fault_injection.horizon = 3000.0  # the tiny trace ends at 30 s
+        cluster, workload = _tiny_events()
+        sim = build_batched_from_traces(config, cluster, workload, n_clusters=2, device="cpu")
+        assert sim.fault_params is not None and sim.fault_params.node_faults
+        sim.step_until_time(3000.0)
+        counters = sim.metrics_summary()["counters"]
+        assert counters["node_crashes"] > 0 and counters["node_recoveries"] > 0
 
 
 def test_unported_profile_and_pod_groups_raise():
-    """Unported profiles raise at build; pod groups parse, and a group
-    with a finite running duration (which the reference refuses too)
-    raises at compile."""
+    """A profile naming a plugin the device path cannot run raises at
+    build; pod groups parse, and a group with a finite running duration
+    (which the reference refuses too) raises at compile."""
     cluster, workload = _tiny_events()
-    with pytest.raises(UnsupportedProfileError):
+    with pytest.raises(UnsupportedProfileError, match="NodeAffinity"):
         build_batched_from_traces(
-            SimulationConfig(), cluster, workload, device="cpu", scheduler_profile="best_fit"
+            SimulationConfig(), cluster, workload, device="cpu",
+            scheduler_profile={"filters": ["Fit"], "score": [{"name": "NodeAffinity"}]},
         )
     group = """events:
 - timestamp: 1.0

@@ -24,6 +24,7 @@ versions on the card by chip_smoke.py and test_torch_cuda.py.
 
 import numpy as np
 import pytest
+import torch
 
 from ca_inputs import ca_down_inputs, ca_up_inputs
 from test_torch_cuda import (
@@ -46,6 +47,7 @@ from kubernetriks_tpu.batched.step import lexsort_time_i32 as jax_lexsort
 from kubernetriks_tpu.batched.timerep import TPair as JaxTPair
 
 from kubernetriks_tpu_torch.ops import autoscale_kernel as ca_kernels
+from kubernetriks_tpu_torch.ops import chaos_kernel as draw_kernel
 from kubernetriks_tpu_torch.ops import scheduler_kernel as port_kernels
 
 SEEDS = [0, 1, 2]
@@ -300,7 +302,13 @@ def test_wrappers_count_only_kernel_launches():
     ca_kernels.fused_ca_scale_up(*(_t(a) for a in args), n_slots=S)
     args, K = ca_down_inputs(0)
     ca_kernels.fused_ca_scale_down(*(_t(a) for a in args), k_sd=K)
-    assert len(port_kernels.LAUNCHES) == 8
+    C, P = 2, 16
+    draw_kernel.pod_attempt_draw(
+        torch.zeros((C, P)), torch.zeros((C, P), dtype=torch.int32), torch.ones((C, P), dtype=torch.int32),
+        torch.zeros((C, P)), torch.zeros((C, P), dtype=torch.bool), torch.zeros((C,), dtype=torch.int32),
+        seed=1, plain_width=P, fail_prob=0.5, interval=10.0,
+    )
+    assert len(port_kernels.LAUNCHES) == 9
     assert all(v == 0 for v in port_kernels.LAUNCHES.values())
 
 

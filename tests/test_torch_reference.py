@@ -144,9 +144,10 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 
 def test_port_main_path_loads_no_jax(tmp_path):
     """The port's main path, its autoscaler path (whole-resident and through
-    the sliding pod window), the endurance churn with slot reclaim, the
-    trace replay and the CLI, run in a fresh interpreter, leave no module
-    named jax* or kubernetriks_tpu.* in sys.modules."""
+    the sliding pod window, and with faults and a profile), the endurance
+    churn with slot reclaim, the trace replay and the CLI, run in a fresh
+    interpreter, leave no module named jax* or kubernetriks_tpu.* in
+    sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -176,6 +177,9 @@ def test_port_main_path_loads_no_jax(tmp_path):
         assert sliding.dispatch_stats["slides"] > 0 and sliding.dispatch_stats["grows"] > 0
         state_to_numpy(sliding.state)
         sliding.metrics_summary()
+        chaos_run = composed_sim("cpu", 4, faults=True, scheduler_profile="balanced_packing")
+        chaos_run.step_until_time(600.0)
+        assert chaos_run.metrics_summary()["counters"]["node_crashes"] > 0
         from chip_smoke import endurance_sim
         churn = endurance_sim("cpu", 1, 4, reclaim=True)
         churn.step_until_time(30.0 + 4 * 160.0)

@@ -390,10 +390,26 @@ def test_cli_matches_reference_cli(tmp_path, capsys, restore_logging, clusters):
     assert "| Pods succeeded" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("profile", ["best_fit", "balanced_packing"])
+def test_cli_profile_matches_reference_cli(tmp_path, capsys, restore_logging, profile):
+    """--profile NAME supersedes the config's scheduler_profile block, as
+    in the reference CLI, and the counters equal its batched run's."""
+    config = _generic_config(tmp_path)
+    assert jax_cli.main(["--config-file", config, "--backend", "batched", "--clusters", "2",
+                         "--profile", profile]) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert port_cli.main(["--config-file", config, "--device", "cpu", "--clusters", "2",
+                          "--profile", profile]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["counters"] == want["counters"]
+    assert got["counters"]["pods_succeeded"] == 4
+    with pytest.raises(ValueError, match="unknown named scheduler profile"):
+        port_cli.main(["--config-file", config, "--device", "cpu", "--profile", "best-fit"])
+
+
 @pytest.mark.parametrize(
     "option",
-    [["--backend", "scalar"], ["--profile", "balanced_packing"], ["--gauge-csv", "g.csv"],
-     ["--metrics-export", "stem"], ["--profile", "best_fit"]],
+    [["--backend", "scalar"], ["--gauge-csv", "g.csv"], ["--metrics-export", "stem"]],
 )
 def test_cli_refuses_unported_options(tmp_path, option):
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
