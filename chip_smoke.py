@@ -6,9 +6,11 @@
 Phases; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the eight CUDA kernels of the TPU kernels, the chaos engine's
-     commit-time draw (pod_attempt_draw.cu) and the graph_if helper (the
-     window executor's conditional node) from ops/csrc with nvcc (one
-     process each, all at once), timed;
+     commit-time draw (pod_attempt_draw.cu), the window executor's four
+     glue kernels (window_work_due.cu, next_window.cu, catch_up.cu,
+     conditional_wake.cu) and the graph_if helper (the window executor's
+     conditional node) from ops/csrc with nvcc (one process each, all at
+     once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      inputs captured (cloned) from its path, run without graphs, at that
      path's shapes — the three
@@ -121,7 +123,24 @@ Phases; any failure exits non-zero:
      card == CPU at C=8 to t=400 s with faults and with faults plus
      best_fit; graph == eager bit for bit under faults through
      pod_window=512 (slides and a growth) to t=1 200 s.
-The card runs of phases 5, 7 and 10 replay graphs too (fails otherwise).
+ 15. fast-forward: the sparse headline (the headline's 1024 x 256 at
+     0.02 pods/s a cluster, the reference's sparse rate, to 70 000 s),
+     where fast-forward turns on by itself; timed from 190 s to 70 000 s
+     on the graph executor (one host read an executed window, none
+     other): wall time, decisions/s, windows executed and skipped, host
+     reads, kernels and busy ms an executed window (torch.profiler, 5 000
+     -> 7 000 s of a second run); the same line stepping every window on
+     the card ends in an equal state; card == CPU at C = 4 on this line
+     and on the composed line at 0.02 pods/s to 2 000 s (slot reclaim on
+     both sides, both fast-forwarded), with the same windows executed.
+ 16. the conditional move on graphs: phase 6w's line with
+     enable_unscheduled_pods_conditional_move, timed as phase 6w (no
+     eager window, one host read a span), host ms, busy ms and kernels a
+     window beside 6w's; card == CPU at C = 4 to t = 400 s.
+The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
+otherwise); the window-cost razor is on there (the card's default) and
+off on the CPU, so they hold razor on against razor off. Phase 4 also
+traces 50 windows of a second run for device busy and kernels a window.
 Phase 3 also holds the three cycle-route kernels against their plain
 versions: the two-kernel route's on inputs of the headline shape built with
 KTPU_MEGAKERNEL=0, the candidate cycle on inputs of the full-width replay;
@@ -160,7 +179,13 @@ been reused (for the scale-down, a removal on a walk whose live candidates
 the dynamic name order puts in another order than the static table: wave
 74's pair, ca_node_99 and ca_node_100; for the scale-up, a cursor below
 the allocations made): entries labelled "(churn, reclaim)", with the
-launches of phase 12.
+launches of phase 12. The window glue kernels are held and timed, bit
+for bit, on eager runs of phase 15's line to 1 500 s (the razor's
+predicate on its first call that finds no work, the next window on its
+first call, the catch-up on its longest skip) and of phase 16's line to
+590 s (the conditional move's scans on their call with the most
+event-by-parked-pod steps), with the launches of phases 15 and 16. A
+timed kernel cycles through at most 512 copies of its inputs.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -182,15 +207,18 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 L2_BYTES = 50 * 1024**2  # H100 L2 cache
+MAX_COPIES = 512  # input copies a timed kernel cycles through, at most
 OUT_DIR = HERE / "chiprun_out"
 
 
-def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256, **engine_kwargs):
+def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256, rate: float = 2.0, horizon: float = 1000.0,
+                 **engine_kwargs):
     """The reference's headline bench shape (`bench.py:92` `run_shape`):
     n_clusters uniform clusters of n_nodes nodes (64 000 mCPU, 128 GiB),
-    Poisson pods at 2/s for 1000 s (seed 3, 4000 mCPU, 8 GiB, 30-120 s),
-    default profile, 64 pods per cycle. profile_main_path.py uses it too.
-    engine_kwargs go to the engine (e.g. graphs=False)."""
+    Poisson pods at `rate`/s for `horizon` s (2/s for 1000 s; seed 3, 4000
+    mCPU, 8 GiB, 30-120 s), default profile, 64 pods per cycle.
+    profile_main_path.py uses it too. engine_kwargs go to the engine (e.g.
+    graphs=False)."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -200,11 +228,24 @@ def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256, **engine_kw
         config,
         UniformClusterTrace(n_nodes, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
         PoissonWorkloadTrace(
-            rate_per_second=2.0, horizon=1000.0, seed=3, cpu=4000, ram=8 * 1024**3,
+            rate_per_second=rate, horizon=horizon, seed=3, cpu=4000, ram=8 * 1024**3,
             duration_range=(30.0, 120.0),
         ).convert_to_simulator_events(),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=64, **engine_kwargs,
     )
+
+
+# The sparse headline (phase 15): the headline's shape at the reference's
+# sparse rate (tests/test_fast_forward.py:18, 0.02 pods/s a cluster) over
+# 70 000 s, where fast-forward turns on by itself: the reference's density
+# rule counts the 256 node creations too, 0.33 trace events a window over
+# 20 000 s, 0.237 over 70 000 s (under 0.25).
+SPARSE = dict(rate=0.02, horizon=70000.0)
+
+
+def sparse_sim(device, n_clusters: int = 1024, **engine_kwargs):
+    """The sparse headline: headline_sim at SPARSE's rate and horizon."""
+    return headline_sim(device, n_clusters, **SPARSE, **engine_kwargs)
 
 
 COMPOSED_GROUP_YAML = """events:
@@ -303,13 +344,14 @@ fault_injection:
 
 
 def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_group_pods=16,
-                 burst=(90.0, 90.0, 120.0), k=8, faults=False, **engine_kwargs):
+                 burst=(90.0, 90.0, 120.0), k=8, faults=False, conditional_move=False, **engine_kwargs):
     """The reference's composed scenario (`bench.py:198` `_composed_inputs`)
     on the port: n_nodes uniform nodes, Poisson plain pods (seed 3, 16 000
     mCPU / 32 GiB, 30-120 s) beside one HPA pod group, the CA allowed
     n_nodes nodes of the 64 000 mCPU template; max_ca_pods_per_cycle 64,
     max_pods_per_scale_down 8. FULL_COMPOSED gives the reference's width;
-    `faults` adds FAULTS_YAML (each cluster then has its own crash chains)."""
+    `faults` adds FAULTS_YAML (each cluster then has its own crash chains),
+    `conditional_move` the config's enable_unscheduled_pods_conditional_move."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -323,8 +365,11 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
     group = GenericWorkloadTrace.from_yaml(
         composed_workload_yaml(max_group_pods, burst)
     ).convert_to_simulator_events()
+    config_yaml = composed_config_yaml(n_nodes) + (FAULTS_YAML if faults else "")
+    if conditional_move:
+        config_yaml += "enable_unscheduled_pods_conditional_move: true\n"
     return build_batched_from_traces(
-        SimulationConfig.from_yaml(composed_config_yaml(n_nodes) + (FAULTS_YAML if faults else "")), cluster,
+        SimulationConfig.from_yaml(config_yaml), cluster,
         sorted(plain + group, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
         max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, **engine_kwargs,
@@ -567,7 +612,7 @@ def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
     sim.precompile_pieces()
     sim.step_until_time(warm_until)
     torch.cuda.synchronize()
-    w0 = sim.windows_run
+    w0, x0 = sim.windows_run, sim.dispatch_stats["executed_windows"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.step_until_time(until)
@@ -586,8 +631,18 @@ def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
         "windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n,
         "traced_host_ms_per_window": 1e3 * traced / n,
     }
+    executed = sim.dispatch_stats["executed_windows"] - x0
+    if sim.fast_forward and executed > 0:
+        # Fast-forward: per executed window as well.
+        out.update({
+            "executed_windows": executed, "busy_ms_per_executed_window": busy_us / 1e3 / executed,
+            "kernels_per_executed_window": kernels / executed,
+            "traced_host_ms_per_executed_window": 1e3 * traced / executed,
+        })
     print(f"{label}: device busy {out['busy_ms_per_window']:.4f} ms a window over {n} traced windows "
-          f"({out['kernels_per_window']:.1f} kernels a window, traced host {out['traced_host_ms_per_window']:.3f} ms)",
+          f"({out['kernels_per_window']:.1f} kernels a window, traced host {out['traced_host_ms_per_window']:.3f} ms)"
+          + (f"; per executed window ({executed}): busy {out['busy_ms_per_executed_window']:.4f} ms, "
+             f"{out['kernels_per_executed_window']:.1f} kernels" if "executed_windows" in out else ""),
           flush=True)
     return out, sim
 
@@ -618,7 +673,7 @@ def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool =
         stats["captures"] -= captured
         runs[graphs] = {
             "state": flatten(sim.state),
-            "launches": dict(sk.LAUNCHES),
+            "launches": sk.launch_counts(),
             "host_ms_per_window": 1e3 * elapsed / max(sim.windows_run, 1),
             "windows": sim.windows_run,
             "syncs": sim.host_syncs - syncs0,
@@ -626,6 +681,7 @@ def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool =
             "precompiled_graphs": captured,
             "graph_pool_bytes": sim.graph_pool_bytes(),
             "route": sim.cycle_route,
+            "skipped_body_launches": sim._executor.skipped_body_launches(),
         }
         if graphs and sliding:
             check_sliding_run(label, sim, stats, runs[graphs]["syncs"], sim.windows_run)
@@ -639,8 +695,12 @@ def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool =
     bad = [p for p in g["state"] if not torch.equal(g["state"][p], e["state"][p])]
     if bad:
         fail(f"{label}: graph and eager runs differ at {bad}")
-    if g["launches"] != e["launches"]:
-        fail(f"{label}: launches differ: graphs {g['launches']}, eager {e['launches']}")
+    # The eager run on the card runs the razor's gated tails whatever their
+    # predicate holds; the graphs skip them where it is false.
+    skipped = g["skipped_body_launches"]
+    if {n: k + skipped.get(n, 0) for n, k in g["launches"].items()} != e["launches"]:
+        fail(f"{label}: launches differ: graphs {g['launches']} (+ {skipped} skipped in conditional nodes), "
+             f"eager {e['launches']}")
     if g["syncs"] != e["syncs"]:
         fail(f"{label}: host reads differ: graphs {g['syncs']}, eager {e['syncs']}")
     out = {
@@ -652,11 +712,13 @@ def graph_eager_pair(label, sk, build, until: float, route=None, sliding: bool =
         "replays": g["stats"]["replays"],
         "graph_pool_bytes": g["graph_pool_bytes"],
         "launches": g["launches"],
+        "skipped_body_launches": skipped,
         "sliding": g.get("sliding"),
     }
     print(
         f"{label}: graph run == eager run bit for bit over {g['windows']} windows (route {g['route']}), "
-        f"launches equal, host ms a window {g['host_ms_per_window']:.3f} (graphs) against "
+        f"launches equal (+ {skipped} the graphs' conditional nodes skipped), host ms a window "
+        f"{g['host_ms_per_window']:.3f} (graphs) against "
         f"{e['host_ms_per_window']:.3f} (eager), {out['graphs_captured']} graphs, {out['replays']} replays, "
         f"pool {out['graph_pool_bytes']} B" + (f", window {out['sliding']}" if sliding else ""),
         flush=True,
@@ -686,7 +748,7 @@ def timed_path(sim, sk, names, label):
         end += 200.0
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    launches = sk.launch_counts()
     windows = sim.windows_run - windows0
     syncs = sim.host_syncs - syncs0
     graph = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
@@ -745,7 +807,7 @@ def timed_replay(sim, sk, names, label) -> dict:
     sim.run_to_completion(max_time=86400.0 * 20.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    launches = sk.launch_counts()
     graph = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
     check_graph_run(label, sim, graph, sim.host_syncs - syncs0, sim.windows_run,
                     max_syncs=-(-sim.windows_run // 64))
@@ -1237,6 +1299,181 @@ def faults_phase(dev, sk, names, ref: dict) -> dict:
     return out
 
 
+def check_skipping_run(label, sim, stats: dict, syncs: int, windows: int) -> None:
+    """Fail unless a fast-forwarded run went through the graph executor
+    alone: every executed window on graphs, none eager, no capture inside
+    it, executed + skipped == the windows stepped, some skipped, and one
+    host read an executed window (plus one a span through a pod window)."""
+    if not sim.graphs:
+        fail(f"{label}: the engine runs without graphs")
+    if stats["eager_windows"] or stats["graph_windows"] != stats["executed_windows"]:
+        fail(f"{label}: {stats['eager_windows']} eager window(s), {stats['graph_windows']} on graphs, "
+             f"{stats['executed_windows']} executed")
+    if stats["executed_windows"] + stats["skipped_windows"] != windows or stats["skipped_windows"] <= 0:
+        fail(f"{label}: {stats['executed_windows']} executed and {stats['skipped_windows']} skipped of {windows}")
+    if stats["captures"]:
+        fail(f"{label}: {stats['captures']} capture(s) inside the timed run")
+    if syncs != stats["executed_windows"] + stats["slides"] + stats["grows"]:
+        fail(f"{label}: {syncs} host reads for {stats['executed_windows']} executed windows")
+
+
+def sparse_phase(dev, sk, names) -> dict:
+    """Phase 15: the sparse headline (sparse_sim: the headline's 1024
+    clusters x 256 nodes at 0.02 pods/s a cluster to 70 000 s), where
+    fast-forward turns on by itself: built, every piece captured, stepped
+    to 190 s, then timed from 190 s to 70 000 s on the graph executor in
+    1 000 s steps with the launch counts set to 0 just before (one host
+    read an executed window, no other); the same line stepping every
+    window (fast_forward=False) on the card ends in an equal state; device
+    busy and kernels an executed window from a traced second run (5 000
+    -> 7 000 s); card == CPU at C = 4 on this line and on an autoscaled
+    sparse variant (the composed line at 0.02 pods/s to 2 000 s), slot
+    reclaim on both sides, both fast-forwarded."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    horizon = SPARSE["horizon"]
+    t0 = time.perf_counter()
+    sim = sparse_sim(dev)
+    build_s = time.perf_counter() - t0
+    if not sim.fast_forward or not sim.window_razor:
+        fail(f"phase 15: fast_forward {sim.fast_forward}, razor {sim.window_razor} on the sparse headline")
+    t0 = time.perf_counter()
+    captured = sim.precompile_pieces()
+    capture_s = time.perf_counter() - t0
+    sk.reset_launches()
+    sim.step_until_time(190.0)
+    before = sim.decisions_total()
+    syncs0, stats0, w0 = sim.host_syncs, dict(sim.dispatch_stats), sim.windows_run
+    t0 = time.perf_counter()
+    end = 1190.0
+    while end < horizon:
+        sim.step_until_time(end)
+        end += 1000.0
+    sim.step_until_time(horizon)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = sk.launch_counts()
+    stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
+    syncs, windows = sim.host_syncs - syncs0, sim.windows_run - w0
+    check_skipping_run("phase 15", sim, stats, syncs, windows)
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"phase 15: never launched {name}")
+    decisions = sim.decisions_total() - before
+    final = state_to_numpy(sim.state)
+    executed = stats["executed_windows"]
+    out = {
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "K": sim.max_pods_per_cycle,
+                  "horizon_s": horizon, "events": sim.n_events},
+        "build_s": build_s, "precompiled_graphs": captured, "precompile_s": capture_s,
+        "timed_windows": windows, "executed_windows": executed, "skipped_windows": stats["skipped_windows"],
+        "wall_s": elapsed, "decisions": decisions, "decisions_per_s": decisions / elapsed,
+        "ms_per_window": 1e3 * elapsed / windows, "ms_per_executed_window": 1e3 * elapsed / max(executed, 1),
+        "host_reads_per_executed_window": syncs / max(executed, 1),
+        "graph": graph_report(sim, stats), "launches": launches,
+    }
+    del sim
+    out["busy"], _ = profiled_busy(lambda: sparse_sim(dev), 5000.0, 7000.0, "phase 15")
+    # Every window stepped, on the card.
+    plain = sparse_sim(dev, fast_forward=False)
+    plain.precompile_pieces()
+    plain.step_until_time(190.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.step_until_time(horizon)
+    torch.cuda.synchronize()
+    out["every_window_wall_s"] = time.perf_counter() - t0
+    bad = compare_states(state_to_numpy(plain.state), final)
+    if bad:
+        fail(f"phase 15: fast-forward and every window differ at {bad}")
+    del plain, final
+    # Card against CPU at C = 4, on this line and the autoscaled variant.
+    runs = {
+        "sparse headline C=4": (lambda where: sparse_sim(where, 4), horizon),
+        "composed at 0.02/s, reclaim, C=4": (
+            lambda where: composed_sim(where, 4, **{**FULL_COMPOSED, "rate": 0.02, "horizon": 2000.0},
+                                       reclaim=True, fast_forward=True), 2000.0),
+    }
+    for label, (build, until) in runs.items():
+        finals = {}
+        for where in ("cuda", "cpu"):
+            s15 = build(where)
+            if not s15.fast_forward or (label.startswith("composed") and not s15.reclaim):
+                fail(f"phase 15: {label} on {where} built with fast_forward {s15.fast_forward}, reclaim {s15.reclaim}")
+            s15.step_until_time(until)
+            if where == "cuda":
+                st = s15.dispatch_stats
+                if not s15.graphs or st["eager_windows"] or st["graph_windows"] != st["executed_windows"]:
+                    fail(f"phase 15: {label}: the card run did not go through the graph executor alone ({st})")
+            finals[where] = (state_to_numpy(s15.state), s15.metrics_summary()["counters"], s15.next_window_idx,
+                             dict(s15.dispatch_stats))
+        bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+        if bad or finals["cuda"][2] != finals["cpu"][2]:
+            fail(f"phase 15: {label}: card and CPU differ at {bad}")
+        ex = [finals[w][3]["executed_windows"] for w in ("cuda", "cpu")]
+        if ex[0] != ex[1]:
+            fail(f"phase 15: {label}: {ex[0]} windows executed on the card, {ex[1]} on the CPU")
+        out[label] = {"counters": finals["cuda"][1], "executed_windows": ex[0],
+                      "skipped_windows": finals["cuda"][3]["skipped_windows"]}
+        print(f"phase 15: {label} to t={until:.0f} s: card == CPU under compare_states, {ex[0]} windows executed "
+              f"and {finals['cuda'][3]['skipped_windows']} skipped on both ({finals['cuda'][1]})", flush=True)
+    print(
+        f"phase 15: sparse headline {out['shape']} (built in {build_s:.2f} s), fast-forward on by its default: "
+        f"t = 190 -> {horizon:.0f} s, {windows} windows ({executed} executed, {stats['skipped_windows']} skipped) "
+        f"in {elapsed:.3f} s = {out['ms_per_executed_window']:.3f} ms an executed window, "
+        f"{out['decisions_per_s']:.1f} decisions/s, {out['host_reads_per_executed_window']:.3f} host reads an "
+        f"executed window, {out['busy']['kernels_per_executed_window']:.1f} kernels and "
+        f"{out['busy']['busy_ms_per_executed_window']:.4f} ms busy an executed window; every window "
+        f"(fast_forward=False) {out['every_window_wall_s']:.3f} s, equal state; launches {launches}",
+        flush=True,
+    )
+    return out
+
+
+def conditional_move_phase(dev, sk, names, ref: dict) -> dict:
+    """Phase 16: phase 6w's composed line (through pod_window=512) with
+    enable_unscheduled_pods_conditional_move, timed as phase 6w on the
+    graph executor (timed_path: no eager window, one host read a span,
+    none inside it), beside phase 6w's host ms, busy ms and kernels a
+    window (`ref`); card == CPU at C = 4 to t = 400 s, reclaim on both."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    def build():
+        return composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, conditional_move=True)
+
+    sim = build()
+    if not sim.conditional_move or sim.fast_forward:
+        fail(f"phase 16: conditional move {sim.conditional_move}, fast_forward {sim.fast_forward}")
+    out = timed_path(sim, sk, names, "phase 16")
+    out["counters"] = sim.metrics_summary()["counters"]
+    del sim
+    out["busy"], _ = profiled_busy(build, 190.0, 1190.0, "phase 16")
+    finals = {}
+    for where in ("cuda", "cpu"):
+        s16 = composed_sim(where, 4, conditional_move=True, reclaim=True)
+        s16.step_until_time(400.0)
+        if where == "cuda":
+            ran_on_graphs("phase 16", s16)
+            if s16.host_syncs:
+                fail(f"phase 16: {s16.host_syncs} host reads on the card at C=4")
+        finals[where] = (state_to_numpy(s16.state), s16.metrics_summary()["counters"])
+    bad = compare_states(finals["cuda"][0], finals["cpu"][0])
+    if bad:
+        fail(f"phase 16: card and CPU differ at {bad}")
+    out["card_cpu_counters"] = finals["cuda"][1]
+    print(
+        f"phase 16: the composed line through {WINDOWED_COMPOSED} with the conditional move, on graphs: "
+        f"{out['ms_per_window']:.3f} ms a window (phase 6w {ref['ms_per_window']:.3f}), device busy "
+        f"{out['busy']['busy_ms_per_window']:.4f} ms (6w {ref['busy']['busy_ms_per_window']:.4f}), "
+        f"{out['busy']['kernels_per_window']:.1f} kernels a window (6w {ref['busy']['kernels_per_window']:.1f}), "
+        f"{out['decisions_per_s']:.1f} decisions/s; card == CPU at C=4 to 400 s ({finals['cuda'][1]})",
+        flush=True,
+    )
+    return out
+
+
 def churn_phase(dev, sk, must_launch) -> dict:
     """Phase 12: the reference's endurance churn (endurance_sim) at
     ENDURANCE_CLUSTERS clusters through ENDURANCE_WAVES waves, as the
@@ -1277,7 +1514,7 @@ def churn_phase(dev, sk, must_launch) -> dict:
     sim.step_until_time(horizon)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    launches = sk.launch_counts()
     stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
     syncs, windows = sim.host_syncs - syncs0, sim.windows_run
     check_sliding_run("phase 12", sim, stats, syncs, windows)
@@ -1471,7 +1708,7 @@ def slide_piece_cost(sim, reps: int = 20) -> dict:
     microseconds a launch (cudaGraphLaunch, asynchronous) and device
     microseconds a replay (CUDA events around the replays). What fusing
     the slide into the end graph could save is bounded by the first."""
-    graph, _ = sim._executor.graphs[("slide", sim.pod_window)]
+    graph = sim._executor.graphs[("slide", sim.pod_window)][0]
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1502,7 +1739,7 @@ def replay_window_phase(dev, sk, paths, whole: dict, must_launch) -> dict:
     sim.run_to_completion(max_time=86400.0 * 20.0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    launches = sk.launch_counts()
     stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
     syncs = sim.host_syncs - syncs0
     check_sliding_run("phase 9w", sim, stats, syncs, sim.windows_run,
@@ -1600,9 +1837,12 @@ def main() -> int:
     def copies_of(args):
         """Enough copies of a call's inputs that cycling through them
         overruns the 50 MB L2 cache, as the main path's launches do (their
-        inputs are a window's fresh tensors)."""
-        size = nbytes([a for a in args if isinstance(a, torch.Tensor)])
-        n = max(1, -(-2 * L2_BYTES // max(size, 1)))
+        inputs are a window's fresh tensors), at most MAX_COPIES: inputs
+        under 200 KB stay partly in the L2 (their kernels are launch-sized;
+        tens of thousands of copies made phase 3's replay block take over
+        three minutes)."""
+        size = nbytes([a for a in args if isinstance(a, torch.Tensor) and a.numel()])
+        n = min(MAX_COPIES, max(1, -(-2 * L2_BYTES // max(size, 1))))
         return [args] + [
             tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
             for _ in range(n - 1)
@@ -1933,6 +2173,7 @@ def main() -> int:
     del sim, captured
 
     stamp("phase 3: the replay")
+    replay_block_t0 = time.perf_counter()
     # The replay's kernels, on inputs of the full-width replay in its first
     # 600 s, each from its busiest call: the candidate cycle's window with
     # the most candidates, the event chunk with the most valid events, the
@@ -2061,6 +2302,9 @@ def main() -> int:
         None, *cycle_need(args), label=f"fused_schedule_cycle (replay, {WINDOWED_REPLAY})",
     )
     del sim, busiest
+    replay_block_s = time.perf_counter() - replay_block_t0
+    print(f"phase 3: the replay block took {replay_block_s:.1f} s (PR 11's, without the copy cap: 168-219 s)",
+          flush=True)
     stamp("phase 3: the fault path")
     # The fault path: the composed line through its pod window with the
     # reference bench's fault block, to t = 590 s; every kernel it runs on
@@ -2104,6 +2348,62 @@ def main() -> int:
     check_ca_scale_up(*busiest["fused_ca_scale_up"], label=f"fused_ca_scale_up ({FAULTS_LABEL})")
     check_attempt_draw(*busiest["pod_attempt_draw"], label=f"pod_attempt_draw ({FAULTS_LABEL})")
     del sim, busiest
+
+    stamp("phase 3: the window glue")
+    # The window executor's glue kernels (ops/window_kernel.py; no TPU
+    # kernels) on the lines of the phases that run them, eagerly
+    # (graphs=False): the razor's predicate on its first call that finds no
+    # work (the skip, where it must read every row), fast-forward's next
+    # window on its first call and its catch-up on its longest skip, all
+    # on the sparse headline (phase 15's line, fast-forward on by its
+    # default) to 1 500 s; the conditional move's scans on phase 16's line
+    # to 590 s, on the call with the most event-by-parked-pod work.
+    from kubernetriks_tpu_torch.ops import window_kernel as wk
+
+    sim = sparse_sim(dev, graphs=False)
+    if not (sim.fast_forward and sim.window_razor):
+        fail(f"phase 3: the sparse headline built with fast_forward {sim.fast_forward}, razor {sim.window_razor}")
+    busiest, most = record_busiest(sim, 1500.0, {
+        (wk, "window_work_due"): lambda a: int(not bool(step_mod.window_work_due_plain(*a))),
+        (wk, "next_window_span"): lambda a: 1,
+        (wk, "catch_up"): lambda a: int(a[0][1] - a[0][0]),
+    })
+    print(f"phase 3: sparse headline C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods}: to 1 500 s "
+          f"{sim.dispatch_stats['executed_windows']} windows executed, {sim.dispatch_stats['skipped_windows']} "
+          f"skipped; longest skip {most['catch_up']}, a predicate without work found: {bool(most['window_work_due'])}",
+          flush=True)
+    if most["window_work_due"] <= 0 or most["catch_up"] <= 0:
+        fail("phase 3: the sparse headline to 1 500 s gated no window without work, or skipped none")
+    C, N, P, E = sim.n_clusters, sim.n_nodes, sim.n_pods, sim.n_events
+    del sim
+    args, kwargs = busiest["window_work_due"]
+    check_kernel("window_work_due", wk.window_work_due, step_mod.window_work_due_plain, args, kwargs, -1, None,
+                 12 * C + 8 * C * N + 16 * C * P + 1, C * (2 * N + 5 * P))
+    args, kwargs = busiest["next_window_span"]
+    check_kernel("next_window_span", wk.next_window_span, step_mod.next_window_span_plain, args, kwargs, -1, None,
+                 16 * C + 4 + 8 * C * N + 16 * C * P + 8, C * (2 * N + 6 * P))
+
+    def catch_up_outs(fn):
+        return lambda *a, **k: tuple(x for x in fn(*a, **k) if x is not None)
+
+    args, kwargs = busiest["catch_up"]
+    n_skip = int(args[0][1] - args[0][0])
+    check_kernel("catch_up", catch_up_outs(wk.catch_up), catch_up_outs(step_mod.catch_up_plain), args, kwargs, -1,
+                 None, 8 + 16 * C, 3 * C * n_skip)
+    sim = composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, conditional_move=True, graphs=False)
+    busiest, most = record_busiest(sim, 590.0, {
+        (wk, "conditional_wake_scan"): lambda a: int((a[0].sum(dim=1) * a[3].sum(dim=1)).sum()),
+    })
+    args, kwargs = busiest["conditional_wake_scan"]
+    Cw, Pw = args[0].shape
+    V = args[3].shape[1]
+    print(f"phase 3: the conditional move on the composed line through {WINDOWED_COMPOSED}: C={Cw} P={Pw} "
+          f"events V={V}; busiest scan {most['conditional_wake_scan']} event-by-parked-pod steps", flush=True)
+    if most["conditional_wake_scan"] <= 0:
+        fail("phase 3: the conditional move's line to 590 s never scanned a parked pod against an event")
+    check_kernel("conditional_wake_scan", wk.conditional_wake_scan, step_mod.wake_scan_plain, args, kwargs, -1,
+                 None, 10 * Cw * Pw + 10 * Cw * V, 6 * most["conditional_wake_scan"])
+    del sim, busiest
     floors = chain_floors(sk, dev)
     print(
         "phase 3: chain floor per candidate (one cluster, 32 nodes, 1 024 candidates): "
@@ -2140,6 +2440,7 @@ def main() -> int:
             fail("non-finite estimator sums")
     print("phase 4: state checks passed", flush=True)
     del sim, st
+    main_path["busy"], _ = profiled_busy(lambda: headline_sim(dev), 190.0, 690.0, "phase 4")
 
     # --- 5. card against CPU ---------------------------------------------------
     stamp("phase 5")
@@ -2226,7 +2527,8 @@ def main() -> int:
             if where == "cuda":
                 ran_on_graphs("phase 7", s7)
             finals[where] = (state_to_numpy(s7.state), s7.metrics_summary()["counters"])
-        if sk.LAUNCHES["fused_ca_scale_down"] <= 0 or sk.LAUNCHES["fused_ca_scale_up"] <= 0:
+        counts = sk.launch_counts()
+        if counts["fused_ca_scale_down"] <= 0 or counts["fused_ca_scale_up"] <= 0:
             fail(f"phase 7 card run (reclaim {reclaim}) did not launch both CA kernels")
         bad = compare_states(finals["cuda"][0], finals["cpu"][0])
         if bad:
@@ -2305,7 +2607,7 @@ def main() -> int:
         if where == "cuda":
             ran_on_graphs("phase 10", s10)
         finals[where] = (state_to_numpy(s10.state), s10.metrics_summary()["counters"], s10.next_window_idx)
-    if sk.LAUNCHES["fused_schedule_cycle"] <= 0:
+    if sk.launch_counts()["fused_schedule_cycle"] <= 0:
         fail("phase 10 card replay did not launch fused_schedule_cycle")
     bad = compare_states(finals["cuda"][0], finals["cpu"][0])
     if bad or finals["cuda"][2] != finals["cpu"][2]:
@@ -2373,6 +2675,15 @@ def main() -> int:
     stamp("phase 14")
     faults_path = faults_phase(dev, sk, names + ca_names, windowed_composed)
 
+    # --- 15. the sparse headline: fast-forward -----------------------------------------
+    stamp("phase 15")
+    ff_names = ["window_work_due", "next_window_span", "catch_up"]
+    sparse_path = sparse_phase(dev, sk, names + ff_names)
+
+    # --- 16. the conditional move on graphs ------------------------------------------------
+    stamp("phase 16")
+    cm_path = conditional_move_phase(dev, sk, names + ca_names + ["conditional_wake_scan"], windowed_composed)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -2385,6 +2696,13 @@ def main() -> int:
         "fused_schedule_cycle": ("schedule_cycle.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:903"),
         "pod_attempt_draw": (
             "pod_attempt_draw.cu", "kubernetriks_tpu/batched/step.py:1311 (XLA in the reference, no TPU kernel)"),
+        "window_work_due": (
+            "window_work_due.cu", "kubernetriks_tpu/batched/step.py:157 (XLA in the reference, no TPU kernel)"),
+        "next_window_span": (
+            "next_window.cu", "kubernetriks_tpu/batched/step.py:2239 (XLA in the reference, no TPU kernel)"),
+        "catch_up": ("catch_up.cu", "kubernetriks_tpu/batched/step.py:2322 (XLA in the reference, no TPU kernel)"),
+        "conditional_wake_scan": (
+            "conditional_wake.cu", "kubernetriks_tpu/batched/step.py:994 (XLA in the reference, no TPU kernel)"),
     }
     # Each kernel's launches come from its own path's run: the scheduling
     # kernels from the headline path (phase 4), the CA kernels from the
@@ -2436,7 +2754,13 @@ def main() -> int:
         label = f"{n} ({FAULTS_LABEL})"
         replay_labels[label] = n
         path_launches[label] = faults_path["launches"][n]
-    for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels):
+    # The window glue: the razor's predicate, fast-forward's next window and
+    # catch-up from the sparse headline's run (phase 15), the conditional
+    # move's scans from its line's (phase 16).
+    glue_names = ff_names + ["conditional_wake_scan"]
+    path_launches.update({n: sparse_path["launches"][n] for n in ff_names})
+    path_launches["conditional_wake_scan"] = cm_path["launches"]["conditional_wake_scan"]
+    for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels) + glue_names:
         name = replay_labels.get(label, label)
         r = report[label]
         kernels.append({
@@ -2460,7 +2784,8 @@ def main() -> int:
             "replay_path": replay_path, "graph_vs_eager": graph_vs_eager,
             "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
             "composed_reclaim_off": composed_reclaim_off, "churn": churn_path,
-            "profiles": profiles_path, "faults": faults_path,
+            "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
+            "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")
     print(json.dumps({"kernels": kernels}), flush=True)

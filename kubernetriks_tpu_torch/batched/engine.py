@@ -65,7 +65,28 @@ with `precompile_pieces`. The `graphs` build argument chooses that (the
 reference's `superspan=` argument, engine.py:866-885): None, the default,
 means on for the card; off, or on the CPU, the same pieces run
 uncaptured. Asking for graphs on the CPU raises. `dispatch_stats` counts captures, replays and windows run
-through graphs or eagerly (the conditional move's windows always are).
+through graphs or eagerly (the conditional move's windows run on graphs
+too: its scans run on the device).
+
+Two ways of skipping work (reference engine.py:995-1012, 1149-1166,
+1673-1681, 2013-2035), each bit for bit equal to stepping every window:
+- the window-cost razor (`window_razor=`; None: on for the card, off on
+  the CPU, as the reference decides it by backend): a window with no
+  event chunk runs its events' tail only where step.window_work_due
+  holds, in a conditional node on graphs;
+- fast-forward (`fast_forward=`; None: on below 0.25 trace events a
+  window, the density computed as the reference does from the finite
+  event times, per cluster, over the span): after each executed window
+  the device finds the next window that could change state
+  (step.next_window_span), the host reads it back (one read an executed
+  window, in host_syncs), brings its mirrors through the windows between
+  and the catch-up piece replays their bookkeeping
+  (step.catch_up_bookkeeping). A span never runs past its last window;
+  under the sliding pod window a span is cut along the reference's chunk
+  ladder (128, 64, ..., 1), whose first windows it always runs, so the
+  set of executed windows, on which slot reclaim's leaves depend, is the
+  reference's. `dispatch_stats` counts executed_windows and
+  skipped_windows.
 
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
@@ -75,8 +96,9 @@ by fixed periods, so `AutoscaleClock` mirrors them on the host with the
 same float32 pair arithmetic and decides which autoscaler passes a window
 runs, and in which windows a CA removal can take effect. The mirrors are
 read from the device once, when a state is installed; `run_to_completion`
-reads once per chunk of windows to test for the end of the run, and the
-sliding pod window once a span, for its shift.
+reads once per chunk of windows to test for the end of the run, the
+sliding pod window once a span, for its shift, and fast-forward once an
+executed window, for the next.
 """
 
 from __future__ import annotations
@@ -137,6 +159,12 @@ SLIDE_PAYLOAD_BUDGET_BYTES = 2 << 30
 DENSE_CLUSTERS = 128
 # The metrics collector's pod-utilization cadence, which the HPA reads.
 COLLECTION_INTERVAL = 60.0
+# Fast-forward's default: on below this many trace events a window and a
+# cluster (reference engine.py:1681).
+FAST_FORWARD_DENSITY = 0.25
+# The reference's span ladder under the sliding pod window (engine.py:131):
+# a span runs as chunks of these sizes, the largest that fits first.
+CHUNK_LADDER = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,6 +180,26 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def trace_event_density(ev_time: np.ndarray, interval: float) -> float:
+    """Trace events a window and a cluster, as the reference measures it
+    for fast-forward's default (engine.py:1673-1681): the finite event
+    times over the clusters times the span of windows to the last one (at
+    least 1)."""
+    C = ev_time.shape[0]
+    finite = ev_time[np.isfinite(ev_time)]
+    span = max(1.0, float(finite.max()) / interval) if finite.size else 1.0
+    return finite.size / (max(C, 1) * span)
+
+
+def flush_windows(interval: float, flush_interval: float) -> int:
+    """Windows per flush period in the float32 arithmetic of the queue
+    preamble's compare (reference engine.py:1158-1166), at least 1."""
+    d = 1
+    while np.float32(d) * np.float32(interval) < np.float32(flush_interval):
+        d += 1
+    return d
 
 
 def flag_bool(name: str, default: bool) -> bool:
@@ -598,6 +646,8 @@ class BatchedSimulation:
         graphs: Optional[bool] = None,
         pod_window: Optional[int] = None,
         reclaim: Optional[bool] = None,
+        fast_forward: Optional[bool] = None,
+        window_razor: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
         if graphs is None:
@@ -618,6 +668,8 @@ class BatchedSimulation:
         self.fault_params = chaos.make_fault_params(config)
         self.conditional_move = bool(config.enable_unscheduled_pods_conditional_move)
         self.consts = make_step_constants(config)
+        self.window_razor = self.device.type == "cuda" if window_razor is None else bool(window_razor)
+        self.flush_windows = flush_windows(config.scheduling_cycle_interval, self.consts.flush_interval)
         self.ram_unit = ram_unit
         interval = config.scheduling_cycle_interval
         compiled_traces = list(compiled_traces)
@@ -688,6 +740,9 @@ class BatchedSimulation:
         self.n_events = ev_time.shape[1]
         finite_times = ev_time[np.isfinite(ev_time)]
         self.last_event_time = float(finite_times.max()) if finite_times.size else 0.0
+        if fast_forward is None:
+            fast_forward = trace_event_density(ev_time, interval) < FAST_FORWARD_DENSITY
+        self.fast_forward = bool(fast_forward)
         if max_events_per_window is None:
             max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
         self.max_events_per_window = max(1, max_events_per_window)
@@ -778,6 +833,7 @@ class BatchedSimulation:
         self.host_syncs = 0
         self.dispatch_stats = {
             "captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0, "slides": 0, "grows": 0,
+            "executed_windows": 0, "skipped_windows": 0,
         }
         self._state = state
         if self.pod_window is not None:
@@ -1044,9 +1100,6 @@ class BatchedSimulation:
                 if w < INF_WIN
             }
 
-    def _count_sync(self) -> None:
-        self.host_syncs += 1
-
     # --- stepping -----------------------------------------------------------
 
     @property
@@ -1092,8 +1145,8 @@ class BatchedSimulation:
         )
 
     def _window_body(self, state: ClusterBatchState, w: int, plan: WindowPlan) -> ClusterBatchState:
-        """Window w on `state` as one eager step (step.window_body): the
-        conditional move's windows, which read the device back."""
+        """Window w on `state` as one eager step (step.window_body), the
+        pieces' yardstick; under the razor it reads its predicate back."""
         return window_body(
             state,
             self.slab,
@@ -1105,7 +1158,6 @@ class BatchedSimulation:
             plan,
             conditional_move=self.conditional_move,
             name_ranks=self.name_ranks,
-            sync=self._count_sync,
             autoscale=None if self.clock is None else (
                 self.autoscale_statics, self.hpa_seg,
                 self.max_ca_pods_per_cycle, self.max_pods_per_scale_down,
@@ -1114,16 +1166,34 @@ class BatchedSimulation:
             profile=self.profile,
             faults=self.faults,
             profile_terms=self.profile_terms,
+            window_razor=self.window_razor,
         )
 
     def _run_span(self, first: int, last: int) -> None:
         """Plan windows first..last on the host and run them through the
-        window executor (reference `_dispatch_windows`, engine.py:1965)."""
+        window executor (reference `_dispatch_windows`, engine.py:1965),
+        with fast-forward its executed windows only (module note)."""
         if last < first:
             return
-        self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
+        if self.fast_forward:
+            self._executor.run_windows_skipping(first, last, self._plan, self._skip_windows)
+        else:
+            self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
         self.next_window_idx = last + 1
         self.windows_run += last - first + 1
+
+    def _skip_windows(self, lo: int, hi: int) -> None:
+        """The host mirrors through the skipped windows [lo, hi): the event
+        cursor's does not move (a due event would have made a window
+        interesting), the autoscaler clock advances a window at a time as
+        the catch-up piece advances the device's due times, and no CA
+        removal can take effect in a skipped window (a pending removal's
+        window is a trigger), so none stays recorded there."""
+        if self.clock is None:
+            return
+        for w in range(lo, hi):
+            self.clock.removal_windows.discard(w)
+            self.clock.advance(w)
 
     def _dispatch_windows(self, idxs: Sequence[int]) -> None:
         """Run windows `idxs` (consecutive, from next_window_idx). Under the
@@ -1139,7 +1209,14 @@ class BatchedSimulation:
             return
         while self.next_window_idx <= target:
             sub = min(target, self._pod_capacity_window())
-            self._run_span(self.next_window_idx, sub)
+            if self.fast_forward:
+                # The reference's ladder chunks (module note).
+                while self.next_window_idx <= sub:
+                    span = sub - self.next_window_idx + 1
+                    chunk = next(c for c in CHUNK_LADDER if c <= span)
+                    self._run_span(self.next_window_idx, self.next_window_idx + chunk - 1)
+            else:
+                self._run_span(self.next_window_idx, sub)
             if sub >= target:
                 return
             if not self._slide() and not self._grow_pod_window():

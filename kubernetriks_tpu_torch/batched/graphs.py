@@ -32,10 +32,33 @@ per key:
   always runs back to back: the events' tail (step.events_tail), the
   cycle of `route`, the HPA pass (`hpa`: None for none, False for the
   metrics collection alone, True for the cycle) and, with `ca`, the CA
-  pass; a sixth element, "crash", where a chaos-engine crash applies
-  (its accounting and the crash-caused reschedules run). One end graph a
-  window, so the state is copied back once a window; at most 12 end
-  graphs a route, 18 with node faults.
+  pass; a further element "crash" where a chaos-engine crash applies
+  (its accounting and the crash-caused reschedules run), and "gate"
+  where the window-cost razor is on and the window has no event chunk:
+  the tail then sits in a conditional node on the razor's predicate
+  (step.window_work_due, the reference's lax.cond in
+  `_apply_window_events`, step.py:203), after time = max(time, W), which
+  the tail sets too; with event chunks the reference's predicate holds
+  (an event is due) and the tail runs as it is. One end graph a window,
+  so the state is copied back once a window (twice where the gated tail
+  runs); at most 12 end graphs a route, 18 with node faults, 24 with the
+  razor.
+
+Under the conditional move the chunks also fill the nodes' creation
+times of the window (WindowBuffers.node_create_rel), and the tail's
+WakeEvents reach the cycle, whose queue preamble runs the scans on the
+device (step.conditional_wake): no host read. A gated tail leaves its
+WakeEvents in WindowBuffers.wake, emptied before the conditional node.
+
+Fast-forward (the reference's `_run_windows_skip_impl`, step.py:2391)
+adds two pieces, replayed after each executed window:
+
+- ("next",): step.next_window_span writes [W + 1, next] into
+  WindowBuffers.span, next clamped to WindowBuffers.limit (the span's
+  last window + 1, filled by the host once a span); the host reads
+  next back (`run_windows_skipping`: the executed window's one read);
+- ("catch_up",): step.catch_up_bookkeeping over [span[0], span[1]),
+  replayed where next > W + 1.
 
 Under the sliding pod window one more piece runs between spans:
 
@@ -74,12 +97,23 @@ eager launches.
 Launch counts. A replay bypasses the wrappers that count kernel launches
 (ops/_launch.LAUNCHES), so each graph keeps the counts its capture added,
 the warm-up's and the capture's own are taken back out, and every replay
-adds them: a run counts what an eager run of the same windows counts.
+adds them: a run counts what an eager run of the same windows counts. A
+conditional node's body (CudaGraphs.when) launches only where its flag is
+set: its launches stay out of the graph's counts, and the body adds one
+to a counter on the card each time it runs, which ops/_launch.
+launch_counts and reset_launches fold into LAUNCHES (a host read, outside
+any window). An eager run on the card runs such bodies whatever the flag
+holds, so it launches more by WindowExecutor.skipped_body_launches().
 
 Without a capture backend (on the CPU, or with graphs off) the executor
-runs the same pieces uncaptured, in the same order on the same buffers.
-Windows with the conditional move stay eager (step.window_body), counted
-in the engine's dispatch_stats: they read the device back.
+runs the same pieces uncaptured, in the same order on the same buffers;
+a conditional node's body then runs where its flag is set on the CPU
+(read there at no cost) and always on the card, where it must be the
+identity when the flag is false.
+
+A device WHILE node over a whole span is not used: the host plans each
+window's pieces (step.WindowPlan), so a loop on the device would need one
+graph for every sequence of plans.
 """
 
 from __future__ import annotations
@@ -98,18 +132,26 @@ from kubernetriks_tpu_torch.batched.autoscale import (
 )
 from kubernetriks_tpu_torch.batched.state import ClusterBatchState, clone_state, copy_state_into, flatten, storages
 from kubernetriks_tpu_torch.batched.step import (
+    INF,
     EventAccumulators,
+    WakeEvents,
     WindowPlan,
+    catch_up_bookkeeping,
+    empty_wake,
     event_chunk,
     events_tail,
+    next_window_span,
     quantize_shift,
     run_scheduling_cycle,
     slide_apply,
     slide_shift_core,
+    window_work_due,
 )
-from kubernetriks_tpu_torch.ops._launch import LAUNCHES
+from kubernetriks_tpu_torch.ops._launch import LAUNCHES, register_deferred
 
 Key = Tuple
+# Conditional bodies with counted launches a capture backend can hold.
+BODY_COUNTERS = 4096
 
 
 class WindowBuffers(NamedTuple):
@@ -120,17 +162,26 @@ class WindowBuffers(NamedTuple):
     acc: EventAccumulators
     W: torch.Tensor  # (C,) int32 the window being run
     shift: torch.Tensor  # (1,) int32 the last slide's shift
+    span: torch.Tensor  # (2,) int32 fast-forward's [W + 1, next window)
+    limit: torch.Tensor  # (1,) int32 the span's last window + 1
     # The autoscaler statics' windowed pod-name ranks (the tensor itself),
     # which a slide moves; None without autoscalers or without the window.
     rank: Optional[torch.Tensor] = None
+    # The conditional move's: the nodes' creation times this window, (C,
+    # N) float32 seconds from the window base (+inf: none), and a gated
+    # tail's WakeEvents; None without it.
+    node_create_rel: Optional[torch.Tensor] = None
+    wake: Optional[WakeEvents] = None
 
 
-def piece_schedule(plan: WindowPlan, route: str) -> List[Key]:
+def piece_schedule(plan: WindowPlan, route: str, razor: bool = False) -> List[Key]:
     """The pieces window `plan` runs on `route`, in order (step.window_body's
-    order)."""
+    order); `razor`: the window-cost razor is on."""
     hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
     head = [("reclaim",)] if plan.reclaim else []
     end = ("end", route, plan.removal_due, hpa, plan.ca_due) + (("crash",) if plan.crash_due else ())
+    if razor and plan.n_chunks == 0:
+        end += ("gate",)
     return head + [("chunk",)] * plan.n_chunks + [end]
 
 
@@ -150,6 +201,15 @@ class CudaGraphs:
         self.body_stream = torch.cuda.Stream(device)
         self.body_pool = torch.cuda.graph_pool_handle()
         self._bodies: List[torch.cuda.CUDAGraph] = []
+        # A body that launches counted kernels adds one to its slot here
+        # each time it runs; body_slots[i]: its launch counts,
+        # body_totals[i]: its runs settled so far, slot_replays[i]: the
+        # replays of the graph holding it (counted by the executor).
+        self.body_runs = torch.zeros((BODY_COUNTERS,), dtype=torch.int64, device=device)
+        self.body_slots: List[Dict[str, int]] = []
+        self.body_totals: List[int] = []
+        self.slot_replays: List[int] = []
+        register_deferred(self)
 
     def warm(self, fn: Callable[[], None]) -> None:
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -171,31 +231,62 @@ class CudaGraphs:
         """Inside a capture, `fn`'s work becomes the body of a conditional
         node that a replay runs only where the (0-d bool, on the card) flag
         `pred` is set when the node is reached: the reference's lax.cond,
-        with no read by the host. A warm-up runs `fn` as it is.
+        with no read by the host.
 
         `fn` is captured as a graph of its own first (kept, never replayed
         alone), on the body stream into the body pool, so the open
         capture's stream and pool are untouched; ops/csrc/graph_if.cu then
         appends the flag's set kernel and the IF node holding a copy of it
-        to the open capture."""
+        to the open capture. A warm-up runs `fn` on the body stream, as
+        its capture will (the free kernel's scratch is per stream)."""
         if self._capturing is None:
-            fn()
+            outer = torch.cuda.current_stream(self.device)
+            self.body_stream.wait_stream(outer)
+            with torch.cuda.stream(self.body_stream):
+                fn()
+            outer.wait_stream(self.body_stream)
             return
         from kubernetriks_tpu_torch.ops import _build
 
         body = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(LAUNCHES)
         with torch.cuda.stream(self.body_stream):
             body.capture_begin(pool=self.body_pool)
             try:
                 fn()
+                delta = {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]}
+                if delta:
+                    slot = len(self.body_slots)
+                    if slot >= BODY_COUNTERS:
+                        raise RuntimeError(f"CudaGraphs.when: more than {BODY_COUNTERS} counted conditional bodies")
+                    self.body_runs[slot : slot + 1].add_(1)
+                    self.body_slots.append(delta)
+                    self.body_totals.append(0)
+                    self.slot_replays.append(0)
             finally:
                 body.capture_end()
+        # The body's launches count where it runs (settle_launches), not
+        # at every replay of the graph holding it.
+        LAUNCHES.update(before)
         self._bodies.append(body)
         rc = _build.kernel("graph_if")(
             pred.data_ptr(), body.raw_cuda_graph(), torch.cuda.current_stream(self.device).cuda_stream
         )
         if rc != 0:
             raise RuntimeError(f"CudaGraphs.when: adding the conditional node failed with cudaError {rc}")
+
+    def settle_launches(self) -> None:
+        """Fold the counted bodies' runs on the card into LAUNCHES and zero
+        them (a host read)."""
+        n = len(self.body_slots)
+        if not n:
+            return
+        runs = self.body_runs[:n].tolist()
+        self.body_runs[:n].zero_()
+        for i, (delta, r) in enumerate(zip(self.body_slots, runs)):
+            self.body_totals[i] += r
+            for name, k in delta.items():
+                LAUNCHES[name] += r * k
 
     def pool_bytes(self) -> int:
         """Device memory the graphs' pool holds."""
@@ -211,16 +302,18 @@ class WindowExecutor:
     """Runs an engine's windows as pieces over fixed buffers, replayed from
     CUDA graphs when a capture backend is given (module note).
     `dispatch_stats` is the engine's: captures, replays, graph_windows and
-    eager_windows are counted here."""
+    eager_windows, and fast-forward's executed_windows and
+    skipped_windows, are counted here."""
 
     def __init__(self, sim, backend=None):
         self.sim = sim
         self.backend = backend
         dev = sim.state.time.device
-        # The slide's shift comes back through one pinned host word (an
-        # ordinary one on the CPU), copied without blocking, then waited on.
-        self._shift_host = torch.zeros((1,), dtype=torch.int32, pin_memory=dev.type == "cuda")
-        self._shift_event = torch.cuda.Event() if dev.type == "cuda" else None
+        # The slide's shift and fast-forward's next window come back
+        # through one pinned host word (an ordinary one on the CPU), copied
+        # without blocking, then waited on.
+        self._word_host = torch.zeros((1,), dtype=torch.int32, pin_memory=dev.type == "cuda")
+        self._word_event = torch.cuda.Event() if dev.type == "cuda" else None
         self._bind_buffers()
 
     def _bind_buffers(self) -> None:
@@ -233,19 +326,26 @@ class WindowExecutor:
         dev = state.time.device
         sliding = sim.pod_window is not None and sim.autoscale_statics is not None
         node_faults = sim.faults is not None and sim.faults.params.node_faults
+        cm = sim.conditional_move
         self.bufs = WindowBuffers(
             state=state,
             acc=EventAccumulators.fresh(C, N, P, dev, node_faults=node_faults),
             W=torch.zeros((C,), dtype=torch.int32, device=dev),
             shift=torch.zeros((1,), dtype=torch.int32, device=dev),
+            span=torch.zeros((2,), dtype=torch.int32, device=dev),
+            limit=torch.zeros((1,), dtype=torch.int32, device=dev),
             rank=sim.autoscale_statics.pod_name_rank if sliding else None,
+            node_create_rel=torch.full((C, N), INF, dtype=torch.float32, device=dev) if cm else None,
+            wake=empty_wake(C, N, P, dev) if cm else None,
         )
         leaves = [t for t in flatten(self.bufs).values() if t.numel()]
         self._fixed = storages(leaves)
         if len(self._fixed) != len(leaves):
             raise ValueError("WindowExecutor: two buffers share memory; each must own its own")
         self._bodies: Dict[Key, Callable[[WindowBuffers], None]] = {}
-        self.graphs: Dict[Key, Tuple[object, Dict[str, int]]] = {}
+        # key -> (graph, its launch counts, the counted conditional bodies'
+        # slots it holds)
+        self.graphs: Dict[Key, Tuple[object, Dict[str, int], range]] = {}
 
     def rebuild(self) -> None:
         """New buffers at the engine's new pod width, after a growth of the
@@ -267,12 +367,13 @@ class WindowExecutor:
     def _when(self, pred: torch.Tensor, fn: Callable[[], None]) -> None:
         """`fn` where the device flag `pred` is set: a conditional node of
         the graph being captured (CudaGraphs.when); uncaptured, `fn` runs
-        whatever `pred` holds, so it must leave the buffers as they are
-        where `pred` is false."""
-        if self.backend is None:
-            fn()
-        else:
+        where `pred` is set on the CPU and whatever it holds on the card
+        (no host read), so it must leave the buffers as they are where
+        `pred` is false."""
+        if self.backend is not None:
             self.backend.when(pred, fn)
+        elif pred.device.type != "cpu" or bool(pred):
+            fn()
 
     def _body(self, key: Key) -> Callable[[WindowBuffers], None]:
         """The piece `key` as a function of the buffers it reads and writes."""
@@ -287,11 +388,13 @@ class WindowExecutor:
         kind = key[0]
         if kind == "chunk":
             def run(b: WindowBuffers) -> None:
-                cursor, acc, _ = event_chunk(
-                    b.state, sim.slab, b.W, sim.consts, k, sim.max_events_per_window, b.acc
+                cursor, acc, node_create_rel = event_chunk(
+                    b.state, sim.slab, b.W, sim.consts, k, sim.max_events_per_window, b.acc, b.node_create_rel
                 )
                 b.state.event_cursor.copy_(cursor)
                 self._copy_back(b.acc, acc)
+                if node_create_rel is not None:
+                    b.node_create_rel.copy_(node_create_rel)
         elif kind == "reclaim":
             st = sim.autoscale_statics
 
@@ -304,20 +407,44 @@ class WindowExecutor:
                 self._when(dead.any(), compact)
         elif kind == "end":
             route, removal_due, hpa, ca_due = key[1:5]
-            crash_due = key[5:] == ("crash",)
+            crash_due = "crash" in key[5:]
+            gated = "gate" in key[5:]
+            cm = sim.conditional_move
 
             def run(b: WindowBuffers) -> None:
                 orders = reclaim_name_orders(b.state.auto, sim.autoscale_statics, k, removal_due or ca_due)
-                state, _ = events_tail(
-                    b.state, b.acc, b.W, k, removal_due, name_ranks=sim.name_ranks,
-                    node_key=None if orders is None else orders[1], faults=sim.faults, crash_due=crash_due,
-                )
+
+                def tail():
+                    return events_tail(
+                        b.state, b.acc, b.W, k, removal_due, cm, sim.name_ranks, b.node_create_rel,
+                        None if orders is None else orders[1], sim.faults, crash_due,
+                    )
+
+                if gated:
+                    # No event chunk ran, so the accumulators are fresh;
+                    # the tail runs where the razor's predicate holds.
+                    b.state.time.copy_(torch.maximum(b.state.time, b.W))
+                    if cm:
+                        for mask, rel in ((b.wake.node_mask, b.wake.node_rel), (b.wake.freed_mask, b.wake.freed_rel)):
+                            mask.fill_(False)
+                            rel.fill_(INF)
+
+                    def gated_tail() -> None:
+                        state, wake = tail()
+                        self._copy_back(b.state, state)
+                        if cm:
+                            self._copy_back(b.wake, wake)
+
+                    self._when(window_work_due(b.state, sim.slab, b.W), gated_tail)
+                    state, wake = b.state, b.wake
+                else:
+                    state, wake = tail()
                 # What the storage saw before this cycle: the CA reads it
                 # when its snapshot precedes the cycle's commit visibility.
                 pre = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
                 state = run_scheduling_cycle(
-                    state, b.W, k, sim.max_pods_per_cycle, route, profile=sim.profile, faults=sim.faults,
-                    profile_terms=sim.profile_terms,
+                    state, b.W, k, sim.max_pods_per_cycle, route, cm, wake, profile=sim.profile,
+                    faults=sim.faults, profile_terms=sim.profile_terms,
                 )
                 if hpa is not None:
                     state = hpa_pass(state, sim.autoscale_statics, b.W, k, sim.hpa_seg, hpa)
@@ -327,7 +454,22 @@ class WindowExecutor:
                         sim.max_ca_pods_per_cycle, sim.max_pods_per_scale_down, pre, orders,
                     )
                 self._copy_back(b.state, state)
-                b.acc.reset_()
+                if not gated:
+                    b.acc.reset_()
+                    if cm:
+                        b.node_create_rel.fill_(INF)
+        elif kind == "next":
+            def run(b: WindowBuffers) -> None:
+                b.span.copy_(next_window_span(
+                    b.state, sim.slab, b.W, b.limit, sim.autoscale_statics, sim.flush_windows,
+                    sim.config.scheduling_cycle_interval,
+                ))
+        elif kind == "catch_up":
+            def run(b: WindowBuffers) -> None:
+                self._copy_back(b.state, catch_up_bookkeeping(
+                    b.state, b.span, sim.autoscale_statics, sim.config.scheduling_cycle_interval,
+                    sim.consts.flush_interval,
+                ))
         elif kind == "slide":
             W = key[1]
 
@@ -350,12 +492,9 @@ class WindowExecutor:
     def reachable_keys(self) -> List[Key]:
         """Every piece the engine's plans can reach on its current route: a
         superset read from the build (the trace's node removals, the
-        autoscalers), not from a dry run of the plans. None with the
-        conditional move, whose windows run eagerly."""
+        autoscalers), not from a dry run of the plans."""
         sim = self.sim
         clock = sim.clock
-        if sim.conditional_move:
-            return []
         removals = [False]
         if bool(sim._rm_prefix[:, -1].any()) or (clock is not None and clock.ca_on):
             removals.append(True)
@@ -376,6 +515,11 @@ class WindowExecutor:
             for hpa in hpas
             for ca in cas
         ]
+        if sim.window_razor:
+            # A crash is a slab event: a window with one has event chunks.
+            keys += [key + ("gate",) for key in keys if key[0] == "end" and "crash" not in key]
+        if sim.fast_forward:
+            keys += [("next",), ("catch_up",)]
         if sim.pod_window is not None:
             keys.append(("slide", sim.pod_window))
         return keys
@@ -390,17 +534,19 @@ class WindowExecutor:
         if self.backend is None:
             raise RuntimeError("WindowExecutor.capture: no capture backend (graphs are off)")
         scratch = clone_state(self.bufs)
+        slots = getattr(self.backend, "body_slots", [])
         for key in todo:
             body = self._body(key)
             before = dict(LAUNCHES)
             try:
                 self.backend.warm(partial(body, scratch))
                 warmed = dict(LAUNCHES)
+                first = len(slots)
                 graph = self.backend.capture(partial(body, self.bufs))
                 delta = {n: LAUNCHES[n] - warmed[n] for n in LAUNCHES if LAUNCHES[n] != warmed[n]}
             finally:
                 LAUNCHES.update(before)
-            self.graphs[key] = (graph, delta)
+            self.graphs[key] = (graph, delta, range(first, len(slots)))
             self.sim.dispatch_stats["captures"] += 1
         return len(todo)
 
@@ -412,21 +558,44 @@ class WindowExecutor:
         if entry is None:
             self.capture([key])
             entry = self.graphs[key]
-        graph, delta = entry
+        graph, delta, slots = entry
         graph.replay()
         for name, n in delta.items():
             LAUNCHES[name] += n
+        for i in slots:
+            self.backend.slot_replays[i] += 1
         self.sim.dispatch_stats["replays"] += 1
+
+    def skipped_body_launches(self) -> Dict[str, int]:
+        """Launches of conditional bodies whose node found its flag clear,
+        over the executor's life: what an eager run of the same windows on
+        the card (which runs them whatever the flag holds) launches more.
+        Settles the body counters first (a host read)."""
+        backend = self.backend
+        if not isinstance(backend, CudaGraphs):
+            return {}
+        backend.settle_launches()
+        out: Dict[str, int] = {}
+        for delta, total, replays in zip(backend.body_slots, backend.body_totals, backend.slot_replays):
+            skipped = replays - total
+            for name, k in delta.items():
+                out[name] = out.get(name, 0) + skipped * k
+        return out
+
+    def _read_word(self, word: torch.Tensor) -> int:
+        """One int32 device word read back (a host read): copied to the
+        pinned host word without blocking, then waited on."""
+        self._word_host.copy_(word, non_blocking=True)
+        if self._word_event is not None:
+            self._word_event.record()
+            self._word_event.synchronize()
+        return int(self._word_host[0])
 
     def slide(self) -> int:
         """Run the slide piece and read its shift back (0: no slide was
         possible, and the state is as it was)."""
         self._run(("slide", self.sim.pod_window))
-        self._shift_host.copy_(self.bufs.shift, non_blocking=True)
-        if self._shift_event is not None:
-            self._shift_event.record()
-            self._shift_event.synchronize()
-        return int(self._shift_host[0])
+        return self._read_word(self.bufs.shift)
 
     def run_windows(self, windows: Iterable[Tuple[int, WindowPlan]]) -> None:
         """Advance the engine's state through `windows`, (index, plan) in
@@ -434,11 +603,35 @@ class WindowExecutor:
         sim = self.sim
         stats = sim.dispatch_stats
         for w, plan in windows:
-            if sim.conditional_move:
-                copy_state_into(self.bufs.state, sim._window_body(self.bufs.state, w, plan))
-                stats["eager_windows"] += 1
-                continue
             self.bufs.W.fill_(w)
-            for key in piece_schedule(plan, sim.cycle_route):
+            for key in piece_schedule(plan, sim.cycle_route, sim.window_razor):
                 self._run(key)
             stats["graph_windows" if self.backend is not None else "eager_windows"] += 1
+
+    def run_windows_skipping(
+        self, first: int, last: int, plan: Callable[[int], WindowPlan], skipped: Callable[[int, int], None]
+    ) -> None:
+        """Advance the engine's state through windows first..last with
+        fast-forward (the reference's `_run_windows_skip_impl`, step.py:
+        2391): window `first` runs; after each executed window the next
+        piece finds the next window that could change state (at most last
+        + 1), which the host reads back (one read an executed window,
+        counted in the engine's host_syncs); where windows lie between,
+        the catch-up piece replays their bookkeeping and `skipped(lo, hi)`
+        brings the host's mirrors through windows [lo, hi). `plan(w)`: the
+        plan of an executed window w."""
+        sim = self.sim
+        stats = sim.dispatch_stats
+        self.bufs.limit.fill_(last + 1)
+        w = first
+        while w <= last:
+            self.run_windows([(w, plan(w))])
+            self._run(("next",))
+            nxt = self._read_word(self.bufs.span[1:])
+            sim.host_syncs += 1
+            stats["executed_windows"] += 1
+            if nxt > w + 1:
+                self._run(("catch_up",))
+                skipped(w + 1, nxt)
+                stats["skipped_windows"] += nxt - w - 1
+            w = nxt

@@ -20,7 +20,12 @@ window are float32 seconds relative to the previous window's start.
 `autoscale.ca_reclaim_pass` first, then `event_chunk` per chunk,
 `events_tail`, `run_scheduling_cycle`, then the autoscaler passes; and,
 between spans of the sliding pod window, its slide (`slide_shift_core`,
-`quantize_shift`, `slide_apply`).
+`quantize_shift`, `slide_apply`). The window-skipping functions are here
+too: the razor's predicate (`window_work_due`), fast-forward's next
+window (`next_window_span`) and catch-up (`catch_up_bookkeeping`), and
+the conditional move's scans on the device (`conditional_wake`), each
+through a glue kernel of ops/window_kernel.py whose plain version is
+beside it.
 
 What differs from the reference, and why it is exact:
 - The reference's data-dependent `lax.cond` / `while_loop` branches become
@@ -92,6 +97,7 @@ from kubernetriks_tpu_torch.batched.state import (
     fresh_pod_arrays,
 )
 from kubernetriks_tpu_torch.batched.timerep import (
+    INF_WIN,
     TPair,
     t_add,
     t_inf,
@@ -100,6 +106,7 @@ from kubernetriks_tpu_torch.batched.timerep import (
     t_norm,
     t_where,
 )
+from kubernetriks_tpu_torch.ops import window_kernel
 from kubernetriks_tpu_torch.ops.chaos_kernel import pod_attempt_draw
 from kubernetriks_tpu_torch.ops.scheduler_kernel import (
     commit_scatter_plain,
@@ -286,14 +293,13 @@ def _stable_queue_rank(keys) -> torch.Tensor:
     return _inverse_permutation(stable_lexsort(keys)).to(torch.int32)
 
 
-def _onehot_min(acc, slots, mask, values):
+def _scatter_min(acc, slots, mask, values):
     """acc[c, slots[c, e]] = min(acc, values[c, e]) where mask; slots out
-    of range drop. One one-hot pass per event column."""
-    iota = torch.arange(acc.shape[1], dtype=torch.int32, device=acc.device)[None, :]
-    for e in range(slots.shape[1]):
-        hit = (iota == slots[:, e : e + 1]) & mask[:, e : e + 1]
-        acc = torch.where(hit, torch.minimum(acc, values[:, e : e + 1]), acc)
-    return acc
+    of range drop (into a sink column). Min is exact in any order."""
+    C, N = acc.shape
+    wide = torch.cat([acc, torch.full((C, 1), INF, dtype=acc.dtype, device=acc.device)], dim=1)
+    idx = torch.where(mask & (slots >= 0) & (slots < N), slots, N).long()
+    return wide.scatter_reduce(1, idx, torch.where(mask, values, INF), "amin")[:, :N]
 
 
 class EventAccumulators(NamedTuple):
@@ -408,7 +414,7 @@ def event_chunk(
     )
     if node_create_rel is not None:
         is_cn = valid & (ev_k == EV_CREATE_NODE)
-        node_create_rel = _onehot_min(node_create_rel, ev_s, is_cn, ev_rel)
+        node_create_rel = _scatter_min(node_create_rel, ev_s, is_cn, ev_rel)
     return (
         cursor + valid.sum(dim=1, dtype=torch.int32),
         EventAccumulators(
@@ -431,15 +437,24 @@ def apply_window_events(
     name_ranks=None,
     node_key=None,
     faults: Optional[FaultStep] = None,
+    window_razor: bool = False,
 ):
     """Apply every trace event with effect time strictly before the cycle
     time W * interval, and resolve every pod finish due in the window
     (reference `_apply_window_events_work`, step.py:274, along its kernel
-    branches): plan.n_chunks event chunks, then the tail. Returns (state,
+    branches): plan.n_chunks event chunks, then the tail. With
+    `window_razor` (reference `_apply_window_events`, step.py:203) a
+    window whose work_due predicate is false only sets time = max(time,
+    W), with empty WakeEvents under the conditional move: the predicate is
+    read back here, as this eager body decides on the host (the window
+    executor puts the tail in a conditional node instead). Returns (state,
     WakeEvents or None)."""
     C, P = state.pods.phase.shape
     N = state.nodes.alive.shape[1]
     dev = state.time.device
+    if window_razor and not bool(window_work_due(state, slab, W)):
+        wake = empty_wake(C, N, P, dev) if conditional_move else None
+        return state._replace(time=torch.maximum(state.time, W)), wake
     acc = EventAccumulators.fresh(C, N, P, dev, node_faults=faults is not None and faults.params.node_faults)
     node_create_rel = (
         torch.full((C, N), INF, dtype=torch.float32, device=dev) if conditional_move else None
@@ -764,19 +779,12 @@ def events_tail(
     return new_state, wake
 
 
-def conditional_wake_exact(state, pods, stale, wake: WakeEvents, sync=None) -> torch.Tensor:
-    """Resource-aware unschedulable wakes for
-    enable_unscheduled_pods_conditional_move (reference
-    `_conditional_wake_exact`, step.py:994): each node-add / freed event,
-    in effect-time order, runs its own greedy budget scan over the parked
-    pods in (queue_ts, queue_seq) order. A node-add moves the pods that do
-    NOT fit its capacity (the reference's behaviour, kept as is); a freed
-    pod's requests move the pods that fit, first-fit. Returns the (C, P)
-    moves in slot order.
-
-    The scans run as host loops over the event and pod axes (bounded by
-    the window's event count and the deepest parked queue): an option off
-    the main path, exact rather than fast. `sync` counts host reads."""
+def _wake_scan_inputs(state, pods, stale, wake: WakeEvents):
+    """The conditional move's scan operands (reference
+    `_conditional_wake_exact`, step.py:994): the parked pods in (queue_ts,
+    queue_seq) order and the wake events in effect-time order, each by a
+    stable sort. Returns (the parked order, (o_valid, o_cpu, o_ram) (C,
+    P), (s_valid, s_is_node, s_cpu, s_ram) (C, N + P))."""
     C, P = pods.phase.shape
     N = wake.node_mask.shape[1]
     dev = pods.phase.device
@@ -784,10 +792,7 @@ def conditional_wake_exact(state, pods, stale, wake: WakeEvents, sync=None) -> t
     u_t = t_where(unsched, pods.queue_ts, t_inf((C, P), dev))
     u_seq = torch.where(unsched, pods.queue_seq, INT32_MAX)
     order = stable_lexsort((u_t.win, u_t.off, u_seq))
-    o_valid = torch.gather(unsched, 1, order)
-    o_cpu = torch.gather(pods.req_cpu, 1, order)
-    o_ram = torch.gather(pods.req_ram, 1, order)
-
+    parked = tuple(torch.gather(x, 1, order).contiguous() for x in (unsched, pods.req_cpu, pods.req_ram))
     ev_rel = torch.cat([wake.node_rel, wake.freed_rel], dim=1)
     ev_valid = torch.cat([wake.node_mask, wake.freed_mask], dim=1)
     ev_is_node = torch.cat(
@@ -797,15 +802,23 @@ def conditional_wake_exact(state, pods, stale, wake: WakeEvents, sync=None) -> t
     ev_cpu = torch.cat([state.nodes.cap_cpu, pods.req_cpu], dim=1)
     ev_ram = torch.cat([state.nodes.cap_ram, pods.req_ram], dim=1)
     perm = torch.sort(torch.where(ev_valid, ev_rel, INF), dim=1, stable=True).indices
-    s_valid = torch.gather(ev_valid, 1, perm)
-    s_is_node = torch.gather(ev_is_node, 1, perm)
-    s_cpu = torch.gather(ev_cpu, 1, perm)
-    s_ram = torch.gather(ev_ram, 1, perm)
-    if sync is not None:
-        sync()
-    n_ev = int(ev_valid.sum(dim=1).max()) if C else 0
-    n_u = int(unsched.sum(dim=1).max()) if C else 0
+    events = tuple(torch.gather(x, 1, perm).contiguous() for x in (ev_valid, ev_is_node, ev_cpu, ev_ram))
+    return order, parked, events
 
+
+def wake_scan_plain(o_valid, o_cpu, o_ram, s_valid, s_is_node, s_cpu, s_ram) -> torch.Tensor:
+    """The conditional move's greedy budget scans, as host loops over the
+    event and pod axes (bounded by the most valid events and parked pods
+    of any cluster, read back): each valid event, in order, walks the
+    parked pods not moved yet, first-fit against its int32 budget (a
+    node's capacity, a freed pod's requests). A node-add moves the pods
+    that do NOT fit (the reference's behaviour, kept as is); a freed pod
+    moves the pods that fit. Returns the (C, P) moves in parked order.
+    The plain version of ops/window_kernel.conditional_wake_scan."""
+    C, P = o_valid.shape
+    dev = o_valid.device
+    n_ev = int(s_valid.sum(dim=1).max()) if C else 0
+    n_u = int(o_valid.sum(dim=1).max()) if C else 0
     moved = torch.zeros((C, P), dtype=torch.bool, device=dev)
     for e in range(n_ev):
         v_valid = s_valid[:, e]
@@ -822,7 +835,41 @@ def conditional_wake_exact(state, pods, stale, wake: WakeEvents, sync=None) -> t
         if cols:
             mv = torch.stack(cols, dim=1)
             moved = moved | torch.cat([mv, torch.zeros((C, P - n_u), dtype=torch.bool, device=dev)], dim=1)
+    return moved
+
+
+def conditional_wake_exact(state, pods, stale, wake: WakeEvents) -> torch.Tensor:
+    """Resource-aware unschedulable wakes for
+    enable_unscheduled_pods_conditional_move (reference
+    `_conditional_wake_exact`, step.py:994): each node-add / freed event,
+    in effect-time order, runs its own greedy budget scan over the parked
+    pods in (queue_ts, queue_seq) order (wake_scan_plain). Returns the
+    (C, P) moves in slot order. The host-loop twin of conditional_wake,
+    which the window step runs; it reads the device back."""
+    order, parked, events = _wake_scan_inputs(state, pods, stale, wake)
+    moved = wake_scan_plain(*parked, *events)
     return torch.gather(moved, 1, _inverse_permutation(order))
+
+
+def conditional_wake(state, pods, stale, wake: WakeEvents) -> torch.Tensor:
+    """conditional_wake_exact with no host read: the two stable sorts in
+    torch, the scans in ops/window_kernel.conditional_wake_scan (one CUDA
+    launch on the card, wake_scan_plain on the CPU). With no parked pod
+    every move is False, so it runs in every window."""
+    order, parked, events = _wake_scan_inputs(state, pods, stale, wake)
+    moved = window_kernel.conditional_wake_scan(*parked, *events)
+    return torch.gather(moved, 1, _inverse_permutation(order))
+
+
+def empty_wake(C: int, N: int, P: int, device) -> WakeEvents:
+    """The WakeEvents of a window with no wake event (the razor's skip
+    branch)."""
+    return WakeEvents(
+        node_mask=torch.zeros((C, N), dtype=torch.bool, device=device),
+        node_rel=torch.full((C, N), INF, dtype=torch.float32, device=device),
+        freed_mask=torch.zeros((C, P), dtype=torch.bool, device=device),
+        freed_rel=torch.full((C, P), INF, dtype=torch.float32, device=device),
+    )
 
 
 def prepare_queue(
@@ -831,13 +878,13 @@ def prepare_queue(
     k: DeviceConstants,
     conditional_move: bool = False,
     wake: Optional[WakeEvents] = None,
-    sync=None,
 ):
     """Queue preamble (reference `prepare_queue`, step.py:1143): the
     unschedulable wake/flush moves and the eligibility mask. Returns (pods
     with moves applied, last_flush_win, eligible (C, P)). The reference
     skips the move block when no pod is parked; with no parked pod the
-    block is the identity, so it runs unconditionally here."""
+    block is the identity, so it runs unconditionally here, the
+    conditional move's scan included (no host read)."""
     C, P = state.pods.phase.shape
     pods = state.pods
     dev = pods.phase.device
@@ -851,12 +898,7 @@ def prepare_queue(
     parked = pods.phase == PHASE_UNSCHEDULABLE
     stale = parked & t_lt(stay_cut, Tpair) & flush_now[:, None]
     if conditional_move:
-        if sync is not None:
-            sync()
-        if bool(parked.any()):
-            moves = conditional_wake_exact(state, pods, stale, wake, sync)
-        else:
-            moves = torch.zeros((C, P), dtype=torch.bool, device=dev)
+        moves = conditional_wake(state, pods, stale, wake)
     else:
         moves = state.requeue_signal[:, None] & parked
     to_move = stale | moves
@@ -1000,11 +1042,11 @@ def candidates_from_slots(pods, last_flush_win, cand, valid, W, k: DeviceConstan
     )
 
 
-def prepare_cycle(state, W, k: DeviceConstants, K: int, conditional_move=False, wake=None, sync=None):
+def prepare_cycle(state, W, k: DeviceConstants, K: int, conditional_move=False, wake=None):
     """prepare_queue, the queue sort and the top-K compaction (reference
     step.py:1242). K above the pod slot count takes every slot."""
     C, P = state.pods.phase.shape
-    pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
+    pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake)
     sort_t = t_where(eligible, pods.queue_ts, t_inf((C, P), pods.phase.device))
     sort_seq = torch.where(eligible, pods.queue_seq, INT32_MAX)
     cand = lexsort_time_i32(sort_t, sort_seq)[:, :K].contiguous()
@@ -1044,14 +1086,14 @@ def commit_cycle(
     )
 
 
-def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, sync, profile, faults, terms):
+def _run_megakernel_cycle(state, W, k, K, pod_sched_time, conditional_move, wake, profile, faults, terms):
     """The megakernel route (reference step.py:1519-1604). The positional
     timing tables (cycle duration prefix sums) are built with
     xla_cumsum16; valid decisions form a position prefix, so table value k
     is the reference's cycle_timing value for the k-th pick."""
     C = state.pods.phase.shape[0]
     interval = k.interval
-    pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
+    pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake)
     waited_p = (W[:, None] - pods.initial_attempt_ts.win).to(torch.float32) * interval - pods.initial_attempt_ts.off
     full_dur = pod_sched_time[:, None].expand(C, K).contiguous()
     cd_post = xla_cumsum16(full_dur)
@@ -1102,7 +1144,6 @@ def run_scheduling_cycle(
     route: str = "megakernel",
     conditional_move: bool = False,
     wake: Optional[WakeEvents] = None,
-    sync=None,
     profile=DEFAULT_PROFILE,
     faults: Optional[FaultStep] = None,
     profile_terms=None,
@@ -1120,10 +1161,10 @@ def run_scheduling_cycle(
 
     if route == "megakernel":
         return _run_megakernel_cycle(
-            state, W, k, K, pod_sched_time, conditional_move, wake, sync, profile, faults, profile_terms
+            state, W, k, K, pod_sched_time, conditional_move, wake, profile, faults, profile_terms
         )
     if route == "two_kernel":
-        pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake, sync)
+        pods, last_flush_win, eligible = prepare_queue(state, W, k, conditional_move, wake)
         cand, valid, assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_select_schedule_cycle(
             alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, eligible,
             pods.queue_ts.win, pods.queue_ts.off, pods.queue_seq,
@@ -1131,7 +1172,7 @@ def run_scheduling_cycle(
         )
         cc = candidates_from_slots(pods, last_flush_win, cand, valid, W, k)
     elif route == "sorted":
-        cc = prepare_cycle(state, W, k, K, conditional_move, wake, sync)
+        cc = prepare_cycle(state, W, k, K, conditional_move, wake)
         assign_k, fitany_k, best_k, alloc_cpu, alloc_ram = fused_schedule_cycle(
             alive, state.nodes.alloc_cpu, state.nodes.alloc_ram, cc.valid, cc.req_cpu, cc.req_ram,
             profile=profile, terms=profile_terms,
@@ -1159,12 +1200,12 @@ def window_body(
     plan: WindowPlan,
     conditional_move: bool = False,
     name_ranks=None,
-    sync=None,
     autoscale=None,
     cycle_route: str = "megakernel",
     profile=DEFAULT_PROFILE,
     faults: Optional[FaultStep] = None,
     profile_terms=None,
+    window_razor: bool = False,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: CA slot
     reclaim's compaction where the plan runs it, events and finishes, one
@@ -1173,7 +1214,8 @@ def window_body(
     `autoscale`: None, or (statics, HPA group-slot bounds, CA scale-up
     candidates per cycle, CA pods per scale-down candidate).
     `cycle_route`, `profile`, `profile_terms`: see run_scheduling_cycle; `faults`: the
-    chaos engine's FaultStep or None."""
+    chaos engine's FaultStep or None; `window_razor`: see
+    apply_window_events."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
     orders = None
@@ -1186,13 +1228,13 @@ def window_body(
     state, wake = apply_window_events(
         state, slab, W, consts, k, max_events_per_window, plan,
         conditional_move=conditional_move, name_ranks=name_ranks,
-        node_key=None if orders is None else orders[1], faults=faults,
+        node_key=None if orders is None else orders[1], faults=faults, window_razor=window_razor,
     )
     # What the storage saw before this cycle: the CA reads it when its
     # snapshot precedes the cycle's commit visibility.
     pre_cycle = (state.pods.phase, state.pods.attempts, state.nodes.alloc_cpu, state.nodes.alloc_ram)
     state = run_scheduling_cycle(
-        state, W, k, max_pods_per_cycle, cycle_route, conditional_move, wake, sync, profile, faults,
+        state, W, k, max_pods_per_cycle, cycle_route, conditional_move, wake, profile, faults,
         profile_terms,
     )
     if autoscale is not None and (plan.hpa_cycle or plan.hpa_collect or plan.ca_due):
@@ -1203,6 +1245,158 @@ def window_body(
             state = hpa_pass(state, statics, W, k, hpa_seg, plan.hpa_cycle)
         if plan.ca_due:
             state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle, orders)
+    return state
+
+
+# --- window skipping: the razor's predicate and fast-forward -------------------
+# Plain versions, op for op with the reference, of the glue kernels in
+# ops/window_kernel.py (their CPU path), and the state-level functions the
+# window executor calls (reference `_window_work_due`, step.py:157,
+# `_next_interesting_window` :2239, `_catch_up_bookkeeping` :2322).
+
+
+def window_work_due_plain(cursor, packed, node_create_win, node_remove_win, pod_removal_win, phase, finish_win,
+                          finish_off, W) -> torch.Tensor:
+    """0-dim bool: could the window's event application change any state
+    leaf at window W (the window-cost razor's predicate)? True where a
+    trace event is due, a pending CA node creation or removal or an HPA
+    pod removal is due (win < W), or a running pod finishes by the
+    window's start; where it is false the application is the identity but
+    for time = max(time, W). Conservative, as the reference's."""
+    C, P = phase.shape
+    E_total = packed.shape[1]
+    rows = torch.arange(C, device=cursor.device)
+    nxt = packed[rows, cursor.clamp(0, E_total - 1).long(), 0]
+    ev_due = ((cursor < E_total) & (nxt < W)).any()
+    Wc = W[:, None]
+    pend_due = (node_create_win < Wc).any() | (node_remove_win < Wc).any() | (pod_removal_win < Wc).any()
+    window_end = TPair(win=Wc.expand(C, P), off=torch.zeros((C, P), dtype=torch.float32, device=phase.device))
+    fin_due = ((phase == PHASE_RUNNING) & t_le(TPair(finish_win, finish_off), window_end)).any()
+    return ev_due | pend_due | fin_due
+
+
+def window_work_due(state: ClusterBatchState, slab: TraceSlab, W: torch.Tensor) -> torch.Tensor:
+    """The razor's predicate at window W (0-dim bool on the state's
+    device), through ops/window_kernel.window_work_due."""
+    nodes, pods = state.nodes, state.pods
+    return window_kernel.window_work_due(
+        state.event_cursor, slab.packed, nodes.create_time.win, nodes.remove_time.win, pods.removal_time.win,
+        pods.phase, pods.finish_time.win, pods.finish_time.off, W,
+    )
+
+
+def next_window_span_plain(cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win,
+                           queue_win, last_flush_win, W, limit, ca_next_win=None, ca_next_off=None,
+                           ca_snap_win=None, ca_snap_off=None, hpa_next_win=None, col_next_win=None,
+                           ca_count=None, *, flush_windows: int, interval: float) -> torch.Tensor:
+    """(2,) int32 [W + 1, next]: next is the first window after W whose
+    body could change state (min over every cluster of every trigger: the
+    next trace event's window + 1, a running pod's finish window, a
+    pending node creation or removal or pod removal's window + 1, a queued
+    pod's queue window + 1, the flush cadence while a pod is parked, and
+    with the autoscalers (ca_next given) the CA cycle's snapshot window
+    where the CA can act, the HPA tick and the collection latch), at least
+    W + 1 and at most `limit` (1,), the span's last window + 1. W is the
+    (C,) window buffer (one value)."""
+    big = INF_WIN
+    C = cursor.shape[0]
+    E_total = packed.shape[1]
+    rows = torch.arange(C, device=cursor.device)
+    ev_win = packed[rows, cursor.clamp(0, E_total - 1).long(), 0]
+    ev_next = torch.where(cursor < E_total, ev_win, big)
+    cand = ev_next.amin() + 1
+    cand = torch.minimum(cand, torch.where(phase == PHASE_RUNNING, finish_win, big).amin())
+    cand = torch.minimum(cand, node_create_win.amin() + 1)
+    cand = torch.minimum(cand, node_remove_win.amin() + 1)
+    cand = torch.minimum(cand, pod_removal_win.amin() + 1)
+    cand = torch.minimum(cand, torch.where(phase == PHASE_QUEUED, queue_win, big).amin() + 1)
+    parked_any = (phase == PHASE_UNSCHEDULABLE).any()
+    flush_next = last_flush_win.amin() + flush_windows
+    cand = torch.minimum(cand, torch.where(parked_any, flush_next, big))
+    if ca_next_win is not None:
+        interval_t = torch.tensor(float(interval), dtype=torch.float32, device=cursor.device)
+        ca_snap_t = t_add(TPair(ca_next_win, ca_next_off), TPair(ca_snap_win, ca_snap_off), interval_t)
+        ca_can_act = parked_any | (ca_count.sum() > 0)
+        cand = torch.minimum(cand, torch.where(ca_can_act, ca_snap_t.win.amin(), big))
+        cand = torch.minimum(cand, hpa_next_win.amin())
+        if col_next_win is not None:
+            cand = torch.minimum(cand, col_next_win.amin())
+    first = W[:1] + 1
+    nxt = torch.maximum(first, cand.reshape(1))
+    return torch.cat([first, torch.minimum(nxt, limit)]).to(torch.int32)
+
+
+def next_window_span(state: ClusterBatchState, slab: TraceSlab, W: torch.Tensor, limit: torch.Tensor, statics,
+                     flush_windows: int, interval: float) -> torch.Tensor:
+    """[W + 1, next] (next_window_span_plain) of the state after window W,
+    through ops/window_kernel.next_window_span; `statics`: the autoscaler
+    statics or None."""
+    pods, nodes, auto = state.pods, state.nodes, state.auto
+    extra = ()
+    if statics is not None and auto is not None:
+        extra = (
+            auto.ca_next.win, auto.ca_next.off, statics.ca_snap.win, statics.ca_snap.off, auto.hpa_next.win,
+            None if auto.col_next is None else auto.col_next.win, auto.ca_count,
+        )
+    return window_kernel.next_window_span(
+        state.event_cursor, slab.packed, pods.phase, pods.finish_time.win, nodes.create_time.win,
+        nodes.remove_time.win, pods.removal_time.win, pods.queue_ts.win, state.last_flush_win, W, limit, *extra,
+        flush_windows=flush_windows, interval=interval,
+    )
+
+
+def catch_up_plain(span, last_flush_win, time, hpa_next_win=None, hpa_next_off=None, ca_next_win=None,
+                   ca_next_off=None, hpa_int_win=None, hpa_int_off=None, ca_snap_win=None, ca_snap_off=None,
+                   ca_period_win=None, ca_period_off=None, *, interval: float, flush_interval: float):
+    """The cadence bookkeeping of the skipped windows [span[0], span[1])
+    with the window body's own per-window float32 arithmetic: the flush
+    window advances at the flush cadence, due HPA ticks and CA cycles
+    (hpa_next given) advance once a window, and time becomes max(time,
+    span[1] - 1). Returns (last_flush_win, time, hpa_next_win, hpa_next_off,
+    ca_next_win, ca_next_off), the last four None without the
+    autoscalers. Reads the span on the host: the CPU's path."""
+    lo, hi = (int(x) for x in span.tolist())
+    dev = last_flush_win.device
+    interval_t = torch.tensor(float(interval), dtype=torch.float32, device=dev)
+    flush_t = torch.tensor(float(flush_interval), dtype=torch.float32, device=dev)
+    has_auto = hpa_next_win is not None
+    hpa = TPair(hpa_next_win, hpa_next_off) if has_auto else None
+    ca = TPair(ca_next_win, ca_next_off) if has_auto else None
+    last_flush = last_flush_win
+    for w in range(lo, hi):
+        wc = torch.full_like(last_flush, w)
+        flush_now = (wc - last_flush).to(torch.float32) * interval_t >= flush_t
+        last_flush = torch.where(flush_now, wc, last_flush)
+        if has_auto:
+            T = TPair(win=wc, off=torch.zeros_like(hpa.off))
+            hpa = t_where(t_le(hpa, T), t_add(hpa, TPair(hpa_int_win, hpa_int_off), interval_t), hpa)
+            T1 = TPair(win=wc + 1, off=torch.zeros_like(ca.off))
+            due = t_lt(t_add(ca, TPair(ca_snap_win, ca_snap_off), interval_t), T1)
+            ca = t_where(due, t_add(ca, TPair(ca_period_win, ca_period_off), interval_t), ca)
+    time = torch.maximum(time, torch.full_like(time, hi - 1))
+    if not has_auto:
+        return last_flush, time, None, None, None, None
+    return last_flush, time, hpa.win, hpa.off, ca.win, ca.off
+
+
+def catch_up_bookkeeping(state: ClusterBatchState, span: torch.Tensor, statics, interval: float,
+                         flush_interval: float) -> ClusterBatchState:
+    """The state after the skipped windows [span[0], span[1]) (catch_up_plain),
+    through ops/window_kernel.catch_up (span read on the device)."""
+    auto = state.auto
+    extra = ()
+    if statics is not None and auto is not None:
+        extra = (
+            auto.hpa_next.win, auto.hpa_next.off, auto.ca_next.win, auto.ca_next.off,
+            statics.hpa_interval.win, statics.hpa_interval.off, statics.ca_snap.win, statics.ca_snap.off,
+            statics.ca_period.win, statics.ca_period.off,
+        )
+    last_flush, time, hw, ho, cw, co = window_kernel.catch_up(
+        span, state.last_flush_win, state.time, *extra, interval=interval, flush_interval=flush_interval,
+    )
+    state = state._replace(last_flush_win=last_flush, time=time)
+    if extra:
+        state = state._replace(auto=auto._replace(hpa_next=TPair(hw, ho), ca_next=TPair(cw, co)))
     return state
 
 

@@ -66,6 +66,19 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "pod_attempt_draw": (
         "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 8 + [_I] * 6 + [_P],
     ),
+    # The window executor's glue (ops/window_kernel.py): no TPU kernels.
+    "window_work_due": (
+        "window_work_due.cu", "ktt_window_work_due", [_P] * 11 + [_I] * 4 + [_P],
+    ),
+    "next_window": (
+        "next_window.cu", "ktt_next_window", [_P] * 20 + [_I] * 8 + [_P],
+    ),
+    "catch_up": (
+        "catch_up.cu", "ktt_catch_up", [_P] * 19 + [_I] * 4 + [_P],
+    ),
+    "conditional_wake": (
+        "conditional_wake.cu", "ktt_conditional_wake", [_P] * 8 + [_I] * 3 + [_P],
+    ),
 }
 
 # Launch plumbing that is no kernel of the reference's: name -> the same

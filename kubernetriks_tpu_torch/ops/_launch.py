@@ -6,6 +6,7 @@ raises."""
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict
 
 import torch
@@ -21,13 +22,38 @@ LAUNCHES: Dict[str, int] = {
     "fused_select_schedule_cycle": 0,
     "fused_commit_scatter": 0,
     "pod_attempt_draw": 0,
+    "window_work_due": 0,
+    "next_window_span": 0,
+    "catch_up": 0,
+    "conditional_wake_scan": 0,
 }
 
 # Dynamic shared memory a block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
 
 
+# Capture backends whose CUDA graphs hold conditional bodies that launch
+# counted kernels (graphs.CudaGraphs.when): such a body counts its runs on
+# the card, and settle_launches() folds them into LAUNCHES.
+_DEFERRED = weakref.WeakSet()
+
+
+def register_deferred(backend) -> None:
+    _DEFERRED.add(backend)
+
+
+def launch_counts() -> Dict[str, int]:
+    """LAUNCHES, with the launches of conditional graph bodies that ran on
+    the card folded in first (one host read a backend holding such a
+    body)."""
+    for backend in list(_DEFERRED):
+        backend.settle_launches()
+    return dict(LAUNCHES)
+
+
 def reset_launches() -> None:
+    for backend in list(_DEFERRED):
+        backend.settle_launches()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 

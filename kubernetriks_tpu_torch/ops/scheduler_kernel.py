@@ -52,11 +52,12 @@ from kubernetriks_tpu_torch.batched.pipeline import (
     kernel_terms,
     profile_fit_score,
 )
-from kubernetriks_tpu_torch.ops._launch import (  # noqa: F401  (LAUNCHES, reset_launches: public here)
+from kubernetriks_tpu_torch.ops._launch import (  # noqa: F401  (LAUNCHES, launch_counts, reset_launches: public here)
     LAUNCHES,
     SMEM_LIMIT,
     check as _check,
     launch as _launch,
+    launch_counts,
     on_cuda as _on_cuda,
     reset_launches,
 )

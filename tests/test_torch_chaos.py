@@ -235,10 +235,14 @@ def _assert_faults_shown(counters):
     assert counters["node_crashes"] > 0 or counters["pod_restarts"] > 0
 
 
-def _run_pair(config_yaml, spec, C, K, until, route=None, profile=None, **kwargs):
-    jx = build_jax_engine(config_yaml, spec, C, K, "xla", fast_forward=False, scheduler_profile=profile, **kwargs)
+def _run_pair(config_yaml, spec, C, K, until, route=None, profile=None, fast_forward=False, **kwargs):
+    jx = build_jax_engine(
+        config_yaml, spec, C, K, "xla", fast_forward=fast_forward, scheduler_profile=profile, **kwargs
+    )
     jx.step_until_time(until)
-    port = build_port_engine(config_yaml, spec, C, K, scheduler_profile=profile, **kwargs)
+    port = build_port_engine(
+        config_yaml, spec, C, K, fast_forward=fast_forward, scheduler_profile=profile, **kwargs
+    )
     if route is not None:
         port.cycle_route = route
     port.step_until_time(until)
@@ -258,14 +262,30 @@ def test_fault_run_matches_reference(yaml, seed):
     assert counters["node_crashes"] > 0 and counters["pod_restarts"] > 0
 
 
-def test_composed_faults_through_a_sliding_window_match_reference():
+@pytest.mark.parametrize("fast_forward", [False, True])
+def test_composed_faults_through_a_sliding_window_match_reference(fast_forward):
     """The composed line with bench.py's FAULTS_YAML through pod_window=8
     (slides and growths), the HPA and the CA on, four clusters (each with
-    its own crash chains) to t = 600 s."""
+    its own crash chains) to t = 600 s; also with both sides
+    fast-forwarded."""
     assert chip_smoke.FAULTS_YAML == FAULTS_YAML  # chip_smoke's copy of the bench's block
-    jx, port, counters = _run_pair(TOY.config_yaml + FAULTS_YAML, TOY, 4, 8, 600.0, pod_window=8, reclaim=False)
+    jx, port, counters = _run_pair(
+        TOY.config_yaml + FAULTS_YAML, TOY, 4, 8, 600.0, pod_window=8, reclaim=False, fast_forward=fast_forward
+    )
     assert port.dispatch_stats["slides"] > 0
     assert (port.pod_window, port._pod_base) == (jx.pod_window, jx._pod_base)
+
+
+def test_sparse_fault_run_fast_forward_matches_reference():
+    """A sparse fault run (tests/test_chaos.py's FAULT_YAML on the
+    reference's sparse trace: 6 nodes, 0.02 pods/s) with both sides
+    fast-forwarded to t = 6 000 s: crashes and recoveries are trace
+    events, so each is a window both execute."""
+    from test_torch_fast_forward import SparseSpec
+
+    spec = SparseSpec(rate=0.02, horizon=6000.0, seed=5)
+    _, port, counters = _run_pair(DEFAULT_TEST_CONFIG_YAML + FAULT_YAML, spec, 2, 8, 6000.0, fast_forward=True)
+    assert port.dispatch_stats["skipped_windows"] > 0 and counters["node_crashes"] > 0
 
 
 @pytest.mark.parametrize("route", ["sorted", "megakernel", "two_kernel"])

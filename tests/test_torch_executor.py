@@ -133,12 +133,16 @@ def test_replay_pieces_match_eager_body_and_reference(tmp_path):
 
 
 def test_conditional_move_windows_run_eagerly():
+    """The conditional move's windows, which ran eagerly until its scans
+    moved to the device (step.conditional_wake), replay graphs like any
+    other and end where the eager window body ends, with no host read."""
     config = DELAYS + "enable_unscheduled_pods_conditional_move: true\n"
     sim = stub_graphs(build_port_engine(config, CHURN, 4, 8))
-    assert sim.precompile_pieces() == 0
+    assert sim.precompile_pieces() > 0
     sim.step_until_time(200.0)
-    assert sim.dispatch_stats["eager_windows"] == sim.windows_run == 21
-    assert sim.dispatch_stats["graph_windows"] == sim.dispatch_stats["replays"] == 0
+    assert sim.dispatch_stats["graph_windows"] == sim.windows_run == 21
+    assert sim.dispatch_stats["eager_windows"] == 0 and sim.dispatch_stats["replays"] > 0
+    assert sim.host_syncs == 0
     assert_bitwise_equal(sim.state, functional_run(build_port_engine(config, CHURN, 4, 8), 200.0))
 
 
@@ -293,7 +297,7 @@ def test_a_route_forced_after_the_build_captures_its_own_cycle(counting_wrappers
     sim.step_until_time(150.0)
     eager.step_until_time(150.0)
     graphs = sim._executor.graphs
-    stale = [graph for key, (graph, _) in graphs.items() if key[:2] == ("end", "sorted")]
+    stale = [graph for key, (graph, *_) in graphs.items() if key[:2] == ("end", "sorted")]
     assert ("end", "sorted", False, None, False) in graphs
     replays = []
     for graph in stale:

@@ -246,7 +246,7 @@ def reference_runs():
 @pytest.mark.parametrize("route", ["sorted", "megakernel", "two_kernel"])
 @pytest.mark.parametrize("name", list(PROFILES))
 def test_profiled_run_matches_reference(reference_runs, name, route):
-    port = build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16, scheduler_profile=PROFILES[name])
+    port = build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16, fast_forward=False, scheduler_profile=PROFILES[name])
     port.cycle_route = route
     port.step_until_time(2000.0)
     got = state_to_numpy(port.state)
