@@ -8,7 +8,8 @@ Phases; any failure exits non-zero:
   2. build the eight CUDA kernels of the TPU kernels, the chaos engine's
      commit-time draw (pod_attempt_draw.cu), the window executor's four
      glue kernels (window_work_due.cu, next_window.cu, catch_up.cu,
-     conditional_wake.cu) and the graph_if helper (the window executor's
+     conditional_wake.cu), the flight recorder's record
+     (telemetry_record.cu) and the graph_if helper (the window executor's
      conditional node) from ops/csrc with nvcc (one process each, all at
      once), timed;
   3. kernels: each kernel against its plain PyTorch version on the card, on
@@ -97,13 +98,15 @@ Phases; any failure exits non-zero:
      at 0.25/s, churn waves of 24 000 mCPU pods 160 s apart that fit only
      the CA's 32 000 mCPU template, a 2-slot CA reserve, pod_window=128,
      K = 32; its fault block on and ca_slot_multiplier 2, as the
-     reference's long runs take them; no streaming feeder or telemetry)
+     reference's long runs take them; telemetry and the watchdog armed, as
+     its endurance line has them; no streaming feeder)
      at 256 clusters (each with its own crash chains, build timed) through
      96 waves (15 390 s) on the graph executor with slot reclaim: finishes
      with the bounds clean, crashes and restarts seen, at least 3x the
      reserve in
      allocations and slots reclaimed on every cluster, one host read a
-     span; a second run read once a wave shows the dynamic scale-down
+     span, no reserve verdict of the watchdog and a lossless ring (the
+     reference's gate, `bench.py:625-626, 745-760`); a second run read once a wave shows the dynamic scale-down
      order away from the static table; busy ms a window over waves 40-50;
      without reclaim the churn raises; at C=4, 24 waves (the reference
      bench's defaults) card == CPU, reclaim on both sides, and again
@@ -125,9 +128,10 @@ Phases; any failure exits non-zero:
      pod_window=512 (slides and a growth) to t=1 200 s.
  15. fast-forward: the sparse headline (the headline's 1024 x 256 at
      0.02 pods/s a cluster, the reference's sparse rate, to 70 000 s),
-     where fast-forward turns on by itself; timed from 190 s to 70 000 s
-     on the graph executor (one host read an executed window, none
-     other): wall time, decisions/s, windows executed and skipped, host
+     where fast-forward turns on by itself, with telemetry on; timed from
+     190 s to 70 000 s on the graph executor (one host read an executed
+     window, none other; the ring holds the executed windows, lossless),
+     and again with telemetry off (equal reads and dispatch counts): wall time, decisions/s, windows executed and skipped, host
      reads, kernels and busy ms an executed window (torch.profiler, 5 000
      -> 7 000 s of a second run); the same line stepping every window on
      the card ends in an equal state; card == CPU at C = 4 on this line
@@ -137,6 +141,13 @@ Phases; any failure exits non-zero:
      enable_unscheduled_pods_conditional_move, timed as phase 6w (no
      eager window, one host read a span), host ms, busy ms and kernels a
      window beside 6w's; card == CPU at C = 4 to t = 400 s.
+ 17. the flight recorder: phase 6w's line timed as phase 6w with
+     telemetry on (the watchdog riding it) and off: states equal but the
+     ring, host reads and dispatch_stats equal, no read inside a span, the
+     record launched once a window, the ring lossless; kernels, host ms
+     and busy ms a window on against off; at phase 7w's depth the card's
+     ring equals the CPU's bit for bit and its gauges the CPU's (counts
+     exact, utilizations at rtol 1e-5), the gauge CSV written.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -184,8 +195,11 @@ for bit, on eager runs of phase 15's line to 1 500 s (the razor's
 predicate on its first call that finds no work, the next window on its
 first call, the catch-up on its longest skip) and of phase 16's line to
 590 s (the conditional move's scans on their call with the most
-event-by-parked-pod steps), with the launches of phases 15 and 16. A
-timed kernel cycles through at most 512 copies of its inputs.
+event-by-parked-pod steps), with the launches of phases 15 and 16. The
+flight recorder's record is held bit for bit and timed on phase 17's
+line at 590 s (C = 256, N = 96, P = 648, R = 1024), with phase 17's
+launches. A timed kernel cycles through at most 512 copies of its
+inputs.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -199,8 +213,10 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -1329,12 +1345,24 @@ def sparse_phase(dev, sk, names) -> dict:
     -> 7 000 s); card == CPU at C = 4 on this line and on an autoscaled
     sparse variant (the composed line at 0.02 pods/s to 2 000 s), slot
     reclaim on both sides, both fast-forwarded."""
-    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.batched.state import compare_states, strip_telemetry
     from kubernetriks_tpu_torch.convert import state_to_numpy
 
     horizon = SPARSE["horizon"]
+
+    def timed_span(sim):
+        """190 s -> the horizon in 1 000 s steps, ending in a synchronize."""
+        t0 = time.perf_counter()
+        end = 1190.0
+        while end < horizon:
+            sim.step_until_time(end)
+            end += 1000.0
+        sim.step_until_time(horizon)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    sim = sparse_sim(dev)
+    sim = sparse_sim(dev, telemetry=True)
     build_s = time.perf_counter() - t0
     if not sim.fast_forward or not sim.window_razor:
         fail(f"phase 15: fast_forward {sim.fast_forward}, razor {sim.window_razor} on the sparse headline")
@@ -1345,14 +1373,9 @@ def sparse_phase(dev, sk, names) -> dict:
     sim.step_until_time(190.0)
     before = sim.decisions_total()
     syncs0, stats0, w0 = sim.host_syncs, dict(sim.dispatch_stats), sim.windows_run
-    t0 = time.perf_counter()
-    end = 1190.0
-    while end < horizon:
-        sim.step_until_time(end)
-        end += 1000.0
-    sim.step_until_time(horizon)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    drains0 = dict(sim._ring_drain_stats)
+    elapsed = timed_span(sim)
+    drains = {k: sim._ring_drain_stats[k] - drains0[k] for k in drains0}
     launches = sk.launch_counts()
     stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
     syncs, windows = sim.host_syncs - syncs0, sim.windows_run - w0
@@ -1361,7 +1384,10 @@ def sparse_phase(dev, sk, names) -> dict:
         if launches[name] <= 0:
             fail(f"phase 15: never launched {name}")
     decisions = sim.decisions_total() - before
-    final = state_to_numpy(sim.state)
+    # The ring holds the executed windows, and no other (the drains rode
+    # the executed windows' reads).
+    check_ring("phase 15", sim, executed=sim.dispatch_stats["executed_windows"])
+    final = state_to_numpy(strip_telemetry(sim.state))
     executed = stats["executed_windows"]
     out = {
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "K": sim.max_pods_per_cycle,
@@ -1372,8 +1398,30 @@ def sparse_phase(dev, sk, names) -> dict:
         "ms_per_window": 1e3 * elapsed / windows, "ms_per_executed_window": 1e3 * elapsed / max(executed, 1),
         "host_reads_per_executed_window": syncs / max(executed, 1),
         "graph": graph_report(sim, stats), "launches": launches,
+        # The ring's drains inside the timed span: their count and wall ms
+        # (the blocking read, then the host's series and watchdog work).
+        "ring_drains": {
+            "drains": drains["drains"], "windows": drains["windows"],
+            "read_ms": drains["read_ns"] / 1e6, "host_ms": drains["host_ns"] / 1e6,
+            "ms_per_drain": (drains["read_ns"] + drains["host_ns"]) / 1e6 / max(drains["drains"], 1),
+        },
     }
+    armed = (sim.host_syncs, dict(sim.dispatch_stats))
     del sim
+    # The same span with telemetry off, in this call: equal reads and
+    # dispatch counts, and the recorder's cost an executed window.
+    off = sparse_sim(dev)
+    off.precompile_pieces()
+    off.step_until_time(190.0)
+    off.decisions_total()
+    x0 = off.dispatch_stats["executed_windows"]
+    off_s = timed_span(off)
+    off.decisions_total()
+    if (off.host_syncs, dict(off.dispatch_stats)) != armed:
+        fail(f"phase 15: telemetry off read or dispatched otherwise: {(off.host_syncs, off.dispatch_stats)} vs {armed}")
+    out["telemetry_off_wall_s"] = off_s
+    out["telemetry_off_ms_per_executed_window"] = 1e3 * off_s / max(off.dispatch_stats["executed_windows"] - x0, 1)
+    del off
     out["busy"], _ = profiled_busy(lambda: sparse_sim(dev), 5000.0, 7000.0, "phase 15")
     # Every window stepped, on the card.
     plain = sparse_sim(dev, fast_forward=False)
@@ -1421,7 +1469,10 @@ def sparse_phase(dev, sk, names) -> dict:
     print(
         f"phase 15: sparse headline {out['shape']} (built in {build_s:.2f} s), fast-forward on by its default: "
         f"t = 190 -> {horizon:.0f} s, {windows} windows ({executed} executed, {stats['skipped_windows']} skipped) "
-        f"in {elapsed:.3f} s = {out['ms_per_executed_window']:.3f} ms an executed window, "
+        f"in {elapsed:.3f} s = {out['ms_per_executed_window']:.3f} ms an executed window with telemetry on "
+        f"({out['telemetry_off_ms_per_executed_window']:.3f} off, the same reads and dispatches; "
+        f"{out['ring_drains']['drains']} ring drains of {out['ring_drains']['windows']} windows, read "
+        f"{out['ring_drains']['read_ms']:.3f} ms + host {out['ring_drains']['host_ms']:.3f} ms in all), "
         f"{out['decisions_per_s']:.1f} decisions/s, {out['host_reads_per_executed_window']:.3f} host reads an "
         f"executed window, {out['busy']['kernels_per_executed_window']:.1f} kernels and "
         f"{out['busy']['busy_ms_per_executed_window']:.4f} ms busy an executed window; every window "
@@ -1474,6 +1525,124 @@ def conditional_move_phase(dev, sk, names, ref: dict) -> dict:
     return out
 
 
+def check_ring(label, sim, executed=None) -> tuple:
+    """Fail unless the drained telemetry ring is lossless: one record a
+    window run (`executed`: the executed windows' count under fast-forward,
+    their indices increasing), the decision deltas summing to the
+    decisions counter. Returns the series."""
+    wins, data = sim.telemetry_window_series()
+    if executed is None:
+        if not np.array_equal(wins, np.arange(sim.windows_run)):
+            fail(f"{label}: the ring holds {len(wins)} windows, not the {sim.windows_run} run")
+    elif len(wins) != executed or not bool((np.diff(wins) > 0).all()) or (len(wins) and wins[-1] >= sim.next_window_idx):
+        fail(f"{label}: the ring holds {len(wins)} windows, not the {executed} executed")
+    decisions = int(sim.state.metrics.scheduling_decisions.sum())
+    if int(data[:, :, 1].sum()) != decisions:
+        fail(f"{label}: the ring's decisions sum to {int(data[:, :, 1].sum())}, the counter holds {decisions}")
+    return wins, data
+
+
+def watchdog_gate(label, sim, caught) -> list:
+    """The reference's endurance gate on the watchdog (`bench.py:745-760`):
+    fail on a reserve verdict, caught as a warning or still fired, or if
+    the watchdog never judged a drain. `caught` must hold the warnings of a
+    block that ended in drain_telemetry(), so that the last windows are
+    judged inside it. Returns the verdicts caught."""
+    verdicts = [str(w.message) for w in caught if "saturation watchdog" in str(w.message)]
+    reserve = [v for v in verdicts if "reserve" in v] + [k for k in sim.observatory.fired if "reserve" in k]
+    if reserve:
+        fail(f"{label}: the watchdog gave reserve verdicts under reclaim: {reserve}")
+    if sim.observatory.samples <= 0:
+        fail(f"{label}: the watchdog judged no drain")
+    return verdicts
+
+
+def telemetry_phase(dev, sk, names, ref: dict) -> dict:
+    """Phase 17: the flight recorder on phase 6w's line (the composed line
+    through pod_window=512, slot reclaim on), timed as phase 6w on the
+    graph executor once with telemetry on (and the watchdog, which rides
+    it) and once off: the states equal but the ring (strip_telemetry),
+    host reads and dispatch_stats equal, one host read a span and none
+    inside it on both (timed_path), the record launched once a window on
+    and never off, the ring lossless; kernels, host ms and busy ms a
+    window on against off (traced second runs); then at phase 7w's depth
+    (C = 8, 4 nodes, through an 8-slot pod window, reclaim on, to 400 s)
+    the card's ring and gauge series equal the CPU's (the ring bit for
+    bit, the gauges' counts exact and utilizations at rtol 1e-5, float32
+    sums in another order), and the gauge CSV is written."""
+    from kubernetriks_tpu_torch.batched.state import compare_states, strip_telemetry
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    def build(on, **kwargs):
+        return composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, telemetry=on, **kwargs)
+
+    out, finals = {}, {}
+    for on in (True, False):
+        label = f"phase 17 telemetry {'on' if on else 'off'}"
+        sim = build(on)
+        if (sim.state.telemetry is not None) != on or sim._watchdog != on or not sim.reclaim:
+            fail(f"{label}: built with ring {sim.state.telemetry is not None}, watchdog {sim._watchdog}, "
+                 f"reclaim {sim.reclaim}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = timed_path(sim, sk, names + (["telemetry_record"] if on else []), label)
+            if on:
+                sim.drain_telemetry()
+        records = run["launches"]["telemetry_record"]
+        if records != (sim.windows_run if on else 0):
+            fail(f"{label}: the record launched {records} times in {sim.windows_run} windows")
+        if on:
+            run["verdicts"] = watchdog_gate(label, sim, caught)
+            check_ring(label, sim)
+            run["report"] = {k: v for k, v in sim.telemetry_report().items()
+                             if k in ("ring", "ring_drains", "per_window", "sync_budget")}
+        finals[on] = (state_to_numpy(strip_telemetry(sim.state)), sim.host_syncs, dict(sim.dispatch_stats))
+        out["on" if on else "off"] = run
+        del sim
+        run["busy"], _ = profiled_busy(lambda: build(on), 190.0, 1190.0, label)
+    bad = compare_states(finals[True][0], finals[False][0])
+    if bad:
+        fail(f"phase 17: telemetry on and off differ at {bad}")
+    if finals[True][1:] != finals[False][1:]:
+        fail(f"phase 17: host reads or dispatch_stats differ on {finals[True][1:]} and off {finals[False][1:]}")
+    # Card against CPU at phase 7w's depth: the ring and the gauges.
+    series = {}
+    for where in ("cuda", "cpu"):
+        s17 = composed_sim(where, 8, pod_window=8, reclaim=True, telemetry=True)
+        s17.collect_gauges = True
+        s17.step_until_time(400.0)
+        if where == "cuda":
+            ran_on_graphs("phase 17", s17)
+            csv_path = OUT_DIR / "phase17_gauges.csv"
+            s17.write_gauge_csv(str(csv_path), cluster=3)
+            rows = csv_path.read_text().splitlines()
+            if len(rows) != s17.windows_run + 1 or not rows[0].startswith("timestamp,current_nodes"):
+                fail(f"phase 17: the gauge CSV has {len(rows)} lines for {s17.windows_run} windows")
+        series[where] = (check_ring(f"phase 17 {where}", s17), s17.gauge_series(), state_to_numpy(s17.state))
+    (wc, dc), (tc, gc), sc = series["cuda"]
+    (wh, dh), (th, gh), sh = series["cpu"]
+    if not (np.array_equal(wc, wh) and np.array_equal(dc, dh)):
+        fail("phase 17: the card's ring differs from the CPU's")
+    if compare_states(sh, sc):
+        fail(f"phase 17: card and CPU states differ at {compare_states(sh, sc)}")
+    if not (np.array_equal(tc, th) and np.array_equal(gc[..., :3], gh[..., :3])
+            and np.allclose(gc[..., 3:], gh[..., 3:], rtol=1e-5, atol=0.0)):
+        fail("phase 17: the card's gauges differ from the CPU's")
+    out["card_cpu"] = {"windows": int(len(wc)), "ring_totals": dc.sum(axis=(0, 1)).tolist()}
+    on, off = out["on"], out["off"]
+    print(
+        f"phase 17: telemetry on against off on {WINDOWED_COMPOSED} (phase 6w {ref['ms_per_window']:.3f} ms): host "
+        f"{on['ms_per_window']:.3f} / {off['ms_per_window']:.3f} ms a window, device busy "
+        f"{on['busy']['busy_ms_per_window']:.4f} / {off['busy']['busy_ms_per_window']:.4f} ms, "
+        f"{on['busy']['kernels_per_window']:.1f} / {off['busy']['kernels_per_window']:.1f} kernels a window; "
+        f"states equal but the ring, host reads and dispatch_stats equal; ring lossless "
+        f"({on['report']['ring']['windows_kept']} windows), watchdog verdicts {on['verdicts']}; at C=8 through "
+        f"pod_window=8 to 400 s the card's ring == the CPU's ({len(wc)} windows) and its gauges (CSV written)",
+        flush=True,
+    )
+    return out
+
+
 def churn_phase(dev, sk, must_launch) -> dict:
     """Phase 12: the reference's endurance churn (endurance_sim) at
     ENDURANCE_CLUSTERS clusters through ENDURANCE_WAVES waves, as the
@@ -1498,22 +1667,32 @@ def churn_phase(dev, sk, must_launch) -> dict:
     horizon = 30.0 + ENDURANCE_WAVES * 160.0
 
     def build(**kwargs):
+        kwargs.setdefault("telemetry", True)
+        kwargs.setdefault("watchdog", kwargs["telemetry"])
         return endurance_sim(dev, ENDURANCE_CLUSTERS, ENDURANCE_WAVES, **ENDURANCE_KWARGS, **kwargs)
 
     t0 = time.perf_counter()
     sim = build()
     build_s = time.perf_counter() - t0
-    if not sim.reclaim or not sim.graphs:
-        fail(f"phase 12: the card engine built with reclaim {sim.reclaim}, graphs {sim.graphs}")
+    if not sim.reclaim or not sim.graphs or not sim._watchdog:
+        fail(f"phase 12: the card engine built with reclaim {sim.reclaim}, graphs {sim.graphs}, "
+             f"watchdog {sim._watchdog}")
     t0 = time.perf_counter()
     captured = sim.precompile_pieces()
     capture_s = time.perf_counter() - t0
     sk.reset_launches()
     syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
-    t0 = time.perf_counter()
-    sim.step_until_time(horizon)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        sim.step_until_time(horizon)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        sim.drain_telemetry()
+    # The reference's endurance gate (`bench.py:625-626, 745-760`): no
+    # reserve verdict under reclaim, and the ring lossless over the run.
+    verdicts = watchdog_gate("phase 12", sim, caught)
+    check_ring("phase 12", sim)
     launches = sk.launch_counts()
     stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
     syncs, windows = sim.host_syncs - syncs0, sim.windows_run
@@ -1542,7 +1721,11 @@ def churn_phase(dev, sk, must_launch) -> dict:
         "precompiled_graphs": captured, "precompile_s": capture_s,
         "window": sliding_report(sim, stats, syncs, windows), "graph": graph_report(sim, stats),
         "allocations_per_cluster": int(total[0]), "reclaimed_per_cluster": int(reclaimed[0]),
-        "counters": counters, "launches": launches,
+        "counters": counters, "launches": launches, "watchdog_verdicts": verdicts,
+        "watchdog_samples": sim.observatory.samples,
+        "ring": {k: v for k, v in sim.telemetry_report()["ring"].items() if k != "columns"},
+        "ring_drains": sim.telemetry_report()["ring_drains"],
+        "observatory": sim.telemetry_report()["resources"]["occupancy"],
     }
     del sim
     # The dynamic name order, read once a wave (a separate run: the reads
@@ -1562,7 +1745,7 @@ def churn_phase(dev, sk, must_launch) -> dict:
     del sim
     out["busy"], _ = profiled_busy(build, 30.0 + 40 * 160.0, 30.0 + 50 * 160.0, "phase 12")
     # Without reclaim the same churn runs the 2-slot reserve dry.
-    off = build(reclaim=False)
+    off = build(reclaim=False, telemetry=False)
     off.step_until_time(30.0 + 6 * 160.0)
     try:
         off.metrics_summary()
@@ -1601,7 +1784,10 @@ def churn_phase(dev, sk, must_launch) -> dict:
         f"{windows} windows in {elapsed:.3f} s = {out['ms_per_window']:.4f} ms a window, device busy "
         f"{out['busy']['busy_ms_per_window']:.4f} ms a window, {out['decisions_per_s']:.1f} decisions/s, "
         f"{out['allocations_per_cluster']} allocations and {out['reclaimed_per_cluster']} slots reclaimed a "
-        f"cluster, bounds clean, window {out['window']}, dynamic name order off the static table in waves "
+        f"cluster, bounds clean, telemetry and the watchdog armed: no reserve verdict in "
+        f"{out['watchdog_samples']} drains judged (verdicts {verdicts}), "
+        f"ring lossless ({out['ring']['windows_kept']} windows), window {out['window']}, dynamic name order off "
+        f"the static table in waves "
         f"{apart}; without reclaim: {out['without_reclaim']}; at C=4 card == CPU through 24 waves "
         f"({out['card_cpu_counters_24_waves']}) and through {REORDER_WAVES} waves "
         f"({out['cpu_reordered_removals']} scale-down calls removing on a reordered walk on the CPU); "
@@ -1848,9 +2034,12 @@ def main() -> int:
             for _ in range(n - 1)
         ]
 
-    def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops, label=None):
+    def check_kernel(name, kernel_fn, plain_fn, args, kwargs, stats_idx, library, need_bytes, ops, label=None,
+                     timed=None):
         # `terms`, a cycle kernel's launch arguments for its profile, is
         # the wrapper's alone: the plain version reads `profile`.
+        # `timed`: (kernel, plain, input sets) to time in place of the
+        # compared functions and copies_of(args) (an in-place kernel).
         plain_kwargs = {k: v for k, v in kwargs.items() if k != "terms"}
         outs_k = as_tuple(kernel_fn(*args, **kwargs))
         torch.cuda.synchronize()
@@ -1859,9 +2048,9 @@ def main() -> int:
         err = max_abs_err(outs_k, outs_p)
         if not outputs_agree(outs_k, outs_p, stats_idx):
             fail(f"{name}: kernel disagrees with its plain version (max abs err {err})")
-        sets = copies_of(args)
-        ms = graph_ms([lambda a=a: kernel_fn(*a, **kwargs) for a in sets])
-        plain_ms = cuda_ms(lambda: plain_fn(*args, **plain_kwargs), reps=3, warmup=1)
+        time_k, time_p, sets = timed or (kernel_fn, plain_fn, copies_of(args))
+        ms = graph_ms([lambda a=a: time_k(*a, **kwargs) for a in sets])
+        plain_ms = cuda_ms(lambda: time_p(*sets[0], **plain_kwargs), reps=3, warmup=1)
         library_ms = graph_ms([library(a) for a in sets]) if library else None
         bytes_s = need_bytes / HBM_BYTES_PER_S
         ops_s = ops / FP32_OPS_PER_S
@@ -2404,6 +2593,67 @@ def main() -> int:
     check_kernel("conditional_wake_scan", wk.conditional_wake_scan, step_mod.wake_scan_plain, args, kwargs, -1,
                  None, 10 * Cw * Pw + 10 * Cw * V, 6 * most["conditional_wake_scan"])
     del sim, busiest
+
+    stamp("phase 3: the telemetry record")
+    # The flight recorder's record (ops/telemetry_kernel.py; glue, no TPU
+    # kernel) on phase 17's line, the composed line through pod_window=512
+    # with telemetry on, eagerly to 590 s: its last call (C = 256, N = 96,
+    # P = 648, the ring's R = 1024), compared bit for bit (the row, the
+    # cursor and the counter snapshot it writes in place). Timed in place
+    # on input copies that share the ring (one row a cluster written).
+    # Bytes: the phase and alive rows, the reserve leaves, the pod bases,
+    # the window, the counters; m0 and the cursor read and written, a row
+    # written. No PyTorch call computes it.
+    from kubernetriks_tpu_torch.ops import telemetry_kernel as tk
+
+    sim = composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, graphs=False, telemetry=True)
+    last = {}
+    real_record = tk.telemetry_record
+
+    def recording(*args, **kwargs):
+        head, counters, tail = args[:7], args[7], args[8:]
+        last["call"] = (kept(head) + ([c.clone() for c in counters],) + kept(tail), kwargs)
+        return real_record(*args, **kwargs)
+
+    tk.telemetry_record = recording
+    try:
+        sim.step_until_time(590.0)
+    finally:
+        tk.telemetry_record = real_record
+    torch.cuda.synchronize()
+    if "call" not in last:
+        fail("phase 3: the composed line with telemetry on never called the record")
+    args, kwargs = last["call"]
+    phase_r, alive_r, head_r = args[0], args[1], args[2]
+    C, P = phase_r.shape
+    N, R = alive_r.shape[1], args[9].shape[1]
+    Gp, Gn = (0, 0) if head_r is None else (head_r.shape[1], args[4].shape[1])
+    print(f"phase 3: the record on {WINDOWED_COMPOSED} at 590 s: C={C} N={N} P={P} R={R} Gp={Gp} Gn={Gn}",
+          flush=True)
+    del sim
+
+    def record_outs(fn):
+        def run(*a, **k):
+            m0, buf, cursor = (x.clone() for x in a[8:])
+            fn(*a[:8], m0, buf, cursor, **k)
+            return m0, buf, cursor
+
+        return run
+
+    size = nbytes([a for a in args[:7] if isinstance(a, torch.Tensor)]) + nbytes(args[7]) + nbytes(args[8:])
+    n_sets = min(MAX_COPIES, max(1, -(-2 * L2_BYTES // max(size, 1))))
+    sets = [args] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args[:7])
+        + ([c.clone() for c in args[7]], args[8].clone(), args[9], args[10].clone())
+        for _ in range(n_sets - 1)
+    ]
+    check_kernel(
+        "telemetry_record", record_outs(tk.telemetry_record), record_outs(step_mod.telemetry_record_plain),
+        args, kwargs, -1, None,
+        4 * C * P + C * N + 8 * C * Gp + 4 * C * Gn + 8 * C + 40 * C + 80 * C + 48 * C + 8 * C, C * (2 * P + N),
+        timed=(tk.telemetry_record, step_mod.telemetry_record_plain, sets),
+    )
+    del sets, args
     floors = chain_floors(sk, dev)
     print(
         "phase 3: chain floor per candidate (one cluster, 32 nodes, 1 024 candidates): "
@@ -2684,6 +2934,10 @@ def main() -> int:
     stamp("phase 16")
     cm_path = conditional_move_phase(dev, sk, names + ca_names + ["conditional_wake_scan"], windowed_composed)
 
+    # --- 17. the flight recorder --------------------------------------------------------------
+    stamp("phase 17")
+    telemetry_path = telemetry_phase(dev, sk, names + ca_names, windowed_composed)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -2703,6 +2957,8 @@ def main() -> int:
         "catch_up": ("catch_up.cu", "kubernetriks_tpu/batched/step.py:2322 (XLA in the reference, no TPU kernel)"),
         "conditional_wake_scan": (
             "conditional_wake.cu", "kubernetriks_tpu/batched/step.py:994 (XLA in the reference, no TPU kernel)"),
+        "telemetry_record": (
+            "telemetry_record.cu", "kubernetriks_tpu/batched/step.py:1784 (XLA in the reference, no TPU kernel)"),
     }
     # Each kernel's launches come from its own path's run: the scheduling
     # kernels from the headline path (phase 4), the CA kernels from the
@@ -2757,9 +3013,11 @@ def main() -> int:
     # The window glue: the razor's predicate, fast-forward's next window and
     # catch-up from the sparse headline's run (phase 15), the conditional
     # move's scans from its line's (phase 16).
-    glue_names = ff_names + ["conditional_wake_scan"]
+    glue_names = ff_names + ["conditional_wake_scan", "telemetry_record"]
     path_launches.update({n: sparse_path["launches"][n] for n in ff_names})
     path_launches["conditional_wake_scan"] = cm_path["launches"]["conditional_wake_scan"]
+    # The record from phase 17's telemetry-on run.
+    path_launches["telemetry_record"] = telemetry_path["on"]["launches"]["telemetry_record"]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels) + glue_names:
         name = replay_labels.get(label, label)
         r = report[label]
@@ -2785,6 +3043,7 @@ def main() -> int:
             "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
             "composed_reclaim_off": composed_reclaim_off, "churn": churn_path,
             "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
+            "telemetry": telemetry_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

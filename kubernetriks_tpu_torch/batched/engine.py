@@ -88,6 +88,26 @@ Two ways of skipping work (reference engine.py:995-1012, 1149-1166,
   reference's. `dispatch_stats` counts executed_windows and
   skipped_windows.
 
+The flight recorder (`telemetry=`, None: KTPU_TRACE; `telemetry_ring=`
+R windows; `watchdog=`, None: KTPU_WATCHDOG, unset armed exactly with
+telemetry; reference engine.py:771-812, 1632-1653, 3957-4200): the state
+carries a (C, R, 12) int32 ring that every executed window's record
+writes on the device (graphs.py), which the engine drains only where the
+host blocks anyway: the entry of step_until_time where the call could
+wrap past undrained rows, its exit and a slide's or fast-forward's read
+where the ring is half full (host arithmetic on the windows recorded),
+and readout. The drains feed the host series (`telemetry_window_series`,
+at most `telemetry_series_windows` windows) and the capacity observatory
+(telemetry/observatory.py: occupancy, memory watermarks, the saturation
+watchdog, export hooks). The span tracer (`tracer`) times the window
+spans, slides, growths, captures and fast-forward's reads. None of it
+adds a host read or a replay to the stepping loop: host_syncs and
+dispatch_stats are those of the same run with telemetry off.
+`collect_gauges` (an attribute, off by default) samples the gauges after
+every window (fast-forward then steps every window, as the reference's
+does) into a device buffer read once GAUGE_SPAN windows
+(`gauge_series`, `write_gauge_csv`).
+
 The window loop reads nothing back from the device: the engine keeps the
 trace slab's window column on the host and mirrors the event cursor there,
 which tells it, per window, how many event chunks to run and whether a
@@ -97,14 +117,14 @@ same float32 pair arithmetic and decides which autoscaler passes a window
 runs, and in which windows a CA removal can take effect. The mirrors are
 read from the device once, when a state is installed; `run_to_completion`
 reads once per chunk of windows to test for the end of the run, the
-sliding pod window once a span, for its shift, and fast-forward once an
-executed window, for the next.
+sliding pod window once a span, for its shift, fast-forward once an
+executed window, for the next, and gauge collection once a span.
 """
 
 from __future__ import annotations
 
 import math
-import os
+import time
 import warnings
 from typing import Dict, List, Optional, Sequence
 
@@ -113,7 +133,7 @@ import torch
 
 from kubernetriks_tpu_torch import chaos
 from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
-from kubernetriks_tpu_torch.batched.graphs import CudaGraphs, WindowExecutor
+from kubernetriks_tpu_torch.batched.graphs import GAUGE_SPAN, CudaGraphs, WindowExecutor
 from kubernetriks_tpu_torch.batched.pipeline import compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
@@ -148,7 +168,10 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     stage_segment,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
+from kubernetriks_tpu_torch.flags import flag_bool, flag_tristate
 from kubernetriks_tpu_torch.ops.scheduler_kernel import profile_terms
+from kubernetriks_tpu_torch.telemetry import NULL_TRACER, GaugeSeries, SpanTracer
+from kubernetriks_tpu_torch.telemetry.tracer import PH_SLIDE, PH_WINDOW_CHUNK, PH_WINDOW_GROW
 
 POD_ALIGN = 128
 # Device bytes the whole-trace slide payload may take (reference
@@ -200,16 +223,6 @@ def flush_windows(interval: float, flush_interval: float) -> int:
     while np.float32(d) * np.float32(interval) < np.float32(flush_interval):
         d += 1
     return d
-
-
-def flag_bool(name: str, default: bool) -> bool:
-    """An environment flag: unset gives `default`; "0", "", "false", "no"
-    and "off" (any case, trimmed) are false, anything else true (the
-    reference's flags.parse_bool)."""
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    return raw.strip().lower() not in ("0", "", "false", "no", "off")
 
 
 def choose_cycle_route(n_clusters: int, megakernel: bool = True) -> str:
@@ -648,8 +661,45 @@ class BatchedSimulation:
         reclaim: Optional[bool] = None,
         fast_forward: Optional[bool] = None,
         window_razor: Optional[bool] = None,
+        telemetry: Optional[bool] = None,
+        telemetry_ring: int = 1024,
+        watchdog: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # The flight recorder (module note): None reads KTPU_TRACE; the
+        # watchdog rides it (None reads KTPU_WATCHDOG, unset: armed exactly
+        # when telemetry is), and armed without it raises.
+        self._telemetry = flag_bool("KTPU_TRACE") if telemetry is None else bool(telemetry)
+        self.tracer = SpanTracer() if self._telemetry else NULL_TRACER
+        self._telemetry_ring_size = max(8, int(telemetry_ring))
+        if watchdog is None:
+            env = flag_tristate("KTPU_WATCHDOG")
+            watchdog = self._telemetry if env is None else env
+        self._watchdog = bool(watchdog)
+        if self._watchdog and not self._telemetry:
+            raise ValueError(
+                "watchdog=True requires the flight recorder (telemetry=True / KTPU_TRACE=1): the "
+                "saturation watchdog reads the device ring's reserve-occupancy columns"
+            )
+        # Drained ring rows, window -> (C, K), at most
+        # telemetry_series_windows of them (the oldest dropped first and
+        # counted); the ring's windows recorded as the host counts them
+        # (_ring_host_cursor) and at the last drain; the device cursor's
+        # high-water mark as the drains read it.
+        self._ring_seen: dict = {}
+        self.telemetry_series_windows = 1 << 16
+        self._ring_series_dropped = 0
+        self._ring_windows_recorded = 0
+        self._ring_host_cursor = 0
+        self._ring_drained_at = 0
+        # What the drains cost (telemetry_report's ring_drains): their
+        # count, the windows they read, the wall ns of the ring's read (a
+        # blocking copy to the host, which waits for the queued windows)
+        # and of the host work after it (series, observatory, exporters).
+        self._ring_drain_stats = {"drains": 0, "windows": 0, "read_ns": 0, "host_ns": 0}
+        # Reads the stepping loop makes (slides' shifts, fast-forward's next
+        # windows): the observed side of telemetry_report's sync budget.
+        self._loop_reads = 0
         if graphs is None:
             graphs = self.device.type == "cuda"
         if graphs and self.device.type != "cuda":
@@ -714,6 +764,7 @@ class BatchedSimulation:
         self.max_ca_pods_per_cycle = max_ca_pods_per_cycle
         self.max_pods_per_scale_down = max_pods_per_scale_down
         self.reclaim = False
+        self._reserve_capacities: dict = {}
         # Why reclaim cannot run on this build (None: it can).
         self.reclaim_unsupported = "no autoscaler is configured"
         if hpa_on or ca_on:
@@ -725,6 +776,12 @@ class BatchedSimulation:
             )
             self.autoscale_statics = statics
             self.reclaim = decide_reclaim(reclaim, self.device.type == "cuda", ca_on, self.reclaim_unsupported)
+            # Each cluster's reserve sizes, for the capacity observatory
+            # (reference engine.py:1437-1446), read once here.
+            self._reserve_capacities = {
+                "hpa_reserve": [int(v) for v in statics.pg_slot_count.sum(dim=1).tolist()],
+                "ca_reserve": [int(v) for v in statics.ng_slot_count.sum(dim=1).tolist()],
+            }
             if ca_on and extra_names:
                 node_cap_cpu = np.concatenate([node_cap_cpu, np.tile(extra_cpu, (C, 1))], axis=1)
                 node_cap_ram = np.concatenate([node_cap_ram, np.tile(extra_ram, (C, 1))], axis=1)
@@ -749,7 +806,7 @@ class BatchedSimulation:
         # K is fixed here: a growth of the pod window does not change it
         # (reference engine.py:1486).
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
-        self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL", True))
+        self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL"))
 
         state = init_state(
             C,
@@ -835,6 +892,18 @@ class BatchedSimulation:
             "captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0, "slides": 0, "grows": 0,
             "executed_windows": 0, "skipped_windows": 0,
         }
+        self.observatory = None
+        if self._telemetry:
+            from kubernetriks_tpu_torch.telemetry.observatory import Observatory
+            from kubernetriks_tpu_torch.telemetry.ring import init_ring
+
+            state = state._replace(telemetry=init_ring(C, self._telemetry_ring_size, self.device))
+            self.observatory = Observatory(
+                interval=interval, capacities=self._reserve_capacities, watchdog=self._watchdog,
+            )
+        # Per-window gauge samples (collect_gauges; module note).
+        self.collect_gauges = False
+        self._gauges = GaugeSeries()
         self._state = state
         if self.pod_window is not None:
             self._refresh_name_ranks()
@@ -987,8 +1056,10 @@ class BatchedSimulation:
         """Slide the window on the device past its leading terminal slots
         and read the shift back: the span's one host read. False when no
         slide was possible (the state is unchanged)."""
-        s = self._executor.slide()
+        with self.tracer.span(PH_SLIDE):
+            s = self._executor.slide()
         self.host_syncs += 1
+        self._loop_reads += 1
         if s <= 0:
             return False
         self._pod_base += s
@@ -1009,7 +1080,12 @@ class BatchedSimulation:
         W, T = self.pod_window, self.consts.trace_pod_bound
         if W >= T:
             return False
-        new_W = min(2 * W, T)
+        with self.tracer.span(PH_WINDOW_GROW):
+            self._grow_to(min(2 * W, T))
+        return True
+
+    def _grow_to(self, new_W: int) -> None:
+        W, T = self.pod_window, self.consts.trace_pod_bound
         insert = new_W - W
         self._check_slide_budget(new_W)
         C = self.n_clusters
@@ -1043,7 +1119,6 @@ class BatchedSimulation:
         self._init_slide_payload()
         self.dispatch_stats["grows"] += 1
         self._executor.rebuild()
-        return True
 
     # --- state ------------------------------------------------------------
 
@@ -1079,14 +1154,28 @@ class BatchedSimulation:
                 "install_state: the state's autoscaler leaves do not match this "
                 "engine's autoscaler configuration"
             )
+        if (state.telemetry is None) != (self.state.telemetry is None):
+            raise ValueError(
+                "install_state: telemetry ring mismatch: the state "
+                + ("carries" if state.telemetry is not None else "lacks")
+                + " a telemetry ring and this engine was built with telemetry "
+                + ("off" if self.state.telemetry is None else "on")
+            )
         if self.pod_window is not None:
             # A state saved after growths: grow to its width first (its
             # leaves then replace every slot).
             while state.pods.phase.shape[1] > self.n_pods and self._grow_pod_window():
                 pass
         copy_state_into(self._state, state)
-        self._executor.bufs.acc.reset_()
+        self._executor.reset_after_install()
         self.host_syncs += 1
+        if state.telemetry is not None:
+            # The installed ring's rows count as undrained, so a drain
+            # reads them before later windows overwrite them.
+            self._ring_host_cursor = int(state.telemetry.cursor.max())
+            self._ring_drained_at = max(0, self._ring_host_cursor - self._telemetry_ring_size)
+            if self.observatory is not None:
+                self.observatory.reset()
         self._cursor = state.event_cursor.cpu().numpy().astype(np.int64)
         if self.pod_window is not None:
             self._pod_base = int(state.pod_base[0])
@@ -1172,15 +1261,43 @@ class BatchedSimulation:
     def _run_span(self, first: int, last: int) -> None:
         """Plan windows first..last on the host and run them through the
         window executor (reference `_dispatch_windows`, engine.py:1965),
-        with fast-forward its executed windows only (module note)."""
+        with fast-forward its executed windows only (module note); with
+        gauges on, every window, read back once GAUGE_SPAN windows."""
         if last < first:
             return
-        if self.fast_forward:
-            self._executor.run_windows_skipping(first, last, self._plan, self._skip_windows)
-        else:
-            self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
+        with self.tracer.span(PH_WINDOW_CHUNK):
+            if self.collect_gauges:
+                self._run_gauged(first, last)
+            elif self.fast_forward:
+                self._executor.run_windows_skipping(first, last, self._plan, self._skip_windows)
+            else:
+                self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
+                self._ring_host_cursor += last - first + 1
         self.next_window_idx = last + 1
         self.windows_run += last - first + 1
+
+    def _run_gauged(self, first: int, last: int) -> None:
+        """Windows first..last, each followed by a gauge sample into the
+        executor's gauge buffer (a slot indexed on the device), read back
+        once GAUGE_SPAN windows and at the end: one host read each (counted
+        in host_syncs), none a window. Gauge collection steps every window
+        (no fast-forward), as the reference's does (engine.py:2013)."""
+        ex = self._executor
+        ex.enable_gauges()
+        for lo in range(first, last + 1, GAUGE_SPAN):
+            hi = min(lo + GAUGE_SPAN - 1, last)
+            ex.run_windows([(w, self._plan(w)) for w in range(lo, hi + 1)])
+            self._ring_host_cursor += hi - lo + 1
+            self._gauges.append(np.arange(lo, hi + 1, dtype=np.int32), ex.read_gauges(hi - lo + 1))
+            self.host_syncs += 1
+
+    def _after_executed_read(self) -> None:
+        """After fast-forward's read of the next window (executor): the
+        executed window's record counts, and the ring drains there if it
+        fills, riding the read that just blocked."""
+        if self.state.telemetry is not None:
+            self._ring_host_cursor += 1
+            self._maybe_drain_ring()
 
     def _skip_windows(self, lo: int, hi: int) -> None:
         """The host mirrors through the skipped windows [lo, hi): the event
@@ -1225,6 +1342,8 @@ class BatchedSimulation:
                     "beyond the device window and no leading pod is terminal yet, and the window "
                     "already covers the whole plain trace segment"
                 )
+            # The ring drains here if it fills, riding the slide's read.
+            self._maybe_drain_ring()
 
     def precompile_pieces(self) -> int:
         """Capture every window piece the engine's plans can reach on its
@@ -1233,6 +1352,8 @@ class BatchedSimulation:
         2064). Returns the number of graphs captured; 0 with graphs off."""
         if not self.graphs:
             return 0
+        if self.collect_gauges:
+            self._executor.enable_gauges()
         return self._executor.capture(self._executor.reachable_keys())
 
     def graph_pool_bytes(self) -> int:
@@ -1252,8 +1373,18 @@ class BatchedSimulation:
         self._run_span(w, w)
 
     def step_until_time(self, until_time: float) -> None:
-        """Advance through every window whose cycle time is <= until_time."""
-        self._dispatch_windows(self.window_idxs(until_time))
+        """Advance through every window whose cycle time is <= until_time.
+        With telemetry on, the ring drains at the entry where this call
+        could wrap past undrained rows, and at the exit where it is half
+        full (host arithmetic decides; the reads land where the host
+        blocks anyway, reference engine.py:2509-2531)."""
+        idxs = self.window_idxs(until_time)
+        if self.state.telemetry is not None:
+            pending = self._ring_host_cursor - self._ring_drained_at
+            if pending > 0 and pending + len(idxs) > self._telemetry_ring_size:
+                self._maybe_drain_ring(force=True)
+        self._dispatch_windows(idxs)
+        self._maybe_drain_ring()
 
     def run_to_completion(self, max_time: float = 1e7) -> None:
         """Step until every trace pod has terminated (reference
@@ -1401,6 +1532,227 @@ class BatchedSimulation:
                 "pod_queue_time": est(m.queue_time),
             },
         }
+
+
+    # --- telemetry readout --------------------------------------------------
+
+    def _maybe_drain_ring(self, force: bool = False) -> Optional[Dict]:
+        """Drain the telemetry ring before its rows wrap out (reference
+        engine.py:3959): host arithmetic on the windows recorded since the
+        last drain decides (half the ring, or `force`), and only those rows
+        are read (telemetry/ring.snapshot; the reference reads the whole
+        ring), where the host already blocks: step_until_time's entry and
+        exit, a slide's or an executed window's read, readout. It is not counted in host_syncs, and adds
+        no graph replay. Returns the observatory's drain record where a
+        drain happened, else None."""
+        if self.state.telemetry is None:
+            return None
+        pending = self._ring_host_cursor - self._ring_drained_at
+        if not force and pending * 2 < self._telemetry_ring_size:
+            return None
+        from kubernetriks_tpu_torch.telemetry import ring as dring
+
+        # The rows recorded since the last drain, as the host counts them.
+        t0 = time.perf_counter_ns()
+        buf, cursor = dring.snapshot(self.state.telemetry, self._ring_drained_at, self._ring_host_cursor)
+        t1 = time.perf_counter_ns()
+        if cursor != self._ring_host_cursor:
+            raise RuntimeError(
+                f"telemetry ring: the card recorded {cursor} windows, the host counted {self._ring_host_cursor}"
+            )
+        dring.merge_snapshot(self._ring_seen, buf)
+        cap = self.telemetry_series_windows
+        if cap and len(self._ring_seen) > cap:
+            # Drop the oldest windows past the series bound (reported as
+            # ring.series_dropped_windows).
+            for w in sorted(self._ring_seen)[: len(self._ring_seen) - cap]:
+                del self._ring_seen[w]
+                self._ring_series_dropped += 1
+        self._ring_windows_recorded = max(self._ring_windows_recorded, cursor)
+        drained = self._ring_host_cursor - self._ring_drained_at
+        self._ring_drained_at = self._ring_host_cursor
+        record = self._observe_drain(buf)
+        cost = self._ring_drain_stats
+        cost["drains"] += 1
+        cost["windows"] += drained
+        cost["read_ns"] += t1 - t0
+        cost["host_ns"] += time.perf_counter_ns() - t1
+        return record
+
+    def _sync_budget(self) -> Dict[str, int]:
+        """The stepping loop's documented reads (one a slide or growth, one
+        an executed window under fast-forward) against the reads it made."""
+        stats = self.dispatch_stats
+        return {
+            "steady_state_expected": stats["slides"] + stats["grows"] + stats["executed_windows"],
+            "observed_slide_syncs": self._loop_reads,
+        }
+
+    def _observe_drain(self, buf: np.ndarray) -> Optional[Dict]:
+        """Feed one drained ring (an owned host copy) to the capacity
+        observatory: occupancy, a memory sample, the watchdog, the
+        exporters. Host work only."""
+        if self.observatory is None:
+            return None
+        fresh = self.observatory.ingest(buf)
+        return self.observatory.observe(
+            resources=self._sample_resources(),
+            dispatch_stats=dict(self.dispatch_stats),
+            sync_budget=self._sync_budget(),
+            feeder=None,
+            fresh=fresh,
+        )
+
+    def drain_telemetry(self) -> Dict:
+        """Drain the ring and run the observatory now; returns the drain
+        record ({} with telemetry off). The rows it read are owned host
+        copies: later windows, which write the ring in place, leave them
+        as they are."""
+        return self._maybe_drain_ring(force=True) or {}
+
+    def attach_metrics_exporter(self, exporter) -> None:
+        """Register an export hook, an object with .emit(record: dict) (e.g.
+        telemetry/export.JsonlExporter), called once a ring drain that
+        found new windows, with the observatory's record."""
+        if self.observatory is None:
+            raise ValueError("telemetry is off — build with telemetry=True or KTPU_TRACE=1 to attach metrics exporters")
+        self.observatory.exporters.append(exporter)
+
+    def _sample_resources(self) -> Dict:
+        """The observatory's memory sample: host RSS, the CUDA caching
+        allocator's bytes in use and their peak (torch.cuda.memory_stats,
+        where the reference reads its devices' memory_stats), and the
+        engine's own buffer accounting. Host calls, no read of the state."""
+        from kubernetriks_tpu_torch.telemetry.observatory import sample_host_memory
+
+        res: Dict = dict(sample_host_memory())
+        if self.device.type == "cuda":
+            ms = torch.cuda.memory_stats(self.device)
+            res["device_bytes_in_use"] = int(ms.get("allocated_bytes.all.current", 0))
+            res["device_peak_bytes_in_use"] = int(ms.get("allocated_bytes.all.peak", 0))
+        res["slabs"] = self._slab_accounting()
+        return res
+
+    def _slab_accounting(self) -> Dict[str, int]:
+        """Bytes of the buffers the port keeps beside the state: the
+        whole-trace slide payload on the device (the sliding pod window's),
+        the host tables of the trace (create windows, name ranks, the
+        payload source), the telemetry ring and the gauge buffer."""
+
+        def nbytes(tensors) -> int:
+            return sum(int(t.numel() * t.element_size()) for t in tensors if t is not None)
+
+        host = 0
+        for name in ("_pod_create_win", "_pod_name_rank_full"):
+            arr = getattr(self, name, None)
+            if arr is not None:
+                host += int(arr.nbytes)
+        source = getattr(self, "_payload_source", None)
+        for arr in getattr(source, "full_pods", {}).values():
+            host += int(np.asarray(arr).nbytes)
+        ring = self.state.telemetry
+        return {
+            "device_slide_bytes": nbytes(getattr(self, "_slide_payload", {}).values()),
+            "host_payload_bytes": host,
+            "telemetry_ring_bytes": 0 if ring is None else nbytes([ring.buf, ring.cursor]),
+            "gauge_buffer_bytes": nbytes([self._executor.bufs.gauges, self._executor.bufs.gauge_slot]),
+        }
+
+    def telemetry_window_series(self):
+        """(windows (Wn,), records (Wn, C, K)): the ring's per-window series
+        (columns telemetry.ring.RING_COLUMNS), drained first; empty arrays
+        with telemetry off."""
+        from kubernetriks_tpu_torch.telemetry import ring as dring
+
+        self._maybe_drain_ring(force=True)
+        return dring.series(self._ring_seen, self.n_clusters)
+
+    def telemetry_report(self) -> Dict:
+        """The flight recorder's readout (reference engine.py:4147): the
+        tracer's per-phase host times and counters, dispatch_stats, the
+        sync budget, the ring's totals and high-water marks, the
+        observatory's section and the host ms a recorded window. With
+        telemetry off: dispatch stats and the budget, enabled False."""
+        from kubernetriks_tpu_torch.telemetry.tracer import PHASE_NAMES
+
+        stats = dict(self.dispatch_stats)
+        rep = {"enabled": self._telemetry, "dispatch_stats": stats}
+        if self.state.telemetry is not None:
+            # The drains made before this readout (its own comes after).
+            cost = self._ring_drain_stats
+            n = cost["drains"]
+            rep["ring_drains"] = {
+                "drains": n,
+                "windows": cost["windows"],
+                "read_ms": cost["read_ns"] / 1e6,
+                "host_ms": cost["host_ns"] / 1e6,
+                "ms_per_drain": (cost["read_ns"] + cost["host_ns"]) / 1e6 / n if n else 0.0,
+            }
+        rep.update(self.tracer.report())
+        rep["sync_budget"] = self._sync_budget()
+        # Host ms a recorded window: the window spans and the slides
+        # (their reads included) over the windows the ring recorded.
+        win_ms = sum(
+            rep["spans"][PHASE_NAMES[p]]["total_ms"]
+            for p in (PH_WINDOW_CHUNK, PH_SLIDE)
+            if PHASE_NAMES[p] in rep["spans"]
+        )
+        if self.state.telemetry is not None:
+            from kubernetriks_tpu_torch.telemetry import ring as dring
+
+            wins, data = self.telemetry_window_series()
+            rep["ring"] = {
+                "columns": list(dring.RING_COLUMNS),
+                "windows_recorded": self._ring_windows_recorded,
+                "windows_kept": int(len(wins)),
+                "series_dropped_windows": self._ring_series_dropped,
+                # Sums for the per-window deltas; high-water marks for the
+                # point-in-time readings.
+                "totals": {
+                    name: int(data[:, :, col].sum()) if len(wins) else 0
+                    for col, name in enumerate(dring.RING_COLUMNS)
+                    if col > 0 and name not in dring.GAUGE_COLUMNS
+                },
+                "high_water": {
+                    name: int(data[:, :, col].max()) if len(wins) else 0
+                    for col, name in enumerate(dring.RING_COLUMNS)
+                    if name in dring.GAUGE_COLUMNS
+                },
+            }
+        if self.observatory is not None:
+            self.observatory.update_memory(self._sample_resources())
+            rep["resources"] = self.observatory.report()
+            windows = int(self._ring_windows_recorded)
+            if windows > 0:
+                rep["per_window"] = {
+                    "windows": windows,
+                    "window_program_ms_total": win_ms,
+                    "ms_per_window": win_ms / windows,
+                }
+        return rep
+
+    def write_chrome_trace(self, path: str) -> str:
+        """Write the Chrome trace-event JSON (Perfetto loads it): the host
+        spans and the ring's series as sim-time counter tracks. Needs
+        telemetry on."""
+        if not self._telemetry:
+            raise ValueError("telemetry is off — build with telemetry=True or KTPU_TRACE=1")
+        from kubernetriks_tpu_torch.telemetry import ring as dring
+
+        wins, data = self.telemetry_window_series()
+        extra = dring.counter_events(wins, data, self.config.scheduling_cycle_interval)
+        return self.tracer.write_chrome_trace(path, extra)
+
+    def gauge_series(self):
+        """(times (W,), samples (W, C, 7)): the gauge samples collected so
+        far (columns telemetry.gauges.GAUGE_CSV_COLUMNS after the
+        timestamp)."""
+        return self._gauges.series(self.n_clusters, self.config.scheduling_cycle_interval)
+
+    def write_gauge_csv(self, path: str, cluster: int = 0) -> None:
+        """One cluster's gauge series in the scalar collector's 8-column
+        CSV schema (reference src/metrics/collector.rs:216-228)."""
+        self._gauges.write_csv(path, cluster, self.n_clusters, self.config.scheduling_cycle_interval)
 
 
 def build_batched_from_traces(

@@ -44,6 +44,19 @@ per key:
   runs); at most 12 end graphs a route, 18 with node faults, 24 with the
   razor.
 
+With a telemetry ring in the state (the flight recorder) the end piece
+ends with the window's record (step.telemetry_record, one kernel), after
+its copy-back and outside the razor's conditional node, so a gated window
+records too: the ring's row at cursor % R, the cursor, and the counter
+snapshot WindowBuffers.m0, which the record refreshes to the counters the
+next window starts from (nothing between two windows changes them: the
+catch-up, the slide and a growth leave the metrics alone; install_state
+sets it). No piece is added, so replays and reads are those of a run
+without telemetry. With gauge collection on (the engine's
+collect_gauges) a ("gauge",) piece follows each window's end: the
+window's step.gauge_snapshot into WindowBuffers.gauges at a slot the
+device indexes, which the engine reads back once a span.
+
 Under the conditional move the chunks also fill the nodes' creation
 times of the window (WindowBuffers.node_create_rel), and the tail's
 WakeEvents reach the cycle, whose queue preamble runs the scans on the
@@ -130,7 +143,14 @@ from kubernetriks_tpu_torch.batched.autoscale import (
     hpa_pass,
     reclaim_name_orders,
 )
-from kubernetriks_tpu_torch.batched.state import ClusterBatchState, clone_state, copy_state_into, flatten, storages
+from kubernetriks_tpu_torch.batched.state import (
+    ClusterBatchState,
+    clone_state,
+    copy_state_into,
+    counter_snapshot,
+    flatten,
+    storages,
+)
 from kubernetriks_tpu_torch.batched.step import (
     INF,
     EventAccumulators,
@@ -140,18 +160,24 @@ from kubernetriks_tpu_torch.batched.step import (
     empty_wake,
     event_chunk,
     events_tail,
+    gauge_snapshot,
     next_window_span,
     quantize_shift,
     run_scheduling_cycle,
     slide_apply,
     slide_shift_core,
+    telemetry_record,
     window_work_due,
 )
 from kubernetriks_tpu_torch.ops._launch import LAUNCHES, register_deferred
+from kubernetriks_tpu_torch.telemetry.tracer import PH_PRECOMPILE, PH_PROGRESS_WAIT, PH_SHIFT_WAIT
 
 Key = Tuple
 # Conditional bodies with counted launches a capture backend can hold.
 BODY_COUNTERS = 4096
+# Windows of gauge samples the gauge buffer holds: the engine reads it back
+# at least this often (once a span, spans cut to this many windows).
+GAUGE_SPAN = 256
 
 
 class WindowBuffers(NamedTuple):
@@ -172,17 +198,27 @@ class WindowBuffers(NamedTuple):
     # tail's WakeEvents; None without it.
     node_create_rel: Optional[torch.Tensor] = None
     wake: Optional[WakeEvents] = None
+    # The flight recorder's: the counters as they were when the window
+    # began ((len(TELEM_COUNTERS), C) int32; between windows equal to the
+    # state's counters), which the record takes deltas of and refreshes;
+    # None without a telemetry ring.
+    m0: Optional[torch.Tensor] = None
+    # Gauge collection's: (GAUGE_SPAN, C, 7) float32 samples of the span so
+    # far and the (1,) int32 slot of the next; None until gauges are on.
+    gauges: Optional[torch.Tensor] = None
+    gauge_slot: Optional[torch.Tensor] = None
 
 
-def piece_schedule(plan: WindowPlan, route: str, razor: bool = False) -> List[Key]:
+def piece_schedule(plan: WindowPlan, route: str, razor: bool = False, gauges: bool = False) -> List[Key]:
     """The pieces window `plan` runs on `route`, in order (step.window_body's
-    order); `razor`: the window-cost razor is on."""
+    order); `razor`: the window-cost razor is on; `gauges`: a gauge sample
+    follows the window."""
     hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
     head = [("reclaim",)] if plan.reclaim else []
     end = ("end", route, plan.removal_due, hpa, plan.ca_due) + (("crash",) if plan.crash_due else ())
     if razor and plan.n_chunks == 0:
         end += ("gate",)
-    return head + [("chunk",)] * plan.n_chunks + [end]
+    return head + [("chunk",)] * plan.n_chunks + [end] + ([("gauge",)] if gauges else [])
 
 
 class CudaGraphs:
@@ -314,6 +350,7 @@ class WindowExecutor:
         # without blocking, then waited on.
         self._word_host = torch.zeros((1,), dtype=torch.int32, pin_memory=dev.type == "cuda")
         self._word_event = torch.cuda.Event() if dev.type == "cuda" else None
+        self.gauges_on = False
         self._bind_buffers()
 
     def _bind_buffers(self) -> None:
@@ -337,7 +374,10 @@ class WindowExecutor:
             rank=sim.autoscale_statics.pod_name_rank if sliding else None,
             node_create_rel=torch.full((C, N), INF, dtype=torch.float32, device=dev) if cm else None,
             wake=empty_wake(C, N, P, dev) if cm else None,
+            m0=counter_snapshot(state.metrics) if state.telemetry is not None else None,
         )
+        if self.gauges_on:
+            self.bufs = self._with_gauges(self.bufs)
         leaves = [t for t in flatten(self.bufs).values() if t.numel()]
         self._fixed = storages(leaves)
         if len(self._fixed) != len(leaves):
@@ -346,6 +386,37 @@ class WindowExecutor:
         # key -> (graph, its launch counts, the counted conditional bodies'
         # slots it holds)
         self.graphs: Dict[Key, Tuple[object, Dict[str, int], range]] = {}
+
+    @staticmethod
+    def _with_gauges(b: WindowBuffers) -> WindowBuffers:
+        C, dev = b.W.shape[0], b.W.device
+        return b._replace(
+            gauges=torch.zeros((GAUGE_SPAN, C, 7), dtype=torch.float32, device=dev),
+            gauge_slot=torch.zeros((1,), dtype=torch.int32, device=dev),
+        )
+
+    def enable_gauges(self) -> None:
+        """Add the gauge buffers (once; every piece and graph stays, as
+        none reads them but the gauge piece)."""
+        if self.gauges_on:
+            return
+        self.gauges_on = True
+        self.bufs = self._with_gauges(self.bufs)
+        self._fixed |= storages([self.bufs.gauges, self.bufs.gauge_slot])
+
+    def read_gauges(self, n: int):
+        """The span's n gauge samples, (n, C, 7) on the host (a host read),
+        and the slot back to 0."""
+        out = self.bufs.gauges[:n].to("cpu", copy=True).numpy()
+        self.bufs.gauge_slot.zero_()
+        return out
+
+    def reset_after_install(self) -> None:
+        """Fresh accumulators and, with a telemetry ring, m0 set to the
+        installed counters (the next window's incoming counters)."""
+        self.bufs.acc.reset_()
+        if self.bufs.m0 is not None:
+            self.bufs.m0.copy_(counter_snapshot(self.bufs.state.metrics))
 
     def rebuild(self) -> None:
         """New buffers at the engine's new pod width, after a growth of the
@@ -458,6 +529,14 @@ class WindowExecutor:
                     b.acc.reset_()
                     if cm:
                         b.node_create_rel.fill_(INF)
+                if b.m0 is not None:
+                    # The window's record, outside the razor's conditional
+                    # node: a gated window records too.
+                    telemetry_record(b.state, b.m0, b.W, sim.consts)
+        elif kind == "gauge":
+            def run(b: WindowBuffers) -> None:
+                b.gauges.index_copy_(0, b.gauge_slot.long(), gauge_snapshot(b.state)[None])
+                b.gauge_slot.add_(1)
         elif kind == "next":
             def run(b: WindowBuffers) -> None:
                 b.span.copy_(next_window_span(
@@ -522,6 +601,8 @@ class WindowExecutor:
             keys += [("next",), ("catch_up",)]
         if sim.pod_window is not None:
             keys.append(("slide", sim.pod_window))
+        if self.gauges_on:
+            keys.append(("gauge",))
         return keys
 
     def capture(self, keys: Iterable[Key]) -> int:
@@ -535,6 +616,11 @@ class WindowExecutor:
             raise RuntimeError("WindowExecutor.capture: no capture backend (graphs are off)")
         scratch = clone_state(self.bufs)
         slots = getattr(self.backend, "body_slots", [])
+        with self.sim.tracer.span(PH_PRECOMPILE):
+            self._capture_all(todo, scratch, slots)
+        return len(todo)
+
+    def _capture_all(self, todo: List[Key], scratch: WindowBuffers, slots: list) -> None:
         for key in todo:
             body = self._body(key)
             before = dict(LAUNCHES)
@@ -548,7 +634,6 @@ class WindowExecutor:
                 LAUNCHES.update(before)
             self.graphs[key] = (graph, delta, range(first, len(slots)))
             self.sim.dispatch_stats["captures"] += 1
-        return len(todo)
 
     def _run(self, key: Key) -> None:
         if self.backend is None:
@@ -595,7 +680,8 @@ class WindowExecutor:
         """Run the slide piece and read its shift back (0: no slide was
         possible, and the state is as it was)."""
         self._run(("slide", self.sim.pod_window))
-        return self._read_word(self.bufs.shift)
+        with self.sim.tracer.span(PH_SHIFT_WAIT):
+            return self._read_word(self.bufs.shift)
 
     def run_windows(self, windows: Iterable[Tuple[int, WindowPlan]]) -> None:
         """Advance the engine's state through `windows`, (index, plan) in
@@ -604,7 +690,7 @@ class WindowExecutor:
         stats = sim.dispatch_stats
         for w, plan in windows:
             self.bufs.W.fill_(w)
-            for key in piece_schedule(plan, sim.cycle_route, sim.window_razor):
+            for key in piece_schedule(plan, sim.cycle_route, sim.window_razor, self.gauges_on):
                 self._run(key)
             stats["graph_windows" if self.backend is not None else "eager_windows"] += 1
 
@@ -619,7 +705,9 @@ class WindowExecutor:
         counted in the engine's host_syncs); where windows lie between,
         the catch-up piece replays their bookkeeping and `skipped(lo, hi)`
         brings the host's mirrors through windows [lo, hi). `plan(w)`: the
-        plan of an executed window w."""
+        plan of an executed window w. After each read the engine's
+        `_after_executed_read` runs (the telemetry ring's drain rides that
+        read where the ring fills)."""
         sim = self.sim
         stats = sim.dispatch_stats
         self.bufs.limit.fill_(last + 1)
@@ -627,9 +715,11 @@ class WindowExecutor:
         while w <= last:
             self.run_windows([(w, plan(w))])
             self._run(("next",))
-            nxt = self._read_word(self.bufs.span[1:])
+            with sim.tracer.span(PH_PROGRESS_WAIT):
+                nxt = self._read_word(self.bufs.span[1:])
             sim.host_syncs += 1
             stats["executed_windows"] += 1
+            sim._after_executed_read()
             if nxt > w + 1:
                 self._run(("catch_up",))
                 skipped(w + 1, nxt)

@@ -11,8 +11,9 @@ The state is a tree of NamedTuples of tensors. `flatten` names each leaf
 by its attribute path (".pods.queue_ts.win"), the same strings the JAX
 reference's `jax.tree_util.keystr` gives, so the two states compare leaf
 for leaf as flat numpy dicts (`compare_states`, convert.py). Optional
-subtrees (the autoscaler state `auto`, and its HPA collection latch) are
-None when absent and then have no leaves, as in the reference.
+subtrees (the autoscaler state `auto`, and its HPA collection latch, and
+the flight recorder's ring `telemetry`) are None when absent and then have
+no leaves, as in the reference.
 """
 
 from __future__ import annotations
@@ -168,6 +169,66 @@ class ClusterBatchState(NamedTuple):
     pods: PodArrays
     metrics: MetricArrays
     auto: Optional[AutoscaleState] = None  # None: no autoscaler configured
+    # The flight recorder's per-window ring (TelemetryRing); None: telemetry off.
+    telemetry: Optional["TelemetryRing"] = None
+
+
+# Columns of the telemetry ring (TelemetryRing.buf), as the reference's
+# (`kubernetriks_tpu/batched/state.py:219-278`). All int32, one row per
+# cluster and executed window.
+TELEM_WINDOW = 0  # the window this row describes
+TELEM_DECISIONS = 1  # scheduling decisions committed in the window
+TELEM_QUEUED = 2  # active-queue depth after the window
+TELEM_UNSCHED = 3  # unschedulable-queue depth after the window
+TELEM_HPA_PODS = 4  # HPA pod actions in the window (scale-ups + scale-downs)
+TELEM_CA_NODES = 5  # CA node actions in the window (scale-ups + scale-downs)
+TELEM_FAULTS = 6  # chaos events in the window (crashes, recoveries, interruptions, restarts, failures)
+TELEM_ALIVE_NODES = 7  # alive nodes after the window
+TELEM_HPA_RESERVE = 8  # live HPA replicas over the groups (hpa_tail - hpa_head)
+TELEM_CA_RESERVE = 9  # CA reserve slots in use (ca_cursor; under slot reclaim the live occupancy)
+# Plain-trace slots the device pod window has not covered yet
+# (trace_pod_bound - pod_base - plain width); at or above the observatory's
+# UNBOUNDED_SENTINEL where the whole trace is resident.
+TELEM_POD_HEADROOM = 10
+TELEM_LANE_ACTIVE = 11  # 1: the lane was active in the window (always 1 without fleets)
+TELEMETRY_COLS = 12
+
+# The metric counters a ring row takes window deltas of, in the order of
+# the record's snapshot of the incoming counters (m0, (len, C) int32).
+TELEM_COUNTERS = (
+    "scheduling_decisions",
+    "scaled_up_pods",
+    "scaled_down_pods",
+    "scaled_up_nodes",
+    "scaled_down_nodes",
+    "node_crashes",
+    "node_recoveries",
+    "pod_interruptions",
+    "pod_restarts",
+    "pods_failed",
+)
+
+
+class TelemetryRing(NamedTuple):
+    """(C, R, TELEMETRY_COLS) per-window metrics ring, carried in the state
+    like `auto` (None: telemetry off). Every executed window writes one row
+    a cluster at cursor % R and bumps the cursor; the engine drains it
+    only where the host already blocks. Unwritten rows hold window -1."""
+
+    buf: torch.Tensor  # (C, R, TELEMETRY_COLS) int32
+    cursor: torch.Tensor  # (C,) int32 windows recorded (slot = cursor % R)
+
+
+def strip_telemetry(state: ClusterBatchState) -> ClusterBatchState:
+    """The state without its telemetry ring: what a telemetry-on run must
+    equal, leaf for leaf, against the same run with telemetry off."""
+    return state._replace(telemetry=None)
+
+
+def counter_snapshot(metrics: MetricArrays) -> torch.Tensor:
+    """(len(TELEM_COUNTERS), C) int32: the counters the ring takes window
+    deltas of, stacked (a new tensor)."""
+    return torch.stack([getattr(metrics, name) for name in TELEM_COUNTERS])
 
 
 class TraceSlab(NamedTuple):
@@ -451,11 +512,13 @@ _TREE_TYPES = {
     ("AutoscaleState", "hpa_next"): TPair,
     ("AutoscaleState", "ca_next"): TPair,
     ("AutoscaleState", "col_next"): TPair,
+    ("ClusterBatchState", "telemetry"): TelemetryRing,
 }
 
 # Fields that may be None (absent subtrees).
 _OPTIONAL_FIELDS = {
     ("ClusterBatchState", "auto"),
+    ("ClusterBatchState", "telemetry"),
     ("AutoscaleState", "ca_alloc"),
     ("AutoscaleState", "ca_total"),
     ("AutoscaleState", "ca_reclaimed"),

@@ -25,7 +25,10 @@ too: the razor's predicate (`window_work_due`), fast-forward's next
 window (`next_window_span`) and catch-up (`catch_up_bookkeeping`), and
 the conditional move's scans on the device (`conditional_wake`), each
 through a glue kernel of ops/window_kernel.py whose plain version is
-beside it.
+beside it; and the flight recorder's: the ring's record
+(`telemetry_record`, a glue kernel of ops/telemetry_kernel.py, its plain
+version `telemetry_record_plain`) and the gauge reading
+(`gauge_snapshot`).
 
 What differs from the reference, and why it is exact:
 - The reference's data-dependent `lax.cond` / `while_loop` branches become
@@ -89,11 +92,14 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_RUNNING,
     PHASE_SUCCEEDED,
     PHASE_UNSCHEDULABLE,
+    TELEM_COUNTERS,
     ClusterBatchState,
     EstArrays,
     PodArrays,
     StepConstants,
+    TelemetryRing,
     TraceSlab,
+    counter_snapshot,
     fresh_pod_arrays,
 )
 from kubernetriks_tpu_torch.batched.timerep import (
@@ -106,7 +112,7 @@ from kubernetriks_tpu_torch.batched.timerep import (
     t_norm,
     t_where,
 )
-from kubernetriks_tpu_torch.ops import window_kernel
+from kubernetriks_tpu_torch.ops import telemetry_kernel, window_kernel
 from kubernetriks_tpu_torch.ops.chaos_kernel import pod_attempt_draw
 from kubernetriks_tpu_torch.ops.scheduler_kernel import (
     commit_scatter_plain,
@@ -1209,8 +1215,9 @@ def window_body(
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: CA slot
     reclaim's compaction where the plan runs it, events and finishes, one
-    cycle, then the autoscaler passes the plan names (reference
-    `_window_body`, step.py:1886, without telemetry or lane clocks).
+    cycle, then the autoscaler passes the plan names, and where the state
+    carries a telemetry ring the window's record into a copy of it
+    (reference `_window_body`, step.py:1886, without lane clocks).
     `autoscale`: None, or (statics, HPA group-slot bounds, CA scale-up
     candidates per cycle, CA pods per scale-down candidate).
     `cycle_route`, `profile`, `profile_terms`: see run_scheduling_cycle; `faults`: the
@@ -1218,6 +1225,8 @@ def window_body(
     apply_window_events."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
+    # The window's incoming counters, which its record takes deltas of.
+    m0 = counter_snapshot(state.metrics) if state.telemetry is not None else None
     orders = None
     if autoscale is not None:
         from kubernetriks_tpu_torch.batched.autoscale import ca_reclaim_pass, reclaim_name_orders
@@ -1245,7 +1254,103 @@ def window_body(
             state = hpa_pass(state, statics, W, k, hpa_seg, plan.hpa_cycle)
         if plan.ca_due:
             state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle, orders)
+    if state.telemetry is not None:
+        ring = TelemetryRing(buf=state.telemetry.buf.clone(), cursor=state.telemetry.cursor.clone())
+        state = state._replace(telemetry=ring)
+        telemetry_record(state, m0, W, consts)
     return state
+
+
+# --- the flight recorder: the ring's record and the gauges ---------------------
+# Reference `_telemetry_record` (step.py:1784) and `gauge_snapshot`
+# (step.py:2086). The record is one glue kernel (ops/telemetry_kernel.py);
+# its plain version is here.
+
+
+def telemetry_record_plain(phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base, W, counters, m0, buf, cursor, *,
+                           head_bound: int) -> None:
+    """The window's ring row, in place: [W, decisions delta, queued and
+    unschedulable depths, HPA pod and CA node action deltas, fault event
+    delta, alive nodes, live HPA replicas, CA reserve slots in use, pod
+    window headroom, 1] at slot cursor % R of each cluster, the deltas
+    against the incoming counters m0 ((len(TELEM_COUNTERS), C)); then
+    cursor + 1 and m0 = counters (the next window's incoming counters).
+    Without the autoscalers (hpa_head None) the reserve columns are 0.
+    `head_bound`: trace_pod_bound less the plain window width."""
+    queued = (phase == PHASE_QUEUED).sum(dim=1, dtype=torch.int32)
+    unsched = (phase == PHASE_UNSCHEDULABLE).sum(dim=1, dtype=torch.int32)
+    n_alive = alive.sum(dim=1, dtype=torch.int32)
+    if hpa_head is not None:
+        hpa_used = (hpa_tail - hpa_head).sum(dim=1, dtype=torch.int32)
+        ca_used = ca_cursor.sum(dim=1, dtype=torch.int32)
+    else:
+        hpa_used = torch.zeros_like(queued)
+        ca_used = torch.zeros_like(queued)
+    headroom = torch.clamp(head_bound - pod_base, min=0)
+    d = [now - m0[i] for i, now in enumerate(counters)]
+    row = torch.stack(
+        [W, d[0], queued, unsched, d[1] + d[2], d[3] + d[4], d[5] + d[6] + d[7] + d[8] + d[9], n_alive,
+         hpa_used, ca_used, headroom, torch.ones_like(W)],
+        dim=-1,
+    ).to(torch.int32)
+    C, R = buf.shape[:2]
+    rows = torch.arange(C, device=buf.device)
+    buf[rows, torch.remainder(cursor, R).long()] = row
+    cursor.add_(1)
+    m0.copy_(torch.stack(list(counters)))
+
+
+def telemetry_record(state: ClusterBatchState, m0: torch.Tensor, W: torch.Tensor, consts: StepConstants) -> None:
+    """Write window W's record into state.telemetry in place (the ring's
+    buffer and cursor) and set m0 to the counters now, through
+    ops/telemetry_kernel.telemetry_record. Pure bookkeeping: it reads the
+    simulation state and writes only the ring and m0."""
+    ring, auto = state.telemetry, state.auto
+    P = state.pods.phase.shape[1]
+    plain_width = min(P, consts.trace_pod_bound - consts.resident_shift)
+    telemetry_kernel.telemetry_record(
+        state.pods.phase, state.nodes.alive,
+        None if auto is None else auto.hpa_head, None if auto is None else auto.hpa_tail,
+        None if auto is None else auto.ca_cursor,
+        state.pod_base, W, [getattr(state.metrics, name) for name in TELEM_COUNTERS], m0, ring.buf, ring.cursor,
+        head_bound=consts.trace_pod_bound - plain_width,
+    )
+
+
+def gauge_snapshot(state: ClusterBatchState) -> torch.Tensor:
+    """(C, 7) float32 gauge readings after a window: alive nodes, live pods
+    (queued, parked or running), pods in the scheduling queues, the nodes'
+    average cpu and ram utilization, and the cluster's total cpu and ram
+    utilization, utilization being requests over the capacity of the alive
+    nodes (reference `gauge_snapshot`, step.py:2086; the scalar
+    collector's GaugeMetrics). Float32 sums: held to the reference at rtol
+    1e-6, the three counts exact."""
+    nodes, pods = state.nodes, state.pods
+    alive_f = nodes.alive.to(torch.float32)
+    n_alive = nodes.alive.sum(dim=1, dtype=torch.int32)
+    n_alive_f = torch.clamp(n_alive, min=1).to(torch.float32)
+    live_pod = (pods.phase == PHASE_QUEUED) | (pods.phase == PHASE_UNSCHEDULABLE) | (pods.phase == PHASE_RUNNING)
+    queued = (pods.phase == PHASE_QUEUED) | (pods.phase == PHASE_UNSCHEDULABLE)
+    cap_cpu = torch.clamp(nodes.cap_cpu, min=1).to(torch.float32)
+    cap_ram = torch.clamp(nodes.cap_ram, min=1).to(torch.float32)
+    used_cpu = (nodes.cap_cpu - nodes.alloc_cpu).to(torch.float32) * alive_f
+    used_ram = (nodes.cap_ram - nodes.alloc_ram).to(torch.float32) * alive_f
+    node_avg_cpu = (used_cpu / cap_cpu).sum(dim=1) / n_alive_f
+    node_avg_ram = (used_ram / cap_ram).sum(dim=1) / n_alive_f
+    total_cap_cpu = torch.clamp((cap_cpu * alive_f).sum(dim=1), min=1.0)
+    total_cap_ram = torch.clamp((cap_ram * alive_f).sum(dim=1), min=1.0)
+    return torch.stack(
+        [
+            n_alive.to(torch.float32),
+            live_pod.sum(dim=1, dtype=torch.int32).to(torch.float32),
+            queued.sum(dim=1, dtype=torch.int32).to(torch.float32),
+            node_avg_cpu,
+            node_avg_ram,
+            used_cpu.sum(dim=1) / total_cap_cpu,
+            used_ram.sum(dim=1) / total_cap_ram,
+        ],
+        dim=-1,
+    )
 
 
 # --- window skipping: the razor's predicate and fast-forward -------------------

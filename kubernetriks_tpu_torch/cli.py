@@ -3,6 +3,7 @@
     python -m kubernetriks_tpu_torch.cli --config-file <yaml>
         [--clusters N] [--max-pods-per-cycle K] [--pod-window W]
         [--profile NAME] [--report json|table] [--device cuda|cpu]
+        [--gauge-csv PATH] [--metrics-export STEM]
 
 The batched subset of the JAX package's `cli.py` (:60-237): load the
 config, build the traces its `trace_config` names (an Alibaba v2017 trace
@@ -17,9 +18,15 @@ default, keeps the whole trace resident). `--profile NAME` runs a named
 scheduler profile (default, best_fit, balanced_packing), superseding the
 config's `scheduler_profile` block as the JAX package's CLI does
 (cli.py:269-308). A `fault_injection:` block in the config runs the
-chaos engine. Options the port does not run yet are refused, naming the
-ROADMAP item that brings them: `--backend scalar`, `--gauge-csv` and
-`--metrics-export`.
+chaos engine. `--gauge-csv PATH` collects a gauge sample after every
+window and writes cluster 0's series in the scalar collector's CSV
+schema. With the flight recorder armed (KTPU_TRACE=1) the telemetry
+report follows the metrics report and the Chrome trace is written to
+KTPU_TRACE_PATH (default ktpu_trace) + ".json"; `--metrics-export STEM`
+(which needs the recorder) appends every ring drain's record to
+STEM.jsonl and writes the final report as the Prometheus textfile
+STEM.prom (the JAX package's CLI, cli.py:187-236). `--backend scalar` is
+refused, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -36,8 +43,6 @@ from kubernetriks_tpu_torch.trace.interface import EmptyTrace
 # Options refused, with the ROADMAP item that ports each.
 UNPORTED_OPTIONS = {
     "backend": "ROADMAP Queue 1 item 17 (the port's CLI runs the batched backend only)",
-    "gauge_csv": "ROADMAP Queue 1 item 10 (telemetry)",
-    "metrics_export": "ROADMAP Queue 1 item 10 (telemetry)",
 }
 
 
@@ -106,25 +111,45 @@ def run_batched(config: SimulationConfig, args) -> int:
         "batched run on %s: %d clusters x %d node slots x %d pod slots, cycle route %s",
         sim.device, sim.n_clusters, sim.n_nodes, sim.n_pods, sim.cycle_route,
     )
+    if args.metrics_export:
+        # Every ring drain appends a record (occupancy, memory watermarks,
+        # watchdog verdicts); raises unless the recorder is armed.
+        from kubernetriks_tpu_torch.telemetry.export import JsonlExporter
+
+        sim.attach_metrics_exporter(JsonlExporter(args.metrics_export + ".jsonl"))
+    sim.collect_gauges = bool(args.gauge_csv)
     t0 = time.perf_counter()
     sim.run_to_completion()
-    summary = sim.metrics_summary()
     elapsed = time.perf_counter() - t0
+    if args.gauge_csv:
+        sim.write_gauge_csv(args.gauge_csv)
+    summary = sim.metrics_summary()
     decisions = summary["counters"]["scheduling_decisions"]
     log.info(
         "Processed %d scheduling decisions in %.2fs (%.0f decisions/s)",
         decisions, elapsed, decisions / max(elapsed, 1e-9),
     )
     print(render_metrics(summary, args.report))
+    if sim._telemetry:
+        # One report serves the render and the Prometheus textfile.
+        from kubernetriks_tpu_torch.flags import flag_str
+        from kubernetriks_tpu_torch.metrics.render import render_telemetry
+
+        report = sim.telemetry_report()
+        print(render_telemetry(report, args.report))
+        trace_path = (flag_str("KTPU_TRACE_PATH") or "ktpu_trace") + ".json"
+        sim.write_chrome_trace(trace_path)
+        log.info("wrote Chrome trace (Perfetto-loadable) to %s", trace_path)
+        if args.metrics_export:
+            from kubernetriks_tpu_torch.telemetry.export import write_prometheus_textfile
+
+            prom = write_prometheus_textfile(args.metrics_export + ".prom", report)
+            log.info("wrote observatory metrics to %s.jsonl and %s", args.metrics_export, prom)
     return 0
 
 
 def _refuse_unported(args) -> None:
-    given = {
-        "backend": args.backend != "batched",
-        "gauge_csv": args.gauge_csv is not None,
-        "metrics_export": args.metrics_export is not None,
-    }
+    given = {"backend": args.backend != "batched"}
     for option, item in UNPORTED_OPTIONS.items():
         if given[option]:
             flag = "--" + option.replace("_", "-")
@@ -149,8 +174,11 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", default=None,
                         help="scheduler profile: a named profile (default, best_fit, balanced_packing) "
                              "overriding the config's scheduler_profile block")
-    parser.add_argument("--gauge-csv", default=None, help="not ported")
-    parser.add_argument("--metrics-export", default=None, help="not ported")
+    parser.add_argument("--gauge-csv", default=None,
+                        help="collect per-window gauges and write cluster 0's series as CSV to this path")
+    parser.add_argument("--metrics-export", default=None,
+                        help="observatory time-series export: STEM.jsonl (one record a ring drain) and "
+                             "STEM.prom (Prometheus textfile); needs KTPU_TRACE=1")
     args = parser.parse_args(argv)
     _refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")

@@ -1,8 +1,10 @@
-"""One rendering path for the end-of-run report: own copy of the JAX
+"""One rendering path for the end-of-run reports: own copy of the JAX
 package's `metrics/render.py` (`format_table`, `humanize`,
-`render_metrics`). A report is a dict shaped `{"counters": {...},
-"timings": {name: {min, max, mean, variance}}}` (the schema
-`BatchedSimulation.metrics_summary` emits), rendered as "json" or "table"."""
+`render_metrics`, `render_telemetry`). A metrics report is a dict shaped
+`{"counters": {...}, "timings": {name: {min, max, mean, variance}}}` (the
+schema `BatchedSimulation.metrics_summary` emits), a telemetry report the
+dict `BatchedSimulation.telemetry_report` returns; each renders as "json"
+or "table"."""
 
 from __future__ import annotations
 
@@ -77,4 +79,78 @@ def render_metrics(d: Dict[str, Any], fmt: str) -> str:
                 ["Metric", "Min", "Max", "Mean", "Variance"],
             )
         )
+    return "\n".join(parts)
+
+
+def render_telemetry(rep: Dict[str, Any], fmt: str) -> str:
+    """Render engine.telemetry_report() as "json" or "table": the
+    per-phase span table, the dispatch stats, the sync budget, the
+    device-ring totals and the drains' cost."""
+    if fmt == "json":
+        return json.dumps(rep, indent=2, default=float)
+    if fmt != "table":
+        raise ValueError(f"unknown report format {fmt!r} (json|table)")
+    parts = []
+    spans = rep.get("spans")
+    if spans:
+        parts.append(
+            format_table(
+                [
+                    [
+                        name,
+                        s["count"],
+                        round(s["total_ms"], 3),
+                        round(s["mean_us"], 1),
+                        round(s["max_us"], 1),
+                    ]
+                    for name, s in spans.items()
+                ],
+                ["Phase", "Count", "Total ms", "Mean µs", "Max µs"],
+            )
+        )
+    rows = [[humanize(k), v] for k, v in rep.get("dispatch_stats", {}).items()]
+    rows += [
+        [humanize(k), v] for k, v in rep.get("sync_budget", {}).items()
+    ]
+    rows += [[humanize(k), v] for k, v in rep.get("counters", {}).items()]
+    ring = rep.get("ring")
+    if ring:
+        rows += [
+            ["Ring windows recorded", ring["windows_recorded"]],
+            ["Ring windows kept", ring["windows_kept"]],
+        ]
+        rows += [
+            [f"Ring total {humanize(k).lower()}", v]
+            for k, v in ring.get("totals", {}).items()
+        ]
+        rows += [
+            [f"Ring high-water {humanize(k).lower()}", v]
+            for k, v in ring.get("high_water", {}).items()
+        ]
+    drains = rep.get("ring_drains")
+    if drains:
+        rows += [
+            ["Ring drains", drains["drains"]],
+            ["Ring drain ms (read / host)", f"{drains['read_ms']:.3f} / {drains['host_ms']:.3f}"],
+        ]
+    resources = rep.get("resources")
+    if resources:
+        # Capacity-observatory summary: occupancy vs reserve, memory
+        # watermarks, watchdog verdicts (full detail stays in the JSON).
+        for name, entry in resources.get("occupancy", {}).items():
+            if isinstance(entry, dict) and "used_max" in entry:
+                cap = entry.get("capacity_min")
+                rows.append(
+                    [
+                        f"Occupancy {humanize(name).lower()}",
+                        f"{entry['used_max']}/{cap}" if cap else entry["used_max"],
+                    ]
+                )
+        mem = resources.get("memory", {})
+        if mem.get("rss_bytes"):
+            rows.append(["Host RSS (MB)", round(mem["rss_bytes"] / 1e6, 1)])
+        fired = resources.get("watchdog", {}).get("fired", {})
+        rows.append(["Watchdog verdicts fired", len(fired)])
+    if rows:
+        parts.append(format_table(rows, ["Metric", "Count"]))
     return "\n".join(parts)

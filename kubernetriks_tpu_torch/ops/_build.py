@@ -79,6 +79,10 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "conditional_wake": (
         "conditional_wake.cu", "ktt_conditional_wake", [_P] * 8 + [_I] * 3 + [_P],
     ),
+    # The flight recorder's record (ops/telemetry_kernel.py): no TPU kernel.
+    "telemetry_record": (
+        "telemetry_record.cu", "ktt_telemetry_record", [_P] * 20 + [_I] * 7 + [_P],
+    ),
 }
 
 # Launch plumbing that is no kernel of the reference's: name -> the same

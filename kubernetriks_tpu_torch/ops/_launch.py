@@ -26,6 +26,7 @@ LAUNCHES: Dict[str, int] = {
     "next_window_span": 0,
     "catch_up": 0,
     "conditional_wake_scan": 0,
+    "telemetry_record": 0,
 }
 
 # Dynamic shared memory a block may use on Hopper (227 KB).

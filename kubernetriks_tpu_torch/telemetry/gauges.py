@@ -1,0 +1,59 @@
+"""Gauge time series: the per-window gauge samples the engine collects
+(`collect_gauges`) and their CSV (reference `kubernetriks_tpu/telemetry/
+gauges.py` and the scalar collector's columns, `kubernetriks_tpu/metrics/
+collector.py:150`). Host arrays only: the engine reads the samples from
+the card once a span and hands them in."""
+
+from __future__ import annotations
+
+import csv
+from typing import List
+
+import numpy as np
+
+# The scalar collector's gauge CSV schema (reference
+# src/metrics/collector.rs:216-228): a timestamp, then the seven columns
+# of step.gauge_snapshot.
+GAUGE_CSV_COLUMNS = [
+    "timestamp",
+    "current_nodes",
+    "current_pods",
+    "pods_in_scheduling_queues",
+    "node_average_cpu_utilization",
+    "node_average_ram_utilization",
+    "cluster_total_cpu_utilization",
+    "cluster_total_ram_utilization",
+]
+
+
+class GaugeSeries:
+    """Accumulated (window indices, (Wn, C, 7) samples) chunks."""
+
+    def __init__(self) -> None:
+        self._windows: List[np.ndarray] = []
+        self._samples: List[np.ndarray] = []
+
+    def append(self, windows: np.ndarray, samples: np.ndarray) -> None:
+        """One chunk: windows (Wn,) ints, samples (Wn, C, 7) on the host."""
+        self._windows.append(np.asarray(windows))
+        self._samples.append(np.asarray(samples))
+
+    def series(self, n_clusters: int, interval: float):
+        """(times (W,), samples (W, C, 7)); empty arrays before any sample."""
+        if not self._samples:
+            return np.zeros((0,)), np.zeros((0, n_clusters, 7))
+        times = np.concatenate(self._windows).astype(np.float64) * interval
+        return times, np.concatenate(self._samples, axis=0)
+
+    def write_csv(self, path: str, cluster: int, n_clusters: int, interval: float) -> None:
+        """One cluster's series in the scalar collector's 8-column schema."""
+        times, samples = self.series(n_clusters, interval)
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(GAUGE_CSV_COLUMNS)
+            for i, t in enumerate(times):
+                row = samples[i, cluster]
+                writer.writerow(
+                    [t, int(row[0]), int(row[1]), int(row[2]),
+                     float(row[3]), float(row[4]), float(row[5]), float(row[6])]
+                )

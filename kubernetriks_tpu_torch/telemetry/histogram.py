@@ -1,0 +1,179 @@
+"""Log-bucketed streaming latency histogram: own copy of the JAX
+package's `telemetry/histogram.py`, whole (pure numpy), for the capacity
+observatory's `query_stats` and the Prometheus export.
+
+* Buckets: upper boundaries ``LO * GROWTH**i`` with ``GROWTH = 1.05``
+  (~5% relative resolution), ``LO = 1 us``; bucket 0 is the underflow
+  bucket (``v <= LO``), the last the overflow bucket (upper bound +Inf).
+  ~520 buckets cover 1 us .. ~10^5 s.
+* Exactness: ``count`` and ``sum_s`` are exact; only a sample's position
+  is quantised.
+* Percentiles: :meth:`percentile` follows the rank convention of
+  ``numpy.percentile(..., method="higher")`` over the bucketed counts and
+  returns the upper boundary of the rank's bucket, within one
+  :meth:`bucket_width` of the exact percentile.
+
+Host code only, O(buckets) memory.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+__all__ = ["LatencyHistogram", "GROWTH", "LO_SECONDS"]
+
+GROWTH = 1.05  # geometric bucket ratio: ~5% relative bucket resolution
+LO_SECONDS = 1e-6  # first upper boundary: 1 µs (underflow bucket below)
+_HI_SECONDS = 1e5  # coverage target for the last finite boundary
+_LOG_GROWTH = math.log(GROWTH)
+# Finite boundaries LO*G^0 .. LO*G^(N_BUCKETS-2); last bucket is +Inf.
+N_BUCKETS = 2 + int(math.ceil(math.log(_HI_SECONDS / LO_SECONDS) / _LOG_GROWTH))
+
+
+class LatencyHistogram:
+    """Bounded streaming histogram over positive latencies in seconds."""
+
+    __slots__ = ("_counts", "count", "sum_s", "min_s", "max_s")
+
+    def __init__(self) -> None:
+        self._counts = np.zeros(N_BUCKETS, np.int64)
+        self.count = 0
+        self.sum_s = 0.0
+        self.min_s = math.inf
+        self.max_s = 0.0
+
+    # ------------------------------------------------------------------
+    # ingest
+    # ------------------------------------------------------------------
+    def reset(self) -> None:
+        self._counts[:] = 0
+        self.count = 0
+        self.sum_s = 0.0
+        self.min_s = math.inf
+        self.max_s = 0.0
+
+    def record(self, value_s: float) -> None:
+        """O(1) insert; memory never grows (fixed bucket array)."""
+        v = float(value_s)
+        self._counts[self._index(v)] += 1
+        self.count += 1
+        self.sum_s += v
+        if v < self.min_s:
+            self.min_s = v
+        if v > self.max_s:
+            self.max_s = v
+
+    @staticmethod
+    def _index(v: float) -> int:
+        if v <= LO_SECONDS:
+            return 0
+        # ceil with a small backlash so exact boundaries LO*G^k stay in
+        # bucket k despite float log error.
+        i = int(math.ceil(math.log(v / LO_SECONDS) / _LOG_GROWTH - 1e-9))
+        if i < 1:
+            return 1
+        if i > N_BUCKETS - 1:
+            return N_BUCKETS - 1
+        return i
+
+    # ------------------------------------------------------------------
+    # boundaries
+    # ------------------------------------------------------------------
+    @staticmethod
+    def upper_bound(i: int) -> float:
+        """Upper boundary of bucket ``i`` (seconds; +Inf for the last)."""
+        if i >= N_BUCKETS - 1:
+            return math.inf
+        return LO_SECONDS * GROWTH**i
+
+    @classmethod
+    def bucket_width(cls, value_s: float) -> float:
+        """Width of the bucket containing ``value_s`` — the quantisation
+        tolerance for the one-bucket-width percentile guarantee."""
+        i = cls._index(float(value_s))
+        if i >= N_BUCKETS - 1:
+            return math.inf
+        hi = cls.upper_bound(i)
+        if i == 0:
+            return hi  # underflow bucket spans (0, LO]
+        return hi - hi / GROWTH
+
+    @property
+    def n_buckets(self) -> int:
+        return N_BUCKETS
+
+    def footprint_bytes(self) -> int:
+        """Host bytes held by the bucket array — constant for life
+        (pinned O(buckets), not O(queries), by the 100k soak)."""
+        return int(self._counts.nbytes)
+
+    # ------------------------------------------------------------------
+    # stats
+    # ------------------------------------------------------------------
+    def percentile(self, q: float) -> float:
+        """Bucket-derived percentile in seconds.
+
+        Matches ``numpy.percentile(samples, q, method="higher")``: rank
+        ``j = ceil(q/100 * (n-1))`` (0-based), then the upper boundary of
+        the bucket holding the (j+1)-th sample.  The overflow bucket
+        reports the exact observed maximum (its boundary is +Inf).
+        """
+        n = self.count
+        if n == 0:
+            return 0.0
+        j = int(math.ceil(q / 100.0 * (n - 1) - 1e-12))
+        if j < 0:
+            j = 0
+        if j > n - 1:
+            j = n - 1
+        cum = 0
+        target = j + 1
+        for i in range(N_BUCKETS):
+            cum += int(self._counts[i])
+            if cum >= target:
+                if i >= N_BUCKETS - 1:
+                    return self.max_s
+                return self.upper_bound(i)
+        return self.max_s  # unreachable: cum == count after the loop
+
+    def percentiles_ms(self) -> Dict[str, float]:
+        """p50/p95/p99 in milliseconds from the buckets (empty → {})."""
+        if self.count == 0:
+            return {}
+        return {
+            "p50_ms": round(self.percentile(50.0) * 1e3, 3),
+            "p95_ms": round(self.percentile(95.0) * 1e3, 3),
+            "p99_ms": round(self.percentile(99.0) * 1e3, 3),
+        }
+
+    def buckets(self) -> List[Tuple[float, int]]:
+        """Sparse cumulative buckets: ``[(le_seconds, cumulative_count)]``
+        for every bucket with a nonzero increment, ending with the
+        ``(+Inf, count)`` catch-all — the native Prometheus histogram
+        series (``_bucket{le=...}``)."""
+        out: List[Tuple[float, int]] = []
+        if self.count == 0:
+            return out
+        nz = np.nonzero(self._counts)[0]
+        cum = np.cumsum(self._counts[nz])
+        for k in range(len(nz)):
+            i = int(nz[k])
+            le = self.upper_bound(i)
+            if not math.isinf(le):
+                out.append((float(f"{le:.9g}"), int(cum[k])))
+        out.append((math.inf, self.count))
+        return out
+
+    def to_dict(self) -> Dict[str, object]:
+        """JSON-safe summary (``+Inf`` boundary rendered as a string)."""
+        return {
+            "count": self.count,
+            "sum_s": round(self.sum_s, 9),
+            "buckets": [
+                ["+Inf" if math.isinf(le) else le, cum]
+                for le, cum in self.buckets()
+            ],
+        }

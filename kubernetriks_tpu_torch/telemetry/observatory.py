@@ -1,0 +1,859 @@
+"""Capacity observatory: reserve occupancy, memory watermarks and the
+saturation watchdog (reference `kubernetriks_tpu/telemetry/
+observatory.py`, copied whole but for its imports).
+
+- Reserve occupancy. The batched path consumes bounded reserves that a
+  churn can exhaust: the CA node-slot reserve (`ca_cursor`: under CA slot
+  reclaim the live occupancy, which the compaction pulls back, so the
+  watchdog fits the net slope; without reclaim the allocations made), the
+  HPA pod-group slot reserve, and the sliding pod window's plain-trace
+  headroom. The window's record writes them as columns of the telemetry
+  ring (batched/state.py TELEM_HPA_RESERVE, TELEM_CA_RESERVE,
+  TELEM_POD_HEADROOM), so they cost no read of their own.
+- Memory watermarks. Where the ring drains, the engine samples host RSS,
+  the CUDA allocator's bytes and its own buffer accounting
+  (`engine._sample_resources`); this module keeps their high-water marks.
+- Saturation watchdog. At each drain it fits the recent occupancy
+  trajectory (least squares per cluster) and warns (SaturationWarning)
+  with an estimated time to exhaustion while the run is still healthy,
+  before the reserve bound (`engine.check_autoscaler_bounds`) raises. Its
+  lane, SLO and pipeline checks are the reference's; without the fleet and
+  the streaming feeder (not ported yet) they have nothing to judge and
+  stay quiet, as in a reference run without them.
+
+Everything here runs on drained host copies (owned numpy arrays from
+telemetry/ring.snapshot, plain dicts from the engine): it never touches a
+device value. The export seams (JSONL, Prometheus textfile) are in
+telemetry/export.py.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+import warnings
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from kubernetriks_tpu_torch.batched.state import (
+    TELEM_CA_RESERVE,
+    TELEM_HPA_RESERVE,
+    TELEM_LANE_ACTIVE,
+    TELEM_POD_HEADROOM,
+    TELEM_WINDOW,
+)
+from kubernetriks_tpu_torch.telemetry.histogram import LatencyHistogram
+
+# TELEM_POD_HEADROOM values at or above this mean "no sliding window /
+# whole plain trace resident" (state.StepConstants.trace_pod_bound
+# defaults to a 1 << 30 sentinel): the watchdog skips those clusters.
+UNBOUNDED_SENTINEL = 1 << 28
+
+# SLO burn-rate verdict constants: the objective is "99% of
+# queries complete under slo_ms", i.e. a 1% error budget. Burn rate
+# = (violating fraction over a window) / budget; the fast page fires at
+# the classic 14.4x multiple over the fast window (slo_burn_window_s),
+# the slow ticket at 6x over 12x that window, and each clears with
+# hysteresis at half its threshold (like the reserve verdicts' recover
+# fraction).
+SLO_ERROR_BUDGET = 0.01
+SLO_FAST_BURN = 14.4
+SLO_SLOW_BURN = 6.0
+SLO_MIN_SAMPLES = 8
+_SLO_SAMPLE_CAP = 8192  # bounded (wall-windowed) violation samples
+
+
+class SaturationWarning(UserWarning):
+    """A capacity reserve is trending toward exhaustion (or a pipeline
+    health invariant drifted): actionable ahead of the loud bound."""
+
+
+def sample_host_memory() -> Dict[str, int]:
+    """Host memory sample: current RSS from /proc/self/statm (Linux;
+    0 where unavailable) and the process peak RSS from getrusage.
+    Pure host I/O, no device values."""
+    rss = 0
+    try:
+        with open("/proc/self/statm") as fh:
+            fields = fh.read().split()
+        rss = int(fields[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        pass
+    peak = 0
+    try:
+        import resource
+
+        # ru_maxrss is KiB on Linux.
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    except Exception:
+        pass
+    return {"rss_bytes": rss, "peak_rss_bytes": peak}
+
+
+def fit_slope(x: Sequence[float], y: np.ndarray) -> np.ndarray:
+    """Closed-form least-squares slope of y against x. x: (n,) times;
+    y: (n,) or (n, C) values. Returns a scalar or (C,) slope (0 where x
+    has no spread)."""
+    xs = np.fromiter((float(v) for v in x), dtype=np.float64)
+    ys = y.astype(np.float64)
+    xm = xs.mean()
+    dx = xs - xm
+    denom = float((dx * dx).sum())
+    if denom <= 0.0:
+        return np.zeros(ys.shape[1:], np.float64) if ys.ndim > 1 else np.float64(0.0)
+    dy = ys - ys.mean(axis=0)
+    if ys.ndim > 1:
+        return (dx[:, None] * dy).sum(axis=0) / denom
+    return (dx * dy).sum() / denom
+
+
+def time_to_exhaustion(
+    now: float, slope: float, capacity: Optional[float], falling: bool = False
+) -> float:
+    """Estimated seconds until `now` reaches `capacity` at `slope`
+    (rising gauges) or reaches zero (falling gauges). math.inf when the
+    trajectory never gets there."""
+    if falling:
+        if slope >= 0.0:
+            return math.inf
+        return max(now, 0.0) / -slope
+    if capacity is None or slope <= 0.0:
+        return math.inf
+    remaining = capacity - now
+    if remaining <= 0.0:
+        return 0.0
+    return remaining / slope
+
+
+class Observatory:
+    """Folds drained ring buffers + resource samples into occupancy
+    series, high-water marks and watchdog verdicts.
+
+    Parameters:
+    - interval: scheduling interval (seconds per window) — converts the
+      window axis to sim-seconds for trajectory fits.
+    - capacities: {"hpa_reserve": [per-cluster total], "ca_reserve":
+      [per-cluster total]} — plain python ints, computed once at engine
+      build from the autoscale statics (None entries = no such reserve).
+    - watchdog: arm the saturation checks (off: ingest/report only).
+    - warn_frac: occupancy fraction that fires immediately.
+    - min_frac: floor below which trajectory (eta-based) warnings stay
+      quiet — an early-transient slope extrapolated from a nearly-empty
+      reserve is noise, not a verdict.
+    - horizon_s: fire when estimated exhaustion lands within this many
+      sim-seconds (default: 500 windows).
+    - fit_window: trajectory points kept per gauge (bounded history —
+      the observatory's memory is O(fit_window * C), never O(T)).
+    - exporters: objects with .emit(record: dict) called once per
+      observe() with the pure-python drain record (telemetry/export.py).
+    """
+
+    def __init__(
+        self,
+        *,
+        interval: float,
+        capacities: Optional[Dict[str, Sequence[int]]] = None,
+        watchdog: bool = True,
+        warn_frac: float = 0.8,
+        min_frac: float = 0.3,
+        recover_frac: Optional[float] = None,
+        horizon_s: Optional[float] = None,
+        min_points: int = 4,
+        fit_window: int = 64,
+        exporters: Optional[list] = None,
+        max_events: int = 256,
+        lane_idle_frac: float = 0.5,
+        slo_ms: Optional[float] = None,
+        slo_burn_window_s: Optional[float] = None,
+    ) -> None:
+        self.interval = float(interval)
+        self.capacities = dict(capacities or {})
+        self.watchdog = bool(watchdog)
+        self.warn_frac = float(warn_frac)
+        self.min_frac = float(min_frac)
+        # Hysteresis floor for clearing a fired reserve verdict (reserve
+        # occupancy is non-monotone under slot reclaim): recover when
+        # every lane is at or below this fraction with no near-horizon
+        # trajectory. Default: half the warning fraction.
+        self.recover_frac = (
+            float(recover_frac)
+            if recover_frac is not None
+            else self.warn_frac / 2.0
+        )
+        self.horizon_s = (
+            float(horizon_s) if horizon_s is not None else 500.0 * self.interval
+        )
+        self.min_points = max(2, int(min_points))
+        self.fit_window = max(self.min_points, int(fit_window))
+        self.exporters = list(exporters or [])
+        self.max_events = int(max_events)
+        # Idle-lane verdict floor: a lane active for less than this
+        # fraction of the recent windows (lane-async fleets only — the
+        # lane_active ring column is constant 1 everywhere else) means
+        # dispatched lane-windows are being thrown away.
+        self.lane_idle_frac = float(lane_idle_frac)
+        # Latency-SLO verdict config (slo_ms None = disarmed). No flag arms
+        # it: the port records no fleet query yet.
+        self.slo_ms = float(slo_ms) if slo_ms is not None else None
+        self.slo_burn_window_s = float(slo_burn_window_s or 60)
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop accumulated series/watermarks (checkpoint restore: the
+        restored run is a fresh trajectory)."""
+        # (window, hpa_used (C,), ca_used (C,), headroom (C,),
+        # lane_active (C,)) — bounded.
+        self._points: deque = deque(maxlen=self.fit_window)
+        self._last_window = -1
+        self._high_water: Dict[str, int] = {}
+        self._mem_high: Dict[str, int] = {}
+        self._last_resources: Dict = {}
+        self._last_stall_not_ready = 0
+        # Lane fault-domain gauge: per-lane state strings pushed
+        # by the fleet at every transition ("active"/"idle"/
+        # "quarantined"/"probe"), plus cumulative quarantine counters —
+        # O(C) host strings, never device values.
+        self._lane_states: List[str] = []
+        self._quarantine_total = 0
+        self._readmit_total = 0
+        self.events: List[Dict] = []
+        self.fired: Dict[str, int] = {}
+        self.samples = 0
+        self.reset_query_stats()
+
+    def reset_query_stats(self) -> None:
+        """Reset the query-latency histograms + the SLO sample window
+        atomically (the fleet's reset_query_stats() calls this so the
+        fleet and observatory sides never disagree). Fired SLO verdicts
+        clear too: the post-reset traffic is a fresh trajectory."""
+        # Bounded per-query latency stats: log-bucketed streaming
+        # histograms — O(buckets) forever, never O(queries) — for the
+        # total submit->drain wall plus the queue-wait / service split.
+        self._lat_hist = LatencyHistogram()
+        self._queue_hist = LatencyHistogram()
+        self._service_hist = LatencyHistogram()
+        # (t_wall, violated) pairs for the SLO burn-rate windows.
+        self._slo_samples: deque = deque(maxlen=_SLO_SAMPLE_CAP)
+        for kind in ("slo_fast_burn", "slo_slow_burn"):
+            self.fired.pop(kind, None)
+
+    # -- ingest -------------------------------------------------------------
+
+    def ingest(self, buf: np.ndarray) -> int:
+        """Fold one drained ring buffer ((C, R, K) OWNED numpy copy —
+        telemetry/ring.snapshot's owned-copy rule: a view of the device
+        buffer would be mutated in place by the next donated dispatch)
+        into the bounded occupancy history. Overlapping drains re-observe
+        rows bit-identically; only windows past the last ingested one are
+        appended. Returns the number of FRESH windows ingested (0 when
+        the drain re-observed only known rows)."""
+        wins = buf[0, :, TELEM_WINDOW]
+        fresh = np.nonzero(wins > self._last_window)[0]
+        if fresh.size == 0:
+            return 0
+        order = fresh[np.argsort(wins[fresh], kind="stable")]
+        # The bounded history keeps the last fit_window points, so only
+        # those are copied (the reference appends every row and lets the
+        # deque drop the rest: the same points).
+        self._last_window = int(wins[order[-1]])
+        for slot in order[-self._points.maxlen:].tolist():
+            w = int(wins[slot])
+            hpa = buf[:, slot, TELEM_HPA_RESERVE].copy()
+            ca = buf[:, slot, TELEM_CA_RESERVE].copy()
+            head = buf[:, slot, TELEM_POD_HEADROOM].copy()
+            active = buf[:, slot, TELEM_LANE_ACTIVE].copy()
+            self._points.append((w, hpa, ca, head, active))
+        # High-water folds over EVERY fresh row, not just the last one:
+        # hpa_reserve_used is non-monotone (scale-downs shrink it), so an
+        # intra-drain peak would otherwise be lost.
+        for name, col in (
+            ("hpa_reserve_used", TELEM_HPA_RESERVE),
+            ("ca_reserve_used", TELEM_CA_RESERVE),
+        ):
+            # Over the window axis first: the engine's drained rows lie
+            # window by window (telemetry/ring.snapshot).
+            peak = int(buf.transpose(1, 0, 2)[:, :, col][order].max())
+            self._high_water[name] = max(self._high_water.get(name, 0), peak)
+        return int(order.size)
+
+    # -- watchdog -----------------------------------------------------------
+
+    def _event(self, kind: str, message: str, **info) -> Dict:
+        """Record a watchdog event (bounded trail) WITHOUT warning —
+        recoveries are good news; verdicts go through _warn."""
+        event = {"kind": kind, "window": self._last_window, "message": message}
+        event.update(info)
+        self.events.append(event)
+        if len(self.events) > self.max_events:
+            del self.events[: len(self.events) - self.max_events]
+        return event
+
+    def _warn(self, kind: str, message: str, **info) -> Dict:
+        event = self._event(kind, message, **info)
+        self.fired.setdefault(kind, self._last_window)
+        warnings.warn(message, SaturationWarning, stacklevel=3)
+        return event
+
+    def _check_reserve(self, name: str, idx: int, warnings_out: list) -> None:
+        caps = self.capacities.get(name.replace("_used", ""))
+        if caps is None or len(self._points) < self.min_points:
+            return
+        xs = [p[0] * self.interval for p in self._points]
+        ys = np.stack([p[idx] for p in self._points], axis=0)  # (n, C)
+        slopes = fit_slope(xs, ys)  # (C,) per sim-second
+        now = ys[-1]
+        # Non-monotone-gauge semantics: under slot reclaim the
+        # occupancy oscillates 0 -> peak -> 0 per churn cycle, and a
+        # least-squares fit over a partial cycle reads the up-ramp as a
+        # trend with a finite eta. The eta branch therefore also requires
+        # the window MINIMUM to sit above the firing floor — a reserve
+        # that fully drained inside the fit window is being recycled, not
+        # leaked, while a genuine leak ratchets the minimum up until the
+        # branch re-arms. The frac >= warn_frac branch stays
+        # unconditional: 80% occupancy NOW is worth a verdict regardless
+        # of trajectory shape.
+        mins = ys.min(axis=0)
+        # Worst cluster = smallest ETA, higher occupancy fraction as the
+        # tie-break: with several flat-trajectory lanes past warn_frac
+        # (eta = inf for all of them), the verdict must name the MOST
+        # saturated lane, not whichever lane index came first —
+        # heterogeneous fleets are judged per lane.
+        worst_key = None
+        worst = None
+        for c in range(now.shape[0]):
+            cap = float(caps[c]) if c < len(caps) else 0.0
+            if cap <= 0.0:
+                continue
+            frac = float(now[c]) / cap
+            eta = time_to_exhaustion(float(now[c]), float(slopes[c]), cap)
+            if frac >= self.warn_frac or (
+                frac >= self.min_frac
+                and float(mins[c]) / cap >= self.min_frac
+                and eta <= self.horizon_s
+            ):
+                key = (eta, -frac)
+                if worst_key is None or key < worst_key:
+                    worst_key = key
+                    worst = (c, frac, eta, cap)
+        if worst is not None:
+            c, frac, eta, cap = worst
+            eta_txt = (
+                f"~{eta:.0f} sim-seconds to exhaustion"
+                if math.isfinite(eta)
+                else "trajectory flat but already past the warning fraction"
+            )
+            warnings_out.append(
+                self._warn(
+                    name,
+                    f"saturation watchdog: {name} at {frac:.0%} of its "
+                    f"reserve on cluster {c} ({int(now[c])}/{int(cap)}), "
+                    f"{eta_txt} — the loud reserve bound "
+                    "(engine.check_autoscaler_bounds) fires when demand "
+                    "outruns it; widen the reserve "
+                    "(ca_slot_multiplier / pg_slot_count) or curb churn",
+                    cluster=c,
+                    used=int(now[c]),
+                    capacity=int(cap),
+                    eta_s=None if math.isinf(eta) else round(eta, 1),
+                )
+            )
+        elif name in self.fired:
+            # Recovery (reclaim-era semantics): reserve occupancy is
+            # NON-monotone under slot reclaim, so a previously-fired
+            # verdict must CLEAR once every lane drops below the
+            # hysteresis fraction with no near-horizon trajectory — a
+            # later saturation then re-fires (recover -> re-warn cycle)
+            # instead of the first verdict shadowing the whole run.
+            worst_frac = 0.0
+            for c in range(now.shape[0]):
+                cap = float(caps[c]) if c < len(caps) else 0.0
+                if cap > 0.0:
+                    worst_frac = max(worst_frac, float(now[c]) / cap)
+            if worst_frac <= self.recover_frac:
+                del self.fired[name]
+                warnings_out.append(
+                    self._event(
+                        f"{name}_recovered",
+                        f"saturation watchdog: {name} recovered — "
+                        f"occupancy down to {worst_frac:.0%} of the "
+                        "reserve on every lane (slot reclaim / churn "
+                        "trough); the verdict re-arms",
+                        frac=round(worst_frac, 4),
+                    )
+                )
+
+    def _check_headroom(self, warnings_out: list) -> None:
+        # One verdict per run: approaching the trace end is expected and
+        # monotone — repeating it every drain would be noise (the reserve
+        # verdicts DO repeat: their trajectories can keep worsening).
+        if "pod_headroom" in self.fired:
+            return
+        if len(self._points) < self.min_points:
+            return
+        ys = np.stack([p[3] for p in self._points], axis=0)  # (n, C)
+        now = ys[-1]
+        bounded = now < UNBOUNDED_SENTINEL
+        if not bool(bounded.any()):
+            return
+        xs = [p[0] * self.interval for p in self._points]
+        slopes = fit_slope(xs, ys)
+        for c in np.nonzero(bounded)[0].tolist():
+            eta = time_to_exhaustion(
+                float(now[c]), float(slopes[c]), None, falling=True
+            )
+            # Running out of plain-trace headroom is NORMAL at trace end;
+            # only a projected exhaustion well inside the horizon with
+            # headroom still nonzero is worth a line (feeder/window
+            # tuning, not a failure).
+            if 0.0 < eta <= self.horizon_s and now[c] > 0:
+                warnings_out.append(
+                    self._warn(
+                        "pod_headroom",
+                        f"saturation watchdog: sliding-window trace "
+                        f"headroom on cluster {c} is {int(now[c])} columns "
+                        f"and falling (~{eta:.0f} sim-seconds to trace "
+                        "end) — expected near end of trace; if early, the "
+                        "stream segment/pod window is undersized",
+                        cluster=c,
+                        headroom=int(now[c]),
+                        eta_s=round(eta, 1),
+                    )
+                )
+                break  # one headroom line per observe is plenty
+
+    def _check_lanes(self, warnings_out: list) -> None:
+        """Idle-lane-waste verdict (lane-async fleets): a lane whose
+        lane_active bit was 0 for more than (1 - lane_idle_frac) of the
+        recent windows is burning dispatched lane-windows without
+        simulating anything — the open-loop client is underfeeding the
+        queue or the pump span badly overshoots the horizon mix. One
+        verdict per run (the idle fraction can only be cured by feeding
+        the queue, and repeating it every drain would be noise). Vacuous
+        outside lane-async builds: the column is constant 1 there."""
+        if "lane_idle" in self.fired:
+            return
+        if len(self._points) < self.min_points:
+            return
+        ys = np.stack([p[4] for p in self._points], axis=0)  # (n, C)
+        if not bool((ys == 0).any()):
+            return
+        fracs = (ys > 0).mean(axis=0)  # (C,) active fraction
+        worst = int(np.argmin(fracs))
+        if float(fracs[worst]) < self.lane_idle_frac:
+            warnings_out.append(
+                self._warn(
+                    "lane_idle",
+                    f"saturation watchdog: lane {worst} was active for "
+                    f"only {float(fracs[worst]):.0%} of the last "
+                    f"{ys.shape[0]} windows (floor "
+                    f"{self.lane_idle_frac:.0%}) — dispatched lane-"
+                    "windows are being discarded; feed the submit queue "
+                    "or shrink the pump span (KTPU_LANE_SPAN)",
+                    lane=worst,
+                    active_frac=round(float(fracs[worst]), 4),
+                    windows=int(ys.shape[0]),
+                )
+            )
+
+    def _check_slo(self, warnings_out: list) -> None:
+        """Latency-SLO burn-rate verdicts (armed by slo_ms): the
+        violating fraction of recent queries against the 1% error budget,
+        judged over two wall windows — fast (slo_burn_window_s, 14.4x
+        threshold: pager material) and slow (12x the window, 6x: a
+        ticket). A latency regression burns the budget the moment slow
+        queries land, so this fires while lane occupancy still looks
+        perfect — strictly before the idle-lane or reserve verdicts see
+        anything. Hysteresis like the reserve verdicts: a fired kind
+        clears (and re-arms) once its burn rate drops to half the firing
+        threshold."""
+        if self.slo_ms is None or not self._slo_samples:
+            return
+        now = time.monotonic()
+        for kind, window, threshold in (
+            ("slo_fast_burn", self.slo_burn_window_s, SLO_FAST_BURN),
+            ("slo_slow_burn", 12.0 * self.slo_burn_window_s, SLO_SLOW_BURN),
+        ):
+            total = 0
+            bad = 0
+            for t, violated in reversed(self._slo_samples):
+                if now - t > window:
+                    break
+                total += 1
+                bad += int(violated)
+            if total < SLO_MIN_SAMPLES:
+                continue
+            burn = (bad / total) / SLO_ERROR_BUDGET
+            if burn >= threshold:
+                warnings_out.append(
+                    self._warn(
+                        kind,
+                        f"saturation watchdog: {kind.replace('_', ' ')} — "
+                        f"{bad}/{total} queries over the {self.slo_ms:g}ms "
+                        f"SLO in the last {window:g}s wall window, burn "
+                        f"rate {burn:.1f}x the {SLO_ERROR_BUDGET:.0%} "
+                        f"error budget (threshold {threshold}x) — slow "
+                        "lanes are eating the budget while occupancy "
+                        "still looks healthy; shed load or add lanes",
+                        burn_rate=round(burn, 2),
+                        window_s=round(window, 1),
+                        violations=bad,
+                        samples=total,
+                        slo_ms=self.slo_ms,
+                    )
+                )
+            elif kind in self.fired and burn <= threshold / 2.0:
+                del self.fired[kind]
+                warnings_out.append(
+                    self._event(
+                        f"{kind}_recovered",
+                        f"saturation watchdog: {kind.replace('_', ' ')} "
+                        f"recovered — burn rate down to {burn:.1f}x "
+                        f"(clear threshold {threshold / 2.0:g}x); the "
+                        "verdict re-arms",
+                        burn_rate=round(burn, 2),
+                        window_s=round(window, 1),
+                    )
+                )
+
+    def _check_pipeline(
+        self, dispatch_stats: Optional[Dict], sync_budget: Optional[Dict],
+        feeder: Optional[Dict], warnings_out: list,
+    ) -> None:
+        if sync_budget:
+            expected = sync_budget.get("steady_state_expected", 0)
+            observed = sync_budget.get("observed_slide_syncs", 0)
+            # The budget is EXACT only in the pure superspan steady state
+            # (tests/test_superspan.py's equality gate); mixed ladder
+            # engines legitimately pay extra slide syncs on their unfused
+            # advances, so a verdict there would be noise.
+            exact_regime = bool(dispatch_stats) and (
+                dispatch_stats.get("superspans", 0) > 0
+                and dispatch_stats.get("window_chunks", 0) == 0
+            )
+            if exact_regime and expected > 0 and observed > expected:
+                warnings_out.append(
+                    self._warn(
+                        "sync_budget",
+                        f"saturation watchdog: {observed} blocking slide "
+                        f"syncs observed vs the documented steady-state "
+                        f"budget of {expected} (1 progress readback per "
+                        "superspan + 1 shift readback per fused slide) — "
+                        "a new host sync crept into the dispatch loop",
+                        observed=observed,
+                        expected=expected,
+                    )
+                )
+        if feeder and dispatch_stats:
+            produced = dispatch_stats.get("feeder_slabs_produced", 0)
+            installed = dispatch_stats.get("stage_refills", 0)
+            depth = feeder.get("ring_capacity", 1)
+            if produced - installed > max(4, 2 * depth):
+                warnings_out.append(
+                    self._warn(
+                        "feeder_waste",
+                        f"saturation watchdog: feeder produced {produced} "
+                        f"slabs but only {installed} were installed — "
+                        "run-ahead production is being discarded (stride "
+                        "too small for this geometry; widen the stream "
+                        "segment)",
+                        produced=produced,
+                        installed=installed,
+                    )
+                )
+            stalls = (
+                feeder.get("stalls", {})
+                .get("feeder_not_ready", {})
+                .get("count", 0)
+            )
+            if stalls > self._last_stall_not_ready:
+                warnings_out.append(
+                    self._warn(
+                        "feeder_starved",
+                        f"saturation watchdog: the dispatch loop stalled "
+                        f"{stalls - self._last_stall_not_ready} time(s) "
+                        "waiting for an unpublished feeder slab since the "
+                        "last drain — the producer is not keeping ahead "
+                        "(raise KTPU_STREAM_DEPTH or widen segments)",
+                        stalls=stalls,
+                    )
+                )
+            self._last_stall_not_ready = stalls
+
+    # -- observe / report ---------------------------------------------------
+
+    def update_memory(self, resources: Dict) -> None:
+        """Fold one resource sample into the watermarks without running
+        the watchdog or the exporters (telemetry_report's refresh path)."""
+        self._last_resources = dict(resources)
+        for key in ("rss_bytes", "device_bytes_in_use"):
+            val = resources.get(key)
+            if val:
+                self._mem_high[key] = max(self._mem_high.get(key, 0), int(val))
+
+    def observe(
+        self,
+        resources: Optional[Dict] = None,
+        dispatch_stats: Optional[Dict] = None,
+        sync_budget: Optional[Dict] = None,
+        feeder: Optional[Dict] = None,
+        fresh: Optional[int] = None,
+    ) -> Dict:
+        """One drain-point observation: fold the resource sample into the
+        watermarks, run the watchdog over the ingested occupancy series,
+        and emit the record to every exporter. Everything consumed here
+        is a drained host copy — no device access.
+
+        `fresh`: the corresponding ingest()'s fresh-window count. fresh=0
+        means the drain re-observed only known rows (a readout call like
+        telemetry_report forcing a drain right after one happened) — the
+        watermarks still refresh, but the watchdog does not re-judge the
+        same data and NOTHING goes to the exporters, so readout APIs stay
+        side-effect-free on the JSONL stream (no phantom zero-interval
+        records). None (callers without ingest bookkeeping) behaves like
+        fresh data."""
+        self.samples += 1
+        if resources:
+            self.update_memory(resources)
+        is_fresh = fresh is None or fresh > 0
+        fired: list = []
+        if self.watchdog and is_fresh:
+            self._check_reserve("hpa_reserve_used", 1, fired)
+            self._check_reserve("ca_reserve_used", 2, fired)
+            self._check_headroom(fired)
+            self._check_lanes(fired)
+            self._check_slo(fired)
+            self._check_pipeline(dispatch_stats, sync_budget, feeder, fired)
+        record = {
+            "t_wall_s": round(time.time(), 3),
+            "window": self._last_window,
+            "sim_time_s": round(max(self._last_window, 0) * self.interval, 3),
+            "fresh_windows": 0 if fresh is None else int(fresh),
+            "occupancy": self.occupancy(),
+            "resources": dict(self._last_resources),
+            "watchdog": [dict(e) for e in fired],
+        }
+        if self._lat_hist.count:
+            record["queries"] = self.query_stats()
+        if fresh is None:
+            record["fresh_windows"] = len(self._points)
+        if is_fresh:
+            for exporter in self.exporters:
+                exporter.emit(record)
+        return record
+
+    def occupancy(self) -> Dict:
+        """Current + high-water occupancy per gauge (cross-cluster worst),
+        with capacity and fraction where a reserve exists."""
+        out: Dict = {}
+        # Lane fault-domain gauge: counts per state plus the
+        # cumulative quarantine counters. Numeric-only on purpose — the
+        # Prometheus exporter's generic occupancy flattener renders each
+        # entry as a gauge with zero export-side changes. Pushed by the
+        # fleet, so it is current even before the first ring drain.
+        if self._lane_states:
+            states = self._lane_states
+            out["lane_state"] = {
+                "active": states.count("active"),
+                "idle": states.count("idle"),
+                "quarantined": states.count("quarantined"),
+                "probe": states.count("probe"),
+                "quarantine_events": self._quarantine_total,
+                "readmissions": self._readmit_total,
+            }
+        if not self._points:
+            return out
+        last = self._points[-1]
+        for name, idx in (
+            ("hpa_reserve_used", 1),
+            ("ca_reserve_used", 2),
+        ):
+            caps = self.capacities.get(name.replace("_used", ""))
+            used = last[idx]
+            entry = {
+                "used_max": int(used.max()),
+                "high_water": self._high_water.get(name, int(used.max())),
+            }
+            if caps is not None and len(caps) > 0:
+                entry["capacity_min"] = int(min(caps))
+                # Worst PER-CLUSTER fraction (used[c]/cap[c]) — dividing
+                # the max-used cluster by the min-capacity cluster would
+                # overstate heterogeneous fleets.
+                fracs = [
+                    float(used[c]) / float(caps[c])
+                    for c in range(min(used.shape[0], len(caps)))
+                    if caps[c] > 0
+                ]
+                if fracs:
+                    entry["frac_max"] = round(max(fracs), 4)
+            out[name] = entry
+        head = last[3]
+        bounded = head[head < UNBOUNDED_SENTINEL]
+        out["pod_headroom"] = {
+            "min": int(bounded.min()) if bounded.size else None,
+            "unbounded_clusters": int((head >= UNBOUNDED_SENTINEL).sum()),
+        }
+        # Lane-occupancy gauge from the lane_active ring column: per-lane
+        # active fraction over the bounded point window, reported as the
+        # across-lane mean and min (1.0 outside lane-async builds — the
+        # column is constant 1 there).
+        active = np.stack([p[4] for p in self._points], axis=0)  # (n, C)
+        fracs = (active > 0).mean(axis=0)
+        out["lane_occupancy"] = {
+            "mean": round(float(fracs.mean()), 4),
+            "min": round(float(fracs.min()), 4),
+        }
+        return out
+
+    # -- lane fault domain (lane-async fleet) -------------------------------
+
+    def note_lane_states(self, states: Sequence[str]) -> None:
+        """Record the fleet's per-lane state strings ("active"/"idle"/
+        "quarantined"/"probe") — pushed at every quarantine/probe/
+        re-admission transition so the `lane_state` occupancy gauge and
+        the Prometheus export stay current between ring drains."""
+        self._lane_states = [str(s) for s in states]
+
+    def note_lane_quarantined(
+        self, lane: int, *, backoff_rounds: int, probed: bool = False
+    ) -> Dict:
+        """Fire the `lane_quarantine` verdict: the fleet pulled a lane
+        out of the admission rotation after repeated dispatch faults
+        (`probed=True` = a probe dispatch failed and the backoff
+        doubled). Clears with hysteresis at re-admission
+        (note_lane_readmitted), like the reserve verdicts."""
+        self._quarantine_total += 1
+        verb = (
+            "failed its re-admission probe and was re-quarantined"
+            if probed
+            else "was quarantined after repeated dispatch faults"
+        )
+        return self._warn(
+            "lane_quarantine",
+            f"saturation watchdog: lane {lane} {verb}; probe "
+            f"re-admission in {backoff_rounds} pump rounds (exponential "
+            "backoff) — queries route around it; a lane that never "
+            "re-admits points at poisoned lane state, not weather",
+            lane=int(lane),
+            backoff_rounds=int(backoff_rounds),
+            probed=bool(probed),
+        )
+
+    def note_lane_readmitted(self, lane: int, *, probes: int = 1) -> Dict:
+        """Quarantine recovery: a probe dispatch drained cleanly and the
+        lane rejoined the rotation — the fired verdict clears and
+        re-arms (recover -> re-warn cycle, reserve-verdict semantics)."""
+        self._readmit_total += 1
+        self.fired.pop("lane_quarantine", None)
+        return self._event(
+            "lane_quarantine_recovered",
+            f"saturation watchdog: lane {lane} re-admitted after "
+            f"{probes} probe round(s) — quarantine cleared; the verdict "
+            "re-arms",
+            lane=int(lane),
+            probes=int(probes),
+        )
+
+    # -- query latency (lane-async fleet) -----------------------------------
+
+    def note_query(
+        self,
+        latency_s: float,
+        queue_wait_s: Optional[float] = None,
+        service_s: Optional[float] = None,
+    ) -> None:
+        """Record one completed query's submit-to-drain wall latency —
+        called by the lane-async fleet's pump at the drain boundary (pure
+        host floats, no device access). ``queue_wait_s`` / ``service_s``
+        carry the submit→admit vs admit→drain split when the caller has
+        lifecycle records (the single-number call keeps
+        working)."""
+        lat = float(latency_s)
+        self._lat_hist.record(lat)
+        if queue_wait_s is not None:
+            self._queue_hist.record(float(queue_wait_s))
+        if service_s is not None:
+            self._service_hist.record(float(service_s))
+        if self.slo_ms is not None:
+            self._slo_samples.append(
+                (time.monotonic(), lat * 1e3 > self.slo_ms)
+            )
+
+    def query_stats(self) -> Dict:
+        """Latency percentiles (ms) over the recorded query completions,
+        derived from the bounded histogram buckets (O(buckets) memory,
+        exact count/sum, percentiles within one bucket width of exact) —
+        plus the queue-wait/service split and the native-histogram dump
+        the Prometheus exporter renders as ``_bucket``/``_sum``/
+        ``_count``."""
+        h = self._lat_hist
+        if h.count == 0:
+            return {"count": 0}
+        out: Dict = {"count": h.count}
+        out.update(h.percentiles_ms())
+        if self._queue_hist.count:
+            out["queue_wait"] = self._queue_hist.percentiles_ms()
+        if self._service_hist.count:
+            out["service"] = self._service_hist.percentiles_ms()
+        out["histogram"] = h.to_dict()
+        return out
+
+    def report(self) -> Dict:
+        """The `telemetry_report()["resources"]` section: occupancy,
+        memory watermarks, and the watchdog's verdict trail."""
+        return {
+            "occupancy": self.occupancy(),
+            "memory": {
+                **self._last_resources,
+                "high_water": dict(self._mem_high),
+            },
+            "queries": self.query_stats(),
+            "lane_states": list(self._lane_states),
+            "watchdog": {
+                "enabled": self.watchdog,
+                "fired": dict(self.fired),
+                "events": [dict(e) for e in self.events[-16:]],
+                "horizon_s": self.horizon_s,
+                "warn_frac": self.warn_frac,
+                "slo_ms": self.slo_ms,
+                "slo_burn_window_s": self.slo_burn_window_s,
+            },
+            "samples": self.samples,
+        }
+
+
+# --- the autotuner's objective readout ----------------------------------------
+
+# Each fired stall/occupancy verdict scales the per-window cost by this
+# much: a config that is 10% faster but starves the feeder or saturates
+# a reserve should lose to a clean one. 0.25 is deliberately blunt —
+# verdicts are rare binary events, not a second cost axis to tune.
+VERDICT_PENALTY_FRAC = 0.25
+
+
+def tuning_objective(report: Dict) -> Dict:
+    """Fold one engine `telemetry_report()` into the autotuner's scalar
+    objective: the per-window cost line (the window spans and the
+    blocking reads over the ring's windows) scaled by a penalty per
+    DISTINCT fired watchdog verdict kind. Pure host dict math on an
+    already-drained report — no device values, per this module's
+    contract. Returns {ms_per_window, verdicts_fired, penalty, score};
+    lower score is better, and a report with no per-window line scores
+    0.0 (callers that require windows assert ms_per_window > 0)."""
+    per_window = report.get("per_window") or {}
+    ms = float(per_window.get("ms_per_window", 0.0))
+    watchdog = (report.get("resources") or {}).get("watchdog") or {}
+    fired = {
+        str(kind): int(count)
+        for kind, count in (watchdog.get("fired") or {}).items()
+        if count
+    }
+    penalty = 1.0 + VERDICT_PENALTY_FRAC * len(fired)
+    return {
+        "ms_per_window": ms,
+        "verdicts_fired": fired,
+        "penalty": penalty,
+        "score": ms * penalty,
+    }

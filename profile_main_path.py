@@ -4,7 +4,7 @@
     python3 profile_main_path.py [--path headline|autoscaler|replay|deep]
         [--windows 20] [--repeats 1] [--route sorted|megakernel|two_kernel]
         [--executor eager|graphs] [--k K] [--pod-window W] [--reclaim on|off]
-        [--package-root DIR]
+        [--telemetry on|off] [--package-root DIR]
 
 Builds the headline shape (`chip_smoke.headline_sim`), with `--path
 autoscaler` the reference's composed scenario at full width
@@ -25,15 +25,22 @@ the replay's 4 096): its windows then run through step_until_time, which
 slides the window between spans, and a growth inside the timed windows
 raises (a repeat could not restore the narrower state). `--reclaim`
 builds the autoscaler paths with CA slot reclaim on or off; left out, the
-engine's default (on for the card). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
+engine's default (on for the card). `--telemetry` builds the path with
+the flight recorder armed or not (the ring's record, one kernel a
+window); left out, the engine's default (off). Steps to the warm-up time (t=190 s; 590 s on the autoscaler
 path, inside its load burst; 43 200 s, mid-day, on the replay; 300 s on
 the deep path, ~5 000 pods queued a cluster) and keeps a copy of that
 state. Then it runs the same `--windows` windows from it (`install_state`
 puts the copy back before each repeat):
   1. untraced, on the host clock, ending in a synchronize, `--repeats`
-     times (the first is `host_ms_per_window`, all are listed);
+     times (the first is `host_ms_per_window`, all are listed); with the
+     flight recorder armed, each repeat's decisions/s and cluster-windows/s
+     go to standard error (telemetry.log_chunk_throughput's line);
   2. traced with torch.profiler (CPU + CUDA), again on the host clock,
-     summing device kernel time per name.
+     summing device kernel time per name; with the flight recorder armed,
+     its spans also open NVTX ranges and record_function scopes named
+     after their phase (the tracer's `annotate`), which show among the
+     host rows.
 The device's idle share is 1 - busy / wall, both from the traced windows;
 the untraced wall time of the same windows is printed beside it, and the
 difference is the profiler's own cost. Prints one JSON line: host ms per
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -112,6 +120,8 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=None, help="pods per cycle on the deep path (default: P)")
     ap.add_argument("--pod-window", type=int, default=0, help="sliding pod window (0: whole-resident)")
     ap.add_argument("--reclaim", choices=("on", "off"), default=None, help="CA slot reclaim (default: the engine's)")
+    ap.add_argument("--telemetry", choices=("on", "off"), default=None,
+                    help="the flight recorder (default: the engine's, off)")
     ap.add_argument("--package-root", default=str(HERE))
     args = ap.parse_args(argv)
 
@@ -139,6 +149,8 @@ def main(argv=None) -> int:
         kw["pod_window"] = args.pod_window
     if args.reclaim:
         kw["reclaim"] = args.reclaim == "on"
+    if args.telemetry:
+        kw["telemetry"] = args.telemetry == "on"
     build, warm_up = {
         "headline": (lambda: headline_sim("cuda", **kw), 190.0),
         "autoscaler": (lambda: composed_sim("cuda", 256, **FULL_COMPOSED, **kw), 590.0),
@@ -160,8 +172,23 @@ def main(argv=None) -> int:
     sliding = getattr(sim, "pod_window", None) is not None
     interval = sim.config.scheduling_cycle_interval
 
-    def timed_windows() -> float:
+    tracer = getattr(sim, "tracer", None)
+    armed = bool(getattr(tracer, "enabled", False))
+    annotations = set()
+    if armed:
+        from kubernetriks_tpu_torch.telemetry import PHASE_NAMES, log_chunk_throughput
+
+        annotations = set(PHASE_NAMES)
+
+        logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(message)s")
+        log = logging.getLogger("profile_main_path")
+
+    def decisions() -> int:
+        return int(sim.state.metrics.scheduling_decisions.sum())
+
+    def timed_windows(log_throughput: bool = False) -> float:
         grows = sim.dispatch_stats["grows"] if sliding else 0
+        before = decisions() if log_throughput else 0
         t0 = time.perf_counter()
         if sliding:
             sim.step_until_time(sim.next_window + (n - 1) * interval)
@@ -170,6 +197,8 @@ def main(argv=None) -> int:
                 sim.step_window()
         torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) * 1e3 / n
+        if log_throughput:
+            log_chunk_throughput(log, n, sim.n_clusters, decisions() - before, elapsed * n / 1e3)
         if sliding and sim.dispatch_stats["grows"] != grows:
             raise SystemExit("profile_main_path: the pod window grew inside the timed windows; "
                              "take a wider --pod-window or fewer --windows")
@@ -177,12 +206,16 @@ def main(argv=None) -> int:
 
     host_ms = []
     for _ in range(max(1, args.repeats)):
-        host_ms.append(timed_windows())
+        host_ms.append(timed_windows(log_throughput=armed))
         sim.install_state(state0, window0)
     torch.cuda.synchronize()
     stats = {k: v - stats0[k] for k, v in getattr(sim, "dispatch_stats", {}).items()}
+    if armed:
+        tracer.annotate = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = timed_windows()
+    if armed:
+        tracer.annotate = False
     events = prof.key_averages()
 
     def dev_us(e):
@@ -194,11 +227,13 @@ def main(argv=None) -> int:
 
     # Device-side rows (kernels, memcpy, memset) have no host time; the
     # aten rows also report their kernels' time as "self" device time, so
-    # summing both would count every kernel twice.
+    # summing both would count every kernel twice. The tracer's annotated
+    # spans also leave a device-side row, named after the phase, which
+    # spans the kernels it launched: not a kernel either.
     kernels = []
     for e in events:
         us = dev_us(e)
-        if us > 0 and e.self_cpu_time_total == 0:
+        if us > 0 and e.self_cpu_time_total == 0 and e.key not in annotations:
             kernels.append((e.key, us, e.count))
     # Host rows: what the host spends a window on (the planning's CPU ops,
     # the launches, the graph replays).
@@ -213,6 +248,8 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     window = f"_w{args.pod_window}" if args.pod_window else ""
     window += "_reclaim" if getattr(sim, "reclaim", False) else ""
+    telemetry = getattr(sim.state, "telemetry", None) is not None
+    window += "_telemetry" if telemetry else ""
     (out_dir / f"profile_{args.path}_{sim.cycle_route}_{executor}{window}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=60)
     )
@@ -228,6 +265,7 @@ def main(argv=None) -> int:
         "graph_pool_bytes": sim.graph_pool_bytes() if hasattr(sim, "graph_pool_bytes") else 0,
         "pod_window": getattr(sim, "pod_window", None),
         "reclaim": getattr(sim, "reclaim", False),
+        "telemetry": telemetry,
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods,
                   "real_pods": sim.n_real_pods, "E": sim.max_events_per_window,
                   "K": sim.max_pods_per_cycle},
@@ -244,6 +282,7 @@ def main(argv=None) -> int:
                 "event_scatter_kernel", "free_resources_kernel", "select_cycle_commit_kernel",
                 "ca_scale_down_kernel", "ca_scale_up_kernel", "schedule_cycle_kernel",
                 "select_schedule_cycle_kernel", "commit_fill_kernel", "commit_scatter_kernel",
+                "telemetry_record_kernel",
             )
         },
         "top_host": [

@@ -1102,3 +1102,119 @@ def test_razor_graph_run_equals_eager_run(cuda_device, rate):
     _assert_graph_run_equals_eager_run(runs)
     assert runs[0][0]._executor.skipped_body_launches().get("fused_free_resources", 0) > 0
     assert (runs[0][0].n_pods > 2048) == (rate > 1.0)
+
+
+def telemetry_inputs(seed, C=6, N=9, P=40, Gp=2, Gn=3, R=16, auto=True):
+    """Seeded operands of the telemetry record: phases 0-6, alive nodes,
+    the reserve leaves (None without the autoscalers), pod bases, the
+    window, ten counters ahead of their snapshot m0, a ring part written
+    with its cursor past R (a wrapped slot)."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    head = rng.integers(0, 20, (C, Gp)).astype(i32)
+    args = [
+        t(rng.integers(0, 7, (C, P)).astype(i32)),
+        t(rng.random((C, N)) < 0.6),
+        t(head) if auto else None,
+        t(head + rng.integers(0, 9, (C, Gp)).astype(i32)) if auto else None,
+        t(rng.integers(0, 6, (C, Gn)).astype(i32)) if auto else None,
+        t(rng.integers(0, 3 * P, (C,)).astype(i32)),
+        t(np.full((C,), 77, i32)),
+    ]
+    m0 = rng.integers(0, 1000, (10, C)).astype(i32)
+    counters = [t(m0[k] + rng.integers(0, 50, (C,)).astype(i32)) for k in range(10)]
+    buf = t(rng.integers(-1, 9, (C, R, 12)).astype(i32))
+    cursor = t(rng.integers(0, 3 * R, (C,)).astype(i32))
+    return args, counters, t(m0), buf, cursor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed, shape", [(5, {}), (6, {"C": 3, "N": 301, "P": 4999, "R": 1024}),
+                                         (7, {"auto": False})])
+def test_telemetry_record_kernel_matches_plain_version(cuda_device, seed, shape):
+    """ops/csrc/telemetry_record.cu against step.telemetry_record_plain,
+    bit for bit (the row, the cursor and m0, all written in place), at two
+    widths and without the autoscalers."""
+    from kubernetriks_tpu_torch.batched.step import telemetry_record_plain
+    from kubernetriks_tpu_torch.ops.telemetry_kernel import telemetry_record
+
+    args, counters, m0, buf, cursor = telemetry_inputs(seed, **shape)
+    P = args[0].shape[1]
+    outs = []
+    for fn, dev in ((telemetry_record, cuda_device), (telemetry_record_plain, cuda_device), (telemetry_record, "cpu")):
+        a = [None if x is None else x.to(dev) for x in args]
+        c = [x.to(dev) for x in counters]
+        mine = [m0.to(dev).clone(), buf.to(dev).clone(), cursor.to(dev).clone()]
+        port_kernels.reset_launches()
+        fn(*a, c, *mine, head_bound=2 * P)
+        torch.cuda.synchronize()
+        assert port_kernels.launch_counts()["telemetry_record"] == (fn is telemetry_record and dev != "cpu")
+        outs.append([x.cpu() for x in mine])
+    for other in outs[1:]:
+        for got, want in zip(outs[0], other):
+            assert torch.equal(got, want)
+    assert not torch.equal(outs[0][1], buf)  # a row was written
+
+
+def _telemetry_composed(device, graphs, telemetry=True, **kwargs):
+    return composed_sim(device, 8, graphs=graphs, telemetry=telemetry, telemetry_ring=64, reclaim=True, **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pod_window", [None, 8])
+def test_telemetry_graph_run_equals_eager_run_and_cpu(cuda_device, pod_window):
+    """With telemetry on, the window graphs (the record in the end graph)
+    and the eager executor end in the same state, the ring included, and
+    in the CPU's; the drained series of the three are equal and lossless;
+    telemetry off launches everything but the record as often, the same
+    reads and replays."""
+    kw = {} if pod_window is None else {"pod_window": pod_window}
+    runs = _graph_and_eager(lambda g: _telemetry_composed(cuda_device, g, **kw), 500.0)
+    _assert_graph_run_equals_eager_run(runs, max_syncs=10**6)
+    g = runs[0][0]
+    assert runs[0][1]["telemetry_record"] == g.windows_run
+    cpu = _telemetry_composed("cpu", False, **kw)
+    cpu.step_until_time(500.0)
+    assert compare_states(state_to_numpy(cpu.state), state_to_numpy(g.state)) == []
+    series = [s.telemetry_window_series() for s in (g, runs[1][0], cpu)]
+    for wins, data in series[1:]:
+        assert np.array_equal(wins, series[0][0]) and np.array_equal(data, series[0][1])
+    assert np.array_equal(series[0][0], np.arange(g.next_window_idx))
+    off = _graph_and_eager(lambda gr: _telemetry_composed(cuda_device, gr, telemetry=False, **kw), 500.0)[0]
+    assert off[1]["telemetry_record"] == 0
+    assert {n: k for n, k in off[1].items()} == {**runs[0][1], "telemetry_record": 0}
+    assert off[0].dispatch_stats == g.dispatch_stats and off[2] == runs[0][2]
+
+
+@pytest.mark.cuda
+def test_razor_gated_windows_record(cuda_device):
+    """A gappy trace on the card with the razor on: the windows whose tail
+    the conditional node skips still record (the record sits outside it),
+    so the ring has every window, equal to the eager run's and the CPU's
+    (razor off)."""
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    def build(device, graphs):
+        bursts = []
+        for t0 in (0.0, 600.0):
+            w = PoissonWorkloadTrace(rate_per_second=1.0, horizon=60.0, seed=int(t0) + 5, cpu=4000,
+                                     ram=8 * 1024**3, duration_range=(20.0, 40.0), name_prefix=f"b{int(t0)}")
+            bursts += [(tt + t0, ev) for tt, ev in w.convert_to_simulator_events()]
+        return build_batched_from_traces(
+            SimulationConfig.from_yaml("sim_name: razor\nseed: 1\nscheduling_cycle_interval: 10.0\n"),
+            UniformClusterTrace(8, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
+            sorted(bursts, key=lambda e: e[0]), n_clusters=2, device=device, max_pods_per_cycle=16,
+            fast_forward=False, graphs=graphs, telemetry=True,
+        )
+
+    runs = _graph_and_eager(lambda g: build(cuda_device, g), 800.0)
+    _assert_graph_run_equals_eager_run(runs)
+    g = runs[0][0]
+    assert g.window_razor and any("gate" in k for k in g._executor.graphs)
+    assert g._executor.skipped_body_launches().get("fused_free_resources", 0) > 0
+    cpu = build("cpu", False)
+    cpu.step_until_time(800.0)
+    wins, data = g.telemetry_window_series()
+    wc, dc = cpu.telemetry_window_series()
+    assert np.array_equal(wins, np.arange(g.next_window_idx)) and np.array_equal(wins, wc)
+    assert np.array_equal(data, dc)

@@ -311,7 +311,18 @@ def test_wrappers_count_only_kernel_launches():
     from test_torch_razor import run_glue_wrappers
 
     run_glue_wrappers()
-    assert len(port_kernels.LAUNCHES) == 13
+    from kubernetriks_tpu_torch.ops.telemetry_kernel import telemetry_record
+
+    C, N, P, R = 2, 3, 4, 8
+    i32 = torch.int32
+    buf, cursor, m0 = torch.full((C, R, 12), -1, dtype=i32), torch.zeros((C,), dtype=i32), torch.zeros((10, C), dtype=i32)
+    telemetry_record(
+        torch.ones((C, P), dtype=i32), torch.ones((C, N), dtype=torch.bool), None, None, None,
+        torch.zeros((C,), dtype=i32), torch.full((C,), 5, dtype=i32), [torch.ones((C,), dtype=i32)] * 10, m0, buf,
+        cursor, head_bound=P,
+    )
+    assert buf[:, 0].tolist() == [[5, 1, P, 0, 2, 2, 5, N, 0, 0, P, 1]] * C and cursor.tolist() == [1, 1]
+    assert len(port_kernels.LAUNCHES) == 14
     assert all(v == 0 for v in port_kernels.LAUNCHES.values())
 
 

@@ -144,7 +144,8 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 
 def test_port_main_path_loads_no_jax(tmp_path):
     """The port's main path, its autoscaler path (whole-resident and through
-    the sliding pod window, and with faults and a profile), the endurance
+    the sliding pod window, and with faults and a profile), the flight
+    recorder (the ring, the watchdog, gauges, the report), the endurance
     churn with slot reclaim, the trace replay and the CLI, run in a fresh
     interpreter, leave no module named jax* or kubernetriks_tpu.* in
     sys.modules."""
@@ -180,6 +181,14 @@ def test_port_main_path_loads_no_jax(tmp_path):
         chaos_run = composed_sim("cpu", 4, faults=True, scheduler_profile="balanced_packing")
         chaos_run.step_until_time(600.0)
         assert chaos_run.metrics_summary()["counters"]["node_crashes"] > 0
+        import kubernetriks_tpu_torch.flags, kubernetriks_tpu_torch.ops.telemetry_kernel
+        import kubernetriks_tpu_torch.telemetry.export, kubernetriks_tpu_torch.telemetry.observatory
+        import kubernetriks_tpu_torch.telemetry.ring, kubernetriks_tpu_torch.metrics.render
+        armed = composed_sim("cpu", 2, pod_window=8, telemetry=True, watchdog=True)
+        armed.collect_gauges = True
+        armed.step_until_time(160.0)
+        assert len(armed.telemetry_window_series()[0]) == armed.next_window_idx == len(armed.gauge_series()[0])
+        kubernetriks_tpu_torch.metrics.render.render_telemetry(armed.telemetry_report(), "table")
         from chip_smoke import endurance_sim
         churn = endurance_sim("cpu", 1, 4, reclaim=True)
         churn.step_until_time(30.0 + 4 * 160.0)

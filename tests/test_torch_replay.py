@@ -407,10 +407,7 @@ def test_cli_profile_matches_reference_cli(tmp_path, capsys, restore_logging, pr
         port_cli.main(["--config-file", config, "--device", "cpu", "--profile", "best-fit"])
 
 
-@pytest.mark.parametrize(
-    "option",
-    [["--backend", "scalar"], ["--gauge-csv", "g.csv"], ["--metrics-export", "stem"]],
-)
+@pytest.mark.parametrize("option", [["--backend", "scalar"]])
 def test_cli_refuses_unported_options(tmp_path, option):
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
         port_cli.main(["--config-file", _generic_config(tmp_path), "--device", "cpu", *option])
