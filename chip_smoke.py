@@ -52,7 +52,10 @@ Phases; any failure exits non-zero:
      decisions/s beside phase 6's; its counters and metric leaves equal
      phase 6's (compare_states), every slot the window holds is in the
      phase of its global slot in phase 6 and every slot it slid past is
-     terminal there;
+     terminal there; it streams (the card's default: the feeder thread
+     stages the slide's payload), and the same timed span without the
+     feeder (stream=False) ends in the same state with the same host
+     reads, host ms a window beside;
  6r. phase 6w's line again with slot reclaim off, timed the same way: its
      counters (but the slots reclaimed) and metric leaves equal phase
      6w's; slots reclaimed, host and device busy ms a window of both;
@@ -77,7 +80,10 @@ Phases; any failure exits non-zero:
      reference README's) to completion: its counters and window count
      equal phase 9's, every pod terminal, one host read a span (and
      run_to_completion's own); growths, final window, wall seconds, ms and
-     busy ms a window beside phase 9's;
+     busy ms a window beside phase 9's; run twice, streamed (the card's
+     default) and with stream=False (the whole-trace payload on the card):
+     equal states and host reads, host ms, busy ms and kernels a window
+     of each;
  10. card against CPU on the replay and the two-kernel route: the replay
      at the reference's own test size (100 machines, 700 tasks, 4 000 s,
      seed 7) to completion; the headline shape at C=128 to t=60 s on the
@@ -99,22 +105,24 @@ Phases; any failure exits non-zero:
      the CA's 32 000 mCPU template, a 2-slot CA reserve, pod_window=128,
      K = 32; its fault block on and ca_slot_multiplier 2, as the
      reference's long runs take them; telemetry and the watchdog armed, as
-     its endurance line has them; no streaming feeder)
+     its endurance line has them; the streaming feeder on, the card's
+     default)
      at 256 clusters (each with its own crash chains, build timed) through
      96 waves (15 390 s) on the graph executor with slot reclaim: finishes
      with the bounds clean, crashes and restarts seen, at least 3x the
      reserve in
      allocations and slots reclaimed on every cluster, one host read a
      span, no reserve verdict of the watchdog and a lossless ring (the
-     reference's gate, `bench.py:625-626, 745-760`); a second run read once a wave shows the dynamic scale-down
-     order away from the static table; busy ms a window over waves 40-50;
-     without reclaim the churn raises; at C=4, 24 waves (the reference
-     bench's defaults) card == CPU, reclaim on both sides, and again
-     through 76 waves, past wave 74's pair (ca_node_99, ca_node_100: the
-     scale-down walks it out of slot order, which the CPU run must show).
+     reference's gate, `bench.py:625-626, 745-760`); a second run (at 16
+     clusters) read once a wave shows the dynamic scale-down order away
+     from the static table; busy ms a window over waves 40-50; without
+     reclaim the churn raises (16 clusters); at C=4 card == CPU, reclaim
+     on both sides, through 76 waves, past wave 74's pair (ca_node_99,
+     ca_node_100: the scale-down walks it out of slot order, which the CPU
+     run must show).
  13. scheduler profiles: under best_fit and balanced_packing, the headline
      shape on the graph executor timed as phase 4 (megakernel) and as
-     phase 8 (two-kernel route), and the full replay timed to completion
+     phase 8 (two-kernel route), and the full replay timed to 43 200 s
      as phase 9 (sorted route); card == CPU
      for best_fit, balanced_packing and a custom profile
      (BalancedResourceAllocation at weight 2.0) at C=128 on the megakernel
@@ -134,7 +142,7 @@ Phases; any failure exits non-zero:
      and again with telemetry off (equal reads and dispatch counts): wall time, decisions/s, windows executed and skipped, host
      reads, kernels and busy ms an executed window (torch.profiler, 5 000
      -> 7 000 s of a second run); the same line stepping every window on
-     the card ends in an equal state; card == CPU at C = 4 on this line
+     the card ends in an equal state; card == CPU at C = 4 on this line (to 35 000 s)
      and on the composed line at 0.02 pods/s to 2 000 s (slot reclaim on
      both sides, both fast-forwarded), with the same windows executed.
  16. the conditional move on graphs: phase 6w's line with
@@ -148,6 +156,20 @@ Phases; any failure exits non-zero:
      and busy ms a window on against off; at phase 7w's depth the card's
      ring equals the CPU's bit for bit and its gauges the CPU's (counts
      exact, utilizations at rtol 1e-5), the gauge CSV written.
+ 18. the streaming feeder over the device budget: the replay's synthetic
+     day replicated to 1 024 clusters with the CA on, through
+     pod_window=4096, built through the CLI's native path (the C++ feeder,
+     compile_from_arrays; the phase fails if the feeder does not build),
+     its whole-trace payload (~2.73 GB) over the 2 GiB budget, run to
+     20 000 s on the graph executor with the feeder's slabs (one host read
+     a span, at least two slabs installed, every kernel of the path
+     launched); every cluster's state equals a one-cluster streamed run to
+     the same time on the same route; slabs installed and produced, the
+     stall split, the staging's device bytes against the whole payload's
+     (its peak must stay below the whole payload at the width reached,
+     read after the run and again after the traced continuation, which
+     grows the window and re-seeks the feeder), host and busy ms a
+     window, the build seconds.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -257,6 +279,9 @@ def headline_sim(device, n_clusters: int = 1024, n_nodes: int = 256, rate: float
 # rule counts the 256 node creations too, 0.33 trace events a window over
 # 20 000 s, 0.237 over 70 000 s (under 0.25).
 SPARSE = dict(rate=0.02, horizon=70000.0)
+# Phase 15's card-against-CPU run of this line at C = 4 stops here (a depth
+# cut from 70 000 s, PERF.md §4).
+SPARSE_CHECK_UNTIL = 35000.0
 
 
 def sparse_sim(device, n_clusters: int = 1024, **engine_kwargs):
@@ -298,6 +323,9 @@ FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, bu
 # replay's (the reference README streams the Alibaba replay through 4 096).
 COMPOSED_POD_WINDOW = 512
 REPLAY_POD_WINDOW = 4096
+# Phase 13 times the replay under each profile to half the day (a depth
+# cut from the whole day, PERF.md §4).
+PROFILE_REPLAY_UNTIL = 43200.0
 WINDOWED_COMPOSED = f"pod_window={COMPOSED_POD_WINDOW}"
 WINDOWED_REPLAY = f"pod_window={REPLAY_POD_WINDOW}"
 # The non-default scheduler profiles the cycle kernels are held and timed
@@ -448,8 +476,9 @@ def endurance_sim(device, n_clusters: int = 4, n_waves: int = 24, n_nodes: int =
     mCPU / 4 GiB, 20-60 s, K = 32, pod_window=128, ca_slot_multiplier 1),
     with its fault block where `faults` (the reference runs it with faults
     on, and with ca_slot_multiplier 2 on its long runs, `bench.py:610,
-    688`), without the streaming feeder or telemetry. engine_kwargs go to
-    the engine (e.g. reclaim=, graphs=, ca_slot_multiplier=)."""
+    688`), without telemetry (the engine's defaults: on the card the
+    streaming feeder stages the pod window). engine_kwargs go to the
+    engine (e.g. reclaim=, graphs=, ca_slot_multiplier=)."""
     from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
     from kubernetriks_tpu_torch.config import SimulationConfig
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
@@ -528,11 +557,12 @@ def replay_trace(name: str, **kwargs):
 FULL_REPLAY = dict(error_fraction=0.1, seed=3, horizon=86400.0)
 
 
-def replay_sim(device, paths, delays="bench", ca=True, **engine_kwargs):
-    """The replay through the port's CLI functions: one cluster, K = 256."""
+def replay_sim(device, paths, delays="bench", ca=True, n_clusters: int = 1, **engine_kwargs):
+    """The replay through the port's CLI functions (the native feeder and
+    compile_from_arrays): one cluster unless asked, K = 256."""
     from kubernetriks_tpu_torch.cli import build_batched_simulation
 
-    return build_batched_simulation(replay_config(paths, delays, ca), 1, device=device, **engine_kwargs)
+    return build_batched_simulation(replay_config(paths, delays, ca), n_clusters, device=device, **engine_kwargs)
 
 
 def with_megakernel_flag(value: str, build):
@@ -807,32 +837,36 @@ def timed_path(sim, sk, names, label):
     return out
 
 
-def timed_replay(sim, sk, names, label) -> dict:
+def timed_replay(sim, sk, names, label, until=None) -> dict:
     """Capture every window piece, run the replay to completion on the
     graph executor with the launch counts set to 0 just before, and check
     the run: graphs alone (run_to_completion reads the device once per
     chunk of 64 windows past the last event; the window loop itself
     never does), every pod terminal, some decision, every kernel in
-    `names` launched. Returns the run's numbers."""
+    `names` launched. `until`: step to that time instead (no read; the
+    pods are not all terminal then). Returns the run's numbers."""
     t0 = time.perf_counter()
     captured = sim.precompile_pieces()
     capture_s = time.perf_counter() - t0
     sk.reset_launches()
     syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
     t0 = time.perf_counter()
-    sim.run_to_completion(max_time=86400.0 * 20.0)
+    if until is None:
+        sim.run_to_completion(max_time=86400.0 * 20.0)
+    else:
+        sim.step_until_time(until)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = sk.launch_counts()
     graph = graph_report(sim, {k: sim.dispatch_stats[k] - stats0[k] for k in stats0})
     check_graph_run(label, sim, graph, sim.host_syncs - syncs0, sim.windows_run,
-                    max_syncs=-(-sim.windows_run // 64))
+                    max_syncs=-(-sim.windows_run // 64) if until is None else 0)
     summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
     counters = summary["counters"]
     decisions = counters["scheduling_decisions"]
     windows = sim.windows_run
     phase = sim.state.pods.phase[:, : sim.n_real_pods]
-    if not bool(((phase == 4) | (phase == 5) | (phase == 6)).all()):
+    if until is None and not bool(((phase == 4) | (phase == 5) | (phase == 6)).all()):
         fail(f"{label}: the replay ended with a pod that is not terminal")
     if decisions <= 0:
         fail(f"{label}: the replay made no scheduling decision")
@@ -1093,6 +1127,8 @@ def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) ->
         return composed_sim(dev, n_clusters, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW)
 
     sim = build()
+    if not sim._stream_on():
+        fail("phase 6w: the card engine does not stream by default")
     out = timed_path(sim, sk, must_launch, "phase 6w")
     summary = sim.metrics_summary()  # raises if an autoscaler bound was crossed
     if summary["counters"] != whole["summary"]["counters"]:
@@ -1121,12 +1157,26 @@ def composed_window_phase(dev, sk, must_launch, whole, n_clusters: int = 256) ->
     out["reclaim"] = sim.reclaim
     metrics = metric_leaves(sim.state)
     final = flatten(sim.state)
+    sim.close()
     del sim, ph
     out["busy"], again = profiled_busy(build, 190.0, 1190.0, "phase 6w")
     if [p for p, leaf in flatten(again.state).items() if not torch.equal(leaf, final[p])]:
         fail("phase 6w: a second run of the same windows ended in another state")
     out["slide_piece"] = slide_piece_cost(again)
+    again.close()
     del again
+    # The same timed span without the streaming feeder (the card's default
+    # streams): the same state and host reads, host ms a window beside.
+    off_sim = composed_sim(dev, n_clusters, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, stream=False)
+    off = timed_path(off_sim, sk, must_launch, "phase 6w (stream off)")
+    if [p for p, leaf in flatten(off_sim.state).items() if not torch.equal(leaf, final[p])]:
+        fail("phase 6w: the run without the feeder ended in another state")
+    if off["window"]["host_reads"] != out["window"]["host_reads"]:
+        fail(f"phase 6w: {off['window']['host_reads']} host reads without the feeder, {out['window']['host_reads']} with")
+    del off_sim
+    out["stream_off"] = {k: off[k] for k in ("ms_per_window", "decisions_per_s", "window", "graph")}
+    print(f"phase 6w: host {out['ms_per_window']:.4f} ms a window streamed ({out['graph']['stage_refills']} slab(s) "
+          f"installed), {off['ms_per_window']:.4f} without the feeder; state and host reads equal", flush=True)
     ref = whole["path"]
     print(
         f"phase 6w: pod_window={COMPOSED_POD_WINDOW} (final W {out['window']['pod_window']}, device P "
@@ -1211,7 +1261,8 @@ def profiles_phase(dev, sk, names, two_names, replay_paths, replay_names, ref: d
         sim = replay_sim(dev, replay_paths, scheduler_profile=prof)
         if sim.cycle_route != "sorted":
             fail(f"phase 13: the replay under {prof} built the {sim.cycle_route} route, not the sorted one")
-        run = out["replay"][prof] = timed_replay(sim, sk, replay_names, f"phase 13 {prof} replay")
+        run = out["replay"][prof] = timed_replay(sim, sk, replay_names, f"phase 13 {prof} replay",
+                                                 until=PROFILE_REPLAY_UNTIL)
         print(
             f"phase 13 {prof} replay: {run['windows']} windows in {run['wall_s']:.3f} s = "
             f"{run['ms_per_window']:.3f} ms a window (phase 9 {ref['ms_per_window']:.3f}), "
@@ -1342,7 +1393,7 @@ def sparse_phase(dev, sk, names) -> dict:
     read an executed window, no other); the same line stepping every
     window (fast_forward=False) on the card ends in an equal state; device
     busy and kernels an executed window from a traced second run (5 000
-    -> 7 000 s); card == CPU at C = 4 on this line and on an autoscaled
+    -> 7 000 s); card == CPU at C = 4 on this line (to 35 000 s) and on an autoscaled
     sparse variant (the composed line at 0.02 pods/s to 2 000 s), slot
     reclaim on both sides, both fast-forwarded."""
     from kubernetriks_tpu_torch.batched.state import compare_states, strip_telemetry
@@ -1438,7 +1489,7 @@ def sparse_phase(dev, sk, names) -> dict:
     del plain, final
     # Card against CPU at C = 4, on this line and the autoscaled variant.
     runs = {
-        "sparse headline C=4": (lambda where: sparse_sim(where, 4), horizon),
+        "sparse headline C=4": (lambda where: sparse_sim(where, 4), SPARSE_CHECK_UNTIL),
         "composed at 0.02/s, reclaim, C=4": (
             lambda where: composed_sim(where, 4, **{**FULL_COMPOSED, "rate": 0.02, "horizon": 2000.0},
                                        reclaim=True, fast_forward=True), 2000.0),
@@ -1596,7 +1647,10 @@ def telemetry_phase(dev, sk, names, ref: dict) -> dict:
             check_ring(label, sim)
             run["report"] = {k: v for k, v in sim.telemetry_report().items()
                              if k in ("ring", "ring_drains", "per_window", "sync_budget")}
-        finals[on] = (state_to_numpy(strip_telemetry(sim.state)), sim.host_syncs, dict(sim.dispatch_stats))
+        # The feeder's production count depends on its thread's timing.
+        stats = {k: v for k, v in sim.dispatch_stats.items() if k != "feeder_slabs_produced"}
+        finals[on] = (state_to_numpy(strip_telemetry(sim.state)), sim.host_syncs, stats)
+        sim.close()
         out["on" if on else "off"] = run
         del sim
         run["busy"], _ = profiled_busy(lambda: build(on), 190.0, 1190.0, label)
@@ -1728,9 +1782,9 @@ def churn_phase(dev, sk, must_launch) -> dict:
         "observatory": sim.telemetry_report()["resources"]["occupancy"],
     }
     del sim
-    # The dynamic name order, read once a wave (a separate run: the reads
-    # would stall the timed one).
-    sim = build()
+    # The dynamic name order, read once a wave (a separate run, at
+    # CHURN_CHECK_CLUSTERS clusters: the reads would stall the timed one).
+    sim = endurance_sim(dev, CHURN_CHECK_CLUSTERS, ENDURANCE_WAVES, **ENDURANCE_KWARGS)
     sim.precompile_pieces()
     st = sim.autoscale_statics
     apart = []
@@ -1744,8 +1798,9 @@ def churn_phase(dev, sk, must_launch) -> dict:
     out["waves_with_dynamic_order"] = apart
     del sim
     out["busy"], _ = profiled_busy(build, 30.0 + 40 * 160.0, 30.0 + 50 * 160.0, "phase 12")
-    # Without reclaim the same churn runs the 2-slot reserve dry.
-    off = build(reclaim=False, telemetry=False)
+    # Without reclaim the same churn runs the 2-slot reserve dry (shown at
+    # CHURN_CHECK_CLUSTERS clusters).
+    off = endurance_sim(dev, CHURN_CHECK_CLUSTERS, ENDURANCE_WAVES, **ENDURANCE_KWARGS, reclaim=False, telemetry=False)
     off.step_until_time(30.0 + 6 * 160.0)
     try:
         off.metrics_summary()
@@ -1758,7 +1813,7 @@ def churn_phase(dev, sk, must_launch) -> dict:
     # Card against CPU at the reference bench's own size, reclaim on both;
     # again through REORDER_WAVES waves, past the pair whose names straddle
     # 99 / 100, where the CPU run must remove a node on a reordered walk.
-    for n_waves in (24, REORDER_WAVES):
+    for n_waves in (REORDER_WAVES,):
         finals = {}
         for where in ("cuda", "cpu"):
             s = endurance_sim(where, 4, n_waves, reclaim=True, **ENDURANCE_KWARGS)
@@ -1788,8 +1843,9 @@ def churn_phase(dev, sk, must_launch) -> dict:
         f"{out['watchdog_samples']} drains judged (verdicts {verdicts}), "
         f"ring lossless ({out['ring']['windows_kept']} windows), window {out['window']}, dynamic name order off "
         f"the static table in waves "
-        f"{apart}; without reclaim: {out['without_reclaim']}; at C=4 card == CPU through 24 waves "
-        f"({out['card_cpu_counters_24_waves']}) and through {REORDER_WAVES} waves "
+        f"{apart} (at {CHURN_CHECK_CLUSTERS} clusters); without reclaim ({CHURN_CHECK_CLUSTERS} clusters): "
+        f"{out['without_reclaim']}; at C=4 card == CPU through {REORDER_WAVES} waves "
+        f"({out[f'card_cpu_counters_{REORDER_WAVES}_waves']}) "
         f"({out['cpu_reordered_removals']} scale-down calls removing on a reordered walk on the CPU); "
         f"launches {launches}",
         flush=True,
@@ -1802,6 +1858,9 @@ def churn_phase(dev, sk, must_launch) -> dict:
 # 688`): faults on, a slot multiplier of 2.
 ENDURANCE_CLUSTERS = 256
 ENDURANCE_WAVES = 96
+# The churn phase's side runs (the dynamic order read once a wave, the raise
+# without reclaim) at this many clusters (a depth cut from 256, PERF.md §4).
+CHURN_CHECK_CLUSTERS = 16
 ENDURANCE_KWARGS = {"faults": True, "ca_slot_multiplier": 2}
 # Wave 74's pair is allocated as ca_node_99 and ca_node_100: the first two
 # coexisting CA nodes whose names leave allocation order.
@@ -1894,7 +1953,7 @@ def slide_piece_cost(sim, reps: int = 20) -> dict:
     microseconds a launch (cudaGraphLaunch, asynchronous) and device
     microseconds a replay (CUDA events around the replays). What fusing
     the slide into the end graph could save is bounded by the first."""
-    graph = sim._executor.graphs[("slide", sim.pod_window)][0]
+    graph = sim._executor.graphs[sim._executor.slide_key()][0]
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1909,15 +1968,28 @@ def slide_piece_cost(sim, reps: int = 20) -> dict:
     return {"host_us_per_launch": 1e6 * host / reps, "device_us_per_replay": 1e3 * start.elapsed_time(end) / reps}
 
 
-def replay_window_phase(dev, sk, paths, whole: dict, must_launch) -> dict:
+def replay_window_phase(dev, sk, paths, whole: dict, must_launch, stream: bool = True, streamed=None) -> dict:
     """Phase 9w: the replay of phase 9 through its sliding pod window
     (REPLAY_POD_WINDOW) to completion on the graph executor (one read a
     span, and run_to_completion's own), its counters and window count equal
     to phase 9's (`whole`), every pod terminal; device busy from 100
-    traced windows of a second run from 43 200 s."""
+    traced windows of a second run from 43 200 s. `stream`: the streaming
+    feeder on (the card's default) or off (the whole-trace payload on the
+    device); `streamed`: the streamed run's numbers, which the run without
+    the feeder must equal, state and host reads."""
+    from kubernetriks_tpu_torch.batched.state import flatten
+
+    label = "phase 9w" + ("" if stream else " (stream off)")
+    stamp(label)
+
+    def build():
+        return replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW, stream=stream)
+
     t0 = time.perf_counter()
-    sim = replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW)
+    sim = build()
     build_s = time.perf_counter() - t0
+    if sim._stream_on() != stream or (sim._slide_payload is None) != stream:
+        fail(f"{label}: the engine streams {sim._stream_on()}, its whole payload {sim._slide_payload is not None}")
     captured = sim.precompile_pieces()
     sk.reset_launches()
     syncs0, stats0 = sim.host_syncs, dict(sim.dispatch_stats)
@@ -1928,21 +2000,25 @@ def replay_window_phase(dev, sk, paths, whole: dict, must_launch) -> dict:
     launches = sk.launch_counts()
     stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
     syncs = sim.host_syncs - syncs0
-    check_sliding_run("phase 9w", sim, stats, syncs, sim.windows_run,
+    check_sliding_run(label, sim, stats, syncs, sim.windows_run,
                       max_completion_reads=-(-sim.windows_run // 64))
+    if stream and stats["stage_refills"] <= 0:
+        fail(f"{label}: the feeder installed no slab")
     summary = sim.metrics_summary()
     if summary["counters"] != whole["counters"]:
-        fail(f"phase 9w: counters differ from phase 9: {summary['counters']} vs {whole['counters']}")
+        fail(f"{label}: counters differ from phase 9: {summary['counters']} vs {whole['counters']}")
     if sim.windows_run != whole["windows"]:
-        fail(f"phase 9w: {sim.windows_run} windows, phase 9 {whole['windows']}")
+        fail(f"{label}: {sim.windows_run} windows, phase 9 {whole['windows']}")
     W, base = sim.pod_window, sim._pod_base
     ph = sim.state.pods.phase[:, : max(0, min(W, sim.n_real_pods - base))]
     if not bool(((ph == 4) | (ph == 5) | (ph == 6)).all()):
-        fail("phase 9w: the replay ended with a pod that is not terminal")
+        fail(f"{label}: the replay ended with a pod that is not terminal")
     for name in must_launch:
         if launches[name] <= 0:
-            fail(f"phase 9w: never launched {name}")
+            fail(f"{label}: never launched {name}")
+    final = {p: leaf.clone() for p, leaf in flatten(sim.state).items()}
     out = {
+        "stream": stream,
         "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "W": W, "T": sim.consts.trace_pod_bound},
         "build_s": build_s,
         "windows": sim.windows_run,
@@ -1952,19 +2028,186 @@ def replay_window_phase(dev, sk, paths, whole: dict, must_launch) -> dict:
         "precompiled_graphs": captured,
         "graph": graph_report(sim, stats),
         "window": sliding_report(sim, stats, syncs, sim.windows_run),
+        "host_syncs": syncs,
+        "staging": sim.staging_bytes(),
+        "feeder": sim.telemetry_report().get("feeder") or sim._last_feeder_report,
         "counters": summary["counters"],
         "timings": summary["timings"],
         "launches": launches,
     }
+    sim.close()
     del sim, ph
-    out["busy"], _ = profiled_busy(
-        lambda: replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW), 43200.0, 44200.0, "phase 9w")
+    if streamed is not None:
+        bad = [p for p, leaf in final.items() if not torch.equal(leaf, streamed["final"][p])]
+        if bad:
+            fail(f"{label}: the state differs from the streamed run's at {bad}")
+        if syncs != streamed["host_syncs"]:
+            fail(f"{label}: {syncs} host reads, the streamed run {streamed['host_syncs']}")
+    else:
+        out["final"] = final
+    out["busy"], again = profiled_busy(build, 43200.0, 44200.0, label)
+    again.close()
+    del again
     print(
-        f"phase 9w: replay through pod_window={REPLAY_POD_WINDOW} to completion: {out['windows']} windows in "
+        f"{label}: replay through pod_window={REPLAY_POD_WINDOW} to completion: {out['windows']} windows in "
         f"{elapsed:.3f} s = {out['ms_per_window']:.3f} ms a window (phase 9 {whole['wall_s']:.3f} s = "
-        f"{whole['ms_per_window']:.3f}), device busy {out['busy']['busy_ms_per_window']:.4f} ms a window from "
-        f"43 200 s (phase 9 {whole['busy']['busy_ms_per_window']:.4f}), window {out['window']}, counters equal "
-        f"phase 9's, launches {launches}",
+        f"{whole['ms_per_window']:.3f}), device busy {out['busy']['busy_ms_per_window']:.4f} ms a window "
+        f"({out['busy']['kernels_per_window']:.1f} kernels) from 43 200 s (phase 9 "
+        f"{whole['busy']['busy_ms_per_window']:.4f}), {syncs} host reads, window {out['window']}, slabs installed "
+        f"{stats['stage_refills']}, staging {out['staging']}, feeder {out['feeder']}, counters equal phase 9's"
+        + ("" if streamed is None else "; state and host reads equal the streamed run's")
+        + f", launches {launches}",
+        flush=True,
+    )
+    return out
+
+
+# Phase 18: the synthetic day replicated over this many clusters with the CA
+# on, through REPLAY_POD_WINDOW, to this simulated time (two slab installs
+# at least); its whole-trace payload is over the 2 GiB device budget.
+STREAMED_CLUSTERS = 1024
+STREAMED_UNTIL = 20000.0
+
+
+def streamed_replay_phase(dev, sk, paths, must_launch) -> dict:
+    """Phase 18: over the budget, streamed. The replay's synthetic day at
+    STREAMED_CLUSTERS clusters through REPLAY_POD_WINDOW, built through the
+    CLI's native path (the C++ feeder, compile_from_arrays), whose
+    whole-trace slide payload exceeds SLIDE_PAYLOAD_BUDGET_BYTES, run to
+    STREAMED_UNTIL on the graph executor with the streaming feeder (one
+    host read a span, at least two slabs installed; the launch counts set
+    to 0 just before, every kernel of the path launched); device busy from
+    100 traced windows after it; then every cluster's state equals a
+    one-cluster streamed run to the same time on the same cycle route
+    (no faults: the clusters are identical)."""
+    from kubernetriks_tpu_torch.batched import engine as engine_mod
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+    from kubernetriks_tpu_torch.trace import feeder
+
+    if not feeder.native_available():
+        fail(f"phase 18: the native trace feeder did not build: {feeder.native_build_error()}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sim = replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW, n_clusters=STREAMED_CLUSTERS)
+    build_s = time.perf_counter() - t0
+    W = sim.pod_window
+    whole_bytes = sim._whole_payload_bytes(W)
+    if whole_bytes <= engine_mod.SLIDE_PAYLOAD_BUDGET_BYTES:
+        fail(f"phase 18: the whole payload ({whole_bytes} B) fits the budget")
+    if not sim._stream_on() or sim._slide_payload is not None:
+        fail("phase 18: the engine does not stream")
+    t0 = time.perf_counter()
+    captured = sim.precompile_pieces()
+    capture_s = time.perf_counter() - t0
+    sk.reset_launches()
+    syncs0, stats0, windows0 = sim.host_syncs, dict(sim.dispatch_stats), sim.windows_run
+    t0 = time.perf_counter()
+    sim.step_until_time(STREAMED_UNTIL)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = sk.launch_counts()
+    stats = {k: sim.dispatch_stats[k] - stats0[k] for k in stats0}
+    syncs, windows = sim.host_syncs - syncs0, sim.windows_run - windows0
+    check_sliding_run("phase 18", sim, stats, syncs, windows)
+    for name in must_launch:
+        if launches[name] <= 0:
+            fail(f"phase 18: never launched {name}")
+    if stats["stage_refills"] < 2:
+        fail(f"phase 18: {stats['stage_refills']} slab(s) installed")
+    report = sim.telemetry_report()
+    staging = sim.staging_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    if staging["device_peak_bytes"] >= staging["whole_payload_bytes"]:
+        fail(f"phase 18: the staging's device peak {staging} is not below the whole payload")
+    decisions = sim.decisions_total()
+    big = state_to_numpy(sim.state)
+    out = {
+        "shape": {"C": sim.n_clusters, "N": sim.n_nodes, "P": sim.n_pods, "W": sim.pod_window,
+                  "T": sim.consts.trace_pod_bound, "L": sim._stage_cols(), "K": sim.max_pods_per_cycle,
+                  "route": sim.cycle_route},
+        "build_s": build_s,
+        "precompile_s": capture_s,
+        "precompiled_graphs": captured,
+        "windows": windows,
+        "wall_s": elapsed,
+        "ms_per_window": 1e3 * elapsed / max(windows, 1),
+        "decisions": decisions,
+        "decisions_per_s": decisions / elapsed,
+        "host_syncs": syncs,
+        "window": sliding_report(sim, stats, syncs, windows),
+        "stage_refills": stats["stage_refills"],
+        "feeder_slabs_produced": report["dispatch_stats"]["feeder_slabs_produced"],
+        "feeder": report.get("feeder") or sim._last_feeder_report,
+        "staging": staging,
+        "device_peak_allocated_bytes": peak,
+        "spans": {k: v for k, v in report.get("spans", {}).items() if k.startswith("stage")},
+        "launches": launches,
+    }
+    route = sim.cycle_route
+    # Device busy over 100 more windows of the same run.
+    from torch.profiler import ProfilerActivity, profile
+
+    w0 = sim.windows_run
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.step_until_time(STREAMED_UNTIL + 1000.0)
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+        if us > 0 and e.self_cpu_time_total == 0:
+            busy_us += us
+            kernels += e.count
+    n = max(sim.windows_run - w0, 1)
+    if busy_us <= 0:
+        fail("phase 18: the profiler saw no device time")
+    out["busy"] = {"windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n}
+    # The staging after the continuation, a growth's re-seek included: its
+    # peak over the whole run must stay below the whole payload at the
+    # width reached.
+    after = sim.staging_bytes()
+    out["after"] = {
+        "W": sim.pod_window, "L": sim._stage_cols(), "grows": sim.dispatch_stats["grows"],
+        "staging": after, "device_peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "feeder": sim.telemetry_report().get("feeder"),
+    }
+    if after["device_peak_bytes"] >= after["whole_payload_bytes"]:
+        fail(f"phase 18: after the continuation, the staging's device peak {after} is not below the whole payload")
+    sim.close()
+    del sim
+    stamp("phase 18: the one-cluster run")
+    # Every cluster against one cluster on the same route.
+    one = replay_sim(dev, paths, pod_window=REPLAY_POD_WINDOW)
+    one.cycle_route = route
+    one.step_until_time(STREAMED_UNTIL)
+    small = state_to_numpy(one.state)
+    one.close()
+    del one
+    if set(big) != set(small):
+        fail("phase 18: the leaf sets of the 1 024-cluster and the one-cluster states differ")
+    bad = []
+    for key, a in big.items():
+        b = small[key]
+        if a.shape[1:] != b.shape[1:]:
+            bad.append(key)
+        elif ".metrics." in key and a.dtype == np.float32:
+            if not np.allclose(a, b, rtol=1e-6, atol=0.0):
+                bad.append(key)
+        elif not bool((a == b).all()):
+            bad.append(key)
+    if bad:
+        fail(f"phase 18: clusters differ from the one-cluster run at {bad}")
+    del big, small
+    print(
+        f"phase 18: {STREAMED_CLUSTERS} clusters of the synthetic day through pod_window={REPLAY_POD_WINDOW} "
+        f"(stage {out['shape']['L']} columns, route {route}), built in {build_s:.1f} s (native feeder, "
+        f"compile_from_arrays), {captured} graphs in {capture_s:.1f} s; to {STREAMED_UNTIL:.0f} s: {windows} windows in "
+        f"{elapsed:.3f} s = {out['ms_per_window']:.3f} ms a window, device busy "
+        f"{out['busy']['busy_ms_per_window']:.4f} ms a window ({out['busy']['kernels_per_window']:.1f} kernels), "
+        f"{decisions} decisions, {syncs} host reads ({stats['slides']} slides, {stats['grows']} growths), slabs "
+        f"installed {stats['stage_refills']}, produced {out['feeder_slabs_produced']}, feeder {out['feeder']}, "
+        f"staging spans {out['spans']}; device staging peak {staging['device_peak_bytes']} B against the whole "
+        f"payload's {whole_bytes} B (all device allocations' peak {peak} B); after the continuation to "
+        f"{STREAMED_UNTIL + 1000.0:.0f} s {out['after']}; every cluster equals the one-cluster run; launches {launches}",
         flush=True,
     )
     return out
@@ -2845,6 +3088,9 @@ def main() -> int:
     replay_path["busy"], _ = profiled_busy(lambda: replay_sim(dev, replay_paths), 43200.0, 44200.0, "phase 9")
 
     windowed_replay = replay_window_phase(dev, sk, replay_paths, replay_path, replay_names)
+    windowed_replay_unstreamed = replay_window_phase(
+        dev, sk, replay_paths, replay_path, replay_names, stream=False, streamed=windowed_replay)
+    windowed_replay.pop("final")
 
     # --- 10. card against CPU: the replay and the two-kernel route ----------------
     stamp("phase 10")
@@ -2937,6 +3183,11 @@ def main() -> int:
     # --- 17. the flight recorder --------------------------------------------------------------
     stamp("phase 17")
     telemetry_path = telemetry_phase(dev, sk, names + ca_names, windowed_composed)
+
+    # --- 18. over the budget, streamed -----------------------------------------------------------
+    stamp("phase 18")
+    streamed_path = streamed_replay_phase(dev, sk, replay_paths, replay_names[:2] + ["fused_select_cycle_commit"]
+                                          + replay_names[3:])
 
     kernels = []
     meta = {
@@ -3043,7 +3294,8 @@ def main() -> int:
             "windowed_composed": windowed_composed, "windowed_replay": windowed_replay,
             "composed_reclaim_off": composed_reclaim_off, "churn": churn_path,
             "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
-            "telemetry": telemetry_path,
+            "telemetry": telemetry_path, "windowed_replay_unstreamed": windowed_replay_unstreamed,
+            "streamed_replay": streamed_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

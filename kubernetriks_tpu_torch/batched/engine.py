@@ -4,8 +4,8 @@ and steps it window by window.
 Port of the JAX package's `batched/engine.py` (`BatchedSimulation` slot
 sizing :686-1560, `step_until_time` :2504, `run_to_completion` :3640,
 `metrics_summary` :3784, `build_batched_from_traces` :4564): no mesh, no
-buffer donation, no superspan executor or streaming feeder; windows go
-through graphs.WindowExecutor (`_dispatch_windows`, :1965). A
+buffer donation, no superspan executor (the window executor,
+graphs.WindowExecutor, takes its place: `_dispatch_windows`, :1965). A
 whole-resident pod axis is 128-aligned as in the reference's default
 build, so states compare leaf for leaf.
 
@@ -14,13 +14,40 @@ The sliding pod window (`pod_window=W`, reference engine.py:1168-1380,
 pod slots [pod_base, pod_base + W) | the pod groups' resident ring], at
 its exact width. Windows run in spans up to the last window whose pod
 creations fit the device window; after each span the slide piece
-computes, quantizes and applies the shift on the device (step.slide_*,
-refilled from the whole-trace payload kept on the device) and the host
-reads the shift back: one read a span, none inside it. Where no slide is
-possible the window doubles (`_grow_pod_window`); K and the cycle route
-keep their build values. The whole-trace payload must fit
-SLIDE_PAYLOAD_BUDGET_BYTES on the device, or the build raises (bounded
-staging is the streaming feeder's, ROADMAP Queue 1 item 11).
+computes, quantizes and applies the shift on the device (step.slide_*)
+and the host reads the shift back: one read a span, none inside it. Where
+no slide is possible the window doubles (`_grow_pod_window`); K and the
+cycle route keep their build values.
+
+The slide refills from a stage (state.RefillStage), read in place at
+columns base - stage_lo (reference engine.py:2644-2987, the superspan's
+staging):
+- the whole-trace payload on the device (stage_lo = 0, L = T + W), where
+  it fits SLIDE_PAYLOAD_BUDGET_BYTES and streaming is off;
+- else the slots of a StreamFeeder's ring (batched/stream.py): with
+  streaming (`stream=`, None: KTPU_STREAM, unset: on for the card, off on
+  the CPU) a producer thread assembles slabs of `_stage_width()` columns
+  ahead of the engine into a ring of `stream_depth` (KTPU_STREAM_DEPTH, 3)
+  slots, uploaded on a copy stream; over the budget without streaming the
+  same feeder runs without a thread, two slots, on the engine's thread
+  (the slab at the base where none covers it, the successor built while
+  the device runs a span). A ring has at most as many slots as the trace
+  still needs from its base, and a ring of the default width that would
+  hold the whole payload is one slab of it, so the staging never holds
+  more than the whole payload would.
+Before each slide the engine makes sure the installed stage covers
+[base, base + W + W/2) (a shift is at most W/2) and installs the next
+slab where it does not: the compute stream waits on the slab's upload
+event and stage_lo is written, no host read, and the slide replays its
+slot's graph. This also stands for the reference's host slide path
+(engine.py:3120-3317): the same states, without its reads. The feeder
+starts at the build; a growth, install_state and attach_payload_source
+re-seek it (close it and build it again at the new base and width); its
+producer's deaths restart it with a backoff, at most 5 times, keeping its
+retired high-water mark.
+`dispatch_stats` counts stage_refills (slabs installed),
+feeder_slabs_produced (across re-seeks; the producer runs ahead, so the
+count depends on its timing) and feeder_restarts.
 
 With an enabled `horizontal_pod_autoscaler` or `cluster_autoscaler`
 block the engine also builds the autoscaler tables
@@ -145,13 +172,15 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
     PodArrays,
+    RefillStage,
     TraceSlab,
     copy_state_into,
-    duration_pair_np,
     flatten,
     fresh_pods_np,
     init_state,
     make_step_constants,
+    stage_arrays_np,
+    stage_nbytes,
     unflatten,
 )
 from kubernetriks_tpu_torch.batched.step import DeviceConstants, FaultStep, WindowPlan, window_body
@@ -161,6 +190,7 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     NO_CREATE,
     ArrayPayloadSource,
     CompiledClusterTrace,
+    PayloadSource,
     _pad_cols,
     compile_cluster_trace,
     pad_and_batch,
@@ -168,15 +198,19 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     stage_segment,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
-from kubernetriks_tpu_torch.flags import flag_bool, flag_tristate
+from kubernetriks_tpu_torch.flags import flag_bool, flag_int, flag_str, flag_tristate
 from kubernetriks_tpu_torch.ops.scheduler_kernel import profile_terms
 from kubernetriks_tpu_torch.telemetry import NULL_TRACER, GaugeSeries, SpanTracer
 from kubernetriks_tpu_torch.telemetry.tracer import PH_SLIDE, PH_WINDOW_CHUNK, PH_WINDOW_GROW
 
 POD_ALIGN = 128
 # Device bytes the whole-trace slide payload may take (reference
-# engine.py:103); over it the build raises.
+# engine.py:103); over it the slide refills from bounded stages.
 SLIDE_PAYLOAD_BUDGET_BYTES = 2 << 30
+# The feeder supervisor's restarts at most, and its first backoff
+# (doubling; reference engine.py:964-966).
+FEEDER_RESTART_CAP = 5
+FEEDER_BACKOFF_S = 0.005
 # Clusters per device from which the dense cycle kernels take the cycle
 # (reference engine.py:1524).
 DENSE_CLUSTERS = 128
@@ -205,15 +239,17 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def trace_event_density(ev_time: np.ndarray, interval: float) -> float:
+def trace_event_density(ev_time: np.ndarray, interval: float, copies: Optional[np.ndarray] = None) -> float:
     """Trace events a window and a cluster, as the reference measures it
     for fast-forward's default (engine.py:1673-1681): the finite event
     times over the clusters times the span of windows to the last one (at
-    least 1)."""
-    C = ev_time.shape[0]
-    finite = ev_time[np.isfinite(ev_time)]
-    span = max(1.0, float(finite.max()) / interval) if finite.size else 1.0
-    return finite.size / (max(C, 1) * span)
+    least 1). `copies`: how many clusters each row of `ev_time` stands for
+    (None: one each)."""
+    counts = np.isfinite(ev_time).sum(axis=1)
+    C = ev_time.shape[0] if copies is None else int(copies.sum())
+    n = int(counts.sum() if copies is None else (counts * copies).sum())
+    span = max(1.0, float(ev_time[np.isfinite(ev_time)].max()) / interval) if n else 1.0
+    return n / (max(C, 1) * span)
 
 
 def flush_windows(interval: float, flush_interval: float) -> int:
@@ -231,6 +267,23 @@ def choose_cycle_route(n_clusters: int, megakernel: bool = True) -> str:
     if n_clusters < DENSE_CLUSTERS:
         return "sorted"
     return "megakernel" if megakernel else "two_kernel"
+
+
+def _distinct_rows(compiled_traces):
+    """(rows, inverse): the first cluster of each distinct compiled trace
+    (the same object replicated, as build_batched_from_traces and the CLI
+    replicate one trace, counts once) and each cluster's place among them,
+    so host tables of a replicated batch are computed once a trace."""
+    first: Dict[int, int] = {}
+    rows: List[int] = []
+    inverse = np.empty(len(compiled_traces), np.int64)
+    for ci, c in enumerate(compiled_traces):
+        k = first.get(id(c))
+        if k is None:
+            k = first[id(c)] = len(rows)
+            rows.append(ci)
+        inverse[ci] = k
+    return np.asarray(rows, np.int64), inverse
 
 
 def _name_ranks(names) -> np.ndarray:
@@ -664,8 +717,43 @@ class BatchedSimulation:
         telemetry: Optional[bool] = None,
         telemetry_ring: int = 1024,
         watchdog: Optional[bool] = None,
+        stream: Optional[bool] = None,
+        stream_depth: Optional[int] = None,
+        stream_segment: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # The streaming feeder (module note): None reads KTPU_STREAM, unset
+        # on for the card; it acts only under the sliding pod window.
+        if stream is None:
+            stream = flag_tristate("KTPU_STREAM")
+        self._stream = self.device.type == "cuda" if stream is None else bool(stream)
+        self._stream_depth = max(1, int(flag_int("KTPU_STREAM_DEPTH") if stream_depth is None else stream_depth))
+        if stream_segment is None:
+            stream_segment = flag_int("KTPU_STREAM_SEGMENT")
+        self._stream_segment = None if stream_segment is None else int(stream_segment)
+        # The live feeder, built with the stage and closed and built again
+        # at a re-seek; its ring and the copy stream its uploads run on (the
+        # card's); slabs produced by closed feeders; the supervisor's
+        # restarts; a host chaos injector (KTPU_HOST_CHAOS, or set by
+        # tests) that every feeder built draws from.
+        self._feeder = None
+        self._feeder_uploads = None
+        self._feeder_finalizer = None
+        self._copy_stream = None
+        self._feeder_produced_total = 0
+        self._last_feeder_report = None  # the last closed feeder's report
+        self._feeder_restarts = 0
+        self._feeder_chaos = None
+        if flag_str("KTPU_HOST_CHAOS") is not None:
+            from kubernetriks_tpu_torch.batched.faults import HostChaos
+
+            self._feeder_chaos = HostChaos.from_flag(flag_str("KTPU_HOST_CHAOS"))
+        # The installed stage's first plain column and slab (None: none
+        # installed; the whole payload has no slab), and the most device
+        # bytes the staging held at once.
+        self._stage_lo = None
+        self._stage_slab = None
+        self._staging_peak_bytes = 0
         # The flight recorder (module note): None reads KTPU_TRACE; the
         # watchdog rides it (None reads KTPU_WATCHDOG, unset: armed exactly
         # when telemetry is), and armed without it raises.
@@ -727,7 +815,11 @@ class BatchedSimulation:
         # Pod groups put their reserved slots after every plain pod, the
         # reference's canonical layout whenever groups exist.
         has_groups = any(c.pod_groups for c in compiled_traces)
+        self._has_pod_groups = has_groups
         compiled_traces, trace_pod_bound = segment_pod_slots(compiled_traces)
+        # Host tables of the trace are computed once for each distinct
+        # trace and given to every cluster that replays it.
+        rows, inverse = _distinct_rows(compiled_traces)
         # The sliding pod window (module note); 0 or less means
         # whole-resident, and so does a trace of pod groups alone.
         if pod_window is not None and (pod_window <= 0 or (has_groups and trace_pod_bound == 0)):
@@ -753,7 +845,7 @@ class BatchedSimulation:
         if pod_window is not None:
             T = trace_pod_bound if has_groups else pod_req_cpu.shape[1]
             pod_req_cpu, pod_req_ram, pod_duration = self._window_layout(
-                compiled_traces, T, min(pod_window, T), ev_time, ev_kind, ev_slot,
+                compiled_traces, T, min(pod_window, T), ev_time[rows], ev_kind[rows], ev_slot[rows], inverse,
                 pod_req_cpu, pod_req_ram, pod_duration,
             )
 
@@ -795,13 +887,20 @@ class BatchedSimulation:
         self.n_pods = pod_req_cpu.shape[1]
         self.n_real_pods = p_max
         self.n_events = ev_time.shape[1]
-        finite_times = ev_time[np.isfinite(ev_time)]
+        replicated = len(rows) < C
+
+        def each_cluster(a: np.ndarray) -> np.ndarray:
+            return a[inverse] if replicated else a
+
+        ev_time_u, ev_kind_u = ev_time[rows], ev_kind[rows]
+        finite_times = ev_time_u[np.isfinite(ev_time_u)]
         self.last_event_time = float(finite_times.max()) if finite_times.size else 0.0
         if fast_forward is None:
-            fast_forward = trace_event_density(ev_time, interval) < FAST_FORWARD_DENSITY
+            copies = np.bincount(inverse, minlength=len(rows))
+            fast_forward = trace_event_density(ev_time_u, interval, copies) < FAST_FORWARD_DENSITY
         self.fast_forward = bool(fast_forward)
         if max_events_per_window is None:
-            max_events_per_window = min(self._max_events_in_any_window(ev_time), 32)
+            max_events_per_window = min(self._max_events_in_any_window(ev_time_u), 32)
         self.max_events_per_window = max(1, max_events_per_window)
         # K is fixed here: a growth of the pod window does not change it
         # (reference engine.py:1486).
@@ -850,8 +949,8 @@ class BatchedSimulation:
             state = state._replace(pods=state.pods._replace(hpa_idx=hpa_idx), auto=auto)
             self.clock = AutoscaleClock(st, interval, hpa_on=self.hpa_seg != (0, 0), ca_on=ca_on)
             self.clock.seed(auto)
-        ev_win, ev_off = from_f64_np(ev_time, interval)
-        self.slab = TraceSlab.build(ev_win, ev_off, ev_kind, ev_slot, self.device)
+        ev_win, ev_off = from_f64_np(ev_time_u, interval)
+        self.slab = TraceSlab.build(each_cluster(ev_win), each_cluster(ev_off), ev_kind, ev_slot, self.device)
         self._k = DeviceConstants.build(self.consts, self.device)
 
         # Host copy of the slab's window column, as lookup tables:
@@ -862,13 +961,15 @@ class BatchedSimulation:
         finite = ev_win < INF_WIN
         self._wmax = int(ev_win[finite].max()) + 1 if finite.any() else 0
         bucket = np.clip(ev_win, -1, self._wmax - 1) + 1
-        flat = (np.arange(C)[:, None] * (self._wmax + 1) + bucket)[finite]
-        hist = np.bincount(flat, minlength=C * (self._wmax + 1)).reshape(C, self._wmax + 1)
-        self._due_upto = np.cumsum(hist, axis=1)
-        zero = np.zeros((C, 1), np.int64)
-        is_crash = ev_kind == EV_NODE_CRASH
-        self._rm_prefix = np.concatenate([zero, np.cumsum((ev_kind == EV_REMOVE_NODE) | is_crash, axis=1)], axis=1)
-        self._crash_prefix = np.concatenate([zero, np.cumsum(is_crash, axis=1)], axis=1)
+        Cu = len(rows)
+        flat = (np.arange(Cu)[:, None] * (self._wmax + 1) + bucket)[finite]
+        hist = np.bincount(flat, minlength=Cu * (self._wmax + 1)).reshape(Cu, self._wmax + 1)
+        self._due_upto = each_cluster(np.cumsum(hist, axis=1))
+        zero = np.zeros((Cu, 1), np.int64)
+        is_crash = ev_kind_u == EV_NODE_CRASH
+        removals = np.cumsum((ev_kind_u == EV_REMOVE_NODE) | is_crash, axis=1)
+        self._rm_prefix = each_cluster(np.concatenate([zero, removals], axis=1))
+        self._crash_prefix = each_cluster(np.concatenate([zero, np.cumsum(is_crash, axis=1)], axis=1))
         self._cursor = np.zeros(C, np.int64)
 
         # Name-rank tables: same-window reschedules queue in (removal time,
@@ -891,6 +992,7 @@ class BatchedSimulation:
         self.dispatch_stats = {
             "captures": 0, "replays": 0, "graph_windows": 0, "eager_windows": 0, "slides": 0, "grows": 0,
             "executed_windows": 0, "skipped_windows": 0,
+            "stage_refills": 0, "feeder_slabs_produced": 0, "feeder_restarts": 0,
         }
         self.observatory = None
         if self._telemetry:
@@ -907,7 +1009,7 @@ class BatchedSimulation:
         self._state = state
         if self.pod_window is not None:
             self._refresh_name_ranks()
-            self._init_slide_payload()
+            self._init_stage()
         self.faults = self._fault_step()
         self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
 
@@ -963,23 +1065,27 @@ class BatchedSimulation:
 
     # --- the sliding pod window ---------------------------------------------
 
-    def _window_layout(self, compiled_traces, T, W, ev_time, ev_kind, ev_slot, pod_req_cpu, pod_req_ram, pod_duration):
+    def _window_layout(
+        self, compiled_traces, T, W, ev_time, ev_kind, ev_slot, inverse, pod_req_cpu, pod_req_ram, pod_duration
+    ):
         """Set up the sliding pod window of width W over the T plain pod
         slots (reference engine.py:1301-1380): the host tables the slides
         read (each plain slot's create window, the whole-trace payload and
-        pod-name ranks) and StepConstants' segment mapping. Returns the
-        device pod payload [window over plain slots [0, W) | resident
-        pod-group ring]."""
+        pod-name ranks) and StepConstants' segment mapping. The event arrays
+        are those of the distinct traces, `inverse` each cluster's among
+        them (_distinct_rows). Returns the device pod payload [window over
+        plain slots [0, W) | resident pod-group ring]."""
         C = len(compiled_traces)
         self.pod_window = W
         self.consts = self.consts._replace(trace_pod_bound=T, resident_shift=T - W)
         # Window of each plain slot's create event (slots are assigned in
         # event order, so rows are nondecreasing): the capacity lookup.
         ev_win, _ = from_f64_np(ev_time, self.config.scheduling_cycle_interval)
-        create_win = np.full((C, T), NO_CREATE, np.int32)
+        Cu = ev_time.shape[0]
+        create_win = np.full((Cu, T), NO_CREATE, np.int32)
         is_cp = (ev_kind == EV_CREATE_POD) & (ev_slot < T)
-        create_win[np.broadcast_to(np.arange(C)[:, None], ev_kind.shape)[is_cp], ev_slot[is_cp]] = ev_win[is_cp]
-        self._pod_create_win = create_win
+        create_win[np.broadcast_to(np.arange(Cu)[:, None], ev_kind.shape)[is_cp], ev_slot[is_cp]] = ev_win[is_cp]
+        self._pod_create_win = create_win[inverse] if Cu < C else create_win
         self._payload_source = ArrayPayloadSource({
             "req_cpu": pod_req_cpu[:, :T], "req_ram": pod_req_ram[:, :T], "duration": pod_duration[:, :T],
         })
@@ -996,37 +1102,304 @@ class BatchedSimulation:
             self._pod_name_rank_full[ci, : len(r)] = r
         return tuple(np.concatenate([a[:, :W], a[:, T:]], axis=1) for a in (pod_req_cpu, pod_req_ram, pod_duration))
 
-    def _check_slide_budget(self, W: int) -> None:
-        """Raise unless the slide payload at window width W fits its device
-        budget: requests, duration pair and create window (and the name
-        ranks with the autoscalers) over T + W columns (reference
-        engine.py:1805)."""
+    def _whole_payload_bytes(self, W: int) -> int:
+        """Device bytes of the whole-trace slide payload at window width W:
+        requests, duration pair and create window (and the name ranks with
+        the autoscalers) over T + W columns (reference engine.py:1805)."""
         C, T = self._pod_create_win.shape
-        need = C * (T + W) * 4 * (5 + (self.autoscale_statics is not None))
-        if need > SLIDE_PAYLOAD_BUDGET_BYTES:
-            raise ValueError(
-                f"pod_window={W}: the whole-trace slide payload needs {need} bytes on the device, "
-                f"over its {SLIDE_PAYLOAD_BUDGET_BYTES}-byte budget; bounded staging of the payload "
-                "is ROADMAP Queue 1 item 11 (streaming feeder); run whole-resident (no pod_window) "
-                "or a shorter trace"
-            )
+        return C * (T + W) * 4 * (5 + (self.autoscale_statics is not None))
 
-    def _init_slide_payload(self) -> None:
-        """Put the whole-trace slide payload on the device (reference
-        `_init_device_slide`, engine.py:1820): stage_segment's columns
-        [0, T + W), so a slide's refill reads past the trace's end only
-        padding. Raises over the budget (no host slide path)."""
-        W = self.pod_window
-        T = self.consts.trace_pod_bound
-        self._check_slide_budget(W)
-        has_rank = self.autoscale_statics is not None
-        seg = stage_segment(
-            self._payload_source, self._pod_create_win,
-            self._pod_name_rank_full[:, :T] if has_rank else None, 0, T + W,
+    def _stream_on(self) -> bool:
+        """Whether the streaming feeder stages this engine's slabs."""
+        return self._stream and self.pod_window is not None
+
+    def _init_stage(self) -> None:
+        """The slide's payload at the current width (module note): the
+        whole-trace payload on the device (reference `_init_device_slide`,
+        engine.py:1820: stage_segment's columns [0, T + W), so a refill
+        past the trace's end reads padding) where it fits and the feeder
+        is off, else a feeder, started here, whose slabs are installed
+        before the slides that need them."""
+        self.close()
+        self._slide_payload = None
+        self._stage_lo = None
+        W, T = self.pod_window, self.consts.trace_pod_bound
+        if self._stream_on() or self._whole_payload_bytes(W) > SLIDE_PAYLOAD_BUDGET_BYTES:
+            self._ensure_feeder()
+            return
+        seg = stage_arrays_np(self._stage_arrays(0, T + W), self.config.scheduling_cycle_interval)
+        self._slide_payload = {k: torch.from_numpy(v).to(self.device) for k, v in seg.items()}
+        self._stage_lo = 0
+        self.staging_bytes()  # the peak
+
+    def _ring_depth(self) -> int:
+        """Slots of the feeder's ring: stream_depth with the thread, two
+        (the installed slab and its successor) without."""
+        return self._stream_depth if self._stream_on() else 2
+
+    def _slabs_needed(self, L: int, base: int) -> int:
+        """The most slabs of L columns the ring can use: those the schedule
+        builds from `base` to the end of the payload's T + W columns; one
+        on demand (stride 0: a slab is built only once the last is
+        retired)."""
+        W, T = self.pod_window, self.consts.trace_pod_bound
+        stride = L - W - W // 2
+        if stride <= 0:
+            return 1
+        return 1 + max(0, -(-(T + W - L - base) // stride))
+
+    def _stage_width(self) -> int:
+        """Columns of a bounded stage (reference engine.py:2644): 4W (3W of
+        shift headroom), or the feeder's stream_segment; at least W + W/2
+        (a slide reads W + W/2 columns) and at most the whole payload, T +
+        W. At the default width, a ring whose slots would hold the whole
+        payload's columns or more is one slab of the whole payload (an
+        explicit stream_segment is kept as given)."""
+        W, T = self.pod_window, self.consts.trace_pod_bound
+        explicit = self._stream_on() and self._stream_segment is not None
+        L = min(max(self._stream_segment if explicit else 4 * W, W + max(W // 2, 1)), T + W)
+        if not explicit and min(self._ring_depth(), self._slabs_needed(L, 0)) * L >= T + W:
+            return T + W
+        return L
+
+    def _stage_cols(self) -> int:
+        """Columns of the current stage (the slide key's L)."""
+        if self._slide_payload is not None:
+            return int(self._slide_payload["req_cpu"].shape[1])
+        return self._feeder_uploads.width if self._feeder_uploads is not None else self._stage_width()
+
+    def _stage_tags(self) -> List[int]:
+        """The stage's slots: -1 for the whole payload, else the ring's."""
+        if self._slide_payload is not None:
+            return [-1]
+        return list(range(self._feeder_uploads.depth)) if self._feeder_uploads is not None else []
+
+    def _stage_tag(self) -> int:
+        """The installed slot."""
+        return -1 if self._stage_slab is None else self._stage_slab.index
+
+    def _stage_slot(self, tag: int) -> RefillStage:
+        """The stage in slot `tag` (the slide piece reads it in place)."""
+        if tag < 0:
+            return RefillStage(**self._slide_payload)
+        return self._feeder_uploads.slots[tag]
+
+    def _stage_arrays(self, lo: int, width: int) -> Dict[str, np.ndarray]:
+        """The host half of a stage: payload columns [lo, lo + width)
+        (trace_compile.stage_segment owns the layout and padding). Host
+        numpy alone, so the feeder thread calls it too."""
+        return stage_segment(
+            self._payload_source,
+            self._pod_create_win,
+            self._pod_name_rank_full[:, : self.consts.trace_pod_bound] if self.autoscale_statics is not None else None,
+            lo,
+            width,
         )
-        dwin, doff = duration_pair_np(seg.pop("duration"), self.config.scheduling_cycle_interval)
-        seg["dur_win"], seg["dur_off"] = dwin, doff
-        self._slide_payload = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in seg.items()}
+
+    def _stage_covers(self, lo: Optional[int], width: int) -> bool:
+        """Whether a stage over [lo, lo + width) holds every column the
+        next slide can read: [base, base + W + W/2)."""
+        W, base = self.pod_window, self._pod_base
+        return lo is not None and lo <= base and base + W + max(W // 2, 1) <= lo + width
+
+    def _ensure_stage(self) -> None:
+        """Before a slide: install the next slab where the installed stage
+        does not cover it (module note)."""
+        from kubernetriks_tpu_torch.batched.faults import FeederProducerError
+
+        L = self._stage_cols()
+        if self._slide_payload is not None or self._stage_covers(self._stage_lo, L):
+            return
+        feeder = self._ensure_feeder()
+        for _ in range(3):
+            if self._stage_lo is not None:
+                lo = self._stage_lo
+                self._release_stage()
+                feeder.retire(lo)
+            while True:
+                try:
+                    slab, lo, fresh = feeder.get_stage(self._pod_base, tracer=self.tracer)
+                    break
+                except FeederProducerError as err:
+                    feeder = self._restart_feeder(feeder, err)
+            self._install(slab, lo)
+            if self._stage_covers(lo, L):
+                return
+        raise RuntimeError(
+            f"stream feeder: no slab of {L} columns covers the slide at pod base {self._pod_base} "
+            f"(window {self.pod_window}); a stream_segment between W + W/2 and 2W cannot keep ahead"
+        )
+
+    def _install(self, slab, lo: int) -> None:
+        """Install a slab (graphs.py install_stage): the next slides read
+        its slot."""
+        self._executor.install_stage(lo, slab.ready)
+        self._stage_lo, self._stage_slab = lo, slab
+        self.dispatch_stats["stage_refills"] += 1
+        if self._feeder is not None:
+            self.dispatch_stats["feeder_slabs_produced"] = self._feeder_produced_total + self._feeder.produced
+
+    def _release_stage(self) -> None:
+        """Stop reading the installed slab: its ring may refill its slot
+        once the slides queued so far have run (an event on the compute
+        stream; on the CPU they have run)."""
+        slab, self._stage_slab = self._stage_slab, None
+        self._stage_lo = None
+        if slab is None:
+            return
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        slab.release(done)
+
+    def staging_bytes(self) -> Dict[str, int]:
+        """Bytes the slide's payload holds on the engine's device now: the
+        whole-trace payload or the feeder ring's slots; their peak so far;
+        what the whole-trace payload would take at the current width; and
+        the ring's pinned host buffers."""
+        whole = stage_nbytes(None if self._slide_payload is None else RefillStage(**self._slide_payload))
+        ring = self._feeder_uploads.nbytes() if self._feeder_uploads is not None else 0
+        now = whole + ring
+        self._staging_peak_bytes = max(self._staging_peak_bytes, now)
+        return {
+            "device_bytes": now,
+            "device_peak_bytes": self._staging_peak_bytes,
+            "whole_payload_bytes": 0 if self.pod_window is None else self._whole_payload_bytes(self.pod_window),
+            "pinned_host_bytes": self._feeder_uploads.pinned_nbytes() if self._feeder_uploads is not None else 0,
+        }
+
+    # --- the streaming feeder's lifecycle ---------------------------------------
+
+    def _ensure_feeder(self, retired_lo: int = -1):
+        """The live StreamFeeder, built at the current base and width
+        (reference engine.py:2829) with its ring: a producer thread with
+        streaming, none over the budget without it; `retired_lo`: a dead
+        predecessor's retired high-water mark (the supervisor's restart)."""
+        if self._feeder is not None:
+            return self._feeder
+        import weakref
+
+        from kubernetriks_tpu_torch.batched.stream import SlabRing, StreamFeeder
+
+        W, L, T = self.pod_window, self._stage_width(), self.consts.trace_pod_bound
+        depth = min(self._ring_depth(), self._slabs_needed(L, self._pod_base))
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        ring = SlabRing(
+            self.n_clusters, L, self.autoscale_statics is not None, depth, self.device,
+            self.config.scheduling_cycle_interval, self._copy_stream,
+        )
+        # The producer holds the engine weakly: an engine dropped without
+        # close() stops its feeder when it is collected.
+        engine = weakref.ref(self)
+
+        def assemble(lo: int, width: int):
+            sim = engine()
+            if sim is None:
+                raise RuntimeError("the engine that owns this stream feeder is gone")
+            return sim._stage_arrays(lo, width)
+
+        feeder = StreamFeeder(
+            assemble, ring.upload, base=self._pod_base, width=L, window=W, trace_cols=T + W, depth=depth,
+            retired_lo=retired_lo, chaos=self._feeder_chaos, thread=self._stream_on(),
+        )
+        self._feeder, self._feeder_uploads = feeder, ring
+        self._feeder_finalizer = weakref.finalize(self, feeder.stop)
+        self.staging_bytes()  # the peak
+        return feeder
+
+    def _restart_feeder(self, feeder, err):
+        """The supervisor (reference engine.py:2855): after a producer's
+        death, close the feeder, back off (doubling from FEEDER_BACKOFF_S)
+        and build it again at the current base with its retired
+        high-water mark; past FEEDER_RESTART_CAP restarts the error
+        propagates."""
+        import logging
+
+        self._feeder_restarts += 1
+        self.dispatch_stats["feeder_restarts"] = self._feeder_restarts
+        if self._feeder_restarts > FEEDER_RESTART_CAP:
+            raise err
+        retired = feeder.retired_watermark()
+        self.close(timeout=1.0)
+        delay = FEEDER_BACKOFF_S * (2 ** (self._feeder_restarts - 1))
+        logging.getLogger(__name__).warning(
+            "stream feeder producer died (%s); supervisor restart %d/%d after %.0f ms backoff",
+            err, self._feeder_restarts, FEEDER_RESTART_CAP, delay * 1e3,
+        )
+        time.sleep(delay)
+        return self._ensure_feeder(retired_lo=retired)
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop and drop the feeder, its thread and its ring, and the slide
+        graphs on its slots (also a re-seek's first half): the next span
+        builds one at the then current base and width."""
+        feeder = self._feeder
+        if feeder is None:
+            return
+        self._release_stage()
+        executor = getattr(self, "_executor", None)
+        if executor is not None:
+            executor.drop_slide()
+        self._feeder_produced_total += feeder.produced
+        self.dispatch_stats["feeder_slabs_produced"] = self._feeder_produced_total
+        self._feeder_finalizer.detach()
+        self._feeder = self._feeder_uploads = self._feeder_finalizer = None
+        feeder.close(timeout)
+        self._last_feeder_report = feeder.report()
+
+    def _feeder_report(self) -> Optional[Dict]:
+        """The live feeder's report with the supervisor's restarts, and
+        dispatch_stats' feeder_slabs_produced brought up to it."""
+        if self._feeder is None:
+            return None
+        rep = self._feeder.report()
+        rep["restarts"] = self._feeder_restarts
+        self.dispatch_stats["feeder_slabs_produced"] = self._feeder_produced_total + rep["slabs_produced"]
+        return rep
+
+    def attach_payload_source(self, source) -> None:
+        """Read the slide's payload from `source` (a trace_compile
+        PayloadSource, e.g. FeederPayloadSource over the native feeder's
+        WorkloadSegmentReader) and release the whole-trace host payload
+        arrays (reference engine.py:2731): the host then holds the payload
+        a segment at a time, beside the per-pod create windows and name
+        ranks. Needs the streaming feeder and a trace of plain pods alone
+        (a pod group's ring renumbers the payload axis). The source must
+        give exactly the compiled payload over the whole trace, which this
+        checks (a segment reader gives every cluster the same rows) before
+        anything is released; the feeder is re-seeked."""
+        if not isinstance(source, PayloadSource):
+            raise TypeError(f"attach_payload_source wants a trace_compile.PayloadSource, got {type(source).__name__}")
+        if not self._stream_on():
+            raise ValueError(
+                "attach_payload_source needs the streaming feeder (pod_window and stream=True / KTPU_STREAM): "
+                "without it the slide keeps the whole payload"
+            )
+        T = self.consts.trace_pod_bound
+        if source.total_rows < T:
+            raise ValueError(f"payload source covers {source.total_rows} plain pod columns; this trace has {T}")
+        if self._has_pod_groups:
+            raise ValueError(
+                "attach_payload_source does not support pod-group workloads: the resident group ring renumbers "
+                "the payload axis past the plain segment, so payload column i would not be workload row i"
+            )
+        chunk = 1 << 16
+        for lo in range(0, T, chunk):
+            w = min(chunk, T - lo)
+            want, got = self._payload_source.segment(lo, w), source.segment(lo, w)
+            for k in ("req_cpu", "req_ram", "duration"):
+                if not np.array_equal(want[k], got[k]):
+                    c_bad, j_bad = (int(v) for v in np.argwhere(want[k] != got[k])[0])
+                    raise ValueError(
+                        f"attach_payload_source: the source disagrees with the compiled payload at {k}[cluster "
+                        f"{c_bad}, column {lo + j_bad}] ({want[k][c_bad, j_bad]} != {got[k][c_bad, j_bad]}); "
+                        "a payload source serves every cluster the same workload"
+                    )
+        self.close()
+        self._payload_source = source
+        self._ensure_feeder()
 
     def _pod_capacity_window(self) -> int:
         """The last window that can run before a pod creation would land
@@ -1087,7 +1460,7 @@ class BatchedSimulation:
     def _grow_to(self, new_W: int) -> None:
         W, T = self.pod_window, self.consts.trace_pod_bound
         insert = new_W - W
-        self._check_slide_budget(new_W)
+        self.close()  # a re-seek at the new width
         C = self.n_clusters
         cols = self._payload_source.segment(self._pod_base + W, insert)
         fresh = fresh_pods_np(
@@ -1116,7 +1489,7 @@ class BatchedSimulation:
             if self.hpa_seg != (0, 0):
                 self.hpa_seg = (self.hpa_seg[0] + insert, self.hpa_seg[1] + insert)
             self._refresh_name_ranks()
-        self._init_slide_payload()
+        self._init_stage()
         self.dispatch_stats["grows"] += 1
         self._executor.rebuild()
 
@@ -1163,9 +1536,11 @@ class BatchedSimulation:
             )
         if self.pod_window is not None:
             # A state saved after growths: grow to its width first (its
-            # leaves then replace every slot).
+            # leaves then replace every slot); the feeder re-seeks at the
+            # state's base.
             while state.pods.phase.shape[1] > self.n_pods and self._grow_pod_window():
                 pass
+            self.close()
         copy_state_into(self._state, state)
         self._executor.reset_after_install()
         self.host_syncs += 1
@@ -1180,6 +1555,8 @@ class BatchedSimulation:
         if self.pod_window is not None:
             self._pod_base = int(state.pod_base[0])
             self._refresh_name_ranks()
+            if self._slide_payload is None:
+                self._ensure_feeder()
         self.next_window_idx = int(next_window_idx)
         if self.clock is not None:
             self.clock.seed(state.auto)
@@ -1324,6 +1701,8 @@ class BatchedSimulation:
         if self.pod_window is None:
             self._run_span(int(idxs[0]), target)
             return
+        if self._slide_payload is None:
+            self._ensure_feeder()  # after a close(): produces ahead while the spans run
         while self.next_window_idx <= target:
             sub = min(target, self._pod_capacity_window())
             if self.fast_forward:
@@ -1336,6 +1715,9 @@ class BatchedSimulation:
                 self._run_span(self.next_window_idx, sub)
             if sub >= target:
                 return
+            if self._feeder is not None:
+                self._feeder.prefetch(self.tracer)  # without a thread: the successor, while the span runs
+            self._ensure_stage()
             if not self._slide() and not self._grow_pod_window():
                 raise RuntimeError(
                     f"pod_window={self.pod_window} is too small: window {sub + 1} needs pod slots "
@@ -1595,11 +1977,12 @@ class BatchedSimulation:
         if self.observatory is None:
             return None
         fresh = self.observatory.ingest(buf)
+        feeder = self._feeder_report()
         return self.observatory.observe(
             resources=self._sample_resources(),
             dispatch_stats=dict(self.dispatch_stats),
             sync_budget=self._sync_budget(),
-            feeder=None,
+            feeder=feeder,
             fresh=fresh,
         )
 
@@ -1652,7 +2035,8 @@ class BatchedSimulation:
             host += int(np.asarray(arr).nbytes)
         ring = self.state.telemetry
         return {
-            "device_slide_bytes": nbytes(getattr(self, "_slide_payload", {}).values()),
+            "device_slide_bytes": nbytes((getattr(self, "_slide_payload", None) or {}).values()),
+            "device_stage_bytes": self.staging_bytes()["device_bytes"] if self.pod_window is not None else 0,
             "host_payload_bytes": host,
             "telemetry_ring_bytes": 0 if ring is None else nbytes([ring.buf, ring.cursor]),
             "gauge_buffer_bytes": nbytes([self._executor.bufs.gauges, self._executor.bufs.gauge_slot]),
@@ -1675,8 +2059,15 @@ class BatchedSimulation:
         telemetry off: dispatch stats and the budget, enabled False."""
         from kubernetriks_tpu_torch.telemetry.tracer import PHASE_NAMES
 
+        # One snapshot of the feeder keeps the counter and the section
+        # consistent while the producer runs on.
+        feeder = self._feeder_report()
         stats = dict(self.dispatch_stats)
         rep = {"enabled": self._telemetry, "dispatch_stats": stats}
+        if feeder is not None:
+            # Production, the ring's depth and the stall split, kept here so
+            # that untraced runs show them too.
+            rep["feeder"] = feeder
         if self.state.telemetry is not None:
             # The drains made before this readout (its own comes after).
             cost = self._ring_drain_stats

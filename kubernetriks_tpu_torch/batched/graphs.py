@@ -75,14 +75,28 @@ adds two pieces, replayed after each executed window:
 
 Under the sliding pod window one more piece runs between spans:
 
-- ("slide", W): the slide of the W-slot window (step.slide_shift_core,
-  quantize_shift, slide_apply), its shift left in a device word that
+- ("slide", W, L, slot): the slide of the W-slot window
+  (step.slide_shift_core, quantize_shift, slide_apply), refilled from a
+  stage of L columns over plain columns [stage_lo, stage_lo + L)
+  (stage_lo a device word, WindowBuffers.stage_lo), its shift left in a
+  device word that
   `slide` copies to a pinned host word and waits for: the span's one host
   read. It moves the autoscaler statics' pod-name ranks in place (they
   are WindowBuffers.rank), since the end graphs read that tensor.
 
+The stage is the engine's whole-trace payload (slot -1, stage_lo 0, L =
+T + W) or a slot of the feeder's ring (stream.SlabRing), read in place:
+one slide graph a slot, each on its slot's fixed addresses. Installing a
+slab (`install_stage`, outside any capture) makes the compute stream wait
+on the slab's upload event and writes stage_lo; the next slides replay
+its slot's graph. One graph a slot rather than a copy into fixed stage
+buffers: those buffers were one slab more on the device beside the ring,
+and a ring has at most `stream_depth` slots, so a slide costs at most
+that many captures. A re-seek builds a new ring and drops the slide
+graphs of the old one (`drop_slide`).
+
 A growth of the window changes the pod axis, so `rebuild` binds new
-buffers at the new width and captures again every piece it held.
+buffers at the new widths and captures again every piece it held.
 
 `piece_schedule` names a window's pieces from its plan and the route.
 The route is read from the engine at every window, so a route forced
@@ -105,7 +119,10 @@ scratch copy of the buffers, on the capture stream (that builds and loads
 the kernels, sets their shared-memory attributes and allocates the free
 kernel's per-stream scratch outside the graph), then is captured on the
 real buffers. A failed capture or replay raises; nothing falls back to
-eager launches.
+eager launches. A capture runs in CUDA's thread-local capture mode, so the
+streaming feeder's thread (its event waits and copies on the copy stream)
+cannot invalidate it, and with Python's garbage collector off, so no
+unreachable engine's graphs or events are destroyed inside it.
 
 Launch counts. A replay bypasses the wrappers that count kernel launches
 (ops/_launch.LAUNCHES), so each graph keeps the counts its capture added,
@@ -131,6 +148,7 @@ graph for every sequence of plans.
 
 from __future__ import annotations
 
+import gc
 from functools import partial
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
@@ -193,6 +211,10 @@ class WindowBuffers(NamedTuple):
     # The autoscaler statics' windowed pod-name ranks (the tensor itself),
     # which a slide moves; None without autoscalers or without the window.
     rank: Optional[torch.Tensor] = None
+    # The (1,) int32 plain column the installed stage's first column
+    # holds (the stage itself is a slot the slide piece reads in place);
+    # None without the window.
+    stage_lo: Optional[torch.Tensor] = None
     # The conditional move's: the nodes' creation times this window, (C,
     # N) float32 seconds from the window base (+inf: none), and a gated
     # tail's WakeEvents; None without it.
@@ -254,13 +276,19 @@ class CudaGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
     def capture(self, fn: Callable[[], None]):
+        """`fn` captured into a graph (module note: thread-local mode, the
+        garbage collector off)."""
         graph = torch.cuda.CUDAGraph()
         self._capturing = graph
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
                 fn()
         finally:
             self._capturing = None
+            if collecting:
+                gc.enable()
         return graph
 
     def when(self, pred: torch.Tensor, fn: Callable[[], None]) -> None:
@@ -287,7 +315,7 @@ class CudaGraphs:
         body = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(LAUNCHES)
         with torch.cuda.stream(self.body_stream):
-            body.capture_begin(pool=self.body_pool)
+            body.capture_begin(pool=self.body_pool, capture_error_mode="thread_local")
             try:
                 fn()
                 delta = {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]}
@@ -351,6 +379,9 @@ class WindowExecutor:
         self._word_host = torch.zeros((1,), dtype=torch.int32, pin_memory=dev.type == "cuda")
         self._word_event = torch.cuda.Event() if dev.type == "cuda" else None
         self.gauges_on = False
+        # Whether a slide graph was ever captured: a rebuild then captures
+        # the slide of its new staging.
+        self._slides_captured = False
         self._bind_buffers()
 
     def _bind_buffers(self) -> None:
@@ -375,6 +406,7 @@ class WindowExecutor:
             node_create_rel=torch.full((C, N), INF, dtype=torch.float32, device=dev) if cm else None,
             wake=empty_wake(C, N, P, dev) if cm else None,
             m0=counter_snapshot(state.metrics) if state.telemetry is not None else None,
+            stage_lo=None if sim.pod_window is None else torch.zeros((1,), dtype=torch.int32, device=dev),
         )
         if self.gauges_on:
             self.bufs = self._with_gauges(self.bufs)
@@ -421,14 +453,42 @@ class WindowExecutor:
     def rebuild(self) -> None:
         """New buffers at the engine's new pod width, after a growth of the
         pod window, and captures again every piece captured before (the
-        slide at the new width)."""
+        slide at the new widths, a graph a slot)."""
         keys = [key for key in self.graphs if key[0] != "slide"]
-        had_slide = len(keys) < len(self.graphs)
         self._bind_buffers()
-        if had_slide:
-            keys.append(("slide", self.sim.pod_window))
+        if self._slides_captured:
+            keys += self.slide_keys()
         if keys:
             self.capture(keys)
+
+    def slide_key(self) -> Key:
+        """The slide piece's key: the window's and the stage's widths and
+        the installed slot (-1: the whole-trace payload)."""
+        sim = self.sim
+        return ("slide", sim.pod_window, sim._stage_cols(), sim._stage_tag())
+
+    def slide_keys(self) -> List[Key]:
+        """The slide piece's keys, one a slot of the current staging."""
+        sim = self.sim
+        return [("slide", sim.pod_window, sim._stage_cols(), tag) for tag in sim._stage_tags()]
+
+    def drop_slide(self) -> None:
+        """Forget the slide graphs (their slots are being freed: a re-seek
+        builds a new ring)."""
+        for key in [k for k in self.graphs if k[0] == "slide"]:
+            del self.graphs[key]  # _slides_captured stays: a rebuild captures the new ring's
+        for key in [k for k in self._bodies if k[0] == "slide"]:
+            del self._bodies[key]
+
+    def install_stage(self, lo: int, ready=None) -> None:
+        """Install the slab covering plain columns [lo, lo + L): on the
+        compute stream, wait for `ready` (the slab's upload event, None
+        where there is none to wait for) and write stage_lo. Outside any
+        capture; no host read."""
+        dev = self.bufs.stage_lo.device
+        if ready is not None:
+            torch.cuda.current_stream(dev).wait_event(ready)
+        self.bufs.stage_lo.fill_(lo)
 
     # --- the pieces ----------------------------------------------------------
 
@@ -550,13 +610,13 @@ class WindowExecutor:
                     sim.consts.flush_interval,
                 ))
         elif kind == "slide":
-            W = key[1]
+            W, slot = key[1], key[3]
 
             def run(b: WindowBuffers) -> None:
-                pay = sim._slide_payload
-                base = b.state.pod_base[0]
-                s = quantize_shift(slide_shift_core(b.state.pods.phase[:, :W], pay["create_win"], base), W)
-                pods, rank = slide_apply(b.state.pods, b.rank, pay, base, s, W)
+                pay = sim._stage_slot(slot)._asdict()
+                base, lo = b.state.pod_base[0], b.stage_lo[0]
+                s = quantize_shift(slide_shift_core(b.state.pods.phase[:, :W], pay["create_win"], base, lo), W)
+                pods, rank = slide_apply(b.state.pods, b.rank, pay, base, s, W, lo)
                 self._copy_back(b.state.pods, pods)
                 if rank is not None:
                     b.rank.copy_(rank)
@@ -600,7 +660,7 @@ class WindowExecutor:
         if sim.fast_forward:
             keys += [("next",), ("catch_up",)]
         if sim.pod_window is not None:
-            keys.append(("slide", sim.pod_window))
+            keys += self.slide_keys()
         if self.gauges_on:
             keys.append(("gauge",))
         return keys
@@ -633,6 +693,7 @@ class WindowExecutor:
             finally:
                 LAUNCHES.update(before)
             self.graphs[key] = (graph, delta, range(first, len(slots)))
+            self._slides_captured |= key[0] == "slide"
             self.sim.dispatch_stats["captures"] += 1
 
     def _run(self, key: Key) -> None:
@@ -679,7 +740,7 @@ class WindowExecutor:
     def slide(self) -> int:
         """Run the slide piece and read its shift back (0: no slide was
         possible, and the state is as it was)."""
-        self._run(("slide", self.sim.pod_window))
+        self._run(self.slide_key())
         with self.sim.tracer.span(PH_SHIFT_WAIT):
             return self._read_word(self.bufs.shift)
 

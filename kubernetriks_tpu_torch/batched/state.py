@@ -251,6 +251,35 @@ class TraceSlab(NamedTuple):
         return TraceSlab(packed=torch.from_numpy(np.ascontiguousarray(packed)).to(device))
 
 
+class RefillStage(NamedTuple):
+    """The sliding pod window's refill payload over plain pod columns [lo,
+    lo + L), (C, L) each (reference `RefillStage`, state.py:284): requests,
+    duration pairs, create windows and, with the autoscalers, pod-name
+    ranks (None without them). Columns past the plain segment carry the
+    fresh-slot padding (trace_compile.stage_segment), so a stage near the
+    trace's end slides exactly as the whole-trace payload (lo = 0, L = T +
+    W) does. The slide reads it at columns base - lo (step.slide_*)."""
+
+    req_cpu: torch.Tensor  # (C, L) int32 millicores
+    req_ram: torch.Tensor  # (C, L) int32 ram units
+    dur_win: torch.Tensor  # (C, L) int32 duration pair (win < 0: a service)
+    dur_off: torch.Tensor  # (C, L) float32
+    create_win: torch.Tensor  # (C, L) int32 create window; INT32_MAX: none
+    rank: Optional[torch.Tensor] = None  # (C, L) int32 pod-name ranks
+
+
+def stage_arrays_np(seg: Dict[str, np.ndarray], interval: float) -> Dict[str, np.ndarray]:
+    """A host segment of trace_compile.stage_segment (float64 durations)
+    as RefillStage's fields (the duration pair), C-contiguous numpy."""
+    out = dict(seg)
+    out["dur_win"], out["dur_off"] = duration_pair_np(out.pop("duration"), interval)
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def stage_nbytes(stage: Optional[RefillStage]) -> int:
+    return 0 if stage is None else sum(int(t.numel() * t.element_size()) for t in flatten(stage).values())
+
+
 class StepConstants(NamedTuple):
     """Per-run scalars derived from SimulationConfig: the control-plane hop
     delays composed into effective offsets."""

@@ -1507,25 +1507,35 @@ def catch_up_bookkeeping(state: ClusterBatchState, span: torch.Tensor, statics, 
 
 # --- the sliding pod window's slide -------------------------------------------
 # Plain tensor functions of fixed shapes with the shift a device tensor, so
-# the window executor captures one slide graph per window width (reference
-# `_slide_shift_core`, `_quantize_shift_device`, `_slide_apply_traced`,
-# step.py:2601-2710). The device pod axis is [window over the plain slots
-# [pod_base, pod_base + W) | resident pod-group ring]; the payload tensors
-# cover the whole plain segment, padded to T + W columns
-# (trace_compile.stage_segment).
+# the window executor captures one slide graph per window and stage width
+# (reference `_slide_shift_core`, `_quantize_shift_device`,
+# `_slide_apply_traced`, step.py:2601-2710). The device pod axis is [window
+# over the plain slots [pod_base, pod_base + W) | resident pod-group ring];
+# the payload is a stage (state.RefillStage) over plain columns [stage_lo,
+# stage_lo + L), read at columns base - stage_lo, as the reference's
+# superspan reads its stage (step.py:2795-2916): the whole-trace payload
+# (stage_lo = 0, L = T + W) or a bounded slab that covers [base, base + W +
+# W/2), the columns a slide reads (trace_compile.stage_segment pads both).
 
 
-def slide_shift_core(phase: torch.Tensor, create_win: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+def _stage_col(base: torch.Tensor, stage_lo: Optional[torch.Tensor]) -> torch.Tensor:
+    return base if stage_lo is None else base - stage_lo
+
+
+def slide_shift_core(
+    phase: torch.Tensor, create_win: torch.Tensor, base: torch.Tensor, stage_lo: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """The shift the window can take: the leading run of terminal or
     padding slots, the least over the clusters of each row's first
     blocking slot. `phase` is the window's (C, W) rows; `create_win` the
-    payload's create windows, read at columns [base, base + W) (base a
-    0-dim int32 tensor, clamped as a dynamic slice clamps). An EMPTY slot
+    stage's create windows, read at columns [base - stage_lo, base -
+    stage_lo + W) (base and stage_lo 0-dim int32 tensors, stage_lo None
+    for 0, the column clamped as a dynamic slice clamps). An EMPTY slot
     blocks while its create event is pending, and a padding slot (no create
     event) never does. Returns a 0-dim int32 tensor in [0, W]."""
     C, W = phase.shape
     iota = torch.arange(W, dtype=torch.int32, device=phase.device)
-    start = base.clamp(0, create_win.shape[1] - W)
+    start = _stage_col(base, stage_lo).clamp(0, create_win.shape[1] - W)
     seg = torch.gather(create_win, 1, (start + iota).long()[None, :].expand(C, W))
     terminal = (phase == PHASE_SUCCEEDED) | (phase == PHASE_REMOVED) | (phase == PHASE_FAILED)
     padding = (phase == PHASE_EMPTY) & (seg == torch.iinfo(torch.int32).max)
@@ -1549,20 +1559,25 @@ def quantize_shift(s0: torch.Tensor, W: int) -> torch.Tensor:
     return s.to(torch.int32)
 
 
-def slide_apply(pods: PodArrays, rank: Optional[torch.Tensor], pay, base: torch.Tensor, s: torch.Tensor, W: int):
+def slide_apply(
+    pods: PodArrays, rank: Optional[torch.Tensor], pay, base: torch.Tensor, s: torch.Tensor, W: int,
+    stage_lo: Optional[torch.Tensor] = None,
+):
     """The window slid by s slots (s == 0 is the identity), as gathers:
     window slots [0, W - s) take slots [s, W), the refill slots [W - s, W)
-    take payload columns base + W .. base + W + s - 1 through
+    take plain columns base + W .. base + W + s - 1 through
     fresh_pod_arrays, the constructor init_state uses, and the resident
-    ring (slots >= W) stays. `pay`: the payload tensors (req_cpu, req_ram,
-    dur_win, dur_off, rank), (C, T + W). `rank`: the device pod-name ranks,
-    which move with the pods, or None. Returns (pods, rank or None)."""
+    ring (slots >= W) stays. `pay`: the stage's tensors by name (req_cpu,
+    req_ram, dur_win, dur_off, rank), (C, L), over plain columns
+    [stage_lo, stage_lo + L) (stage_lo None for 0). `rank`: the device
+    pod-name ranks, which move with the pods, or None. Returns (pods, rank
+    or None)."""
     C, P = pods.phase.shape
     idx = torch.arange(P, dtype=torch.int32, device=pods.phase.device)[None, :]
     in_window = idx < W
     refill = in_window & (idx >= W - s)
     src_old = torch.where(in_window & ~refill, idx + s, idx).long().expand(C, P)
-    pay_col = (base + s + idx).clamp(0, pay["req_cpu"].shape[1] - 1).long().expand(C, P)
+    pay_col = (_stage_col(base, stage_lo) + s + idx).clamp(0, pay["req_cpu"].shape[1] - 1).long().expand(C, P)
 
     def pg(a):
         return torch.gather(a, 1, pay_col)

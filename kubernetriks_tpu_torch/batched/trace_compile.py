@@ -8,8 +8,11 @@ durations) are staged into per-slot arrays, and the device sees only
 slots, and so do the chaos engine's recoveries (EV_NODE_RECOVER; its
 crashes are EV_NODE_CRASH, with each crashing slot's repair span). A pod group (HPA) reserves a block of pod slots for its replicas
 and compiles its load model into a table of (duration, load) units.
-`ArrayPayloadSource` and `stage_segment` cut the sliding pod window's
-refill payload out of the whole-trace arrays.
+`compile_from_arrays` compiles the native feeder's dense arrays
+(trace/feeder.py) to the same CompiledClusterTrace without event objects.
+`stage_segment` cuts the sliding pod window's refill payload out of a
+`PayloadSource`: the whole-trace arrays (`ArrayPayloadSource`) or a
+segment reader over the native feeder (`FeederPayloadSource`).
 """
 
 from __future__ import annotations
@@ -420,16 +423,100 @@ def _pad_cols(arr: np.ndarray, lo: int, width: int, fill, dtype) -> np.ndarray:
     return out
 
 
-class ArrayPayloadSource:
-    """The refill payload of the trace's plain pod slots, from whole-trace
-    host arrays {"req_cpu", "req_ram", "duration"} of shape (C, T)
-    (reference `ArrayPayloadSource`, trace_compile.py:569). `segment(lo,
-    width)` gives columns [lo, lo + width) with the fresh-slot padding past
-    the trace's end: request 0, duration -1.0 (the long-running-service
-    sentinel), so a padding slot never finishes and is never created."""
+def compile_from_arrays(
+    cluster_arrays,
+    workload_arrays,
+    config=None,
+    ram_unit: int = DEFAULT_RAM_UNIT,
+) -> CompiledClusterTrace:
+    """The native feeder's output (trace/feeder.py ClusterArrays or None,
+    WorkloadArrays) compiled to a CompiledClusterTrace without per-event
+    Python objects (reference `compile_from_arrays`, trace_compile.py:436):
+    the same result as compile_cluster_trace over
+    {cluster,workload}_events_from_arrays. Node events (few) run through a
+    loop, pod events (the long axis of an Alibaba trace) through numpy."""
+    shift_create_node, shift_remove_node, _ = _event_time_shifts(config)
+
+    node_cap_cpu: List[int] = []
+    node_cap_ram: List[int] = []
+    node_names: List[str] = []
+    live_node_slot: Dict[int, int] = {}
+    c_time: List[float] = []
+    c_kind: List[int] = []
+    c_slot: List[int] = []
+    node_create_effect: Dict[int, float] = {}
+    if cluster_arrays is not None:
+        for i in range(len(cluster_arrays.ts)):
+            mid = int(cluster_arrays.machine_id[i])
+            if int(cluster_arrays.kind[i]) == 0:
+                slot = len(node_cap_cpu)
+                node_cap_cpu.append(int(cluster_arrays.cpu_millicores[i]))
+                node_cap_ram.append(int(cluster_arrays.ram_bytes[i]) // ram_unit)
+                node_names.append(cluster_arrays.node_name(i))
+                live_node_slot[mid] = slot
+                shifted = float(cluster_arrays.ts[i]) + shift_create_node
+                node_create_effect[mid] = shifted
+                c_time.append(shifted)
+                c_kind.append(EV_CREATE_NODE)
+                c_slot.append(slot)
+            else:
+                # As compile_cluster_trace: a removal never takes effect
+                # before its node's creation under asymmetric shifts.
+                c_time.append(max(float(cluster_arrays.ts[i]) + shift_remove_node, node_create_effect.get(mid, -np.inf)))
+                c_kind.append(EV_REMOVE_NODE)
+                c_slot.append(live_node_slot.pop(mid))
+
+    P = len(workload_arrays.start_ts)
+    w_time = workload_arrays.start_ts.astype(np.float64)
+    pod_req_cpu = workload_arrays.cpu_millicores.astype(np.int32)
+    pod_req_ram = (-(-workload_arrays.ram_bytes // ram_unit)).astype(np.int32)
+    pod_duration = workload_arrays.duration.astype(np.float64)
+    pod_names = [workload_arrays.pod_name(i) for i in range(P)]
+
+    # A stable merge on time, cluster events before workload events at ties.
+    times = np.concatenate([np.asarray(c_time, np.float64), w_time])
+    kinds = np.concatenate([np.asarray(c_kind, np.int32), np.full(P, EV_CREATE_POD, np.int32)])
+    slots = np.concatenate([np.asarray(c_slot, np.int32), np.arange(P, dtype=np.int32)])
+    source = np.concatenate([np.zeros(len(c_time), np.int8), np.ones(P, np.int8)])
+    order = np.lexsort((source, times))
+    return CompiledClusterTrace(
+        ev_time=times[order],
+        ev_kind=kinds[order],
+        ev_slot=slots[order],
+        node_cap_cpu=np.asarray(node_cap_cpu, np.int32).reshape(-1),
+        node_cap_ram=np.asarray(node_cap_ram, np.int32).reshape(-1),
+        pod_req_cpu=pod_req_cpu.reshape(-1),
+        pod_req_ram=pod_req_ram.reshape(-1),
+        pod_duration=pod_duration.reshape(-1),
+        node_names=node_names,
+        pod_names=pod_names,
+        pod_groups=[],
+    )
+
+
+class PayloadSource:
+    """The refill payload of the plain pod slots, global columns [lo, lo +
+    width) (reference `PayloadSource`, trace_compile.py:537): `segment`
+    returns {"req_cpu", "req_ram", "duration"} (C, width) numpy arrays with
+    the fresh-slot padding past the trace's end: request 0, duration -1.0
+    (the long-running-service sentinel), so a padding slot never finishes
+    and is never created. `total_rows`: the plain pod columns it covers.
+    The streaming feeder calls `segment` from its producer thread, so an
+    implementation must allow one concurrent reader."""
+
+    total_rows: int
+
+    def segment(self, lo: int, width: int) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+
+class ArrayPayloadSource(PayloadSource):
+    """Whole-trace host arrays {"req_cpu", "req_ram", "duration"} of shape
+    (C, T), the engine's default (reference trace_compile.py:569)."""
 
     def __init__(self, full_pods: Dict[str, np.ndarray]) -> None:
         self.full_pods = full_pods
+        self.total_rows = int(full_pods["req_cpu"].shape[1])
 
     def segment(self, lo: int, width: int) -> Dict[str, np.ndarray]:
         full = self.full_pods
@@ -440,8 +527,39 @@ class ArrayPayloadSource:
         }
 
 
+class FeederPayloadSource(PayloadSource):
+    """The payload read a segment at a time from a row-range workload
+    reader (trace/feeder.py WorkloadSegmentReader, or WorkloadArraysReader)
+    for a trace of plain pods alone (reference trace_compile.py:578): their
+    slots follow the sorted workload rows, so payload column i is row i, and
+    a segment materializes only its rows, converted as compile_from_arrays
+    converts them (int32 millicores, RAM units rounded up, float64
+    seconds). Every cluster gets the same rows."""
+
+    def __init__(self, reader, n_clusters: int, ram_unit: int) -> None:
+        self.reader = reader
+        self.n_clusters = int(n_clusters)
+        self.ram_unit = int(ram_unit)
+        self.total_rows = len(reader)
+
+    def segment(self, lo: int, width: int) -> Dict[str, np.ndarray]:
+        C = self.n_clusters
+        out = {
+            "req_cpu": np.zeros((C, width), np.int32),
+            "req_ram": np.zeros((C, width), np.int32),
+            "duration": np.full((C, width), -1.0, np.float64),
+        }
+        n = max(0, min(width, self.total_rows - lo))
+        if n:
+            wa = self.reader.read(lo, n)
+            out["req_cpu"][:, :n] = wa.cpu_millicores.astype(np.int32)[None, :]
+            out["req_ram"][:, :n] = (-(-wa.ram_bytes // self.ram_unit)).astype(np.int32)[None, :]
+            out["duration"][:, :n] = wa.duration.astype(np.float64)[None, :]
+        return out
+
+
 def stage_segment(
-    payload: ArrayPayloadSource,
+    payload: PayloadSource,
     create_win: np.ndarray,
     rank_full: Optional[np.ndarray],
     lo: int,

@@ -9,9 +9,11 @@ The batched subset of the JAX package's `cli.py` (:60-237): load the
 config, build the traces its `trace_config` names (an Alibaba v2017 trace
 XOR a generic YAML trace), replicate them over N clusters in one
 BatchedSimulation, run until every pod has terminated, and print the
-metrics report. The traces always go through the event objects
-(`build_traces`); the JAX package's native CSV feeder is ROADMAP Queue 1
-item 11. The run is on the CUDA card unless `--device cpu` is given.
+metrics report. An Alibaba trace goes through the native C++ feeder
+(trace/feeder.py) and `compile_from_arrays`, without event objects, where
+the feeder builds; otherwise (and for a generic trace) through the event
+objects (`build_traces`), with the Python parser's same results. The run
+is on the CUDA card unless `--device cpu` is given.
 
 `--pod-window W` runs the sliding pod window of W plain pod slots (0, the
 default, keeps the whole trace resident). `--profile NAME` runs a named
@@ -47,7 +49,9 @@ UNPORTED_OPTIONS = {
 
 
 def build_traces(config: SimulationConfig):
-    """(cluster trace, workload trace) of the config's trace source."""
+    """(cluster trace, workload trace) of the config's trace source: an
+    Alibaba trace through the native feeder where it builds, else (logged)
+    through the Python parser."""
     trace_config = config.trace_config
     if trace_config is None:
         return EmptyTrace(), EmptyTrace()
@@ -62,16 +66,23 @@ def build_traces(config: SimulationConfig):
             GenericClusterTrace.from_file(generic.cluster_trace_path),
             GenericWorkloadTrace.from_file(generic.workload_trace_path),
         )
-    from kubernetriks_tpu_torch.trace.alibaba import AlibabaClusterTraceV2017, AlibabaWorkloadTraceV2017
+    from kubernetriks_tpu_torch.trace import feeder
 
+    if feeder.native_available():
+        cluster_cls, workload_cls = feeder.NativeAlibabaClusterTrace, feeder.NativeAlibabaWorkloadTrace
+    else:
+        logging.getLogger(__name__).info(
+            "native trace feeder unavailable (%s); using the Python parser", feeder.native_build_error()
+        )
+        from kubernetriks_tpu_torch.trace.alibaba import AlibabaClusterTraceV2017, AlibabaWorkloadTraceV2017
+
+        cluster_cls, workload_cls = AlibabaClusterTraceV2017, AlibabaWorkloadTraceV2017
     cluster = (
-        AlibabaClusterTraceV2017.from_file(alibaba.machine_events_trace_path)
+        cluster_cls.from_file(alibaba.machine_events_trace_path)
         if alibaba.machine_events_trace_path
         else EmptyTrace()
     )
-    workload = AlibabaWorkloadTraceV2017.from_files(
-        alibaba.batch_instance_trace_path, alibaba.batch_task_trace_path
-    )
+    workload = workload_cls.from_files(alibaba.batch_instance_trace_path, alibaba.batch_task_trace_path)
     return cluster, workload
 
 
@@ -86,9 +97,36 @@ def build_batched_simulation(
     max_pods_per_cycle 0 bounds each cycle at 256 pods, as the JAX
     package's CLI does (the engine takes every slot when there are fewer).
     `device`: see engine.resolve_device. engine_kwargs go to the engine
-    (e.g. ca_slot_multiplier)."""
-    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    (e.g. ca_slot_multiplier, pod_window, stream).
 
+    An Alibaba trace with the native feeder: the CSVs parse into dense
+    arrays and compile through compile_from_arrays, once for every cluster
+    (reference cli.py:127-166); node-level faults, which the event path
+    injects at compile, raise there. Otherwise the event objects."""
+    from kubernetriks_tpu_torch.batched.engine import BatchedSimulation, build_batched_from_traces
+    from kubernetriks_tpu_torch.trace import feeder
+
+    trace_config = config.trace_config
+    alibaba = trace_config.alibaba_cluster_trace_v2017 if trace_config else None
+    if alibaba is not None and feeder.native_available():
+        from kubernetriks_tpu_torch.batched.trace_compile import compile_from_arrays
+        from kubernetriks_tpu_torch.chaos import has_node_faults
+
+        if has_node_faults(config.fault_injection):
+            raise ValueError(
+                "node-level fault injection is not supported on the alibaba native-feeder path; use the "
+                "generic trace path or set fault_injection.node.mttf to 0 (pod-level faults are unaffected)"
+            )
+        workload_arrays = feeder.load_workload_arrays(alibaba.batch_instance_trace_path, alibaba.batch_task_trace_path)
+        cluster_arrays = (
+            feeder.load_cluster_arrays(alibaba.machine_events_trace_path) if alibaba.machine_events_trace_path else None
+        )
+        ram_unit = engine_kwargs.get("ram_unit")
+        compiled = compile_from_arrays(cluster_arrays, workload_arrays, config, **({"ram_unit": ram_unit} if ram_unit else {}))
+        return BatchedSimulation(
+            config, [compiled] * n_clusters, device=device, max_pods_per_cycle=max_pods_per_cycle or 256,
+            **engine_kwargs,
+        )
     cluster_trace, workload_trace = build_traces(config)
     return build_batched_from_traces(
         config,

@@ -65,6 +65,47 @@ _FLAGS = [
         "supersedes it. Unset: armed exactly when the flight recorder is; "
         "1 with the recorder off raises at engine build.",
     ),
+    Flag(
+        "KTPU_STREAM",
+        "tristate",
+        None,
+        "Streaming feeder (batched/stream.py) under the sliding pod window: a "
+        "feeder thread assembles the slide's refill payload a segment at a "
+        "time into a bounded ring of K staging slabs on the device, running "
+        "ahead of the engine, so the whole-trace payload is never put on the "
+        "device. The engine's stream= argument supersedes it. Unset: on for "
+        "the card, off on the CPU.",
+    ),
+    Flag(
+        "KTPU_STREAM_DEPTH",
+        "int",
+        3,
+        "Ring depth K of the streaming feeder: the ring holds K slabs on the "
+        "device, or as many as the trace still needs from the feeder's base "
+        "where that is fewer, and the slide reads them in place (the memory "
+        "bound: no other staging buffer). At the default width a ring that "
+        "would hold the whole payload's columns is one slab of it. K = 1 "
+        "stages one slab at a time, off the engine's thread, and stays exact.",
+    ),
+    Flag(
+        "KTPU_STREAM_SEGMENT",
+        "int",
+        None,
+        "Width (payload columns) of the streaming feeder's slabs. Unset: 4x "
+        "the pod window, clamped to [W + W/2, the whole payload] (and the "
+        "whole payload where K slabs of 4W would hold as much).",
+    ),
+    Flag(
+        "KTPU_HOST_CHAOS",
+        "str",
+        None,
+        "Deterministic host-fault injection (batched/faults.py HostChaos): "
+        "counter-seeded threefry draws kill the stream feeder's producer, so "
+        "the feeder supervisor's restarts can be proven. '1' selects the "
+        "defaults (seed=7,feeder=0.05); a 'k=v,...' spec overrides them. The "
+        "reference's fleet keys (dispatch, stall, stall_ms) raise: the port "
+        "has no fleet yet. Unset: injection off.",
+    ),
 ]
 
 REGISTRY: Dict[str, Flag] = {f.name: f for f in _FLAGS}
@@ -105,3 +146,15 @@ def flag_str(name: str) -> Optional[str]:
     raw = os.environ.get(name)
     return flag.default if raw is None else raw  # type: ignore[return-value]
 
+
+def flag_int(name: str) -> Optional[int]:
+    """Integer flag: unset or empty gives its default (may be None); any
+    other value must parse as a base-10 integer, or this raises."""
+    flag = _lookup(name, "int")
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return flag.default  # type: ignore[return-value]
+    try:
+        return int(raw.strip(), 10)
+    except ValueError as exc:
+        raise ValueError(f"environment flag {name!r} must be an integer, got {raw!r}") from exc

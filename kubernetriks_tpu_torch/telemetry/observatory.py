@@ -17,9 +17,15 @@ observatory.py`, copied whole but for its imports).
   trajectory (least squares per cluster) and warns (SaturationWarning)
   with an estimated time to exhaustion while the run is still healthy,
   before the reserve bound (`engine.check_autoscaler_bounds`) raises. Its
-  lane, SLO and pipeline checks are the reference's; without the fleet and
-  the streaming feeder (not ported yet) they have nothing to judge and
-  stay quiet, as in a reference run without them.
+  lane, SLO and pipeline checks are the reference's. The pipeline check
+  judges the streaming feeder (the engine passes its report and
+  dispatch_stats' feeder_slabs_produced and stage_refills): slabs
+  produced and never installed, and stalls on an unpublished slab (a
+  feeder's first slab, its cold start after the build or a re-seek, is
+  reported apart and not judged); its
+  sync-budget half judges the reference's superspan, which the port does
+  not have, so it stays quiet. Without the fleet the lane and SLO checks
+  have nothing to judge and stay quiet, as in a reference run without it.
 
 Everything here runs on drained host copies (owned numpy arrays from
 telemetry/ring.snapshot, plain dicts from the engine): it never touches a

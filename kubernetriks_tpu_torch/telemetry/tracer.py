@@ -8,10 +8,13 @@ phases it has: window spans (PH_WINDOW_CHUNK, one a span of windows the
 executor runs), the sliding pod window's slides (PH_SLIDE) with their
 shift read (PH_SHIFT_WAIT), growths (PH_WINDOW_GROW), graph captures
 (PH_PRECOMPILE) and fast-forward's read of the next window after an
-executed window (PH_PROGRESS_WAIT). The superspan, staging, feeder,
-checkpoint and query phases exist and stay empty until the port has
-them. The reference's async-readback flows and fleet lane swimlanes wait
-for the port's superspan and fleet (ROADMAP items 11 and 13).
+executed window (PH_PROGRESS_WAIT), and the sliding pod window's
+staging: the engine thread's slab assembly, upload and prefetch
+(PH_STAGE_ASSEMBLE, PH_STAGE_PUT, PH_STAGE_PREFETCH) and the stream
+feeder's stalls at an install (PH_STAGE_WAIT_FEEDER, PH_STAGE_WAIT_UPLOAD).
+The superspan, checkpoint and query phases exist and stay empty until the
+port has them. The reference's async-readback flows and fleet lane
+swimlanes wait for the port's fleet (ROADMAP item 13).
 
 Two consumers:
 - `chrome_trace()`: Chrome trace-event JSON (Perfetto loads it): host
@@ -45,9 +48,9 @@ PH_FUSED_CHUNK_SLIDE = 1  # the reference's fused chunk + slide dispatch
 PH_SUPERSPAN = 2  # the reference's superspan dispatch
 PH_PROGRESS_WAIT = 3  # recorded: fast-forward's read of the next window
 PH_SHIFT_WAIT = 4  # recorded: the slide's read of its shift
-PH_STAGE_ASSEMBLE = 5  # staging: host assembly of a slab segment
-PH_STAGE_PUT = 6  # staging: upload of a slab
-PH_STAGE_PREFETCH = 7  # staging: the successor slab's prefetch
+PH_STAGE_ASSEMBLE = 5  # recorded: host assembly of a slab on the engine thread
+PH_STAGE_PUT = 6  # recorded: upload of a slab on the engine thread
+PH_STAGE_PREFETCH = 7  # recorded: the successor slab's prefetch
 PH_REFILL_PREFETCH = 8  # the host slide path's refill prefetch
 PH_SLIDE = 9  # recorded: the pod window's slide (piece and read)
 PH_WINDOW_GROW = 10  # recorded: the pod window's growth (and recapture)
@@ -55,8 +58,8 @@ PH_CKPT_SAVE = 11  # checkpoint save
 PH_CKPT_RESTORE = 12  # checkpoint restore
 PH_PRECOMPILE = 13  # recorded: capture of window pieces ahead of use
 PH_CHUNK_FENCED = 14  # an instrumented dispatch with a device fence
-# The streaming feeder's stalls: waiting for an unpublished slab, and for
-# a published slab's upload to settle.
+# Recorded: the streaming feeder's stalls, waiting for an unpublished
+# slab, and for a published slab's upload to settle.
 PH_STAGE_WAIT_FEEDER = 15
 PH_STAGE_WAIT_UPLOAD = 16
 # Fleet query lifecycle: queue wait (submit -> admission) and service

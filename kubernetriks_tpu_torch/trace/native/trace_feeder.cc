@@ -1,0 +1,528 @@
+// Native trace feeder: Alibaba cluster-trace-v2017 CSV -> dense event arrays.
+//
+// The PyTorch port's own copy of the JAX package's native/trace_feeder.cc
+// (the host-side trace ingestion of the Rust simulator:
+// src/trace/alibaba_cluster_trace_v2017/{workload,cluster}.rs).
+// The hot host-side work — parsing millions of CSV rows, joining
+// batch_instance to batch_task, filtering invalid rows and producing dense,
+// time-sorted arrays ready to become device tensors — runs here in C++; the
+// Python layer (kubernetriks_tpu_torch/trace/feeder.py) binds via ctypes and keeps
+// a pure-Python oracle with identical semantics for equality tests.
+//
+// Semantics mirrored exactly:
+//  - workload join + validity filter: workload.rs:56-120 (missing
+//    start/end/task_id, unknown task, missing cpu/mem, ts<=0, start>=end),
+//    santicores x10 -> millicores, normalized mem x 128 GiB (truncating
+//    double multiply), duration = end - start, stable sort by start ts.
+//  - duplicate task ids are an input error: workload.rs:152-166.
+//  - machine events: `add` -> create (cores x1000 -> millicores, mem x 128
+//    GiB), `softerror`/`harderror` -> remove with dedup of re-removals and
+//    ghost nodes, unknown types are an error: cluster.rs:16-38,55-105.
+//
+// C ABI: handle-based. Each parse returns an opaque handle; the caller
+// queries the count, fills caller-allocated buffers, and frees the handle.
+// Errors are reported as a handle whose error() string is non-empty.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <unordered_map>
+#include <unordered_set>
+#include <vector>
+
+namespace {
+
+constexpr double kDenormalizationBase = 137438953472.0;  // 128 GiB
+constexpr int64_t kCpuBase = 1000;                       // cores -> millicores
+
+struct OptI64 {
+  int64_t value = 0;
+  bool present = false;
+};
+
+struct OptF64 {
+  double value = 0.0;
+  bool present = false;
+};
+
+// One CSV line split into fields. Real-format Alibaba dumps circulate with
+// RFC4180 quirks the reference's csv crate also absorbs: quoted fields
+// (commas inside quotes, "" escaping a literal quote) and CRLF endings
+// (ReadLines strips the \r). Quoted fields with EMBEDDED newlines are not
+// supported — none of the circulating traces use them and line framing
+// happens before field splitting.
+struct Row {
+  std::vector<std::string> fields;
+};
+
+bool ReadLines(const std::string& path, std::vector<std::string>* lines,
+               std::string* error) {
+  FILE* f = std::fopen(path.c_str(), "rb");
+  if (!f) {
+    *error = "cannot open file: " + path;
+    return false;
+  }
+  std::fseek(f, 0, SEEK_END);
+  long size = std::ftell(f);
+  std::fseek(f, 0, SEEK_SET);
+  if (size < 0) {
+    // ftell fails for directories and unseekable streams; surface a
+    // ValueError-shaped error instead of letting std::string(size_t(-1))
+    // throw across the C ABI.
+    std::fclose(f);
+    *error = "cannot determine file size (is it a regular file?): " + path;
+    return false;
+  }
+  std::string content(static_cast<size_t>(size), '\0');
+  if (size > 0 && std::fread(&content[0], 1, static_cast<size_t>(size), f) !=
+                      static_cast<size_t>(size)) {
+    std::fclose(f);
+    *error = "short read: " + path;
+    return false;
+  }
+  std::fclose(f);
+
+  size_t start = 0;
+  while (start <= content.size()) {
+    size_t nl = content.find('\n', start);
+    size_t end = (nl == std::string::npos) ? content.size() : nl;
+    size_t len = end - start;
+    if (len > 0 && content[start + len - 1] == '\r') --len;
+    if (len > 0) lines->emplace_back(content, start, len);
+    if (nl == std::string::npos) break;
+    start = nl + 1;
+  }
+  return true;
+}
+
+void SplitCsv(const std::string& line, Row* row) {
+  row->fields.clear();
+  size_t i = 0;
+  std::string field;
+  while (true) {
+    field.clear();
+    if (i < line.size() && line[i] == '"') {
+      // Quoted field: runs to the matching quote; "" is a literal quote.
+      ++i;
+      while (i < line.size()) {
+        if (line[i] == '"') {
+          if (i + 1 < line.size() && line[i + 1] == '"') {
+            field.push_back('"');
+            i += 2;
+          } else {
+            ++i;  // closing quote
+            break;
+          }
+        } else {
+          field.push_back(line[i++]);
+        }
+      }
+      // Trailing unquoted residue after a closing quote (malformed input)
+      // rides along verbatim, like Python's csv reader.
+      while (i < line.size() && line[i] != ',') field.push_back(line[i++]);
+    } else {
+      while (i < line.size() && line[i] != ',') field.push_back(line[i++]);
+    }
+    row->fields.push_back(field);
+    if (i >= line.size()) break;
+    ++i;  // skip the comma
+  }
+}
+
+// ASCII integer-literal syntax: optional sign, then digits with single
+// underscores allowed BETWEEN digits — trace/alibaba.py's _ASCII_INT_RE,
+// byte for byte (the Python side deliberately restricts itself to the
+// ASCII subset so this scan can match it exactly; Unicode digits are a
+// header on BOTH sides). A pure syntax test — Python ints are unbounded,
+// so an out-of-int64-range digit string is still an integer (a DATA row);
+// strtoll's ERANGE must not reclassify it.
+bool LooksLikePythonInt(const std::string& s) {
+  size_t i = 0;
+  if (i < s.size() && (s[i] == '+' || s[i] == '-')) ++i;
+  if (i >= s.size()) return false;
+  bool prev_digit = false;
+  for (; i < s.size(); ++i) {
+    char c = s[i];
+    if (c >= '0' && c <= '9') {
+      prev_digit = true;
+    } else if (c == '_') {
+      if (!prev_digit) return false;
+      prev_digit = false;
+    } else {
+      return false;
+    }
+  }
+  return prev_digit;
+}
+
+// Header rule shared verbatim with the Python parsers (trace/alibaba.py
+// _data_rows): the FIRST row of a file is a header iff its first field is
+// non-empty and not an integer — data rows lead with an integer timestamp
+// or an empty optional field, header names never do. Whitespace-trimmed
+// like Python's str.strip before the test.
+bool IsHeaderRow(const Row& row) {
+  if (row.fields.empty()) return false;
+  const std::string& raw = row.fields[0];
+  size_t b = raw.find_first_not_of(" \t\f\v");
+  if (b == std::string::npos) return false;  // empty/blank -> data row
+  size_t e = raw.find_last_not_of(" \t\f\v");
+  return !LooksLikePythonInt(raw.substr(b, e - b + 1));
+}
+
+bool ParseI64(const std::string& s, int64_t* out, std::string* error,
+              const char* what) {
+  if (s.empty()) {
+    *error = std::string("empty required field: ") + what;
+    return false;
+  }
+  char* endp = nullptr;
+  errno = 0;
+  long long v = std::strtoll(s.c_str(), &endp, 10);
+  if (errno != 0 || endp == s.c_str() || *endp != '\0') {
+    *error = std::string("bad integer '") + s + "' in " + what;
+    return false;
+  }
+  *out = v;
+  return true;
+}
+
+bool ParseOptI64(const std::string& s, OptI64* out, std::string* error,
+                 const char* what) {
+  if (s.empty()) {
+    out->present = false;
+    return true;
+  }
+  out->present = true;
+  return ParseI64(s, &out->value, error, what);
+}
+
+bool ParseOptF64(const std::string& s, OptF64* out, std::string* error,
+                 const char* what) {
+  if (s.empty()) {
+    out->present = false;
+    return true;
+  }
+  char* endp = nullptr;
+  errno = 0;
+  double v = std::strtod(s.c_str(), &endp);
+  if (errno != 0 || endp == s.c_str() || *endp != '\0') {
+    *error = std::string("bad float '") + s + "' in " + what;
+    return false;
+  }
+  out->value = v;
+  out->present = true;
+  return true;
+}
+
+struct TaskInfo {
+  OptI64 cpus_santicores;
+  OptF64 normalized_memory;
+};
+
+struct Handle {
+  std::string error;
+
+  // Workload result (parallel arrays, sorted stably by start_ts).
+  std::vector<double> start_ts;
+  std::vector<int64_t> cpu_millicores;
+  std::vector<int64_t> ram_bytes;
+  std::vector<double> duration;
+  std::vector<int64_t> job_id;
+  std::vector<int64_t> task_id;
+  std::vector<int64_t> pod_no;
+
+  // Machine-events result (kind: 0 = create, 1 = remove; cpu/ram only valid
+  // for creates), in file order then stably sorted by ts.
+  std::vector<double> m_ts;
+  std::vector<int32_t> m_kind;
+  std::vector<int64_t> m_cpu_millicores;
+  std::vector<int64_t> m_ram_bytes;
+  std::vector<int64_t> m_machine_id;
+};
+
+Handle* Fail(Handle* h, const std::string& error) {
+  h->error = error;
+  return h;
+}
+
+}  // namespace
+
+extern "C" {
+
+Handle* feeder_parse_workload(const char* instance_path,
+                              const char* task_path) {
+  Handle* h = new Handle();
+  std::string err;
+
+  std::vector<std::string> task_lines;
+  if (!ReadLines(task_path, &task_lines, &err)) return Fail(h, err);
+
+  // task_id-keyed join table; duplicate ids are an input error
+  // (workload.rs:152-166).
+  std::unordered_map<int64_t, TaskInfo> tasks;
+  tasks.reserve(task_lines.size() * 2);
+  Row row;
+  bool first_task = true;
+  for (const std::string& line : task_lines) {
+    SplitCsv(line, &row);
+    if (first_task) {
+      first_task = false;
+      if (IsHeaderRow(row)) continue;
+    }
+    if (row.fields.size() < 6) {
+      return Fail(h, "batch_task row has fewer than 6 fields: " + line);
+    }
+    // Field-validation parity with the Python parser (trace/alibaba.py
+    // BatchTask.from_row): the required integer columns must parse even
+    // though the simulation never reads them, so malformed traces are
+    // rejected identically whichever parser handled them.
+    int64_t tid, ignored;
+    if (!ParseI64(row.fields[0], &ignored, &err, "batch_task.task_create_time") ||
+        !ParseI64(row.fields[1], &ignored, &err, "batch_task.task_end_time") ||
+        !ParseI64(row.fields[2], &ignored, &err, "batch_task.job_id") ||
+        !ParseI64(row.fields[3], &tid, &err, "batch_task.task_id") ||
+        !ParseI64(row.fields[4], &ignored, &err, "batch_task.number_of_instances"))
+      return Fail(h, err);
+    TaskInfo info;
+    if (row.fields.size() > 6 &&
+        !ParseOptI64(row.fields[6], &info.cpus_santicores, &err,
+                     "batch_task.cpus_requested"))
+      return Fail(h, err);
+    if (row.fields.size() > 7 &&
+        !ParseOptF64(row.fields[7], &info.normalized_memory, &err,
+                     "batch_task.normalized_memory"))
+      return Fail(h, err);
+    if (!tasks.emplace(tid, info).second) {
+      return Fail(h, "duplicated task id: " + std::to_string(tid));
+    }
+  }
+
+  std::vector<std::string> inst_lines;
+  if (!ReadLines(instance_path, &inst_lines, &err)) return Fail(h, err);
+
+  int64_t pod_counter = 0;
+  h->start_ts.reserve(inst_lines.size());
+  bool first_inst = true;
+  for (const std::string& line : inst_lines) {
+    SplitCsv(line, &row);
+    if (first_inst) {
+      first_inst = false;
+      if (IsHeaderRow(row)) continue;
+    }
+    if (row.fields.size() < 8) {
+      return Fail(h, "batch_instance row has fewer than 8 fields: " + line);
+    }
+    OptI64 start, end, jid, tid, mid_ignored;
+    int64_t seq_ignored;
+    if (!ParseOptI64(row.fields[0], &start, &err, "batch_instance.start_ts") ||
+        !ParseOptI64(row.fields[1], &end, &err, "batch_instance.end_ts") ||
+        !ParseOptI64(row.fields[2], &jid, &err, "batch_instance.job_id") ||
+        !ParseOptI64(row.fields[3], &tid, &err, "batch_instance.task_id") ||
+        // Columns the simulation never reads — validated for parity with the
+        // Python parser (BatchInstance.from_row: machine_id is optional-int,
+        // sequence numbers are required-int).
+        !ParseOptI64(row.fields[4], &mid_ignored, &err,
+                     "batch_instance.machine_id") ||
+        !ParseI64(row.fields[6], &seq_ignored, &err,
+                  "batch_instance.sequence_number") ||
+        !ParseI64(row.fields[7], &seq_ignored, &err,
+                  "batch_instance.total_sequence_number"))
+      return Fail(h, err);
+
+    // Validity filter, in the reference's order (workload.rs:56-120).
+    if (!start.present || !end.present || !tid.present) continue;
+    auto it = tasks.find(tid.value);
+    if (it == tasks.end()) continue;
+    const TaskInfo& task = it->second;
+    if (!task.cpus_santicores.present || !task.normalized_memory.present)
+      continue;
+    if (start.value <= 0 || end.value <= 0 || start.value >= end.value)
+      continue;
+
+    h->start_ts.push_back(static_cast<double>(start.value));
+    h->cpu_millicores.push_back(task.cpus_santicores.value * 10);
+    h->ram_bytes.push_back(static_cast<int64_t>(
+        task.normalized_memory.value * kDenormalizationBase));
+    h->duration.push_back(static_cast<double>(end.value - start.value));
+    h->job_id.push_back(jid.present ? jid.value : -1);
+    h->task_id.push_back(tid.value);
+    h->pod_no.push_back(pod_counter++);
+  }
+
+  // Stable sort by start timestamp (matches Python list.sort on ts over the
+  // file-ordered events).
+  std::vector<int64_t> order(h->start_ts.size());
+  for (size_t i = 0; i < order.size(); ++i) order[i] = static_cast<int64_t>(i);
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return h->start_ts[a] < h->start_ts[b];
+  });
+  auto permute_f64 = [&](std::vector<double>& v) {
+    std::vector<double> out(v.size());
+    for (size_t i = 0; i < order.size(); ++i) out[i] = v[order[i]];
+    v.swap(out);
+  };
+  auto permute_i64 = [&](std::vector<int64_t>& v) {
+    std::vector<int64_t> out(v.size());
+    for (size_t i = 0; i < order.size(); ++i) out[i] = v[order[i]];
+    v.swap(out);
+  };
+  permute_f64(h->start_ts);
+  permute_i64(h->cpu_millicores);
+  permute_i64(h->ram_bytes);
+  permute_f64(h->duration);
+  permute_i64(h->job_id);
+  permute_i64(h->task_id);
+  permute_i64(h->pod_no);
+  return h;
+}
+
+Handle* feeder_parse_machines(const char* machine_events_path) {
+  Handle* h = new Handle();
+  std::string err;
+  std::vector<std::string> lines;
+  if (!ReadLines(machine_events_path, &lines, &err)) return Fail(h, err);
+
+  std::unordered_set<int64_t> created, removed;
+  Row row;
+  bool first_machine = true;
+  for (const std::string& line : lines) {
+    SplitCsv(line, &row);
+    if (first_machine) {
+      first_machine = false;
+      if (IsHeaderRow(row)) continue;
+    }
+    if (row.fields.size() < 3) {
+      return Fail(h, "machine_events row has fewer than 3 fields: " + line);
+    }
+    int64_t ts, mid;
+    if (!ParseI64(row.fields[0], &ts, &err, "machine_events.timestamp") ||
+        !ParseI64(row.fields[1], &mid, &err, "machine_events.machine_id"))
+      return Fail(h, err);
+    const std::string& kind = row.fields[2];
+    if (kind == "add") {
+      OptI64 cpus;
+      OptF64 mem;
+      if (row.fields.size() > 4 &&
+          !ParseOptI64(row.fields[4], &cpus, &err, "machine_events.cpus"))
+        return Fail(h, err);
+      if (row.fields.size() > 5 &&
+          !ParseOptF64(row.fields[5], &mem, &err, "machine_events.memory"))
+        return Fail(h, err);
+      if (!cpus.present || !mem.present) {
+        return Fail(h, "machine event 'add' for machine " +
+                           std::to_string(mid) + " at t=" +
+                           std::to_string(ts) + " lacks cpu/memory values");
+      }
+      created.insert(mid);
+      h->m_ts.push_back(static_cast<double>(ts));
+      h->m_kind.push_back(0);
+      h->m_cpu_millicores.push_back(cpus.value * kCpuBase);
+      h->m_ram_bytes.push_back(
+          static_cast<int64_t>(mem.value * kDenormalizationBase));
+      h->m_machine_id.push_back(mid);
+    } else if (kind == "softerror" || kind == "harderror") {
+      // Dedup of re-removals and ghost nodes (cluster.rs:82-86).
+      if (removed.count(mid) || !created.count(mid)) continue;
+      removed.insert(mid);
+      h->m_ts.push_back(static_cast<double>(ts));
+      h->m_kind.push_back(1);
+      h->m_cpu_millicores.push_back(0);
+      h->m_ram_bytes.push_back(0);
+      h->m_machine_id.push_back(mid);
+    } else {
+      return Fail(h, "Unsupported operation for a node in alibaba cluster "
+                     "trace: " + kind);
+    }
+  }
+
+  std::vector<int64_t> order(h->m_ts.size());
+  for (size_t i = 0; i < order.size(); ++i) order[i] = static_cast<int64_t>(i);
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return h->m_ts[a] < h->m_ts[b];
+  });
+  Handle sorted;
+  sorted.m_ts.resize(order.size());
+  sorted.m_kind.resize(order.size());
+  sorted.m_cpu_millicores.resize(order.size());
+  sorted.m_ram_bytes.resize(order.size());
+  sorted.m_machine_id.resize(order.size());
+  for (size_t i = 0; i < order.size(); ++i) {
+    sorted.m_ts[i] = h->m_ts[order[i]];
+    sorted.m_kind[i] = h->m_kind[order[i]];
+    sorted.m_cpu_millicores[i] = h->m_cpu_millicores[order[i]];
+    sorted.m_ram_bytes[i] = h->m_ram_bytes[order[i]];
+    sorted.m_machine_id[i] = h->m_machine_id[order[i]];
+  }
+  h->m_ts.swap(sorted.m_ts);
+  h->m_kind.swap(sorted.m_kind);
+  h->m_cpu_millicores.swap(sorted.m_cpu_millicores);
+  h->m_ram_bytes.swap(sorted.m_ram_bytes);
+  h->m_machine_id.swap(sorted.m_machine_id);
+  return h;
+}
+
+const char* feeder_error(Handle* h) { return h->error.c_str(); }
+
+int64_t feeder_workload_count(Handle* h) {
+  return static_cast<int64_t>(h->start_ts.size());
+}
+
+void feeder_workload_fill(Handle* h, double* start_ts, int64_t* cpu,
+                          int64_t* ram, double* duration, int64_t* job_id,
+                          int64_t* task_id, int64_t* pod_no) {
+  size_t n = h->start_ts.size();
+  std::memcpy(start_ts, h->start_ts.data(), n * sizeof(double));
+  std::memcpy(cpu, h->cpu_millicores.data(), n * sizeof(int64_t));
+  std::memcpy(ram, h->ram_bytes.data(), n * sizeof(int64_t));
+  std::memcpy(duration, h->duration.data(), n * sizeof(double));
+  std::memcpy(job_id, h->job_id.data(), n * sizeof(int64_t));
+  std::memcpy(task_id, h->task_id.data(), n * sizeof(int64_t));
+  std::memcpy(pod_no, h->pod_no.data(), n * sizeof(int64_t));
+}
+
+void feeder_workload_fill_range(Handle* h, int64_t lo, int64_t n,
+                                double* start_ts, int64_t* cpu, int64_t* ram,
+                                double* duration, int64_t* job_id,
+                                int64_t* task_id, int64_t* pod_no) {
+  // Segment-at-a-time iteration for the streaming ingestion pipeline
+  // (kubernetriks_tpu_torch/batched/stream.py): callers pull rows [lo, lo + n)
+  // of the sorted workload without materializing the whole columns on the
+  // Python side — the compact parsed representation stays native-side and
+  // each pull copies one bounded segment. Bounds are clamped defensively;
+  // the Python binding validates them first.
+  int64_t total = static_cast<int64_t>(h->start_ts.size());
+  if (lo < 0) lo = 0;
+  if (lo > total) lo = total;
+  if (n > total - lo) n = total - lo;
+  if (n <= 0) return;
+  size_t c = static_cast<size_t>(n);
+  size_t off = static_cast<size_t>(lo);
+  std::memcpy(start_ts, h->start_ts.data() + off, c * sizeof(double));
+  std::memcpy(cpu, h->cpu_millicores.data() + off, c * sizeof(int64_t));
+  std::memcpy(ram, h->ram_bytes.data() + off, c * sizeof(int64_t));
+  std::memcpy(duration, h->duration.data() + off, c * sizeof(double));
+  std::memcpy(job_id, h->job_id.data() + off, c * sizeof(int64_t));
+  std::memcpy(task_id, h->task_id.data() + off, c * sizeof(int64_t));
+  std::memcpy(pod_no, h->pod_no.data() + off, c * sizeof(int64_t));
+}
+
+int64_t feeder_machine_count(Handle* h) {
+  return static_cast<int64_t>(h->m_ts.size());
+}
+
+void feeder_machine_fill(Handle* h, double* ts, int32_t* kind, int64_t* cpu,
+                         int64_t* ram, int64_t* machine_id) {
+  size_t n = h->m_ts.size();
+  std::memcpy(ts, h->m_ts.data(), n * sizeof(double));
+  std::memcpy(kind, h->m_kind.data(), n * sizeof(int32_t));
+  std::memcpy(cpu, h->m_cpu_millicores.data(), n * sizeof(int64_t));
+  std::memcpy(ram, h->m_ram_bytes.data(), n * sizeof(int64_t));
+  std::memcpy(machine_id, h->m_machine_id.data(), n * sizeof(int64_t));
+}
+
+void feeder_free(Handle* h) { delete h; }
+
+}  // extern "C"

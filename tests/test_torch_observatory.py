@@ -15,10 +15,10 @@ the CPU, against the JAX package's (the port of tests/test_soak.py:
 - The fit / time-to-exhaustion math, the Prometheus lines, the bounded
   JSONL exporter and the latency histogram equal the reference's.
 - The watchdog end to end: a faulted CA churn through slot reclaim with
-  the watchdog armed (tests/test_reclaim.py:315 without the streaming
-  feeder and the superspan, which wait for ROADMAP item 11, and the
-  checkpoint, item 12) shows no reserve verdict, and its ring equals the
-  JAX engine's.
+  the watchdog armed (tests/test_reclaim.py:315 without the superspan,
+  which the port's window executor replaces, and the checkpoint, ROADMAP
+  item 12; the streaming feeder's runs are in test_torch_stream.py) shows
+  no reserve verdict, and its ring equals the JAX engine's.
 """
 
 import json

@@ -22,8 +22,10 @@ against the JAX package's sliding engine.
   and restores the pod_base mirror and the windowed ranks).
 - The engine and executor: one host read a span (host_syncs == slides +
   grows), the slide writes the rank tensor in place, a growth rebuilds the
-  executor's buffers and keeps K, the payload budget and graphs=True on
-  the CPU raise, step_window refuses to run past the window, and the CLI's
+  executor's buffers and keeps K, graphs=True on the CPU raises, a
+  payload over the budget runs from bounded stages (at the build and from
+  a growth on) and equals the in-budget run, step_window refuses to run
+  past the window, and the CLI's
   --pod-window gives the build argument's counters; on the stubbed capture
   backend of test_torch_executor.py, a run across slides and a growth
   equals the eager run bit for bit with equal launch counts.
@@ -328,19 +330,32 @@ def test_a_growth_rebuilds_the_buffers_and_keeps_k():
 
 
 def test_the_payload_budget_and_graphs_on_the_cpu_raise(monkeypatch):
+    """graphs=True on the CPU raises; a whole-trace payload over the
+    device budget no longer does: the slide then refills from bounded
+    stages built on the engine's thread (the stream feeder without its
+    thread), at the build and from a growth on, and the run equals the
+    in-budget run."""
     with pytest.raises(ValueError, match="graphs=True needs the card"):
         _port("growth", graphs=True)
+    until = CASES["growth"][5]
+    whole = _port("growth")
+    whole.step_until_time(until)
+    want = state_to_numpy(whole.state)
+    assert whole._slide_payload is not None and whole.dispatch_stats["stage_refills"] == 0
     C, T = 3, 200
-    monkeypatch.setattr(engine_mod, "SLIDE_PAYLOAD_BUDGET_BYTES", C * (T + 64) * 4 * 5 - 1)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 11"):
-        _port("growth")
-    # Room at W = 64 but not at 128: the growth raises before it changes
-    # anything.
-    monkeypatch.setattr(engine_mod, "SLIDE_PAYLOAD_BUDGET_BYTES", C * (T + 64) * 4 * 5)
-    sim = _port("growth")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 11"):
-        sim.step_until_time(400.0)
-    assert sim.pod_window == 64 and sim.n_pods == 64
+    # Over the budget at W = 64 already, and only from the growth to 128.
+    for budget, bounded_from in ((C * (T + 64) * 4 * 5 - 1, 64), (C * (T + 64) * 4 * 5, 128)):
+        monkeypatch.setattr(engine_mod, "SLIDE_PAYLOAD_BUDGET_BYTES", budget)
+        sim = _port("growth")
+        assert (sim._slide_payload is None) == (bounded_from == 64)
+        sim.step_until_time(until)
+        assert sim._slide_payload is None and sim.pod_window == 200
+        assert compare_states(want, state_to_numpy(sim.state)) == []
+        stats = sim.dispatch_stats
+        assert stats["stage_refills"] > 0 and stats["feeder_slabs_produced"] >= stats["stage_refills"]
+        assert sim.telemetry_report()["feeder"]["threaded"] is False
+        assert (stats["slides"], stats["grows"], sim.host_syncs) == (
+            whole.dispatch_stats["slides"], whole.dispatch_stats["grows"], whole.host_syncs)
 
 
 def test_step_window_refuses_to_run_past_the_window():
@@ -387,13 +402,14 @@ def test_stubbed_graph_run_across_slides_and_growths(counting_wrappers, build, u
     want = dict(LAUNCHES)
     sim = stub_graphs(build(False))
     captured = sim.precompile_pieces()
-    assert ("slide", sim.pod_window) in sim._executor.graphs
+    assert sim._executor.slide_key() == ("slide", sim.pod_window, sim.pod_window + sim.consts.trace_pod_bound, -1)
+    assert sim._executor.slide_key() in sim._executor.graphs
     reset_launches()
     sim.step_until_time(until)
     stats = sim.dispatch_stats
     assert stats["grows"] > 0 and stats["graph_windows"] == sim.windows_run
     assert stats["captures"] == captured * (1 + stats["grows"])
-    assert ("slide", sim.pod_window) in sim._executor.graphs
+    assert sim._executor.slide_key() in sim._executor.graphs
     assert dict(LAUNCHES) == want and sum(want.values()) > 0
     assert sim.host_syncs == eager.host_syncs == stats["slides"] + stats["grows"]
     assert_bitwise_equal(sim.state, eager.state)

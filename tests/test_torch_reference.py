@@ -145,8 +145,9 @@ def test_reference_adapter_forces_the_megakernel(monkeypatch):
 def test_port_main_path_loads_no_jax(tmp_path):
     """The port's main path, its autoscaler path (whole-resident and through
     the sliding pod window, and with faults and a profile), the flight
-    recorder (the ring, the watchdog, gauges, the report), the endurance
-    churn with slot reclaim, the trace replay and the CLI, run in a fresh
+    recorder (the ring, the watchdog, gauges, the report), a run streamed
+    by the feeder thread, the endurance churn with slot reclaim, the trace
+    replay through the native feeder and the CLI, run in a fresh
     interpreter, leave no module named jax* or kubernetriks_tpu.* in
     sys.modules."""
     code = textwrap.dedent(
@@ -189,6 +190,11 @@ def test_port_main_path_loads_no_jax(tmp_path):
         armed.step_until_time(160.0)
         assert len(armed.telemetry_window_series()[0]) == armed.next_window_idx == len(armed.gauge_series()[0])
         kubernetriks_tpu_torch.metrics.render.render_telemetry(armed.telemetry_report(), "table")
+        import kubernetriks_tpu_torch.batched.stream, kubernetriks_tpu_torch.batched.faults
+        streamed = composed_sim("cpu", 2, pod_window=8, stream=True, stream_segment=24)
+        streamed.step_until_time(400.0)
+        assert streamed.dispatch_stats["stage_refills"] > 0 and streamed.telemetry_report()["feeder"]
+        streamed.close()
         from chip_smoke import endurance_sim
         churn = endurance_sim("cpu", 1, 4, reclaim=True)
         churn.step_until_time(30.0 + 4 * 160.0)
@@ -203,6 +209,8 @@ def test_port_main_path_loads_no_jax(tmp_path):
                     f"    machine_events_trace_path: {machines}\\n"
                     f"    batch_task_trace_path: {tasks}\\n"
                     f"    batch_instance_trace_path: {instances}\\n")
+        from kubernetriks_tpu_torch.trace import feeder
+        assert feeder.native_available(), feeder.native_build_error()
         replay = cli.build_batched_simulation(SimulationConfig.from_file(config_path), 1, device="cpu")
         replay.run_to_completion()
         assert replay.cycle_route == "sorted"
