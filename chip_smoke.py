@@ -82,8 +82,8 @@ Phases; any failure exits non-zero:
      run_to_completion's own); growths, final window, wall seconds, ms and
      busy ms a window beside phase 9's; run twice, streamed (the card's
      default) and with stream=False (the whole-trace payload on the card):
-     equal states and host reads, host ms, busy ms and kernels a window
-     of each;
+     equal states and host reads, host ms a window of each, busy ms and
+     kernels a window of the streamed run;
  10. card against CPU on the replay and the two-kernel route: the replay
      at the reference's own test size (100 machines, 700 tasks, 4 000 s,
      seed 7) to completion; the headline shape at C=128 to t=60 s on the
@@ -122,7 +122,7 @@ Phases; any failure exits non-zero:
      run must show).
  13. scheduler profiles: under best_fit and balanced_packing, the headline
      shape on the graph executor timed as phase 4 (megakernel) and as
-     phase 8 (two-kernel route), and the full replay timed to 43 200 s
+     phase 8 (two-kernel route), and the full replay timed to 21 600 s
      as phase 9 (sorted route); card == CPU
      for best_fit, balanced_packing and a custom profile
      (BalancedResourceAllocation at weight 2.0) at C=128 on the megakernel
@@ -170,6 +170,27 @@ Phases; any failure exits non-zero:
      read after the run and again after the traced continuation, which
      grows the window and re-seeks the feeder), host and busy ms a
      window, the build seconds.
+ 19. checkpoints on the card (save_checkpoint / load_checkpoint): phase
+     6w's line with telemetry and the watchdog armed (reclaim, streaming)
+     saved at 590 s, restored into a fresh card engine and stepped to
+     1 190 s: state == the uninterrupted run under compare_states, equal
+     counters, the ring re-drained lossless; phase 9w's streamed replay
+     saved mid-stream (43 540 s, a completion chunk boundary), restored
+     and run to completion: every leaf == phase 9w's final state; a C = 4
+     composed run with faults saved on the card and restored on the CPU:
+     the two continuations equal; save and restore seconds and bytes.
+ 20. the scenario fleet (batched/fleet.py, wave-aligned): the reference's
+     --sweep line (`bench.py:981`: 64 scenarios of `bench.py:862` over
+     16 lanes, 8 nodes, horizon 400 s, query horizon 450 s, K = 64; the
+     sorted route) and the same pattern at 1 024 scenarios over 256 lanes
+     (4 waves, the megakernel route, pod faults on, each scenario its own
+     fault_seed): no capture after wave 1, the planted duplicates of
+     scenario 0 bit-identical to it, three probe queries equal standalone
+     card engines built from `bench.py:889` `_scenario_config` (one of
+     them, in 20b, a lane whose seed changed since wave 1); scenarios/s
+     against the three standalone engines extrapolated to all scenarios
+     (`bench.py:1108-1140`), host and busy ms a window of a fleet wave;
+     card == CPU at 8 scenarios over 4 lanes with node and pod faults.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -220,7 +241,10 @@ first call, the catch-up on its longest skip) and of phase 16's line to
 event-by-parked-pod steps), with the launches of phases 15 and 16. The
 flight recorder's record is held bit for bit and timed on phase 17's
 line at 590 s (C = 256, N = 96, P = 648, R = 1024), with phase 17's
-launches. A timed kernel cycles through at most 512 copies of its
+launches. The commit draw with a scenario fleet's per-lane seed vector is
+held bit for bit and timed on phase 20b's line (256 lanes, each its own
+seed) on its call with the most attempts starting, with phase 20b's
+launches: the entry "pod_attempt_draw (seed vector)". A timed kernel cycles through at most 512 copies of its
 inputs.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
@@ -323,9 +347,9 @@ FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, bu
 # replay's (the reference README streams the Alibaba replay through 4 096).
 COMPOSED_POD_WINDOW = 512
 REPLAY_POD_WINDOW = 4096
-# Phase 13 times the replay under each profile to half the day (a depth
-# cut from the whole day, PERF.md §4).
-PROFILE_REPLAY_UNTIL = 43200.0
+# Phase 13 times the replay under each profile to a quarter of the day (a
+# depth cut from the whole day, then half of it; PERF.md §4).
+PROFILE_REPLAY_UNTIL = 21600.0
 WINDOWED_COMPOSED = f"pod_window={COMPOSED_POD_WINDOW}"
 WINDOWED_REPLAY = f"pod_window={REPLAY_POD_WINDOW}"
 # The non-default scheduler profiles the cycle kernels are held and timed
@@ -645,26 +669,19 @@ def metric_leaves(state) -> dict:
     return {k: v for k, v in state_to_numpy(state).items() if k.startswith(".metrics.")}
 
 
-def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
-    """Device busy ms a window of a freshly built engine's windows from
-    `warm_until` to `until` on the graph executor, traced with
-    torch.profiler (CPU + CUDA): the device rows' kernel time over the
-    windows, beside the traced host ms a window (the profiler's own cost
-    included). Fails if the trace holds no device time. Returns the
-    numbers and the engine."""
+def device_busy(run, label: str) -> dict:
+    """Device busy ms and kernels a window of `run()` (which returns the
+    windows it ran) under torch.profiler (CPU + CUDA): the device rows'
+    kernel time, beside the traced host ms a window (the profiler's own
+    cost included). Fails if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    sim = build()
-    sim.precompile_pieces()
-    sim.step_until_time(warm_until)
     torch.cuda.synchronize()
-    w0, x0 = sim.windows_run, sim.dispatch_stats["executed_windows"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step_until_time(until)
+        n = run()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    n = max(sim.windows_run - w0, 1)
     busy_us, kernels = 0.0, 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
@@ -673,17 +690,36 @@ def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
             kernels += e.count
     if busy_us <= 0:
         fail(f"{label}: the profiler saw no device time")
-    out = {
-        "windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n,
-        "traced_host_ms_per_window": 1e3 * traced / n,
-    }
+    return {"windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n,
+            "traced_host_ms_per_window": 1e3 * traced / n}
+
+
+def profiled_busy(build, warm_until: float, until: float, label: str) -> dict:
+    """Device busy ms a window of a freshly built engine's windows from
+    `warm_until` to `until` on the graph executor, traced with
+    torch.profiler (CPU + CUDA): the device rows' kernel time over the
+    windows, beside the traced host ms a window (the profiler's own cost
+    included). Fails if the trace holds no device time. Returns the
+    numbers and the engine."""
+    sim = build()
+    sim.precompile_pieces()
+    sim.step_until_time(warm_until)
+    torch.cuda.synchronize()
+    w0, x0 = sim.windows_run, sim.dispatch_stats["executed_windows"]
+
+    def run():
+        sim.step_until_time(until)
+        return max(sim.windows_run - w0, 1)
+
+    out = device_busy(run, label)
+    n = out["windows"]
     executed = sim.dispatch_stats["executed_windows"] - x0
     if sim.fast_forward and executed > 0:
         # Fast-forward: per executed window as well.
         out.update({
-            "executed_windows": executed, "busy_ms_per_executed_window": busy_us / 1e3 / executed,
-            "kernels_per_executed_window": kernels / executed,
-            "traced_host_ms_per_executed_window": 1e3 * traced / executed,
+            "executed_windows": executed, "busy_ms_per_executed_window": out["busy_ms_per_window"] * n / executed,
+            "kernels_per_executed_window": out["kernels_per_window"] * n / executed,
+            "traced_host_ms_per_executed_window": out["traced_host_ms_per_window"] * n / executed,
         })
     print(f"{label}: device busy {out['busy_ms_per_window']:.4f} ms a window over {n} traced windows "
           f"({out['kernels_per_window']:.1f} kernels a window, traced host {out['traced_host_ms_per_window']:.3f} ms)"
@@ -2045,14 +2081,18 @@ def replay_window_phase(dev, sk, paths, whole: dict, must_launch, stream: bool =
             fail(f"{label}: {syncs} host reads, the streamed run {streamed['host_syncs']}")
     else:
         out["final"] = final
-    out["busy"], again = profiled_busy(build, 43200.0, 44200.0, label)
-    again.close()
-    del again
+        # Traced once, streamed: the run without the feeder runs the same
+        # kernels (a depth cut, PERF.md section 4).
+        out["busy"], again = profiled_busy(build, 43200.0, 44200.0, label)
+        again.close()
+        del again
+    busy = out["busy"] if streamed is None else streamed["busy"]
     print(
         f"{label}: replay through pod_window={REPLAY_POD_WINDOW} to completion: {out['windows']} windows in "
         f"{elapsed:.3f} s = {out['ms_per_window']:.3f} ms a window (phase 9 {whole['wall_s']:.3f} s = "
-        f"{whole['ms_per_window']:.3f}), device busy {out['busy']['busy_ms_per_window']:.4f} ms a window "
-        f"({out['busy']['kernels_per_window']:.1f} kernels) from 43 200 s (phase 9 "
+        f"{whole['ms_per_window']:.3f}), device busy {busy['busy_ms_per_window']:.4f} ms a window "
+        f"({busy['kernels_per_window']:.1f} kernels{'' if streamed is None else '; the streamed run'}) from 43 200 s "
+        f"(phase 9 "
         f"{whole['busy']['busy_ms_per_window']:.4f}), {syncs} host reads, window {out['window']}, slabs installed "
         f"{stats['stage_refills']}, staging {out['staging']}, feeder {out['feeder']}, counters equal phase 9's"
         + ("" if streamed is None else "; state and host reads equal the streamed run's")
@@ -2210,6 +2250,422 @@ def streamed_replay_phase(dev, sk, paths, must_launch) -> dict:
         f"{STREAMED_UNTIL + 1000.0:.0f} s {out['after']}; every cluster equals the one-cluster run; launches {launches}",
         flush=True,
     )
+    return out
+
+
+# The reference's --sweep line (`bench.py:981` `run_sweep` defaults; its
+# inputs `bench.py:945` `_sweep_setup`): the composed scenario at 8 nodes,
+# Poisson pods at 0.375/s for 400 s beside one HPA group of at most 16
+# pods (bursts of 100 / 150 / 250 s), a query horizon of 450 s, K = 64.
+SWEEP = dict(n_nodes=8, rate=0.375, horizon=400.0, max_group_pods=16, burst=(100.0, 150.0, 250.0))
+SWEEP_QUERY_HORIZON = 450.0
+SWEEP_K = 64
+# Pod faults alone (the reference bench's CrashLoopBackOff block): with
+# no crash chain, which a build compiles into the trace, a lane's faults
+# are a function of the query's fault_seed, whatever wave it runs in.
+POD_FAULTS_YAML = """
+fault_injection:
+  enabled: true
+  pod:
+    fail_prob: 0.05
+    restart_limit: 3
+"""
+
+
+def sweep_inputs(faults_yaml: str = ""):
+    """(config yaml, cluster events, workload events) of the sweep line."""
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+    from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
+
+    s = SWEEP
+    cluster = UniformClusterTrace(s["n_nodes"], cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+    plain = PoissonWorkloadTrace(
+        rate_per_second=s["rate"], horizon=s["horizon"], seed=3, cpu=16000, ram=32 * 1024**3,
+        duration_range=(30.0, 120.0), name_prefix="plain",
+    ).convert_to_simulator_events()
+    group = GenericWorkloadTrace.from_yaml(
+        composed_workload_yaml(s["max_group_pods"], s["burst"])
+    ).convert_to_simulator_events()
+    return composed_config_yaml(s["n_nodes"]) + faults_yaml, cluster, sorted(plain + group, key=lambda e: e[0])
+
+
+def sweep_scenarios(n: int, seeds: bool = False):
+    """`bench.py:862` `_sweep_scenarios`: n scenarios over the HPA scan
+    interval and tolerance and the CA scan interval and threshold, with
+    scenario 0 copied to two positions in another lane and another wave
+    (the cross-talk probes); `seeds`: each scenario its own fault_seed
+    (1000 + i; the copies keep scenario 0's). Returns (scenarios, probe
+    positions)."""
+    from kubernetriks_tpu_torch.batched.fleet import Scenario
+
+    out = [
+        Scenario(
+            hpa_scan_interval=(30.0, 60.0, 90.0, 120.0)[i % 4],
+            hpa_tolerance=0.05 + 0.05 * (i % 5),
+            ca_scan_interval=10.0 + 5.0 * ((i // 2) % 4),
+            ca_threshold=0.3 + 0.1 * ((i // 3) % 4),
+            fault_seed=1000 + i if seeds else None,
+        )
+        for i in range(n)
+    ]
+    probes = []
+    for pos in (min(n // 2 + 1, n - 1), n - 1):
+        if pos > 0:
+            out[pos] = out[0]
+            probes.append(pos)
+    return out, sorted(set(probes))
+
+
+def scenario_config(config_yaml: str, scen):
+    """`bench.py:889` `_scenario_config`: a standalone config carrying one
+    scenario's overrides as plain config scalars (and its fault seed)."""
+    from kubernetriks_tpu_torch.config import (
+        KubeClusterAutoscalerConfig,
+        KubeHorizontalPodAutoscalerConfig,
+        SimulationConfig,
+    )
+
+    config = SimulationConfig.from_yaml(config_yaml)
+    if scen.hpa_scan_interval is not None:
+        config.horizontal_pod_autoscaler.scan_interval = scen.hpa_scan_interval
+    if scen.hpa_tolerance is not None:
+        config.horizontal_pod_autoscaler.kube_horizontal_pod_autoscaler_config = KubeHorizontalPodAutoscalerConfig(
+            target_threshold_tolerance=scen.hpa_tolerance)
+    if scen.ca_scan_interval is not None:
+        config.cluster_autoscaler.scan_interval = scen.ca_scan_interval
+    if scen.ca_threshold is not None:
+        config.cluster_autoscaler.kube_cluster_autoscaler = KubeClusterAutoscalerConfig(
+            scale_down_utilization_threshold=scen.ca_threshold)
+    if scen.ca_max_node_count is not None:
+        config.cluster_autoscaler.max_node_count = scen.ca_max_node_count
+    if scen.as_to_ca_network_delay is not None:
+        config.as_to_ca_network_delay = scen.as_to_ca_network_delay
+    if scen.hpa_enabled is not None:
+        config.horizontal_pod_autoscaler.enabled = scen.hpa_enabled
+    if scen.fault_seed is not None:
+        config.fault_injection.seed = scen.fault_seed
+    return config
+
+
+def checkpoint_phase(dev, sk, card: str, must_launch, replay_paths, replay_final: dict, replay_windows: int) -> dict:
+    """Phase 19: checkpoints on the card. (a) phase 6w's composed line
+    (256 clusters, pod_window=512, reclaim on, streaming on, telemetry and
+    the watchdog armed) saved at 590 s, restored into a fresh card engine
+    and stepped to 1 190 s: its state equals the uninterrupted run's under
+    compare_states, its counters too, and its ring, re-drained after the
+    restore, holds every window of the run (lossless, bit for bit the
+    uninterrupted run's). (b) phase 9w's streamed replay saved mid-stream
+    (43 540 s, the first completion chunk boundary past 43 200 s, so the
+    continuation's completion reads land where phase 9w's did), restored
+    and run to completion: its state equals phase 9w's final state leaf for
+    leaf. (c) a C = 4 composed run with faults saved on the card at 300 s,
+    restored on the CPU: both continuations to 600 s are equal. Save and
+    restore seconds and checkpoint bytes of each, printed beside `card`
+    (nvidia-smi's name and power limit)."""
+    import shutil
+    import tempfile
+
+    from kubernetriks_tpu_torch.batched.state import compare_states, flatten
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    tmp = tempfile.mkdtemp(prefix="ktt_ckpt_")
+    out = {}
+
+    def save(sim, name):
+        path = os.path.join(tmp, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp) if f.startswith(name))
+        return path, save_s, nbytes
+
+    def restore(sim, path):
+        t0 = time.perf_counter()
+        sim.load_checkpoint(path)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    try:
+        # (a) the composed line.
+        label = "phase 19a"
+
+        def build():
+            return composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, telemetry=True)
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight = build()
+            if not (straight.reclaim and straight._stream_on() and straight._watchdog):
+                fail(f"{label}: built with reclaim {straight.reclaim}, stream {straight._stream_on()}, "
+                     f"watchdog {straight._watchdog}")
+            straight.step_until_time(590.0)
+            straight.step_until_time(1190.0)
+            first = build()
+            first.step_until_time(590.0)
+            path, save_s, nbytes = save(first, "composed")
+            first.close()
+            del first
+            resumed = build()
+            sk.reset_launches()
+            restore_s = restore(resumed, path)
+            resumed.step_until_time(1190.0)
+            torch.cuda.synchronize()
+            launches = sk.launch_counts()
+            ran_on_graphs(label, resumed)
+            a, b = state_to_numpy(straight.state), state_to_numpy(resumed.state)
+            bad = compare_states(a, b)
+            if bad:
+                fail(f"{label}: the restored run differs from the uninterrupted one at {bad}")
+            counters = resumed.metrics_summary()["counters"]
+            if counters != straight.metrics_summary()["counters"]:
+                fail(f"{label}: counters differ: {counters} vs {straight.metrics_summary()['counters']}")
+            wins_a, data_a = straight.telemetry_window_series()
+            wins_b, data_b = resumed.telemetry_window_series()
+            if list(wins_b) != list(range(resumed.next_window_idx)) or list(wins_a) != list(wins_b) or not np.array_equal(
+                    data_a, data_b):
+                fail(f"{label}: the re-drained ring is not the uninterrupted run's whole series "
+                     f"({len(wins_b)} windows, {resumed.next_window_idx} run)")
+            for name in must_launch:
+                if launches[name] <= 0:
+                    fail(f"{label}: the continuation never launched {name}")
+        out["composed"] = {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes, "windows": resumed.next_window_idx,
+                           "warnings": len(caught), "counters": counters}
+        print(f"{label} ({card}): composed line (C=256, pod_window=512, reclaim, stream, telemetry and watchdog) saved at "
+              f"590 s in {save_s:.3f} s ({nbytes} B), restored in {restore_s:.3f} s, to 1 190 s: state == the "
+              f"uninterrupted run under compare_states, counters equal, the ring re-drained lossless "
+              f"({len(wins_b)} windows)", flush=True)
+        straight.close()
+        resumed.close()
+        del straight, resumed, a, b
+
+        # (b) the streamed replay, mid-stream.
+        label = "phase 19b"
+        save_at = 43540.0
+        first = replay_sim(dev, replay_paths, pod_window=REPLAY_POD_WINDOW)
+        if not first._stream_on():
+            fail(f"{label}: the replay does not stream")
+        first.step_until_time(save_at)
+        if first._feeder is None or first.dispatch_stats["stage_refills"] <= 0:
+            fail(f"{label}: no slab installed by {save_at} s")
+        path, save_s, nbytes = save(first, "replay")
+        base = first._pod_base
+        first.close()
+        del first
+        resumed = replay_sim(dev, replay_paths, pod_window=REPLAY_POD_WINDOW)
+        restore_s = restore(resumed, path)
+        if resumed._pod_base != base:
+            fail(f"{label}: restored at pod base {resumed._pod_base}, saved at {base}")
+        t0 = time.perf_counter()
+        resumed.run_to_completion(max_time=86400.0 * 20.0)
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t0
+        final = flatten(resumed.state)
+        bad = [p for p, leaf in replay_final.items() if p not in final or not torch.equal(leaf, final[p])]
+        if bad or resumed.next_window_idx != replay_windows:
+            fail(f"{label}: the restored replay differs from phase 9w's at {bad} (windows "
+                 f"{resumed.next_window_idx} vs {replay_windows})")
+        out["replay"] = {"save_at": save_at, "save_s": save_s, "restore_s": restore_s, "bytes": nbytes,
+                         "rest_s": rest_s, "stage_refills": resumed.dispatch_stats["stage_refills"],
+                         "pod_window": resumed.pod_window}
+        print(f"{label} ({card}): replay through pod_window={REPLAY_POD_WINDOW} streamed, saved at {save_at:.0f} s in "
+              f"{save_s:.3f} s ({nbytes} B), restored in {restore_s:.3f} s (pod base {base}), run to completion "
+              f"in {rest_s:.2f} s ({resumed.dispatch_stats['stage_refills']} slabs installed after it): every "
+              f"leaf == phase 9w's final state", flush=True)
+        resumed.close()
+        del resumed, final
+
+        # (c) card -> CPU.
+        label = "phase 19c"
+        on_card = composed_sim(dev, 4, faults=True, reclaim=True)
+        on_card.step_until_time(300.0)
+        path, save_s, nbytes = save(on_card, "card_to_cpu")
+        on_card.step_until_time(600.0)
+        cpu = composed_sim("cpu", 4, faults=True, reclaim=True)
+        restore_s = restore(cpu, path)
+        cpu.step_until_time(600.0)
+        bad = compare_states(state_to_numpy(on_card.state), state_to_numpy(cpu.state))
+        counters = cpu.metrics_summary()["counters"]
+        if bad or counters != on_card.metrics_summary()["counters"]:
+            fail(f"{label}: the CPU continuation differs from the card's at {bad}")
+        if counters["node_crashes"] <= 0 or counters["pod_restarts"] <= 0:
+            fail(f"{label}: no fault by 600 s: {counters}")
+        out["card_to_cpu"] = {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes, "counters": counters}
+        print(f"{label} ({card}): C=4 composed with faults saved on the card at 300 s ({nbytes} B, {save_s:.3f} s), "
+              f"restored on the CPU ({restore_s:.3f} s): the continuations to 600 s are equal ({counters})",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fleet_phase(dev, sk, card: str, sorted_names, dense_names) -> dict:
+    """Phase 20: the scenario fleet on the card (wave-aligned). (a) the
+    reference's --sweep line: 64 scenarios over 16 lanes (4 waves), the
+    sorted route; (b) the same pattern widened to 1 024 scenarios over 256
+    lanes (4 waves), the megakernel route, pod faults on and each scenario
+    its own fault_seed. In both: no capture after wave 1 (the pieces are
+    captured at the fleet's build), the planted duplicates of scenario 0
+    bit-identical to it (counters and every state row), three probe
+    queries equal standalone card engines built from `scenario_config`
+    (counters, HPA replicas, CA nodes, every state row); in (b) one probe
+    is a lane whose fault seed changed since wave 1. Scenarios/s of the
+    fleet (build included, as the reference times it) against the three
+    standalone engines' mean extrapolated to all scenarios
+    (`bench.py:1108-1140`); host and device busy ms a window of a fleet
+    wave (a traced repeat of wave 1, whose results must repeat). (c) card
+    against CPU: 8 scenarios over 4 lanes (2 waves) with the bench's whole
+    fault block (crash chains keyed per lane on each lane's build seed):
+    FleetResults and final states equal. Every number is printed beside
+    `card` (nvidia-smi's name and power limit)."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    def rows(state_np, lane):
+        return {k: v[lane : lane + 1] for k, v in state_np.items()}
+
+    def same(a, b):
+        return (a.counters, a.hpa_replicas, a.ca_nodes) == (b.counters, b.hpa_replicas, b.ca_nodes)
+
+    def sweep_line(label, n, lanes, faults_yaml, probes_at, must_launch, route):
+        config_yaml, cluster, workload = sweep_inputs(faults_yaml)
+        config = SimulationConfig.from_yaml(config_yaml)
+        scens, dups = sweep_scenarios(n, seeds=bool(faults_yaml))
+        keep = set(dups) | set(probes_at) | {0}
+        t0 = time.perf_counter()
+        fleet = ScenarioFleet(config, cluster, workload, n_lanes=lanes, horizon=SWEEP_QUERY_HORIZON, device=dev,
+                              max_pods_per_cycle=SWEEP_K)
+        build_s = time.perf_counter() - t0
+        eng = fleet.engine
+        if eng.cycle_route != route or not eng.graphs:
+            fail(f"{label}: the fleet's engine runs the {eng.cycle_route} route (graphs {eng.graphs}), not {route}")
+        sk.reset_launches()
+        qids = [fleet.submit(s) for s in scens]
+        kept, wave_s, captures = {}, [], []
+        windows0 = eng.windows_run
+        while fleet.pending:
+            first_q = qids[fleet.waves_run * lanes]
+            t1 = time.perf_counter()
+            fleet._run_one_wave()
+            torch.cuda.synchronize()
+            wave_s.append(time.perf_counter() - t1)
+            captures.append(eng.dispatch_stats["captures"])
+            wanted = [q for q in keep if first_q <= q < first_q + lanes]
+            if wanted:
+                st = state_to_numpy(eng.state)
+                for q in wanted:
+                    kept[q] = rows(st, fleet.results[q].lane)
+        fleet_s = time.perf_counter() - t0
+        launches = sk.launch_counts()
+        windows = eng.windows_run - windows0
+        results = [fleet.results[q] for q in qids]
+        for name in must_launch:
+            if launches[name] <= 0:
+                fail(f"{label}: the fleet never launched {name}")
+        if captures[0] != captures[-1] or eng.dispatch_stats["eager_windows"]:
+            fail(f"{label}: captures {captures} after each wave (after the build: {captures[0]}), eager windows "
+                 f"{eng.dispatch_stats['eager_windows']}")
+        for pos in dups:
+            if not same(results[pos], results[0]) or compare_states(kept[0], kept[pos]):
+                fail(f"{label}: lane cross-talk: scenario {pos} (lane {results[pos].lane}, wave {results[pos].wave}) "
+                     f"duplicates scenario 0 (lane {results[0].lane}) but differs")
+        if sum(r.counters["scheduling_decisions"] for r in results) <= 0 or not any(
+                r.counters["scaled_up_nodes"] > 0 for r in results):
+            fail(f"{label}: no decision, or the CA idle across every scenario")
+        # The probes against standalone card engines, which are also the
+        # per-engine baseline (build, run, read).
+        base_s, solo_out = [], []
+        for pos in probes_at:
+            scen = scens[pos]
+            t1 = time.perf_counter()
+            solo = build_batched_from_traces(scenario_config(config_yaml, scen), cluster, workload, n_clusters=1,
+                                             device=dev, max_pods_per_cycle=SWEEP_K)
+            solo.step_until_time(results[pos].horizon)
+            solo.decisions_total()
+            base_s.append(time.perf_counter() - t1)
+            r = results[pos]
+            got = {n_: int(getattr(solo.state.metrics, n_)[0]) for n_ in r.counters}
+            if got != r.counters or solo.hpa_replicas(0) != r.hpa_replicas or [
+                    int(v) for v in solo.ca_node_counts(0)] != r.ca_nodes:
+                fail(f"{label}: query {pos} (lane {r.lane}, wave {r.wave}) differs from its standalone engine: "
+                     f"{r.counters} vs {got}")
+            bad = compare_states(kept[pos], state_to_numpy(solo.state))
+            if bad:
+                fail(f"{label}: query {pos}'s state row differs from its standalone engine's at {bad}")
+            solo_out.append({"query": pos, "lane": r.lane, "wave": r.wave, "seed": scen.fault_seed})
+            solo.close()
+        baseline_s = float(np.mean(base_s)) * n
+        # A traced repeat of wave 1: host and busy ms a window.
+        first = [Scenario(**s.overrides()) for s in scens[:lanes]]
+        again = {}
+
+        def rerun():
+            again["r"] = fleet.sweep(first)
+            return eng.windows_run - w1
+
+        w1 = eng.windows_run
+        busy = device_busy(rerun, label)
+        if not all(same(a, b) for a, b in zip(again["r"], results[:lanes])):
+            fail(f"{label}: a repeat of wave 1 differs from it")
+        per_wave = windows / max(len(wave_s), 1)
+        out = {
+            "scenarios": n, "lanes": lanes, "waves": len(wave_s), "route": eng.cycle_route, "build_s": build_s,
+            "fleet_s": fleet_s, "scenarios_per_s": n / fleet_s, "baseline_engine_s": base_s,
+            "baseline_s": baseline_s, "baseline_scenarios_per_s": n / baseline_s, "speedup": baseline_s / fleet_s,
+            "wave_s": wave_s, "windows_per_wave": per_wave,
+            "host_ms_per_window": 1e3 * float(np.mean(wave_s[1:] or wave_s)) / per_wave,
+            "busy": busy, "captures_after_wave1": captures[0], "captures_end": captures[-1],
+            "launches": launches, "probes": solo_out, "duplicates": dups,
+            "decisions": sum(r.counters["scheduling_decisions"] for r in results),
+        }
+        print(f"{label} ({card}): {n} scenarios over {lanes} lanes ({len(wave_s)} waves, {eng.cycle_route} route), fleet "
+              f"{fleet_s:.3f} s with its build ({build_s:.3f} s) = {out['scenarios_per_s']:.1f} scenarios/s; "
+              f"3-engine baseline {np.mean(base_s):.3f} s an engine, extrapolated {baseline_s:.1f} s = "
+              f"{out['baseline_scenarios_per_s']:.2f} scenarios/s ({out['speedup']:.1f}x); host "
+              f"{out['host_ms_per_window']:.4f} ms a window of a wave, device busy {busy['busy_ms_per_window']:.4f} ms, "
+              f"{busy['kernels_per_window']:.1f} kernels a window; captures {captures}; duplicates {dups} == scenario "
+              f"0; probes {solo_out} == standalone engines; launches {launches}", flush=True)
+        fleet.close()
+        return out
+
+    out = {
+        "sweep": sweep_line("phase 20a", 64, 16, "", [0, 17, 40], sorted_names, "sorted"),
+        "wide": sweep_line("phase 20b", 1024, 256, POD_FAULTS_YAML, [0, 261, 1000],
+                           dense_names + ["pod_attempt_draw"], "megakernel"),
+    }
+    wide = out["wide"]
+    if wide["probes"][1]["wave"] == 0 or wide["launches"]["pod_attempt_draw"] <= 0:
+        fail("phase 20b: the seed-change probe is not in a later wave, or no commit draw ran")
+
+    # (c) card against CPU, node faults keyed per lane on its build seed.
+    label = "phase 20c"
+    config_yaml, cluster, workload = sweep_inputs(FAULTS_YAML)
+    scens = [Scenario(fault_seed=700 + i, hpa_scan_interval=(30.0, 60.0)[i % 2], ca_threshold=0.3 + 0.1 * (i % 4))
+             for i in range(8)]
+    finals, res = {}, {}
+    for where in (dev, "cpu"):
+        fleet = ScenarioFleet(SimulationConfig.from_yaml(config_yaml), cluster, workload, n_lanes=4,
+                              horizon=SWEEP_QUERY_HORIZON, device=where, max_pods_per_cycle=SWEEP_K, reclaim=True,
+                              ca_slot_multiplier=4,
+                              build_scenarios=[Scenario(fault_seed=500 + lane) for lane in range(4)])
+        res[str(where)] = fleet.sweep(scens)
+        finals[str(where)] = state_to_numpy(fleet.engine.state)
+        fleet.close()
+    on_card, on_cpu = res[str(dev)], res["cpu"]
+    bad = compare_states(finals[str(dev)], finals["cpu"])
+    if bad or not all(same(a, b) for a, b in zip(on_card, on_cpu)):
+        fail(f"{label}: the card fleet differs from the CPU fleet (state at {bad})")
+    crashes = sum(r.counters["node_crashes"] for r in on_card)
+    if crashes <= 0:
+        fail(f"{label}: no node crash in 8 scenarios")
+    out["card_vs_cpu"] = {"scenarios": 8, "lanes": 4, "node_crashes": crashes,
+                          "pod_restarts": sum(r.counters["pod_restarts"] for r in on_card)}
+    print(f"{label} ({card}): 8 scenarios over 4 lanes (2 waves) with node and pod faults: card == CPU, FleetResults and "
+          f"final states ({out['card_vs_cpu']})", flush=True)
     return out
 
 
@@ -2380,9 +2836,10 @@ def main() -> int:
         n_draw = int(draws.sum())
         wf, _ = ck.pod_attempt_draw(*args, **kwargs)
         n_fail = int((wf & draws).sum())
+        seeds = 4 * C if isinstance(args[6], torch.Tensor) else 0  # a scenario fleet's seed vector
         check_kernel(
             "pod_attempt_draw", ck.pod_attempt_draw, ck.pod_attempt_draw_plain, args, kwargs, -1, None,
-            5 * C * P + 4 * C + 8 * n_draw + 4 * n_fail + 5 * C * P, 170 * n_draw, label=label,
+            5 * C * P + 4 * C + seeds + 8 * n_draw + 4 * n_fail + 5 * C * P, 170 * n_draw, label=label,
         )
 
     check_event_scatter(*captured["fused_event_scatter"])
@@ -2780,6 +3237,29 @@ def main() -> int:
     check_ca_scale_up(*busiest["fused_ca_scale_up"], label=f"fused_ca_scale_up ({FAULTS_LABEL})")
     check_attempt_draw(*busiest["pod_attempt_draw"], label=f"pod_attempt_draw ({FAULTS_LABEL})")
     del sim, busiest
+    # The commit draw with a scenario fleet's per-lane seed vector, at phase
+    # 20b's shape (the sweep line at 256 lanes with pod faults, each lane
+    # its own seed), on its call with the most attempts starting.
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.batched.fleet import scenario_vectors
+    from kubernetriks_tpu_torch.config import SimulationConfig
+
+    sweep_yaml, sweep_cluster, sweep_workload = sweep_inputs(POD_FAULTS_YAML)
+    sweep_config = SimulationConfig.from_yaml(sweep_yaml)
+    sim = build_batched_from_traces(
+        sweep_config, sweep_cluster, sweep_workload, n_clusters=256, device=dev, graphs=False,
+        max_pods_per_cycle=SWEEP_K,
+        scenario=dict(scenario_vectors(sweep_config, 256, sweep_scenarios(256, seeds=True)[0])),
+    )
+    busiest, most = record_busiest(sim, SWEEP_QUERY_HORIZON, {
+        (step_mod, "pod_attempt_draw"): lambda a: int((a[0] < float("inf")).sum()),
+    })
+    if not isinstance(busiest["pod_attempt_draw"][0][6], torch.Tensor):
+        fail("phase 3: the scenario build's commit draw took no seed vector")
+    print(f"phase 3: the sweep line at 256 lanes with pod faults, each lane its own seed: C={sim.n_clusters} "
+          f"P={sim.n_pods}, busiest draw {most}", flush=True)
+    check_attempt_draw(*busiest["pod_attempt_draw"], label="pod_attempt_draw (seed vector)")
+    del sim, busiest
 
     stamp("phase 3: the window glue")
     # The window executor's glue kernels (ops/window_kernel.py; no TPU
@@ -3090,7 +3570,7 @@ def main() -> int:
     windowed_replay = replay_window_phase(dev, sk, replay_paths, replay_path, replay_names)
     windowed_replay_unstreamed = replay_window_phase(
         dev, sk, replay_paths, replay_path, replay_names, stream=False, streamed=windowed_replay)
-    windowed_replay.pop("final")
+    replay_final = windowed_replay.pop("final")
 
     # --- 10. card against CPU: the replay and the two-kernel route ----------------
     stamp("phase 10")
@@ -3189,6 +3669,17 @@ def main() -> int:
     streamed_path = streamed_replay_phase(dev, sk, replay_paths, replay_names[:2] + ["fused_select_cycle_commit"]
                                           + replay_names[3:])
 
+    # --- 19. checkpoints on the card ------------------------------------------------------------------
+    stamp("phase 19")
+    checkpoint_path = checkpoint_phase(dev, sk, smi, names + ca_names, replay_paths, replay_final,
+                                       windowed_replay["windows"])
+    del replay_final
+
+    # --- 20. the scenario fleet ------------------------------------------------------------------------
+    stamp("phase 20")
+    fleet_path = fleet_phase(
+        dev, sk, smi, ["fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"] + ca_names, names + ca_names)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -3269,6 +3760,9 @@ def main() -> int:
     path_launches["conditional_wake_scan"] = cm_path["launches"]["conditional_wake_scan"]
     # The record from phase 17's telemetry-on run.
     path_launches["telemetry_record"] = telemetry_path["on"]["launches"]["telemetry_record"]
+    # The commit draw with the fleet's seed vector, with phase 20b's launches.
+    replay_labels["pod_attempt_draw (seed vector)"] = "pod_attempt_draw"
+    path_launches["pod_attempt_draw (seed vector)"] = fleet_path["wide"]["launches"]["pod_attempt_draw"]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels) + glue_names:
         name = replay_labels.get(label, label)
         r = report[label]
@@ -3296,6 +3790,7 @@ def main() -> int:
             "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
             "telemetry": telemetry_path, "windowed_replay_unstreamed": windowed_replay_unstreamed,
             "streamed_replay": streamed_path,
+            "checkpoint": checkpoint_path, "fleet": fleet_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

@@ -59,7 +59,29 @@ engine.py:1021-1049, 1408-1436) returns retired reserve slots to their
 group at the head of every window (the reference's default period, 1):
 on by default on the card, off on the CPU, and off, with a RuntimeWarning,
 where the node names make its name orders unsound (an explicit
-reclaim=True raises there). Scenario fleets are not ported.
+reclaim=True raises there).
+
+A scenario build (`scenario=`: per-lane (C,) vectors over
+fleet.SCENARIO_KEYS, reference engine.py:404-432, 722-756) composes the
+control-law statics per lane through fleet.scenario_leaves, keeps the
+pristine build state for fleet_reset, keys every lane's crash chains on
+cluster 0 with the lane's own seed (build_batched_from_traces) and, with
+pod faults, gives the commit draw a (C,) seed vector on the device, keyed
+on cluster 0 too, so a lane is a pure function of its scenario.
+`update_scenario` writes new vectors into the statics and the seed vector
+in place (the captured graphs read those tensors) and refreshes the host
+clock's copies; `fleet_reset` selects lanes of the state against the
+pristine snapshot in place and, at a wave boundary, rewinds the host
+mirrors from the build's own (batched/fleet.py runs the waves).
+
+Checkpoints (`save_checkpoint` / `load_checkpoint`, reference
+engine.py:4284-4455; the file format in checkpoint.py): the state and the
+window cursor, a `.meta.json` of the build facts a restore must match
+(pod_window, telemetry_ring, reclaim, scheduler_profile) and the gauge
+series' sidecar. A restore grows the pod window to the saved width,
+checks the ring, the profile and reclaim (an engine left to reclaim's
+default follows the checkpoint with a RuntimeWarning, an explicit one
+raises), and goes through install_state.
 
 The scheduler profile (`scheduler_profile=`, else the config's) is
 compiled once here (batched/pipeline.py) and runs in every cycle. With an
@@ -150,7 +172,9 @@ executed window, for the next, and gauge collection once a span.
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import time
 import warnings
 from typing import Dict, List, Optional, Sequence
@@ -160,8 +184,9 @@ import torch
 
 from kubernetriks_tpu_torch import chaos
 from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
+from kubernetriks_tpu_torch.batched.fleet import normalize_scenario, scenario_leaves
 from kubernetriks_tpu_torch.batched.graphs import GAUGE_SPAN, CudaGraphs, WindowExecutor
-from kubernetriks_tpu_torch.batched.pipeline import compile_profile
+from kubernetriks_tpu_torch.batched.pipeline import DEFAULT_PROFILE, CompiledProfile, compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
     EV_CREATE_POD,
@@ -172,6 +197,7 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
     PodArrays,
+    clone_state,
     RefillStage,
     TraceSlab,
     copy_state_into,
@@ -197,11 +223,16 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     segment_pod_slots,
     stage_segment,
 )
-from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
 from kubernetriks_tpu_torch.flags import flag_bool, flag_int, flag_str, flag_tristate
 from kubernetriks_tpu_torch.ops.scheduler_kernel import profile_terms
 from kubernetriks_tpu_torch.telemetry import NULL_TRACER, GaugeSeries, SpanTracer
-from kubernetriks_tpu_torch.telemetry.tracer import PH_SLIDE, PH_WINDOW_CHUNK, PH_WINDOW_GROW
+from kubernetriks_tpu_torch.telemetry.tracer import (
+    PH_CKPT_RESTORE,
+    PH_CKPT_SAVE,
+    PH_SLIDE,
+    PH_WINDOW_CHUNK,
+    PH_WINDOW_GROW,
+)
 
 POD_ALIGN = 128
 # Device bytes the whole-trace slide payload may take (reference
@@ -390,45 +421,6 @@ def decide_reclaim(requested: Optional[bool], on_card: bool, ca_on: bool, unsupp
     return want
 
 
-def _control_law(config, C: int) -> Dict[str, np.ndarray]:
-    """The per-lane autoscaler control-law parameters, float64 seconds
-    except the tolerance/threshold and the node quota: the reference's
-    `fleet.scenario_leaves` with no scenario overrides. The CA's true
-    period is its info round trip plus scan_interval (just the round trip
-    when that overruns the scan)."""
-    hpa = config.horizontal_pod_autoscaler
-    ca = config.cluster_autoscaler
-
-    def vec(value, dtype=np.float64):
-        return np.full((C,), value, dtype)
-
-    hpa_tol = (hpa.kube_horizontal_pod_autoscaler_config or KubeHorizontalPodAutoscalerConfig()).target_threshold_tolerance
-    ca_thresh = (ca.kube_cluster_autoscaler or KubeClusterAutoscalerConfig()).scale_down_utilization_threshold
-    ca_scan = vec(float(ca.scan_interval))
-    as_to_ca = vec(float(config.as_to_ca_network_delay))
-    as_to_ps = float(config.as_to_ps_network_delay)
-    ps_to_sched = float(config.ps_to_sched_network_delay)
-    sched_to_as = float(config.sched_to_as_network_delay)
-    as_to_node = float(config.as_to_node_network_delay)
-    d_pod_enqueue = as_to_ps + ps_to_sched
-    ca_roundtrip = 2.0 * (as_to_ca + as_to_ps)
-    return {
-        "hpa_interval_s": vec(float(hpa.scan_interval)),
-        "hpa_tolerance": vec(float(hpa_tol)),
-        "hpa_enabled": vec(bool(hpa.enabled), bool),
-        "ca_threshold": vec(float(ca_thresh)),
-        "ca_max_nodes": vec(int(ca.max_node_count) if ca.enabled else 0, np.int64),
-        "d_hpa_up_s": as_to_ca + d_pod_enqueue,
-        "d_hpa_down_s": as_to_ca + as_to_ps,
-        "d_ca_up_s": 3.0 * as_to_ca + 5.0 * as_to_ps + ps_to_sched,
-        "d_ca_down_s": 3.0 * as_to_ca + 4.0 * as_to_ps + as_to_node,
-        "ca_period_s": ca_roundtrip + np.where(ca_roundtrip <= ca_scan, ca_scan, 0.0),
-        "ca_snap_s": as_to_ca + as_to_ps,
-        "ca_finish_vis_s": vec(as_to_node + as_to_ps),
-        "ca_commit_vis_s": vec(sched_to_as + as_to_ps),
-    }
-
-
 def build_autoscale_statics(
     config,
     compiled_traces: Sequence[CompiledClusterTrace],
@@ -439,10 +431,13 @@ def build_autoscale_statics(
     ca_slot_multiplier: int = 2,
     pod_slot_offset: int = 0,
     sliding: bool = False,
+    scenario: Optional[Dict[str, np.ndarray]] = None,
 ):
     """Host-side compilation of the pod-group (HPA) and node-group (CA)
-    tables (reference `build_autoscale_statics`, engine.py:395, with no
-    scenario overrides), in device pod slots: `pod_slot_offset` is the
+    tables (reference `build_autoscale_statics`, engine.py:395), in device
+    pod slots. The control-law leaves are per lane, from
+    fleet.scenario_leaves over `scenario` (normalized (C,) override
+    vectors; None: the base config's values everywhere). Also: `pod_slot_offset` is the
     global-to-device shift of the resident pod-group ring under a sliding
     pod window (0 whole-resident), and with `sliding` the pod-name ranks
     start at BIG_RANK, for the engine to fill from the window's slice
@@ -453,11 +448,14 @@ def build_autoscale_statics(
     the CA has a reserve and the names allow them (_reclaim_class_tables),
     else left None. Returns (statics, extra node cap cpu (S,), extra node
     cap ram (S,), extra node names, why reclaim cannot run on this build
-    or None): the extra node slots are the CA's reserved slots, appended
-    after the trace's node slots, named "{group}_{k+1}"."""
+    or None, aux): the extra node slots are the CA's reserved slots,
+    appended after the trace's node slots, named "{group}_{k+1}"; aux
+    holds the host table update_scenario recomposes from,
+    pg_active_when_on ((C, Gp) float64 activation seconds as if every
+    lane's HPA were on; +inf on padding groups)."""
     C = len(compiled_traces)
     ca_on = config.cluster_autoscaler.enabled
-    law = _control_law(config, C)
+    law = scenario_leaves(config, C, scenario)
 
     # --- HPA pod groups -----------------------------------------------------
     Gp = max((len(c.pod_groups) for c in compiled_traces), default=0) or 1
@@ -474,6 +472,7 @@ def build_autoscale_statics(
         "target_ram": np.zeros((C, Gp), np.float32),
     }
     pg_active_from = np.full((C, Gp), np.inf, np.float64)
+    pg_active_when_on = np.full((C, Gp), np.inf, np.float64)
     pg_creation_s = np.zeros((C, Gp), np.float64)
     curves = {k: np.zeros((C, Gp, U), np.float32) for k in ("cpu_dur", "cpu_load", "ram_dur", "ram_load")}
     pg_cpu_const = np.zeros((C, Gp), bool)
@@ -487,11 +486,12 @@ def build_autoscale_statics(
             pg["max_pods"][ci, gi] = g.max_pods
             pg["target_cpu"][ci, gi] = g.target_cpu
             pg["target_ram"][ci, gi] = g.target_ram
-            # With the HPA off the group's initial pods still run, but no
-            # cycle ever acts: active_from stays +inf.
+            # With the HPA off (on this lane) the group's initial pods
+            # still run, but no cycle ever acts: active_from stays +inf.
             pg_creation_s[ci, gi] = g.creation_time
+            pg_active_when_on[ci, gi] = g.creation_time + config.as_to_hpa_network_delay
             if law["hpa_enabled"][ci]:
-                pg_active_from[ci, gi] = g.creation_time + config.as_to_hpa_network_delay
+                pg_active_from[ci, gi] = pg_active_when_on[ci, gi]
             for ui, (dur, load) in enumerate(g.cpu_units):
                 curves["cpu_dur"][ci, gi, ui] = dur
                 curves["cpu_load"][ci, gi, ui] = load
@@ -636,7 +636,7 @@ def build_autoscale_statics(
             for name, table in zip(("ca_slot_class", "ca_class_start", "node_class_key"), rc_tables)
         },
     )
-    return statics, extra_cap_cpu, extra_cap_ram, extra_names, reclaim_reason
+    return statics, extra_cap_cpu, extra_cap_ram, extra_names, reclaim_reason, {"pg_active_when_on": pg_active_when_on}
 
 
 def _cpu_pair(p: TPair) -> TPair:
@@ -658,12 +658,36 @@ class AutoscaleClock:
         self.interval = torch.tensor(float(interval), dtype=torch.float32)
         self.hpa_on = hpa_on
         self.ca_on = ca_on
-        self.hpa_interval = _cpu_pair(statics.hpa_interval)
         self.col_interval = _cpu_pair(statics.col_interval)
-        self.ca_period = _cpu_pair(statics.ca_period)
-        self.ca_snap = _cpu_pair(statics.ca_snap)
-        self.d_ca_down = _cpu_pair(statics.d_ca_down)
+        self.set_law(
+            _cpu_pair(statics.hpa_interval), _cpu_pair(statics.ca_period), _cpu_pair(statics.ca_snap),
+            _cpu_pair(statics.d_ca_down),
+        )
         self.removal_windows = set()
+
+    def set_law(self, hpa_interval: TPair, ca_period: TPair, ca_snap: TPair, d_ca_down: TPair) -> None:
+        """The per-lane control law the mirror advances by, (C,) CPU pairs
+        (a scenario update hands in the values it wrote to the device)."""
+        self.hpa_interval = hpa_interval
+        self.ca_period = ca_period
+        self.ca_snap = ca_snap
+        self.d_ca_down = d_ca_down
+
+    def due_times(self):
+        """Copies of the mirrored due times (hpa_next, col_next, ca_next)."""
+        return tuple(None if p is None else TPair(win=p.win.clone(), off=p.off.clone())
+                     for p in (self.hpa_next, self.col_next, self.ca_next))
+
+    def set_due_times(self, due, lanes=None) -> None:
+        """Install due times from due_times(), on every lane or on `lanes`
+        ((C,) bool) alone."""
+        for name, src in zip(("hpa_next", "col_next", "ca_next"), due):
+            if src is None:
+                continue
+            if lanes is None:
+                setattr(self, name, TPair(win=src.win.clone(), off=src.off.clone()))
+            else:
+                setattr(self, name, t_where(lanes, src, getattr(self, name)))
 
     def seed(self, auto) -> None:
         """Copy the due times from a state's autoscaler leaves."""
@@ -720,6 +744,7 @@ class BatchedSimulation:
         stream: Optional[bool] = None,
         stream_depth: Optional[int] = None,
         stream_segment: Optional[int] = None,
+        scenario: Optional[Dict[str, object]] = None,
     ) -> None:
         self.device = resolve_device(device)
         # The streaming feeder (module note): None reads KTPU_STREAM, unset
@@ -812,6 +837,16 @@ class BatchedSimulation:
         interval = config.scheduling_cycle_interval
         compiled_traces = list(compiled_traces)
         C = len(compiled_traces)
+        # Per-lane scenario vectors (module note), normalized to owned (C,)
+        # numpy arrays; None: every lane runs the base config.
+        self._scenario = normalize_scenario(scenario, C)
+        # The commit draw's per-lane seeds under a scenario build with pod
+        # faults: (C,) uint32 on the device, written in place by
+        # update_scenario (the captured graphs read this tensor).
+        self._fault_seeds = None
+        if self._scenario is not None and self.fault_params is not None and self.fault_params.pod_faults:
+            seeds = scenario_leaves(config, C, self._scenario)["fault_seed"]
+            self._fault_seeds = torch.from_numpy(seeds.astype(np.uint32)).to(self.device)
         # Pod groups put their reserved slots after every plain pod, the
         # reference's canonical layout whenever groups exist.
         has_groups = any(c.pod_groups for c in compiled_traces)
@@ -856,15 +891,21 @@ class BatchedSimulation:
         self.max_ca_pods_per_cycle = max_ca_pods_per_cycle
         self.max_pods_per_scale_down = max_pods_per_scale_down
         self.reclaim = False
+        # The build's reclaim argument: None (the default) lets a restore
+        # follow the checkpoint's mode.
+        self._reclaim_requested = reclaim
+        self._autoscale_aux = None
         self._reserve_capacities: dict = {}
         # Why reclaim cannot run on this build (None: it can).
         self.reclaim_unsupported = "no autoscaler is configured"
         if hpa_on or ca_on:
-            statics, extra_cpu, extra_ram, extra_names, self.reclaim_unsupported = build_autoscale_statics(
-                config, compiled_traces, n_pods=pod_req_cpu.shape[1],
-                n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
-                ca_slot_multiplier=ca_slot_multiplier, pod_slot_offset=self.consts.resident_shift,
-                sliding=self.pod_window is not None,
+            statics, extra_cpu, extra_ram, extra_names, self.reclaim_unsupported, self._autoscale_aux = (
+                build_autoscale_statics(
+                    config, compiled_traces, n_pods=pod_req_cpu.shape[1],
+                    n_trace_nodes=node_cap_cpu.shape[1], ram_unit=ram_unit, device=self.device,
+                    ca_slot_multiplier=ca_slot_multiplier, pod_slot_offset=self.consts.resident_shift,
+                    sliding=self.pod_window is not None, scenario=self._scenario,
+                )
             )
             self.autoscale_statics = statics
             self.reclaim = decide_reclaim(reclaim, self.device.type == "cuda", ca_on, self.reclaim_unsupported)
@@ -980,6 +1021,7 @@ class BatchedSimulation:
         # 1741): such reschedules queue in slot order.
         self.node_names = [c.node_names for c in compiled_traces]
         self.pod_names = [c.pod_names for c in compiled_traces]
+        self.pod_group_names = [[g.name for g in c.pod_groups] for c in compiled_traces]
         self.name_ranks = None
         if self.autoscale_statics is not None:
             self.name_ranks = (self.autoscale_statics.node_name_rank, self.autoscale_statics.pod_name_rank)
@@ -1012,10 +1054,20 @@ class BatchedSimulation:
             self._init_stage()
         self.faults = self._fault_step()
         self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
+        # The pristine build state fleet_reset selects lanes against, and
+        # the host mirrors as the build left them, for scenario builds
+        # alone (a plain engine pays no second copy of the state).
+        self._pristine = None
+        self._pristine_pod_window = self.pod_window
+        self._pristine_due = None
+        if self._scenario is not None:
+            self._pristine = clone_state(self._state)
+            self._pristine_due = None if self.clock is None else self.clock.due_times()
 
     def _fault_step(self) -> Optional[FaultStep]:
         """The chaos engine's window constants (None: faults off); the
-        plain segment's width follows the pod window's growths."""
+        plain segment's width follows the pod window's growths, and a
+        scenario build's seed vector is the engine's one tensor."""
         fp = self.fault_params
         if fp is None:
             return None
@@ -1029,6 +1081,7 @@ class BatchedSimulation:
             plain_width=int(self.consts.trace_pod_bound - self.consts.resident_shift),
             backoff_base=f32(fp.backoff_base),
             backoff_cap=f32(fp.backoff_cap),
+            seeds=self._fault_seeds,
         )
 
     def _trace_name_ranks(self, C: int):
@@ -1566,6 +1619,251 @@ class BatchedSimulation:
                 if w < INF_WIN
             }
 
+    # --- checkpoint / resume ---------------------------------------------------
+
+    def _ckpt_payload(self) -> Dict[str, object]:
+        return {"state": self.state, "next_window_idx": torch.tensor(self.next_window_idx, dtype=torch.int32)}
+
+    def save_checkpoint(self, path: str) -> None:
+        """Save the state and the window cursor to the checkpoint file
+        `path` (checkpoint.ckpt_save: atomic, overwrites), the build facts
+        a restore must match to `path.meta.json` (written only where one
+        differs from a plain build's, else a stale one is removed) and the
+        gauge series to `path.gauges.npz` (reference engine.py:4297)."""
+        from kubernetriks_tpu_torch.checkpoint import ckpt_save
+
+        with self.tracer.span(PH_CKPT_SAVE):
+            ckpt_save(path, self._ckpt_payload())
+            meta_path = os.path.abspath(path) + ".meta.json"
+            meta: Dict[str, object] = {}
+            if self.pod_window is not None:
+                # Growths change the pod arrays' width: a restore grows to it.
+                meta["pod_window"] = int(self.pod_window)
+            if self.state.telemetry is not None:
+                meta["telemetry_ring"] = int(self._telemetry_ring_size)
+            if self.reclaim:
+                meta["reclaim"] = True
+            if self.profile != DEFAULT_PROFILE:
+                meta["scheduler_profile"] = {
+                    "name": self.profile.name,
+                    "filters": list(self.profile.filters),
+                    "scores": [list(sc) for sc in self.profile.scores],
+                }
+            if meta:
+                with open(meta_path, "w") as fh:
+                    json.dump(meta, fh)
+            elif os.path.exists(meta_path):
+                os.remove(meta_path)
+            self._gauges.save_sidecar(os.path.abspath(path) + ".gauges.npz")
+
+    def _follow_reclaim(self, saved: bool) -> None:
+        """Switch slot reclaim to the checkpoint's mode (load_checkpoint's
+        tristate rule): the state gains fresh reclaim leaves or drops them,
+        and the executor binds its buffers anew (the captured graphs held
+        the old leaves)."""
+        warnings.warn(
+            f"checkpoint saved with reclaim={saved} but this engine defaulted to {self.reclaim} "
+            f"(the reclaim= default): following the checkpoint, continuing with reclaim={saved}",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        self.reclaim = saved
+        auto = self._state.auto
+        if saved:
+            fresh = init_autoscale_state(self.autoscale_statics, collect=auto.col_next is not None, reclaim=True)
+            auto = auto._replace(ca_alloc=fresh.ca_alloc, ca_total=fresh.ca_total, ca_reclaimed=fresh.ca_reclaimed)
+        else:
+            auto = auto._replace(ca_alloc=None, ca_total=None, ca_reclaimed=None)
+        self._state = self._state._replace(auto=auto)
+        self._executor._bind_buffers()
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a save_checkpoint save into this engine, which must be
+        built from the same config and traces (reference engine.py:4374):
+        the guards first (a telemetry ring mismatch raises either way, a
+        scheduler-profile mismatch raises, reclaim follows its tristate
+        rule, the pod window grows to the saved width), then the state
+        through install_state (a copy into the executor's buffers: graphs
+        of the same width stay valid; the host mirrors are seeded, the
+        feeder re-seeks, the ring's bookkeeping and the observatory
+        reset), and the gauge series from its sidecar."""
+        from kubernetriks_tpu_torch.checkpoint import ckpt_restore
+
+        meta_path = os.path.abspath(path) + ".meta.json"
+        meta: Dict[str, object] = {}
+        if os.path.exists(meta_path):
+            with open(meta_path) as fh:
+                meta = json.load(fh)
+        saved_reclaim = bool(meta.get("reclaim", False))
+        if saved_reclaim != self.reclaim:
+            # An engine left to the default follows the checkpoint (the
+            # card defaults reclaim on, so older saves would otherwise not
+            # restore there); an explicit reclaim= raises.
+            followable = self._reclaim_requested is None and (
+                not saved_reclaim
+                or (self.autoscale_statics is not None and self.autoscale_statics.ca_slot_class is not None)
+            )
+            if not followable:
+                raise ValueError(
+                    f"checkpoint reclaim mismatch: saved with reclaim={saved_reclaim}, this engine built with "
+                    f"{self.reclaim}; the slot-reclaim leaves are part of the state: build the restoring "
+                    f"engine with reclaim={saved_reclaim} to continue the run"
+                )
+        saved_ring = meta.get("telemetry_ring")
+        have_ring = self._telemetry_ring_size if self.state.telemetry is not None else None
+        if saved_ring != have_ring:
+            raise ValueError(
+                f"checkpoint telemetry ring mismatch: saved telemetry_ring={saved_ring}, this engine has "
+                f"{have_ring}; build with telemetry={saved_ring is not None} and telemetry_ring={saved_ring} "
+                "(or KTPU_TRACE) to restore it"
+            )
+        saved_prof = meta.get("scheduler_profile")
+        if saved_prof is not None:
+            saved_prof = CompiledProfile(
+                name=saved_prof["name"],
+                filters=tuple(saved_prof["filters"]),
+                scores=tuple((str(n), float(w)) for n, w in saved_prof["scores"]),
+            )
+        want = saved_prof or DEFAULT_PROFILE
+        if want != self.profile:
+            raise ValueError(
+                f"checkpoint scheduler-profile mismatch: saved {want.name!r} {want.scores}, this engine "
+                f"compiled {self.profile.name!r} {self.profile.scores}; build the restoring engine with the "
+                "same scheduler_profile to continue the run"
+            )
+        saved_window = meta.get("pod_window")
+        if saved_window is not None and self.pod_window is not None:
+            while self.pod_window < saved_window and self._grow_pod_window():
+                pass
+            if self.pod_window != saved_window:
+                raise ValueError(
+                    f"checkpoint was saved at pod_window={saved_window}; this engine is at "
+                    f"{self.pod_window} and cannot match"
+                )
+        if saved_reclaim != self.reclaim:
+            self._follow_reclaim(saved_reclaim)
+        with self.tracer.span(PH_CKPT_RESTORE):
+            restored = ckpt_restore(path, self._ckpt_payload())
+            # Rows drained before the restore described another trajectory.
+            self._ring_seen = {}
+            self._ring_series_dropped = 0
+            self._ring_windows_recorded = 0
+            self.install_state(restored["state"], int(restored["next_window_idx"]))
+            self._gauges = GaugeSeries.load_sidecar(os.path.abspath(path) + ".gauges.npz")
+
+    # --- the scenario fleet's engine side (batched/fleet.py) ----------------------
+
+    def _host_pair(self, seconds) -> TPair:
+        """float64 seconds (host numpy) as a CPU time pair."""
+        w, o = from_f64_np(np.asarray(seconds, np.float64), self.config.scheduling_cycle_interval)
+        return TPair(win=torch.from_numpy(np.ascontiguousarray(w)), off=torch.from_numpy(np.ascontiguousarray(o)))
+
+    def update_scenario(self, scenario) -> None:
+        """Install per-lane scenario vectors (fleet.SCENARIO_KEYS, each a
+        scalar or (C,)) into this scenario-built engine (reference
+        engine.py:2167): every scenario-bearing statics leaf and the pod-
+        fault seed vector is written in place (copy_ into the tensor the
+        captured graphs read: no capture, no eager window), and the
+        autoscaler clock's host copies of the law are refreshed from the
+        same host values (no read of the device). Raises on an engine
+        built without scenario=."""
+        if self._scenario is None:
+            raise ValueError(
+                "update_scenario requires an engine built with scenario= (the fleet build): a scenario-less "
+                "engine keys its fault draws on the cluster index and has no seed vector to write"
+            )
+        self._scenario.update(normalize_scenario(scenario, self.n_clusters) or {})
+        law = scenario_leaves(self.config, self.n_clusters, self._scenario)
+        st = self.autoscale_statics
+        if st is not None:
+            active = np.where(law["hpa_enabled"][:, None], self._autoscale_aux["pg_active_when_on"], np.inf)
+            host = {
+                name: self._host_pair(law[f"{name}_s"])
+                for name in ("hpa_interval", "d_hpa_up", "d_hpa_down", "d_ca_up", "d_ca_down", "ca_period",
+                             "ca_snap", "ca_finish_vis", "ca_commit_vis")
+            }
+            host["pg_active_from"] = self._host_pair(active)
+            for name, pair in host.items():
+                dst = getattr(st, name)
+                dst.win.copy_(pair.win)
+                dst.off.copy_(pair.off)
+            st.hpa_tolerance.copy_(torch.from_numpy(law["hpa_tolerance"].astype(np.float64)))
+            st.ca_threshold.copy_(torch.from_numpy(law["ca_threshold"].astype(np.float64)))
+            st.ca_max_nodes.copy_(torch.from_numpy(law["ca_max_nodes"].astype(np.int32)))
+            if self.clock is not None:
+                self.clock.set_law(host["hpa_interval"], host["ca_period"], host["ca_snap"], host["d_ca_down"])
+        if self._fault_seeds is not None:
+            self._fault_seeds.copy_(torch.from_numpy(law["fault_seed"].astype(np.uint32)))
+
+    def fleet_reset(self, lanes=None) -> None:
+        """Reset lanes to the pristine build state in place (reference
+        engine.py:2238): each state leaf takes the snapshot's rows on the
+        lanes, keeping its tensor (the captured graphs read it). lanes=None
+        resets every lane and rewinds the host side to the build's, from
+        the build's own mirrors (no read of the device): the window cursor,
+        the event cursor and pod base mirrors, the autoscaler clock's due
+        times and removal windows (fast-forward's mirrors), the feeder
+        (re-seeked at base 0) and the stage, the name ranks, the telemetry
+        ring's host cursor and bookkeeping, and the observatory: a wave
+        boundary. A lane list resets those lanes' rows and their event
+        cursor and clock mirrors alone, and is meant for a wave boundary
+        (the window clock is fleet-global). Raises on an engine built
+        without scenario=, and where the pod window grew since the build
+        (the snapshot's pod arrays are narrower)."""
+        if self._pristine is None:
+            raise ValueError(
+                "fleet_reset requires an engine built with scenario= (the fleet build keeps the pristine "
+                "state snapshot)"
+            )
+        if self.pod_window != self._pristine_pod_window:
+            raise RuntimeError(
+                f"fleet_reset: the pod window grew ({self._pristine_pod_window} -> {self.pod_window}) during a "
+                "wave, so the pristine snapshot's shapes are stale; build the fleet with a larger pod_window so "
+                "a wave never grows it"
+            )
+        C = self.n_clusters
+        if lanes is None:
+            copy_state_into(self._state, self._pristine)
+            self._cursor = np.zeros(C, np.int64)
+            if self.clock is not None:
+                self.clock.set_due_times(self._pristine_due)
+                self.clock.removal_windows = set()
+            self._rewind_host()
+            return
+        idx = np.asarray(list(lanes), np.int64)
+        if idx.size == 0:
+            return
+        mask_np = np.zeros(C, bool)
+        mask_np[idx] = True
+        mask = torch.from_numpy(mask_np).to(self.device)
+        cur, ini = flatten(self._state), flatten(self._pristine)
+        for path, leaf in cur.items():
+            m = mask.reshape((C,) + (1,) * (leaf.dim() - 1))
+            leaf.copy_(torch.where(m, ini[path], leaf))
+        self._cursor[idx] = 0
+        if self.clock is not None:
+            self.clock.set_due_times(self._pristine_due, torch.from_numpy(mask_np))
+        self._executor.reset_after_install()
+
+    def _rewind_host(self) -> None:
+        """fleet_reset's wave boundary on the host side (its docstring)."""
+        self.next_window_idx = 0
+        if self.pod_window is not None:
+            self._pod_base = 0
+            self.close()
+            self._refresh_name_ranks()
+            if self._slide_payload is None:
+                self._ensure_feeder()
+        self._executor.reset_after_install()
+        if self.state.telemetry is not None:
+            self._ring_seen.clear()
+            self._ring_series_dropped = 0
+            self._ring_windows_recorded = 0
+            self._ring_host_cursor = 0
+            self._ring_drained_at = 0
+        if self.observatory is not None:
+            self.observatory.reset()
+
     # --- stepping -----------------------------------------------------------
 
     @property
@@ -1851,6 +2149,24 @@ class BatchedSimulation:
                 f"allocation-name counter overflow: hpa_tail max {tail_max}, ca_total max "
                 f"{total_max} reached the 10^8 bound of the decimal-suffix name keys"
             )
+
+    def hpa_replicas(self, cluster: int) -> Dict[str, int]:
+        """Created replicas of each of the cluster's pod groups (the
+        scalar reference's len(created_pods); reference engine.py:3846),
+        by group name: one host read."""
+        auto = self.state.auto
+        if auto is None:
+            raise ValueError("hpa_replicas: autoscaling is not enabled on this engine")
+        counts = (auto.hpa_tail[cluster] - auto.hpa_head[cluster]).cpu().tolist()
+        return {name: int(counts[i]) for i, name in enumerate(self.pod_group_names[cluster])}
+
+    def ca_node_counts(self, cluster: int) -> np.ndarray:
+        """The cluster autoscaler's current node count per node group
+        (reference engine.py:3872): one host read."""
+        auto = self.state.auto
+        if auto is None:
+            raise ValueError("ca_node_counts: autoscaling is not enabled on this engine")
+        return auto.ca_count[cluster].cpu().numpy()
 
     def ca_slots_reclaimed(self) -> np.ndarray:
         """(C,) CA reserve slots the reclaim compaction returned (zeros
@@ -2158,24 +2474,38 @@ def build_batched_from_traces(
     — the homogeneous-batch benchmark shape. `device`: see resolve_device.
 
     With node faults configured, each cluster gets its own crash chains
-    (chaos.inject_node_faults keyed on the cluster index; reference
-    engine.py:4581-4640), so the trace is compiled once per cluster.
-    Scenario seeds (fleets) are not ported."""
+    (chaos.inject_node_faults; reference engine.py:4581-4640), so the trace
+    is compiled once per chain: keyed on the cluster index with the
+    config's seed, or, under a scenario build (`scenario=`), on cluster 0
+    with each lane's own fault_seed (the config's where the scenario gives
+    none), so that a lane's crash schedule is a function of its seed alone
+    (lanes of one seed share one compiled trace)."""
     device = resolve_device(device)
     ram_unit = kwargs.pop("ram_unit", DEFAULT_RAM_UNIT)
     fault_cfg = getattr(config, "fault_injection", None)
     if chaos.has_node_faults(fault_cfg):
         seed = fault_cfg.seed if fault_cfg.seed is not None else config.seed
+        lane_seeds = None
+        scenario = kwargs.get("scenario")
+        if scenario is not None:
+            seeds = scenario.get("fault_seed")
+            lane_seeds = np.broadcast_to(np.asarray(seeds if seeds is not None else seed, np.int64), (n_clusters,))
         horizon = chaos.fault_horizon(fault_cfg, cluster_events, workload_events)
-        compiled_list = [
-            compile_cluster_trace(
-                chaos.inject_node_faults(
-                    cluster_events, fault_cfg, seed, c, horizon, config.scheduling_cycle_interval
-                ),
-                workload_events, config, ram_unit=ram_unit,
-            )
-            for c in range(n_clusters)
-        ]
+        chains: Dict[tuple, CompiledClusterTrace] = {}
+
+        def compiled_for(c: int) -> CompiledClusterTrace:
+            key = (seed, c) if lane_seeds is None else (int(lane_seeds[c]), 0)
+            got = chains.get(key)
+            if got is None:
+                got = chains[key] = compile_cluster_trace(
+                    chaos.inject_node_faults(
+                        cluster_events, fault_cfg, key[0], key[1], horizon, config.scheduling_cycle_interval
+                    ),
+                    workload_events, config, ram_unit=ram_unit,
+                )
+            return got
+
+        compiled_list = [compiled_for(c) for c in range(n_clusters)]
     else:
         compiled_list = [compile_cluster_trace(cluster_events, workload_events, config, ram_unit=ram_unit)] * n_clusters
     return BatchedSimulation(config, compiled_list, device=device, ram_unit=ram_unit, **kwargs)

@@ -1,18 +1,21 @@
-"""The streaming feeder's fault domain: the producer's death carried to the
-engine with its slab, and the deterministic host-fault injector.
+"""Fault domains: the scenario fleet's typed query outcomes, the streaming
+feeder's producer death carried to the engine with its slab, and the
+deterministic host-fault injector.
 
-Own copy of the feeder's part of the JAX package's `batched/faults.py`
-(`FeederProducerError` :144, `InjectedFeederKill` :166, `HostChaos`
-:177-314). The serving fleet's query outcomes (the `QueryError` family)
-wait for the fleet (ROADMAP Queue 1 item 13).
+Own copy of the JAX package's `batched/faults.py`: the `QueryError`
+family (:55-141: `QueryError`, `RejectedError`, `DeadlineExceededError`,
+`ShutdownError`; the wave-aligned fleet's outcomes, batched/fleet.py),
+`FeederProducerError` (:144), `InjectedFeederKill` (:166) and `HostChaos`
+(:177-314). The lane-asynchronous fleet's `LaneFaultError` and
+`FeederError` come with it (ROADMAP Queue 1 item 13b).
 
 `HostChaos` draws its decisions from the chaos engine's counter-based
 threefry (chaos.object_uniforms) on the reference's host feeder stream,
 disjoint from the device streams (1-3), so a seed replays the same fault
 schedule on every run. It keeps the reference's feeder channel alone,
 which the stream feeder's producer calls; the dispatch and stall channels
-serve the fleet and wait for it with the QueryError family. Its counters
-live under its lock, and the derivation runs outside it.
+serve the lane-asynchronous fleet's pump (item 13b). Its counters live
+under its lock, and the derivation runs outside it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,56 @@ from kubernetriks_tpu_torch import chaos as _chaos
 # The reference's host chaos stream of the feeder, disjoint from the
 # device's (STREAM_NODE=1, STREAM_GROUP=2, STREAM_POD=3 in chaos.py).
 STREAM_HOST_FEEDER = 12
+
+
+class QueryError(Exception):
+    """A query's terminal typed outcome, streamed through the fleet's
+    poll() under the same stream-once contract as a FleetResult, whose
+    readout protocol it shares: `.query`, `.lane` (-1: none), `.horizon`
+    and `.scenario` where known, `.ok` False and a stable `.kind`."""
+
+    kind = "query_error"
+    ok = False
+
+    def __init__(self, query: int, message: str, *, lane: int = -1, scenario=None, horizon=None) -> None:
+        super().__init__(message)
+        self.query = int(query)
+        self.message = message
+        self.lane = int(lane)
+        self.scenario = scenario
+        self.horizon = horizon
+
+
+class RejectedError(QueryError):
+    """Refused at admission: the bounded queue was full under the 'reject'
+    policy. `retry_after_s`: a back-off hint from the observed service
+    times (None before any query was served)."""
+
+    kind = "rejected"
+
+    def __init__(self, query, message, *, retry_after_s=None, **kw) -> None:
+        super().__init__(query, message, **kw)
+        self.retry_after_s = retry_after_s
+
+
+class DeadlineExceededError(QueryError):
+    """The query's deadline passed while it was queued: it failed without
+    occupying a lane."""
+
+    kind = "deadline_exceeded"
+
+    def __init__(self, query, message, *, deadline_s=None, late_s=None, **kw) -> None:
+        super().__init__(query, message, **kw)
+        self.deadline_s = deadline_s
+        self.late_s = late_s
+
+
+class ShutdownError(QueryError):
+    """Still queued at close(): the graceful drain fails what never reached
+    a lane. Also raised by submit() after close (there is no query id to
+    stream it under)."""
+
+    kind = "shutdown"
 
 
 class FeederProducerError(RuntimeError):
@@ -45,8 +98,9 @@ class InjectedFeederKill(RuntimeError):
 
 
 _CHAOS_DEFAULTS = dict(seed=7, feeder=0.05)
-# The reference's fleet channels: no caller in the port until the fleet
-# comes (ROADMAP Queue 1 item 13), so a spec that sets them is refused.
+# The reference's dispatch and stall channels: their caller is the
+# lane-asynchronous fleet's pump (ROADMAP Queue 1 item 13b), so a spec that
+# sets them is refused.
 _FLEET_KEYS = ("dispatch", "stall", "stall_ms")
 
 
@@ -67,8 +121,9 @@ class HostChaos:
     def from_flag(cls, spec: Optional[str]) -> Optional["HostChaos"]:
         """From a KTPU_HOST_CHAOS value: None or a false value is None
         (injection off); '1' / 'true' / 'on' the defaults; otherwise a
-        'k=v,k=v' spec with keys seed and feeder. The reference's fleet
-        keys (dispatch, stall, stall_ms) raise: the port has no fleet."""
+        'k=v,k=v' spec with keys seed and feeder. The reference's dispatch
+        and stall keys (dispatch, stall, stall_ms) raise: they serve the
+        lane-asynchronous fleet (ROADMAP Queue 1 item 13b)."""
         if spec is None:
             return None
         text = str(spec).strip()
@@ -89,8 +144,8 @@ class HostChaos:
                 key = key.strip()
                 if key in _FLEET_KEYS:
                     raise ValueError(
-                        f"KTPU_HOST_CHAOS: {key!r} is the serving fleet's channel, which the port does not "
-                        "have yet (ROADMAP Queue 1 item 13); only seed and feeder are read"
+                        f"KTPU_HOST_CHAOS: {key!r} is the lane-asynchronous fleet's channel, which the port "
+                        "does not have yet (ROADMAP Queue 1 item 13b); only seed and feeder are read"
                     )
                 if key not in _CHAOS_DEFAULTS:
                     raise ValueError(f"KTPU_HOST_CHAOS: unknown key {key!r} (expected one of {sorted(_CHAOS_DEFAULTS)})")

@@ -194,14 +194,17 @@ class FaultStep(NamedTuple):
     """The chaos engine's constants of a window (None in its place: faults
     off): the fault parameters (chaos.FaultParams), the scheduling interval
     and the width of the device pod axis's plain segment (the commit draw's
-    launch arguments), and the backoff's float32 constants on the state's
-    device."""
+    launch arguments), the backoff's float32 constants on the state's
+    device, and a scenario build's per-lane pod-fault seeds (reference
+    step.py:1328-1336: (C,) uint32 on the device, each lane's draws keyed
+    on cluster 0; None: the params' seed, keyed on the cluster index)."""
 
     params: object  # chaos.FaultParams
     interval: float
     plain_width: int
     backoff_base: torch.Tensor  # 0-dim float32
     backoff_cap: torch.Tensor  # 0-dim float32
+    seeds: Optional[torch.Tensor] = None  # (C,) uint32
 
 
 class WakeEvents(NamedTuple):
@@ -954,7 +957,8 @@ def commit_scattered_tail(
         fp = faults.params
         will_fail, fail_rel = pod_attempt_draw(
             start_tmp, pods.restarts, pods.duration.win, pods.duration.off, pods.will_fail,
-            state.pod_base, fp.seed, min(faults.plain_width, P), fp.fail_prob, faults.interval,
+            state.pod_base, fp.seed if faults.seeds is None else faults.seeds, min(faults.plain_width, P),
+            fp.fail_prob, faults.interval,
         )
         finish_val = t_where(started & will_fail, t_norm(Wp, fail_rel, interval), finish_val)
         fault_fields["will_fail"] = will_fail

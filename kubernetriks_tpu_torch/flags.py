@@ -103,8 +103,29 @@ _FLAGS = [
         "counter-seeded threefry draws kill the stream feeder's producer, so "
         "the feeder supervisor's restarts can be proven. '1' selects the "
         "defaults (seed=7,feeder=0.05); a 'k=v,...' spec overrides them. The "
-        "reference's fleet keys (dispatch, stall, stall_ms) raise: the port "
-        "has no fleet yet. Unset: injection off.",
+        "reference's dispatch and stall keys (dispatch, stall, stall_ms) "
+        "raise: they serve the lane-asynchronous fleet, not ported yet "
+        "(ROADMAP Queue 1 item 13b). Unset: injection off.",
+    ),
+    Flag(
+        "KTPU_FLEET_QUEUE",
+        "int",
+        None,
+        "Bounded admission queue depth for ScenarioFleet.submit(): at most "
+        "this many queries may be queued. A full queue applies the "
+        "KTPU_FLEET_QUEUE_POLICY backpressure. The fleet's max_queue= "
+        "argument supersedes it. Unset: unbounded.",
+    ),
+    Flag(
+        "KTPU_FLEET_QUEUE_POLICY",
+        "str",
+        "reject",
+        "Backpressure policy when the bounded admission queue is full: "
+        "'reject' streams a RejectedError (with a retry_after_s hint from "
+        "the observed service times) through poll() for the refused query; "
+        "'block' makes submit() run waves inline until a queue slot frees. "
+        "The fleet's queue_policy= argument supersedes it. Ignored while "
+        "KTPU_FLEET_QUEUE is unset.",
     ),
 ]
 

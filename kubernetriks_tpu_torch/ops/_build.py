@@ -64,7 +64,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     # The chaos engine's commit-time draw: glue, no TPU kernel of the
     # reference's (ops/chaos_kernel.py).
     "pod_attempt_draw": (
-        "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 8 + [_I] * 6 + [_P],
+        "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 9 + [_I] * 6 + [_P],
     ),
     # The window executor's glue (ops/window_kernel.py): no TPU kernels.
     "window_work_due": (

@@ -81,6 +81,7 @@ def launch(name: str, kernel: str, args) -> None:
 
     fn = _build.kernel(kernel)
     stream = torch.cuda.current_stream().cuda_stream
+    # None stands for a null pointer (an optional operand left out).
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     rc = fn(*ptrs, stream)
     if rc != 0:

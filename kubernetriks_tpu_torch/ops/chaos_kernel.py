@@ -12,6 +12,14 @@ cluster's `pod_base` (the sliding pod window), so the draw stays keyed on
 the trace slot as the window slides; only plain trace pods with a finite
 duration draw. For CPU tensors the plain version runs; CUDA tensors go to
 the kernel or raise.
+
+The seed comes in one of two forms. A Python int: one seed for every
+cluster, each cluster's draws keyed on its own index (a plain build). A
+(C,) uint32 tensor on the state's device: a scenario fleet's per-lane
+seeds (reference step.py:1328-1336), each lane's draws keyed on cluster 0,
+so a lane's fault stream is a function of its seed alone; the kernel
+reads the vector from device memory, so a captured graph replays the
+seeds written there last, not those of its capture.
 """
 
 from __future__ import annotations
@@ -35,18 +43,25 @@ def _f32_bits(x: float) -> int:
 
 
 def pod_attempt_draw_plain(start_tmp, restarts, dur_win, dur_off, will_fail, pod_base,
-                           seed: int, plain_width: int, fail_prob: float, interval: float):
+                           seed, plain_width: int, fail_prob: float, interval: float):
     """(will_fail_out, fail_rel), each (C, P): will_fail_out = the draw's
     verdict where the attempt starts, else will_fail; fail_rel = start_tmp
     + u_frac * duration seconds (one fused multiply-add, as XLA:CPU
-    contracts it) where it fails, else 0."""
+    contracts it) where it fails, else 0. `seed`: an int (cluster key c)
+    or a (C,) uint32 tensor (cluster key 0; module note)."""
     C, P = start_tmp.shape
     dev = start_tmp.device
     idx = torch.arange(P, dtype=torch.int64, device=dev)[None, :].expand(C, P)
     started = start_tmp < float("inf")
     in_plain = idx < plain_width
     gslot = idx + pod_base.to(torch.int64)[:, None]
-    cid = torch.arange(C, dtype=torch.int64, device=dev)[:, None].expand(C, P)
+    if isinstance(seed, torch.Tensor):
+        # The uint32 bits, widened through an int32 view (exact on every
+        # device), one seed a row; every lane keys cluster 0.
+        seed = (seed.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)[:, None]
+        cid = torch.zeros((C, P), dtype=torch.int64, device=dev)
+    else:
+        cid = torch.arange(C, dtype=torch.int64, device=dev)[:, None].expand(C, P)
     u_fail, u_frac = chaos.pod_attempt_uniforms(seed, cid, gslot, restarts.to(torch.int64), xp=torch)
     prob = float(np.float32(fail_prob))
     wf = started & in_plain & (dur_win >= 0) & (u_fail < prob)
@@ -62,7 +77,7 @@ def pod_attempt_draw(
     dur_off: torch.Tensor,  # (C, P) float32
     will_fail: torch.Tensor,  # (C, P) bool
     pod_base: torch.Tensor,  # (C,) int32 global slot of device slot 0
-    seed: int,
+    seed,  # int, or (C,) uint32 per-lane seeds (module note)
     plain_width: int,
     fail_prob: float,
     interval: float,  # the scheduling interval, seconds
@@ -74,16 +89,21 @@ def pod_attempt_draw(
         )
     C, P = start_tmp.shape
     i32, f32, b = torch.int32, torch.float32, torch.bool
-    _check("pod_attempt_draw", {
+    operands = {
         "start_tmp": (start_tmp, f32, (C, P)), "restarts": (restarts, i32, (C, P)),
         "dur_win": (dur_win, i32, (C, P)), "dur_off": (dur_off, f32, (C, P)),
         "will_fail": (will_fail, b, (C, P)), "pod_base": (pod_base, i32, (C,)),
-    }, start_tmp.device)
+    }
+    seeds = None
+    if isinstance(seed, torch.Tensor):
+        seeds, seed = seed, 0
+        operands["seeds"] = (seeds, torch.uint32, (C,))
+    _check("pod_attempt_draw", operands, start_tmp.device)
     will_fail_out = torch.empty_like(will_fail)
     fail_rel = torch.empty_like(start_tmp)
     if C * P:
         _launch("pod_attempt_draw", "pod_attempt_draw", [
-            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, will_fail_out, fail_rel,
+            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, seeds, will_fail_out, fail_rel,
             C, P, _i32(seed), int(plain_width), _f32_bits(fail_prob), _f32_bits(interval),
         ])
     return will_fail_out, fail_rel

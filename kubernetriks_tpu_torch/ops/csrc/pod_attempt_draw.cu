@@ -14,6 +14,10 @@
 //   (u_fail, u_frac) = pod_attempt_uniforms(seed, c, gslot, restarts)
 //     = to_unit of threefry(key = threefry(key = (seed, 3), ctr = (c,
 //       gslot)), ctr = (restarts, 0)), to_unit(b) = (b >> 8) * 2^-24
+//   (a scenario fleet passes `seeds`, (C,) uint32 in device memory: then
+//   the seed is seeds[c] and the cluster key 0, reference step.py:1328-
+//   1336; read at run time, so a captured graph draws with the seeds
+//   written last)
 //   wf = started & p < plain_width & dur_win >= 0 & u_fail < fail_prob
 //   will_fail_out = started ? wf : will_fail
 //   fail_rel = wf ? start_tmp + u_frac * dur_s : 0, with dur_s = dur_win *
@@ -67,8 +71,9 @@ __global__ void pod_attempt_draw_kernel(
     const float* __restrict__ start_tmp, const int32_t* __restrict__ restarts,
     const int32_t* __restrict__ dur_win, const float* __restrict__ dur_off,
     const uint8_t* __restrict__ will_fail, const int32_t* __restrict__ pod_base,
-    uint8_t* __restrict__ will_fail_out, float* __restrict__ fail_rel, int C, int P,
-    uint32_t seed, int plain_width, float fail_prob, float interval) {
+    const uint32_t* __restrict__ seeds, uint8_t* __restrict__ will_fail_out,
+    float* __restrict__ fail_rel, int C, int P, uint32_t seed, int plain_width, float fail_prob,
+    float interval) {
   const size_t total = (size_t)C * P;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -82,8 +87,8 @@ __global__ void pod_attempt_draw_kernel(
       const int32_t dwin = dur_win[i];
       bool wf = false;
       if (in_plain && dwin >= 0) {
-        uint32_t h0 = (uint32_t)c, h1 = (uint32_t)(p + pod_base[c]);
-        threefry(seed, kStreamPod, h0, h1);
+        uint32_t h0 = seeds ? 0u : (uint32_t)c, h1 = (uint32_t)(p + pod_base[c]);
+        threefry(seeds ? seeds[c] : seed, kStreamPod, h0, h1);
         uint32_t b0 = (uint32_t)restarts[i], b1 = 0u;
         threefry(h0, h1, b0, b1);
         wf = to_unit(b0) < fail_prob;
@@ -104,7 +109,8 @@ __global__ void pod_attempt_draw_kernel(
 extern "C" int ktt_pod_attempt_draw(const void* start_tmp, const void* restarts,
                                     const void* dur_win, const void* dur_off,
                                     const void* will_fail, const void* pod_base,
-                                    void* will_fail_out, void* fail_rel, int C, int P, int seed,
+                                    const void* seeds, void* will_fail_out, void* fail_rel, int C,
+                                    int P, int seed,
                                     int plain_width, int fail_prob_bits, int interval_bits,
                                     void* stream) {
   const size_t total = (size_t)C * P;
@@ -118,7 +124,7 @@ extern "C" int ktt_pod_attempt_draw(const void* start_tmp, const void* restarts,
   pod_attempt_draw_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)start_tmp, (const int32_t*)restarts, (const int32_t*)dur_win,
       (const float*)dur_off, (const uint8_t*)will_fail, (const int32_t*)pod_base,
-      (uint8_t*)will_fail_out, (float*)fail_rel, C, P, (uint32_t)seed, plain_width, fail_prob,
-      interval);
+      (const uint32_t*)seeds, (uint8_t*)will_fail_out, (float*)fail_rel, C, P, (uint32_t)seed,
+      plain_width, fail_prob, interval);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,14 @@
 (`collect_gauges`) and their CSV (reference `kubernetriks_tpu/telemetry/
 gauges.py` and the scalar collector's columns, `kubernetriks_tpu/metrics/
 collector.py:150`). Host arrays only: the engine reads the samples from
-the card once a span and hands them in."""
+the card once a span and hands them in. A checkpoint keeps the series in
+a numpy sidecar (`save_sidecar` / `load_sidecar`, reference gauges.py:
+65-86): its length depends on the run, unlike the state's shapes."""
 
 from __future__ import annotations
 
 import csv
+import os
 from typing import List
 
 import numpy as np
@@ -57,3 +60,25 @@ class GaugeSeries:
                     [t, int(row[0]), int(row[1]), int(row[2]),
                      float(row[3]), float(row[4]), float(row[5]), float(row[6])]
                 )
+
+    def save_sidecar(self, path: str) -> None:
+        """Write the series beside a checkpoint (numpy .npz, no pickled
+        objects); an empty series removes a stale sidecar, so a previous
+        save's gauges never stand in for this run's at a restore."""
+        if self._windows:
+            np.savez(
+                path,
+                windows=np.concatenate(self._windows).astype(np.int32),
+                samples=np.concatenate(self._samples, axis=0).astype(np.float32),
+            )
+        elif os.path.exists(path):
+            os.remove(path)
+
+    @classmethod
+    def load_sidecar(cls, path: str) -> "GaugeSeries":
+        """The series a save_sidecar wrote (empty where there is none)."""
+        out = cls()
+        if os.path.exists(path):
+            with np.load(path, allow_pickle=False) as data:
+                out.append(data["windows"], data["samples"])
+        return out

@@ -11,15 +11,19 @@ shift read (PH_SHIFT_WAIT), growths (PH_WINDOW_GROW), graph captures
 executed window (PH_PROGRESS_WAIT), and the sliding pod window's
 staging: the engine thread's slab assembly, upload and prefetch
 (PH_STAGE_ASSEMBLE, PH_STAGE_PUT, PH_STAGE_PREFETCH) and the stream
-feeder's stalls at an install (PH_STAGE_WAIT_FEEDER, PH_STAGE_WAIT_UPLOAD).
-The superspan, checkpoint and query phases exist and stay empty until the
-port has them. The reference's async-readback flows and fleet lane
-swimlanes wait for the port's fleet (ROADMAP item 13).
+feeder's stalls at an install (PH_STAGE_WAIT_FEEDER, PH_STAGE_WAIT_UPLOAD),
+checkpoint saves and restores (PH_CKPT_SAVE, PH_CKPT_RESTORE), and the
+scenario fleet's queries (PH_QUERY_QUEUE, PH_QUERY_SERVICE, PH_QUERY_FAIL:
+queue wait, service and failure, each a span). Flow arrows
+(`flow_start` / `flow_end`, the Chrome "s" / "f" events) link a fleet
+query's submit to its drain (PH_QUERY_QUEUE). The superspan phases stay
+empty; the reference's async-readback flows, its lane swimlanes and the
+lane-asynchronous fleet's phases wait for ROADMAP Queue 1 item 13b.
 
 Two consumers:
 - `chrome_trace()`: Chrome trace-event JSON (Perfetto loads it): host
-  spans as complete ("X") events, and optional device-ring counter tracks
-  on a sim-time process (telemetry/ring.py builds those);
+  spans as complete ("X") events, flow arrows, and optional device-ring
+  counter tracks on a sim-time process (telemetry/ring.py builds those);
 - `report()`: per-phase count / total / mean / max, exact even after the
   event ring wraps (the aggregates update on every `end()`).
 
@@ -54,20 +58,25 @@ PH_STAGE_PREFETCH = 7  # recorded: the successor slab's prefetch
 PH_REFILL_PREFETCH = 8  # the host slide path's refill prefetch
 PH_SLIDE = 9  # recorded: the pod window's slide (piece and read)
 PH_WINDOW_GROW = 10  # recorded: the pod window's growth (and recapture)
-PH_CKPT_SAVE = 11  # checkpoint save
-PH_CKPT_RESTORE = 12  # checkpoint restore
+PH_CKPT_SAVE = 11  # recorded: checkpoint save (save_checkpoint)
+PH_CKPT_RESTORE = 12  # recorded: checkpoint restore (load_checkpoint)
 PH_PRECOMPILE = 13  # recorded: capture of window pieces ahead of use
 PH_CHUNK_FENCED = 14  # an instrumented dispatch with a device fence
 # Recorded: the streaming feeder's stalls, waiting for an unpublished
 # slab, and for a published slab's upload to settle.
 PH_STAGE_WAIT_FEEDER = 15
 PH_STAGE_WAIT_UPLOAD = 16
-# Fleet query lifecycle: queue wait (submit -> admission) and service
-# (admission -> drain), a query's failure, a lane's quarantine.
+# Recorded: the fleet query lifecycle, queue wait (submit -> admission),
+# service (admission -> drain) and a query's failure. Not yet: a lane's
+# quarantine (the lane-asynchronous fleet's).
 PH_QUERY_QUEUE = 17
 PH_QUERY_SERVICE = 18
 PH_QUERY_FAIL = 19
 PH_LANE_QUARANTINE = 20
+
+# Flow event kinds (SpanTracer.flow_start / flow_end).
+_FLOW_START = 0
+_FLOW_END = 1
 
 PHASE_NAMES = (
     "window_chunk",
@@ -139,7 +148,7 @@ class _AnnotatedSpan:
 
 
 class SpanTracer:
-    def __init__(self, capacity: int = 1 << 16):
+    def __init__(self, capacity: int = 1 << 16, flow_capacity: int = 1 << 14):
         # Span event ring: [t0_ns, dur_ns, phase]; kept events wrap, the
         # per-phase aggregates below stay exact regardless.
         self._spans = np.zeros((capacity, 3), np.int64)
@@ -148,6 +157,11 @@ class SpanTracer:
         self._agg_count = np.zeros(_N_PHASES, np.int64)
         self._agg_total = np.zeros(_N_PHASES, np.int64)
         self._agg_max = np.zeros(_N_PHASES, np.int64)
+        # Flow event ring: [t_ns, phase, flow_id, kind] (kind 0 the arrow's
+        # start, 1 its end); the fleet's submit -> drain arrow a query.
+        self._flows = np.zeros((flow_capacity, 4), np.int64)
+        self._n_flows = 0
+        self._next_flow = 1
         # Freeform counters (stage prefetch hits/misses, dispatch
         # histogram buckets, ...). Host ints only.
         self.counters: Dict[str, int] = {}
@@ -177,6 +191,26 @@ class SpanTracer:
 
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
+
+    def flow_start(self, phase: int) -> int:
+        """Open a flow arrow (a Chrome "s" event) now; returns its id (>= 1)."""
+        fid = self._next_flow
+        self._next_flow += 1
+        self._flow_event(phase, fid, _FLOW_START)
+        return fid
+
+    def flow_end(self, phase: int, fid: int) -> None:
+        """Close flow arrow `fid` (a Chrome "f" event) now."""
+        self._flow_event(phase, fid, _FLOW_END)
+
+    def _flow_event(self, phase: int, fid: int, kind: int) -> None:
+        buf = self._flows
+        i = self._n_flows % buf.shape[0]
+        buf[i, 0] = time.perf_counter_ns()
+        buf[i, 1] = phase
+        buf[i, 2] = fid
+        buf[i, 3] = kind
+        self._n_flows += 1
 
     def span(self, phase: int) -> _AnnotatedSpan:
         """Context-manager span (the engine's window spans, slides,
@@ -223,6 +257,19 @@ class SpanTracer:
                     "cat": "host",
                     "ts": (t0 - epoch) / 1e3,
                     "dur": dur / 1e3,
+                    "pid": 0,
+                    "tid": 0,
+                }
+            )
+        for t, phase, fid, kind in self._kept(self._flows, self._n_flows).tolist():
+            ev.append(
+                {
+                    "ph": "s" if kind == _FLOW_START else "f",
+                    "bp": "e",
+                    "name": PHASE_NAMES[int(phase)],
+                    "cat": "flow",
+                    "id": int(fid),
+                    "ts": (t - epoch) / 1e3,
                     "pid": 0,
                     "tid": 0,
                 }
@@ -298,6 +345,12 @@ class NullTracer:
         pass
 
     def count(self, name: str, n: int = 1) -> None:
+        pass
+
+    def flow_start(self, phase: int) -> int:
+        return 0
+
+    def flow_end(self, phase: int, fid: int) -> None:
         pass
 
     def span(self, phase: int) -> _NullSpan:

@@ -1298,3 +1298,94 @@ def test_device_slab_ring_uploads_equal_host_slabs(cuda_device):
         slab.release(done)
         want.release(None)
     assert ring.nbytes() == host.nbytes() == 2 * C * L * 4 * 6 == ring.pinned_nbytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_attempt_draw_kernel_with_a_seed_vector_matches_plain_version(cuda_device, seed):
+    """The commit-time draw with a scenario fleet's per-lane seed vector
+    ((C,) uint32 in device memory, every lane keyed on cluster 0) equals its
+    plain version bit for bit; a lane's draws depend on its seed alone (two
+    lanes with one seed and one pod base draw alike), and a seed written
+    into the vector after a capture is the one the graph's replay draws
+    with."""
+    from kubernetriks_tpu_torch.ops import chaos_kernel
+
+    rng = np.random.default_rng(seed)
+    C, P, W = 64, 2048, 1900
+    start = np.where(rng.random((C, P)) < 0.5, rng.uniform(0.0, 2.0, (C, P)), np.inf).astype(np.float32)
+    restarts = rng.integers(0, 6, (C, P)).astype(np.int32)
+    dwin = np.where(rng.random((C, P)) < 0.1, -1, rng.integers(0, 500, (C, P))).astype(np.int32)
+    doff = rng.uniform(0.0, 10.0, (C, P)).astype(np.float32)
+    will_fail = rng.random((C, P)) < 0.3
+    pod_base = rng.integers(0, 2**31 - 2 * P, C).astype(np.int32)
+    for a in (start, restarts, dwin, doff, will_fail):
+        a[1] = a[0]
+    pod_base[1] = pod_base[0]
+    seeds = rng.integers(0, 2**32, C, dtype=np.uint64).astype(np.uint32)
+    seeds[1] = seeds[0]
+    seeds[2] = 0xFFFFFFFF
+    dev_args = [torch.from_numpy(a).to(cuda_device) for a in (start, restarts, dwin, doff, will_fail, pod_base)]
+    vec = torch.from_numpy(seeds).to(cuda_device)
+    kw = dict(plain_width=W, fail_prob=0.3, interval=10.0)
+    port_kernels.reset_launches()
+    got = chaos_kernel.pod_attempt_draw(*dev_args, vec, **kw)
+    torch.cuda.synchronize()
+    assert port_kernels.LAUNCHES["pod_attempt_draw"] == 1
+    want = chaos_kernel.pod_attempt_draw_plain(*dev_args, vec, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(got[0][0], got[0][1]) and bool(got[0].any())
+    cpu = chaos_kernel.pod_attempt_draw_plain(*[a.cpu() for a in dev_args], vec.cpu(), **kw)
+    assert torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu().view(torch.int32), cpu[1].view(torch.int32))
+    # Captured once, replayed after the seeds change: the replay reads the vector.
+    out = [None]
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(stream):
+        chaos_kernel.pod_attempt_draw(*dev_args, vec, **kw)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        out[0] = chaos_kernel.pod_attempt_draw(*dev_args, vec, **kw)
+    vec.copy_(torch.from_numpy(seeds[::-1].copy()))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = chaos_kernel.pod_attempt_draw_plain(*dev_args, vec, **kw)
+    assert torch.equal(out[0][0], want[0]) and torch.equal(out[0][1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fleet_captures_nothing_after_wave_one(cuda_device):
+    """A card fleet (the composed toy with the bench's fault block, 4 lanes,
+    3 waves of queries with distinct fault seeds and autoscaler settings)
+    captures its pieces at build and nothing in later waves: its scenario
+    updates and lane resets write into the captured tensors. Its results
+    equal the CPU fleet's."""
+    from chip_smoke import FAULTS_YAML, composed_config_yaml, composed_workload_yaml
+    from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    cluster = UniformClusterTrace(4, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+    plain = PoissonWorkloadTrace(rate_per_second=0.2, horizon=300.0, seed=3, cpu=16000, ram=32 * 1024**3,
+                                 duration_range=(30.0, 120.0), name_prefix="plain").convert_to_simulator_events()
+    group = GenericWorkloadTrace.from_yaml(composed_workload_yaml(16, (90.0, 90.0, 120.0))).convert_to_simulator_events()
+    workload = sorted(plain + group, key=lambda e: e[0])
+    config = SimulationConfig.from_yaml(composed_config_yaml(4) + FAULTS_YAML)
+    scens = [Scenario(fault_seed=100 + i, hpa_scan_interval=(30.0, 60.0, 90.0)[i % 3], ca_threshold=0.3 + 0.1 * (i % 4))
+             for i in range(12)]
+    results, captures = {}, {}
+    for where in ("cuda", "cpu"):
+        fleet = ScenarioFleet(config, cluster, workload, n_lanes=4, horizon=300.0, device=where, max_pods_per_cycle=8,
+                              max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, ca_slot_multiplier=4)
+        qids = [fleet.submit(s) for s in scens]
+        fleet._run_one_wave()
+        captures[where] = [fleet.engine.dispatch_stats["captures"]]
+        fleet.run()
+        captures[where].append(fleet.engine.dispatch_stats["captures"])
+        results[where] = [fleet.results[q] for q in qids]
+        if where == "cuda":
+            assert fleet.engine.graphs and fleet.engine.dispatch_stats["eager_windows"] == 0
+        fleet.close()
+    assert captures["cuda"][0] > 0 and captures["cuda"][0] == captures["cuda"][1]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        assert (a.counters, a.hpa_replicas, a.ca_nodes) == (b.counters, b.hpa_replicas, b.ca_nodes)
+    assert sum(r.counters["pod_restarts"] for r in results["cuda"]) > 0

@@ -147,7 +147,8 @@ def test_port_main_path_loads_no_jax(tmp_path):
     the sliding pod window, and with faults and a profile), the flight
     recorder (the ring, the watchdog, gauges, the report), a run streamed
     by the feeder thread, the endurance churn with slot reclaim, the trace
-    replay through the native feeder and the CLI, run in a fresh
+    replay through the native feeder and the CLI, a checkpoint's save and
+    restore, and two waves of a scenario fleet with faults, run in a fresh
     interpreter, leave no module named jax* or kubernetriks_tpu.* in
     sys.modules."""
     code = textwrap.dedent(
@@ -216,6 +217,22 @@ def test_port_main_path_loads_no_jax(tmp_path):
         assert replay.cycle_route == "sorted"
         assert replay.metrics_summary()["counters"]["pods_succeeded"] == replay.n_real_pods
         assert cli.main(["--config-file", config_path, "--device", "cpu", "--report", "table"]) == 0
+        import kubernetriks_tpu_torch.checkpoint
+        from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
+        from chip_smoke import FAULTS_YAML, composed_config_yaml
+        ckpt = tempfile.mktemp()
+        chaos_run.save_checkpoint(ckpt)
+        resumed = composed_sim("cpu", 4, faults=True, scheduler_profile="balanced_packing")
+        resumed.load_checkpoint(ckpt)
+        resumed.step_until_time(700.0)
+        fleet = ScenarioFleet(
+            SimulationConfig.from_yaml(composed_config_yaml(4) + FAULTS_YAML),
+            UniformClusterTrace(4, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events(),
+            PoissonWorkloadTrace(0.2, 200.0, seed=3, cpu=16000).convert_to_simulator_events(),
+            n_lanes=2, horizon=200.0, device="cpu", max_pods_per_cycle=8)
+        out = fleet.sweep([Scenario(fault_seed=5, ca_threshold=0.6), Scenario(fault_seed=6), Scenario()])
+        assert fleet.waves_run == 2 and all(r.ok for r in out)
+        fleet.close()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                      or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
