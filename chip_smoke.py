@@ -122,7 +122,7 @@ Phases; any failure exits non-zero:
      run must show).
  13. scheduler profiles: under best_fit and balanced_packing, the headline
      shape on the graph executor timed as phase 4 (megakernel) and as
-     phase 8 (two-kernel route), and the full replay timed to 21 600 s
+     phase 8 (two-kernel route), and the full replay timed to 10 800 s
      as phase 9 (sorted route); card == CPU
      for best_fit, balanced_packing and a custom profile
      (BalancedResourceAllocation at weight 2.0) at C=128 on the megakernel
@@ -191,6 +191,27 @@ Phases; any failure exits non-zero:
      against the three standalone engines extrapolated to all scenarios
      (`bench.py:1108-1140`), host and busy ms a window of a fleet wave;
      card == CPU at 8 scenarios over 4 lanes with node and pod faults.
+ 21. the lane-asynchronous fleet (batched/fleet.py pump / run_async,
+     the engine's lane clocks; telemetry on): (a) the reference's
+     open-loop line (`bench.py:1192` `run_open_loop` defaults: 32 queries
+     over 4 lanes, 64 nodes, pods at 3/s to 400 s, query horizons cycling
+     (1, 1/16, 1/8, 1/16) of 450 s, pump spans of 4): the stream through a
+     wave-aligned and a lane-asynchronous fleet, every result equal; 5
+     timed rounds each (queries/s), occupancy, a pump's host ms a window,
+     the latency histograms against the queries polled (counts, p99
+     within a bucket of the exact), the first 5
+     queries on a CPU fleet == the card's; device busy and kernels a
+     window of a traced pump stream (its first 8 queries) and of 8
+     windows in each freeze variant; (b) 1 024 queries over 256 lanes (the megakernel route, pod
+     faults, each its own seed, the same horizon mix) through both
+     fleets, every result equal, scenarios/s of each and occupancy.
+ 22. the reference's host-chaos line (`bench.py:1452` `run_host_chaos`
+     defaults: 24 queries over 4 lanes, 8 nodes, dispatch faults and
+     stalls at 0.05, 1 ms, seed 7, 4 rounds): the quiet A/B (results and
+     dispatch_stats), then armed: every round finishes, availability >=
+     90 %, every lane faults, a lane quarantined and re-admitted, one
+     outcome a query id, the latency histograms against the results
+     polled. No fleet of phases 20-22 captures after its build.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -244,8 +265,12 @@ line at 590 s (C = 256, N = 96, P = 648, R = 1024), with phase 17's
 launches. The commit draw with a scenario fleet's per-lane seed vector is
 held bit for bit and timed on phase 20b's line (256 lanes, each its own
 seed) on its call with the most attempts starting, with phase 20b's
-launches: the entry "pod_attempt_draw (seed vector)". A timed kernel cycles through at most 512 copies of its
-inputs.
+launches: the entry "pod_attempt_draw (seed vector)". The record with the
+lane columns (a lane-asynchronous engine's global window and active lanes)
+is held bit for bit and timed on phase 21b's line (256 lanes, eagerly, its
+last record of the second pump round, lanes active and parked), with
+phase 21b's launches: the entry "telemetry_record (lane columns)". A timed
+kernel cycles through at most 512 copies of its inputs.
 It prints the kernels' JSON line, then the device JSON line last. Without a
 CUDA device, or without the package beside it, it exits 2 and prints no
 result. Imports nothing of JAX.
@@ -347,9 +372,9 @@ FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, bu
 # replay's (the reference README streams the Alibaba replay through 4 096).
 COMPOSED_POD_WINDOW = 512
 REPLAY_POD_WINDOW = 4096
-# Phase 13 times the replay under each profile to a quarter of the day (a
-# depth cut from the whole day, then half of it; PERF.md §4).
-PROFILE_REPLAY_UNTIL = 21600.0
+# Phase 13 times the replay under each profile to an eighth of the day (a
+# depth cut from the whole day, then half and a quarter of it; PERF.md §4).
+PROFILE_REPLAY_UNTIL = 10800.0
 WINDOWED_COMPOSED = f"pod_window={COMPOSED_POD_WINDOW}"
 WINDOWED_REPLAY = f"pod_window={REPLAY_POD_WINDOW}"
 # The non-default scheduler profiles the cycle kernels are held and timed
@@ -2272,12 +2297,30 @@ fault_injection:
 """
 
 
-def sweep_inputs(faults_yaml: str = ""):
-    """(config yaml, cluster events, workload events) of the sweep line."""
+# The reference's open-loop line (`bench.py:1192` `run_open_loop`
+# defaults): the sweep's inputs at 64 nodes, pods at 3/s to 400 s, HPA
+# groups of at most 32 pods, 32 queries over 4 lanes, K = 256, pump spans
+# of 4 windows, query horizons cycling OPEN_LOOP_HORIZON_MIX (`bench.py:
+# 1189`) of 450 s, 5 timed rounds. Its host-chaos line (`bench.py:1452`
+# `run_host_chaos` defaults): 8 nodes, pods at 0.375/s to 300 s, 24
+# queries over 4 lanes, query horizon 350 s on the same mix, K = 64,
+# dispatch faults and stalls at 0.05 (1 ms), seed 7, 4 rounds.
+OPEN_LOOP_HORIZON_MIX = (1.0, 0.0625, 0.125, 0.0625)
+OPEN_LOOP = dict(n_nodes=64, rate=3.0, horizon=400.0, max_group_pods=32, burst=(100.0, 150.0, 250.0))
+OPEN_LOOP_QUERIES, OPEN_LOOP_LANES, OPEN_LOOP_K, OPEN_LOOP_SPAN, OPEN_LOOP_ROUNDS = 32, 4, 256, 4, 5
+HOST_CHAOS = dict(n_nodes=8, rate=0.375, horizon=300.0, max_group_pods=16, burst=(100.0, 150.0, 250.0))
+HOST_CHAOS_QUERY_HORIZON = 350.0
+HOST_CHAOS_RUN = dict(queries=24, lanes=4, seed=7, dispatch=0.05, stall=0.05, stall_ms=1.0, rounds=4)
+
+
+def sweep_inputs(faults_yaml: str = "", **shape):
+    """(config yaml, cluster events, workload events) of the sweep line
+    (`shape`: SWEEP's keys overridden, as the reference's other fleet
+    lines call `_sweep_setup`)."""
     from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
     from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
 
-    s = SWEEP
+    s = {**SWEEP, **shape}
     cluster = UniformClusterTrace(s["n_nodes"], cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
     plain = PoissonWorkloadTrace(
         rate_per_second=s["rate"], horizon=s["horizon"], seed=3, cpu=16000, ram=32 * 1024**3,
@@ -2666,6 +2709,300 @@ def fleet_phase(dev, sk, card: str, sorted_names, dense_names) -> dict:
                           "pod_restarts": sum(r.counters["pod_restarts"] for r in on_card)}
     print(f"{label} ({card}): 8 scenarios over 4 lanes (2 waves) with node and pod faults: card == CPU, FleetResults and "
           f"final states ({out['card_vs_cpu']})", flush=True)
+    return out
+
+
+def lane_async_phase(dev, sk, card: str, sorted_names, dense_names) -> dict:
+    """Phases 21-22: the lane-asynchronous fleet on the card (batched/
+    fleet.py pump / run_async; telemetry on in every fleet, as the
+    reference's lines run them, so the ring's record writes its lane
+    columns).
+
+    21a, the reference's open-loop line (OPEN_LOOP): the stream through a
+    wave-aligned and a lane-asynchronous fleet, every query's result equal
+    between them; then OPEN_LOOP_ROUNDS timed repeats on the resident
+    fleets (queries/s, the medians), the occupancy, host ms a window of a
+    pump, the latency histograms' counts against the queries polled, and a
+    5-query sub-stream on a CPU fleet equal to the card's; device busy ms
+    and kernels a window of a traced pump stream (its first 8 queries)
+    and of 8 windows in each freeze variant. 21b, full width: 1 024 queries over 256 lanes (the
+    megakernel route, pod faults, each query its own fault_seed, horizons
+    cycling the mix) through both fleets, every result equal, scenarios/s
+    of each and the occupancy. 22, the reference's host-chaos line
+    (HOST_CHAOS): a plain lane-asynchronous fleet and one with the
+    quarantine configured but the injector disarmed run the same stream,
+    equal in results and dispatch_stats; then HostChaos armed for 4
+    rounds: every round finishes, availability >= 90 %, every lane
+    faults, a lane is quarantined and re-admitted, every query id streams
+    one outcome, every failure is one LaneFaultError, and the histograms
+    count the polled results. No fleet captures after its build."""
+    from kubernetriks_tpu_torch.batched.faults import HostChaos, LaneFaultError
+    from kubernetriks_tpu_torch.batched.fleet import ScenarioFleet
+    from kubernetriks_tpu_torch.config import SimulationConfig
+
+    def same(a, b):
+        return a.ok and b.ok and (a.counters, a.hpa_replicas, a.ca_nodes) == (b.counters, b.hpa_replicas, b.ca_nodes)
+
+    def mix(n, query_horizon):
+        return [query_horizon * OPEN_LOOP_HORIZON_MIX[i % len(OPEN_LOOP_HORIZON_MIX)] for i in range(n)]
+
+    def submit(fleet, scens, horizons):
+        return [fleet.submit(s, h) for s, h in zip(scens, horizons)]
+
+    def build(config, inputs, lanes, horizon, k, where=dev, **kw):
+        return ScenarioFleet(config, *inputs, n_lanes=lanes, horizon=horizon, device=where, max_pods_per_cycle=k,
+                             telemetry=True, **kw)
+
+    def equal_results(label, ref, got, what):
+        for i, (a, b) in enumerate(zip(ref, got)):
+            if not same(a, b):
+                fail(f"{label}: query {i} differs {what}: {getattr(a, 'counters', a)} vs {getattr(b, 'counters', b)}")
+
+    def no_capture(label, fleet, at_build):
+        stats = fleet.engine.dispatch_stats
+        if stats["captures"] != at_build or stats["eager_windows"]:
+            fail(f"{label}: {stats['captures']} captures ({at_build} at the build), {stats['eager_windows']} eager "
+                 "windows")
+
+    out = {}
+    # --- 21a ---
+    label = "phase 21a"
+    config_yaml, *inputs = sweep_inputs(**OPEN_LOOP)
+    config = SimulationConfig.from_yaml(config_yaml)
+    scens, _ = sweep_scenarios(OPEN_LOOP_QUERIES)
+    horizons = mix(OPEN_LOOP_QUERIES, SWEEP_QUERY_HORIZON)
+    t0 = time.perf_counter()
+    wave = build(config, inputs, OPEN_LOOP_LANES, SWEEP_QUERY_HORIZON, OPEN_LOOP_K)
+    t1 = time.perf_counter()
+    asy = build(config, inputs, OPEN_LOOP_LANES, SWEEP_QUERY_HORIZON, OPEN_LOOP_K, lane_async=True,
+                span_windows=OPEN_LOOP_SPAN)
+    builds = (t1 - t0, time.perf_counter() - t1)
+    caps = {id(f): f.engine.dispatch_stats["captures"] for f in (wave, asy)}
+    wq = submit(wave, scens, horizons)
+    wave.run()
+    sk.reset_launches()
+    aq = submit(asy, scens, horizons)
+    asy.run_async()
+    launches = sk.launch_counts()
+    for name in sorted_names + ["telemetry_record"]:
+        if launches[name] <= 0:
+            fail(f"{label}: the lane-asynchronous fleet never launched {name}")
+    first = [asy.results[q] for q in aq]
+    equal_results(label, [wave.results[q] for q in wq], first, "between the wave and the lane-asynchronous fleets")
+    asy.poll()
+    asy.reset_query_stats()
+    wave_s, asy_s, asy_windows, polled = [], [], [], 0
+    for _ in range(OPEN_LOOP_ROUNDS):
+        submit(wave, scens, horizons)
+        t0 = time.perf_counter()
+        wave.run()
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t0)
+        qs = submit(asy, scens, horizons)
+        w0 = asy.engine.windows_run
+        t0 = time.perf_counter()
+        asy.run_async()
+        torch.cuda.synchronize()
+        asy_s.append(time.perf_counter() - t0)
+        asy_windows.append(asy.engine.windows_run - w0)
+        polled += len(asy.poll())
+        equal_results(label, first, [asy.results[q] for q in qs], "from the first run")
+    occupancy = asy.lane_occupancy()
+    obs = asy.engine.observatory
+    if asy.latency_hist.count != polled or obs.query_stats()["count"] != polled:
+        fail(f"{label}: the latency histograms hold {asy.latency_hist.count} (fleet) and "
+             f"{obs.query_stats()['count']} (observatory) queries, {polled} were polled")
+    # The histogram's p99 within one bucket of the exact p99 of the kept
+    # latencies (the reference's check, `bench.py:1353-1367`).
+    exact = float(np.percentile(np.asarray(asy.latency_exact_window), 99, method="higher"))
+    if abs(asy.latency_hist.percentile(99.0) - exact) > asy.latency_hist.bucket_width(exact) + 1e-12:
+        fail(f"{label}: the histogram's p99 {asy.latency_hist.percentile(99.0)} s is more than a bucket from the "
+             f"exact {exact} s")
+    for f in (wave, asy):
+        no_capture(label, f, caps[id(f)])
+    # The first five queries on a CPU fleet equal the card's.
+    cpu = build(config, inputs, OPEN_LOOP_LANES, SWEEP_QUERY_HORIZON, OPEN_LOOP_K, where="cpu", lane_async=True,
+                span_windows=OPEN_LOOP_SPAN)
+    cq = submit(cpu, scens[:5], horizons[:5])
+    cpu.run_async()
+    equal_results(label, first[:5], [cpu.results[q] for q in cq], "between the card and the CPU")
+    cpu.close()
+    # A traced pump stream (the first 8 queries: two blocks of the mix),
+    # then 8 windows in each freeze variant: every lane re-seeded fresh
+    # with a full horizon (the pieces without the freeze), then one lane
+    # idle (the freezing pieces).
+    asy.reset_query_stats()
+
+    def pumped():
+        w0 = asy.engine.windows_run
+        submit(asy, scens[:8], horizons[:8])
+        asy.run_async()
+        asy.poll()
+        return asy.engine.windows_run - w0
+
+    busy = device_busy(pumped, label)
+    eng = asy.engine
+    lanes = list(range(OPEN_LOOP_LANES))
+    full = eng.horizon_windows(SWEEP_QUERY_HORIZON)
+    variants = {}
+    for freeze in (False, True):
+        eng.lane_reset(lanes)
+        eng.set_lane_plan(lanes, eng.next_window_idx, [full] * (len(lanes) - 1) + [0 if freeze else full])
+
+        def run():
+            eng.step_windows(8)
+            return 8
+
+        variants["freeze" if freeze else "no_freeze"] = device_busy(run, f"{label} freeze={freeze}")
+    eng.lane_reset(lanes)
+    eng.set_lane_plan(lanes, eng.next_window_idx, [0] * len(lanes))
+    no_capture(label, asy, caps[id(asy)])
+    med_w, med_a = float(np.median(wave_s)), float(np.median(asy_s))
+    out["open_loop"] = {
+        "queries": OPEN_LOOP_QUERIES, "lanes": OPEN_LOOP_LANES, "span_windows": OPEN_LOOP_SPAN,
+        "route": eng.cycle_route, "build_s": {"wave": builds[0], "lane_async": builds[1]},
+        "wave_s": wave_s, "lane_async_s": asy_s, "wave_queries_per_s": OPEN_LOOP_QUERIES / med_w,
+        "lane_async_queries_per_s": OPEN_LOOP_QUERIES / med_a, "speedup": med_w / med_a,
+        "occupancy": occupancy, "lane_async_windows": asy_windows,
+        "host_ms_per_window": 1e3 * med_a / float(np.median(asy_windows)),
+        "busy": busy, "variants": variants, "latency": asy.query_latency_percentiles(),
+        "captures": caps[id(asy)], "launches": launches, "pump_rounds": asy.pump_rounds,
+    }
+    o = out["open_loop"]
+    print(f"{label} ({card}): {OPEN_LOOP_QUERIES} queries over {OPEN_LOOP_LANES} lanes, horizons cycling "
+          f"{OPEN_LOOP_HORIZON_MIX} of {SWEEP_QUERY_HORIZON:.0f} s ({eng.cycle_route} route): wave "
+          f"{o['wave_queries_per_s']:.1f} queries/s, lane-asynchronous {o['lane_async_queries_per_s']:.1f} queries/s "
+          f"({o['speedup']:.2f}x; medians of {OPEN_LOOP_ROUNDS}); occupancy mean {occupancy['mean']:.4f} min "
+          f"{occupancy['min']:.4f}; a pump's host {o['host_ms_per_window']:.4f} ms a window, device busy "
+          f"{busy['busy_ms_per_window']:.4f} ms, {busy['kernels_per_window']:.1f} kernels a window; kernels a window "
+          f"without the freeze {variants['no_freeze']['kernels_per_window']:.1f} (busy "
+          f"{variants['no_freeze']['busy_ms_per_window']:.4f} ms), with it {variants['freeze']['kernels_per_window']:.1f}"
+          f" (busy {variants['freeze']['busy_ms_per_window']:.4f} ms); every result == the wave fleet's, the first 5 "
+          f"== the CPU's; captures {caps[id(asy)]} at the build and after; latency {o['latency']}", flush=True)
+    wave.close()
+    asy.close()
+
+    # --- 21b ---
+    stamp("phase 21b")
+    label = "phase 21b"
+    config_yaml, *inputs = sweep_inputs(POD_FAULTS_YAML)
+    config = SimulationConfig.from_yaml(config_yaml)
+    n, lanes_n = 1024, 256
+    scens, _ = sweep_scenarios(n, seeds=True)
+    horizons = mix(n, SWEEP_QUERY_HORIZON)
+    fleets, res, secs, builds = {}, {}, {}, {}
+    for kind in ("wave", "lane_async"):
+        t0 = time.perf_counter()
+        f = fleets[kind] = build(config, inputs, lanes_n, SWEEP_QUERY_HORIZON, SWEEP_K,
+                                 **({"lane_async": True, "span_windows": OPEN_LOOP_SPAN} if kind == "lane_async" else {}))
+        builds[kind] = time.perf_counter() - t0
+        if f.engine.cycle_route != "megakernel" or not f.engine.graphs:
+            fail(f"{label}: the {kind} fleet runs the {f.engine.cycle_route} route (graphs {f.engine.graphs})")
+        at_build = f.engine.dispatch_stats["captures"]
+        sk.reset_launches()
+        qids = submit(f, scens, horizons)
+        t0 = time.perf_counter()
+        f.run() if kind == "wave" else f.run_async()
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+        if kind == "lane_async":
+            launches = sk.launch_counts()
+        res[kind] = [f.results[q] for q in qids]
+        no_capture(label, f, at_build)
+    equal_results(label, res["wave"], res["lane_async"], "between the wave and the lane-asynchronous fleets")
+    for name in dense_names + ["pod_attempt_draw", "telemetry_record"]:
+        if launches[name] <= 0:
+            fail(f"{label}: the lane-asynchronous fleet never launched {name}")
+    if sum(r.counters["pod_restarts"] for r in res["lane_async"]) <= 0:
+        fail(f"{label}: no pod fault across {n} queries")
+    asy = fleets["lane_async"]
+    occupancy = asy.lane_occupancy()
+    out["wide"] = {
+        "queries": n, "lanes": lanes_n, "build_s": builds, "run_s": secs,
+        "scenarios_per_s": {k: n / v for k, v in secs.items()}, "speedup": secs["wave"] / secs["lane_async"],
+        "occupancy": occupancy, "pump_rounds": asy.pump_rounds, "windows": asy.engine.windows_run,
+        "wave_windows": fleets["wave"].engine.windows_run, "launches": launches,
+        "captures": asy.engine.dispatch_stats["captures"],
+    }
+    o = out["wide"]
+    print(f"{label} ({card}): {n} queries over {lanes_n} lanes (megakernel route, pod faults, each its own seed, "
+          f"horizons cycling the mix): wave {o['scenarios_per_s']['wave']:.1f} scenarios/s "
+          f"({o['wave_windows']} windows), lane-asynchronous {o['scenarios_per_s']['lane_async']:.1f} scenarios/s "
+          f"({o['windows']} windows, {o['pump_rounds']} pump rounds; {o['speedup']:.2f}x), builds {builds}; occupancy "
+          f"mean {occupancy['mean']:.4f} min {occupancy['min']:.4f}; every result equal; no capture after either "
+          f"build; launches {launches}", flush=True)
+    for f in fleets.values():
+        f.close()
+    del fleets, res
+
+    # --- 22 ---
+    stamp("phase 22")
+    label = "phase 22"
+    hc = HOST_CHAOS_RUN
+    config_yaml, *inputs = sweep_inputs(**HOST_CHAOS)
+    config = SimulationConfig.from_yaml(config_yaml)
+    scens, _ = sweep_scenarios(hc["queries"])
+    horizons = mix(hc["queries"], HOST_CHAOS_QUERY_HORIZON)
+    plain = build(config, inputs, hc["lanes"], HOST_CHAOS_QUERY_HORIZON, SWEEP_K, lane_async=True)
+    fl = build(config, inputs, hc["lanes"], HOST_CHAOS_QUERY_HORIZON, SWEEP_K, lane_async=True, quarantine_faults=1,
+               quarantine_window=64, quarantine_backoff=2)
+    at_build = fl.engine.dispatch_stats["captures"]
+    qp = submit(plain, scens, horizons)
+    plain.run_async()
+    qf = submit(fl, scens, horizons)
+    fl.run_async()
+    equal_results(label, [plain.results[q] for q in qp], [fl.results[q] for q in qf],
+                  "between the plain fleet and the disarmed one")
+    if plain.engine.dispatch_stats != fl.engine.dispatch_stats or fl.fault_report()["chaos"] is not None:
+        fail(f"{label}: the disarmed fleet's dispatch_stats {fl.engine.dispatch_stats} differ from the plain fleet's "
+             f"{plain.engine.dispatch_stats}, or it holds an injector")
+    plain.close()
+    fl.poll()
+    fl.reset_query_stats()
+    fl.arm_host_chaos(HostChaos(seed=hc["seed"], dispatch_rate=hc["dispatch"], stall_rate=hc["stall"],
+                                stall_ms=hc["stall_ms"]))
+    qids, outcomes, ok_polled = [], {}, 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the quarantine verdicts warn by design
+        for _ in range(hc["rounds"]):
+            qids += submit(fl, scens, horizons)
+            fl.run_async()
+            for o in fl.poll():
+                outcomes[o.query] = outcomes.get(o.query, 0) + 1
+                ok_polled += int(o.ok)
+    chaos_s = time.perf_counter() - t0
+    res = [fl.results[q] for q in qids]
+    fails = [r for r in res if not r.ok]
+    availability = 1.0 - len(fails) / len(res)
+    victims = sorted({r.lane for r in fails if r.lane >= 0})
+    report = fl.fault_report()
+    missing = [q for q in qids if outcomes.get(q, 0) != 1]
+    if missing or not all(isinstance(r, LaneFaultError) for r in fails):
+        fail(f"{label}: qids {missing[:5]} did not stream exactly one outcome, or a failure is not a LaneFaultError")
+    if availability < 0.90 or victims != list(range(hc["lanes"])):
+        fail(f"{label}: availability {availability:.4f} (>= 0.90 wanted), faulted lanes {victims}")
+    if report["quarantine_events"] < 1 or report["readmissions"] < 1:
+        fail(f"{label}: {report['quarantine_events']} quarantines, {report['readmissions']} re-admissions")
+    for i, r in enumerate(res):
+        if r.ok and not same(r, fl.results[qf[i % len(scens)]]):
+            fail(f"{label}: query {i} differs from its quiet run after a neighbour's fault")
+    obs = fl.engine.observatory
+    if fl.latency_hist.count != ok_polled or obs.query_stats()["count"] != ok_polled:
+        fail(f"{label}: the latency histograms hold {fl.latency_hist.count} (fleet) and {obs.query_stats()['count']} "
+             f"(observatory) queries, {ok_polled} results were polled")
+    no_capture(label, fl, at_build)
+    out["host_chaos"] = {
+        "queries": len(qids), "failed": len(fails), "availability": availability, "faulted_lanes": victims,
+        "report": report, "chaos_s": chaos_s, "captures": at_build,
+    }
+    print(f"{label} ({card}): quiet A/B equal (results and dispatch_stats); armed (seed {hc['seed']}, dispatch "
+          f"{hc['dispatch']}, stall {hc['stall']} x {hc['stall_ms']} ms) over {hc['rounds']} rounds of "
+          f"{hc['queries']} queries in {chaos_s:.3f} s: availability {availability:.4f} ({len(fails)} LaneFaultErrors, "
+          f"lanes {victims}), {report['quarantine_events']} quarantines, {report['readmissions']} re-admissions, "
+          f"injector {report['chaos']['events']}; every qid streamed one outcome; no capture after the build",
+          flush=True)
+    fl.close()
     return out
 
 
@@ -3323,10 +3660,8 @@ def main() -> int:
     # with telemetry on, eagerly to 590 s: its last call (C = 256, N = 96,
     # P = 648, the ring's R = 1024), compared bit for bit (the row, the
     # cursor and the counter snapshot it writes in place). Timed in place
-    # on input copies that share the ring (one row a cluster written).
-    # Bytes: the phase and alive rows, the reserve leaves, the pod bases,
-    # the window, the counters; m0 and the cursor read and written, a row
-    # written. No PyTorch call computes it.
+    # on input copies that share the ring (one row a cluster written). No
+    # PyTorch call computes it.
     from kubernetriks_tpu_torch.ops import telemetry_kernel as tk
 
     sim = composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, graphs=False, telemetry=True)
@@ -3363,20 +3698,68 @@ def main() -> int:
 
         return run
 
-    size = nbytes([a for a in args[:7] if isinstance(a, torch.Tensor)]) + nbytes(args[7]) + nbytes(args[8:])
-    n_sets = min(MAX_COPIES, max(1, -(-2 * L2_BYTES // max(size, 1))))
-    sets = [args] + [
-        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args[:7])
-        + ([c.clone() for c in args[7]], args[8].clone(), args[9], args[10].clone())
-        for _ in range(n_sets - 1)
-    ]
-    check_kernel(
-        "telemetry_record", record_outs(tk.telemetry_record), record_outs(step_mod.telemetry_record_plain),
-        args, kwargs, -1, None,
-        4 * C * P + C * N + 8 * C * Gp + 4 * C * Gn + 8 * C + 40 * C + 80 * C + 48 * C + 8 * C, C * (2 * P + N),
-        timed=(tk.telemetry_record, step_mod.telemetry_record_plain, sets),
-    )
-    del sets, args
+    def check_record(args, kwargs, label):
+        # Bytes: the phase and alive rows, the reserve leaves, the pod
+        # bases, the window, the counters; m0 and the cursor read and
+        # written, a row written; with lane clocks the global window and
+        # the active lanes too.
+        C, P = args[0].shape
+        N, Gp = args[1].shape[1], 0 if args[2] is None else args[2].shape[1]
+        Gn = 0 if args[2] is None else args[4].shape[1]
+        lanes = 4 * C + C if kwargs.get("active") is not None else 0
+        size = nbytes([a for a in args[:7] if isinstance(a, torch.Tensor)]) + nbytes(args[7]) + nbytes(args[8:])
+        n_sets = min(MAX_COPIES, max(1, -(-2 * L2_BYTES // max(size, 1))))
+        sets = [args] + [
+            tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args[:7])
+            + ([c.clone() for c in args[7]], args[8].clone(), args[9], args[10].clone())
+            for _ in range(n_sets - 1)
+        ]
+        check_kernel(
+            "telemetry_record", record_outs(tk.telemetry_record), record_outs(step_mod.telemetry_record_plain),
+            args, kwargs, -1, None,
+            4 * C * P + C * N + 8 * C * Gp + 4 * C * Gn + 8 * C + 40 * C + 80 * C + 48 * C + 8 * C + lanes,
+            C * (2 * P + N), label=label, timed=(tk.telemetry_record, step_mod.telemetry_record_plain, sets),
+        )
+
+    check_record(args, kwargs, "telemetry_record")
+    del args
+    # The record with the lane columns (the global window, the active
+    # lanes), bit for bit, on phase 21b's line: a lane-asynchronous fleet
+    # of 256 lanes over the sweep line with pod faults, its horizons
+    # cycling the open-loop mix, eagerly: its last record in the second
+    # pump round, where the lanes of the shortest queries are parked
+    # (inactive) beside the others.
+    from kubernetriks_tpu_torch.batched.fleet import ScenarioFleet
+
+    fleet = ScenarioFleet(sweep_config, sweep_cluster, sweep_workload, n_lanes=256, horizon=SWEEP_QUERY_HORIZON,
+                          device=dev, graphs=False, max_pods_per_cycle=SWEEP_K, telemetry=True, lane_async=True,
+                          span_windows=OPEN_LOOP_SPAN)
+    for i, scen in enumerate(sweep_scenarios(256, seeds=True)[0]):
+        fleet.submit(scen, SWEEP_QUERY_HORIZON * OPEN_LOOP_HORIZON_MIX[i % len(OPEN_LOOP_HORIZON_MIX)])
+    last = {}
+
+    def recording_lanes(*args, **kwargs):
+        head, counters, tail = args[:7], args[7], args[8:]
+        last["call"] = (kept(head) + ([c.clone() for c in counters],) + kept(tail),
+                        {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()})
+        return real_record(*args, **kwargs)
+
+    tk.telemetry_record = recording_lanes
+    try:
+        fleet.pump()
+        fleet.pump()
+    finally:
+        tk.telemetry_record = real_record
+    torch.cuda.synchronize()
+    args, kwargs = last["call"]
+    active = kwargs.get("active")
+    if active is None or not (bool(active.any()) and not bool(active.all())):
+        fail(f"phase 3: the lane-asynchronous fleet's record saw no mix of active and parked lanes ({active})")
+    print(f"phase 3: the record with lane columns on a lane-asynchronous fleet of 256 lanes at global window "
+          f"{int(kwargs['window'][0])}: {int(active.sum())} lanes active, {int((~active).sum())} parked", flush=True)
+    check_record(args, kwargs, "telemetry_record (lane columns)")
+    fleet.close()
+    del fleet, args
     floors = chain_floors(sk, dev)
     print(
         "phase 3: chain floor per candidate (one cluster, 32 nodes, 1 024 candidates): "
@@ -3680,6 +4063,12 @@ def main() -> int:
     fleet_path = fleet_phase(
         dev, sk, smi, ["fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"] + ca_names, names + ca_names)
 
+    # --- 21-22. the lane-asynchronous fleet ----------------------------------------------------------
+    stamp("phase 21")
+    lane_path = lane_async_phase(
+        dev, sk, smi, ["fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"] + ca_names,
+        names + ca_names)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -3763,6 +4152,9 @@ def main() -> int:
     # The commit draw with the fleet's seed vector, with phase 20b's launches.
     replay_labels["pod_attempt_draw (seed vector)"] = "pod_attempt_draw"
     path_launches["pod_attempt_draw (seed vector)"] = fleet_path["wide"]["launches"]["pod_attempt_draw"]
+    # The record with lane columns, with phase 21b's launches.
+    replay_labels["telemetry_record (lane columns)"] = "telemetry_record"
+    path_launches["telemetry_record (lane columns)"] = lane_path["wide"]["launches"]["telemetry_record"]
     for label in names + ca_names + two_names + ["fused_schedule_cycle"] + list(replay_labels) + glue_names:
         name = replay_labels.get(label, label)
         r = report[label]
@@ -3790,7 +4182,7 @@ def main() -> int:
             "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
             "telemetry": telemetry_path, "windowed_replay_unstreamed": windowed_replay_unstreamed,
             "streamed_replay": streamed_path,
-            "checkpoint": checkpoint_path, "fleet": fleet_path,
+            "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

@@ -74,16 +74,40 @@ clock's copies; `fleet_reset` selects lanes of the state against the
 pristine snapshot in place and, at a wave boundary, rewinds the host
 mirrors from the build's own (batched/fleet.py runs the waves).
 
+Lane clocks (`lane_async=True`, a scenario build; reference engine.py:
+1106-1143, 2293-2504, DESIGN §13 there): each lane c runs its own virtual
+window w - clock[c] inside the shared window pieces and is active while
+that lies in [0, horizon[c]); state.LaneClocks holds the (C,) clocks on
+the device (written in place, the graphs read them) and `_lane_clock_np`
+/ `_lane_horizon_np` their host mirrors. The build refuses a pod window
+and the streaming feeder (their clock is fleet-global) and turns
+fast-forward off; every lane starts inactive. A window's plan is the
+union over its active lanes, each at its virtual window (the cursor
+mirror, the slab tables and the autoscaler clock of an inactive lane stay
+put; CA removal windows are kept as global windows); its head piece
+writes each lane's virtual window and the active lanes; where a lane can
+enter or leave its span within a chunk the window snapshots the state and
+its end reverts the inactive lanes (the freeze), else the host mirrors
+prove every lane active and both are left out. `set_lane_plan`,
+`lane_windows_done` / `lane_windows_remaining` (host arithmetic),
+`step_windows(n)`, `lane_reset` (fleet_reset of lanes but the telemetry
+ring) and `set_lane_trace` (stream.LaneTraceMux: a lane's row range,
+written into the slab in place with the lane's host tables) drive it;
+batched/fleet.py's pump runs them. The ring's record writes the global
+window and the active lanes in its columns 0 and 11.
+
 Checkpoints (`save_checkpoint` / `load_checkpoint`, reference
 engine.py:4284-4455; the file format in checkpoint.py): the state and the
 window cursor, a `.meta.json` of the build facts a restore must match
 (pod_window, telemetry_ring, reclaim, scheduler_profile) and the gauge
-series' sidecar. A restore grows the pod window to the saved width,
-checks the ring, the profile and reclaim (an engine left to reclaim's
-default follows the checkpoint with a RuntimeWarning, an explicit one
-raises), and goes through install_state.
+series' sidecar; with lane clocks the clocks and their host mirrors. A
+restore grows the pod window to the saved width, checks the ring, the
+profile and reclaim (an engine left to reclaim's default follows the
+checkpoint with a RuntimeWarning, an explicit one raises), and goes
+through install_state.
 
-The scheduler profile (`scheduler_profile=`, else the config's) is
+The scheduler profile (`scheduler_profile=`, else the config's, else
+KTPU_PROFILE, else the default; reference engine.py:759-770) is
 compiled once here (batched/pipeline.py) and runs in every cycle. With an
 enabled `fault_injection` block (chaos.py) each cluster's trace gets its
 own crash chains at build (build_batched_from_traces, keyed on the
@@ -196,6 +220,7 @@ from kubernetriks_tpu_torch.batched.state import (
     PHASE_RUNNING,
     PHASE_UNSCHEDULABLE,
     ClusterBatchState,
+    LaneClocks,
     PodArrays,
     clone_state,
     RefillStage,
@@ -639,6 +664,27 @@ def build_autoscale_statics(
     return statics, extra_cap_cpu, extra_cap_ram, extra_names, reclaim_reason, {"pg_active_when_on": pg_active_when_on}
 
 
+def slab_tables(ev_win: np.ndarray, ev_kind: np.ndarray, wmax: int):
+    """The host tables of (rows, E) slab windows and kinds that the plans
+    read: due_upto[r, w] = events of row r with window < w (clamped at
+    wmax, the last finite window + 1), rm_prefix[r, i] = node removals
+    (trace removals and crashes) among the first i events, crash_prefix[r,
+    i] the crashes among them."""
+    finite = ev_win < INF_WIN
+    bucket = np.clip(ev_win, -1, wmax - 1) + 1
+    R = ev_win.shape[0]
+    flat = (np.arange(R)[:, None] * (wmax + 1) + bucket)[finite]
+    hist = np.bincount(flat, minlength=R * (wmax + 1)).reshape(R, wmax + 1)
+    zero = np.zeros((R, 1), np.int64)
+    is_crash = ev_kind == EV_NODE_CRASH
+    removals = np.cumsum((ev_kind == EV_REMOVE_NODE) | is_crash, axis=1)
+    return (
+        np.cumsum(hist, axis=1),
+        np.concatenate([zero, removals], axis=1),
+        np.concatenate([zero, np.cumsum(is_crash, axis=1)], axis=1),
+    )
+
+
 def _cpu_pair(p: TPair) -> TPair:
     return TPair(win=p.win.cpu(), off=p.off.cpu())
 
@@ -695,15 +741,25 @@ class AutoscaleClock:
         self.col_next = None if auto.col_next is None else _cpu_pair(auto.col_next)
         self.ca_next = _cpu_pair(auto.ca_next)
 
-    def advance(self, w: int):
+    def advance(self, w, active=None, shift=None):
         """(hpa_cycle, hpa_collect, ca_due) for window w; moves the mirror
-        to where the window leaves the state."""
+        to where the window leaves the state. Under lane clocks `w` is the
+        (C,) virtual windows, `active` the (C,) bool lanes in their span
+        (the others' due times stay put) and `shift` the (C,) lane clocks
+        that turn a lane's virtual removal window into a global one."""
         C = self.ca_next.win.shape[0]
-        T = TPair(win=torch.full((C,), w, dtype=torch.int32), off=torch.zeros((C,), dtype=torch.float32))
+        if active is None:
+            T = TPair(win=torch.full((C,), w, dtype=torch.int32), off=torch.zeros((C,), dtype=torch.float32))
+        else:
+            T = TPair(win=torch.from_numpy(np.asarray(w, np.int32)), off=torch.zeros((C,), dtype=torch.float32))
+            active = torch.from_numpy(np.asarray(active, bool))
         hpa_cycle = hpa_collect = False
         if self.hpa_on:
             due = t_le(self.hpa_next, T)
             col_due = t_le(self.col_next, T)
+            if active is not None:
+                due &= active
+                col_due &= active
             hpa_cycle = bool(due.any())
             hpa_collect = bool(col_due.any())
             self.hpa_next = t_where(due, t_add(self.hpa_next, self.hpa_interval, self.interval), self.hpa_next)
@@ -711,11 +767,18 @@ class AutoscaleClock:
         snap = t_add(self.ca_next, self.ca_snap, self.interval)
         T1 = TPair(win=T.win + 1, off=T.off)
         due = t_lt(snap, T1)
+        if active is not None:
+            due &= active
         ca_due = bool(due.any())
         if ca_due and self.ca_on:
             eff = t_add(self.ca_next, self.d_ca_down, self.interval)
-            for win in torch.unique(eff.win[due]).tolist():
-                self.removal_windows.add(max(int(win) + 1, w + 1))
+            if shift is None:
+                for win in torch.unique(eff.win[due]).tolist():
+                    self.removal_windows.add(max(int(win) + 1, w + 1))
+            else:
+                for c in torch.nonzero(due).flatten().tolist():
+                    vw = max(int(eff.win[c]) + 1, int(T.win[c]) + 1)
+                    self.removal_windows.add(vw + int(shift[c]))
         self.ca_next = t_where(due, t_add(self.ca_next, self.ca_period, self.interval), self.ca_next)
         return hpa_cycle, hpa_collect, ca_due
 
@@ -745,8 +808,34 @@ class BatchedSimulation:
         stream_depth: Optional[int] = None,
         stream_segment: Optional[int] = None,
         scenario: Optional[Dict[str, object]] = None,
+        lane_async: bool = False,
     ) -> None:
         self.device = resolve_device(device)
+        # Lane clocks (module note; reference engine.py:1106-1143): each
+        # lane runs its own virtual span inside the shared window pieces.
+        # They need a scenario build (the lane reset re-seeds from its
+        # pristine state) and the whole-resident path, whose clock the
+        # sliding window and the feeder would otherwise share; fast-forward
+        # is turned off (its skips are fleet-global).
+        self.lane_async = bool(lane_async)
+        if self.lane_async:
+            if scenario is None:
+                raise ValueError(
+                    "lane_async=True requires a scenario build (scenario={...} / ScenarioFleet): per-lane resets "
+                    "re-seed from the scenario pristine"
+                )
+            if pod_window is not None:
+                raise ValueError(
+                    "lane_async=True requires the full-resident pod path (pod_window=None): the sliding window's "
+                    "refill cursor is fleet-global"
+                )
+            if stream:
+                raise ValueError(
+                    "lane_async=True is incompatible with the streaming feeder: its progress carries assume one "
+                    "fleet-global window clock"
+                )
+            stream = False
+            fast_forward = False
         # The streaming feeder (module note): None reads KTPU_STREAM, unset
         # on for the card; it acts only under the sliding pod window.
         if stream is None:
@@ -822,8 +911,13 @@ class BatchedSimulation:
             )
         self.graphs = bool(graphs)
         self.config = config
+        # The scheduler profile: the argument, then the config's, then
+        # KTPU_PROFILE, then the default (reference engine.py:759-770);
+        # compile_profile raises on a name or plugin it cannot lower.
         if scheduler_profile is None:
             scheduler_profile = config.scheduler_profile
+        if scheduler_profile is None:
+            scheduler_profile = flag_str("KTPU_PROFILE")
         self.profile = compile_profile(scheduler_profile)
         # The cycle kernels' launch arguments for it, on the card before
         # any capture (the CPU's plain versions take the profile alone).
@@ -1001,16 +1095,9 @@ class BatchedSimulation:
         # _crash_prefix[c, i] the crashes among them.
         finite = ev_win < INF_WIN
         self._wmax = int(ev_win[finite].max()) + 1 if finite.any() else 0
-        bucket = np.clip(ev_win, -1, self._wmax - 1) + 1
-        Cu = len(rows)
-        flat = (np.arange(Cu)[:, None] * (self._wmax + 1) + bucket)[finite]
-        hist = np.bincount(flat, minlength=Cu * (self._wmax + 1)).reshape(Cu, self._wmax + 1)
-        self._due_upto = each_cluster(np.cumsum(hist, axis=1))
-        zero = np.zeros((Cu, 1), np.int64)
-        is_crash = ev_kind_u == EV_NODE_CRASH
-        removals = np.cumsum((ev_kind_u == EV_REMOVE_NODE) | is_crash, axis=1)
-        self._rm_prefix = each_cluster(np.concatenate([zero, removals], axis=1))
-        self._crash_prefix = each_cluster(np.concatenate([zero, np.cumsum(is_crash, axis=1)], axis=1))
+        self._due_upto, self._rm_prefix, self._crash_prefix = (
+            each_cluster(t) for t in slab_tables(ev_win, ev_kind_u, self._wmax)
+        )
         self._cursor = np.zeros(C, np.int64)
 
         # Name-rank tables: same-window reschedules queue in (removal time,
@@ -1053,6 +1140,20 @@ class BatchedSimulation:
             self._refresh_name_ranks()
             self._init_stage()
         self.faults = self._fault_step()
+        # Lane clocks and their host mirrors (module note); every lane
+        # starts inactive (horizon 0) until set_lane_plan arms it. The lane
+        # trace multiplexer holds a host copy of the slab (one read at the
+        # build) and serves each lane's row range.
+        self._lane_clocks = self._lane_clock_np = self._lane_horizon_np = self._lane_mux = None
+        if self.lane_async:
+            from kubernetriks_tpu_torch.batched.stream import LaneTraceMux
+
+            self._lane_clocks = LaneClocks.fresh(C, self.device)
+            self._lane_clock_np = np.zeros((C,), np.int64)
+            self._lane_horizon_np = np.zeros((C,), np.int64)
+            self._lane_mux = LaneTraceMux(self.slab.packed.cpu().numpy())
+            self._lane_mux.offer(0)
+            self._lane_mux.retire([0])
         self._executor = WindowExecutor(self, CudaGraphs(self.device) if self.graphs else None)
         # The pristine build state fleet_reset selects lanes against, and
         # the host mirrors as the build left them, for scenario builds
@@ -1613,16 +1714,23 @@ class BatchedSimulation:
         self.next_window_idx = int(next_window_idx)
         if self.clock is not None:
             self.clock.seed(state.auto)
-            self.clock.removal_windows = {
-                max(int(w) + 1, self.next_window_idx)
-                for w in torch.unique(state.nodes.remove_time.win).tolist()
-                if w < INF_WIN
-            }
+            win = state.nodes.remove_time.win.cpu().numpy().astype(np.int64)
+            finite = win < INF_WIN
+            if self.lane_async:
+                win = win + self._lane_clock_np[:, None]  # lanes' virtual windows, as global ones
+            self.clock.removal_windows = {max(int(w) + 1, self.next_window_idx) for w in np.unique(win[finite])}
 
     # --- checkpoint / resume ---------------------------------------------------
 
     def _ckpt_payload(self) -> Dict[str, object]:
-        return {"state": self.state, "next_window_idx": torch.tensor(self.next_window_idx, dtype=torch.int32)}
+        out = {"state": self.state, "next_window_idx": torch.tensor(self.next_window_idx, dtype=torch.int32)}
+        if self.lane_async:
+            # The lane clocks and their host mirrors.
+            out["lanes"] = {
+                "clock": self._lane_clocks.clock, "horizon": self._lane_clocks.horizon,
+                "clock_host": torch.from_numpy(self._lane_clock_np), "horizon_host": torch.from_numpy(self._lane_horizon_np),
+            }
+        return out
 
     def save_checkpoint(self, path: str) -> None:
         """Save the state and the window cursor to the checkpoint file
@@ -1748,6 +1856,12 @@ class BatchedSimulation:
             self._ring_seen = {}
             self._ring_series_dropped = 0
             self._ring_windows_recorded = 0
+            if self.lane_async:
+                lanes = restored["lanes"]
+                self._lane_clocks.clock.copy_(lanes["clock"])
+                self._lane_clocks.horizon.copy_(lanes["horizon"])
+                self._lane_clock_np[:] = lanes["clock_host"].numpy()
+                self._lane_horizon_np[:] = lanes["horizon_host"].numpy()
             self.install_state(restored["state"], int(restored["next_window_idx"]))
             self._gauges = GaugeSeries.load_sidecar(os.path.abspath(path) + ".gauges.npz")
 
@@ -1830,6 +1944,13 @@ class BatchedSimulation:
                 self.clock.removal_windows = set()
             self._rewind_host()
             return
+        self._reset_rows(lanes, keep_ring=False)
+
+    def _reset_rows(self, lanes, keep_ring: bool) -> None:
+        """The lanes' state rows back to the pristine snapshot's in place
+        (with `keep_ring` every leaf but the telemetry ring's), their
+        event cursor and clock mirrors with them."""
+        C = self.n_clusters
         idx = np.asarray(list(lanes), np.int64)
         if idx.size == 0:
             return
@@ -1838,6 +1959,8 @@ class BatchedSimulation:
         mask = torch.from_numpy(mask_np).to(self.device)
         cur, ini = flatten(self._state), flatten(self._pristine)
         for path, leaf in cur.items():
+            if keep_ring and path.startswith(".telemetry."):
+                continue
             m = mask.reshape((C,) + (1,) * (leaf.dim() - 1))
             leaf.copy_(torch.where(m, ini[path], leaf))
         self._cursor[idx] = 0
@@ -1864,6 +1987,105 @@ class BatchedSimulation:
         if self.observatory is not None:
             self.observatory.reset()
 
+    # --- lane clocks (the lane-asynchronous fleet; reference engine.py:2293-2504) ---
+
+    def _need_lanes(self, what: str) -> None:
+        if not self.lane_async:
+            raise ValueError(f"{what} requires an engine built with lane_async=True (per-lane window clocks)")
+
+    def horizon_windows(self, horizon: float) -> int:
+        """The windows a fresh run to `horizon` simulated seconds executes:
+        the lane horizon a query needs to equal the wave-aligned path."""
+        return int(math.floor(horizon / self.config.scheduling_cycle_interval)) + 1
+
+    def set_lane_plan(self, lanes, start_window: int, horizons) -> None:
+        """Arm lanes' clocks: their virtual window 0 at global window
+        `start_window`, and `horizons[i]` windows to run. Writes the host
+        mirrors and the clock tensors in place (the captured graphs read
+        them), so a re-seed never captures."""
+        self._need_lanes("set_lane_plan")
+        lanes = np.asarray(list(lanes), np.int64)
+        self._lane_clock_np[lanes] = int(start_window)
+        self._lane_horizon_np[lanes] = np.asarray(horizons, np.int64)
+        self._lane_clocks.clock.copy_(torch.from_numpy(self._lane_clock_np.astype(np.int32)))
+        self._lane_clocks.horizon.copy_(torch.from_numpy(self._lane_horizon_np.astype(np.int32)))
+
+    def lane_windows_done(self) -> np.ndarray:
+        """(C,) bool: lanes whose planned span is dispatched (the global
+        cursor past clock + horizon). Host arithmetic on the mirrors."""
+        return self._lane_clock_np + self._lane_horizon_np <= self.next_window_idx
+
+    def lane_windows_remaining(self) -> np.ndarray:
+        """(C,) windows left on each lane's plan from the global cursor (0
+        for idle and finished lanes): the pump's occupancy ledger."""
+        return np.clip(self._lane_clock_np + self._lane_horizon_np - self.next_window_idx, 0, None)
+
+    def step_windows(self, n_windows: int) -> None:
+        """Run exactly `n_windows` windows from the global cursor: the
+        lane-asynchronous pump's dispatch. Where the host mirrors prove
+        every lane inside its span for the whole chunk, the windows run
+        the no-freeze pieces, else the freezing ones (reference
+        engine.py:2396-2420). The ring's entry guard and exit drain are
+        step_until_time's."""
+        n = int(n_windows)
+        if n <= 0:
+            return
+        if self.pod_window is not None:
+            raise ValueError(
+                "step_windows requires the full-resident pod path (pod_window=None); sliding-window engines "
+                "advance with step_until_time"
+            )
+        if self.state.telemetry is not None:
+            pending = self._ring_host_cursor - self._ring_drained_at
+            if pending > 0 and pending + n > self._telemetry_ring_size:
+                self._maybe_drain_ring(force=True)
+        start = self.next_window_idx
+        freeze = True
+        if self.lane_async:
+            freeze = not (
+                bool(np.all(self._lane_clock_np <= start))
+                and bool(np.all(start + n <= self._lane_clock_np + self._lane_horizon_np))
+            )
+        self._run_span(start, start + n - 1, freeze)
+        self._maybe_drain_ring()
+
+    def lane_reset(self, lanes) -> None:
+        """Reset lanes to the pristine build state mid-flight: fleet_reset
+        of the lanes but for the telemetry ring's buffer and cursor, which
+        keep running (reference engine.py:2469-2504), and the retirement
+        of the lanes' trace ranges in the multiplexer."""
+        self._need_lanes("lane_reset")
+        if self._pristine is None:
+            raise ValueError(
+                "lane_reset requires an engine built with scenario= (the fleet build keeps the pristine state "
+                "snapshot)"
+            )
+        lanes = [int(v) for v in lanes]
+        self._lane_mux.retire(lanes)
+        self._reset_rows(lanes, keep_ring=True)
+
+    def set_lane_trace(self, lane: int, lo: int = 0, hi=None) -> None:
+        """Install a lane's workload row range (stream.LaneTraceMux): the
+        lane replays slab rows [lo, hi) alone (pod creates outside it and
+        their removes masked to EV_NONE). Written into the resident slab's
+        row in place, with the host tables the plans read for the lane;
+        refused while the lane's previous range flies (lane_reset retires
+        it)."""
+        self._need_lanes("set_lane_trace")
+        rows = self._lane_mux.offer(int(lane), lo, hi)
+        if rows is not None:
+            self._install_lane_rows(int(lane), rows)
+
+    def _install_lane_rows(self, lane: int, rows: np.ndarray) -> None:
+        """One lane's (E, 4) slab rows into the slab in place, and that
+        lane's rows of the host tables recomputed from them."""
+        self.slab.packed[lane].copy_(torch.from_numpy(np.ascontiguousarray(rows, np.int32)))
+        for table, row in zip(
+            (self._due_upto, self._rm_prefix, self._crash_prefix),
+            slab_tables(rows[None, :, 0], rows[None, :, 2], self._wmax),
+        ):
+            table[lane] = row[0]
+
     # --- stepping -----------------------------------------------------------
 
     @property
@@ -1876,9 +2098,12 @@ class BatchedSimulation:
         count = int(math.floor(until_time / interval)) - first + 1
         return first + np.arange(max(count, 0), dtype=np.int32)
 
-    def _plan(self, w: int) -> WindowPlan:
+    def _plan(self, w: int, freeze: bool = True) -> WindowPlan:
         """Host facts of window w from the slab tables and the cursor
-        mirror; advances the mirror to where the window leaves it."""
+        mirror; advances the mirror to where the window leaves it. Under
+        lane clocks, those of `_lane_plan` (`freeze`: the plan's)."""
+        if self.lane_async:
+            return self._lane_plan(w, freeze)
         due = self._due_upto[:, min(max(w, 0), self._wmax)]
         target = np.maximum(self._cursor, due)
         E = self.max_events_per_window
@@ -1908,6 +2133,40 @@ class BatchedSimulation:
             crash_due=crash_due,
         )
 
+    def _lane_plan(self, w: int, freeze: bool) -> WindowPlan:
+        """_plan under lane clocks: each lane active at global window w
+        contributes its facts at its own virtual window w - clock (the
+        slab tables, the cursor mirror, the autoscaler clock); an inactive
+        lane contributes nothing and its mirrors stay put (the window's
+        freeze reverts its state). The plan is the union over the active
+        lanes; CA removal windows are kept as global windows."""
+        rel = w - self._lane_clock_np
+        active = (rel >= 0) & (rel < self._lane_horizon_np)
+        vw = np.maximum(rel, 0)
+        rows = np.flatnonzero(active)
+        cur = self._cursor[rows]
+        target = np.maximum(cur, self._due_upto[rows, np.minimum(vw[rows], self._wmax)])
+        E = self.max_events_per_window
+        n_chunks = int(((target - cur + E - 1) // E).max()) if rows.size else 0
+        removal_due = bool((self._rm_prefix[rows, target] > self._rm_prefix[rows, cur]).any())
+        crash_due = bool((self._crash_prefix[rows, target] > self._crash_prefix[rows, cur]).any())
+        self._cursor[rows] = target
+        if self.clock is None:
+            return WindowPlan(n_chunks=n_chunks, removal_due=removal_due, crash_due=crash_due, freeze=freeze)
+        removal_due = removal_due or w in self.clock.removal_windows
+        self.clock.removal_windows.discard(w)
+        hpa_cycle, hpa_collect, ca_due = self.clock.advance(vw, active, self._lane_clock_np)
+        return WindowPlan(
+            n_chunks=n_chunks,
+            removal_due=removal_due,
+            hpa_cycle=hpa_cycle,
+            hpa_collect=hpa_collect,
+            ca_due=ca_due,
+            reclaim=self.reclaim,
+            crash_due=crash_due,
+            freeze=freeze,
+        )
+
     def _window_body(self, state: ClusterBatchState, w: int, plan: WindowPlan) -> ClusterBatchState:
         """Window w on `state` as one eager step (step.window_body), the
         pieces' yardstick; under the razor it reads its predicate back."""
@@ -1931,27 +2190,29 @@ class BatchedSimulation:
             faults=self.faults,
             profile_terms=self.profile_terms,
             window_razor=self.window_razor,
+            lanes=self._lane_clocks,
         )
 
-    def _run_span(self, first: int, last: int) -> None:
+    def _run_span(self, first: int, last: int, freeze: bool = True) -> None:
         """Plan windows first..last on the host and run them through the
         window executor (reference `_dispatch_windows`, engine.py:1965),
         with fast-forward its executed windows only (module note); with
-        gauges on, every window, read back once GAUGE_SPAN windows."""
+        gauges on, every window, read back once GAUGE_SPAN windows.
+        `freeze`: lane clocks' freeze (step.WindowPlan.freeze)."""
         if last < first:
             return
         with self.tracer.span(PH_WINDOW_CHUNK):
             if self.collect_gauges:
-                self._run_gauged(first, last)
+                self._run_gauged(first, last, freeze)
             elif self.fast_forward:
                 self._executor.run_windows_skipping(first, last, self._plan, self._skip_windows)
             else:
-                self._executor.run_windows([(w, self._plan(w)) for w in range(first, last + 1)])
+                self._executor.run_windows([(w, self._plan(w, freeze)) for w in range(first, last + 1)])
                 self._ring_host_cursor += last - first + 1
         self.next_window_idx = last + 1
         self.windows_run += last - first + 1
 
-    def _run_gauged(self, first: int, last: int) -> None:
+    def _run_gauged(self, first: int, last: int, freeze: bool = True) -> None:
         """Windows first..last, each followed by a gauge sample into the
         executor's gauge buffer (a slot indexed on the device), read back
         once GAUGE_SPAN windows and at the end: one host read each (counted
@@ -1961,7 +2222,7 @@ class BatchedSimulation:
         ex.enable_gauges()
         for lo in range(first, last + 1, GAUGE_SPAN):
             hi = min(lo + GAUGE_SPAN - 1, last)
-            ex.run_windows([(w, self._plan(w)) for w in range(lo, hi + 1)])
+            ex.run_windows([(w, self._plan(w, freeze)) for w in range(lo, hi + 1)])
             self._ring_host_cursor += hi - lo + 1
             self._gauges.append(np.arange(lo, hi + 1, dtype=np.int32), ex.read_gauges(hi - lo + 1))
             self.host_syncs += 1

@@ -1,7 +1,7 @@
 """Scenario fleet: what-if queries as per-lane config over one resident engine.
 
-Port of the JAX package's `batched/fleet.py` (:130-1000 and :1371-1560),
-its wave-aligned path. The scenario-bearing control-law parameters ride as
+Port of the JAX package's `batched/fleet.py`, its wave-aligned and its
+lane-asynchronous paths. The scenario-bearing control-law parameters ride as
 per-cluster (C,) tensors (the autoscaler statics, and the pod-fault seed
 vector under a scenario build), so one set of captured window graphs
 serves any scenario mix:
@@ -32,12 +32,37 @@ the tensors those graphs read and never capture again. A pod-window
 fleet that streams re-seeks its feeder at each wave boundary, which
 captures the new ring's slide graphs (at most its depth a wave).
 
-Wave-aligned only: the engine's window clock is fleet-global, so the
-lanes of a wave start together and a lane whose horizon comes early
-runs on idle until the wave ends. The lane-asynchronous fleet (per-lane
-clocks, `pump`, `LaneTraceMux`, quarantine, `HostChaos`'s dispatch and
-stall channels) is ROADMAP Queue 1 item 13b: `lane_async=True` and
-`trace_rows=` raise, and so does `tuned_profile=` (item 14).
+Two lane protocols (reference fleet.py:37-57):
+- wave-aligned (the default, `run()`): the engine's window clock is
+  fleet-global, so the lanes of a wave start together and a lane whose
+  horizon comes early runs on idle until the wave ends;
+- lane-asynchronous (`lane_async=True`; DESIGN §13 of the reference): the
+  engine carries per-lane window clocks (engine.set_lane_plan), each lane
+  runs its own virtual span inside the shared window pieces, and a
+  finished lane is reset and re-seeded in place (engine.lane_reset) while
+  its neighbours step on. `pump()` runs one round: it seeds idle lanes
+  from the queue (their scenario rows, their trace row range through the
+  engine's LaneTraceMux with `submit(trace_rows=)`), steps up to
+  `span_windows` global windows in power-of-two chunks clamped to the
+  nearest lane's plan end (engine.step_windows; chunks inside every
+  lane's span run the pieces without the freeze) and drains the lanes
+  whose plan ended, host arithmetic on the clock mirrors; `run_async()`
+  pumps until all is drained. A query's result equals the wave-aligned
+  path's for the same scenario and horizon. The occupancy ledger
+  (`lane_occupancy`) counts the lane-windows that carried a query.
+
+Fault domains (lane-asynchronous fleet; reference fleet.py:59-80): a
+failing dispatch fails the occupying lane's query alone (LaneFaultError
+through poll()), the lane is reset from the pristine snapshot, and a
+lane that faults `quarantine_faults` times within `quarantine_window`
+rounds leaves the admission rotation for `quarantine_backoff` rounds,
+then takes one probe query (a faulting probe doubles the backoff, a
+finished one re-admits the lane). `HostChaos` (KTPU_HOST_CHAOS, or
+`host_chaos=` / `arm_host_chaos`) injects dispatch faults and stalls;
+unset, the chaos branches are never taken. The observatory (telemetry
+on) hears every query's latencies (note_query, SLO verdicts under
+KTPU_SLO_MS) and the lanes' states. `tuned_profile=` raises (ROADMAP
+Queue 1 item 14).
 
 Query lifecycle: each query keeps host perf_counter_ns stamps (submitted,
 admitted, drained; polled at retirement), a submit -> drain flow arrow and
@@ -58,16 +83,26 @@ import torch
 
 from kubernetriks_tpu_torch.batched.faults import (
     DeadlineExceededError,
+    HostChaos,
+    InjectedFault,
+    LaneFaultError,
     QueryError,
     RejectedError,
     ShutdownError,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
 from kubernetriks_tpu_torch.telemetry.histogram import LatencyHistogram
-from kubernetriks_tpu_torch.telemetry.tracer import PH_QUERY_FAIL, PH_QUERY_QUEUE, PH_QUERY_SERVICE
+from kubernetriks_tpu_torch.telemetry.tracer import (
+    PH_LANE_QUARANTINE,
+    PH_QUERY_FAIL,
+    PH_QUERY_QUEUE,
+    PH_QUERY_SERVICE,
+)
 
 # Lifecycle records retired at poll() kept for query_lifecycle().
 _POLLED_LIFECYCLES_KEPT = 128
+# The latest query latencies kept exactly beside the histogram.
+_EXACT_LATENCY_WINDOW = 1024
 
 # Scenario keys accepted as per-lane overrides (the vectorizable set).
 SCENARIO_KEYS = (
@@ -275,16 +310,22 @@ _BOUND_COUNTERS = ("hpa_reserve_clamped", "ca_reserve_starved")
 
 class ScenarioFleet:
     """A resident what-if service over one engine (module note): build
-    once, then `submit()` queries and `run()` them in waves of `n_lanes`.
+    once, then `submit()` queries and `run()` them in waves of `n_lanes`,
+    or, with `lane_async`, `pump()` / `run_async()` them lane by lane.
 
     `horizon`: a query's default horizon (simulated seconds);
     `strict_divergence`: a drained lane whose autoscaler bounds were
     crossed raises instead of returning its numbers; `build_scenarios`:
-    per-lane build config, the defaults a wave's queries override (the one
-    channel to the crash chains, which are compiled at build); `max_queue`
+    per-lane build config, the defaults a query's overrides apply to (the
+    one channel to the crash chains, which are compiled at build);
+    `lane_async`: per-lane window clocks (module note); `span_windows`
+    (KTPU_LANE_SPAN, 8): a pump round's windows; `max_queue`
     (KTPU_FLEET_QUEUE) and `queue_policy` (KTPU_FLEET_QUEUE_POLICY,
-    'reject' or 'block'): the bounded admission queue. Other keyword
-    arguments go to the engine's build (build_batched_from_traces)."""
+    'reject' or 'block'): the bounded admission queue;
+    `quarantine_faults` / `quarantine_window` / `quarantine_backoff`: the
+    lane quarantine's policy; `host_chaos` (else KTPU_HOST_CHAOS): the
+    host-fault injector. Other keyword arguments go to the engine's build
+    (build_batched_from_traces)."""
 
     # Scenario fields that must be finite and >= 0; the others are
     # bool / int control values.
@@ -300,19 +341,19 @@ class ScenarioFleet:
         strict_divergence: bool = True,
         build_scenarios: Optional[Sequence[Optional[Scenario]]] = None,
         lane_async: bool = False,
+        span_windows: Optional[int] = None,
         max_queue: Optional[int] = None,
         queue_policy: Optional[str] = None,
+        quarantine_faults: int = 3,
+        quarantine_window: int = 64,
+        quarantine_backoff: int = 8,
+        host_chaos: Optional[HostChaos] = None,
         tuned_profile=None,
         **engine_kwargs,
     ) -> None:
         from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
         from kubernetriks_tpu_torch.flags import flag_int, flag_str
 
-        if lane_async:
-            raise ValueError(
-                "lane_async=True: the lane-asynchronous fleet (per-lane window clocks, pump, LaneTraceMux, "
-                "quarantine) is not ported yet (ROADMAP Queue 1 item 13b); the wave-aligned fleet runs run()"
-            )
         if tuned_profile is not None:
             raise ValueError(
                 "tuned_profile=: tuned statics profiles are not ported yet (ROADMAP Queue 1 item 14)"
@@ -323,6 +364,12 @@ class ScenarioFleet:
         self.n_lanes = int(n_lanes)
         self.default_horizon = float(horizon)
         self.strict_divergence = bool(strict_divergence)
+        self.lane_async = bool(lane_async)
+        if self.lane_async:
+            engine_kwargs["lane_async"] = True
+        if span_windows is None:
+            span_windows = flag_int("KTPU_LANE_SPAN")
+        self.span_windows = max(1, int(span_windows)) if span_windows else 8
         if max_queue is None:
             max_queue = flag_int("KTPU_FLEET_QUEUE")
         self.max_queue = None if max_queue is None else int(max_queue)
@@ -340,8 +387,9 @@ class ScenarioFleet:
             **engine_kwargs,
         )
         # On the card every window piece the plans can reach is captured
-        # now: the waves replay them and never capture (the counterpart of
-        # the reference's compile-once warm-up).
+        # now, both freeze variants under lane clocks: the waves and pump
+        # rounds replay them and never capture (the counterpart of the
+        # reference's compile-once warm-up and precompile_lane_spans).
         self.engine.precompile_pieces()
         self._queue: deque = deque()
         self._next_query = 0
@@ -360,6 +408,32 @@ class ScenarioFleet:
         self._deadlines_ever = False
         self._closing = False
         self._closed = False
+        # The lane-asynchronous fleet's (module note): the lanes' current
+        # scenario rows (a seed rewrites only its lanes' rows, so in-flight
+        # lanes keep theirs), lane -> (qid, scenario, horizon) in flight,
+        # qid -> trace row range, the queue-wait histogram and the exact
+        # latencies kept beside the histograms, the rounds pumped and the
+        # occupancy ledger.
+        self._live_vectors = {k: v.copy() for k, v in self._vectors.items()}
+        self._active: Dict[int, tuple] = {}
+        self._trace_rows: Dict[int, tuple] = {}
+        self.queue_wait_hist = LatencyHistogram()
+        self.latency_exact_window: deque = deque(maxlen=_EXACT_LATENCY_WINDOW)
+        self.pump_rounds = 0
+        self.lane_busy_windows = np.zeros((self.n_lanes,), np.int64)
+        self.lane_total_windows = np.zeros((self.n_lanes,), np.int64)
+        # The host-fault injector (None: off, and no chaos branch is
+        # taken) and the quarantine's policy and state.
+        if host_chaos is None:
+            host_chaos = HostChaos.from_flag(flag_str("KTPU_HOST_CHAOS"))
+        self._chaos = host_chaos
+        self.quarantine_faults = max(1, int(quarantine_faults))
+        self.quarantine_window = max(1, int(quarantine_window))
+        self.quarantine_backoff = max(1, int(quarantine_backoff))
+        self._lane_fault_rounds: Dict[int, deque] = {}
+        self._quarantine: Dict[int, Dict] = {}
+        self.quarantine_events = 0
+        self.readmissions = 0
 
     # -- intake ---------------------------------------------------------------
 
@@ -417,8 +491,10 @@ class ScenarioFleet:
         wave boundaries, without occupying a lane. A full bounded queue
         applies the policy: 'reject' streams a RejectedError for the
         query, 'block' runs waves inline until a slot frees. After close()
-        this raises ShutdownError. `trace_rows` (a per-lane trace range)
-        needs the lane-asynchronous fleet (ROADMAP Queue 1 item 13b)."""
+        this raises ShutdownError. `trace_rows`: a (lo, hi) row range of the
+        lane's slab row the query replays alone (hi None: to the end;
+        lane-asynchronous fleets only, engine.set_lane_trace installs it
+        when the query is seeded)."""
         if self._closing:
             raise ShutdownError(-1, "submit() after close(): the fleet is closed and admits no new queries")
         scen = self._validate_scenario(scenario)
@@ -426,13 +502,22 @@ class ScenarioFleet:
         if deadline_s is not None:
             deadline_s = self._validate_positive("deadline_s", deadline_s, "host seconds from submit")
         if trace_rows is not None:
-            raise ValueError(
-                "submit(): trace_rows needs the lane-asynchronous fleet's per-lane trace multiplexer, not ported "
-                "yet (ROADMAP Queue 1 item 13b)"
-            )
+            if not self.lane_async:
+                raise ValueError("trace_rows needs lane_async=True (the per-lane trace multiplexer)")
+            lo, hi = trace_rows
+            lo = int(lo)
+            hi = None if hi is None else int(hi)
+            if lo < 0 or (hi is not None and hi <= lo):
+                raise ValueError(
+                    f"submit(): trace_rows must satisfy 0 <= lo < hi (hi=None = end of trace), got {trace_rows!r}"
+                )
+            trace_rows = (lo, hi)
         if self.max_queue is not None and len(self._queue) >= self.max_queue and self.queue_policy == "block":
             while len(self._queue) >= self.max_queue:
-                self._run_one_wave()
+                if self.lane_async:
+                    self.pump()
+                else:
+                    self._run_one_wave()
         qid = self._next_query
         self._next_query += 1
         t_submit = time.perf_counter_ns()
@@ -449,6 +534,8 @@ class ScenarioFleet:
                 retry_after_s=self._retry_after_hint(), scenario=scen, horizon=h,
             ))
             return qid
+        if trace_rows is not None:
+            self._trace_rows[qid] = trace_rows
         deadline_ns = None
         if deadline_s is not None:
             deadline_ns = t_submit + int(deadline_s * 1e9)
@@ -475,6 +562,7 @@ class ScenarioFleet:
             tracer.end(PH_QUERY_FAIL, rec["submitted_ns"], dur=t_fail - rec["submitted_ns"])
             if rec["flow_id"]:
                 tracer.flow_end(PH_QUERY_QUEUE, rec["flow_id"])
+        self._trace_rows.pop(qid, None)
         self.results[qid] = err
         self._completed.append(qid)
         self.failed_queries[err.kind] = self.failed_queries.get(err.kind, 0) + 1
@@ -584,6 +672,315 @@ class ScenarioFleet:
             self._run_one_wave()
         return self.results
 
+    # -- the lane-asynchronous pump (reference fleet.py:976-1199) -------------------
+
+    def pump(self, span_windows: Optional[int] = None) -> int:
+        """One lane-asynchronous round (module note): seed idle lanes from
+        the queue, step up to `span_windows` global windows, drain the
+        lanes whose plan ended. Returns the queries completed."""
+        if not self.lane_async:
+            raise ValueError("pump() needs lane_async=True (wave-aligned fleets run())")
+        drained = self._pump_inner(int(span_windows) if span_windows else self.span_windows)
+        self.pump_rounds += 1
+        return drained
+
+    def _seed_idle_lanes(self) -> None:
+        """Seed each idle lane (not quarantined, or a quarantined lane's
+        probe once its backoff passed) with the next queued query: its
+        scenario rows, a reset of its state rows, its trace range (always
+        installed, the whole trace where the query names none) and its
+        clock from the current global window. A closing fleet admits
+        nothing."""
+        eng = self.engine
+        assigned = []
+        for lane in range(self.n_lanes):
+            if lane in self._active or not self._queue or self._closing:
+                continue
+            q = self._quarantine.get(lane)
+            if q is not None:
+                if q["probing"] or self.pump_rounds < q["until_round"]:
+                    continue
+                q["probing"] = True
+                self._push_lane_states()
+            # An admitted query runs to its horizon: its deadline bounded
+            # its queue wait alone.
+            assigned.append((lane, *self._queue.popleft()[:3]))
+        if not assigned:
+            return
+        for lane, _, scen, _ in assigned:
+            for key in SCENARIO_KEYS:
+                self._live_vectors[key][lane] = self._vectors[key][lane]
+            for key, val in scen.overrides().items():
+                self._live_vectors[key][lane] = val
+        eng.update_scenario({k: v.copy() for k, v in self._live_vectors.items()})
+        lanes = [lane for lane, _, _, _ in assigned]
+        eng.lane_reset(lanes)
+        for lane, qid, _, _ in assigned:
+            lo, hi = self._trace_rows.pop(qid, (0, None))
+            eng.set_lane_trace(lane, lo, hi)
+        eng.set_lane_plan(lanes, eng.next_window_idx, [eng.horizon_windows(h) for _, _, _, h in assigned])
+        t_admit = time.perf_counter_ns()
+        tracer = eng.tracer
+        for lane, qid, scen, horizon in assigned:
+            self._active[lane] = (qid, scen, horizon)
+            rec = self._lifecycle.get(qid)
+            if rec is not None:
+                rec["admitted_ns"] = t_admit
+                rec["lane"] = lane
+                tracer.end(PH_QUERY_QUEUE, rec["submitted_ns"], dur=t_admit - rec["submitted_ns"])
+
+    def _pump_inner(self, span: int) -> int:
+        eng = self.engine
+        self._expire_deadlines()
+        self._seed_idle_lanes()
+        if not self._active:
+            return 0
+        t_dispatch = time.perf_counter_ns()
+        for qid, _, _ in self._active.values():
+            rec = self._lifecycle.get(qid)
+            if rec is not None and "first_dispatch_ns" not in rec:
+                rec["first_dispatch_ns"] = t_dispatch
+        # Dispatch. With every lane busy, power-of-two chunks clamped to
+        # the nearest plan end: no lane overshoots its horizon, and every
+        # chunk lies inside every lane's span (the pieces without the
+        # freeze); the round stops where a plan ends. Otherwise (the queue
+        # ran dry, lanes idle) the whole span in one dispatch.
+        remaining0 = eng.lane_windows_remaining()
+        queue_fed = bool(self._queue)
+        stepped = 0
+        try:
+            if len(self._active) == self.n_lanes:
+                left = span
+                remaining = remaining0.copy()
+                while left > 0:
+                    sub = 1 << (int(min(left, remaining.min())).bit_length() - 1)
+                    self._dispatch(sub)
+                    stepped += sub
+                    left -= sub
+                    remaining = remaining - sub
+                    if (remaining <= 0).any():
+                        break
+            else:
+                self._dispatch(span)
+                stepped = span
+        except Exception as exc:
+            # A failing dispatch fails its lane's query (or, where it names
+            # no lane, every active query), never the fleet.
+            self._on_dispatch_fault(exc)
+            return 0
+        # The occupancy ledger: a lane is busy for the windows left on its
+        # plan; an idle lane counts only while queries waited.
+        for lane in range(self.n_lanes):
+            if lane in self._active:
+                self.lane_busy_windows[lane] += min(stepped, int(remaining0[lane]))
+                self.lane_total_windows[lane] += stepped
+            elif queue_fed:
+                self.lane_total_windows[lane] += stepped
+        done = eng.lane_windows_done()
+        finished = [lane for lane in sorted(self._active) if done[lane]]
+        if not finished:
+            return 0
+        rows = self._lane_rows(finished)
+        t_drain = time.perf_counter_ns()
+        obs = eng.observatory
+        tracer = eng.tracer
+        for lane in finished:
+            qid, scen, horizon = self._active.pop(lane)
+            self._drain_lane(qid, lane, horizon, scen, rows, self.pump_rounds)
+            q = self._quarantine.get(lane)
+            if q is not None and q["probing"]:
+                # The probe finished: the lane is re-admitted and its fault
+                # history cleared.
+                del self._quarantine[lane]
+                self._lane_fault_rounds.pop(lane, None)
+                self.readmissions += 1
+                tracer.end(PH_LANE_QUARANTINE, q["since_ns"], dur=t_drain - q["since_ns"])
+                if obs is not None:
+                    obs.note_lane_readmitted(lane, probes=q["probes"] + 1)
+                self._push_lane_states()
+            rec = self._lifecycle.get(qid)
+            lat = queue_wait = service = 0.0
+            if rec is not None:
+                rec["drained_ns"] = t_drain
+                t_sub = rec["submitted_ns"]
+                t_adm = rec.get("admitted_ns", t_sub)
+                tracer.end(PH_QUERY_SERVICE, t_adm, dur=t_drain - t_adm)
+                if rec["flow_id"]:
+                    tracer.flow_end(PH_QUERY_QUEUE, rec["flow_id"])
+                tracer.lane_event(lane, qid, t_adm, t_drain - t_adm)
+                lat, queue_wait, service = (t_drain - t_sub) / 1e9, (t_adm - t_sub) / 1e9, (t_drain - t_adm) / 1e9
+            self.latency_hist.record(lat)
+            self.queue_wait_hist.record(queue_wait)
+            self.service_hist.record(service)
+            self.latency_exact_window.append(lat)
+            if obs is not None:
+                obs.note_query(lat, queue_wait, service)
+        return len(finished)
+
+    # -- fault isolation and quarantine (reference fleet.py:1201-1321) ---------------
+
+    def _dispatch(self, n_windows: int) -> None:
+        """One engine dispatch, with the host-chaos injection point: a
+        stall sleeps before it, a dispatch fault raises InjectedFault in
+        its place (the state untouched). Chaos off: the plain call."""
+        chaos = self._chaos
+        if chaos is not None:
+            stall = chaos.stall_s()
+            if stall > 0.0:
+                time.sleep(stall)
+            victim = chaos.dispatch_fault(self._active)
+            if victim is not None:
+                raise InjectedFault(f"host-chaos: injected dispatch fault on lane {victim} (seed {chaos.seed})",
+                                    lane=victim)
+        self.engine.step_windows(n_windows)
+
+    def _on_dispatch_fault(self, exc: Exception) -> None:
+        """Fail the victim lane's query (or every active one where the
+        error names no lane) with a LaneFaultError, reset the lanes from
+        the pristine snapshot and give them a zero-window plan, so the
+        clock mirrors read them as done until they are seeded again."""
+        eng = self.engine
+        victim = getattr(exc, "lane", None)
+        lanes = [int(victim)] if victim is not None and victim in self._active else sorted(self._active)
+        for lane in lanes:
+            qid, scen, horizon = self._active.pop(lane)
+            self._fail_query(qid, LaneFaultError(
+                qid,
+                f"query {qid}: lane {lane} dispatch failed ({type(exc).__name__}: {exc}); lane crash-reset, "
+                "neighbors unaffected",
+                lane=lane, cause=exc, scenario=scen, horizon=horizon,
+            ))
+            self._note_lane_fault(lane)
+        eng.lane_reset(lanes)
+        eng.set_lane_plan(lanes, eng.next_window_idx, [0] * len(lanes))
+
+    def _note_lane_fault(self, lane: int) -> None:
+        """Quarantine bookkeeping of one lane fault: a faulting probe
+        doubles the backoff; `quarantine_faults` faults within
+        `quarantine_window` rounds quarantine the lane."""
+        obs = self.engine.observatory
+        q = self._quarantine.get(lane)
+        if q is not None:
+            q["backoff"] = min(q["backoff"] * 2, 1 << 16)
+            q["until_round"] = self.pump_rounds + q["backoff"]
+            q["probing"] = False
+            q["probes"] += 1
+            if obs is not None:
+                obs.note_lane_quarantined(lane, backoff_rounds=q["backoff"], probed=True)
+            self._push_lane_states()
+            return
+        rounds = self._lane_fault_rounds.setdefault(lane, deque(maxlen=self.quarantine_faults))
+        rounds.append(self.pump_rounds)
+        if len(rounds) >= self.quarantine_faults and self.pump_rounds - rounds[0] <= self.quarantine_window:
+            self._quarantine[lane] = {
+                "backoff": self.quarantine_backoff,
+                "until_round": self.pump_rounds + self.quarantine_backoff,
+                "probing": False,
+                "probes": 0,
+                "since_ns": time.perf_counter_ns(),
+            }
+            rounds.clear()
+            self.quarantine_events += 1
+            if obs is not None:
+                obs.note_lane_quarantined(lane, backoff_rounds=self.quarantine_backoff, probed=False)
+            self._push_lane_states()
+
+    def lane_states(self) -> List[str]:
+        """Each lane's admission state: 'active' (a query in flight),
+        'idle', 'quarantined' (backoff pending) or 'probe' (backoff over:
+        its next admission, or the one in flight, is a probe)."""
+        out = []
+        for lane in range(self.n_lanes):
+            q = self._quarantine.get(lane)
+            if q is not None:
+                out.append("probe" if q["probing"] or self.pump_rounds >= q["until_round"] else "quarantined")
+            elif lane in self._active:
+                out.append("active")
+            else:
+                out.append("idle")
+        return out
+
+    def _push_lane_states(self) -> None:
+        obs = self.engine.observatory
+        if obs is not None:
+            obs.note_lane_states(self.lane_states())
+
+    def arm_host_chaos(self, chaos: Optional[HostChaos]) -> None:
+        """Attach the host-fault injector (None detaches it)."""
+        self._chaos = chaos
+
+    def fault_report(self) -> Dict:
+        """Availability and the fault domains' counters: completed and
+        failed queries by kind, quarantines and re-admissions, the lanes'
+        states, the injector's events."""
+        completed_ok = sum(1 for r in self.results.values() if getattr(r, "ok", True))
+        submitted = self._next_query
+        return {
+            "submitted": submitted,
+            "completed": completed_ok,
+            "failed": dict(self.failed_queries),
+            "availability": completed_ok / submitted if submitted else 1.0,
+            "quarantine_events": self.quarantine_events,
+            "readmissions": self.readmissions,
+            "lane_states": self.lane_states(),
+            "chaos": self._chaos.report() if self._chaos is not None else None,
+        }
+
+    def run_async(self, span_windows: Optional[int] = None) -> Dict[int, Union[FleetResult, QueryError]]:
+        """Pump until the queue and every lane in flight drain; returns
+        `results` (run()'s map: the same numbers a query by query)."""
+        if not self.lane_async:
+            raise ValueError("run_async() needs lane_async=True (wave-aligned fleets run())")
+        while self._queue or self._active:
+            self.pump(span_windows)
+        return self.results
+
+    def lane_occupancy(self) -> Dict[str, float]:
+        """The busy share of dispatched lane-windows from the pump's
+        ledger, its mean and min over the lanes (1.0 before any round)."""
+        total = np.maximum(self.lane_total_windows, 1)
+        frac = self.lane_busy_windows / total
+        if not self.lane_total_windows.any():
+            frac = np.ones_like(frac)
+        return {
+            "mean": float(frac.mean()),
+            "min": float(frac.min()),
+            "lane_windows_busy": int(self.lane_busy_windows.sum()),
+            "lane_windows_total": int(self.lane_total_windows.sum()),
+        }
+
+    def reset_query_stats(self) -> None:
+        """Forget the latency histograms, the exact latencies and the
+        occupancy ledger, with the observatory's query statistics at once
+        (results stay)."""
+        self.latency_hist.reset()
+        self.queue_wait_hist.reset()
+        self.service_hist.reset()
+        self.latency_exact_window.clear()
+        self.lane_busy_windows[:] = 0
+        self.lane_total_windows[:] = 0
+        if self.engine.observatory is not None:
+            self.engine.observatory.reset_query_stats()
+
+    def query_latency_percentiles(self) -> Dict[str, float]:
+        """Submit-to-drain wall latency percentiles (ms) from the
+        histogram; {"count": 0} before any."""
+        h = self.latency_hist
+        if h.count == 0:
+            return {"count": 0}
+        out: Dict[str, float] = {"count": h.count}
+        out.update(h.percentiles_ms())
+        return out
+
+    def query_latency_breakdown(self) -> Dict[str, object]:
+        """Queue wait (submit -> admission) against service (admission ->
+        drain) percentiles, and the latency histogram's dump."""
+        return {
+            "queue_wait_ms": self.queue_wait_hist.percentiles_ms(),
+            "service_ms": self.service_hist.percentiles_ms(),
+            "histogram": self.latency_hist.to_dict(),
+        }
+
     def sweep(self, scenarios: Sequence[Scenario], horizon: Optional[float] = None) -> List[FleetResult]:
         """Submit and run a list of scenarios; their outcomes in submission
         order (delivered here, so poll() does not stream them again)."""
@@ -607,9 +1004,10 @@ class ScenarioFleet:
     def _qid_inventory(self) -> str:
         if self._next_query == 0:
             return "no queries have been submitted to this fleet yet"
+        in_flight = sorted(q for q, _, _ in self._active.values())
         return (
             f"{self._next_query} submitted (qids 0..{self._next_query - 1}), {len(self.results)} completed "
-            f"({len(self._completed)} unpolled), {len(self._queue)} queued"
+            f"({len(self._completed)} unpolled), in-flight qids {in_flight}, {len(self._queue)} queued"
         )
 
     def poll(self, qid: Optional[int] = None) -> List[Union[FleetResult, QueryError]]:
@@ -654,15 +1052,28 @@ class ScenarioFleet:
             f"{_POLLED_LIFECYCLES_KEPT} polled queries); {self._qid_inventory()}"
         )
 
-    def close(self) -> None:
+    def close(self, drain: bool = True) -> None:
         """Graceful shutdown: admit nothing more (submit() raises
-        ShutdownError), fail every query still queued with a ShutdownError
-        through the completion stream (a wave's queries have all drained
-        when run() returns), and close the engine (its feeder). poll()
-        keeps working: the outcomes are host state."""
+        ShutdownError), finish the queries in flight (a lane-asynchronous
+        fleet pumps until its lanes drain; drain=False fails them with a
+        ShutdownError instead; a wave's queries have all drained when
+        run() returns), fail every query still queued with a ShutdownError
+        through the completion stream, and close the engine (its feeder).
+        poll() keeps working: the outcomes are host state."""
         if self._closed:
             return
         self._closing = True
+        if self.lane_async and self._active:
+            if drain:
+                while self._active:
+                    self.pump()
+            else:
+                for lane in sorted(self._active):
+                    qid, scen, horizon = self._active.pop(lane)
+                    self._fail_query(qid, ShutdownError(
+                        qid, f"query {qid} was in flight at close(drain=False)", lane=lane, scenario=scen,
+                        horizon=horizon,
+                    ))
         while self._queue:
             qid, scen, horizon, _ = self._queue.popleft()
             self._fail_query(qid, ShutdownError(

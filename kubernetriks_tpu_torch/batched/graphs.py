@@ -14,6 +14,19 @@ A window's work varies with its plan (step.WindowPlan, a host fact), so one
 graph per window would not do. It is cut into pieces, each captured once
 per key:
 
+- ("lanes",) and ("lanes", "freeze"): under lane clocks (a
+  lane-asynchronous engine), first in every window: step.lane_window
+  writes each lane's virtual window into W and the active lanes into
+  WindowBuffers.active from the global window the host fills
+  (WindowBuffers.Wg); the freezing variant also copies every state leaf
+  but the ring into WindowBuffers.snap, before the reclaim piece, and
+  the window's end piece then carries a further key element "freeze"
+  and reverts the inactive lanes to it (step.freeze_lanes_) after its
+  copy-back, before the record (reference `_window_body`, step.py:
+  1915-1934, and `_freeze_lanes`, :1741-1781). Where the host mirrors
+  prove every lane active for a whole chunk the windows run the
+  variants without the freeze (the reference's all-active fast path);
+  both are captured at build.
 - ("reclaim",): CA slot reclaim, first in every window under reclaim,
   before the event chunks: the dead-slot predicate
   (autoscale.ca_dead_slots), then ca_reclaim_pass's compaction in a
@@ -47,11 +60,13 @@ per key:
 With a telemetry ring in the state (the flight recorder) the end piece
 ends with the window's record (step.telemetry_record, one kernel), after
 its copy-back and outside the razor's conditional node, so a gated window
-records too: the ring's row at cursor % R, the cursor, and the counter
-snapshot WindowBuffers.m0, which the record refreshes to the counters the
-next window starts from (nothing between two windows changes them: the
-catch-up, the slide and a growth leave the metrics alone; install_state
-sets it). No piece is added, so replays and reads are those of a run
+records too (under lane clocks, with the global window and the active
+lanes in its columns 0 and 11): the ring's row at cursor % R, the cursor,
+and the counter snapshot WindowBuffers.m0, which the record refreshes to
+the counters the next window starts from (nothing between two windows
+changes them: the catch-up, the slide and a growth leave the metrics
+alone; install_state sets it). No piece is added, so replays and reads
+are those of a run
 without telemetry. With gauge collection on (the engine's
 collect_gauges) a ("gauge",) piece follows each window's end: the
 window's step.gauge_snapshot into WindowBuffers.gauges at a slot the
@@ -163,11 +178,13 @@ from kubernetriks_tpu_torch.batched.autoscale import (
 )
 from kubernetriks_tpu_torch.batched.state import (
     ClusterBatchState,
+    LaneClocks,
     clone_state,
     copy_state_into,
     counter_snapshot,
     flatten,
     storages,
+    strip_telemetry,
 )
 from kubernetriks_tpu_torch.batched.step import (
     INF,
@@ -178,7 +195,9 @@ from kubernetriks_tpu_torch.batched.step import (
     empty_wake,
     event_chunk,
     events_tail,
+    freeze_lanes_,
     gauge_snapshot,
+    lane_window,
     next_window_span,
     quantize_shift,
     run_scheduling_cycle,
@@ -229,6 +248,15 @@ class WindowBuffers(NamedTuple):
     # far and the (1,) int32 slot of the next; None until gauges are on.
     gauges: Optional[torch.Tensor] = None
     gauge_slot: Optional[torch.Tensor] = None
+    # Lane clocks' (a lane-asynchronous engine): the (C,) int32 global
+    # window the host fills (W is then each lane's virtual window, which
+    # the ("lanes",) head writes), the (C,) bool active lanes, the
+    # engine's state.LaneClocks, and the freeze's snapshot of the state
+    # without its ring; all None without lane clocks.
+    Wg: Optional[torch.Tensor] = None
+    active: Optional[torch.Tensor] = None
+    lanes: Optional[LaneClocks] = None
+    snap: Optional[ClusterBatchState] = None
 
 
 def piece_schedule(plan: WindowPlan, route: str, razor: bool = False, gauges: bool = False) -> List[Key]:
@@ -236,10 +264,14 @@ def piece_schedule(plan: WindowPlan, route: str, razor: bool = False, gauges: bo
     order); `razor`: the window-cost razor is on; `gauges`: a gauge sample
     follows the window."""
     hpa = plan.hpa_cycle if plan.hpa_cycle or plan.hpa_collect else None
-    head = [("reclaim",)] if plan.reclaim else []
+    head = [] if plan.freeze is None else [("lanes",) + (("freeze",) if plan.freeze else ())]
+    if plan.reclaim:
+        head.append(("reclaim",))
     end = ("end", route, plan.removal_due, hpa, plan.ca_due) + (("crash",) if plan.crash_due else ())
     if razor and plan.n_chunks == 0:
         end += ("gate",)
+    if plan.freeze:
+        end += ("freeze",)
     return head + [("chunk",)] * plan.n_chunks + [end] + ([("gauge",)] if gauges else [])
 
 
@@ -408,6 +440,13 @@ class WindowExecutor:
             m0=counter_snapshot(state.metrics) if state.telemetry is not None else None,
             stage_lo=None if sim.pod_window is None else torch.zeros((1,), dtype=torch.int32, device=dev),
         )
+        if sim._lane_clocks is not None:
+            self.bufs = self.bufs._replace(
+                Wg=torch.zeros((C,), dtype=torch.int32, device=dev),
+                active=torch.zeros((C,), dtype=torch.bool, device=dev),
+                lanes=sim._lane_clocks,
+                snap=clone_state(strip_telemetry(state)),
+            )
         if self.gauges_on:
             self.bufs = self._with_gauges(self.bufs)
         leaves = [t for t in flatten(self.bufs).values() if t.numel()]
@@ -526,6 +565,17 @@ class WindowExecutor:
                 self._copy_back(b.acc, acc)
                 if node_create_rel is not None:
                     b.node_create_rel.copy_(node_create_rel)
+        elif kind == "lanes":
+            freeze = "freeze" in key[1:]
+
+            def run(b: WindowBuffers) -> None:
+                W, active = lane_window(b.Wg, b.lanes.clock, b.lanes.horizon)
+                b.W.copy_(W)
+                b.active.copy_(active)
+                if freeze:
+                    snap = flatten(b.snap)
+                    for path, leaf in flatten(strip_telemetry(b.state)).items():
+                        snap[path].copy_(leaf)
         elif kind == "reclaim":
             st = sim.autoscale_statics
 
@@ -540,6 +590,7 @@ class WindowExecutor:
             route, removal_due, hpa, ca_due = key[1:5]
             crash_due = "crash" in key[5:]
             gated = "gate" in key[5:]
+            freeze = "freeze" in key[5:]
             cm = sim.conditional_move
 
             def run(b: WindowBuffers) -> None:
@@ -589,10 +640,13 @@ class WindowExecutor:
                     b.acc.reset_()
                     if cm:
                         b.node_create_rel.fill_(INF)
+                if freeze:
+                    # The inactive lanes back to the head's snapshot.
+                    freeze_lanes_(b.state, b.snap, b.active)
                 if b.m0 is not None:
                     # The window's record, outside the razor's conditional
                     # node: a gated window records too.
-                    telemetry_record(b.state, b.m0, b.W, sim.consts)
+                    telemetry_record(b.state, b.m0, b.W, sim.consts, window=b.Wg, active=b.active)
         elif kind == "gauge":
             def run(b: WindowBuffers) -> None:
                 b.gauges.index_copy_(0, b.gauge_slot.long(), gauge_snapshot(b.state)[None])
@@ -645,7 +699,9 @@ class WindowExecutor:
                 cas.append(True)
         crashes = bool(sim._crash_prefix[:, -1].any())
         route = sim.cycle_route
-        keys: List[Key] = [("reclaim",)] if sim.reclaim else []
+        keys: List[Key] = [("lanes",), ("lanes", "freeze")] if sim.lane_async else []
+        if sim.reclaim:
+            keys.append(("reclaim",))
         keys.append(("chunk",))
         keys += [
             ("end", route, rm, hpa, ca) + crash
@@ -657,6 +713,10 @@ class WindowExecutor:
         if sim.window_razor:
             # A crash is a slab event: a window with one has event chunks.
             keys += [key + ("gate",) for key in keys if key[0] == "end" and "crash" not in key]
+        if sim.lane_async:
+            # Both freeze variants of every end piece (the counterpart of
+            # the reference's precompile_lane_spans).
+            keys += [key + ("freeze",) for key in keys if key[0] == "end"]
         if sim.fast_forward:
             keys += [("next",), ("catch_up",)]
         if sim.pod_window is not None:
@@ -749,8 +809,9 @@ class WindowExecutor:
         order (the reference's run_windows over a chunk of window indices)."""
         sim = self.sim
         stats = sim.dispatch_stats
+        window = self.bufs.W if self.bufs.Wg is None else self.bufs.Wg
         for w, plan in windows:
-            self.bufs.W.fill_(w)
+            window.fill_(w)
             for key in piece_schedule(plan, sim.cycle_route, sim.window_razor, self.gauges_on):
                 self._run(key)
             stats["graph_windows" if self.backend is not None else "eager_windows"] += 1

@@ -231,6 +231,28 @@ def counter_snapshot(metrics: MetricArrays) -> torch.Tensor:
     return torch.stack([getattr(metrics, name) for name in TELEM_COUNTERS])
 
 
+class LaneClocks(NamedTuple):
+    """The lane-asynchronous engine's per-lane window clocks (reference
+    `StepConstants.lane_clock` / `lane_horizon`, its SCENARIO_TRACED_CONSTS,
+    state.py:584-618): lane c runs its own virtual window w - clock[c] at
+    global window w, and is active while that lies in [0, horizon[c]).
+    Fixed (C,) int32 tensors the captured graphs read: a re-seed writes
+    them in place (engine.set_lane_plan), never replaces them. The engine
+    keeps int64 host mirrors of both (`_lane_clock_np`,
+    `_lane_horizon_np`), which its host arithmetic reads instead."""
+
+    clock: torch.Tensor  # (C,) int32 global window of each lane's virtual window 0
+    horizon: torch.Tensor  # (C,) int32 windows each lane runs (0: idle)
+
+    @staticmethod
+    def fresh(C: int, device) -> "LaneClocks":
+        """Every lane inactive (horizon 0)."""
+        return LaneClocks(
+            clock=torch.zeros((C,), dtype=torch.int32, device=device),
+            horizon=torch.zeros((C,), dtype=torch.int32, device=device),
+        )
+
+
 class TraceSlab(NamedTuple):
     """(C, E, 4) int32 compiled trace events, time-sorted per cluster:
     [win, off-bits, kind, slot], padded with EV_NONE at win = INF_WIN."""

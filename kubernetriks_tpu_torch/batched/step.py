@@ -99,8 +99,11 @@ from kubernetriks_tpu_torch.batched.state import (
     StepConstants,
     TelemetryRing,
     TraceSlab,
+    clone_state,
     counter_snapshot,
+    flatten,
     fresh_pod_arrays,
+    strip_telemetry,
 )
 from kubernetriks_tpu_torch.batched.timerep import (
     INF_WIN,
@@ -178,8 +181,11 @@ class WindowPlan(NamedTuple):
     chunk loop runs, whether a node removal can apply (only then can pods
     be rescheduled), and which autoscaler passes run: an HPA cycle, else
     an HPA metrics collection alone, a CA cycle, and CA slot reclaim's
-    compaction before the window's events; and whether a chaos-engine
-    crash applies (a removal, so removal_due then holds too)."""
+    compaction before the window's events; whether a chaos-engine crash
+    applies (a removal, so removal_due then holds too); and under lane
+    clocks whether the window freezes inactive lanes. Under lane clocks
+    the facts are the union over the lanes active in the window, each at
+    its own virtual window."""
 
     n_chunks: int
     removal_due: bool
@@ -188,6 +194,12 @@ class WindowPlan(NamedTuple):
     ca_due: bool = False
     reclaim: bool = False
     crash_due: bool = False
+    # Lane clocks (a lane-asynchronous engine): None without them; True
+    # where a lane may enter or leave its span in the window's chunk, so
+    # the window snapshots the state and reverts its inactive lanes
+    # (freeze_lanes_); False where the host mirrors prove every lane
+    # active throughout (the reference's all-active fast path).
+    freeze: Optional[bool] = None
 
 
 class FaultStep(NamedTuple):
@@ -1199,6 +1211,33 @@ def run_scheduling_cycle(
     )
 
 
+# --- lane clocks (the lane-asynchronous fleet) ---------------------------------
+# Reference `_window_body` (step.py:1915-1934) and `_freeze_lanes`
+# (step.py:1741-1781): torch glue (jnp.where there), no kernel.
+
+
+def lane_window(Wg: torch.Tensor, clock: torch.Tensor, horizon: torch.Tensor):
+    """(W, active) at global window Wg ((C,) int32): each lane's virtual
+    window max(Wg - clock, 0), and whether Wg - clock lies in [0,
+    horizon). An inactive lane still runs the window's body at its clamped
+    virtual window and is reverted by freeze_lanes_."""
+    rel = Wg - clock
+    active = (rel >= 0) & (rel < horizon)
+    return torch.clamp(rel, min=0), active
+
+
+def freeze_lanes_(state: ClusterBatchState, state0: ClusterBatchState, active: torch.Tensor) -> None:
+    """Revert every leaf of `state` but the telemetry ring to `state0`'s
+    (the state without its ring) on the inactive lanes, in place, so a
+    lane outside its span parks bit for bit while its neighbours step.
+    The ring is left alone: an inactive lane records its zero-delta row
+    (the lane column's occupancy needs it). One select a leaf."""
+    prev = flatten(state0)
+    C = active.shape[0]
+    for path, cur in flatten(strip_telemetry(state)).items():
+        torch.where(active.reshape((C,) + (1,) * (cur.dim() - 1)), cur, prev[path], out=cur)
+
+
 def window_body(
     state: ClusterBatchState,
     slab: TraceSlab,
@@ -1216,12 +1255,17 @@ def window_body(
     faults: Optional[FaultStep] = None,
     profile_terms=None,
     window_razor: bool = False,
+    lanes=None,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: CA slot
     reclaim's compaction where the plan runs it, events and finishes, one
     cycle, then the autoscaler passes the plan names, and where the state
     carries a telemetry ring the window's record into a copy of it
-    (reference `_window_body`, step.py:1886, without lane clocks).
+    (reference `_window_body`, step.py:1886). `lanes`: None, or the lane
+    clocks (state.LaneClocks): each lane then runs its virtual window
+    (lane_window), a freezing plan (plan.freeze, True where None) reverts
+    the inactive lanes before the record, and the record writes the
+    global window and the active lanes.
     `autoscale`: None, or (statics, HPA group-slot bounds, CA scale-up
     candidates per cycle, CA pods per scale-down candidate).
     `cycle_route`, `profile`, `profile_terms`: see run_scheduling_cycle; `faults`: the
@@ -1229,6 +1273,12 @@ def window_body(
     apply_window_events."""
     C = state.time.shape[0]
     W = torch.full((C,), int(w), dtype=torch.int32, device=state.time.device)
+    Wg = active = state0 = None
+    if lanes is not None:
+        Wg = W
+        W, active = lane_window(Wg, lanes.clock, lanes.horizon)
+        if plan.freeze is not False:
+            state0 = clone_state(strip_telemetry(state))
     # The window's incoming counters, which its record takes deltas of.
     m0 = counter_snapshot(state.metrics) if state.telemetry is not None else None
     orders = None
@@ -1258,10 +1308,13 @@ def window_body(
             state = hpa_pass(state, statics, W, k, hpa_seg, plan.hpa_cycle)
         if plan.ca_due:
             state = ca_pass(state, statics, W, k, k_up, k_sd, pre_cycle, orders)
+    if state0 is not None:
+        state = clone_state(state)
+        freeze_lanes_(state, state0, active)
     if state.telemetry is not None:
         ring = TelemetryRing(buf=state.telemetry.buf.clone(), cursor=state.telemetry.cursor.clone())
         state = state._replace(telemetry=ring)
-        telemetry_record(state, m0, W, consts)
+        telemetry_record(state, m0, W, consts, window=Wg, active=active)
     return state
 
 
@@ -1272,7 +1325,7 @@ def window_body(
 
 
 def telemetry_record_plain(phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base, W, counters, m0, buf, cursor, *,
-                           head_bound: int) -> None:
+                           head_bound: int, window=None, active=None) -> None:
     """The window's ring row, in place: [W, decisions delta, queued and
     unschedulable depths, HPA pod and CA node action deltas, fault event
     delta, alive nodes, live HPA replicas, CA reserve slots in use, pod
@@ -1280,7 +1333,10 @@ def telemetry_record_plain(phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base
     against the incoming counters m0 ((len(TELEM_COUNTERS), C)); then
     cursor + 1 and m0 = counters (the next window's incoming counters).
     Without the autoscalers (hpa_head None) the reserve columns are 0.
-    `head_bound`: trace_pod_bound less the plain window width."""
+    `head_bound`: trace_pod_bound less the plain window width. Lane
+    clocks (reference step.py:1853-1876): `window` ((C,) int32, the
+    global window) replaces W in column 0 and `active` ((C,) bool) the
+    1 of column 11."""
     queued = (phase == PHASE_QUEUED).sum(dim=1, dtype=torch.int32)
     unsched = (phase == PHASE_UNSCHEDULABLE).sum(dim=1, dtype=torch.int32)
     n_alive = alive.sum(dim=1, dtype=torch.int32)
@@ -1293,8 +1349,9 @@ def telemetry_record_plain(phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base
     headroom = torch.clamp(head_bound - pod_base, min=0)
     d = [now - m0[i] for i, now in enumerate(counters)]
     row = torch.stack(
-        [W, d[0], queued, unsched, d[1] + d[2], d[3] + d[4], d[5] + d[6] + d[7] + d[8] + d[9], n_alive,
-         hpa_used, ca_used, headroom, torch.ones_like(W)],
+        [W if window is None else window, d[0], queued, unsched, d[1] + d[2], d[3] + d[4],
+         d[5] + d[6] + d[7] + d[8] + d[9], n_alive, hpa_used, ca_used, headroom,
+         torch.ones_like(W) if active is None else active.to(torch.int32)],
         dim=-1,
     ).to(torch.int32)
     C, R = buf.shape[:2]
@@ -1304,11 +1361,13 @@ def telemetry_record_plain(phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base
     m0.copy_(torch.stack(list(counters)))
 
 
-def telemetry_record(state: ClusterBatchState, m0: torch.Tensor, W: torch.Tensor, consts: StepConstants) -> None:
+def telemetry_record(state: ClusterBatchState, m0: torch.Tensor, W: torch.Tensor, consts: StepConstants,
+                     window: Optional[torch.Tensor] = None, active: Optional[torch.Tensor] = None) -> None:
     """Write window W's record into state.telemetry in place (the ring's
     buffer and cursor) and set m0 to the counters now, through
     ops/telemetry_kernel.telemetry_record. Pure bookkeeping: it reads the
-    simulation state and writes only the ring and m0."""
+    simulation state and writes only the ring and m0. `window`, `active`:
+    lane clocks' global window and active lanes (telemetry_record_plain)."""
     ring, auto = state.telemetry, state.auto
     P = state.pods.phase.shape[1]
     plain_width = min(P, consts.trace_pod_bound - consts.resident_shift)
@@ -1317,7 +1376,7 @@ def telemetry_record(state: ClusterBatchState, m0: torch.Tensor, W: torch.Tensor
         None if auto is None else auto.hpa_head, None if auto is None else auto.hpa_tail,
         None if auto is None else auto.ca_cursor,
         state.pod_base, W, [getattr(state.metrics, name) for name in TELEM_COUNTERS], m0, ring.buf, ring.cursor,
-        head_bound=consts.trace_pod_bound - plain_width,
+        head_bound=consts.trace_pod_bound - plain_width, window=window, active=active,
     )
 
 

@@ -1,8 +1,9 @@
 """The streaming feeder: a producer thread that stages the sliding pod
 window's refill payload in bounded slabs, running ahead of the engine.
 
-Port of the JAX package's `batched/stream.py` (`StreamFeeder`, :94-476;
-`LaneTraceMux` waits for the fleet, ROADMAP Queue 1 item 13). A producer
+Port of the JAX package's `batched/stream.py` (`StreamFeeder`, :94-476,
+and the lane-asynchronous fleet's `LaneTraceMux`, :478-594, at the end of
+this module). A producer
 thread assembles payload segments (the engine's callback over
 trace_compile.stage_segment) and uploads them into a ring of at most K
 slabs (state.RefillStage), ahead of the consumer, the engine's stepping
@@ -85,7 +86,15 @@ import numpy as np
 import torch
 
 from kubernetriks_tpu_torch.batched.faults import FeederProducerError, InjectedFeederKill
-from kubernetriks_tpu_torch.batched.state import RefillStage, flatten, stage_arrays_np, stage_nbytes
+from kubernetriks_tpu_torch.batched.state import (
+    EV_CREATE_POD,
+    EV_NONE,
+    EV_REMOVE_POD,
+    RefillStage,
+    flatten,
+    stage_arrays_np,
+    stage_nbytes,
+)
 from kubernetriks_tpu_torch.telemetry import NULL_TRACER
 from kubernetriks_tpu_torch.telemetry.tracer import (
     PH_STAGE_ASSEMBLE,
@@ -580,3 +589,87 @@ class SlabRing:
         """Bytes of its pinned host buffers (none on the CPU)."""
         return sum(stage_nbytes(s) for s in self.host)
 
+
+class LaneTraceMux:
+    """Per-lane workload ranges over the resident trace slab (reference
+    `LaneTraceMux`, stream.py:478-594): each lane of a lane-asynchronous
+    fleet may replay its own row range of its slab row, as pure data.
+
+    `offer(lane, lo, hi)`: slab rows [lo, hi) of the lane are kept. Pod
+    creates outside the range become EV_NONE in place (their window stays,
+    so the row's time order holds), and a pod remove is masked where its
+    slot's create was masked (never a remove without its create; a remove
+    of a slot the slab never creates stays). Node and chaos events are
+    never masked: the cluster's shape and fault streams belong to the
+    scenario, not to the workload range.
+
+    Never re-offer: an offer to a lane whose previous range still flies
+    raises; the engine's lane_reset retires a lane's range (`retire`).
+
+    Host only: it keeps a host copy of the packed (C, E, 4) slab and
+    returns host row blocks; the engine writes them into the device slab
+    (engine.set_lane_trace)."""
+
+    def __init__(self, packed) -> None:
+        base = np.array(packed, np.int32)
+        if base.ndim != 3 or base.shape[-1] != 4:
+            raise ValueError(f"LaneTraceMux wants a (C, E, 4) packed slab, got {base.shape}")
+        self._base = base
+        C = base.shape[0]
+        self._flying = [False] * C  # an offer outstanding (not retired yet)
+        self._installed = [None] * C  # the last (lo, hi) served a lane
+        self.offers = 0
+
+    @property
+    def n_rows(self) -> int:
+        return self._base.shape[1]
+
+    def offer(self, lane: int, lo: int = 0, hi: Optional[int] = None):
+        """The lane's masked (E, 4) host rows, or None where the lane
+        already has exactly this range installed (the caller skips the
+        device write). Raises on a re-offer to a lane whose previous range
+        was never retired."""
+        E = self._base.shape[1]
+        hi = E if hi is None else int(hi)
+        lo = int(lo)
+        if not (0 <= lo <= hi <= E):
+            raise ValueError(f"lane {lane}: trace row-range [{lo}, {hi}) outside [0, {E})")
+        if self._flying[lane]:
+            raise RuntimeError(
+                f"lane {lane}: trace rows re-offered while its previous range is still flying; retire the lane "
+                "(lane_reset) before re-seeding (never-re-offer invariant)"
+            )
+        self._flying[lane] = True
+        self.offers += 1
+        if self._installed[lane] == (lo, hi):
+            return None
+        self._installed[lane] = (lo, hi)
+        rows = self._base[lane].copy()
+        kind = rows[:, 2]
+        slot = rows[:, 3]
+        is_create = kind == EV_CREATE_POD
+        is_remove = kind == EV_REMOVE_POD
+        if not bool(is_create.any()):
+            return rows
+        in_range = np.zeros((E,), bool)
+        in_range[lo:hi] = True
+        n_slots = int(slot[is_create | is_remove].max()) + 1
+        created = np.zeros((n_slots,), bool)
+        created[slot[is_create]] = True
+        kept = np.zeros((n_slots,), bool)
+        kept[slot[is_create & in_range]] = True
+        drop = (is_create & ~in_range) | (is_remove & created[slot] & ~kept[slot])
+        rows[drop, 2] = EV_NONE
+        return rows
+
+    def retire(self, lanes) -> None:
+        """The lanes' offered ranges are spent (a reset boundary): the
+        next offer to them is legal again."""
+        for lane in lanes:
+            self._flying[int(lane)] = False
+
+    def report(self) -> dict:
+        return {
+            "offers": self.offers,
+            "installed": {lane: rng for lane, rng in enumerate(self._installed) if rng is not None},
+        }

@@ -96,16 +96,40 @@ _FLAGS = [
         "whole payload where K slabs of 4W would hold as much).",
     ),
     Flag(
+        "KTPU_PROFILE",
+        "str",
+        None,
+        "Named scheduler profile for batched engines that were not handed "
+        "an explicit profile (bench/CLI selection): 'default', 'best_fit' or "
+        "'balanced_packing'. Compiled at engine build (batched/pipeline.py); "
+        "an unknown name raises at construction instead of silently running "
+        "the default. Unset: the config's scheduler_profile, else the "
+        "default.",
+    ),
+    Flag(
+        "KTPU_LANE_SPAN",
+        "int",
+        None,
+        "Pump span (windows a round) of the lane-asynchronous fleet "
+        "(batched/fleet.py pump()): each round steps every lane up to this "
+        "many global windows, in power-of-two chunks clamped to the nearest "
+        "lane's plan end, then re-seeds the lanes whose per-lane clock "
+        "finished. Smaller spans cut completion latency and idle-lane waste "
+        "at more dispatch overhead. The fleet's span_windows= argument "
+        "supersedes it. Unset: 8.",
+    ),
+    Flag(
         "KTPU_HOST_CHAOS",
         "str",
         None,
         "Deterministic host-fault injection (batched/faults.py HostChaos): "
-        "counter-seeded threefry draws kill the stream feeder's producer, so "
-        "the feeder supervisor's restarts can be proven. '1' selects the "
-        "defaults (seed=7,feeder=0.05); a 'k=v,...' spec overrides them. The "
-        "reference's dispatch and stall keys (dispatch, stall, stall_ms) "
-        "raise: they serve the lane-asynchronous fleet, not ported yet "
-        "(ROADMAP Queue 1 item 13b). Unset: injection off.",
+        "counter-seeded threefry draws fail the lane-asynchronous fleet's "
+        "dispatches (the victim the least-faulted active lane), kill the "
+        "stream feeder's producer and stall pump dispatches, so the fault "
+        "domains (typed query errors, lane resets, quarantine, the feeder "
+        "supervisor) can be proven. '1' selects the defaults "
+        "(seed=7,dispatch=0.04,feeder=0.05,stall=0.03,stall_ms=2.0); a "
+        "'k=v,...' spec overrides them. Unset: injection off.",
     ),
     Flag(
         "KTPU_FLEET_QUEUE",
@@ -126,6 +150,23 @@ _FLAGS = [
         "'block' makes submit() run waves inline until a queue slot frees. "
         "The fleet's queue_policy= argument supersedes it. Ignored while "
         "KTPU_FLEET_QUEUE is unset.",
+    ),
+    Flag(
+        "KTPU_SLO_MS",
+        "int",
+        None,
+        "Latency-SLO target in milliseconds (submit-to-drain wall) for "
+        "lane-asynchronous fleet queries: arms the capacity observatory's "
+        "SLO burn-rate verdicts (telemetry/observatory.py), fast and slow "
+        "error-budget burn with hysteresis, windowed by "
+        "KTPU_SLO_BURN_WINDOW. Unset: SLO verdicts disarmed.",
+    ),
+    Flag(
+        "KTPU_SLO_BURN_WINDOW",
+        "int",
+        60,
+        "Fast burn-rate window (wall seconds) of the SLO verdict; the slow "
+        "window is 12x this. Default: 60.",
     ),
 ]
 

@@ -81,7 +81,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     ),
     # The flight recorder's record (ops/telemetry_kernel.py): no TPU kernel.
     "telemetry_record": (
-        "telemetry_record.cu", "ktt_telemetry_record", [_P] * 20 + [_I] * 7 + [_P],
+        "telemetry_record.cu", "ktt_telemetry_record", [_P] * 22 + [_I] * 7 + [_P],
     ),
 }
 

@@ -9,10 +9,15 @@
 // window. Here it is one launch.
 //
 // Row of cluster c, written at slot cursor[c] % R:
-//   [W, decisions delta, #QUEUED, #UNSCHEDULABLE, HPA pod actions delta,
-//    CA node actions delta, fault events delta, #alive nodes,
+//   [window, decisions delta, #QUEUED, #UNSCHEDULABLE, HPA pod actions
+//    delta, CA node actions delta, fault events delta, #alive nodes,
 //    sum_g(hpa_tail - hpa_head), sum_g(ca_cursor),
-//    max(head_bound - pod_base, 0), 1]
+//    max(head_bound - pod_base, 0), lane active]
+// where window is W[c], or Wrec[c] where the optional Wrec is given (a
+// lane-asynchronous engine records the global window there, W being the
+// lane's own), and lane active is 1, or active[c] where the optional
+// (C,) bool active is given (the reference's TELEM_LANE_ACTIVE column,
+// step.py:1853-1876).
 // where a delta is the counter now less its snapshot m0 (the window's
 // incoming counters), head_bound = trace_pod_bound - plain width (a host
 // int), and the reserve sums are 0 without the autoscalers. Then cursor
@@ -47,7 +52,8 @@ __device__ __forceinline__ int warp_sum(int v) {
 __global__ void __launch_bounds__(kThreads) telemetry_record_kernel(
     const int32_t* __restrict__ phase, const bool* __restrict__ alive, const int32_t* __restrict__ hpa_head,
     const int32_t* __restrict__ hpa_tail, const int32_t* __restrict__ ca_cursor,
-    const int32_t* __restrict__ pod_base, const int32_t* __restrict__ W, Counters now, int32_t* __restrict__ m0,
+    const int32_t* __restrict__ pod_base, const int32_t* __restrict__ W, const int32_t* __restrict__ Wrec,
+    const bool* __restrict__ active, Counters now, int32_t* __restrict__ m0,
     int32_t* __restrict__ buf, int32_t* __restrict__ cursor, int C, int P, int N, int Gp, int Gn, int R,
     int head_bound) {
   const int c = blockIdx.x;
@@ -91,7 +97,7 @@ __global__ void __launch_bounds__(kThreads) telemetry_record_kernel(
   const int cur = cursor[c];
   const int slot = ((cur % R) + R) % R;
   int32_t* row = buf + ((size_t)c * R + slot) * kCols;
-  row[0] = W[c];
+  row[0] = Wrec != nullptr ? Wrec[c] : W[c];
   row[1] = d[0];
   row[2] = queued;
   row[3] = unsched;
@@ -102,7 +108,7 @@ __global__ void __launch_bounds__(kThreads) telemetry_record_kernel(
   row[8] = hpa_used;
   row[9] = ca_used;
   row[10] = headroom;
-  row[11] = 1;
+  row[11] = active != nullptr ? (active[c] ? 1 : 0) : 1;
   cursor[c] = cur + 1;
 }
 
@@ -110,17 +116,19 @@ __global__ void __launch_bounds__(kThreads) telemetry_record_kernel(
 
 extern "C" int ktt_telemetry_record(const void* phase, const void* alive, const void* hpa_head,
                                     const void* hpa_tail, const void* ca_cursor, const void* pod_base,
-                                    const void* W, const void* c0, const void* c1, const void* c2, const void* c3,
-                                    const void* c4, const void* c5, const void* c6, const void* c7,
-                                    const void* c8, const void* c9, void* m0, void* buf, void* cursor, int C, int P,
-                                    int N, int Gp, int Gn, int R, int head_bound, void* stream) {
+                                    const void* W, const void* Wrec, const void* active, const void* c0,
+                                    const void* c1, const void* c2, const void* c3, const void* c4, const void* c5,
+                                    const void* c6, const void* c7, const void* c8, const void* c9, void* m0,
+                                    void* buf, void* cursor, int C, int P, int N, int Gp, int Gn, int R,
+                                    int head_bound, void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   Counters now;
   const void* cs[kCounters] = {c0, c1, c2, c3, c4, c5, c6, c7, c8, c9};
   for (int k = 0; k < kCounters; ++k) now.p[k] = (const int32_t*)cs[k];
   telemetry_record_kernel<<<C, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)phase, (const bool*)alive, (const int32_t*)hpa_head, (const int32_t*)hpa_tail,
-      (const int32_t*)ca_cursor, (const int32_t*)pod_base, (const int32_t*)W, now, (int32_t*)m0,
+      (const int32_t*)ca_cursor, (const int32_t*)pod_base, (const int32_t*)W, (const int32_t*)Wrec,
+      (const bool*)active, now, (int32_t*)m0,
       (int32_t*)buf, (int32_t*)cursor, C, P, N, Gp, Gn, R, head_bound);
   return (int)cudaGetLastError();
 }

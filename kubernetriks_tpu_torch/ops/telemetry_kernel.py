@@ -38,16 +38,20 @@ def telemetry_record(
     cursor: torch.Tensor,  # (C,) int32, updated in place
     *,
     head_bound: int,
+    window: Optional[torch.Tensor] = None,  # (C,) int32 the window column, None: W
+    active: Optional[torch.Tensor] = None,  # (C,) bool the lane column, None: 1
 ) -> None:
     """Write the window's row into `buf` at cursor % R, bump `cursor` and
     set `m0` to `counters` (step.telemetry_record_plain), in place.
-    `head_bound`: trace_pod_bound less the plain window width."""
+    `head_bound`: trace_pod_bound less the plain window width; `window`
+    and `active`: a lane-asynchronous engine's global window and active
+    lanes, which its record writes in columns 0 and 11."""
     if not _on_cuda(phase):
         from kubernetriks_tpu_torch.batched.step import telemetry_record_plain
 
         telemetry_record_plain(
             phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base, W, counters, m0, buf, cursor,
-            head_bound=head_bound,
+            head_bound=head_bound, window=window, active=active,
         )
         return
     if len(counters) != 10:
@@ -62,6 +66,10 @@ def telemetry_record(
         "cursor": (cursor, i32, (C,)),
     }
     ops.update({f"counters[{k}]": (t, i32, (C,)) for k, t in enumerate(counters)})
+    if window is not None:
+        ops["window"] = (window, i32, (C,))
+    if active is not None:
+        ops["active"] = (active, torch.bool, (C,))
     Gp = Gn = 0
     if hpa_head is not None:
         Gp, Gn = hpa_head.shape[1], ca_cursor.shape[1]
@@ -71,6 +79,6 @@ def telemetry_record(
         })
     _check("telemetry_record", ops, phase.device)
     _launch("telemetry_record", "telemetry_record", [
-        phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base, W, *counters, m0, buf, cursor,
+        phase, alive, hpa_head, hpa_tail, ca_cursor, pod_base, W, window, active, *counters, m0, buf, cursor,
         C, P, N, Gp, Gn, R, int(head_bound),
     ])

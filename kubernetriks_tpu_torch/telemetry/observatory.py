@@ -24,8 +24,10 @@ observatory.py`, copied whole but for its imports).
   feeder's first slab, its cold start after the build or a re-seek, is
   reported apart and not judged); its
   sync-budget half judges the reference's superspan, which the port does
-  not have, so it stays quiet. Without the fleet the lane and SLO checks
-  have nothing to judge and stay quiet, as in a reference run without it.
+  not have, so it stays quiet. The lane and SLO checks judge the
+  lane-asynchronous fleet (batched/fleet.py): the ring's lane column, the
+  queries' latencies (note_query; SLO verdicts armed by KTPU_SLO_MS) and
+  the lanes' quarantine states; without it they have nothing to judge.
 
 Everything here runs on drained host copies (owned numpy arrays from
 telemetry/ring.snapshot, plain dicts from the engine): it never touches a
@@ -51,6 +53,7 @@ from kubernetriks_tpu_torch.batched.state import (
     TELEM_POD_HEADROOM,
     TELEM_WINDOW,
 )
+from kubernetriks_tpu_torch.flags import flag_int
 from kubernetriks_tpu_torch.telemetry.histogram import LatencyHistogram
 
 # TELEM_POD_HEADROOM values at or above this mean "no sliding window /
@@ -201,9 +204,13 @@ class Observatory:
         # lane_active ring column is constant 1 everywhere else) means
         # dispatched lane-windows are being thrown away.
         self.lane_idle_frac = float(lane_idle_frac)
-        # Latency-SLO verdict config (slo_ms None = disarmed). No flag arms
-        # it: the port records no fleet query yet.
+        # Latency-SLO verdict config: explicit kwargs win, else the
+        # registered flags (KTPU_SLO_MS unset: disarmed).
+        if slo_ms is None:
+            slo_ms = flag_int("KTPU_SLO_MS")
         self.slo_ms = float(slo_ms) if slo_ms is not None else None
+        if slo_burn_window_s is None:
+            slo_burn_window_s = flag_int("KTPU_SLO_BURN_WINDOW")
         self.slo_burn_window_s = float(slo_burn_window_s or 60)
         self.reset()
 

@@ -12,13 +12,15 @@ executed window (PH_PROGRESS_WAIT), and the sliding pod window's
 staging: the engine thread's slab assembly, upload and prefetch
 (PH_STAGE_ASSEMBLE, PH_STAGE_PUT, PH_STAGE_PREFETCH) and the stream
 feeder's stalls at an install (PH_STAGE_WAIT_FEEDER, PH_STAGE_WAIT_UPLOAD),
-checkpoint saves and restores (PH_CKPT_SAVE, PH_CKPT_RESTORE), and the
+checkpoint saves and restores (PH_CKPT_SAVE, PH_CKPT_RESTORE), the
 scenario fleet's queries (PH_QUERY_QUEUE, PH_QUERY_SERVICE, PH_QUERY_FAIL:
-queue wait, service and failure, each a span). Flow arrows
-(`flow_start` / `flow_end`, the Chrome "s" / "f" events) link a fleet
-query's submit to its drain (PH_QUERY_QUEUE). The superspan phases stay
-empty; the reference's async-readback flows, its lane swimlanes and the
-lane-asynchronous fleet's phases wait for ROADMAP Queue 1 item 13b.
+queue wait, service and failure, each a span) and the lane-asynchronous
+fleet's lane quarantines (PH_LANE_QUARANTINE: from the quarantine to the
+lane's re-admission). Flow arrows (`flow_start` / `flow_end`, the Chrome
+"s" / "f" events) link a fleet query's submit to its drain
+(PH_QUERY_QUEUE), and `lane_event` records which query held which fleet
+lane when (the Chrome trace's lane swimlanes, one a lane, on pid 2). The
+superspan phases and the reference's async-readback flows stay empty.
 
 Two consumers:
 - `chrome_trace()`: Chrome trace-event JSON (Perfetto loads it): host
@@ -67,8 +69,8 @@ PH_CHUNK_FENCED = 14  # an instrumented dispatch with a device fence
 PH_STAGE_WAIT_FEEDER = 15
 PH_STAGE_WAIT_UPLOAD = 16
 # Recorded: the fleet query lifecycle, queue wait (submit -> admission),
-# service (admission -> drain) and a query's failure. Not yet: a lane's
-# quarantine (the lane-asynchronous fleet's).
+# service (admission -> drain), a query's failure, and a lane's quarantine
+# (quarantine -> re-admission; the lane-asynchronous fleet's).
 PH_QUERY_QUEUE = 17
 PH_QUERY_SERVICE = 18
 PH_QUERY_FAIL = 19
@@ -105,7 +107,9 @@ PHASE_NAMES = (
 _N_PHASES = len(PHASE_NAMES)
 
 # Chrome-trace process ids: pid 0 = host spans, pid 1 = device-ring
-# sim-time counter tracks (telemetry/ring.py).
+# sim-time counter tracks (telemetry/ring.py), pid 2 = the fleet's lane
+# swimlanes (one tid a lane, spans named by the occupying query id).
+LANE_PID = 2
 
 
 class _AnnotatedSpan:
@@ -148,7 +152,7 @@ class _AnnotatedSpan:
 
 
 class SpanTracer:
-    def __init__(self, capacity: int = 1 << 16, flow_capacity: int = 1 << 14):
+    def __init__(self, capacity: int = 1 << 16, flow_capacity: int = 1 << 14, lane_capacity: int = 1 << 14):
         # Span event ring: [t0_ns, dur_ns, phase]; kept events wrap, the
         # per-phase aggregates below stay exact regardless.
         self._spans = np.zeros((capacity, 3), np.int64)
@@ -162,6 +166,10 @@ class SpanTracer:
         self._flows = np.zeros((flow_capacity, 4), np.int64)
         self._n_flows = 0
         self._next_flow = 1
+        # Lane occupancy ring: [t0_ns, dur_ns, lane, qid], one a query that
+        # held a fleet lane (the Chrome trace's lane swimlanes).
+        self._lane_spans = np.zeros((lane_capacity, 4), np.int64)
+        self._n_lane_spans = 0
         # Freeform counters (stage prefetch hits/misses, dispatch
         # histogram buckets, ...). Host ints only.
         self.counters: Dict[str, int] = {}
@@ -211,6 +219,17 @@ class SpanTracer:
         buf[i, 2] = fid
         buf[i, 3] = kind
         self._n_flows += 1
+
+    def lane_event(self, lane: int, qid: int, t0: int, dur: int) -> None:
+        """Query `qid` held fleet lane `lane` for `dur` ns from `t0` (host
+        clock): one ring row."""
+        buf = self._lane_spans
+        i = self._n_lane_spans % buf.shape[0]
+        buf[i, 0] = t0
+        buf[i, 1] = dur
+        buf[i, 2] = lane
+        buf[i, 3] = qid
+        self._n_lane_spans += 1
 
     def span(self, phase: int) -> _AnnotatedSpan:
         """Context-manager span (the engine's window spans, slides,
@@ -274,6 +293,15 @@ class SpanTracer:
                     "tid": 0,
                 }
             )
+        lane_rows = self._kept(self._lane_spans, self._n_lane_spans).tolist()
+        if lane_rows:
+            ev.append({"ph": "M", "name": "process_name", "pid": LANE_PID, "tid": 0, "args": {"name": "ktpu-lanes"}})
+            for lane in sorted({int(r[2]) for r in lane_rows}):
+                ev.append({"ph": "M", "name": "thread_name", "pid": LANE_PID, "tid": lane,
+                           "args": {"name": f"lane {lane}"}})
+            for t0, dur, lane, qid in lane_rows:
+                ev.append({"ph": "X", "name": f"q{int(qid)}", "cat": "lane", "ts": (t0 - epoch) / 1e3,
+                           "dur": dur / 1e3, "pid": LANE_PID, "tid": int(lane)})
         if extra_events:
             ev.extend(extra_events)
         return {
@@ -314,6 +342,10 @@ class SpanTracer:
                 "recorded": int(self._n_spans),
                 "kept": int(min(self._n_spans, self._spans.shape[0])),
             },
+            "lane_spans": {
+                "recorded": int(self._n_lane_spans),
+                "kept": int(min(self._n_lane_spans, self._lane_spans.shape[0])),
+            },
         }
 
 
@@ -353,6 +385,9 @@ class NullTracer:
     def flow_end(self, phase: int, fid: int) -> None:
         pass
 
+    def lane_event(self, lane: int, qid: int, t0: int, dur: int) -> None:
+        pass
+
     def span(self, phase: int) -> _NullSpan:
         return _NULL_SPAN
 
@@ -361,6 +396,7 @@ class NullTracer:
             "spans": {},
             "counters": {},
             "span_events": {"recorded": 0, "kept": 0},
+            "lane_spans": {"recorded": 0, "kept": 0},
         }
 
 

@@ -1389,3 +1389,100 @@ def test_fleet_captures_nothing_after_wave_one(cuda_device):
     for a, b in zip(results["cuda"], results["cpu"]):
         assert (a.counters, a.hpa_replicas, a.ca_nodes) == (b.counters, b.hpa_replicas, b.ca_nodes)
     assert sum(r.counters["pod_restarts"] for r in results["cuda"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6])
+def test_telemetry_record_kernel_with_lane_columns_matches_plain_version(cuda_device, seed):
+    """The record with a lane-asynchronous engine's two optional (C,)
+    inputs, the global window (column 0) and the active lanes (column 11,
+    mixed active and parked), bit for bit against its plain version."""
+    from kubernetriks_tpu_torch.batched.step import telemetry_record_plain
+    from kubernetriks_tpu_torch.ops.telemetry_kernel import telemetry_record
+
+    args, counters, m0, buf, cursor = telemetry_inputs(seed)
+    C, P = args[0].shape
+    window = t(np.full((C,), 123, np.int32))
+    active = t(np.arange(C) % 3 != 0)
+    outs = []
+    for fn, dev in ((telemetry_record, cuda_device), (telemetry_record_plain, cuda_device), (telemetry_record, "cpu")):
+        a = [None if x is None else x.to(dev) for x in args]
+        mine = [m0.to(dev).clone(), buf.to(dev).clone(), cursor.to(dev).clone()]
+        fn(*a, [x.to(dev) for x in counters], *mine, head_bound=2 * P, window=window.to(dev), active=active.to(dev))
+        torch.cuda.synchronize()
+        outs.append([x.cpu() for x in mine])
+    for other in outs[1:]:
+        for got, want in zip(outs[0], other):
+            assert torch.equal(got, want)
+    rows = outs[0][1][torch.arange(C), (cursor % buf.shape[1]).long()]
+    assert rows[:, 0].tolist() == [123] * C and rows[:, 11].tolist() == active.int().tolist()
+
+
+def _lane_fleet(device, graphs=None, **kwargs):
+    from chip_smoke import FAULTS_YAML, composed_config_yaml, composed_workload_yaml
+    from kubernetriks_tpu_torch.batched.fleet import ScenarioFleet
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    cluster = UniformClusterTrace(4, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+    plain = PoissonWorkloadTrace(rate_per_second=0.2, horizon=300.0, seed=3, cpu=16000, ram=32 * 1024**3,
+                                 duration_range=(30.0, 120.0), name_prefix="plain").convert_to_simulator_events()
+    group = GenericWorkloadTrace.from_yaml(composed_workload_yaml(16, (90.0, 90.0, 120.0))).convert_to_simulator_events()
+    config = SimulationConfig.from_yaml(composed_config_yaml(4) + FAULTS_YAML)
+    return ScenarioFleet(config, cluster, sorted(plain + group, key=lambda e: e[0]), n_lanes=4, horizon=300.0,
+                         device=device, graphs=graphs, max_pods_per_cycle=8, ca_slot_multiplier=4, lane_async=True,
+                         span_windows=4, telemetry=True, reclaim=True, **kwargs)
+
+
+def _lane_scenarios():
+    from kubernetriks_tpu_torch.batched.fleet import Scenario
+
+    return [(Scenario(fault_seed=100 + i, hpa_scan_interval=(30.0, 60.0, 90.0)[i % 3]), (300.0, 20.0, 40.0, 20.0)[i % 4])
+            for i in range(10)]
+
+
+@pytest.mark.cuda
+def test_lane_async_graph_run_equals_eager_run(cuda_device):
+    """A lane-asynchronous fleet on graphs (both freeze variants captured
+    at build, nothing after) equals the same fleet eager on the card and
+    on the CPU: every result, the final state and the ring with its lane
+    column."""
+    runs = {}
+    for name, where, graphs in (("graphs", "cuda", True), ("eager", "cuda", False), ("cpu", "cpu", None)):
+        fleet = _lane_fleet(where, graphs=graphs)
+        at_build = fleet.engine.dispatch_stats["captures"]
+        qids = [fleet.submit(s, h) for s, h in _lane_scenarios()]
+        fleet.run_async()
+        if name == "graphs":
+            keys = set(fleet.engine._executor.graphs)
+            assert ("lanes", "freeze") in keys and ("lanes",) in keys
+            stats = fleet.engine.dispatch_stats
+            assert stats["captures"] == at_build and stats["eager_windows"] == 0
+        runs[name] = ([fleet.results[q] for q in qids], state_to_numpy(fleet.engine.state))
+        fleet.close()
+    for name in ("eager", "cpu"):
+        for a, b in zip(runs["graphs"][0], runs[name][0]):
+            assert (a.counters, a.hpa_replicas, a.ca_nodes) == (b.counters, b.hpa_replicas, b.ca_nodes)
+        assert compare_states(runs["graphs"][1], runs[name][1]) == [], name
+    assert (runs["graphs"][1][".telemetry.buf"][..., 11] == 0).any()
+
+
+@pytest.mark.cuda
+def test_lane_plan_and_reset_write_in_place(cuda_device):
+    """set_lane_plan, lane_reset and set_lane_trace keep every tensor the
+    captured graphs read (the lane clocks, the state, the slab, the
+    executor's buffers) at its address."""
+    fleet = _lane_fleet("cuda")
+    eng = fleet.engine
+
+    def ptrs():
+        return ({k: v.data_ptr() for k, v in flatten(eng._executor.bufs).items() if v.numel()},
+                eng.slab.packed.data_ptr())
+
+    before = ptrs()
+    eng.set_lane_plan([0, 2], 3, [5, 7])
+    eng.lane_reset([1, 2])
+    eng.set_lane_trace(1, 0, eng._lane_mux.n_rows // 2)
+    eng.step_windows(4)
+    assert ptrs() == before
+    assert eng._lane_clocks.clock.tolist() == [3, 0, 3, 0] and eng._lane_clocks.horizon.tolist() == [5, 0, 7, 0]
+    fleet.close()

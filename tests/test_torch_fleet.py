@@ -24,7 +24,8 @@ against the JAX package.
   wave path's cases of tests/test_fleet_faults.py:361-449): validation
   naming the field, the bounded queue (reject and block), deadlines,
   close() and ShutdownError, poll() streaming each query once, and the
-  refusals of the lane-asynchronous options.
+  refusals: trace_rows on a wave fleet, tuned profiles, the lane clocks'
+  build guards.
 """
 
 import numpy as np
@@ -398,15 +399,22 @@ def test_submit_validation_names_the_field(host_fleet):
             f.submit(Scenario(), bad)
     with pytest.raises(ValueError, match="deadline_s must be a finite"):
         f.submit(Scenario(), 100.0, deadline_s=0.0)
-    with pytest.raises(ValueError, match="trace_rows.*13b"):
+    with pytest.raises(ValueError, match="trace_rows needs lane_async=True"):
         f.submit(Scenario(), 100.0, trace_rows=(0, 4))
     assert f.pending == 0
 
 
 def test_lane_async_options_raise():
+    """The refusals: tuned profiles (ROADMAP Queue 1 item 14), an unknown
+    queue policy, and a lane-asynchronous fleet over a sliding pod window
+    or the streaming feeder (the reference's build guards)."""
     config = SimulationConfig.from_yaml(TOY.config_yaml)
-    with pytest.raises(ValueError, match="13b"):
-        ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", lane_async=True)
+    with pytest.raises(ValueError, match="full-resident pod path"):
+        ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", lane_async=True,
+                      pod_window=8)
+    with pytest.raises(ValueError, match="streaming feeder"):
+        ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", lane_async=True,
+                      stream=True)
     with pytest.raises(ValueError, match="item 14"):
         ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", tuned_profile="x")
     with pytest.raises(ValueError, match="queue_policy"):

@@ -24,6 +24,9 @@ JAX package.
   rtol 1e-6), on tests/test_random_equivalence.py's random trace (node
   and pod removals); a non-default profile's run differs from the
   default's.
+- (e) KTPU_PROFILE is read after the argument and the config's block, as
+  the reference reads it: under the flag the port equals the JAX engine
+  built under the same environment.
 """
 
 from fractions import Fraction
@@ -254,3 +257,33 @@ def test_profiled_run_matches_reference(reference_runs, name, route):
     assert port.metrics_summary()["counters"]["scheduling_decisions"] > 0
     if name != "default":
         assert compare_states(reference_runs["default"], got) != []
+
+
+def test_ktpu_profile_flag_is_read_after_the_argument_and_the_config(reference_runs, monkeypatch, tmp_path):
+    """KTPU_PROFILE (reference engine.py:759-770, flags.py:191): with no
+    argument and no config block the engine runs the flag's profile, equal
+    to the JAX engine built under the same environment (and to the
+    explicit best_fit run); an explicit scheduler_profile= and the
+    config's block still win; an unknown name raises; a checkpoint records
+    the profile the flag chose."""
+    monkeypatch.setenv("KTPU_PROFILE", "best_fit")
+    jx = build_jax_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16, "xla", fast_forward=False)
+    jx.step_until_time(2000.0)
+    port = build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16, fast_forward=False)
+    assert port.profile == pipeline.compile_profile("best_fit")
+    port.step_until_time(2000.0)
+    got = state_to_numpy(port.state)
+    assert compare_states(jax_state_to_numpy(jx.state), got) == []
+    assert compare_states(reference_runs["best_fit"], got) == []
+    port.save_checkpoint(str(tmp_path / "ckpt"))
+    meta = (tmp_path / "ckpt.meta.json").read_text()
+    assert '"name": "best_fit"' in meta
+    explicit = build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16, scheduler_profile="balanced_packing")
+    assert explicit.profile.name == "balanced_packing"
+    block = build_port_engine(DEFAULT_TEST_CONFIG_YAML + "scheduler_profile: default\n", SPEC, 2, 16)
+    assert block.profile == pipeline.DEFAULT_PROFILE
+    monkeypatch.setenv("KTPU_PROFILE", "no_such_profile")
+    with pytest.raises(ValueError, match="unknown named scheduler profile 'no_such_profile'"):
+        build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16)
+    monkeypatch.delenv("KTPU_PROFILE")
+    assert build_port_engine(DEFAULT_TEST_CONFIG_YAML, SPEC, 2, 16).profile == pipeline.DEFAULT_PROFILE

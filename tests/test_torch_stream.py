@@ -13,8 +13,8 @@ the JAX package's.
   builds exactly what is asked, a producer's death reaches the consumer
   with its slab's context, a HostChaos kill does too, and the retired
   high-water mark survives a restart.
-- HostChaos's feeder channel draws, parses KTPU_HOST_CHAOS and reports as
-  the reference's; the reference's fleet keys are refused.
+- HostChaos's feeder channel draws, parses KTPU_HOST_CHAOS (the fleet's
+  dispatch and stall keys too) and reports as the reference's.
 - The thread-less feeder: builds on demand, prefetches, carries a death
   to the next get; the engine's ring holds no more than the whole payload.
 - The engine's supervisor: producer deaths mid-run restart the feeder
@@ -256,22 +256,20 @@ def test_feeder_upload_wait_is_split_from_the_feeder_wait():
 @pytest.mark.parametrize("spec", [None, "0", "1", "seed=3,feeder=0.3", "feeder=0.5,seed=11"])
 def test_host_chaos_matches_the_reference(spec):
     """The feeder channel draws, counts and reports as the reference's; the
-    reference's fleet keys, which nothing in the port reads, are refused."""
+    fleet keys (dispatch, stall, stall_ms) parse equal to the reference's."""
     port, ref = HostChaos.from_flag(spec), JaxHostChaos.from_flag(spec)
     assert (port is None) == (ref is None)
     if port is None:
         return
     assert [port.feeder_kill() for _ in range(200)] == [ref.feeder_kill() for _ in range(200)]
-    want = ref.report()
-    assert port.report() == {"seed": want["seed"], "rates": {"feeder": want["rates"]["feeder"]},
-                             "events": {k: want["events"][k] for k in ("draws", "feeder_kills")}}
+    assert port.report() == ref.report()
     for bad in ("feeder", "nonsense=1"):
         with pytest.raises(ValueError):
             HostChaos.from_flag(bad)
-    for fleet in ("dispatch=0.1", "feeder=0.2,stall=0.3", "stall_ms=2"):
-        assert JaxHostChaos.from_flag(fleet) is not None
-        with pytest.raises(ValueError, match="fleet"):
-            HostChaos.from_flag(fleet)
+    for fleet in ("dispatch=0.1", "feeder=0.2,stall=0.3", "stall_ms=2", "seed=5,dispatch=0.3,stall=0.2,stall_ms=1.5"):
+        mine, want = HostChaos.from_flag(fleet), JaxHostChaos.from_flag(fleet)
+        assert mine.report() == want.report()
+        assert (mine.stall_ms, mine.dispatch_rate, mine.stall_rate) == (want.stall_ms, want.dispatch_rate, want.stall_rate)
 
 
 class _CountingTracer:

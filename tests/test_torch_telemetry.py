@@ -218,13 +218,12 @@ def test_telemetry_report_shape(cheap_pair):
 
 
 def test_report_keys_match_reference(cheap_pair):
-    """The report's sections are the reference's (less its feeder's and
-    its fleet's lane swimlanes), and the port's count of the ring's
-    drains."""
+    """The report's sections are the reference's (less its feeder's), and
+    the port's count of the ring's drains."""
     jx = _cheap("jax", telemetry=True, telemetry_ring=16)
     jx.step_until_time(150.0)
     ref, mine = jx.telemetry_report(), cheap_pair[0].telemetry_report()
-    assert set(mine) == set(ref) - {"feeder", "stage_prefetch_hit_rate", "lane_spans"} | {"ring_drains"}
+    assert set(mine) == set(ref) - {"feeder", "stage_prefetch_hit_rate"} | {"ring_drains"}
     assert set(mine["ring"]) == set(ref["ring"])
     assert set(mine["resources"]) == set(ref["resources"])
     assert set(mine["resources"]["watchdog"]) == set(ref["resources"]["watchdog"])
