@@ -212,6 +212,22 @@ Phases; any failure exits non-zero:
      90 %, every lane faults, a lane quarantined and re-admitted, one
      outcome a query id, the latency histograms against the results
      polled. No fleet of phases 20-22 captures after its build.
+ 23. the RL scheduler loop (kubernetriks_tpu_torch/rl/, float32, TF32
+     off): (a) the reference's RL bench shape (`scripts/bench_rl.py:105-135`:
+     8 192 clusters x 8 nodes, 16 windows x K = 8, 4 epochs), one warm and
+     one timed PPO iteration of the MLP head and of the attention head at
+     update_microbatch=1024: wall, decisions/s, the rollout / GAE / update
+     split, peak device memory, kernels and device busy ms a rollout
+     window; the rollout launches the event scatter, free and commit
+     scatter kernels; (b) card against CPU at C = 4 (`tests/test_rl.py`'s
+     make_sim, both heads; its autoscaled sim with the CA and reclaim at
+     the card's default, the CA kernels): greedy and sampled rollouts on
+     the same noise, actions, valid flags and final states equal (near-tie
+     flips reported), one update within rtol 1e-4, the card's run with the
+     plain versions refused; (c) the learning proof
+     (`tests/test_rl_learning.py:47-118`): the MLP trained on 32 clusters,
+     greedy on held-out seeds against eval_kube and best-fit, the
+     reference's thresholds as the gate.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -278,6 +294,7 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -696,9 +713,10 @@ def metric_leaves(state) -> dict:
 
 def device_busy(run, label: str) -> dict:
     """Device busy ms and kernels a window of `run()` (which returns the
-    windows it ran) under torch.profiler (CPU + CUDA): the device rows'
-    kernel time, beside the traced host ms a window (the profiler's own
-    cost included). Fails if the trace holds no device time."""
+    windows it ran) under torch.profiler (CPU + CUDA): the device events'
+    time and count (kernels, copies, fills), read from the raw trace,
+    beside the traced host ms a window (the profiler's own cost included).
+    Fails if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -707,15 +725,16 @@ def device_busy(run, label: str) -> dict:
         n = run()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    busy_us, kernels = 0.0, 0
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
-        if us > 0 and e.self_cpu_time_total == 0:  # device rows (the aten rows repeat their time)
-            busy_us += us
-            kernels += e.count
-    if busy_us <= 0:
+    # The raw events: key_averages() would build a Python object for every
+    # CPU op and kernel first, seconds a traced run of an eager path.
+    busy_ns, kernels = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            kernels += 1
+    if busy_ns <= 0:
         fail(f"{label}: the profiler saw no device time")
-    return {"windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n,
+    return {"windows": n, "busy_ms_per_window": busy_ns / 1e6 / n, "kernels_per_window": kernels / n,
             "traced_host_ms_per_window": 1e3 * traced / n}
 
 
@@ -951,6 +970,402 @@ def timed_replay(sim, sk, names, label, until=None) -> dict:
         "timings": summary["timings"],
         "launches": launches,
     }
+
+
+# --- phase 23: the RL scheduler loop (kubernetriks_tpu_torch/rl/) -------------------
+# The reference's RL bench (scripts/bench_rl.py:105-135): one PPO iteration
+# over 8 192 clusters of 8 nodes, 16 windows x K = 8, 4 epochs; the
+# attention head's update in chunks of 1 024 clusters.
+RL_BENCH_CLUSTERS = 8192
+RL_BENCH_WINDOWS = 16
+RL_ATTENTION_MICROBATCH = 1024
+# Card against CPU at tests/test_rl.py's size: C = 4, 8 windows.
+RL_CHECK_WINDOWS = 8
+# The learning proof: tests/test_rl_learning.py:47-118's settings.
+RL_PROOF_ITERATIONS = 16
+RL_PROOF_CLUSTERS = 32
+RL_PROOF_TRAIN_SEED = 11_000
+RL_PROOF_HELDOUT_SEED = 91_000
+# The kernels the rollout runs on the card; the CA's on an autoscaled sim.
+RL_PATH_KERNELS = ("fused_event_scatter", "fused_free_resources", "fused_commit_scatter")
+RL_CA_KERNELS = ("fused_ca_scale_down", "fused_ca_scale_up")
+# The loss is invariant to a shift of all of a row's logits, so the logit
+# bias's gradient is zero in exact arithmetic: Adam's first step on it is
+# float32 noise scaled to the learning rate, on either side.
+RL_SHIFT_INVARIANT = ("logit.bias", "logit_b")
+RL_AUTOSCALED_YAML = """sim_name: rl_autoscaled
+seed: 1
+scheduling_cycle_interval: 10.0
+as_to_ps_network_delay: 0.050
+ps_to_sched_network_delay: 0.010
+sched_to_as_network_delay: 0.020
+as_to_node_network_delay: 0.150
+as_to_ca_network_delay: 0.30
+as_to_hpa_network_delay: 0.40
+cluster_autoscaler:
+  enabled: true
+  scan_interval: 10.0
+  max_node_count: 6
+  node_groups:
+  - node_template:
+      metadata:
+        name: ca_node
+      status:
+        capacity:
+          cpu: 16000
+          ram: 34359738368
+"""
+
+
+def rl_bench_sim(device, n_clusters: int, **engine_kwargs):
+    """scripts/bench_rl.py:34 `build` (tests/test_rl.py `make_sim` at C =
+    4): uniform nodes of 16 000 mCPU and 32 GiB, 8 a cluster, Poisson pods
+    at 0.5/s to 200 s (seed 7, 4 000 mCPU, 8 GiB, 20-60 s), K = 8."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml("sim_name: rl_bench\nseed: 1\nscheduling_cycle_interval: 10.0"),
+        UniformClusterTrace(8, cpu=16000, ram=32 * 1024**3).convert_to_simulator_events(),
+        PoissonWorkloadTrace(rate_per_second=0.5, horizon=200.0, seed=7, cpu=4000, ram=8 * 1024**3,
+                             duration_range=(20.0, 60.0)).convert_to_simulator_events(),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=8, **engine_kwargs,
+    )
+
+
+def rl_autoscaled_sim(device, n_clusters: int = 4, **engine_kwargs):
+    """tests/test_rl.py `make_autoscaled_sim`: two nodes of 8 000 mCPU and
+    16 GiB, the CA (up to 6 nodes of 16 000 mCPU, 32 GiB), Poisson pods at
+    0.5/s to 200 s (seed 7, 6 000 mCPU, 12 GiB, 20-60 s), K = 8."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml(RL_AUTOSCALED_YAML),
+        UniformClusterTrace(2, cpu=8000, ram=16 * 1024**3).convert_to_simulator_events(),
+        PoissonWorkloadTrace(rate_per_second=0.5, horizon=200.0, seed=7, cpu=6000, ram=12 * 1024**3,
+                             duration_range=(20.0, 60.0)).convert_to_simulator_events(),
+        n_clusters=n_clusters, device=device, max_pods_per_cycle=8, **engine_kwargs,
+    )
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """Inside the block the plain versions of the RL path's kernels (the
+    event scatter, the free pass, the commit scatter, both CA passes)
+    raise, in every module that calls them: a card run inside it proves
+    that the wrappers launched the kernels."""
+    from kubernetriks_tpu_torch.batched import step as step_mod
+    from kubernetriks_tpu_torch.ops import autoscale_kernel, scheduler_kernel
+
+    targets = [(scheduler_kernel, "event_scatter_plain"), (scheduler_kernel, "free_resources_plain"),
+               (scheduler_kernel, "commit_scatter_plain"), (step_mod, "commit_scatter_plain"),
+               (autoscale_kernel, "ca_scale_down_plain"), (autoscale_kernel, "ca_scale_up_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise AssertionError(f"the plain {name} ran on the card's RL path")
+        return plain
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def rl_params_close(a: dict, b: dict, start: dict, lr: float, rtol: float, atol: float):
+    """(worst |a - b| off the shift-invariant logit bias, problems): a ==
+    b within rtol / atol there; on the logit bias each side within one
+    Adam step (lr) of `start`."""
+    problems, worst = [], 0.0
+    for name in b:
+        x, y = a[name].detach().cpu(), b[name].detach().cpu()
+        if name in RL_SHIFT_INVARIANT:
+            if max(float((x - start[name].cpu()).abs().max()), float((y - start[name].cpu()).abs().max())) > lr:
+                problems.append(f"{name} moved more than one Adam step")
+            continue
+        worst = max(worst, float((x - y).abs().max()))
+        if not torch.allclose(x, y, rtol=rtol, atol=atol):
+            problems.append(f"{name} differs by {float((x - y).abs().max()):.3g}")
+    return worst, problems
+
+
+def rl_card_vs_cpu(dev, sk, build, head: str, label: str, windows: int = RL_CHECK_WINDOWS, seed: int = 5) -> dict:
+    """One head on a small sim (`build(device, **kwargs)`), card against
+    CPU (phase 23b; tests/test_torch_cuda.py): trainers with one seed (the
+    same weights, drawn on the CPU), a greedy rollout and a sampled one
+    with the same noise ((W, K, C, N) drawn on the CPU from a seeded
+    generator, copied to the card), the card's run with the plain versions
+    refused and its launches counted. Actions compared; every cluster whose
+    actions all agree must have equal valid flags and an equal final state
+    (compare_states); a cluster with a flip is reported with its margin on
+    the CPU's scores at the first flip, and fails unless that is a near tie
+    (under 1e-5 relative). Then one ppo_update from each side's sampled
+    batch: params within rtol 1e-4 (atol 1e-6) where no cluster flipped.
+    Returns the report; its "problems" list is empty on success."""
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.rl.env import MASK_LOGIT, draw_gumbel, final_state_value
+    from kubernetriks_tpu_torch.rl.ppo import PPOConfig, PPOTrainer, compute_gae, ppo_update
+
+    config = PPOConfig(epochs_per_iteration=1, learning_rate=1e-3)
+    card_sim = build(dev)
+    cpu_sim = build(torch.device("cpu"), reclaim=card_sim.reclaim)
+    card = PPOTrainer(card_sim, windows, config, seed=seed, policy_kind=head)
+    cpu = PPOTrainer(cpu_sim, windows, config, seed=seed, policy_kind=head)
+    K, C, N = cpu_sim.max_pods_per_cycle, cpu_sim.n_clusters, cpu_sim.n_nodes
+    gumbel = draw_gumbel(torch.Generator().manual_seed(seed + 1), (windows, K, C, N))
+    report = {"head": head, "C": C, "N": N, "windows": windows, "reclaim": card_sim.reclaim, "problems": []}
+    batches = {}
+    for mode in ("greedy", "sampled"):
+        noise = None if mode == "greedy" else gumbel
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        with plain_versions_refused():
+            card_final, card_flat = card.collect(greedy=noise is None, gumbel=noise)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = sk.launch_counts()
+        cpu_final, cpu_flat = cpu.collect(greedy=noise is None, gumbel=noise)
+        t2 = time.perf_counter()
+        batches[mode] = (card_final, card_flat, cpu_final, cpu_flat)
+        a_card, a_cpu = card_flat.action.cpu(), cpu_flat.action
+        flipped = (a_card != a_cpu).any(dim=0)
+        flips = []
+        for c in torch.nonzero(flipped).flatten().tolist():
+            t = int(torch.nonzero(a_card[:, c] != a_cpu[:, c])[0])
+            obs = cpu_flat.obs[t, c][None]
+            logits, _ = cpu.policy_apply(cpu.params, obs)
+            fit = obs[..., 1] > 0
+            score = torch.where(fit, logits, MASK_LOGIT)
+            score = torch.where(fit.any(), score, torch.zeros_like(score))[0]
+            if noise is not None:
+                score = score + noise[t // K, t % K, c]
+            hi, lo = float(score[a_cpu[t, c]]), float(score[a_card[t, c]])
+            near = hi - lo <= 1e-5 * max(1.0, abs(hi))
+            flips.append({"cluster": c, "decision": t, "margin": hi - lo, "near_tie": near})
+            if not near:
+                report["problems"].append(f"{label} {mode}: cluster {c} decision {t}: card and CPU chose nodes "
+                                          f"{int(a_card[t, c])} and {int(a_cpu[t, c])}, margin {hi - lo:.3g}")
+        keep = np.flatnonzero(~flipped.numpy())
+        if not torch.equal(card_flat.valid.cpu()[:, keep], cpu_flat.valid[:, keep]):
+            report["problems"].append(f"{label} {mode}: valid flags differ")
+        a_np, b_np = state_to_numpy(card_final), state_to_numpy(cpu_final)
+        bad = compare_states({k: v[keep] for k, v in a_np.items()}, {k: v[keep] for k, v in b_np.items()})
+        if bad:
+            report["problems"].append(f"{label} {mode}: card and CPU final states differ at {bad[:5]}")
+        for name in RL_PATH_KERNELS + (RL_CA_KERNELS if card_sim.autoscale_statics is not None else ()):
+            if launches[name] <= 0:
+                report["problems"].append(f"{label} {mode}: the card's rollout never launched {name}")
+        report[mode] = {"flips": flips, "clusters_compared": len(keep), "decisions": int(cpu_flat.valid.sum()),
+                        "card_s": t1 - t0, "cpu_s": t2 - t1,
+                        "launches": {n: launches[n] for n in RL_PATH_KERNELS + RL_CA_KERNELS}}
+    # One update from each side's sampled batch.
+    news = []
+    for trainer, (final, flat) in ((card, batches["sampled"][:2]), (cpu, batches["sampled"][2:])):
+        boot = final_state_value(final, trainer.policy_apply, trainer.params)
+        adv, ret = compute_gae(flat.reward, flat.value, flat.valid, config.gamma, config.gae_lambda, boot)
+        new, _, loss, _ = ppo_update(trainer.params, trainer.opt_state, trainer.policy_apply, flat, adv, ret, config)
+        if not math.isfinite(float(loss)):
+            report["problems"].append(f"{label}: the update's loss is not finite on {final.time.device}")
+        news.append(new)
+    if report["sampled"]["flips"]:
+        report["update"] = "not compared: the sampled batches differ"
+    else:
+        worst, problems = rl_params_close(news[0], news[1], cpu.params, config.learning_rate, 1e-4, 1e-6)
+        report["update"] = {"max_abs_diff": worst}
+        report["problems"] += [f"{label} update: {p}" for p in problems]
+    return report
+
+
+def rl_iteration_split(trainer, sk) -> dict:
+    """One PPO iteration of `trainer` (PPOTrainer.train_iteration's steps)
+    timed on the host clock to a synchronize at each boundary: rollout,
+    GAE (with the bootstrap value), update (the epochs); the rollout's
+    kernel launches, counted from 0."""
+    from kubernetriks_tpu_torch.rl.env import final_state_value
+    from kubernetriks_tpu_torch.rl.ppo import compute_gae, ppo_update
+
+    cfg = trainer.config
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    final, flat = trainer.collect()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = sk.launch_counts()
+    boot = final_state_value(final, trainer.policy_apply, trainer.params)
+    adv, ret = compute_gae(flat.reward, flat.value, flat.valid, cfg.gamma, cfg.gae_lambda, boot)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(cfg.epochs_per_iteration):
+        trainer.params, trainer.opt_state, loss, aux = ppo_update(
+            trainer.params, trainer.opt_state, trainer.policy_apply, flat, adv, ret, cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {
+        "rollout_s": t1 - t0, "gae_s": t2 - t1, "update_s": t3 - t2, "wall_s": t3 - t0,
+        "decisions": int(flat.valid.sum()), "loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+        "transition_bytes": sum(x.numel() * x.element_size() for x in flat), "launches": launches,
+    }
+
+
+def rl_phase(dev, sk, card: str) -> dict:
+    """Phase 23, the RL scheduler loop (kubernetriks_tpu_torch/rl/) on the
+    card, float32 with TF32 off.
+
+    23a, the reference's RL bench shape (scripts/bench_rl.py:105-135):
+    8 192 clusters x 8 nodes, 16 windows x K = 8, 4 epochs; one warm
+    iteration, then one timed (rl_iteration_split) for the MLP head
+    (hidden 64) and for the attention head at update_microbatch=1024:
+    wall, decisions/s, the rollout / GAE / update split, the peak device
+    memory of the timed iteration, kernels and device busy ms a rollout
+    window (a traced rollout) beside its host ms; the rollout must launch
+    the event scatter, free and commit scatter kernels.
+    23b, card against CPU at C = 4 (rl_card_vs_cpu) for both heads on
+    tests/test_rl.py's make_sim shape, and for the MLP on its autoscaled
+    sim with the CA and reclaim at the card's default (the CA kernels).
+    23c, the learning proof (rl_proof)."""
+    from kubernetriks_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 23: TF32 matmuls are on; the policy runs float32 as the reference does")
+    out = {"card": card}
+
+    # --- 23a
+    t0 = time.perf_counter()
+    stamps = {}
+    sim = rl_bench_sim(dev, RL_BENCH_CLUSTERS)
+    out["bench_build_s"] = time.perf_counter() - t0
+    for head, micro in (("mlp", 0), ("attention", RL_ATTENTION_MICROBATCH)):
+        label = f"phase 23a {head}"
+        trainer = PPOTrainer(sim, RL_BENCH_WINDOWS, PPOConfig(epochs_per_iteration=4, update_microbatch=micro),
+                             policy_kind=head)
+        t1 = time.perf_counter()
+        trainer.train_iteration()  # warm: cuBLAS handles, the allocator's pools
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        run = rl_iteration_split(trainer, sk)
+        run["warm_iteration_s"] = warm_s
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        run["decisions_per_s"] = run["decisions"] / run["wall_s"]
+        run["host_ms_per_window"] = 1e3 * run["rollout_s"] / RL_BENCH_WINDOWS
+        run["busy"] = device_busy(lambda: (trainer.collect(), RL_BENCH_WINDOWS)[1], f"{label} rollout")
+        for name in RL_PATH_KERNELS:
+            if run["launches"][name] <= 0:
+                fail(f"{label}: the rollout never launched {name}")
+        if not math.isfinite(run["loss"]) or run["decisions"] <= 0:
+            fail(f"{label}: loss {run['loss']}, {run['decisions']} decisions")
+        out[head] = run
+        print(f"{label} ({card}): C={RL_BENCH_CLUSTERS} N=8 W={RL_BENCH_WINDOWS} K=8, update_microbatch={micro}: "
+              f"{run['wall_s']:.3f} s an iteration = {run['decisions_per_s']:.0f} decisions/s ({run['decisions']} "
+              f"decisions); rollout {run['rollout_s']:.3f} s, GAE {run['gae_s']:.3f} s, update {run['update_s']:.3f} "
+              f"s; a rollout window: host {run['host_ms_per_window']:.3f} ms, device busy "
+              f"{run['busy']['busy_ms_per_window']:.3f} ms, {run['busy']['kernels_per_window']:.1f} kernels; peak "
+              f"device memory {run['peak_bytes'] / 2**30:.2f} GiB, transitions {run['transition_bytes'] / 2**30:.3f} "
+              f"GiB; launches {{{', '.join(f'{n}: {run['launches'][n]}' for n in RL_PATH_KERNELS)}}}; loss "
+              f"{run['loss']:.4f}; the warm iteration {warm_s:.3f} s", flush=True)
+        del trainer
+    del sim
+    stamps["23a"] = time.perf_counter() - t0
+
+    # --- 23b
+    checks = {}
+    for head, build, label in (("mlp", rl_bench_sim, "make_sim"), ("attention", rl_bench_sim, "make_sim"),
+                               ("mlp", rl_autoscaled_sim, "autoscaled")):
+        name = f"phase 23b {head} {label}"
+        t1 = time.perf_counter()
+        rep = rl_card_vs_cpu(dev, sk, lambda d, **kw: build(d, 4, **kw), head, name)
+        rep["seconds"] = time.perf_counter() - t1
+        if rep["problems"]:
+            fail(f"{name}: " + "; ".join(rep["problems"]))
+        checks[f"{head} {label}"] = rep
+        flips = [f for mode in ("greedy", "sampled") for f in rep[mode]["flips"]]
+        print(f"{name}: card == CPU at C={rep['C']} N={rep['N']} W={rep['windows']} (reclaim {rep['reclaim']}), greedy "
+              f"and sampled (same noise): actions, valid flags and final states equal on "
+              f"{rep['sampled']['clusters_compared']}/{rep['C']} clusters, near-tie flips {flips}; one update "
+              f"{rep['update']}; launches {rep['sampled']['launches']}", flush=True)
+    out["card_vs_cpu"] = checks
+    stamps["23b"] = time.perf_counter() - t0 - stamps["23a"]
+
+    # --- 23c
+    out["proof"] = rl_proof(dev)
+    stamps["23c"] = out["proof"]["seconds"]
+    out["seconds"] = stamps
+    print(f"phase 23: {stamps} s", flush=True)
+    return out
+
+
+
+def rl_proof(dev) -> dict:
+    """Phase 23c, the learning proof (tests/test_rl_learning.py:47-118's
+    settings and thresholds): the MLP trained RL_PROOF_ITERATIONS
+    iterations on 32 clusters of the bimodal scenario (rl/evaluate.py),
+    then greedy on held-out seeds against eval_kube, best-fit and its own
+    untrained weights. The untrained weights are the reference's own for
+    its seed 0 (rl/reference_init.py: the gates compare the trained policy
+    with them); the rollout noise is the trainer's generator's. Fails on a
+    missed gate, with the four summaries printed."""
+    from kubernetriks_tpu_torch.convert import policy_params_from_flax
+    from kubernetriks_tpu_torch.rl import evaluate
+    from kubernetriks_tpu_torch.rl.ppo import PPOConfig, PPOTrainer, adam_init
+    from kubernetriks_tpu_torch.rl.reference_init import reference_mlp_init
+
+    t0 = time.perf_counter()
+    windows = np.arange(evaluate.PROOF_WINDOWS, dtype=np.int32)
+    large = evaluate.PROOF_LARGE["cpu"]
+    trainer = PPOTrainer(
+        evaluate.make_proof_sim(RL_PROOF_TRAIN_SEED, RL_PROOF_CLUSTERS, device=dev), evaluate.PROOF_WINDOWS,
+        PPOConfig(learning_rate=3e-4, gamma=0.995, gae_lambda=0.97, epochs_per_iteration=4,
+                  reward_size_weighted=True, shaping_coef=0.2),
+        seed=0,
+    )
+    trainer.params = policy_params_from_flax(reference_mlp_init(0), dev)
+    trainer.opt_state = adam_init(trainer.params)
+    heldout = evaluate.make_proof_sim(RL_PROOF_HELDOUT_SEED, RL_PROOF_CLUSTERS, device=dev)
+
+    def greedy(apply, params):
+        return evaluate.eval_policy(heldout, apply, params, windows, greedy=True, large_cpu=large)
+
+    proof = {
+        "kube": evaluate.eval_kube(evaluate.make_proof_sim(RL_PROOF_HELDOUT_SEED, RL_PROOF_CLUSTERS, device=dev),
+                                   windows, large_cpu=large),
+        "bestfit": greedy(evaluate.bestfit_policy_apply, None),
+        "untrained": greedy(trainer.policy_apply, trainer.params),
+    }
+    history = trainer.train(RL_PROOF_ITERATIONS)
+    if not all(math.isfinite(it["policy_loss"]) for it in history):
+        fail(f"phase 23c: a policy loss is not finite: {[it['policy_loss'] for it in history]}")
+    proof["trained"] = trained = greedy(trainer.policy_apply, trainer.params)
+    kube, bestfit, untrained = proof["kube"], proof["bestfit"], proof["untrained"]
+    gates = {
+        "large_placed >= kube + 0.30": trained["large_placed_frac"] >= kube["large_placed_frac"] + 0.30,
+        "unschedulable_left < kube": trained["unschedulable_left_per_cluster"] < kube["unschedulable_left_per_cluster"],
+        "placements > kube": trained["placements_per_cluster"] > kube["placements_per_cluster"],
+        "queue < kube": trained["mean_queue_time_s"] < kube["mean_queue_time_s"],
+        "large_placed >= bestfit - 0.05": trained["large_placed_frac"] >= bestfit["large_placed_frac"] - 0.05,
+        "queue <= bestfit + 0.5": trained["mean_queue_time_s"] <= bestfit["mean_queue_time_s"] + 0.5,
+        "parks <= 0.7 untrained": trained["park_decisions_per_cluster"] <= 0.7 * untrained["park_decisions_per_cluster"],
+        "queue < untrained": trained["mean_queue_time_s"] < untrained["mean_queue_time_s"],
+    }
+    proof.update(iterations=RL_PROOF_ITERATIONS, mean_reward=[it["mean_reward"] for it in history], gates=gates,
+                 seconds=time.perf_counter() - t0)
+    for name in ("kube", "bestfit", "untrained", "trained"):
+        print(f"phase 23c {name}: " + json.dumps(proof[name]), flush=True)
+    print(f"phase 23c: {RL_PROOF_ITERATIONS} iterations on {RL_PROOF_CLUSTERS} clusters in {proof['seconds']:.1f} s "
+          f"(with the evaluations), mean reward {proof['mean_reward'][0]:.4f} -> {proof['mean_reward'][-1]:.4f}; "
+          f"gates {gates}", flush=True)
+    missed = [g for g, ok in gates.items() if not ok]
+    if missed:
+        fail(f"phase 23c: the learning proof missed {missed}")
+    return proof
 
 
 T0 = time.perf_counter()
@@ -2210,22 +2625,12 @@ def streamed_replay_phase(dev, sk, paths, must_launch) -> dict:
     }
     route = sim.cycle_route
     # Device busy over 100 more windows of the same run.
-    from torch.profiler import ProfilerActivity, profile
-
-    w0 = sim.windows_run
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def more():
+        w0 = sim.windows_run
         sim.step_until_time(STREAMED_UNTIL + 1000.0)
-        torch.cuda.synchronize()
-    busy_us, kernels = 0.0, 0
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
-        if us > 0 and e.self_cpu_time_total == 0:
-            busy_us += us
-            kernels += e.count
-    n = max(sim.windows_run - w0, 1)
-    if busy_us <= 0:
-        fail("phase 18: the profiler saw no device time")
-    out["busy"] = {"windows": n, "busy_ms_per_window": busy_us / 1e3 / n, "kernels_per_window": kernels / n}
+        return max(sim.windows_run - w0, 1)
+
+    out["busy"] = device_busy(more, "phase 18")
     # The staging after the continuation, a growth's re-seek included: its
     # peak over the whole run must stay below the whole payload at the
     # width reached.
@@ -4069,6 +4474,10 @@ def main() -> int:
         dev, sk, smi, ["fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"] + ca_names,
         names + ca_names)
 
+    # --- 23. the RL scheduler loop ----------------------------------------------------------------------------
+    stamp("phase 23")
+    rl_path = rl_phase(dev, sk, smi)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -4182,7 +4591,7 @@ def main() -> int:
             "profiles": profiles_path, "faults": faults_path, "sparse": sparse_path, "conditional_move": cm_path,
             "telemetry": telemetry_path, "windowed_replay_unstreamed": windowed_replay_unstreamed,
             "streamed_replay": streamed_path,
-            "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path,
+            "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path, "rl": rl_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

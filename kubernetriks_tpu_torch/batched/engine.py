@@ -196,6 +196,7 @@ executed window, for the next, and gauge collection once a span.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -1084,6 +1085,9 @@ class BatchedSimulation:
             state = state._replace(pods=state.pods._replace(hpa_idx=hpa_idx), auto=auto)
             self.clock = AutoscaleClock(st, interval, hpa_on=self.hpa_seg != (0, 0), ca_on=ca_on)
             self.clock.seed(auto)
+        # The autoscaler clock's due times as the build left them, for the
+        # plans of a run from the build state (initial_window_plans).
+        self._build_due = None if self.clock is None else self.clock.due_times()
         ev_win, ev_off = from_f64_np(ev_time_u, interval)
         self.slab = TraceSlab.build(each_cluster(ev_win), each_cluster(ev_off), ev_kind, ev_slot, self.device)
         self._k = DeviceConstants.build(self.consts, self.device)
@@ -2132,6 +2136,28 @@ class BatchedSimulation:
             reclaim=self.reclaim,
             crash_due=crash_due,
         )
+
+    def initial_window_plans(self, n_windows: int) -> List[WindowPlan]:
+        """The host WindowPlans of windows 0..n_windows-1 from the host
+        mirrors as the build left them (the event cursor at 0, the
+        autoscaler clock at its build due times, no CA removal pending),
+        whatever the engine has run since. The plans depend on the trace
+        and the due times alone, never on the scheduling decisions, so a
+        run that restarts from the build state under another scheduler
+        (the RL rollout, rl/env.py) replays them as they are. The live
+        mirrors are left as they are."""
+        if self.lane_async:
+            raise ValueError("initial_window_plans: a lane-asynchronous engine plans each lane at its own clock")
+        live = (self._cursor, self.clock)
+        self._cursor = np.zeros(self.n_clusters, np.int64)
+        if self.clock is not None:
+            self.clock = copy.copy(self.clock)
+            self.clock.removal_windows = set()
+            self.clock.set_due_times(self._build_due)
+        try:
+            return [self._plan(w) for w in range(int(n_windows))]
+        finally:
+            self._cursor, self.clock = live
 
     def _lane_plan(self, w: int, freeze: bool) -> WindowPlan:
         """_plan under lane clocks: each lane active at global window w

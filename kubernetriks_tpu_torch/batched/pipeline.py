@@ -269,3 +269,13 @@ def profile_fit_score(profile: CompiledProfile, alive, cpu, ram, rc, rr):
     `rc`/`rr`."""
     fit = profile_fit_mask(profile, alive, cpu, ram, rc, rr)
     return fit, profile_score(profile, fit, cpu, ram, rc, rr)
+
+
+def bestfit_logits_from_obs(obs: torch.Tensor) -> torch.Tensor:
+    """The MostAllocatedResources scorer on the RL observation channels
+    (rl/env.featurize: alloc and request fractions of node capacity;
+    reference pipeline.py:288). The scorer is scale-invariant per
+    resource, so the fractions rank nodes as the raw allocatables do: the
+    learning proof's best-fit baseline (rl/evaluate.bestfit_policy_apply)
+    and the "best_fit" profile share this one scorer."""
+    return DEVICE_SCORE_PLUGINS[MOST_ALLOCATED](obs[..., 2], obs[..., 3], obs[..., 4], obs[..., 5])

@@ -1,8 +1,9 @@
 """State carried across between the JAX engine and this port.
 
-The simulator has no model weights: what carries over is the simulation
-state (and the compiled trace slab, which both engines rebuild from the
-same traces). The exchange format is framework-neutral — a flat dict of
+What carries over is the simulation state (both engines rebuild the
+compiled trace slab from the same traces) and, for the RL loop, the policy
+heads' weights (policy_params_from_flax, attention_params_from_jax). The
+exchange format is framework-neutral — a flat dict of
 numpy arrays keyed by attribute path (".pods.queue_ts.win"), the strings
 `jax.tree_util.keystr` gives for the JAX engine's `ClusterBatchState` —
 so this module needs neither jax nor the JAX package.
@@ -49,3 +50,31 @@ def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> ClusterBatchSt
         raise KeyError(f"state leaves differ: unexpected {unexpected}")
     return state
 
+
+def policy_params_from_flax(params, device=None) -> Dict[str, torch.Tensor]:
+    """A flax SchedulerPolicy tree ({"params": {"Dense_0": {"kernel",
+    "bias"}, ...}}, numpy arrays or anything np.asarray takes) as the
+    params dict of rl/policy.SchedulerPolicy on `device`: all Dense layers
+    but the last three are the trunk, then the logit layer, then the two
+    value layers (flax's creation order); each kernel, (in, out) in flax,
+    is transposed to the module's (out, in)."""
+    dev = resolve_device(device)
+    dense = params["params"] if "params" in params else params
+    layers = len(dense) - 3
+    names = [f"trunk.{i}" for i in range(layers)] + ["logit", "value1", "value2"]
+    if layers < 1 or sorted(dense) != sorted(f"Dense_{i}" for i in range(len(names))):
+        raise KeyError(f"expected Dense_0..Dense_k with k >= 3, got {sorted(dense)}")
+    out = {}
+    for i, name in enumerate(names):
+        layer = dense[f"Dense_{i}"]
+        kernel = np.asarray(layer["kernel"], np.float32)
+        out[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(kernel.T), device=dev)
+        out[f"{name}.bias"] = torch.tensor(np.asarray(layer["bias"], np.float32), device=dev)
+    return out
+
+
+def attention_params_from_jax(params, device=None) -> Dict[str, torch.Tensor]:
+    """The attention head's parameter dict (rl/attention_policy names and
+    layout, the reference's own) as float32 tensors on `device`."""
+    dev = resolve_device(device)
+    return {name: torch.tensor(np.asarray(value, np.float32), device=dev) for name, value in params.items()}

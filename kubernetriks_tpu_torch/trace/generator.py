@@ -1,5 +1,5 @@
-"""Synthetic generators for benchmark traces: Poisson pod arrivals and a
-uniform cluster created at t=0. Seeded with Python's `random`, so a seed
+"""Synthetic generators for benchmark traces: Poisson pod arrivals, their
+time-merge and a uniform cluster created at t=0. Seeded with Python's `random`, so a seed
 gives the same event stream as the JAX package's generators."""
 
 from __future__ import annotations
@@ -60,6 +60,26 @@ class PoissonWorkloadTrace(Trace):
 
     def event_count(self) -> int:
         return self._count if self._count is not None else int(self.rate * self.horizon)
+
+
+class MergedWorkloadTrace(Trace):
+    """Time-merge of several workload traces into one event stream (a
+    bimodal mix of a high-rate small-pod process and a low-rate large-pod
+    process, the learning proof's scenario). Give the parts distinct
+    name_prefix values so pod names stay unique."""
+
+    def __init__(self, *parts: Trace) -> None:
+        self.parts = parts
+
+    def convert_to_simulator_events(self) -> TraceEvents:
+        events: TraceEvents = []
+        for part in self.parts:
+            events.extend(part.convert_to_simulator_events())
+        events.sort(key=lambda pair: pair[0])
+        return events
+
+    def event_count(self) -> int:
+        return sum(part.event_count() for part in self.parts)
 
 
 class UniformClusterTrace(Trace):

@@ -1486,3 +1486,36 @@ def test_lane_plan_and_reset_write_in_place(cuda_device):
     assert ptrs() == before
     assert eng._lane_clocks.clock.tolist() == [3, 0, 3, 0] and eng._lane_clocks.horizon.tolist() == [5, 0, 7, 0]
     fleet.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head,kind", [("mlp", "make_sim"), ("attention", "make_sim"), ("mlp", "autoscaled")])
+def test_rl_rollout_card_matches_cpu(cuda_device, head, kind):
+    """chip_smoke phase 23b at C = 2: greedy and sampled rollouts (the same
+    noise) on the card equal the CPU's (actions, valid flags, final state;
+    a near-tie flip is reported, any other fails), one update within rtol
+    1e-4; the card's rollout launches the event scatter, free and commit
+    scatter kernels (and both CA kernels on the autoscaled sim) with their
+    plain versions refused."""
+    from chip_smoke import rl_autoscaled_sim, rl_bench_sim, rl_card_vs_cpu
+
+    build = rl_bench_sim if kind == "make_sim" else rl_autoscaled_sim
+    report = rl_card_vs_cpu(cuda_device, port_kernels, lambda d, **kw: build(d, 2, **kw), head, kind)
+    assert report["problems"] == []
+
+
+@pytest.mark.cuda
+def test_rl_train_iteration_on_the_card_is_finite(cuda_device):
+    """One PPO iteration a head on the card (the attention head's update
+    in chunks): finite losses and params, decisions and placements made."""
+    from chip_smoke import rl_bench_sim
+    from kubernetriks_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+
+    sim = rl_bench_sim(cuda_device, 16)
+    for head, micro in (("mlp", 0), ("attention", 8)):
+        trainer = PPOTrainer(sim, 4, PPOConfig(epochs_per_iteration=2, update_microbatch=micro), policy_kind=head)
+        out = trainer.train_iteration()
+        assert all(np.isfinite(out[k]) for k in ("policy_loss", "value_loss", "entropy", "mean_reward")), out
+        assert out["decisions"] > 0 and out["placements"] > 0
+        assert all(bool(torch.isfinite(p).all()) for p in trainer.params.values())
+        assert all(p.device.type == "cuda" for p in trainer.params.values())

@@ -148,9 +148,9 @@ def test_port_main_path_loads_no_jax(tmp_path):
     recorder (the ring, the watchdog, gauges, the report), a run streamed
     by the feeder thread, the endurance churn with slot reclaim, the trace
     replay through the native feeder and the CLI, a checkpoint's save and
-    restore, and two waves of a scenario fleet with faults, run in a fresh
-    interpreter, leave no module named jax* or kubernetriks_tpu.* in
-    sys.modules."""
+    restore, two waves of a scenario fleet with faults, and a 2-window
+    greedy rollout of the RL loop, run in a fresh interpreter, leave no
+    module named jax* or kubernetriks_tpu.* in sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -233,6 +233,12 @@ def test_port_main_path_loads_no_jax(tmp_path):
         out = fleet.sweep([Scenario(fault_seed=5, ca_threshold=0.6), Scenario(fault_seed=6), Scenario()])
         assert fleet.waves_run == 2 and all(r.ok for r in out)
         fleet.close()
+        import kubernetriks_tpu_torch.parallel.ring, kubernetriks_tpu_torch.rl.attention_policy
+        import kubernetriks_tpu_torch.rl.evaluate
+        from kubernetriks_tpu_torch.rl.ppo import PPOTrainer
+        from chip_smoke import rl_bench_sim
+        _, flat = PPOTrainer(rl_bench_sim("cpu", 2), windows_per_rollout=2).collect(greedy=True)
+        assert flat.valid.shape == (16, 2) and bool(flat.valid.any())
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                      or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
