@@ -228,6 +228,23 @@ Phases; any failure exits non-zero:
      (`tests/test_rl_learning.py:47-118`): the MLP trained on 32 clusters,
      greedy on held-out seeds against eval_kube and best-fit, the
      reference's thresholds as the gate.
+ 24. the scalar event-loop oracle (kubernetriks_tpu_torch/sim/, host
+     Python) against the card engine's readouts (pod_view, cluster_metrics,
+     node_count_at, metrics_summary): (a) at C = 1 on the JAX package's
+     scalar-equivalence traces, by the rules of its tests: the batch-of-one
+     trace under zero and the reference's delays (every pod's phase and
+     node, start times to 1e-2 s, the node count inside windows), the
+     HPA-driven CA trace (replicas and node_count_at at its 60 s samples,
+     the autoscaler counters) and the fault trace at seed 101 (fault
+     counters exact, start times to 5e-6 s, the node count 0.5 s after
+     crashes in unapplied windows); (b) the full-width replay (1 313
+     machines, the synthetic day's first hour: 2 228 tasks, no CA) through
+     the CLI's builders on both backends: succeeded and terminated pods
+     exact, pod_duration min and max to rel 1e-5, mean to rel 1e-4, the
+     scalar and card wall seconds; (c) C = 4 replicated: every cluster's
+     readouts equal cluster 0's; the composed line through pod_window=512
+     with slot reclaim at C = 2: pod_view and node_count_at at 605 s equal
+     on the card and the CPU.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -3411,6 +3428,490 @@ def lane_async_phase(dev, sk, card: str, sorted_names, dense_names) -> dict:
     return out
 
 
+# --- 24. the scalar oracle against the card's readouts ---------------------------
+
+# The JAX package's scalar-equivalence traces, copied here (the card's
+# machine has no JAX): its tests' delays (`kubernetriks_tpu/test_util.py:10`),
+# `tests/test_batched_equivalence.py`'s CLUSTER_YAML and make_workload,
+# `tests/test_hpa_ca_combined.py`'s HPA-driven CA trace,
+# `tests/test_random_equivalence.py` generate_traces and
+# `tests/test_chaos.py` FAULT_YAML. tests/test_torch_readouts.py holds each
+# copy equal to its source.
+SCALAR_TEST_CONFIG_YAML = """
+sim_name: "test_kubernetriks"
+seed: 123
+scheduling_cycle_interval: 10.0
+as_to_ps_network_delay: 0.050
+ps_to_sched_network_delay: 0.010
+sched_to_as_network_delay: 0.020
+as_to_node_network_delay: 0.150
+as_to_ca_network_delay: 0.30
+as_to_hpa_network_delay: 0.40
+"""
+
+SCALAR_ZERO_DELAYS = "\n".join(
+    f"{k}: 0.0"
+    for k in ("as_to_ps_network_delay", "ps_to_sched_network_delay", "sched_to_as_network_delay",
+              "as_to_node_network_delay")
+)
+
+EQUIV_CLUSTER_YAML = """
+events:
+- timestamp: 5
+  event_type:
+    !CreateNode
+      node:
+        metadata: {name: node_00}
+        status: {capacity: {cpu: 8000, ram: 17179869184}}
+- timestamp: 5
+  event_type:
+    !CreateNode
+      node:
+        metadata: {name: node_01}
+        status: {capacity: {cpu: 4000, ram: 8589934592}}
+- timestamp: 200
+  event_type:
+    !CreateNode
+      node:
+        metadata: {name: node_02}
+        status: {capacity: {cpu: 16000, ram: 34359738368}}
+"""
+
+EQUIV_PODS = (
+    ("pod_00", 2000, 4, 50.0, 10),
+    ("pod_01", 2000, 4, 80.0, 11),
+    ("pod_02", 4000, 8, 40.0, 12),
+    ("pod_03", 4000, 8, 30.0, 13),
+    ("pod_04", 12000, 24, 60.0, 20),
+    ("pod_05", 1000, 2, 25.0, 95),
+    ("pod_06", 8000, 16, 45.0, 210),
+)
+
+
+def equiv_workload_yaml() -> str:
+    """The batch-of-one trace's seven pods (name, mCPU, GiB, seconds,
+    arrival) as a generic workload trace."""
+    out = "events:"
+    for name, cpu, gib, duration, ts in EQUIV_PODS:
+        ram = gib * 1024**3
+        out += f"""
+- timestamp: {ts}
+  event_type:
+    !CreatePod
+      pod:
+        metadata: {{name: {name}}}
+        spec:
+          resources:
+            requests: {{cpu: {cpu}, ram: {ram}}}
+            limits: {{cpu: {cpu}, ram: {ram}}}
+          running_duration: {duration}
+"""
+    return out
+
+
+HPA_CA_SUFFIX = """
+horizontal_pod_autoscaler:
+  enabled: true
+cluster_autoscaler:
+  enabled: true
+  autoscaler_type: kube_cluster_autoscaler
+  scan_interval: 10.0
+  max_node_count: 10
+  node_groups:
+  - node_template:
+      metadata:
+        name: ca_node
+      status:
+        capacity:
+          cpu: 8000
+          ram: 17179869184
+"""
+
+HPA_CA_CLUSTER = """
+events:
+- timestamp: 2.0
+  event_type:
+    !CreateNode
+      node:
+        metadata: {name: base}
+        status: {capacity: {cpu: 8000, ram: 17179869184}}
+"""
+
+HPA_CA_WORKLOAD = """
+events:
+- timestamp: 59.5
+  event_type:
+    !CreatePodGroup
+      pod_group:
+        name: grp
+        initial_pod_count: 2
+        max_pod_count: 10
+        pod_template:
+          metadata:
+            name: grp
+          spec:
+            resources:
+              requests: {cpu: 2000, ram: 2147483648}
+              limits: {cpu: 2000, ram: 2147483648}
+        target_resources_usage:
+          cpu_utilization: 0.5
+        resources_usage_model_config:
+          cpu_config:
+            model_name: pod_group
+            config: |
+              - duration: 300.0
+                total_load: 1.0
+              - duration: 300.0
+                total_load: 4.5
+              - duration: 600.0
+                total_load: 0.5
+"""
+
+SCALAR_FAULT_YAML = """
+fault_injection:
+  enabled: true
+  node:
+    mttf: 2500.0
+    mttr: 120.0
+  pod:
+    fail_prob: 0.12
+    backoff_base: 10.0
+    backoff_cap: 300.0
+    restart_limit: 3
+"""
+
+RANDOM_END_TIME = 12000.0
+
+
+def random_trace_events(seed: int, n_nodes: int = 24, n_pods: int = 220):
+    """(cluster, workload) event dicts of the random trace of one seed:
+    node creates and removals, pods with removals before, while and after
+    running, an anchor node."""
+    rng = np.random.default_rng(seed)
+    gib, mib = 1024**3, 1024**2
+    cluster = [{"timestamp": 0.0, "event_type": {"__tag__": "CreateNode", "node": {
+        "metadata": {"name": "node_anchor"}, "status": {"capacity": {"cpu": 100000, "ram": 1024 * gib}}}}}]
+    for i in range(n_nodes):
+        ts = float(np.round(rng.uniform(0.0, 500.0), 3))
+        cpu = int(rng.integers(2, 17)) * 1000
+        ram = int(rng.integers(4, 65)) * gib
+        cluster.append({"timestamp": ts, "event_type": {"__tag__": "CreateNode", "node": {
+            "metadata": {"name": f"node_{i:03d}"}, "status": {"capacity": {"cpu": cpu, "ram": ram}}}}})
+        if rng.random() < 0.3:
+            cluster.append({"timestamp": float(np.round(ts + rng.uniform(50.0, 3000.0), 3)),
+                            "event_type": {"__tag__": "RemoveNode", "node_name": f"node_{i:03d}"}})
+    workload = []
+    for i in range(n_pods):
+        ts = float(np.round(rng.uniform(1.0, 1500.0), 3))
+        cpu = int(rng.integers(1, 41)) * 100
+        ram = int(rng.integers(64, 8193)) * mib
+        duration = float(np.round(rng.uniform(10.0, 400.0), 3))
+        workload.append({"timestamp": ts, "event_type": {"__tag__": "CreatePod", "pod": {
+            "metadata": {"name": f"pod_{i:04d}"},
+            "spec": {"resources": {"requests": {"cpu": cpu, "ram": ram}, "limits": {"cpu": cpu, "ram": ram}},
+                     "running_duration": duration}}}})
+        if rng.random() < 0.2:
+            workload.append({"timestamp": float(np.round(ts + rng.uniform(0.0, 500.0), 3)),
+                             "event_type": {"__tag__": "RemovePod", "pod_name": f"pod_{i:04d}"}})
+    return cluster, workload
+
+
+def generic_events(cluster, workload):
+    """The port's event objects of a generic trace pair, each YAML text or
+    a list of event dicts (copied: the conversion consumes them)."""
+    import copy
+
+    from kubernetriks_tpu_torch.trace.generic import GenericClusterTrace, GenericWorkloadTrace
+
+    def trace(cls, src):
+        return cls.from_yaml(src) if isinstance(src, str) else cls(events=copy.deepcopy(src))
+
+    return trace(GenericClusterTrace, cluster), trace(GenericWorkloadTrace, workload)
+
+
+def scalar_oracle(config_yaml: str, cluster, workload):
+    """The port's scalar event-loop oracle, initialized on the traces."""
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.sim.simulator import KubernetriksSimulation
+
+    sim = KubernetriksSimulation(SimulationConfig.from_yaml(config_yaml))
+    sim.initialize(*generic_events(cluster, workload))
+    return sim
+
+
+def readout_engine(device, config_yaml: str, cluster, workload, n_clusters: int = 1, **engine_kwargs):
+    """The port's batched engine on the same traces, replicated."""
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.config import SimulationConfig
+
+    c, w = generic_events(cluster, workload)
+    return build_batched_from_traces(
+        SimulationConfig.from_yaml(config_yaml), c.convert_to_simulator_events(), w.convert_to_simulator_events(),
+        n_clusters=n_clusters, device=device, **engine_kwargs,
+    )
+
+
+def pods_against_oracle(label: str, sim, oracle, start_tol: float, cluster: int = 0) -> dict:
+    """The engine's pod_view against the oracle's storage, by the JAX
+    package's equivalence rules: a succeeded pod succeeded on the same
+    node, started within `start_tol` s; a failed pod failed, a parked one
+    sits in the unscheduled cache, a removed one did not succeed."""
+    from kubernetriks_tpu_torch.batched.state import PHASE_FAILED, PHASE_REMOVED, PHASE_SUCCEEDED, PHASE_UNSCHEDULABLE
+    from kubernetriks_tpu_torch.core.types import PodConditionType
+
+    storage = oracle.persistent_storage
+    view = sim.pod_view(cluster)
+    worst = 0.0
+    for name, b in view.items():
+        if b["phase"] == PHASE_SUCCEEDED:
+            pod = storage.succeeded_pods.get(name)
+            if pod is None or b["node"] != pod.status.assigned_node:
+                fail(f"{label}: {name} succeeded on {b['node']} on the engine, "
+                     f"{pod.status.assigned_node if pod else 'did not succeed'} in the oracle")
+            start = pod.get_condition(PodConditionType.POD_RUNNING).last_transition_time
+            worst = max(worst, abs(b["start_time"] - start))
+            if abs(b["start_time"] - start) > start_tol:
+                fail(f"{label}: {name} started at {b['start_time']} on the engine, {start} in the oracle")
+        elif b["phase"] == PHASE_FAILED and name not in storage.failed_pods:
+            fail(f"{label}: {name} failed on the engine, not in the oracle")
+        elif b["phase"] == PHASE_UNSCHEDULABLE and name not in storage.unscheduled_pods_cache:
+            fail(f"{label}: {name} is parked on the engine, not in the oracle")
+        elif b["phase"] == PHASE_REMOVED and name in storage.succeeded_pods:
+            fail(f"{label}: {name} was removed on the engine and succeeded in the oracle")
+    return {"pods": len(view), "max_start_err_s": worst}
+
+
+def metrics_against_oracle(label: str, sim, oracle, faults: bool = False) -> dict:
+    """A one-cluster engine's metrics_summary and cluster_metrics against
+    the oracle's: counters exact, timing stats to rel 1e-4 (abs 1e-3),
+    node downtime to rel 1e-5."""
+    sm = oracle.metrics_collector.accumulated_metrics
+    summary = sim.metrics_summary()
+    counters = summary["counters"]
+    want = {"pods_succeeded": sm.pods_succeeded, "pods_removed": sm.pods_removed,
+            "terminated_pods": sm.internal.terminated_pods, "total_scaled_up_nodes": sm.total_scaled_up_nodes,
+            "total_scaled_down_nodes": sm.total_scaled_down_nodes, "total_scaled_up_pods": sm.total_scaled_up_pods,
+            "total_scaled_down_pods": sm.total_scaled_down_pods}
+    if faults:
+        want.update(node_crashes=sm.node_crashes, node_recoveries=sm.node_recoveries,
+                    pod_interruptions=sm.pod_interruptions, pod_restarts=sm.pod_restarts, pods_failed=sm.pods_failed)
+        if not math.isclose(counters["node_downtime_s"], sm.node_downtime_s, rel_tol=1e-5):
+            fail(f"{label}: node downtime {counters['node_downtime_s']} on the engine, {sm.node_downtime_s} in the oracle")
+    got = {k: counters[k] for k in want}
+    if got != want:
+        fail(f"{label}: counters {got} on the engine, {want} in the oracle")
+    per_cluster = sim.cluster_metrics(0)
+    if any(per_cluster[k] != counters[k] for k in ("pods_succeeded", "pods_removed", "terminated_pods")):
+        fail(f"{label}: cluster_metrics {per_cluster} disagrees with metrics_summary {counters}")
+    for key, est in (("pod_duration", sm.pod_duration_stats), ("pod_queue_time", sm.pod_queue_time_stats),
+                     ("pod_schedule_time", sm.pod_scheduling_algorithm_latency_stats)):
+        for stat, value in (("min", est.min()), ("max", est.max()), ("mean", est.mean())):
+            mine = summary["timings"][key][stat]
+            if not (math.isclose(mine, value, rel_tol=1e-4, abs_tol=1e-3) or (math.isnan(mine) and math.isnan(value))):
+                fail(f"{label}: {key} {stat} {mine} on the engine, {value} in the oracle")
+    return got
+
+
+def crash_samples(config_yaml: str, cluster, workload, n: int = 4):
+    """0.5 s after each of the first `n` crashes that fall inside a window
+    (not in its first or last second): the crash sits in a window the step
+    has not applied yet, which node_count_at resolves from its event table."""
+    from kubernetriks_tpu_torch.chaos import fault_horizon, inject_node_faults
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.core.events import RemoveNodeRequest
+
+    config = SimulationConfig.from_yaml(config_yaml)
+    c, w = generic_events(cluster, workload)
+    c, w = c.convert_to_simulator_events(), w.convert_to_simulator_events()
+    cfg = config.fault_injection
+    seed = cfg.seed if cfg.seed is not None else config.seed
+    chains = inject_node_faults(c, cfg, seed, 0, fault_horizon(cfg, c, w), config.scheduling_cycle_interval)
+    crashes = sorted(ts for ts, e in chains if isinstance(e, RemoveNodeRequest) and e.crashed)
+    inside = [ts for ts in crashes if 1.0 < ts % config.scheduling_cycle_interval < 9.0]
+    if len(inside) < n:
+        fail(f"the fault trace has {len(inside)} crashes inside a window, {n} wanted")
+    return [ts + 0.5 for ts in inside[:n]]
+
+
+def check_batch_of_one(device, delays: str, label: str = "phase 24a") -> dict:
+    """`tests/test_batched_equivalence.py`'s batch-of-one trace under zero
+    or the reference's delays: the engine at C = 1 against the oracle,
+    every pod (start times to 1e-2 s), the node count inside windows."""
+    label = f"{label} (batch of one, {delays} delays)"
+    config = SCALAR_TEST_CONFIG_YAML + (SCALAR_ZERO_DELAYS if delays == "zero" else "")
+    oracle = scalar_oracle(config, EQUIV_CLUSTER_YAML, equiv_workload_yaml())
+    sim = readout_engine(device, config, EQUIV_CLUSTER_YAML, equiv_workload_yaml())
+    samples = (4.0, 15.0, 95.0, 205.0, 255.0, 2000.0)
+    for t in samples:
+        oracle.step_until_time(t)
+        sim.step_until_time(t)
+        if sim.node_count_at(t) != oracle.api_server.node_count():
+            fail(f"{label}: {sim.node_count_at(t)} nodes at {t} s on the engine, "
+                 f"{oracle.api_server.node_count()} in the oracle")
+    if sim.device.type == "cuda":
+        ran_on_graphs(label, sim)
+    pods = pods_against_oracle(label, sim, oracle, 1e-2)
+    counters = metrics_against_oracle(label, sim, oracle)
+    if pods["pods"] != len(EQUIV_PODS) or counters["pods_succeeded"] != len(EQUIV_PODS):
+        fail(f"{label}: {pods['pods']} pods in pod_view, {counters['pods_succeeded']} succeeded")
+    return {**pods, "counters": counters, "node_samples": len(samples)}
+
+
+def check_hpa_ca(device, label: str = "phase 24a") -> dict:
+    """`tests/test_hpa_ca_combined.py`'s HPA-driven CA trace: replicas and
+    node_count_at at its 60 s samples, the autoscaler counters."""
+    label = f"{label} (HPA-driven CA)"
+    config = SCALAR_TEST_CONFIG_YAML + HPA_CA_SUFFIX
+    oracle = scalar_oracle(config, HPA_CA_CLUSTER, HPA_CA_WORKLOAD)
+    sim = readout_engine(device, config, HPA_CA_CLUSTER, HPA_CA_WORKLOAD)
+    series = []
+    for t in np.arange(61.0, 1800.0, 60.0):
+        oracle.step_until_time(float(t))
+        sim.step_until_time(float(t))
+        got = (sim.hpa_replicas(0)["grp"], sim.node_count_at(float(t)))
+        want = (len(oracle.horizontal_pod_autoscaler.pod_groups["grp"].created_pods), oracle.api_server.node_count())
+        if got != want:
+            fail(f"{label}: (replicas, nodes) {got} at {t} s on the engine, {want} in the oracle")
+        series.append(got)
+    if sim.device.type == "cuda":
+        ran_on_graphs(label, sim)
+    counters = metrics_against_oracle(label, sim, oracle)
+    if (counters["total_scaled_up_nodes"], counters["total_scaled_up_pods"]) != (4, 15) or max(series) != (9, 3):
+        fail(f"{label}: counters {counters}, peak {max(series)}; the JAX test's golden: 4 nodes and 15 pods "
+             "up, peak (9, 3)")
+    return {"samples": len(series), "peak": max(series), "counters": counters}
+
+
+def check_faults(device, label: str = "phase 24a") -> dict:
+    """`tests/test_chaos.py`'s FAULT_YAML on the random trace of seed 101:
+    the node count 0.5 s after crashes inside unapplied windows, the fault
+    counters exact, every pod (start times to 5e-6 s)."""
+    label = f"{label} (faults)"
+    config = SCALAR_TEST_CONFIG_YAML + SCALAR_FAULT_YAML
+    cluster, workload = random_trace_events(101)
+    oracle = scalar_oracle(config, cluster, workload)
+    sim = readout_engine(device, config, cluster, workload)
+    samples = crash_samples(config, cluster, workload)
+    for t in samples:
+        oracle.step_until_time(t)
+        sim.step_until_time(t)
+        if sim.node_count_at(t) != oracle.api_server.node_count():
+            fail(f"{label}: {sim.node_count_at(t)} nodes at {t} s, right after a crash, on the engine, "
+                 f"{oracle.api_server.node_count()} in the oracle")
+    oracle.step_until_time(RANDOM_END_TIME)
+    sim.step_until_time(RANDOM_END_TIME)
+    if sim.device.type == "cuda":
+        ran_on_graphs(label, sim)
+    counters = metrics_against_oracle(label, sim, oracle, faults=True)
+    if counters["node_crashes"] <= 0 or counters["pod_restarts"] <= 0 or counters["pods_succeeded"] <= 50:
+        fail(f"{label}: the run does not exercise the chaos engine: {counters}")
+    return {**pods_against_oracle(label, sim, oracle, 5e-6), "counters": counters, "crash_samples": samples}
+
+
+def scalar_equivalence_checks(device, label: str = "phase 24a") -> dict:
+    """The engine at C = 1 against the port's scalar oracle on the JAX
+    package's scalar-equivalence traces, by the rules of its tests."""
+    return {
+        "batch_of_one_zero": check_batch_of_one(device, "zero", label),
+        "batch_of_one_reference": check_batch_of_one(device, "reference", label),
+        "hpa_ca": check_hpa_ca(device, label),
+        "faults_seed_101": check_faults(device, label),
+    }
+
+
+# The full-width check: the bench's replay machines with the synthetic
+# day's first hour of tasks, no CA (the pure replay).
+SCALAR_REPLAY = dict(n_tasks=2228, horizon=3600.0, error_fraction=0.0, seed=3)
+
+
+def scalar_phase(dev, sk, card: str) -> dict:
+    """Phase 24: (a) scalar_equivalence_checks on the card; (b) the
+    full-width replay through the CLI's builders on both backends, the
+    card's counters and duration stats against the oracle's; (c) a
+    replicated batch's readouts equal cluster 0's, and the composed line
+    through pod_window=512 with reclaim on: pod_view and node_count_at at
+    605 s equal on the card and the CPU."""
+    from kubernetriks_tpu_torch.cli import build_batched_simulation, build_traces
+    from kubernetriks_tpu_torch.sim.callbacks import RunUntilAllPodsAreFinishedCallbacks
+    from kubernetriks_tpu_torch.sim.simulator import KubernetriksSimulation
+
+    t_phase = time.perf_counter()
+    out = {"a": scalar_equivalence_checks(dev)}
+    print(f"phase 24a: card == the port's scalar oracle on the batch-of-one trace (both delays), the HPA-driven "
+          f"CA trace and the fault trace at seed 101 ({json.dumps(out['a'], default=float)})", flush=True)
+
+    stamp("phase 24b")
+    paths = replay_trace("scalar_replay", **SCALAR_REPLAY)
+    config = replay_config(paths, "bench", ca=False)
+    t0 = time.perf_counter()
+    cluster_trace, workload_trace = build_traces(config)
+    oracle = KubernetriksSimulation(config)
+    oracle.initialize(cluster_trace, workload_trace)
+    with open(OUT_DIR / "scalar_replay_report.txt", "w") as f, contextlib.redirect_stdout(f):
+        oracle.run_with_callbacks(RunUntilAllPodsAreFinishedCallbacks())
+    scalar_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = build_batched_simulation(config, 1, device=dev)
+    sim.precompile_pieces()
+    sk.reset_launches()
+    sim.run_to_completion()
+    torch.cuda.synchronize()
+    launches = sk.launch_counts()
+    card_s = time.perf_counter() - t0
+    ran_on_graphs("phase 24b", sim)
+    for name in ("fused_event_scatter", "fused_free_resources", "fused_schedule_cycle"):
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 24b: the replay never launched {name}")
+    sm = oracle.metrics_collector.accumulated_metrics
+    summary = sim.metrics_summary()
+    got = (summary["counters"]["pods_succeeded"], summary["counters"]["terminated_pods"])
+    if got != (sm.pods_succeeded, sm.internal.terminated_pods) or sm.pods_succeeded <= 0:
+        fail(f"phase 24b: (succeeded, terminated) {got} on the card, "
+             f"{(sm.pods_succeeded, sm.internal.terminated_pods)} in the oracle")
+    dur = summary["timings"]["pod_duration"]
+    for stat, value, rel in (("min", sm.pod_duration_stats.min(), 1e-5), ("max", sm.pod_duration_stats.max(), 1e-5),
+                             ("mean", sm.pod_duration_stats.mean(), 1e-4)):
+        if not math.isclose(dur[stat], value, rel_tol=rel):
+            fail(f"phase 24b: pod_duration {stat} {dur[stat]} on the card, {value} in the oracle (rel {rel})")
+    out["b"] = {"machines": sim.n_nodes, "pods": sim.n_real_pods, "pods_succeeded": sm.pods_succeeded,
+                "scalar_s": scalar_s, "card_s": card_s, "windows": sim.windows_run,
+                "launches": {n: launches[n] for n in ("fused_event_scatter", "fused_free_resources",
+                                                      "fused_schedule_cycle")}}
+    print(f"phase 24b ({card}): full-width replay, {sim.n_nodes} node slots, {sim.n_real_pods} pods, first hour: "
+          f"card == scalar oracle ({sm.pods_succeeded} succeeded, duration min/max rel 1e-5, mean rel 1e-4); "
+          f"scalar oracle {scalar_s:.2f} s on the host, card {card_s:.2f} s (build, capture and run)", flush=True)
+    del oracle, sim
+
+    stamp("phase 24c")
+    config_yaml = SCALAR_TEST_CONFIG_YAML
+    sim = readout_engine(dev, config_yaml, EQUIV_CLUSTER_YAML, equiv_workload_yaml(), n_clusters=4)
+    for t in (15.0, 205.0, 2000.0):
+        sim.step_until_time(t)
+        ref = (sim.pod_view(0), sim.cluster_metrics(0), sim.node_count_at(t, 0))
+        for c in range(1, 4):
+            if (sim.pod_view(c), sim.cluster_metrics(c), sim.node_count_at(t, c)) != ref:
+                fail(f"phase 24c: cluster {c}'s readouts at {t} s differ from cluster 0's")
+    ran_on_graphs("phase 24c (replicated)", sim)
+    views = {}
+    for where in ("cuda", "cpu"):
+        s = composed_sim(where, 2, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, reclaim=True)
+        s.step_until_time(605.0)
+        if where == "cuda":
+            ran_on_graphs("phase 24c (composed)", s)
+        if not s.dispatch_stats["slides"]:
+            fail(f"phase 24c: the composed line on the {where} never slid")
+        views[where] = [(s.pod_view(c), s.node_count_at(605.0, c), s.cluster_metrics(c)) for c in range(2)]
+    if views["cuda"] != views["cpu"]:
+        fail("phase 24c: the composed line's readouts at 605 s differ between the card and the CPU")
+    out["c"] = {"composed_pods_resident": len(views["cuda"][0][0]), "composed_nodes": views["cuda"][0][1],
+                "composed_counters": views["cuda"][0][2]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 24c: C=4 replicated readouts equal cluster 0's; composed line (pod_window={COMPOSED_POD_WINDOW}, "
+          f"reclaim on) at 605 s: pod_view ({len(views['cuda'][0][0])} resident pods) and node_count_at "
+          f"({views['cuda'][0][1]}) card == CPU; phase 24 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not (HERE / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
         fail("the kubernetriks_tpu_torch package is not beside this script", 2)
@@ -4478,6 +4979,10 @@ def main() -> int:
     stamp("phase 23")
     rl_path = rl_phase(dev, sk, smi)
 
+    # --- 24. the scalar oracle against the card's readouts ---------------------------------------------------
+    stamp("phase 24")
+    scalar_path = scalar_phase(dev, sk, smi)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -4592,6 +5097,7 @@ def main() -> int:
             "telemetry": telemetry_path, "windowed_replay_unstreamed": windowed_replay_unstreamed,
             "streamed_replay": streamed_path,
             "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path, "rl": rl_path,
+            "scalar": scalar_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

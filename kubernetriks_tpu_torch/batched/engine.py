@@ -192,6 +192,13 @@ read from the device once, when a state is installed; `run_to_completion`
 reads once per chunk of windows to test for the end of the run, the
 sliding pod window once a span, for its shift, fast-forward once an
 executed window, for the next, and gauge collection once a span.
+
+The readouts the comparison with the scalar oracle reads (reference
+engine.py:1921, 3837-3955, 4529): `window_times`, `cluster_metrics`,
+`pod_view` and `node_count_at`, which replays the host table of the
+trace's node events (`_node_event_table`, built here on every compile
+route) over the windows not applied yet. Each copies to the host once a
+call, after a run; none is counted in host_syncs.
 """
 
 from __future__ import annotations
@@ -214,8 +221,10 @@ from kubernetriks_tpu_torch.batched.graphs import GAUGE_SPAN, CudaGraphs, Window
 from kubernetriks_tpu_torch.batched.pipeline import DEFAULT_PROFILE, CompiledProfile, compile_profile
 from kubernetriks_tpu_torch.batched.state import (
     DEFAULT_RAM_UNIT,
+    EV_CREATE_NODE,
     EV_CREATE_POD,
     EV_NODE_CRASH,
+    EV_NODE_RECOVER,
     EV_REMOVE_NODE,
     PHASE_QUEUED,
     PHASE_RUNNING,
@@ -236,7 +245,17 @@ from kubernetriks_tpu_torch.batched.state import (
     unflatten,
 )
 from kubernetriks_tpu_torch.batched.step import DeviceConstants, FaultStep, WindowPlan, window_body
-from kubernetriks_tpu_torch.batched.timerep import INF_WIN, TPair, from_f64_np, t_add, t_inf, t_le, t_lt, t_where
+from kubernetriks_tpu_torch.batched.timerep import (
+    INF_WIN,
+    TPair,
+    from_f64_np,
+    t_add,
+    t_inf,
+    t_le,
+    t_lt,
+    t_where,
+    to_f64,
+)
 from kubernetriks_tpu_torch.batched.trace_compile import (
     BIG_RANK,
     NO_CREATE,
@@ -993,6 +1012,7 @@ class BatchedSimulation:
         self._reserve_capacities: dict = {}
         # Why reclaim cannot run on this build (None: it can).
         self.reclaim_unsupported = "no autoscaler is configured"
+        extra_names = []
         if hpa_on or ca_on:
             statics, extra_cpu, extra_ram, extra_names, self.reclaim_unsupported, self._autoscale_aux = (
                 build_autoscale_statics(
@@ -1089,6 +1109,25 @@ class BatchedSimulation:
         # plans of a run from the build state (initial_window_plans).
         self._build_due = None if self.clock is None else self.clock.due_times()
         ev_win, ev_off = from_f64_np(ev_time_u, interval)
+        # The node events of each distinct trace (creates, removals, crashes,
+        # recoveries: time, whether it creates, slot, window), for
+        # node_count_at (reference engine.py:1240-1256): an event in a window
+        # the step has not applied yet shows in neither the alive flags nor
+        # the pending pairs. Every compile route (event objects, the native
+        # feeder's compile_from_arrays, the streamed window) builds through
+        # here, so every engine has it.
+        node_kind = np.isin(ev_kind_u, (EV_CREATE_NODE, EV_REMOVE_NODE, EV_NODE_CRASH, EV_NODE_RECOVER))
+        ev_slot_u = ev_slot[rows]
+        self._node_event_table = [
+            (
+                ev_time_u[r][node_kind[r]],
+                np.isin(ev_kind_u[r][node_kind[r]], (EV_CREATE_NODE, EV_NODE_RECOVER)),
+                ev_slot_u[r][node_kind[r]],
+                ev_win[r][node_kind[r]],
+            )
+            for r in range(len(rows))
+        ]
+        self._node_event_row = inverse
         self.slab = TraceSlab.build(each_cluster(ev_win), each_cluster(ev_off), ev_kind, ev_slot, self.device)
         self._k = DeviceConstants.build(self.consts, self.device)
 
@@ -1110,7 +1149,12 @@ class BatchedSimulation:
         # names among the trace's) take their place. Under the window
         # without autoscalers the reference keeps none (engine.py:1736-
         # 1741): such reschedules queue in slot order.
-        self.node_names = [c.node_names for c in compiled_traces]
+        # The CA's reserved slots carry their first occupants' names.
+        if ca_on and extra_names:
+            with_ca = {id(c): list(c.node_names) + extra_names for c in compiled_traces}
+            self.node_names = [with_ca[id(c)] for c in compiled_traces]
+        else:
+            self.node_names = [c.node_names for c in compiled_traces]
         self.pod_names = [c.pod_names for c in compiled_traces]
         self.pod_group_names = [[g.name for g in c.pod_groups] for c in compiled_traces]
         self.name_ranks = None
@@ -2518,6 +2562,123 @@ class BatchedSimulation:
             },
         }
 
+    # --- scalar-equivalence readouts ----------------------------------------
+    # Each reads the device once, after a run; none runs inside the window
+    # loop, so host_syncs does not count them.
+
+    def _host_rows(self, cluster: int, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """Row `cluster` of each (C, ...) tensor (a (C,) one gives one
+        element) on the host, through one copy: bool and float32 rows ride
+        as int32 bits and come back in their own dtype."""
+        parts, kinds = [], []
+        for t in tensors:
+            row = t[cluster].reshape(-1)
+            kinds.append((t.dtype, row.numel()))
+            if t.dtype == torch.bool:
+                row = row.to(torch.int32)
+            elif t.dtype == torch.float32:
+                row = row.view(torch.int32)
+            parts.append(row.to(torch.int32))
+        flat = torch.cat(parts).cpu().numpy()
+        out, at = [], 0
+        for dtype, n in kinds:
+            chunk = flat[at : at + n]
+            at += n
+            if dtype == torch.bool:
+                chunk = chunk.astype(bool)
+            elif dtype == torch.float32:
+                chunk = chunk.view(np.float32)
+            out.append(chunk)
+        return out
+
+    def window_times(self, until_time: float) -> np.ndarray:
+        """The scheduling-cycle times in [next_window, until_time], from 0
+        as the scalar scheduler's start() (reference engine.py:1921)."""
+        return self.window_idxs(until_time).astype(np.float64) * self.config.scheduling_cycle_interval
+
+    def cluster_metrics(self, cluster: int) -> Dict:
+        """The cluster's four integer counters (reference engine.py:3837)."""
+        m = self.state.metrics
+        names = ("pods_succeeded", "pods_removed", "terminated_pods", "scheduling_decisions")
+        values = self._host_rows(cluster, torch.stack([getattr(m, n) for n in names], dim=1))[0]
+        return {n: int(v) for n, v in zip(names, values)}
+
+    def node_count_at(self, t: float, cluster: int = 0) -> int:
+        """Nodes alive at absolute time `t`: alive, or due to be created and
+        not due to be removed by `t` (reference engine.py:3871-3955). The
+        step applies an effect when it runs a window past its time, so the
+        count resolves the pending pairs the state carries, with two
+        corrections toward the scalar api_server.node_count():
+        - a CA slot's pending pair carries scheduler / node side times; the
+          scalar count flips one as_to_ps + ps_to_sched before the create
+          and one as_to_node after the removal, so the pairs shift by
+          those (chaos never targets a CA slot);
+        - a trace or chaos node event in a window the step has not applied
+          yet is replayed from the host table, with the same shifts, the
+          last transition on the shifted times winning (a stable sort keeps
+          the table's order at equal times).
+        A sample exactly on a window boundary keeps a sub-delay edge, in
+        the reference too: sample inside a window."""
+        cfg = self.config
+        interval = cfg.scheduling_cycle_interval
+        win = int(t // interval)
+        off = t - win * interval
+        up_shift = float(cfg.as_to_ps_network_delay + cfg.ps_to_sched_network_delay)
+        down_shift = float(cfg.as_to_node_network_delay)
+        nodes = self.state.nodes
+        st = self.autoscale_statics
+        tensors = [nodes.alive, nodes.create_time.win, nodes.create_time.off, nodes.remove_time.win,
+                   nodes.remove_time.off, self.state.time]
+        if st is not None and st.ca_slots.shape[1] > 0:
+            tensors.append(st.ca_slots)
+        rows = self._host_rows(cluster, *tensors)
+        alive, cw, co, rw, ro, applied = rows[:6]
+        due_create = (cw < win) | ((cw == win) & (co <= off))
+        due_remove = (rw < win) | ((rw == win) & (ro <= off))
+        if len(rows) > 6:
+            slots = rows[6][rows[6] >= 0]
+            if slots.size:
+                ca = np.zeros(alive.shape[0], bool)
+                ca[slots] = True
+                abs_c = cw.astype(np.float64) * interval + co - up_shift
+                abs_r = rw.astype(np.float64) * interval + ro + down_shift
+                due_create = np.where(ca, abs_c <= t, due_create)
+                due_remove = np.where(ca, abs_r <= t, due_remove)
+        count = (alive | due_create) & ~due_remove
+        et, is_create, es, ew = self._node_event_table[self._node_event_row[cluster]]
+        eff = np.where(is_create, et - up_shift, et + down_shift)
+        idx = np.nonzero((ew >= int(applied[0])) & (eff <= t))[0]
+        for i in idx[np.argsort(eff[idx], kind="stable")]:
+            count[es[i]] = bool(is_create[i])
+        return int(count.sum())
+
+    def pod_view(self, cluster: int) -> Dict[str, Dict]:
+        """Name-keyed {phase, node, start_time} of the cluster's pods, for
+        the comparison with the scalar oracle (reference engine.py:4529).
+        Under the sliding pod window only the resident slots show: a device
+        slot below W is global slot pod_base + slot, one of the resident
+        pod-group ring resident_shift + slot; shifted-out pods are terminal
+        and already counted."""
+        pods = self.state.pods
+        phases, node, sw, so = self._host_rows(
+            cluster, pods.phase, pods.node, pods.start_time.win, pods.start_time.off
+        )
+        starts = to_f64(sw, so, self.config.scheduling_cycle_interval)
+        names = self.pod_names[cluster]
+        node_names = self.node_names[cluster]
+        W = self.pod_window
+        shift = int(self.consts.resident_shift)
+        out = {}
+        for slot in range(phases.shape[0]):
+            g = shift + slot if W is not None and slot >= W else self._pod_base + slot
+            if g >= len(names) or not names[g]:
+                continue  # padding or a segmented layout's filler
+            out[names[g]] = {
+                "phase": int(phases[slot]),
+                "node": node_names[node[slot]] if node[slot] >= 0 else None,
+                "start_time": float(starts[slot]),
+            }
+        return out
 
     # --- telemetry readout --------------------------------------------------
 

@@ -1,12 +1,12 @@
 """Compiled scheduler profiles: the filter mask and score of the decision core.
 
-Own port of the JAX package's `batched/pipeline.py` and of the spec parser
-it builds on (`core/scheduler/kube_scheduler.py:61-148`
-`NAMED_PROFILE_SPECS`, `kube_scheduler_config_from_spec`; plugin names from
-`core/scheduler/plugins.py`), trimmed to what the batched path needs: a
-profile is None, a named string (default, best_fit, balanced_packing), an
-explicit `{filters, score}` mapping or a CompiledProfile. There is no
-scalar KubeScheduler (the scalar backend is ROADMAP Queue 1 item 17).
+Own port of the JAX package's `batched/pipeline.py`. A profile is None, a
+named string (default, best_fit, balanced_packing), an explicit
+`{filters, score}` mapping, a KubeSchedulerConfig or a CompiledProfile;
+every spec goes through the scalar scheduler's one parser
+(`core/scheduler/kube_scheduler.py` `kube_scheduler_config_from_spec`,
+`NAMED_PROFILE_SPECS`), so a profile means the same on both backends, and
+`to_kube_scheduler_config` gives the scalar KubeScheduler a compiled one.
 
 `compile_profile` checks every plugin against the device registry below,
 once, at engine build, and raises UnsupportedProfileError on what the
@@ -34,18 +34,12 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from kubernetriks_tpu_torch.batched.timerep import fma_f32
-
-FIT = "Fit"
-LEAST_ALLOCATED = "LeastAllocatedResources"
-MOST_ALLOCATED = "MostAllocatedResources"
-BALANCED = "BalancedResourceAllocation"
-
-# Named profile specs: (filter names, ((scorer, weight), ...)).
-NAMED_PROFILE_SPECS: Dict[str, tuple] = {
-    "default": ((FIT,), ((LEAST_ALLOCATED, 1.0),)),
-    "best_fit": ((FIT,), ((MOST_ALLOCATED, 1.0),)),
-    "balanced_packing": ((FIT,), ((MOST_ALLOCATED, 1.0), (BALANCED, 0.25))),
-}
+from kubernetriks_tpu_torch.core.scheduler.kube_scheduler import (
+    DEFAULT_SCHEDULER_NAME,
+    KubeSchedulerConfig,
+    kube_scheduler_config_from_spec,
+)
+from kubernetriks_tpu_torch.core.scheduler.plugins import BALANCED, FIT, LEAST_ALLOCATED, MOST_ALLOCATED
 
 
 class UnsupportedProfileError(ValueError):
@@ -61,50 +55,13 @@ class CompiledProfile(NamedTuple):
 
 
 def profile_plugins(spec) -> Tuple[Tuple[str, ...], Tuple[Tuple[str, float], ...]]:
-    """(filter names, (scorer, weight) pairs) of one profile spec (the
-    reference's `kube_scheduler_config_from_spec`): None is the default; a
-    string names a NAMED_PROFILE_SPECS entry; a mapping has `filters` (Fit
-    alone when the key is absent or null; an explicit [] is no filter) and
-    `score` (entries a name or {name, weight}, weight 1.0 by default).
-    Raises ValueError on an unknown name or key, TypeError on another
-    type."""
-    if spec is None:
-        spec = "default"
-    if isinstance(spec, str):
-        named = NAMED_PROFILE_SPECS.get(spec)
-        if named is None:
-            raise ValueError(
-                f"unknown named scheduler profile {spec!r}; available: {sorted(NAMED_PROFILE_SPECS)}"
-            )
-        filters, scores = named
-        spec = {"filters": list(filters), "score": [{"name": n, "weight": w} for n, w in scores]}
-    if not isinstance(spec, dict):
-        raise TypeError(
-            f"scheduler profile spec must be None, a named-profile string, "
-            f"a mapping, or a CompiledProfile; got {type(spec).__name__}"
-        )
-    unknown = set(spec) - {"filters", "score"}
-    if unknown:
-        raise ValueError(
-            f"scheduler profile spec has unknown key(s) {sorted(unknown)}; "
-            "expected 'filters' (list of filter plugin names) and 'score' "
-            "(list of {name, weight} scorer refs)"
-        )
-    filters_spec = spec.get("filters", [FIT])
-    if filters_spec is None:
-        filters_spec = [FIT]
-    scores = []
-    for entry in spec.get("score") or []:
-        if isinstance(entry, str):
-            entry = {"name": entry}
-        bad = set(entry) - {"name", "weight"}
-        if bad:
-            raise ValueError(
-                f"scheduler profile score entry {entry!r} has unknown "
-                f"key(s) {sorted(bad)}; expected 'name' and optional 'weight'"
-            )
-        scores.append((str(entry["name"]), float(entry.get("weight", 1.0))))
-    return tuple(str(f) for f in filters_spec), tuple(scores)
+    """(filter names, (scorer, weight) pairs) of one profile spec, through
+    the scalar scheduler's parser (`kube_scheduler_config_from_spec`):
+    ValueError on an unknown name or key, TypeError on another type."""
+    kprof = kube_scheduler_config_from_spec(spec).profiles[DEFAULT_SCHEDULER_NAME]
+    filters = tuple(p.name for p in kprof.plugins.filter)
+    scores = tuple((p.name, float(1.0 if p.weight is None else p.weight)) for p in kprof.plugins.score)
+    return filters, scores
 
 
 # --- device plugin registry ---------------------------------------------------
@@ -215,6 +172,14 @@ def compile_profile(spec=None) -> CompiledProfile:
                 f"{weight!r}; the device lowering requires a finite weight > 0"
             )
     return prof
+
+
+def to_kube_scheduler_config(profile: CompiledProfile) -> KubeSchedulerConfig:
+    """The KubeSchedulerConfig that makes the scalar KubeScheduler run the
+    same profile as `profile` (reference pipeline.py:235)."""
+    return kube_scheduler_config_from_spec(
+        {"filters": list(profile.filters), "score": [{"name": n, "weight": w} for n, w in profile.scores]}
+    )
 
 
 def is_default_kernel_profile(profile: CompiledProfile) -> bool:

@@ -1,11 +1,10 @@
 """Chaos engine: counter-based fault draws and the host-side node crash chains.
 
-Own copy of the JAX package's `chaos.py` (:49-443) for the batched path:
-`FaultParams`, `has_node_faults`, `make_fault_params`, the threefry2x32
-counter PRNG with `object_uniforms` / `pod_attempt_uniforms`, and the crash
-chain compiler (`inject_node_faults`, failure groups included). The scalar
-oracle's `PodFaultOracle` is not ported (the scalar backend is ROADMAP
-Queue 1 item 17).
+Own copy of the JAX package's `chaos.py`: `FaultParams`, `has_node_faults`,
+`make_fault_params`, the threefry2x32 counter PRNG with `object_uniforms` /
+`pod_attempt_uniforms`, the crash chain compiler (`inject_node_faults`,
+failure groups included), and the scalar oracle's `PodFaultOracle`, which
+draws the same bits at each attempt's commit as the card's draw kernel.
 
 Every draw is a pure function of (seed, stream, cluster, object, counter),
 so the host (numpy) and the device (torch) compute the same bits. The
@@ -367,3 +366,88 @@ def inject_node_faults(cluster_events, cfg, seed: int, cluster_idx: int, horizon
 
     fault_events.sort(key=lambda item: item[0])
     return list(cluster_events) + fault_events
+
+
+# --- pod-fault oracle (scalar path) -----------------------------------------
+
+
+def plain_pod_slot_map(workload_events) -> Dict[str, int]:
+    """name -> global plain pod slot, replicating the batched trace
+    compiler's numbering: CreatePodRequest events stably sorted by
+    timestamp, ranked among plain pods (pod-group ring slots are renumbered
+    past every plain pod by segment_pod_slots, so the plain rank IS the
+    global slot in both the segmented and unsegmented layouts)."""
+    from kubernetriks_tpu_torch.core.events import CreatePodRequest
+
+    creates = [
+        (float(ts), i, event.pod.metadata.name)
+        for i, (ts, event) in enumerate(workload_events)
+        if isinstance(event, CreatePodRequest)
+    ]
+    creates.sort(key=lambda item: (item[0], item[1]))
+    return {name: slot for slot, (_, _, name) in enumerate(creates)}
+
+
+class PodFaultOracle:
+    """Scalar-path pod failure oracle: draws the SAME counter-PRNG values
+    the batched commit draws on device, tracks per-pod restart counts, and
+    answers the retry/perma/backoff questions the control-plane components
+    ask. Pods without a plain trace slot (HPA ring replicas) and
+    long-running services are exempt."""
+
+    def __init__(self, cfg, seed: int, cluster_idx: int, workload_events) -> None:
+        pod = cfg.pod
+        self.fail_prob = np.float32(pod.fail_prob if pod else 0.0)
+        self.backoff_base = float(pod.backoff_base) if pod else 10.0
+        self.backoff_cap = float(pod.backoff_cap) if pod else 300.0
+        self.restart_limit = int(pod.restart_limit) if pod else 5
+        self.seed = int(seed)
+        self.cluster_idx = int(cluster_idx)
+        self.slot_map = plain_pod_slot_map(workload_events)
+        self.restarts: Dict[str, int] = {}
+
+    def attempt(
+        self, pod_name: str, pod_duration: Optional[float]
+    ) -> Optional[float]:
+        """Draw for one scheduling attempt at commit: returns fail_after
+        seconds (the attempt fails that long after its start) or None (the
+        attempt runs to completion)."""
+        if self.fail_prob <= 0 or pod_duration is None:
+            return None
+        slot = self.slot_map.get(pod_name)
+        if slot is None:
+            return None
+        k = self.restarts.get(pod_name, 0)
+        u_fail, u_frac = pod_attempt_uniforms(
+            self.seed,
+            np.uint32(self.cluster_idx),
+            np.uint32(slot),
+            np.uint32(k),
+        )
+        if not bool(np.float32(u_fail) < self.fail_prob):
+            return None
+        # f32 product mirrors the batched path's u_frac * duration_seconds.
+        return float(np.float32(u_frac) * np.float32(pod_duration))
+
+    def record_failure(self, pod_name: str) -> int:
+        """Increment and return the pod's restart count (called once per
+        failure, by the api server — the first component on the failure
+        chain)."""
+        k = self.restarts.get(pod_name, 0) + 1
+        self.restarts[pod_name] = k
+        return k
+
+    def is_permanently_failed(self, pod_name: str) -> bool:
+        return self.restarts.get(pod_name, 0) > self.restart_limit
+
+    def backoff_after_failure(self, pod_name: str) -> float:
+        """Backoff of the pod's LAST recorded failure: min(base * 2^k, cap)
+        with k = the restart count before that failure (0-based). float32
+        arithmetic so the value matches the batched path bit-for-bit."""
+        k = max(self.restarts.get(pod_name, 1) - 1, 0)
+        return float(
+            np.minimum(
+                np.float32(self.backoff_base) * np.exp2(np.float32(k)),
+                np.float32(self.backoff_cap),
+            )
+        )

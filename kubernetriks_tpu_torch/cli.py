@@ -1,11 +1,11 @@
-"""Command line: run a simulation from a config file on the card.
+"""Command line: run a simulation from a config file.
 
     python -m kubernetriks_tpu_torch.cli --config-file <yaml>
-        [--clusters N] [--max-pods-per-cycle K] [--pod-window W]
-        [--profile NAME] [--report json|table] [--device cuda|cpu]
-        [--gauge-csv PATH] [--metrics-export STEM]
+        [--backend batched|scalar] [--clusters N] [--max-pods-per-cycle K]
+        [--pod-window W] [--profile NAME] [--report json|table]
+        [--device cuda|cpu] [--gauge-csv PATH] [--metrics-export STEM]
 
-The batched subset of the JAX package's `cli.py` (:60-237): load the
+The JAX package's `cli.py`. `--backend batched` (the default): load the
 config, build the traces its `trace_config` names (an Alibaba v2017 trace
 XOR a generic YAML trace), replicate them over N clusters in one
 BatchedSimulation, run until every pod has terminated, and print the
@@ -27,8 +27,17 @@ report follows the metrics report and the Chrome trace is written to
 KTPU_TRACE_PATH (default ktpu_trace) + ".json"; `--metrics-export STEM`
 (which needs the recorder) appends every ring drain's record to
 STEM.jsonl and writes the final report as the Prometheus textfile
-STEM.prom (the JAX package's CLI, cli.py:187-236). `--backend scalar` is
-refused, naming the ROADMAP item that brings it.
+STEM.prom (the JAX package's CLI, cli.py:187-236).
+
+`--backend scalar` runs the scalar event-loop oracle on the host
+(sim/simulator.py KubernetriksSimulation) until every pod has finished,
+as the JAX package's CLI does (cli.py:317-335): `--report` renders the
+collector's metrics, without it the config's `metrics_printer` block (or
+JSON) reports, and `--gauge-csv` writes the collector's gauge CSV. It
+never runs in place of the card: `--backend batched` without one raises.
+The batched-only options (`--clusters` above 1, `--max-pods-per-cycle`,
+`--pod-window`, `--device`, `--metrics-export`) are refused with it.
+`logs_filepath` in the config sends the log to a rotating file.
 """
 
 from __future__ import annotations
@@ -36,16 +45,34 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 import time
 
 from kubernetriks_tpu_torch.config import SimulationConfig
 from kubernetriks_tpu_torch.trace.interface import EmptyTrace
 
-# Options refused, with the ROADMAP item that ports each.
-UNPORTED_OPTIONS = {
-    "backend": "ROADMAP Queue 1 item 17 (the port's CLI runs the batched backend only)",
-}
+
+def setup_logging(config: SimulationConfig) -> None:
+    """Level from KUBERNETRIKS_LOG; with the config's `logs_filepath` the
+    log goes to that rotating file alone (50 files of 100 MiB, the
+    reference's main.rs:33-50), else to the console."""
+    from logging.handlers import RotatingFileHandler
+
+    from kubernetriks_tpu_torch.flags import flag_str
+
+    level = (flag_str("KUBERNETRIKS_LOG") or "INFO").upper()
+    if config.logs_filepath:
+        os.makedirs(os.path.dirname(config.logs_filepath) or ".", exist_ok=True)
+        handlers = [RotatingFileHandler(config.logs_filepath, maxBytes=100 * 1024 * 1024, backupCount=50)]
+    else:
+        handlers = [logging.StreamHandler()]
+    logging.basicConfig(
+        level=getattr(logging, level, logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        handlers=handlers,
+        force=True,
+    )
 
 
 def build_traces(config: SimulationConfig):
@@ -144,7 +171,9 @@ def run_batched(config: SimulationConfig, args) -> int:
 
     log = logging.getLogger(__name__)
     kwargs = {"pod_window": args.pod_window} if args.pod_window else {}
-    sim = build_batched_simulation(config, args.clusters, args.max_pods_per_cycle, device=args.device, **kwargs)
+    sim = build_batched_simulation(
+        config, args.clusters, args.max_pods_per_cycle, device=args.device or "cuda", **kwargs
+    )
     log.info(
         "batched run on %s: %d clusters x %d node slots x %d pod slots, cycle route %s",
         sim.device, sim.n_clusters, sim.n_nodes, sim.n_pods, sim.cycle_route,
@@ -167,14 +196,14 @@ def run_batched(config: SimulationConfig, args) -> int:
         "Processed %d scheduling decisions in %.2fs (%.0f decisions/s)",
         decisions, elapsed, decisions / max(elapsed, 1e-9),
     )
-    print(render_metrics(summary, args.report))
+    print(render_metrics(summary, args.report or "json"))
     if sim._telemetry:
         # One report serves the render and the Prometheus textfile.
         from kubernetriks_tpu_torch.flags import flag_str
         from kubernetriks_tpu_torch.metrics.render import render_telemetry
 
         report = sim.telemetry_report()
-        print(render_telemetry(report, args.report))
+        print(render_telemetry(report, args.report or "json"))
         trace_path = (flag_str("KTPU_TRACE_PATH") or "ktpu_trace") + ".json"
         sim.write_chrome_trace(trace_path)
         log.info("wrote Chrome trace (Perfetto-loadable) to %s", trace_path)
@@ -186,26 +215,55 @@ def run_batched(config: SimulationConfig, args) -> int:
     return 0
 
 
-def _refuse_unported(args) -> None:
-    given = {"backend": args.backend != "batched"}
-    for option, item in UNPORTED_OPTIONS.items():
-        if given[option]:
-            flag = "--" + option.replace("_", "-")
-            raise SystemExit(f"kubernetriks_tpu_torch.cli: {flag} is not ported yet: {item}")
+def run_scalar(config: SimulationConfig, args) -> int:
+    """The scalar event-loop oracle until every pod has finished, then the
+    report: `--report`'s format through the shared renderer, else the
+    config's metrics_printer block, else JSON on stdout."""
+    from kubernetriks_tpu_torch.metrics.printer import metrics_as_dict, print_metrics
+    from kubernetriks_tpu_torch.metrics.render import render_metrics
+    from kubernetriks_tpu_torch.sim.callbacks import RunUntilAllPodsAreFinishedCallbacks
+    from kubernetriks_tpu_torch.sim.simulator import KubernetriksSimulation
+
+    cluster_trace, workload_trace = build_traces(config)
+    sim = KubernetriksSimulation(config, gauge_csv_path=args.gauge_csv)
+    sim.initialize(cluster_trace, workload_trace)
+    sim.run_with_callbacks(RunUntilAllPodsAreFinishedCallbacks())
+    if args.report is not None:
+        print(render_metrics(metrics_as_dict(sim.metrics_collector), args.report))
+    elif config.metrics_printer is None:
+        print_metrics(sim.metrics_collector, None)
+    sim.metrics_collector.close()
+    return 0
+
+
+def _refuse_batched_options(args) -> None:
+    """The batched-only options, refused with --backend scalar by name."""
+    given = {
+        "--clusters": args.clusters != 1,
+        "--max-pods-per-cycle": bool(args.max_pods_per_cycle),
+        "--pod-window": bool(args.pod_window),
+        "--device": args.device is not None,
+        "--metrics-export": args.metrics_export is not None,
+    }
+    for flag, set_ in given.items():
+        if set_:
+            raise SystemExit(f"kubernetriks_tpu_torch.cli: {flag} is a batched-backend option; "
+                             "--backend scalar does not take it")
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="kubernetriks-tpu simulator, PyTorch port (batched backend)")
+    parser = argparse.ArgumentParser(description="kubernetriks-tpu simulator, PyTorch port")
     parser.add_argument("--config-file", required=True, help="Path to YAML config")
     parser.add_argument("--backend", choices=("scalar", "batched"), default="batched",
-                        help="only 'batched' runs here")
+                        help="the batched engine on the card (default) or the scalar event-loop oracle on the host")
     parser.add_argument("--clusters", type=int, default=1,
                         help="number of identical clusters stepped in lockstep")
     parser.add_argument("--max-pods-per-cycle", type=int, default=0,
                         help="per-cycle scheduling work bound (0 = 256)")
-    parser.add_argument("--report", choices=("json", "table"), default="json",
-                        help="end-of-run report format")
-    parser.add_argument("--device", default="cuda",
+    parser.add_argument("--report", choices=("json", "table"), default=None,
+                        help="end-of-run report format (default json; the scalar backend then follows the "
+                             "config's metrics_printer block)")
+    parser.add_argument("--device", default=None,
                         help="torch device to run on (default cuda; 'cpu' runs the plain PyTorch path)")
     parser.add_argument("--pod-window", type=int, default=0,
                         help="sliding pod window of this many plain pod slots (0 = whole trace resident)")
@@ -218,12 +276,18 @@ def main(argv=None) -> int:
                         help="observatory time-series export: STEM.jsonl (one record a ring drain) and "
                              "STEM.prom (Prometheus textfile); needs KTPU_TRACE=1")
     args = parser.parse_args(argv)
-    _refuse_unported(args)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if args.backend == "scalar":
+        _refuse_batched_options(args)
     config = SimulationConfig.from_file(args.config_file)
+    setup_logging(config)
     if args.profile is not None:
         config = dataclasses.replace(config, scheduler_profile=args.profile)
-    return run_batched(config, args)
+    if args.backend == "batched":
+        return run_batched(config, args)
+    if args.report is not None:
+        # --report supersedes the config's metrics_printer block: one report.
+        config = dataclasses.replace(config, metrics_printer=None)
+    return run_scalar(config, args)
 
 
 if __name__ == "__main__":

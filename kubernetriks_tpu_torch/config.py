@@ -7,8 +7,9 @@ the scheduler profile, the conditional-move switch, the six control-plane
 network delays, and the two autoscaler blocks (`horizontal_pod_autoscaler`,
 `cluster_autoscaler` with its node groups) and the chaos engine's
 `fault_injection` block (node crash chains, pod CrashLoopBackOff,
-correlated failure groups; kubernetriks_tpu_torch/chaos.py), with the
-reference's validation.
+correlated failure groups; kubernetriks_tpu_torch/chaos.py), and the
+scalar backend's `logs_filepath`, `metrics_printer` and `default_cluster`
+blocks, with the reference's validation.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from kubernetriks_tpu_torch.core.types import Node
 
 @dataclass
 class NodeGroup:
-    """A cluster-autoscaler node group: the node template and `max_count`,
-    the most nodes the autoscaler may run in the group (None: bounded only
-    by the global `max_node_count`)."""
+    """A node group: the node template with `node_count`, the size of a
+    default-cluster group (naming rules in sim/simulator.py
+    initialize_default_cluster), and `max_count`, the most nodes the
+    cluster autoscaler may run in the group (None: bounded only by the
+    global `max_node_count`)."""
 
     node_count: Optional[int] = None
     max_count: Optional[int] = None
@@ -223,6 +226,26 @@ class FaultInjectionConfig:
 
 
 @dataclass
+class MetricsPrinterConfig:
+    """The scalar backend's end-of-run report: `format` "JSON" or
+    "PrettyTable", written to `output_file` (empty: stdout)."""
+
+    format: str = "JSON"
+    output_file: str = ""
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> Optional["MetricsPrinterConfig"]:
+        if not d:
+            return None
+        fmt = d.get("format", "JSON")
+        # A serde tag on an empty mapping arrives as {"__tag__": name}, an
+        # untagged serde-style map as {"PrettyTable": None}.
+        if isinstance(fmt, dict):
+            fmt = fmt.get("__tag__") or (next(iter(fmt)) if fmt else "JSON")
+        return MetricsPrinterConfig(format=str(fmt), output_file=str(d.get("output_file", "")))
+
+
+@dataclass
 class AlibabaWorkloadTraceV2017Paths:
     batch_instance_trace_path: str = ""
     batch_task_trace_path: str = ""
@@ -295,9 +318,16 @@ class SimulationConfig:
     as_to_node_network_delay: float = 0.0
     as_to_ca_network_delay: float = 0.0
     as_to_hpa_network_delay: float = 0.0
+    # The scalar backend's log file (None: log to the console), its report
+    # block, and the nodes the scalar simulator installs at time 0 without
+    # events (NodeGroup.node_count each).
+    logs_filepath: Optional[str] = None
+    metrics_printer: Optional[MetricsPrinterConfig] = None
+    default_cluster: Optional[List[NodeGroup]] = None
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "SimulationConfig":
+        default_cluster = d.get("default_cluster")
         return SimulationConfig(
             sim_name=d.get("sim_name", "kubernetriks-tpu"),
             seed=int(d.get("seed", 0)),
@@ -318,6 +348,9 @@ class SimulationConfig:
             as_to_node_network_delay=float(d.get("as_to_node_network_delay", 0.0)),
             as_to_ca_network_delay=float(d.get("as_to_ca_network_delay", 0.0)),
             as_to_hpa_network_delay=float(d.get("as_to_hpa_network_delay", 0.0)),
+            logs_filepath=d.get("logs_filepath"),
+            metrics_printer=MetricsPrinterConfig.from_dict(d.get("metrics_printer")),
+            default_cluster=[NodeGroup.from_dict(g) for g in default_cluster] if default_cluster else None,
         )
 
     @staticmethod

@@ -1,6 +1,7 @@
 """The port's environment flags: one registry, one parser each.
 
-Every KTPU_* variable the port reads is declared here (name, type,
+Every KTPU_* variable the port reads (and the scalar CLI's
+KUBERNETRIKS_LOG) is declared here (name, type,
 default, documentation) and read through the typed helpers below; a read
 of an unregistered name raises. Names, types, defaults and meanings are
 the JAX package's own (its `flags.py` registry), so one environment drives
@@ -167,6 +168,12 @@ _FLAGS = [
         60,
         "Fast burn-rate window (wall seconds) of the SLO verdict; the slow "
         "window is 12x this. Default: 60.",
+    ),
+    Flag(
+        "KUBERNETRIKS_LOG",
+        "str",
+        "INFO",
+        "CLI logging level (DEBUG/INFO/WARNING/ERROR).",
     ),
 ]
 

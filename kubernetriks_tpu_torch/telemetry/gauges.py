@@ -1,7 +1,7 @@
 """Gauge time series: the per-window gauge samples the engine collects
 (`collect_gauges`) and their CSV (reference `kubernetriks_tpu/telemetry/
-gauges.py` and the scalar collector's columns, `kubernetriks_tpu/metrics/
-collector.py:150`). Host arrays only: the engine reads the samples from
+gauges.py`) in the port's scalar collector's columns
+(`metrics/collector.py` GAUGE_CSV_COLUMNS). Host arrays only: the engine reads the samples from
 the card once a span and hands them in. A checkpoint keeps the series in
 a numpy sidecar (`save_sidecar` / `load_sidecar`, reference gauges.py:
 65-86): its length depends on the run, unlike the state's shapes."""
@@ -14,19 +14,9 @@ from typing import List
 
 import numpy as np
 
-# The scalar collector's gauge CSV schema (reference
-# src/metrics/collector.rs:216-228): a timestamp, then the seven columns
-# of step.gauge_snapshot.
-GAUGE_CSV_COLUMNS = [
-    "timestamp",
-    "current_nodes",
-    "current_pods",
-    "pods_in_scheduling_queues",
-    "node_average_cpu_utilization",
-    "node_average_ram_utilization",
-    "cluster_total_cpu_utilization",
-    "cluster_total_ram_utilization",
-]
+# The scalar collector's schema (reference src/metrics/collector.rs:216-228):
+# a timestamp, then the seven columns of step.gauge_snapshot.
+from kubernetriks_tpu_torch.metrics.collector import GAUGE_CSV_COLUMNS
 
 
 class GaugeSeries:

@@ -1519,3 +1519,18 @@ def test_rl_train_iteration_on_the_card_is_finite(cuda_device):
         assert out["decisions"] > 0 and out["placements"] > 0
         assert all(bool(torch.isfinite(p).all()) for p in trainer.params.values())
         assert all(p.device.type == "cuda" for p in trainer.params.values())
+
+
+@pytest.mark.cuda
+def test_card_readouts_match_the_scalar_oracle(cuda_device):
+    """The batch-of-one trace (both delay settings), the HPA-driven CA
+    trace and the fault trace on the card at C = 1: pod_view,
+    cluster_metrics, node_count_at and metrics_summary equal the port's
+    scalar oracle by the JAX package's equivalence rules (chip_smoke.py
+    phase 24a)."""
+    from chip_smoke import scalar_equivalence_checks
+
+    report = scalar_equivalence_checks(cuda_device, "card readouts")
+    assert report["batch_of_one_zero"]["pods"] == report["batch_of_one_reference"]["pods"] == 7
+    assert report["hpa_ca"]["peak"] == (9, 3)
+

@@ -147,7 +147,8 @@ def test_port_main_path_loads_no_jax(tmp_path):
     the sliding pod window, and with faults and a profile), the flight
     recorder (the ring, the watchdog, gauges, the report), a run streamed
     by the feeder thread, the endurance churn with slot reclaim, the trace
-    replay through the native feeder and the CLI, a checkpoint's save and
+    replay through the native feeder and the CLI (both backends), the
+    scalar oracle with faults, a checkpoint's save and
     restore, two waves of a scenario fleet with faults, and a 2-window
     greedy rollout of the RL loop, run in a fresh interpreter, leave no
     module named jax* or kubernetriks_tpu.* in sys.modules."""
@@ -217,6 +218,14 @@ def test_port_main_path_loads_no_jax(tmp_path):
         assert replay.cycle_route == "sorted"
         assert replay.metrics_summary()["counters"]["pods_succeeded"] == replay.n_real_pods
         assert cli.main(["--config-file", config_path, "--device", "cpu", "--report", "table"]) == 0
+        from kubernetriks_tpu_torch.sim.simulator import KubernetriksSimulation
+        assert cli.main(["--config-file", config_path, "--backend", "scalar", "--report", "json",
+                         "--gauge-csv", tempfile.mktemp(suffix=".csv")]) == 0
+        import chip_smoke
+        oracle = chip_smoke.scalar_oracle(chip_smoke.SCALAR_TEST_CONFIG_YAML + chip_smoke.SCALAR_FAULT_YAML,
+                                          *chip_smoke.random_trace_events(101))
+        oracle.step_until_time(2000.0)
+        assert isinstance(oracle, KubernetriksSimulation) and oracle.api_server.node_count() > 0
         import kubernetriks_tpu_torch.checkpoint
         from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
         from chip_smoke import FAULTS_YAML, composed_config_yaml
