@@ -244,7 +244,19 @@ Phases; any failure exits non-zero:
      scalar and card wall seconds; (c) C = 4 replicated: every cluster's
      readouts equal cluster 0's; the composed line through pod_window=512
      with slot reclaim at C = 2: pod_view and node_count_at at 605 s equal
-     on the card and the CPU.
+     on the card and the CPU;
+ 25. the guards (kubernetriks_tpu_torch/sanitize.py, recompile.py): a
+     probe of what torch.cuda.set_sync_debug_mode("error") flags; (a) the
+     headline line and phase 6w's composed line (streamed, KTPU_STREAM=1)
+     under KTPU_SANITIZE against not: states bit for bit, host reads
+     equal, the megakernel, event scatter, free and both CA kernels
+     launched, host and busy ms a window each; (b) an unwaived .item()
+     inside the guard raises, the same read in an allow scope does not;
+     (c) phase 20a's fleet under KTPU_EXPLAIN_RECOMPILES=1: no capture
+     after the seal across its 4 waves, and a capture forced into a fifth
+     raises RecompileError naming the piece key; (d) a NaN planted in an
+     estimator leaf is named by the finite sweep, a leaf rebound behind
+     the executor's back by the address check.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -650,7 +662,7 @@ def replay_sim(device, paths, delays="bench", ca=True, n_clusters: int = 1, **en
 
 def with_megakernel_flag(value: str, build):
     """build() with KTPU_MEGAKERNEL set to `value` (read at engine build)."""
-    old = os.environ.get("KTPU_MEGAKERNEL")
+    old = os.environ.get("KTPU_MEGAKERNEL")  # ktpu: flag-ok(saves the raw value to restore it after the build; the engine reads the flag through flags.flag_bool)
     os.environ["KTPU_MEGAKERNEL"] = value
     try:
         return build()
@@ -3912,6 +3924,280 @@ def scalar_phase(dev, sk, card: str) -> dict:
     return out
 
 
+# --- phase 25: the guards (sanitize.py, recompile.py) -------------------------------------
+
+
+def sync_mode_probes(dev) -> dict:
+    """Phase 25's probe of torch.cuda.set_sync_debug_mode("error") (the
+    sanitizer's guard on the card): which operations raise under it,
+    "raises" or "quiet" each, and whether another thread's read raises
+    while this thread holds the guard (the mode is process-wide)."""
+    import threading
+
+    from kubernetriks_tpu_torch import sanitize
+
+    x = torch.arange(1024, device=dev, dtype=torch.int32)
+    pinned = torch.zeros(1024, dtype=torch.int32, pin_memory=True)
+    host = torch.arange(1024, dtype=torch.int32)
+    ev = torch.cuda.Event()
+
+    def record_and_wait():
+        ev.record()
+        ev.synchronize()
+
+    probes = {
+        ".item()": lambda: x.sum().item(),
+        ".cpu()": lambda: x.cpu(),
+        "non-blocking copy to pinned memory": lambda: pinned.copy_(x, non_blocking=True),
+        "Event.synchronize()": record_and_wait,
+        "Event.query()": lambda: ev.query(),
+        "Stream.synchronize()": lambda: torch.cuda.current_stream(dev).synchronize(),
+        "torch.cuda.synchronize()": lambda: torch.cuda.synchronize(),
+        "blocking host-to-device copy": lambda: x.copy_(host),
+        "non-blocking copy from pinned memory": lambda: x.copy_(pinned, non_blocking=True),
+        "nonzero": lambda: torch.nonzero(x > 5),
+        "boolean-mask indexing": lambda: x[x > 5],
+        "repeat_interleave (tensor repeats)": lambda: torch.repeat_interleave(x[:4], x[:4].clamp(min=1)),
+        "unique": lambda: torch.unique(x),
+        "fill_ (a Python scalar)": lambda: x.fill_(3),
+    }
+    out = {}
+    for name, fn in probes.items():
+        torch.cuda.synchronize()
+        try:
+            with sanitize.guard(True, dev):
+                fn()
+            out[name] = "quiet"
+        except RuntimeError:
+            out[name] = "raises"
+    torch.cuda.synchronize()
+    seen = {}
+
+    def other():
+        try:
+            x.sum().item()
+            seen["read"] = "quiet"
+        except RuntimeError:
+            seen["read"] = "raises"
+        try:
+            record_and_wait()
+            seen["event"] = "quiet"
+        except RuntimeError:
+            seen["event"] = "raises"
+
+    with sanitize.guard(True, dev):
+        th = threading.Thread(target=other)
+        th.start()
+        th.join()
+    out["another thread's .item() under this thread's guard"] = seen.get("read", "?")
+    out["another thread's Event.synchronize() under this thread's guard"] = seen.get("event", "?")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        fail("phase 25: the guard left the sync debug mode set")
+    return out
+
+
+GUARD_LINES = {
+    # the headline line (run_shape(1024, 256), K 64): warm to 190 s, timed
+    # to 690 s, traced 690 -> 890 s
+    "headline": dict(warm=190.0, until=690.0, traced=890.0),
+    # phase 6w's composed line (pod_window 512, streamed): warm to 190 s,
+    # timed to 990 s (slides), traced 990 -> 1190 s
+    "composed": dict(warm=190.0, until=990.0, traced=1190.0),
+}
+
+
+def guarded_pair(dev, sk, label, build, must_launch, when) -> tuple:
+    """One line with the guard off, then on (KTPU_SANITIZE through
+    sanitize_mode=): captured up front, stepped to `when`'s marks; host ms
+    a window of the timed span, device busy ms a window of the traced one
+    (device_busy), launches of the sanitized run; fails unless the two
+    end in equal states with equal host reads, and the sanitized run
+    launched every kernel of `must_launch`. Returns (numbers, the
+    sanitized engine, left open)."""
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+
+    out, finals, keep = {}, {}, None
+    for mode in (False, True):
+        sim = build(mode)
+        if sim._sanitize != mode or not sim.graphs:
+            fail(f"{label}: the engine built with sanitize {sim._sanitize}, graphs {sim.graphs}")
+        sim.precompile_pieces()
+        sk.reset_launches()
+        sim.step_until_time(when["warm"])
+        torch.cuda.synchronize()
+        w0, syncs0, caps0 = sim.windows_run, sim.host_syncs, sim.dispatch_stats["captures"]
+        t0 = time.perf_counter()
+        sim.step_until_time(when["until"])
+        torch.cuda.synchronize()
+        n = sim.windows_run - w0
+        host_ms = 1e3 * (time.perf_counter() - t0) / n
+        launches = sk.launch_counts()
+        w1 = sim.windows_run
+
+        def traced(sim=sim, w1=w1):
+            sim.step_until_time(when["traced"])
+            return sim.windows_run - w1
+
+        busy = device_busy(traced, f"{label} (sanitize {mode})")
+        if sim.dispatch_stats["captures"] != caps0 or sim.dispatch_stats["eager_windows"]:
+            fail(f"{label}: a capture or an eager window inside the stepped span ({sim.dispatch_stats})")
+        key = "on" if mode else "off"
+        out[key] = {"host_ms_per_window": host_ms, "busy_ms_per_window": busy["busy_ms_per_window"],
+                    "kernels_per_window": busy["kernels_per_window"], "timed_windows": n,
+                    "host_syncs": sim.host_syncs, "loop_syncs": sim.host_syncs - syncs0,
+                    "slides": sim.dispatch_stats["slides"], "launches": launches}
+        finals[key] = state_to_numpy(sim.state)
+        if mode:
+            keep = sim
+            for name in must_launch:
+                if launches[name] <= 0:
+                    fail(f"{label}: the sanitized run never launched {name}")
+        else:
+            sim.close()
+    bad = compare_states(finals["on"], finals["off"])
+    if bad or any(not np.array_equal(finals["on"][k], finals["off"][k]) for k in finals["on"]):
+        fail(f"{label}: the sanitized run's state differs from the unsanitized one at {bad}")
+    if out["on"]["host_syncs"] != out["off"]["host_syncs"]:
+        fail(f"{label}: host reads {out['on']['host_syncs']} sanitized, {out['off']['host_syncs']} not")
+    return out, keep
+
+
+def guards_phase(dev, sk, card: str, names, ca_names) -> dict:
+    """Phase 25, the guards on the card: the sync debug mode's probe; (a)
+    the headline line and phase 6w's composed line (streamed, the feeder
+    thread running) under KTPU_SANITIZE against not, states bit for bit,
+    host reads equal, host and busy ms a window each; (b) an unwaived
+    .item() inside the guard raises, the same read in an allow scope does
+    not; (c) phase 20a's fleet under KTPU_EXPLAIN_RECOMPILES=1: no capture
+    after the seal across its waves, and a capture forced into a later
+    wave raises RecompileError naming its piece key; (d) a NaN planted in
+    an estimator leaf is named by the finite sweep, and a leaf rebound
+    behind the executor's back by the address check. Every number is
+    printed beside `card`."""
+    from kubernetriks_tpu_torch import sanitize
+    from kubernetriks_tpu_torch.batched.fleet import ScenarioFleet
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.recompile import RecompileError
+
+    t_start = time.perf_counter()
+    out = {"sync_mode": sync_mode_probes(dev)}
+    print(f"phase 25 ({card}): what set_sync_debug_mode('error') flags: {out['sync_mode']}", flush=True)
+    if out["sync_mode"][".item()"] != "raises" or out["sync_mode"]["non-blocking copy to pinned memory"] != "quiet":
+        fail(f"phase 25: the sync debug mode does not flag as the sanitizer assumes: {out['sync_mode']}")
+
+    # (a) the two lines, guarded against not.
+    head, sim = guarded_pair(dev, sk, "phase 25a headline",
+                             lambda mode: headline_sim(dev, sanitize_mode=mode), names, GUARD_LINES["headline"])
+    sim.close()
+    del sim
+    saved = os.environ.get("KTPU_STREAM")  # ktpu: flag-ok(saves the raw value to restore it; the engine reads the flag through flags.flag_tristate)
+    os.environ["KTPU_STREAM"] = "1"
+    try:
+        comp, sim = guarded_pair(
+            dev, sk, "phase 25a composed",
+            lambda mode: composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW, sanitize_mode=mode),
+            names + ca_names, GUARD_LINES["composed"])
+    finally:
+        if saved is None:
+            del os.environ["KTPU_STREAM"]
+        else:
+            os.environ["KTPU_STREAM"] = saved
+    feeder = sim._feeder_report() or {}
+    if not sim._stream_on() or comp["on"]["slides"] <= 0:
+        fail(f"phase 25a composed: the line did not stream or never slid ({feeder})")
+    out["headline"], out["composed"] = head, comp
+    for name, line in (("headline", head), ("composed (streamed)", comp)):
+        print(f"phase 25a {name} ({card}): sanitized == not, state bit for bit, host reads "
+              f"{line['on']['host_syncs']} == {line['off']['host_syncs']}; host "
+              f"{line['off']['host_ms_per_window']:.4f} -> {line['on']['host_ms_per_window']:.4f} ms a window, "
+              f"device busy {line['off']['busy_ms_per_window']:.4f} -> {line['on']['busy_ms_per_window']:.4f} ms a "
+              f"window, kernels {line['off']['kernels_per_window']:.1f} -> {line['on']['kernels_per_window']:.1f} a "
+              f"window (guard off -> on); launches {line['on']['launches']}", flush=True)
+
+    # (b) an unwaived read inside the guard raises; waived, it does not.
+    x = torch.arange(8, device=dev)
+    raised = False
+    try:
+        with sanitize.guard(True, dev):
+            x.sum().item()
+    except RuntimeError:
+        raised = True
+    with sanitize.guard(True, dev):
+        with sanitize.allow_transfer(True, "phase 25b: a waived read"):
+            waived = x.sum().item()
+    if not raised or waived != 28 or torch.cuda.get_sync_debug_mode() != 0:
+        fail(f"phase 25b: unwaived .item() raised {raised}, waived read {waived}")
+    out["unwaived_item_raises"] = raised
+    print("phase 25b: an unwaived .item() inside the guard raises; in an allow scope it reads 28", flush=True)
+
+    # (d) the finite sweep and the address check, on the sanitized composed engine.
+    leaf = sim.state.metrics.queue_time.total
+    kept = leaf[:1].clone()
+    leaf[:1] = float("nan")
+    try:
+        sim._check_finite()
+        fail("phase 25d: the finite sweep missed a NaN in .metrics.queue_time.total")
+    except FloatingPointError as err:
+        if ".metrics.queue_time.total" not in str(err):
+            fail(f"phase 25d: the sweep named another leaf: {err}")
+        out["finite_sweep"] = str(err)
+    leaf[:1] = kept
+    sim._state = sim._state._replace(time=sim._state.time.clone())
+    try:
+        sim.step_until_time(GUARD_LINES["composed"]["traced"] + 10.0)
+        fail("phase 25d: the address check missed a rebound .time")
+    except RuntimeError as err:
+        if "state leaf .time" not in str(err):
+            fail(f"phase 25d: the address check named something else: {err}")
+        out["address_check"] = str(err)
+    sim.close()
+    del sim
+    print(f"phase 25d: the sweep names the planted NaN ({out['finite_sweep']}); the address check names the rebound "
+          f"leaf ({out['address_check'][:80]}...)", flush=True)
+
+    # (c) phase 20a's fleet under KTPU_EXPLAIN_RECOMPILES=1.
+    config_yaml, cluster, workload = sweep_inputs("")
+    scens, _ = sweep_scenarios(64)
+    os.environ["KTPU_EXPLAIN_RECOMPILES"] = "1"
+    try:
+        fleet = ScenarioFleet(SimulationConfig.from_yaml(config_yaml), cluster, workload, n_lanes=16,
+                              horizon=SWEEP_QUERY_HORIZON, device=dev, max_pods_per_cycle=SWEEP_K)
+    finally:
+        del os.environ["KTPU_EXPLAIN_RECOMPILES"]
+    eng = fleet.engine
+    try:
+        if fleet._sentinel is None:
+            fail("phase 25c: KTPU_EXPLAIN_RECOMPILES=1 armed no sentinel")
+        captures = eng.dispatch_stats["captures"]
+        for s in scens:
+            fleet.submit(s)
+        fleet.run()
+        if fleet.waves_run != 4 or fleet._sentinel.post_seal_events() or eng.dispatch_stats["captures"] != captures:
+            fail(f"phase 25c: {fleet.waves_run} waves, captures after the seal {fleet._sentinel.post_seal_events()}")
+        dropped = [k for k in eng._executor.graphs if k[0] == "end"]
+        for key in dropped:
+            del eng._executor.graphs[key]
+        fleet.submit(scens[0])
+        try:
+            fleet.run()
+            fail("phase 25c: a capture forced into wave 5 did not raise")
+        except RecompileError as err:
+            named = [k for k in dropped if repr(k) in str(err)]
+            if not named:
+                fail(f"phase 25c: the RecompileError names no dropped piece key: {err}")
+            out["fleet"] = {"waves": 4, "captures_at_build": captures, "post_seal_events_in_waves_1_4": 0,
+                            "forced_recapture_named": [list(k) for k in named]}
+    finally:
+        fleet.close()
+    print(f"phase 25c ({card}): 64 scenarios over 16 lanes (4 waves) under KTPU_EXPLAIN_RECOMPILES=1 with no capture "
+          f"after the seal ({captures} at the build); a capture forced into wave 5 raised RecompileError naming "
+          f"{out['fleet']['forced_recapture_named']}", flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 25: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not (HERE / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
         fail("the kubernetriks_tpu_torch package is not beside this script", 2)
@@ -4983,6 +5269,10 @@ def main() -> int:
     stamp("phase 24")
     scalar_path = scalar_phase(dev, sk, smi)
 
+    # --- 25. the guards: the sanitizer, the recompile sentinel ------------------------------------------------
+    stamp("phase 25")
+    guards_path = guards_phase(dev, sk, smi, names, ca_names)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -5098,6 +5388,7 @@ def main() -> int:
             "streamed_replay": streamed_path,
             "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path, "rl": rl_path,
             "scalar": scalar_path,
+            "guards": guards_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

@@ -133,6 +133,95 @@ class AutoscaleStatics(NamedTuple):
     node_class_key: Optional[torch.Tensor] = None  # (C, N) int32 class rank * (S + 1)
 
 
+# AutoscaleStatics leaves that are per-lane TRACED scenario data (the
+# fleet composes them, batched/fleet.scenario_leaves; reference
+# batched/autoscale.py:265): the scenariotrace lint pass forbids them
+# from flowing into Python control flow, host casts, shape expressions or
+# a piece key, which would make a what-if config shape a captured graph.
+SCENARIO_TRACED_LEAVES = (
+    "hpa_interval",
+    "hpa_tolerance",
+    "ca_threshold",
+    "ca_max_nodes",
+    "pg_active_from",
+    "d_hpa_up",
+    "d_hpa_down",
+    "d_ca_up",
+    "d_ca_down",
+    "ca_period",
+    "ca_snap",
+    "ca_finish_vis",
+    "ca_commit_vis",
+)
+
+# Declared axis signatures (the shapecontract lint pass; reference
+# batched/autoscale.py:285): the per-cluster "C" lane vectors are exactly
+# the leaves whose broadcasts against per-object (C, G) / (C, P) / (C, S)
+# planes must be explicit ([:, None]). "C,G,*" = the (C, G, U) curve
+# tables.
+AXIS_SIGNATURES = {
+    # AutoscaleState (batched/state.py)
+    "hpa_head": "C,G",
+    "hpa_tail": "C,G",
+    "ca_count": "C,G",
+    "ca_cursor": "C,G",
+    "ca_total": "C,G",
+    "ca_alloc": "C,S",
+    "ca_reclaimed": "C",
+    "hpa_next": "C",
+    "ca_next": "C",
+    "col_next": "C",
+    "col_run": "C,G",
+    "col_util_cpu": "C,G",
+    "col_util_ram": "C,G",
+    # AutoscaleStatics per-lane control-law leaves
+    "hpa_interval": "C",
+    "hpa_tolerance": "C",
+    "ca_threshold": "C",
+    "ca_max_nodes": "C",
+    "d_hpa_up": "C",
+    "d_hpa_down": "C",
+    "d_ca_up": "C",
+    "d_ca_down": "C",
+    "ca_period": "C",
+    "ca_snap": "C",
+    "ca_finish_vis": "C",
+    "ca_commit_vis": "C",
+    "col_interval": "C",
+    # AutoscaleStatics tables
+    "pg_slot_start": "C,G",
+    "pg_slot_count": "C,G",
+    "pg_initial": "C,G",
+    "pg_max_pods": "C,G",
+    "pg_target_cpu": "C,G",
+    "pg_target_ram": "C,G",
+    "pg_active_from": "C,G",
+    "pg_creation_s": "C,G",
+    "pg_cpu_dur": "C,G,*",
+    "pg_cpu_load": "C,G,*",
+    "pg_cpu_total": "C,G",
+    "pg_cpu_const": "C,G",
+    "pg_ram_dur": "C,G,*",
+    "pg_ram_load": "C,G,*",
+    "pg_ram_total": "C,G",
+    "pg_ram_const": "C,G",
+    "pod_group_id": "C,P",
+    "ng_ca_start": "C,G",
+    "ng_slot_count": "C,G",
+    "ng_max_count": "C,G",
+    "ng_tmpl_cpu": "C,G",
+    "ng_tmpl_ram": "C,G",
+    "ca_slots": "C,S",
+    "ca_slot_group": "C,S",
+    "ca_sd_order": "C,S",
+    "ca_slot_class": "C,S",
+    "ca_class_start": "C,G",
+    "pod_name_rank": "C,P",
+    "node_name_rank": "C,N",
+    "node_class_key": "C,N",
+}
+
+
 def init_autoscale_state(st: AutoscaleStatics, collect: bool, reclaim: bool = False) -> AutoscaleState:
     """Fresh autoscaler state; `collect` arms the HPA collection latch (the
     engine sets it whenever a pod group can be scaled), `reclaim` the CA

@@ -214,7 +214,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from kubernetriks_tpu_torch import chaos
+from kubernetriks_tpu_torch import chaos, sanitize
 from kubernetriks_tpu_torch.batched.autoscale import AutoscaleStatics, init_autoscale_state
 from kubernetriks_tpu_torch.batched.fleet import normalize_scenario, scenario_leaves
 from kubernetriks_tpu_torch.batched.graphs import GAUGE_SPAN, CudaGraphs, WindowExecutor
@@ -705,8 +705,8 @@ def slab_tables(ev_win: np.ndarray, ev_kind: np.ndarray, wmax: int):
     )
 
 
-def _cpu_pair(p: TPair) -> TPair:
-    return TPair(win=p.win.cpu(), off=p.off.cpu())
+def _cpu_pair(p: TPair) -> TPair:  # ktpu: sync-ok(the clock's host mirror: one copy of a per-lane pair at the build or an install, outside the stepping loop)
+    return TPair(win=torch.from_numpy(sanitize.to_host(p.win)), off=torch.from_numpy(sanitize.to_host(p.off)))
 
 
 class AutoscaleClock:
@@ -761,7 +761,7 @@ class AutoscaleClock:
         self.col_next = None if auto.col_next is None else _cpu_pair(auto.col_next)
         self.ca_next = _cpu_pair(auto.ca_next)
 
-    def advance(self, w, active=None, shift=None):
+    def advance(self, w, active=None, shift=None):  # ktpu: sync-ok(the host mirror's own tensors, on the CPU: no read of the device)
         """(hpa_cycle, hpa_collect, ca_due) for window w; moves the mirror
         to where the window leaves the state. Under lane clocks `w` is the
         (C,) virtual windows, `active` the (C,) bool lanes in their span
@@ -789,22 +789,22 @@ class AutoscaleClock:
         due = t_lt(snap, T1)
         if active is not None:
             due &= active
-        ca_due = bool(due.any())
+        ca_due = bool(due.any())  # ktpu: scenario-ok(host mirror on the CPU: the plan chooses between pieces the build captured, so no capture follows)
         if ca_due and self.ca_on:
             eff = t_add(self.ca_next, self.d_ca_down, self.interval)
             if shift is None:
-                for win in torch.unique(eff.win[due]).tolist():
+                for win in torch.unique(eff.win[due]).tolist():  # ktpu: scenario-ok(host mirror on the CPU: the removal windows the plan reads, no piece key)
                     self.removal_windows.add(max(int(win) + 1, w + 1))
             else:
-                for c in torch.nonzero(due).flatten().tolist():
-                    vw = max(int(eff.win[c]) + 1, int(T.win[c]) + 1)
+                for c in torch.nonzero(due).flatten().tolist():  # ktpu: scenario-ok(host mirror on the CPU: the removal windows the plan reads, no piece key)
+                    vw = max(int(eff.win[c]) + 1, int(T.win[c]) + 1)  # ktpu: scenario-ok(host mirror on the CPU: the removal windows the plan reads, no piece key)
                     self.removal_windows.add(vw + int(shift[c]))
         self.ca_next = t_where(due, t_add(self.ca_next, self.ca_period, self.interval), self.ca_next)
         return hpa_cycle, hpa_collect, ca_due
 
 
 class BatchedSimulation:
-    def __init__(
+    def __init__(  # ktpu: sync-ok(the build: host tables read once, before any window)
         self,
         config,
         compiled_traces: Sequence[CompiledClusterTrace],
@@ -829,8 +829,16 @@ class BatchedSimulation:
         stream_segment: Optional[int] = None,
         scenario: Optional[Dict[str, object]] = None,
         lane_async: bool = False,
+        sanitize_mode: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # The runtime sanitizer (KTPU_SANITIZE / sanitize_mode; reference
+        # engine.py:817-827, sanitize.py): the stepping loop runs under the
+        # sync guard (every counted read in an allow scope), and the finite
+        # sweep and the captured-address check run at every dispatch
+        # boundary. KTPU_DEBUG_FINITE arms the sweep alone.
+        self._sanitize = sanitize.sanitize_default() if sanitize_mode is None else bool(sanitize_mode)
+        self._debug_finite = flag_bool("KTPU_DEBUG_FINITE")
         # Lane clocks (module note; reference engine.py:1106-1143): each
         # lane runs its own virtual span inside the shared window pieces.
         # They need a scenario build (the lane reset re-seeds from its
@@ -1230,7 +1238,7 @@ class BatchedSimulation:
             plain_width=int(self.consts.trace_pod_bound - self.consts.resident_shift),
             backoff_base=f32(fp.backoff_base),
             backoff_cap=f32(fp.backoff_cap),
-            seeds=self._fault_seeds,
+            fault_seed=self._fault_seeds,
         )
 
     def _trace_name_ranks(self, C: int):
@@ -1279,7 +1287,7 @@ class BatchedSimulation:
         plain slots [0, W) | resident pod-group ring]."""
         C = len(compiled_traces)
         self.pod_window = W
-        self.consts = self.consts._replace(trace_pod_bound=T, resident_shift=T - W)
+        self.consts = self.consts._replace(trace_pod_bound=T, resident_shift=T - W)  # ktpu: capture-ok(the build: _window_layout runs inside __init__, before the executor exists)
         # Window of each plain slot's create event (slots are assigned in
         # event order, so rows are nondecreasing): the capacity lookup.
         ev_win, _ = from_f64_np(ev_time, self.config.scheduling_cycle_interval)
@@ -1655,7 +1663,12 @@ class BatchedSimulation:
         W, T = self.pod_window, self.consts.trace_pod_bound
         if W >= T:
             return False
-        with self.tracer.span(PH_WINDOW_GROW):
+        # A growth uploads fresh slots and name ranks (blocking copies to
+        # the card) and captures the pieces again: host work the sync
+        # guard would flag, counted in dispatch_stats["grows"].
+        with self.tracer.span(PH_WINDOW_GROW), sanitize.allow_transfer(
+            self._sanitize, "a growth of the pod window, counted in dispatch_stats['grows']"
+        ):
             self._grow_to(min(2 * W, T))
         return True
 
@@ -1746,27 +1759,42 @@ class BatchedSimulation:
         copy_state_into(self._state, state)
         self._executor.reset_after_install()
         self.host_syncs += 1
+        with sanitize.allow_transfer(self._sanitize, "install_state seeds the host mirrors"):
+            seen = self._install_reads(state)
+            if self.clock is not None:
+                self.clock.seed(state.auto)
         if state.telemetry is not None:
             # The installed ring's rows count as undrained, so a drain
             # reads them before later windows overwrite them.
-            self._ring_host_cursor = int(state.telemetry.cursor.max())
+            self._ring_host_cursor = int(seen["ring_cursor"].max())
             self._ring_drained_at = max(0, self._ring_host_cursor - self._telemetry_ring_size)
             if self.observatory is not None:
                 self.observatory.reset()
-        self._cursor = state.event_cursor.cpu().numpy().astype(np.int64)
+        self._cursor = seen["cursor"].astype(np.int64)
         if self.pod_window is not None:
-            self._pod_base = int(state.pod_base[0])
+            self._pod_base = int(seen["pod_base"][0])
             self._refresh_name_ranks()
             if self._slide_payload is None:
                 self._ensure_feeder()
         self.next_window_idx = int(next_window_idx)
         if self.clock is not None:
-            self.clock.seed(state.auto)
-            win = state.nodes.remove_time.win.cpu().numpy().astype(np.int64)
+            win = seen["remove_win"].astype(np.int64)
             finite = win < INF_WIN
             if self.lane_async:
                 win = win + self._lane_clock_np[:, None]  # lanes' virtual windows, as global ones
             self.clock.removal_windows = {max(int(w) + 1, self.next_window_idx) for w in np.unique(win[finite])}
+
+    def _install_reads(self, state: ClusterBatchState) -> Dict[str, np.ndarray]:  # ktpu: sync-ok(install_state's one read of the installed state, counted in host_syncs, in an allow scope)
+        """install_state's one read of the installed state (counted in
+        host_syncs, with the clock's seed): the event cursor, the pod base,
+        the ring cursor and the pending node removals, through
+        sanitize.to_host."""
+        out = {"cursor": sanitize.to_host(state.event_cursor), "pod_base": sanitize.to_host(state.pod_base)}
+        if state.telemetry is not None:
+            out["ring_cursor"] = sanitize.to_host(state.telemetry.cursor)
+        if self.clock is not None:
+            out["remove_win"] = sanitize.to_host(state.nodes.remove_time.win)
+        return out
 
     # --- checkpoint / resume ---------------------------------------------------
 
@@ -1775,7 +1803,7 @@ class BatchedSimulation:
         if self.lane_async:
             # The lane clocks and their host mirrors.
             out["lanes"] = {
-                "clock": self._lane_clocks.clock, "horizon": self._lane_clocks.horizon,
+                "clock": self._lane_clocks.lane_clock, "horizon": self._lane_clocks.lane_horizon,
                 "clock_host": torch.from_numpy(self._lane_clock_np), "horizon_host": torch.from_numpy(self._lane_horizon_np),
             }
         return out
@@ -1906,10 +1934,10 @@ class BatchedSimulation:
             self._ring_windows_recorded = 0
             if self.lane_async:
                 lanes = restored["lanes"]
-                self._lane_clocks.clock.copy_(lanes["clock"])
-                self._lane_clocks.horizon.copy_(lanes["horizon"])
-                self._lane_clock_np[:] = lanes["clock_host"].numpy()
-                self._lane_horizon_np[:] = lanes["horizon_host"].numpy()
+                self._lane_clocks.lane_clock.copy_(lanes["clock"])
+                self._lane_clocks.lane_horizon.copy_(lanes["horizon"])
+                self._lane_clock_np[:] = lanes["clock_host"].numpy()  # ktpu: sync-ok(host tensors of the checkpoint file, no device read)
+                self._lane_horizon_np[:] = lanes["horizon_host"].numpy()  # ktpu: sync-ok(host tensors of the checkpoint file, no device read)
             self.install_state(restored["state"], int(restored["next_window_idx"]))
             self._gauges = GaugeSeries.load_sidecar(os.path.abspath(path) + ".gauges.npz")
 
@@ -2055,8 +2083,8 @@ class BatchedSimulation:
         lanes = np.asarray(list(lanes), np.int64)
         self._lane_clock_np[lanes] = int(start_window)
         self._lane_horizon_np[lanes] = np.asarray(horizons, np.int64)
-        self._lane_clocks.clock.copy_(torch.from_numpy(self._lane_clock_np.astype(np.int32)))
-        self._lane_clocks.horizon.copy_(torch.from_numpy(self._lane_horizon_np.astype(np.int32)))
+        self._lane_clocks.lane_clock.copy_(torch.from_numpy(self._lane_clock_np.astype(np.int32)))
+        self._lane_clocks.lane_horizon.copy_(torch.from_numpy(self._lane_horizon_np.astype(np.int32)))
 
     def lane_windows_done(self) -> np.ndarray:
         """(C,) bool: lanes whose planned span is dispatched (the global
@@ -2094,7 +2122,8 @@ class BatchedSimulation:
                 bool(np.all(self._lane_clock_np <= start))
                 and bool(np.all(start + n <= self._lane_clock_np + self._lane_horizon_np))
             )
-        self._run_span(start, start + n - 1, freeze)
+        with sanitize.guard(self._sanitize, self.device):
+            self._run_span(start, start + n - 1, freeze)
         self._maybe_drain_ring()
 
     def lane_reset(self, lanes) -> None:
@@ -2281,6 +2310,7 @@ class BatchedSimulation:
                 self._ring_host_cursor += last - first + 1
         self.next_window_idx = last + 1
         self.windows_run += last - first + 1
+        self._check_finite()
 
     def _run_gauged(self, first: int, last: int, freeze: bool = True) -> None:
         """Windows first..last, each followed by a gauge sample into the
@@ -2294,7 +2324,9 @@ class BatchedSimulation:
             hi = min(lo + GAUGE_SPAN - 1, last)
             ex.run_windows([(w, self._plan(w, freeze)) for w in range(lo, hi + 1)])
             self._ring_host_cursor += hi - lo + 1
-            self._gauges.append(np.arange(lo, hi + 1, dtype=np.int32), ex.read_gauges(hi - lo + 1))
+            with sanitize.allow_transfer(self._sanitize, "the gauge buffer, a span's read"):
+                samples = ex.read_gauges(hi - lo + 1)
+            self._gauges.append(np.arange(lo, hi + 1, dtype=np.int32), samples)
             self.host_syncs += 1
 
     def _after_executed_read(self) -> None:
@@ -2394,7 +2426,8 @@ class BatchedSimulation:
             pending = self._ring_host_cursor - self._ring_drained_at
             if pending > 0 and pending + len(idxs) > self._telemetry_ring_size:
                 self._maybe_drain_ring(force=True)
-        self._dispatch_windows(idxs)
+        with sanitize.guard(self._sanitize, self.device):
+            self._dispatch_windows(idxs)
         self._maybe_drain_ring()
 
     def run_to_completion(self, max_time: float = 1e7) -> None:
@@ -2407,32 +2440,85 @@ class BatchedSimulation:
         Raises once the run passes max_time with pods still live."""
         interval = self.config.scheduling_cycle_interval
         chunk = max(64, self.max_events_per_window)
-        while True:
-            self.step_until_time(self.next_window + chunk * interval)
-            if self.next_window <= self.last_event_time + interval:
-                continue
-            pods = self.state.pods
-            live_mask = (
-                (pods.phase == PHASE_QUEUED)
-                | (pods.phase == PHASE_UNSCHEDULABLE)
-                | ((pods.phase == PHASE_RUNNING) & (pods.duration.win >= 0))
-            )
-            self.host_syncs += 1
-            live = int(live_mask.sum())
-            if live == 0:
-                return
-            if self.next_window > max_time:
-                raise RuntimeError(
-                    f"run_to_completion exceeded max_time={max_time}; {live} pods still live"
+        with sanitize.guard(self._sanitize, self.device):
+            while True:
+                self.step_until_time(self.next_window + chunk * interval)
+                if self.next_window <= self.last_event_time + interval:
+                    continue
+                pods = self.state.pods
+                live_mask = (
+                    (pods.phase == PHASE_QUEUED)
+                    | (pods.phase == PHASE_UNSCHEDULABLE)
+                    | ((pods.phase == PHASE_RUNNING) & (pods.duration.win >= 0))
+                )
+                self.host_syncs += 1
+                with sanitize.allow_transfer(self._sanitize, "run_to_completion's live pods, a chunk's read"):
+                    live = int(sanitize.to_host(live_mask.sum()))  # ktpu: sync-ok(run_to_completion's live pods, a chunk's read, counted in host_syncs, in an allow scope)
+                if live == 0:
+                    return
+                if self.next_window > max_time:
+                    raise RuntimeError(
+                        f"run_to_completion exceeded max_time={max_time}; {live} pods still live"
+                    )
+
+    # --- guards (KTPU_DEBUG_FINITE, KTPU_SANITIZE) -------------------------------
+
+    # Float state leaves whose +/-inf values are documented sentinels ("no
+    # pending effect" pairs, estimator min/max identities; reference
+    # engine.py:3488-3500): every other float leaf must stay finite.
+    _FINITE_EXEMPT = (
+        "finish_time",
+        "removal_time",
+        "remove_time",
+        "create_time",
+        "hpa_next",
+        "ca_next",
+        "minimum",
+        "maximum",
+    )
+
+    def _check_finite(self) -> None:
+        """At a dispatch boundary (the end of a span of windows), under
+        KTPU_DEBUG_FINITE or KTPU_SANITIZE: sweep every float leaf of the
+        state; a NaN anywhere, or an inf outside the sentinel leaves,
+        raises FloatingPointError naming the leaf (reference
+        engine.py:3502-3530). Under KTPU_SANITIZE the captured-address
+        check runs at the same boundary. One read of the leaves' flags,
+        in an allow scope and not counted in host_syncs; off, no read and
+        no kernel."""
+        if self._sanitize:
+            sanitize.check_addresses(self._state, self._executor.addresses)
+        if not (self._debug_finite or self._sanitize):
+            return
+        with sanitize.allow_transfer(self._sanitize, "finite-guard sweep"):
+            self._check_finite_now()
+
+    def _check_finite_now(self) -> None:  # ktpu: sync-ok(the guard-mode sweep: one read of the leaves' flags a dispatch boundary, in an allow scope)
+        floats = [(path, leaf) for path, leaf in flatten(self._state).items() if leaf.is_floating_point()]
+        if not floats:
+            return
+        nan = torch.stack([leaf.isnan().any() for _, leaf in floats])
+        inf = torch.stack([leaf.isinf().any() for _, leaf in floats])
+        flags = sanitize.to_host(torch.stack([nan, inf]))
+        for i, (path, _) in enumerate(floats):
+            if flags[0, i]:
+                raise FloatingPointError(
+                    f"KTPU_DEBUG_FINITE: NaN in state field {path} after window {self.next_window_idx - 1}"
+                )
+            if flags[1, i] and not any(tok in path for tok in self._FINITE_EXEMPT):
+                raise FloatingPointError(
+                    f"KTPU_DEBUG_FINITE: non-finite value in state field {path} after window "
+                    f"{self.next_window_idx - 1}"
                 )
 
     # --- readout ------------------------------------------------------------
 
     def decisions_total(self) -> int:
         self.host_syncs += 1
-        return int(self.state.metrics.scheduling_decisions.sum())
+        with sanitize.allow_transfer(self._sanitize, "decisions_total readout"):
+            return int(sanitize.to_host(self.state.metrics.scheduling_decisions).sum())  # ktpu: sync-ok(readout, counted in host_syncs)
 
-    def check_autoscaler_bounds(self) -> None:
+    def check_autoscaler_bounds(self) -> None:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """Raise when a documented autoscaler work bound was crossed, so the
         trajectory has left the reference's semantics (reference
         engine.py:3672): an HPA cycle wanted more replicas than the group's
@@ -2481,7 +2567,7 @@ class BatchedSimulation:
                 f"{total_max} reached the 10^8 bound of the decimal-suffix name keys"
             )
 
-    def hpa_replicas(self, cluster: int) -> Dict[str, int]:
+    def hpa_replicas(self, cluster: int) -> Dict[str, int]:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """Created replicas of each of the cluster's pod groups (the
         scalar reference's len(created_pods); reference engine.py:3846),
         by group name: one host read."""
@@ -2491,7 +2577,7 @@ class BatchedSimulation:
         counts = (auto.hpa_tail[cluster] - auto.hpa_head[cluster]).cpu().tolist()
         return {name: int(counts[i]) for i, name in enumerate(self.pod_group_names[cluster])}
 
-    def ca_node_counts(self, cluster: int) -> np.ndarray:
+    def ca_node_counts(self, cluster: int) -> np.ndarray:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """The cluster autoscaler's current node count per node group
         (reference engine.py:3872): one host read."""
         auto = self.state.auto
@@ -2499,7 +2585,7 @@ class BatchedSimulation:
             raise ValueError("ca_node_counts: autoscaling is not enabled on this engine")
         return auto.ca_count[cluster].cpu().numpy()
 
-    def ca_slots_reclaimed(self) -> np.ndarray:
+    def ca_slots_reclaimed(self) -> np.ndarray:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """(C,) CA reserve slots the reclaim compaction returned (zeros
         when reclaim is off)."""
         auto = self.state.auto
@@ -2566,7 +2652,7 @@ class BatchedSimulation:
     # Each reads the device once, after a run; none runs inside the window
     # loop, so host_syncs does not count them.
 
-    def _host_rows(self, cluster: int, *tensors: torch.Tensor) -> List[np.ndarray]:
+    def _host_rows(self, cluster: int, *tensors: torch.Tensor) -> List[np.ndarray]:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """Row `cluster` of each (C, ...) tensor (a (C,) one gives one
         element) on the host, through one copy: bool and float32 rows ride
         as int32 bits and come back in their own dtype."""
@@ -2700,7 +2786,8 @@ class BatchedSimulation:
 
         # The rows recorded since the last drain, as the host counts them.
         t0 = time.perf_counter_ns()
-        buf, cursor = dring.snapshot(self.state.telemetry, self._ring_drained_at, self._ring_host_cursor)
+        with sanitize.allow_transfer(self._sanitize, "telemetry ring drain, riding a read that blocks anyway"):
+            buf, cursor = dring.snapshot(self.state.telemetry, self._ring_drained_at, self._ring_host_cursor)
         t1 = time.perf_counter_ns()
         if cursor != self._ring_host_cursor:
             raise RuntimeError(

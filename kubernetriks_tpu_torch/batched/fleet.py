@@ -91,6 +91,7 @@ from kubernetriks_tpu_torch.batched.faults import (
     ShutdownError,
 )
 from kubernetriks_tpu_torch.config import KubeClusterAutoscalerConfig, KubeHorizontalPodAutoscalerConfig
+from kubernetriks_tpu_torch.recompile import RecompileError, maybe_sentinel
 from kubernetriks_tpu_torch.telemetry.histogram import LatencyHistogram
 from kubernetriks_tpu_torch.telemetry.tracer import (
     PH_LANE_QUARANTINE,
@@ -391,6 +392,13 @@ class ScenarioFleet:
         # rounds replay them and never capture (the counterpart of the
         # reference's compile-once warm-up and precompile_lane_spans).
         self.engine.precompile_pieces()
+        # KTPU_EXPLAIN_RECOMPILES=1: a raising recompile sentinel, sealed
+        # here, guards every wave and pump round (reference fleet.py:
+        # 515-523, where wave 1 compiles; here the build captured every
+        # piece already): a capture inside one raises, naming its key.
+        self._sentinel = maybe_sentinel()
+        if self._sentinel is not None:
+            self._sentinel.seal("fleet build")
         self._queue: deque = deque()
         self._next_query = 0
         # Terminal outcome per query id: a FleetResult or a QueryError.
@@ -590,7 +598,7 @@ class ScenarioFleet:
 
     # -- waves ------------------------------------------------------------------
 
-    def _lane_rows(self, lanes: Sequence[int]) -> Dict[int, Dict[str, int]]:
+    def _lane_rows(self, lanes: Sequence[int]) -> Dict[int, Dict[str, int]]:  # ktpu: sync-ok(the lanes' counters, read where a wave's step or a pump round ends)
         """Each lane's counter row, every counter leaf read in one host
         read where the step has just blocked."""
         m = self.engine.state.metrics
@@ -620,6 +628,14 @@ class ScenarioFleet:
         self._completed.append(qid)
 
     def _run_wave(self, wave) -> None:
+        """One wave, under the recompile sentinel where one is armed."""
+        if self._sentinel is None:
+            self._run_wave_inner(wave)
+            return
+        with self._sentinel.expect_none(f"fleet wave {self.waves_run + 1}"):
+            self._run_wave_inner(wave)
+
+    def _run_wave_inner(self, wave) -> None:
         """One wave: its per-lane vectors written in place (idle lanes run
         the build's), the lanes reset (from the second wave on), a step to
         each distinct horizon, and the lanes ending there drained."""
@@ -680,7 +696,12 @@ class ScenarioFleet:
         lanes whose plan ended. Returns the queries completed."""
         if not self.lane_async:
             raise ValueError("pump() needs lane_async=True (wave-aligned fleets run())")
-        drained = self._pump_inner(int(span_windows) if span_windows else self.span_windows)
+        span = int(span_windows) if span_windows else self.span_windows
+        if self._sentinel is None:
+            drained = self._pump_inner(span)
+        else:
+            with self._sentinel.expect_none(f"fleet pump round {self.pump_rounds + 1}"):
+                drained = self._pump_inner(span)
         self.pump_rounds += 1
         return drained
 
@@ -765,7 +786,11 @@ class ScenarioFleet:
                 stepped = span
         except Exception as exc:
             # A failing dispatch fails its lane's query (or, where it names
-            # no lane, every active query), never the fleet.
+            # no lane, every active query), never the fleet. A recompile
+            # sentinel's error is no lane fault: a fleet-level contract
+            # broke, and it stays loud (reference fleet.py:1112-1124).
+            if isinstance(exc, RecompileError):
+                raise
             self._on_dispatch_fault(exc)
             return 0
         # The occupancy ledger: a lane is busy for the windows left on its
@@ -1082,5 +1107,8 @@ class ScenarioFleet:
                 scenario=scen, horizon=horizon,
             ))
         self._closed = True
+        if self._sentinel is not None:
+            self._sentinel.uninstall()
+            self._sentinel = None
         self.engine.close()
 

@@ -156,6 +156,15 @@ a conditional node's body then runs where its flag is set on the CPU
 (read there at no cost) and always on the card, where it must be the
 identity when the flag is false.
 
+Capture events. Every capture, a piece's (`_capture_all`, whether the
+build's precompile or a replay that found its piece uncaptured) and a
+conditional node's body's (`CudaGraphs.when`, keyed by its piece's key
+and "body"), reaches one hook, recompile.publish_capture, which the
+installed recompile sentinels read (KTPU_EXPLAIN_RECOMPILES). The
+executor records its state leaves' addresses at every binding of its
+buffers (`addresses`), which the sanitizer's address check compares the
+engine's state against (sanitize.check_addresses).
+
 A device WHILE node over a whole span is not used: the host plans each
 window's pieces (step.WindowPlan), so a loop on the device would need one
 graph for every sequence of plans.
@@ -164,6 +173,7 @@ graph for every sequence of plans.
 from __future__ import annotations
 
 import gc
+import threading
 from functools import partial
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
@@ -207,6 +217,8 @@ from kubernetriks_tpu_torch.batched.step import (
     window_work_due,
 )
 from kubernetriks_tpu_torch.ops._launch import LAUNCHES, register_deferred
+from kubernetriks_tpu_torch.recompile import publish_capture
+from kubernetriks_tpu_torch.sanitize import allow_transfer, state_addresses, to_host
 from kubernetriks_tpu_torch.telemetry.tracer import PH_PRECOMPILE, PH_PROGRESS_WAIT, PH_SHIFT_WAIT
 
 Key = Tuple
@@ -215,6 +227,9 @@ BODY_COUNTERS = 4096
 # Windows of gauge samples the gauge buffer holds: the engine reads it back
 # at least this often (once a span, spans cut to this many windows).
 GAUGE_SPAN = 256
+# The key of the piece being captured on this thread (None: no capture),
+# which a conditional body's capture publishes under.
+_CAPTURING = threading.local()
 
 
 class WindowBuffers(NamedTuple):
@@ -361,6 +376,7 @@ class CudaGraphs:
                     self.slot_replays.append(0)
             finally:
                 body.capture_end()
+        publish_capture(tuple(getattr(_CAPTURING, "key", None) or ()) + ("body",))
         # The body's launches count where it runs (settle_launches), not
         # at every replay of the graph holding it.
         LAUNCHES.update(before)
@@ -371,13 +387,13 @@ class CudaGraphs:
         if rc != 0:
             raise RuntimeError(f"CudaGraphs.when: adding the conditional node failed with cudaError {rc}")
 
-    def settle_launches(self) -> None:
+    def settle_launches(self) -> None:  # ktpu: sync-ok(launch accounting: the conditional bodies' counters, read outside any window)
         """Fold the counted bodies' runs on the card into LAUNCHES and zero
         them (a host read)."""
         n = len(self.body_slots)
         if not n:
             return
-        runs = self.body_runs[:n].tolist()
+        runs = to_host(self.body_runs[:n]).tolist()
         self.body_runs[:n].zero_()
         for i, (delta, r) in enumerate(zip(self.body_slots, runs)):
             self.body_totals[i] += r
@@ -451,6 +467,8 @@ class WindowExecutor:
             self.bufs = self._with_gauges(self.bufs)
         leaves = [t for t in flatten(self.bufs).values() if t.numel()]
         self._fixed = storages(leaves)
+        # The state's leaf addresses the pieces are captured on.
+        self.addresses = state_addresses(state)
         if len(self._fixed) != len(leaves):
             raise ValueError("WindowExecutor: two buffers share memory; each must own its own")
         self._bodies: Dict[Key, Callable[[WindowBuffers], None]] = {}
@@ -478,7 +496,7 @@ class WindowExecutor:
     def read_gauges(self, n: int):
         """The span's n gauge samples, (n, C, 7) on the host (a host read),
         and the slot back to 0."""
-        out = self.bufs.gauges[:n].to("cpu", copy=True).numpy()
+        out = to_host(self.bufs.gauges[:n])  # ktpu: sync-ok(the gauge buffer, a span's read, counted in host_syncs, in an allow scope)
         self.bufs.gauge_slot.zero_()
         return out
 
@@ -569,7 +587,7 @@ class WindowExecutor:
             freeze = "freeze" in key[1:]
 
             def run(b: WindowBuffers) -> None:
-                W, active = lane_window(b.Wg, b.lanes.clock, b.lanes.horizon)
+                W, active = lane_window(b.Wg, b.lanes.lane_clock, b.lanes.lane_horizon)
                 b.W.copy_(W)
                 b.active.copy_(active)
                 if freeze:
@@ -748,13 +766,16 @@ class WindowExecutor:
                 self.backend.warm(partial(body, scratch))
                 warmed = dict(LAUNCHES)
                 first = len(slots)
+                _CAPTURING.key = key
                 graph = self.backend.capture(partial(body, self.bufs))
                 delta = {n: LAUNCHES[n] - warmed[n] for n in LAUNCHES if LAUNCHES[n] != warmed[n]}
             finally:
+                _CAPTURING.key = None
                 LAUNCHES.update(before)
             self.graphs[key] = (graph, delta, range(first, len(slots)))
             self._slides_captured |= key[0] == "slide"
             self.sim.dispatch_stats["captures"] += 1
+            publish_capture(key)
 
     def _run(self, key: Key) -> None:
         if self.backend is None:
@@ -788,21 +809,23 @@ class WindowExecutor:
                 out[name] = out.get(name, 0) + skipped * k
         return out
 
-    def _read_word(self, word: torch.Tensor) -> int:
-        """One int32 device word read back (a host read): copied to the
-        pinned host word without blocking, then waited on."""
+    def _read_word(self, word: torch.Tensor, reason: str) -> int:
+        """One int32 device word read back (a host read, counted in the
+        engine's host_syncs, inside an allow scope of the sanitizer):
+        copied to the pinned host word without blocking, then waited on
+        where its value is used (sanitize.to_host)."""
         self._word_host.copy_(word, non_blocking=True)
         if self._word_event is not None:
             self._word_event.record()
-            self._word_event.synchronize()
-        return int(self._word_host[0])
+        with allow_transfer(self.sim._sanitize, reason):
+            return int(to_host(self._word_host, ready=self._word_event)[0])  # ktpu: sync-ok(the slide's shift or fast-forward's next window, counted in host_syncs, in an allow scope)
 
     def slide(self) -> int:
         """Run the slide piece and read its shift back (0: no slide was
         possible, and the state is as it was)."""
         self._run(self.slide_key())
         with self.sim.tracer.span(PH_SHIFT_WAIT):
-            return self._read_word(self.bufs.shift)
+            return self._read_word(self.bufs.shift, "the slide's shift, a span's read")
 
     def run_windows(self, windows: Iterable[Tuple[int, WindowPlan]]) -> None:
         """Advance the engine's state through `windows`, (index, plan) in
@@ -838,7 +861,7 @@ class WindowExecutor:
             self.run_windows([(w, plan(w))])
             self._run(("next",))
             with sim.tracer.span(PH_PROGRESS_WAIT):
-                nxt = self._read_word(self.bufs.span[1:])
+                nxt = self._read_word(self.bufs.span[1:], "fast-forward's next window, an executed window's read")
             sim.host_syncs += 1
             stats["executed_windows"] += 1
             sim._after_executed_read()

@@ -241,15 +241,15 @@ class LaneClocks(NamedTuple):
     keeps int64 host mirrors of both (`_lane_clock_np`,
     `_lane_horizon_np`), which its host arithmetic reads instead."""
 
-    clock: torch.Tensor  # (C,) int32 global window of each lane's virtual window 0
-    horizon: torch.Tensor  # (C,) int32 windows each lane runs (0: idle)
+    lane_clock: torch.Tensor  # (C,) int32 global window of each lane's virtual window 0
+    lane_horizon: torch.Tensor  # (C,) int32 windows each lane runs (0: idle)
 
     @staticmethod
     def fresh(C: int, device) -> "LaneClocks":
         """Every lane inactive (horizon 0)."""
         return LaneClocks(
-            clock=torch.zeros((C,), dtype=torch.int32, device=device),
-            horizon=torch.zeros((C,), dtype=torch.int32, device=device),
+            lane_clock=torch.zeros((C,), dtype=torch.int32, device=device),
+            lane_horizon=torch.zeros((C,), dtype=torch.int32, device=device),
         )
 
 
@@ -577,6 +577,114 @@ _OPTIONAL_FIELDS = {
     ("AutoscaleState", "col_run"),
     ("AutoscaleState", "col_util_cpu"),
     ("AutoscaleState", "col_util_ram"),
+}
+
+
+# Leaf manifests of the state NamedTuples, for the stateleaf lint pass
+# (kubernetriks_tpu_torch/lint/stateleaf.py; reference batched/state.py:
+# 550-600): each equals its class's fields. Adding a leaf without adding it
+# here fails the pass, naming the leaf: the anchor of "how to add a state
+# leaf" (its consumers: convert.state_to_numpy / state_from_numpy, the
+# checkpoint's flatten_tree, the engine's _reset_rows, step.freeze_lanes_,
+# strip_telemetry, compare_states and sanitize's address check).
+CLUSTER_STATE_LEAVES = (
+    "time",
+    "queue_seq_counter",
+    "event_cursor",
+    "pod_base",
+    "last_flush_win",
+    "requeue_signal",
+    "nodes",
+    "pods",
+    "metrics",
+    "auto",
+    "telemetry",
+)
+TELEMETRY_RING_LEAVES = ("buf", "cursor")
+AUTOSCALE_STATE_LEAVES = (
+    "hpa_head",
+    "hpa_tail",
+    "ca_count",
+    "ca_cursor",
+    "hpa_next",
+    "ca_next",
+    "ca_alloc",
+    "ca_total",
+    "ca_reclaimed",
+    "col_next",
+    "col_run",
+    "col_util_cpu",
+    "col_util_ram",
+)
+LANE_CLOCK_LEAVES = ("lane_clock", "lane_horizon")
+
+# Per-lane traced scenario data outside the autoscaler statics (reference
+# batched/state.py:586 SCENARIO_TRACED_CONSTS, trimmed to the port's
+# leaves): the pod-fault seed vector (step.FaultStep.fault_seed, the
+# engine's _fault_seeds) and the lane clocks (LaneClocks). The
+# scenariotrace lint pass forbids them from flowing into Python control
+# flow, host casts, shape expressions or a piece key; `is None` presence
+# checks stay legal. The host mirrors live under other names
+# (engine._lane_clock_np / _lane_horizon_np), so host arithmetic never
+# reads the device leaves.
+SCENARIO_TRACED_CONSTS = ("fault_seed", "lane_clock", "lane_horizon")
+
+# Declared axis signatures of state leaves (the shapecontract lint pass;
+# reference batched/state.py:614, without its lane-major half: the port
+# keeps every node leaf (C, N)). "C" = per-cluster lane vector, "C,P" /
+# "C,N" = per-object planes, "C,*" = leading C with an unspecified second
+# axis (PodArrays (C, P) and RefillStage (C, L) share these names).
+AXIS_SIGNATURES = {
+    "time": "C",
+    "lane_clock": "C",
+    "lane_horizon": "C",
+    "queue_seq_counter": "C",
+    "event_cursor": "C",
+    "pod_base": "C",
+    "last_flush_win": "C",
+    "requeue_signal": "C",
+    # PodArrays
+    "phase": "C,P",
+    "req_cpu": "C,*",
+    "req_ram": "C,*",
+    "duration": "C,P",
+    "queue_ts": "C,P",
+    "queue_seq": "C,P",
+    "initial_attempt_ts": "C,P",
+    "attempts": "C,P",
+    "hpa_idx": "C,P",
+    "restarts": "C,P",
+    "will_fail": "C,P",
+    "start_time": "C,P",
+    "finish_time": "C,P",
+    "removal_time": "C,P",
+    # NodeArrays
+    "create_time": "C,N",
+    "remove_time": "C,N",
+    "alive": "C,N",
+    "cap_cpu": "C,N",
+    "cap_ram": "C,N",
+    "alloc_cpu": "C,N",
+    "alloc_ram": "C,N",
+    "crash_downtime": "C,N",
+    # MetricArrays per-cluster counters
+    "pods_succeeded": "C",
+    "pods_removed": "C",
+    "terminated_pods": "C",
+    "processed_nodes": "C",
+    "scheduling_decisions": "C",
+    "scaled_up_pods": "C",
+    "scaled_down_pods": "C",
+    "scaled_up_nodes": "C",
+    "scaled_down_nodes": "C",
+    "hpa_reserve_clamped": "C",
+    "ca_reserve_starved": "C",
+    "node_crashes": "C",
+    "node_recoveries": "C",
+    "node_downtime_s": "C",
+    "pod_interruptions": "C",
+    "pod_restarts": "C",
+    "pods_failed": "C",
 }
 
 

@@ -216,7 +216,7 @@ class FaultStep(NamedTuple):
     plain_width: int
     backoff_base: torch.Tensor  # 0-dim float32
     backoff_cap: torch.Tensor  # 0-dim float32
-    seeds: Optional[torch.Tensor] = None  # (C,) uint32
+    fault_seed: Optional[torch.Tensor] = None  # (C,) uint32
 
 
 class WakeEvents(NamedTuple):
@@ -969,7 +969,7 @@ def commit_scattered_tail(
         fp = faults.params
         will_fail, fail_rel = pod_attempt_draw(
             start_tmp, pods.restarts, pods.duration.win, pods.duration.off, pods.will_fail,
-            state.pod_base, fp.seed if faults.seeds is None else faults.seeds, min(faults.plain_width, P),
+            state.pod_base, fp.seed if faults.fault_seed is None else faults.fault_seed, min(faults.plain_width, P),
             fp.fail_prob, faults.interval,
         )
         finish_val = t_where(started & will_fail, t_norm(Wp, fail_rel, interval), finish_val)
@@ -1276,7 +1276,7 @@ def window_body(
     Wg = active = state0 = None
     if lanes is not None:
         Wg = W
-        W, active = lane_window(Wg, lanes.clock, lanes.horizon)
+        W, active = lane_window(Wg, lanes.lane_clock, lanes.lane_horizon)
         if plan.freeze is not False:
             state0 = clone_state(strip_telemetry(state))
     # The window's incoming counters, which its record takes deltas of.
@@ -1552,8 +1552,9 @@ def catch_up_bookkeeping(state: ClusterBatchState, span: torch.Tensor, statics, 
     """The state after the skipped windows [span[0], span[1]) (catch_up_plain),
     through ops/window_kernel.catch_up (span read on the device)."""
     auto = state.auto
+    autoscaled = statics is not None and auto is not None
     extra = ()
-    if statics is not None and auto is not None:
+    if autoscaled:
         extra = (
             auto.hpa_next.win, auto.hpa_next.off, auto.ca_next.win, auto.ca_next.off,
             statics.hpa_interval.win, statics.hpa_interval.off, statics.ca_snap.win, statics.ca_snap.off,
@@ -1563,7 +1564,7 @@ def catch_up_bookkeeping(state: ClusterBatchState, span: torch.Tensor, statics, 
         span, state.last_flush_win, state.time, *extra, interval=interval, flush_interval=flush_interval,
     )
     state = state._replace(last_flush_win=last_flush, time=time)
-    if extra:
+    if autoscaled:
         state = state._replace(auto=auto._replace(hpa_next=TPair(hw, ho), ca_next=TPair(cw, co)))
     return state
 

@@ -146,6 +146,14 @@ class StreamFeeder:
       note): no producer thread, no settle.
     """
 
+    # Helpers whose callers hold self._cond (the feederlock lint pass holds
+    # every call of one to that).
+    _UNDER_LOCK = ("_scheduled_lo", "_publish", "_build_here", "_producer_error")
+    # The slab being built: written by the builder before it assembles
+    # (the producer thread outside the lock, or the consumer under it) and
+    # read under the lock only once the builder died, to name its slab.
+    _LOCK_FREE = ("_building_lo",)
+
     def __init__(
         self,
         assemble: Callable[[int, int], dict],

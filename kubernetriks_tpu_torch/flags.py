@@ -97,6 +97,43 @@ _FLAGS = [
         "whole payload where K slabs of 4W would hold as much).",
     ),
     Flag(
+        "KTPU_DEBUG_FINITE",
+        "bool",
+        False,
+        "Guard mode: a host sweep of every float state leaf at each dispatch "
+        "boundary (a span of windows, not each window), raising "
+        "FloatingPointError that names the leaf holding a NaN, or an inf "
+        "outside the documented sentinel leaves. Off by default: the "
+        "stepping loop then adds no read.",
+    ),
+    Flag(
+        "KTPU_SANITIZE",
+        "bool",
+        False,
+        "Runtime sanitizer (sanitize.py): the engine's stepping loop "
+        "(step_until_time, step_windows, run_to_completion) runs under "
+        "torch.cuda.set_sync_debug_mode('error') on the card and the "
+        "sanitizer's own thread-local guard on both devices, so any "
+        "device-to-host read outside an allow_transfer scope raises; the "
+        "KTPU_DEBUG_FINITE sweep and the captured-address check (a state leaf "
+        "rebound behind the window executor's back raises, naming it) run "
+        "at every dispatch boundary. The engine's sanitize_mode= argument "
+        "supersedes it.",
+    ),
+    Flag(
+        "KTPU_EXPLAIN_RECOMPILES",
+        "tristate",
+        None,
+        "Recompile sentinel (recompile.py): the window executor publishes "
+        "every CUDA graph capture with its piece key, and a sealed sentinel "
+        "raises RecompileError naming the key of any capture after the "
+        "warm-up, the runtime cross-check of the fleet's capture-once "
+        "guarantee (the scenariotrace lint pass is the static half). Unset: "
+        "armed only where code opts in; 1: ScenarioFleet seals a raising "
+        "sentinel right after its build and guards every wave and pump "
+        "round; 0: forced off everywhere.",
+    ),
+    Flag(
         "KTPU_PROFILE",
         "str",
         None,

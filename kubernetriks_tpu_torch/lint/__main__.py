@@ -1,0 +1,218 @@
+"""CLI: `python -m kubernetriks_tpu_torch.lint [paths...]`.
+
+Default scope is the port's lintable surface: the package, the card
+scripts at the repo root (chip_smoke.py, profile_main_path.py,
+ca_inputs.py, ca_kernel_times.py, rl_seed_survey.py) and the port's tests
+(tests/test_torch_*.py); the self-test fixtures under
+tests/lint_fixtures/torch/ hold seeded violations on purpose and lint
+only when named, as tests/test_torch_lint.py does. Exit status: 0 clean,
+1 violations (or stale waivers under --strict-waivers), 2 usage error.
+
+Machine-readable output: `--json PATH` writes {root, violations,
+stale_waivers, counts} (PATH `-` for stdout); `--github` emits GitHub
+Actions `::error` / `::warning` workflow annotations next to the plain
+rendering (the CI lint job sets both and uploads the JSON artifact).
+Stale waivers — a `# ktpu: *-ok(reason)` whose line/def no longer
+triggers its pass — print as warnings by default; `--strict-waivers`
+makes them exit-1 errors (detection needs every pass's usage record, so
+it only runs when no --pass filter is given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+
+from kubernetriks_tpu_torch.lint import (
+    PACKAGE,
+    PASS_IDS,
+    list_waivers,
+    run_lint_report,
+)
+
+DEFAULT_SCOPE = (
+    PACKAGE,
+    "chip_smoke.py",
+    "profile_main_path.py",
+    "ca_inputs.py",
+    "ca_kernel_times.py",
+    "rl_seed_survey.py",
+    "tests/test_torch_*.py",
+)
+
+
+def default_paths(root: str):
+    """DEFAULT_SCOPE under `root`, its globs expanded (sorted), entries
+    that do not exist dropped."""
+    out = []
+    for p in DEFAULT_SCOPE:
+        if any(ch in p for ch in "*?["):
+            out += sorted(os.path.relpath(m, root) for m in glob.glob(os.path.join(root, p)))
+        elif os.path.exists(os.path.join(root, p)):
+            out.append(p)
+    return out
+
+
+def _find_root(start: str) -> str:
+    """Repo root = nearest ancestor holding the package directory."""
+    cur = os.path.abspath(start)
+    while True:
+        if os.path.isdir(os.path.join(cur, PACKAGE)):
+            return cur
+        parent = os.path.dirname(cur)
+        if parent == cur:
+            return os.path.abspath(start)
+        cur = parent
+
+
+def _github_annotation(kind: str, path: str, line: int, title: str, msg: str):
+    # Workflow-command escaping per the Actions contract: message data
+    # escapes %/CR/LF; PROPERTY values additionally escape ',' and ':'
+    # (an unescaped comma in a path would truncate the annotation).
+    def data(s: str) -> str:
+        return s.replace("%", "%25").replace("\r", "%0D").replace("\n", "%0A")
+
+    def prop(s: str) -> str:
+        return data(s).replace(",", "%2C").replace(":", "%3A")
+
+    print(
+        f"::{kind} file={prop(path)},line={line},title={prop(title)}"
+        f"::{data(msg)}"
+    )
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m kubernetriks_tpu_torch.lint",
+        description="ktpu-lint over the port: framework-invariant static analysis "
+        "(env-flag registry, PRNG hygiene, host-sync discipline, feeder-lock "
+        "discipline, state-leaf coverage, scenario-trace discipline, shape "
+        "contracts, captured-buffer rebinding, step-call keywords).",
+    )
+    parser.add_argument(
+        "paths",
+        nargs="*",
+        help="files/directories to lint (default: the port's surface)",
+    )
+    parser.add_argument(
+        "--pass",
+        dest="passes",
+        action="append",
+        choices=PASS_IDS,
+        help="run only the named pass (repeatable; default: all nine)",
+    )
+    parser.add_argument(
+        "--root",
+        default=None,
+        help="repo root for relative paths (default: auto-detected)",
+    )
+    parser.add_argument(
+        "--list-waivers",
+        action="store_true",
+        help="print every # ktpu: *-ok(reason) waiver in scope (the "
+        "greppable sync budget) and exit 0",
+    )
+    parser.add_argument(
+        "--json",
+        metavar="PATH",
+        default=None,
+        help="write machine-readable findings (violations + stale "
+        "waivers) as JSON to PATH ('-' for stdout)",
+    )
+    parser.add_argument(
+        "--github",
+        action="store_true",
+        help="emit GitHub Actions ::error/::warning annotations",
+    )
+    parser.add_argument(
+        "--strict-waivers",
+        action="store_true",
+        help="treat stale waivers (a *-ok whose line no longer triggers "
+        "its pass) as errors instead of warnings",
+    )
+    args = parser.parse_args(argv)
+
+    root = os.path.abspath(args.root) if args.root else _find_root(os.getcwd())
+    paths = args.paths or default_paths(root)
+    if not paths:
+        print("ktpu-lint: nothing to lint", file=sys.stderr)
+        return 2
+
+    if args.list_waivers:
+        for line in list_waivers(paths, root):
+            print(line)
+        return 0
+
+    report = run_lint_report(paths, root, passes=args.passes)
+    violations = report.violations
+    # Stale detection is only sound when every pass recorded its waiver
+    # usage over the scope — a --pass filter leaves the others' waivers
+    # unjudged.
+    stale = report.stale_waivers if not args.passes else []
+
+    for v in violations:
+        print(v.render())
+        if args.github:
+            _github_annotation(
+                "error", v.path, v.line, f"ktpu-lint[{v.pass_id}]", v.message
+            )
+    for w in stale:
+        print(w.render())
+        if args.github:
+            _github_annotation(
+                "error" if args.strict_waivers else "warning",
+                w.path,
+                w.line,
+                "ktpu-lint[stale-waiver]",
+                w.message,
+            )
+
+    if args.json is not None:
+        payload = {
+            "root": root,
+            "passes": list(args.passes or PASS_IDS),
+            "violations": [v.as_json() for v in violations],
+            "stale_waivers": [w.as_json() for w in stale],
+            "counts": {
+                "violations": len(violations),
+                "stale_waivers": len(stale),
+                "files": len({v.path for v in violations}),
+            },
+        }
+        text = json.dumps(payload, indent=2) + "\n"
+        if args.json == "-":
+            sys.stdout.write(text)
+        else:
+            with open(args.json, "w", encoding="utf-8") as fh:
+                fh.write(text)
+
+    n_files = len({v.path for v in violations})
+    failing = len(violations) + (len(stale) if args.strict_waivers else 0)
+    if failing:
+        parts = [f"{len(violations)} violation(s) in {n_files} file(s)"]
+        if stale:
+            parts.append(
+                f"{len(stale)} stale waiver(s)"
+                + ("" if args.strict_waivers else " [warnings]")
+            )
+        print("ktpu-lint: " + ", ".join(parts), file=sys.stderr)
+        return 1
+    if stale:
+        print(
+            f"ktpu-lint: clean, but {len(stale)} stale waiver(s) — run "
+            "with --strict-waivers to fail on them",
+            file=sys.stderr,
+        )
+        return 0
+    print("ktpu-lint: clean", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except BrokenPipeError:  # `| head` closed the pipe; not an error
+        sys.exit(0)

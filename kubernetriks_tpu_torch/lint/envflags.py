@@ -1,0 +1,97 @@
+"""Env-flag registry pass: KTPU_*/KUBERNETRIKS_* reads go through flags.py.
+
+Port of the JAX package's pass, unchanged but for the registry it reads.
+Truthiness decided ad hoc at each read site drifts (one rule made `"0"`
+truthy); the central registry (`kubernetriks_tpu_torch/flags.py`: name,
+type, default, doc, one truthiness parser) is the single owner, and this
+pass enforces it:
+
+- any `os.environ.get` / `os.getenv` / `os.environ[...]` /
+  `... in os.environ` READ of a literal KTPU_* or KUBERNETRIKS_* name
+  outside flags.py is a violation — call `flags.flag_bool` /
+  `flag_tristate` / `flag_str` / `flag_int` instead;
+- a read (anywhere, flags.py included) of a name not in the registry is a
+  violation — declare it first.
+
+Writes (`os.environ[K] = v`, monkeypatch.setenv) are not reads and pass.
+Waive with `# ktpu: flag-ok(<reason>)`.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+from typing import List, Optional
+
+from kubernetriks_tpu_torch.lint import PACKAGE, LintContext, Violation, dotted_name
+
+PASS_ID = "envflags"
+
+_NAME_RE = re.compile(r"^(KTPU|KUBERNETRIKS)_[A-Z0-9_]+$")
+_FLAGS_MODULE = f"{PACKAGE}/flags.py"
+
+
+def _registry():
+    from kubernetriks_tpu_torch.flags import REGISTRY
+
+    return REGISTRY
+
+
+def _literal_key(node: ast.AST) -> Optional[str]:
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    return None
+
+
+def _env_read_key(node: ast.AST) -> Optional[str]:
+    """The literal key of an os.environ/os.getenv READ, else None."""
+    if isinstance(node, ast.Call):
+        fname = dotted_name(node.func)
+        if fname in ("os.environ.get", "os.getenv", "environ.get", "getenv"):
+            if node.args:
+                return _literal_key(node.args[0])
+    if isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Load):
+        if dotted_name(node.value) in ("os.environ", "environ"):
+            return _literal_key(node.slice)
+    if isinstance(node, ast.Compare) and len(node.ops) == 1:
+        if isinstance(node.ops[0], (ast.In, ast.NotIn)):
+            if dotted_name(node.comparators[0]) in ("os.environ", "environ"):
+                return _literal_key(node.left)
+    return None
+
+
+def check(ctx: LintContext) -> List[Violation]:
+    registry = _registry()
+    violations: List[Violation] = []
+    for sf in ctx.files:
+        in_flags = sf.path == _FLAGS_MODULE
+        for node in ast.walk(sf.tree):
+            key = _env_read_key(node)
+            if key is None or not _NAME_RE.match(key):
+                continue
+            if sf.waived(node.lineno, PASS_ID):
+                continue
+            if not in_flags:
+                violations.append(
+                    Violation(
+                        sf.path,
+                        node.lineno,
+                        PASS_ID,
+                        f"direct environment read of {key!r}: go through "
+                        "kubernetriks_tpu_torch.flags (flag_bool / flag_tristate "
+                        "/ flag_str / flag_int) so the name, type, default "
+                        "and truthiness rule live in the registry",
+                    )
+                )
+            if key not in registry:
+                violations.append(
+                    Violation(
+                        sf.path,
+                        node.lineno,
+                        PASS_ID,
+                        f"environment flag {key!r} is not declared in the "
+                        "kubernetriks_tpu_torch.flags registry (name, type, "
+                        "default, doc)",
+                    )
+                )
+    return violations

@@ -53,7 +53,7 @@ _CA_DOWN_STATIC_SMEM = 1024
 # --- scale-down ---------------------------------------------------------------
 
 
-def ca_scale_down_plain(
+def ca_scale_down_plain(  # ktpu: sync-ok(the plain version: loop bounds read from CPU tensors; on the card the kernel runs)
     branch, thresh, alive, not_pending, cap_cpu, cap_ram, vcpu, vram, name_rank,
     slot_perm, cand_alive, cnt, pr_cpu, pr_ram, pv0, k_sd: int,
 ):

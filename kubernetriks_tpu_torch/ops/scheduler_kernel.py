@@ -461,7 +461,7 @@ def fused_select_cycle_commit(
 # --- 4. candidate cycle (the sorted route) ----------------------------------
 
 
-def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, profile=DEFAULT_PROFILE):
+def schedule_cycle_plain(alive, alloc_cpu, alloc_ram, valid, req_cpu, req_ram, profile=DEFAULT_PROFILE):  # ktpu: sync-ok(the plain version: loop bounds read from CPU tensors; on the card the kernel runs)
     """K pre-sorted candidates per cluster, in row order up to the
     cluster's last valid row: fit and score each on every node, take the
     last node of maximal score, deduct it where the row is valid and some

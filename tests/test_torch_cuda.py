@@ -1484,7 +1484,7 @@ def test_lane_plan_and_reset_write_in_place(cuda_device):
     eng.set_lane_trace(1, 0, eng._lane_mux.n_rows // 2)
     eng.step_windows(4)
     assert ptrs() == before
-    assert eng._lane_clocks.clock.tolist() == [3, 0, 3, 0] and eng._lane_clocks.horizon.tolist() == [5, 0, 7, 0]
+    assert eng._lane_clocks.lane_clock.tolist() == [3, 0, 3, 0] and eng._lane_clocks.lane_horizon.tolist() == [5, 0, 7, 0]
     fleet.close()
 
 
@@ -1534,3 +1534,66 @@ def test_card_readouts_match_the_scalar_oracle(cuda_device):
     assert report["batch_of_one_zero"]["pods"] == report["batch_of_one_reference"]["pods"] == 7
     assert report["hpa_ca"]["peak"] == (9, 3)
 
+
+
+@pytest.mark.cuda
+def test_sanitized_graph_run_equals_the_unsanitized_run(cuda_device):
+    """KTPU_SANITIZE on the card: the composed line with faults through a
+    sliding pod window (the stream feeder's thread running) under the
+    sync guard (torch.cuda.set_sync_debug_mode("error") around the
+    stepping loop, every counted read in an allow scope) equals the run
+    without it, state and host reads; an unwaived .item() inside the guard
+    raises, and the same read in an allow scope does not."""
+    from kubernetriks_tpu_torch import sanitize
+
+    runs = {}
+    for mode in (True, False):
+        sim = composed_sim(cuda_device, 4, faults=True, pod_window=8, sanitize_mode=mode)
+        sim.step_until_time(600.0)
+        torch.cuda.synchronize()
+        assert sim.graphs and sim._sanitize == mode and sim.dispatch_stats["slides"] > 0
+        runs[mode] = (state_to_numpy(sim.state), sim.host_syncs)
+        sim.close()
+    assert compare_states(runs[True][0], runs[False][0]) == []
+    assert runs[True][1] == runs[False][1]
+    x = torch.arange(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        with sanitize.guard(True, cuda_device):
+            x.sum().item()
+    with sanitize.guard(True, cuda_device):
+        with sanitize.allow_transfer(True, "a waived read"):
+            assert x.sum().item() == 6
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_fleet_under_explain_recompiles_names_a_forced_recapture(cuda_device, monkeypatch):
+    """KTPU_EXPLAIN_RECOMPILES=1 on the card: a fleet sealed after its
+    build runs its waves without a capture; an end piece dropped from the
+    executor is captured again inside the next wave, which raises
+    RecompileError naming its key."""
+    from chip_smoke import sweep_inputs, sweep_scenarios
+    from kubernetriks_tpu_torch.batched.fleet import ScenarioFleet
+    from kubernetriks_tpu_torch.recompile import RecompileError
+
+    monkeypatch.setenv("KTPU_EXPLAIN_RECOMPILES", "1")
+    config_yaml, cluster, workload = sweep_inputs("")
+    scens, _ = sweep_scenarios(16)
+    fleet = ScenarioFleet(SimulationConfig.from_yaml(config_yaml), cluster, workload, n_lanes=8, horizon=450.0,
+                          device=cuda_device, max_pods_per_cycle=64)
+    try:
+        for s in scens:
+            fleet.submit(s)
+        fleet.run()
+        assert fleet.waves_run == 2 and fleet._sentinel.post_seal_events() == []
+        dropped = [k for k in fleet.engine._executor.graphs if k[0] == "end"]
+        for key in dropped:
+            del fleet.engine._executor.graphs[key]
+        fleet.submit(scens[0])
+        with pytest.raises(RecompileError, match="'end'"):
+            fleet.run()
+        # a gated end piece's conditional body publishes under its key + ("body",)
+        pieces = {k[:-1] if k[-1] == "body" else k for k in fleet._sentinel.post_seal_events()}
+        assert pieces and pieces <= set(dropped)
+    finally:
+        fleet.close()

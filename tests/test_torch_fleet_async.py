@@ -352,7 +352,7 @@ def test_build_guards_and_lane_calls_raise():
     ptrs = {k: v.data_ptr() for k, v in flatten(sim._lane_clocks).items()}
     sim.set_lane_plan([1], 4, [7])
     assert {k: v.data_ptr() for k, v in flatten(sim._lane_clocks).items()} == ptrs
-    assert sim._lane_clocks.clock.tolist() == [0, 4] and sim._lane_clocks.horizon.tolist() == [0, 7]
+    assert sim._lane_clocks.lane_clock.tolist() == [0, 4] and sim._lane_clocks.lane_horizon.tolist() == [0, 7]
     assert sim.lane_windows_remaining().tolist() == [0, 11] and sim.lane_windows_done().tolist() == [True, False]
     wave = port_fleet(lane_async=False)
     for call in (wave.pump, wave.run_async):
@@ -379,8 +379,8 @@ def test_checkpoint_carries_the_lane_clocks(tmp_path):
     restored.load_checkpoint(path)
     np.testing.assert_array_equal(restored._lane_clock_np, eng._lane_clock_np)
     np.testing.assert_array_equal(restored._lane_horizon_np, eng._lane_horizon_np)
-    assert restored._lane_clocks.clock.tolist() == eng._lane_clocks.clock.tolist()
-    assert restored._lane_clocks.horizon.tolist() == eng._lane_clocks.horizon.tolist()
+    assert restored._lane_clocks.lane_clock.tolist() == eng._lane_clocks.lane_clock.tolist()
+    assert restored._lane_clocks.lane_horizon.tolist() == eng._lane_clocks.lane_horizon.tolist()
     for sim in (eng, restored):
         sim.step_windows(6)
     assert compare_states(state_to_numpy(eng.state), state_to_numpy(restored.state)) == []
