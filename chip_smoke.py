@@ -257,6 +257,23 @@ Phases; any failure exits non-zero:
      raises RecompileError naming the piece key; (d) a NaN planted in an
      estimator leaf is named by the finite sweep, a leaf rebound behind
      the executor's back by the address check.
+ 26. the statics autotuner (kubernetriks_tpu_torch/tune/): the real sweep
+     (tune/run.py run_tune) on phase 6w's line at full width (256
+     clusters, N = 96, pod_window=512), the launch counts set to 0 just
+     before it: for each candidate its statics, objective (host ms a
+     window over the timed spans), decisions/s, valid spans and their
+     spread, captures after its seal, and its device memory (allocated
+     before, peak, after) and the float32 metric leaves that are not bit
+     for bit candidate 0's; one fingerprint across the grid (graph ==
+     eager, megakernel == two-kernel, streamed == not, razor on == off at
+     full width, in one check, on every leaf but the float32 metric
+     accumulators, which the grid's gate holds to rtol 1e-6 and the two
+     cycle routes sum in different orders), chosen <= baseline, every kernel of the
+     path launched (the two-kernel route's by its candidate); the written
+     profile round-trips build-identically, a fresh build under
+     KTPU_TUNED_PROFILE=auto from a temporary directory resolves it, and
+     that build stepped to 890 s equals the hand build of the chosen
+     statics bit for bit with equal dispatch_stats; at most 120 s.
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -384,33 +401,6 @@ def sparse_sim(device, n_clusters: int = 1024, **engine_kwargs):
     return headline_sim(device, n_clusters, **SPARSE, **engine_kwargs)
 
 
-COMPOSED_GROUP_YAML = """events:
-- timestamp: 49.5
-  event_type:
-    !CreatePodGroup
-      pod_group:
-        name: grp
-        initial_pod_count: 8
-        max_pod_count: {max_pods}
-        pod_template:
-          metadata: {{name: grp}}
-          spec:
-            resources:
-              requests: {{cpu: 8000, ram: 17179869184}}
-              limits: {{cpu: 8000, ram: 17179869184}}
-        target_resources_usage: {{cpu_utilization: 0.5}}
-        resources_usage_model_config:
-          cpu_config:
-            model_name: pod_group
-            config: |
-              - duration: {d1}
-                total_load: 4.0
-              - duration: {d2}
-                total_load: 24.0
-              - duration: {d3}
-                total_load: 2.0
-"""
-
 # The reference's composed line at its own width (`bench.py:260`
 # `run_composed` defaults); composed_sim's defaults are a toy cut of it.
 FULL_COMPOSED = dict(n_nodes=32, rate=1.5, horizon=1000.0, max_group_pods=64, burst=(300.0, 300.0, 400.0), k=64)
@@ -444,27 +434,18 @@ def profile_node_ops(profile) -> int:
 
 
 def composed_config_yaml(n_nodes: int) -> str:
-    """The composed scenario's config (`bench.py:198` `_composed_inputs`):
-    HPA on, the CA with one 64 000 mCPU / 128 GiB node group, at most
-    n_nodes CA nodes, a 10 s scan."""
-    return f"""
-sim_name: bench_composed
-seed: 1
-scheduling_cycle_interval: 10.0
-horizontal_pod_autoscaler:
-  enabled: true
-cluster_autoscaler:
-  enabled: true
-  scan_interval: 10.0
-  max_node_count: {n_nodes}
-  node_groups:
-  - node_template:
-      metadata: {{name: ca_node}}
-      status: {{capacity: {{cpu: 64000, ram: 137438953472}}}}
-"""
+    """The composed scenario's config (`bench.py:198` `_composed_inputs`;
+    the port's copy is tune/run.py's): HPA on, the CA with one 64 000 mCPU
+    / 128 GiB node group, at most n_nodes CA nodes, a 10 s scan."""
+    from kubernetriks_tpu_torch.tune.run import COMPOSED_CONFIG_YAML
+
+    return COMPOSED_CONFIG_YAML.format(n_nodes=n_nodes)
 
 
 def composed_workload_yaml(max_group_pods: int, burst) -> str:
+    """The composed scenario's HPA pod group (tune/run.py's copy)."""
+    from kubernetriks_tpu_torch.tune.run import COMPOSED_GROUP_YAML
+
     return COMPOSED_GROUP_YAML.format(max_pods=max_group_pods, d1=burst[0], d2=burst[1], d3=burst[2])
 
 
@@ -4198,6 +4179,117 @@ def guards_phase(dev, sk, card: str, names, ca_names) -> dict:
     return out
 
 
+# --- phase 26: the statics autotuner (kubernetriks_tpu_torch/tune/) -------------------------
+
+# The stepped profile-against-hand check's depth (from 0, through the line's
+# first slides; the sweep itself runs to 1 190 s).
+TUNE_CHECK_UNTIL = 890.0
+TUNE_BUDGET_S = 120.0
+
+
+def tune_phase(dev, sk, card: str, must_launch) -> dict:
+    """Phase 26 (module note): the autotuner's sweep on phase 6w's line,
+    its grid checks, the profile's round trip, auto-resolution and stepped
+    equality. `must_launch`: the kernels the sweep's candidates must
+    launch between them. Every number is printed beside `card`."""
+    import tempfile
+
+    from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
+    from kubernetriks_tpu_torch.batched.state import flatten
+    from kubernetriks_tpu_torch.tune.knobs import knob_by_name, legal_values
+    from kubernetriks_tpu_torch.tune.profile import ARTIFACT_DIR, load_profile, profile_path, save_profile
+    from kubernetriks_tpu_torch.tune.run import GEOMETRY, composed_inputs, run_tune
+
+    t_start = time.perf_counter()
+    path = OUT_DIR / "tuned_profile.json"
+    path.unlink(missing_ok=True)  # a profile left there would be the resume cache
+    sk.reset_launches()
+    rec = run_tune(dev, json_path=str(path))
+    launches = sk.launch_counts()
+    sweep_s = time.perf_counter() - t_start
+    tune = rec["tune"]
+    doc = load_profile(str(path)).doc
+    cands, memory, drift = doc["candidates"], tune["device_memory"], tune["metric_drift"]
+    out = {"tune": tune, "launches": launches, "sweep_s": sweep_s, "candidates": cands}
+    for i, (c, mem) in enumerate(zip(cands, memory)):
+        sp = c["spans"]
+        print(f"phase 26 candidate {i} ({card}): {c['statics']}: objective {c['objective']} ms a window, "
+              f"{c['decisions_per_s']} decisions/s, {sp['n']} valid spans ({sp['dropped']} dropped, spread "
+              f"{sp['spread_frac']}: {sp['min']}-{sp['max']} decisions/s), {c['recompiles_after_warmup']} captures "
+              f"after the seal, {c['wall_s']} s; device bytes before {mem['before']}, peak {mem['peak']}, after "
+              f"{mem['after']}; float32 metric leaves not bit for bit candidate 0's (max rel): {drift[i]}", flush=True)
+    if tune["measured"] != len(cands) or len(memory) != len(cands) or not tune["complete"]:
+        fail(f"phase 26: the sweep measured {tune['measured']} of {len(cands)} candidates (complete "
+             f"{tune['complete']})")
+    bad = [c["statics"] for c in cands if c["recompiles_after_warmup"] or c["spans"]["n"] < 5]
+    if bad:
+        fail(f"phase 26: a candidate captured after its seal or had fewer than 5 valid spans: {bad}")
+    if len(tune["fingerprints"]) != 1:
+        fail(f"phase 26: the grid's candidates end in {len(tune['fingerprints'])} different states")
+    for knob in ("graphs", "megakernel", "window_razor", "stream"):
+        if {c["statics"][knob] for c in cands} != set(legal_values(knob_by_name(knob), dev.type)):
+            fail(f"phase 26: the sweep did not measure every setting of {knob} that builds on {dev.type}")
+    if tune["objective"] > tune["baseline_objective"]:
+        fail(f"phase 26: chosen {tune['objective']} ms a window above the baseline's {tune['baseline_objective']}")
+    never = [n for n in must_launch if launches[n] <= 0]
+    if never:
+        fail(f"phase 26: the sweep never launched {never}")
+    grew = [m for m in memory[1:] if m["after"] > memory[0]["after"]]
+    if grew:
+        fail(f"phase 26: device memory did not come back after a candidate: {memory}")
+    out["peak_device_bytes"] = max(m["peak"] for m in memory)
+
+    # The profile: a fresh build under KTPU_TUNED_PROFILE=auto from a
+    # temporary directory resolves it; stepped, it equals the hand build.
+    geo = GEOMETRY[dev.type]
+    inputs = composed_inputs(**geo["shape"])
+    C, N = tune["geometry"]["n_clusters"], tune["geometry"]["n_nodes"]
+    cwd, saved = os.getcwd(), os.environ.get("KTPU_TUNED_PROFILE")  # ktpu: flag-ok(saves the raw value to restore it; the engine reads the flag through flags.flag_str)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_profile(doc, profile_path(dev.type, C, N, root=os.path.join(tmp, ARTIFACT_DIR)))
+        os.chdir(tmp)
+        os.environ["KTPU_TUNED_PROFILE"] = "auto"
+        try:
+            auto = build_batched_from_traces(*inputs, n_clusters=C, device=dev, fast_forward=False, **geo["build"])
+        finally:
+            os.chdir(cwd)
+            if saved is None:
+                del os.environ["KTPU_TUNED_PROFILE"]
+            else:
+                os.environ["KTPU_TUNED_PROFILE"] = saved
+    prof = auto.tuned_profile
+    if prof is None or prof.explicit or auto.tuning_statics() != tune["chosen"]:
+        fail(f"phase 26: the auto build resolved {prof and prof.describe()}, statics {auto.tuning_statics()}, "
+             f"chosen {tune['chosen']}")
+    hand = build_batched_from_traces(*inputs, n_clusters=C, device=dev, fast_forward=False, tuned_profile=False,
+                                     **tune["chosen"], **geo["build"])
+    sims = (auto, hand)
+    for sim in sims:
+        sim.step_until_time(TUNE_CHECK_UNTIL)
+    stats = [{k: v for k, v in sim.dispatch_stats.items() if k != "feeder_slabs_produced"} for sim in sims]
+    final = [flatten(sim.state) for sim in sims]
+    differ = [p for p, leaf in final[0].items() if not torch.equal(leaf, final[1][p])]
+    if differ or stats[0] != stats[1] or stats[0]["slides"] <= 0:
+        fail(f"phase 26: the profile build differs from the hand build at {differ}, dispatch_stats {stats}")
+    for sim in sims:
+        sim.close()
+    del auto, hand, sims, final
+    out["seconds"] = time.perf_counter() - t_start
+    ranked = sorted(cands, key=lambda c: c["objective"])
+    by_rate = sorted(cands, key=lambda c: -c["decisions_per_s"])
+    out["rank_agrees"] = [c["statics"] for c in ranked] == [c["statics"] for c in by_rate]
+    print(f"phase 26 ({card}): {len(cands)} candidates, one fingerprint, chosen {tune['chosen']} at "
+          f"{tune['objective']} ms a window against the baseline's {tune['baseline_objective']} "
+          f"({tune['ab_vs_default_frac']}); peak device bytes {out['peak_device_bytes']}; the objective and "
+          f"decisions/s rank the candidates {'alike' if out['rank_agrees'] else 'differently'}; the profile loads "
+          f"back build-identical, resolves under KTPU_TUNED_PROFILE=auto, and stepped to {TUNE_CHECK_UNTIL:.0f} s "
+          f"equals the hand build ({stats[0]['slides']} slides); launches {launches}; sweep {sweep_s:.1f} s, "
+          f"phase 26 {out['seconds']:.1f} s", flush=True)
+    if out["seconds"] > TUNE_BUDGET_S:
+        fail(f"phase 26: took {out['seconds']:.1f} s, over its {TUNE_BUDGET_S:.0f} s budget")
+    return out
+
+
 def main() -> int:
     if not (HERE / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
         fail("the kubernetriks_tpu_torch package is not beside this script", 2)
@@ -5273,6 +5365,10 @@ def main() -> int:
     stamp("phase 25")
     guards_path = guards_phase(dev, sk, smi, names, ca_names)
 
+    # --- 26. the statics autotuner ---------------------------------------------------------------------------------
+    stamp("phase 26")
+    tune_path = tune_phase(dev, sk, smi, names + ca_names + two_names)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -5389,6 +5485,7 @@ def main() -> int:
             "checkpoint": checkpoint_path, "fleet": fleet_path, "lane_async": lane_path, "rl": rl_path,
             "scalar": scalar_path,
             "guards": guards_path,
+            "tune": tune_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

@@ -122,12 +122,14 @@ through their plain PyTorch versions.
 
 The scheduling cycle's route (`cycle_route`, step.CYCLE_ROUTES) is fixed at
 build, as the reference fixes its kernel flags (engine.py:1505-1546): from
-128 clusters on, "megakernel", or "two_kernel" where KTPU_MEGAKERNEL is 0;
-below that "sorted" (one cluster per block leaves the card idle, and the
-queue sort plus the candidate kernel's early exit is what the reference
-runs there). The reference also gates its megakernel on its selection
-kernel fitting its memory; the port's dense kernels use a fixed amount of
-shared memory whatever the shape, so the cluster count alone decides.
+128 clusters on, "megakernel", or "two_kernel" where the build's
+`megakernel` is off (the argument, else KTPU_MEGAKERNEL where set, else a
+tuned profile's entry, else on); below that "sorted" (one cluster per
+block leaves the card idle, and the queue sort plus the candidate
+kernel's early exit is what the reference runs there). The reference also
+gates its megakernel on its selection kernel fitting its memory; the
+port's dense kernels use a fixed amount of shared memory whatever the
+shape, so the cluster count and that knob alone decide.
 Nothing else picks the route, and a build or launch failure never changes
 it.
 
@@ -268,7 +270,7 @@ from kubernetriks_tpu_torch.batched.trace_compile import (
     segment_pod_slots,
     stage_segment,
 )
-from kubernetriks_tpu_torch.flags import flag_bool, flag_int, flag_str, flag_tristate
+from kubernetriks_tpu_torch.flags import flag_bool, flag_int, flag_set, flag_str, flag_tristate
 from kubernetriks_tpu_torch.ops.scheduler_kernel import profile_terms
 from kubernetriks_tpu_torch.telemetry import NULL_TRACER, GaugeSeries, SpanTracer
 from kubernetriks_tpu_torch.telemetry.tracer import (
@@ -339,7 +341,7 @@ def flush_windows(interval: float, flush_interval: float) -> int:
 
 def choose_cycle_route(n_clusters: int, megakernel: bool = True) -> str:
     """The cycle route for a batch of n_clusters (module note);
-    `megakernel` is the KTPU_MEGAKERNEL flag."""
+    `megakernel`: the build's resolved `megakernel` knob."""
     if n_clusters < DENSE_CLUSTERS:
         return "sorted"
     return "megakernel" if megakernel else "two_kernel"
@@ -830,8 +832,26 @@ class BatchedSimulation:
         scenario: Optional[Dict[str, object]] = None,
         lane_async: bool = False,
         sanitize_mode: Optional[bool] = None,
+        megakernel: Optional[bool] = None,
+        tuned_profile=None,
     ) -> None:
         self.device = resolve_device(device)
+        compiled_traces = list(compiled_traces)
+        # The tuned-statics profile (tune/profile.py; reference engine.py:
+        # 726-745): the argument, else KTPU_TUNED_PROFILE (a path, or auto:
+        # artifacts/tuned/ then the bundled tune/profiles/ by device type
+        # and cluster count), else none. Per knob (tune/knobs.py) the order
+        # is the explicit argument, the knob's own flag, the profile's
+        # entry, the device default, so a profile never overrides a value
+        # pinned by hand. An explicitly named profile raises on a device
+        # type or geometry mismatch, naming the field; N is checked once
+        # the build knows it.
+        from kubernetriks_tpu_torch.tune.profile import resolve_build_profile
+
+        self.tuned_profile = resolve_build_profile(
+            tuned_profile, backend=self.device.type, n_clusters=len(compiled_traces)
+        )
+        tuned = self.tuned_profile.statics if self.tuned_profile is not None else {}
         # The runtime sanitizer (KTPU_SANITIZE / sanitize_mode; reference
         # engine.py:817-827, sanitize.py): the stepping loop runs under the
         # sync guard (every counted read in an allow scope), and the finite
@@ -868,10 +888,21 @@ class BatchedSimulation:
         # on for the card; it acts only under the sliding pod window.
         if stream is None:
             stream = flag_tristate("KTPU_STREAM")
+        if stream is None:
+            stream = tuned.get("stream")
         self._stream = self.device.type == "cuda" if stream is None else bool(stream)
-        self._stream_depth = max(1, int(flag_int("KTPU_STREAM_DEPTH") if stream_depth is None else stream_depth))
+        if stream_depth is None:
+            # KTPU_STREAM_DEPTH has a concrete default (3): a profile's
+            # depth ranks below the flag only where the flag is set.
+            if flag_set("KTPU_STREAM_DEPTH"):
+                stream_depth = flag_int("KTPU_STREAM_DEPTH")
+            else:
+                stream_depth = tuned.get("stream_depth", flag_int("KTPU_STREAM_DEPTH"))
+        self._stream_depth = max(1, int(stream_depth))
         if stream_segment is None:
             stream_segment = flag_int("KTPU_STREAM_SEGMENT")
+        if stream_segment is None:
+            stream_segment = tuned.get("stream_segment")
         self._stream_segment = None if stream_segment is None else int(stream_segment)
         # The live feeder, built with the stage and closed and built again
         # at a re-seek; its ring and the copy stream its uploads run on (the
@@ -931,6 +962,8 @@ class BatchedSimulation:
         # windows): the observed side of telemetry_report's sync budget.
         self._loop_reads = 0
         if graphs is None:
+            graphs = tuned.get("graphs")
+        if graphs is None:
             graphs = self.device.type == "cuda"
         if graphs and self.device.type != "cuda":
             raise ValueError(
@@ -953,11 +986,20 @@ class BatchedSimulation:
         self.fault_params = chaos.make_fault_params(config)
         self.conditional_move = bool(config.enable_unscheduled_pods_conditional_move)
         self.consts = make_step_constants(config)
+        if window_razor is None:
+            window_razor = tuned.get("window_razor")
         self.window_razor = self.device.type == "cuda" if window_razor is None else bool(window_razor)
+        # The dense cycle route (module note): the argument, KTPU_MEGAKERNEL
+        # where it is set, the profile's entry, then on.
+        if megakernel is None:
+            if flag_set("KTPU_MEGAKERNEL"):
+                megakernel = flag_bool("KTPU_MEGAKERNEL")
+            else:
+                megakernel = tuned.get("megakernel", True)
+        self.megakernel = bool(megakernel)
         self.flush_windows = flush_windows(config.scheduling_cycle_interval, self.consts.flush_interval)
         self.ram_unit = ram_unit
         interval = config.scheduling_cycle_interval
-        compiled_traces = list(compiled_traces)
         C = len(compiled_traces)
         # Per-lane scenario vectors (module note), normalized to owned (C,)
         # numpy arrays; None: every lane runs the base config.
@@ -1049,6 +1091,10 @@ class BatchedSimulation:
         self.n_clusters = C
         self.n_nodes = node_cap_cpu.shape[1]
         self.n_pods = pod_req_cpu.shape[1]
+        # N is known only here (the trace's nodes and the CA's slots): an
+        # explicit profile tuned for another N raises, an auto one warns.
+        if self.tuned_profile is not None:
+            self.tuned_profile.check_geometry(n_nodes=self.n_nodes)
         self.n_real_pods = p_max
         self.n_events = ev_time.shape[1]
         replicated = len(rows) < C
@@ -1069,7 +1115,7 @@ class BatchedSimulation:
         # K is fixed here: a growth of the pod window does not change it
         # (reference engine.py:1486).
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
-        self.cycle_route = choose_cycle_route(C, flag_bool("KTPU_MEGAKERNEL"))
+        self.cycle_route = choose_cycle_route(C, self.megakernel)
 
         state = init_state(
             C,
@@ -2592,6 +2638,21 @@ class BatchedSimulation:
         if auto is None or auto.ca_reclaimed is None:
             return np.zeros(self.n_clusters, np.int32)
         return auto.ca_reclaimed.cpu().numpy()
+
+    def tuning_statics(self) -> Dict[str, object]:
+        """The RESOLVED value of every closed-domain tuning knob
+        (tune/knobs.py) this build took, after the whole per-knob order
+        (explicit argument > the knob's flag > tuned profile > device
+        default). The autotuner's round-trip gates compare this table
+        across builds: a profile that "loads back build-identical" means
+        equal tables here."""
+        return {
+            "graphs": self.graphs,
+            "megakernel": self.megakernel,
+            "window_razor": self.window_razor,
+            "stream": self._stream,
+            "stream_depth": int(self._stream_depth),
+        }
 
     def metrics_summary(self) -> Dict:
         """Cross-cluster reduction into the reference's printer shape, with

@@ -61,8 +61,9 @@ finished one re-admits the lane). `HostChaos` (KTPU_HOST_CHAOS, or
 `host_chaos=` / `arm_host_chaos`) injects dispatch faults and stalls;
 unset, the chaos branches are never taken. The observatory (telemetry
 on) hears every query's latencies (note_query, SLO verdicts under
-KTPU_SLO_MS) and the lanes' states. `tuned_profile=` raises (ROADMAP
-Queue 1 item 14).
+KTPU_SLO_MS) and the lanes' states. `tuned_profile=` (else
+KTPU_TUNED_PROFILE) goes to the engine's build (tune/profile.py);
+`fleet.tuned_profile` is the profile it applied, or None.
 
 Query lifecycle: each query keeps host perf_counter_ns stamps (submitted,
 admitted, drained; polled at retirement), a submit -> drain flow arrow and
@@ -325,8 +326,9 @@ class ScenarioFleet:
     'reject' or 'block'): the bounded admission queue;
     `quarantine_faults` / `quarantine_window` / `quarantine_backoff`: the
     lane quarantine's policy; `host_chaos` (else KTPU_HOST_CHAOS): the
-    host-fault injector. Other keyword arguments go to the engine's build
-    (build_batched_from_traces)."""
+    host-fault injector; `tuned_profile` (else KTPU_TUNED_PROFILE): the
+    engine's tuned statics profile (tune/profile.py). Other keyword
+    arguments go to the engine's build (build_batched_from_traces)."""
 
     # Scenario fields that must be finite and >= 0; the others are
     # bool / int control values.
@@ -355,10 +357,6 @@ class ScenarioFleet:
         from kubernetriks_tpu_torch.batched.engine import build_batched_from_traces
         from kubernetriks_tpu_torch.flags import flag_int, flag_str
 
-        if tuned_profile is not None:
-            raise ValueError(
-                "tuned_profile=: tuned statics profiles are not ported yet (ROADMAP Queue 1 item 14)"
-            )
         if n_lanes < 1:
             raise ValueError("a fleet needs at least one lane")
         self.config = config
@@ -385,8 +383,9 @@ class ScenarioFleet:
         self._vectors = scenario_vectors(config, self.n_lanes, build_scenarios)
         self.engine = build_batched_from_traces(
             config, cluster_events, workload_events, n_clusters=self.n_lanes, scenario=dict(self._vectors),
-            **engine_kwargs,
+            tuned_profile=tuned_profile, **engine_kwargs,
         )
+        self.tuned_profile = self.engine.tuned_profile
         # On the card every window piece the plans can reach is captured
         # now, both freeze variants under lane clocks: the waves and pump
         # rounds replay them and never capture (the counterpart of the

@@ -207,6 +207,33 @@ _FLAGS = [
         "window is 12x this. Default: 60.",
     ),
     Flag(
+        "KTPU_TUNED_PROFILE",
+        "str",
+        None,
+        "Tuned-statics profile for engine builds (tune/profile.py): a path "
+        "to a profile JSON (strict: a missing file, an unknown knob or a "
+        "device type or geometry mismatch raises, naming the field), or "
+        "1/auto/true/on to resolve artifacts/tuned/ under the working "
+        "directory, then the bundled kubernetriks_tpu_torch/tune/profiles/, "
+        "by the build's device type (cuda or cpu) and cluster count (no "
+        "match: the hand-picked statics, quietly). Per knob the profile "
+        "ranks below an explicit build argument and the knob's own flag, "
+        "above the device default. The engine's and the fleet's "
+        "tuned_profile= argument supersedes it. Unset: no profile is "
+        "consulted.",
+    ),
+    Flag(
+        "KTPU_TUNE_BUDGET",
+        "int",
+        None,
+        "Cap on new measurements a run of the statics autotuner "
+        "(python -m kubernetriks_tpu_torch.tune) makes; candidates found "
+        "in the profile it resumes from are free. An exhausted budget stops "
+        "the sweep and writes a partial profile (complete: false), which a "
+        "rerun resumes. Its --budget option supersedes it. Unset: the "
+        "whole staged coordinate descent.",
+    ),
+    Flag(
         "KUBERNETRIKS_LOG",
         "str",
         "INFO",
@@ -251,6 +278,16 @@ def flag_str(name: str) -> Optional[str]:
     flag = _lookup(name, "str")
     raw = os.environ.get(name)
     return flag.default if raw is None else raw  # type: ignore[return-value]
+
+
+def flag_set(name: str) -> bool:
+    """Whether the flag is in the environment at all: for flags with a
+    concrete default that a tuned profile may override (the profile ranks
+    below a set flag and above the default, which flag_bool and flag_int
+    cannot tell apart)."""
+    if name not in REGISTRY:
+        raise KeyError(f"environment flag {name!r} is not registered in kubernetriks_tpu_torch.flags")
+    return name in os.environ
 
 
 def flag_int(name: str) -> Optional[int]:

@@ -1597,3 +1597,44 @@ def test_fleet_under_explain_recompiles_names_a_forced_recapture(cuda_device, mo
         assert pieces and pieces <= set(dropped)
     finally:
         fleet.close()
+
+
+@pytest.mark.cuda
+def test_card_sweep_shares_one_fingerprint(cuda_device, tmp_path):
+    """A small sweep on the card (the autotuner's CPU cut of the composed
+    line, at 128 clusters so the dense route runs): the graph and eager
+    candidates and the megakernel and two-kernel candidates all end in the
+    first candidate's state (one fingerprint over the leaves the grid's
+    gate holds exact; measure() holds the state and the decisions too, the
+    float32 metric sums to rtol 1e-6), none captures after its seal, and the written
+    profile loads back build-identical and, stepped, equals the hand build
+    with equal dispatch_stats."""
+    from kubernetriks_tpu_torch.tune import BenchMeasurementBackend, save_profile, staged_coordinate_descent
+    from kubernetriks_tpu_torch.tune.run import GEOMETRY, composed_inputs
+    from kubernetriks_tpu_torch.tune.search import profile_doc
+
+    geo = GEOMETRY["cpu"]
+    inputs = composed_inputs(**geo["shape"])
+    be = BenchMeasurementBackend(*inputs, n_clusters=128, device=cuda_device, build_kwargs=geo["build"],
+                                 **geo["protocol"])
+    res = staged_coordinate_descent(be)
+    cands = res.candidates
+    assert {c["statics"]["graphs"] for c in cands} == {False, True}
+    assert {c["statics"]["megakernel"] for c in cands} == {False, True}
+    assert len({c["fingerprint"] for c in cands}) == 1
+    assert all(c["recompiles_after_warmup"] == 0 and c["spans"]["n"] >= 5 for c in cands)
+    path = save_profile(profile_doc(res, backend=cuda_device.type, n_clusters=128, n_nodes=be.n_nodes),
+                        str(tmp_path / "card.json"))
+    sims = [
+        build_batched_from_traces(*inputs, n_clusters=128, device=cuda_device, fast_forward=False,
+                                  tuned_profile=source, **statics, **geo["build"])
+        for source, statics in ((path, {}), (False, res.chosen))
+    ]
+    assert sims[0].tuning_statics() == sims[1].tuning_statics() == res.chosen
+    for sim in sims:
+        sim.step_until_time(400.0)
+    assert compare_states(state_to_numpy(sims[0].state), state_to_numpy(sims[1].state)) == []
+    stats = [{k: v for k, v in sim.dispatch_stats.items() if k != "feeder_slabs_produced"} for sim in sims]
+    assert stats[0] == stats[1]
+    for sim in sims:
+        sim.close()

@@ -405,9 +405,10 @@ def test_submit_validation_names_the_field(host_fleet):
 
 
 def test_lane_async_options_raise():
-    """The refusals: tuned profiles (ROADMAP Queue 1 item 14), an unknown
-    queue policy, and a lane-asynchronous fleet over a sliding pod window
-    or the streaming feeder (the reference's build guards)."""
+    """The refusals: a tuned profile whose path is missing (the strict
+    load's FileNotFoundError), an unknown queue policy, and a
+    lane-asynchronous fleet over a sliding pod window or the streaming
+    feeder (the reference's build guards)."""
     config = SimulationConfig.from_yaml(TOY.config_yaml)
     with pytest.raises(ValueError, match="full-resident pod path"):
         ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", lane_async=True,
@@ -415,7 +416,7 @@ def test_lane_async_options_raise():
     with pytest.raises(ValueError, match="streaming feeder"):
         ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", lane_async=True,
                       stream=True)
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(FileNotFoundError):
         ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", tuned_profile="x")
     with pytest.raises(ValueError, match="queue_policy"):
         ScenarioFleet(config, *TOY.events("port"), n_lanes=2, horizon=60.0, device="cpu", queue_policy="drop")

@@ -149,9 +149,11 @@ def test_port_main_path_loads_no_jax(tmp_path):
     by the feeder thread, the endurance churn with slot reclaim, the trace
     replay through the native feeder and the CLI (both backends), the
     scalar oracle with faults, a checkpoint's save and
-    restore, two waves of a scenario fleet with faults, and a 2-window
-    greedy rollout of the RL loop, run in a fresh interpreter, leave no
-    module named jax* or kubernetriks_tpu.* in sys.modules."""
+    restore, two waves of a scenario fleet with faults, a 2-window
+    greedy rollout of the RL loop, and the autotuner (the fake grid, and
+    two real measurements with the profile written and loaded back), run
+    in a fresh interpreter, leave no module named jax* or
+    kubernetriks_tpu.* in sys.modules."""
     code = textwrap.dedent(
         """
         import sys
@@ -248,6 +250,11 @@ def test_port_main_path_loads_no_jax(tmp_path):
         from chip_smoke import rl_bench_sim
         _, flat = PPOTrainer(rl_bench_sim("cpu", 2), windows_per_rollout=2).collect(greedy=True)
         assert flat.valid.shape == (16, 2) and bool(flat.valid.any())
+        import kubernetriks_tpu_torch.tune, kubernetriks_tpu_torch.tune.__main__
+        from kubernetriks_tpu_torch.tune.run import run_tune, run_tune_fake
+        assert run_tune_fake("cpu", json_path=tempfile.mktemp(suffix=".json"))["tune"]["complete"]
+        swept = run_tune("cpu", budget=2, json_path=tempfile.mktemp(suffix=".json"), log=lambda msg: None)
+        assert swept["tune"]["measured"] == 2
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                      or m == "kubernetriks_tpu" or m.startswith("kubernetriks_tpu."))
