@@ -274,6 +274,25 @@ Phases; any failure exits non-zero:
      KTPU_TUNED_PROFILE=auto from a temporary directory resolves it, and
      that build stepped to 890 s equals the hand build of the chosen
      statics bit for bit with equal dispatch_stats; at most 120 s.
+ 27. the last bring-up slice, each part timed, at most 120 s in all:
+     (a) phase 12's churn (faults, slot multiplier 2) at C = 4 through 24
+     waves at reclaim_period=4: card == CPU; the slots reclaimed at periods
+     1 and 4; (b) a streaming pod-window fleet (3 lanes, pod_window=32,
+     a 3-slab ring) under KTPU_EXPLAIN_RECOMPILES=1: nothing captured after
+     wave one across 4 waves, results == the fleet unstreamed; (c) a
+     world-size-1 NCCL group (init_method file://): the headline shape,
+     phase 6w's composed line to 590 s and the sparse headline
+     fast-forwarded to 2 000 s on the graph executor under
+     mesh=global_mesh() equal the unsharded runs bit for bit, the five
+     kernels of the path launched (counts set to 0 before each run), the
+     captured slide and razor gate pieces hold the all-reduce; (d) two
+     spawned processes on the one card in a gloo group, graphs off (asked
+     for graphs, the build raises): 16 heterogeneous clusters at the
+     composed line's width, 8 a rank, to 590 s; the gathered state equals
+     the unsharded card run under compare_states; (e) ring_attention ==
+     full_attention at world size 1 on NCCL and at 2 on gloo (CUDA tensors
+     through host copies), make_sharded_apply on a (1, 1, 1) NCCL mesh ==
+     attention_policy_apply (max abs err 1e-5).
 The card runs of phases 5, 7, 10, 15 and 16 replay graphs too (fails
 otherwise); the window-cost razor is on there (the card's default) and
 off on the CPU, so they hold razor on against razor off. Phase 4 also
@@ -493,6 +512,56 @@ def composed_sim(device, n_clusters, n_nodes=4, rate=0.2, horizon=300.0, max_gro
         sorted(plain + group, key=lambda e: e[0]),
         n_clusters=n_clusters, device=device, max_pods_per_cycle=k,
         max_ca_pods_per_cycle=64, max_pods_per_scale_down=8, **engine_kwargs,
+    )
+
+
+def hetero_compiled(n_clusters, n_nodes=4, rate=0.2, horizon=300.0, mods=None):
+    """(config, compiled traces) of composed_sim's line with FAULTS_YAML
+    where every cluster differs: cluster c has n_nodes + c % 3 nodes,
+    Poisson plain pods at rate * (1 + (c % 4) / 4) with seed 3 + c, the HPA
+    group, and its own crash chains (keyed on c, as
+    build_batched_from_traces keys them). A shard of a sharded batch then
+    holds clusters no other shard has: a shard that skips or slides on its
+    own would leave the unsharded run. `mods`: the package's (config
+    class, cluster and workload generators, generic workload class,
+    compile_cluster_trace, chaos module); None takes the port's."""
+    if mods is None:
+        from kubernetriks_tpu_torch import chaos
+        from kubernetriks_tpu_torch.batched.trace_compile import compile_cluster_trace
+        from kubernetriks_tpu_torch.config import SimulationConfig
+        from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+        from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
+
+        mods = (SimulationConfig, UniformClusterTrace, PoissonWorkloadTrace, GenericWorkloadTrace,
+                compile_cluster_trace, chaos)
+    config_cls, uniform, poisson, generic, compile_trace, chaos = mods
+    config = config_cls.from_yaml(composed_config_yaml(n_nodes) + FAULTS_YAML)
+    group = generic.from_yaml(composed_workload_yaml(16, (90.0, 90.0, 120.0))).convert_to_simulator_events()
+    fault_cfg = config.fault_injection
+    seed = fault_cfg.seed if fault_cfg.seed is not None else config.seed
+    traces = []
+    for c in range(n_clusters):
+        cluster = uniform(n_nodes + c % 3, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+        plain = poisson(
+            rate_per_second=rate * (1.0 + (c % 4) / 4.0), horizon=horizon, seed=3 + c, cpu=16000,
+            ram=32 * 1024**3, duration_range=(30.0, 120.0), name_prefix="plain",
+        ).convert_to_simulator_events()
+        workload = sorted(plain + group, key=lambda e: e[0])
+        fault_h = chaos.fault_horizon(fault_cfg, cluster, workload)
+        cluster = chaos.inject_node_faults(cluster, fault_cfg, seed, c, fault_h, config.scheduling_cycle_interval)
+        traces.append(compile_trace(cluster, workload, config))
+    return config, traces
+
+
+def hetero_sim(device, n_clusters, k=8, n_nodes=4, rate=0.2, horizon=300.0, **engine_kwargs):
+    """The port's engine over hetero_compiled's clusters (composed_sim's
+    CA and HPA limits), e.g. with mesh= for a shard of them."""
+    from kubernetriks_tpu_torch.batched.engine import BatchedSimulation
+
+    config, traces = hetero_compiled(n_clusters, n_nodes=n_nodes, rate=rate, horizon=horizon)
+    return BatchedSimulation(
+        config, traces, device=device, max_pods_per_cycle=k, max_ca_pods_per_cycle=64, max_pods_per_scale_down=8,
+        **engine_kwargs,
     )
 
 
@@ -4290,6 +4359,330 @@ def tune_phase(dev, sk, card: str, must_launch) -> dict:
     return out
 
 
+# --- phase 27: reclaim_period, F5's fleet, the mesh (the last bring-up slice) ---------------
+
+# Phase 27's budget: at most 120 s for all of it.
+PHASE27_BUDGET_S = 120.0
+# (a): phase 12's waves brought to 80 s apart, where reclaim_period 4
+# changes the trajectory (a scale-up within a few windows of the last
+# slot's retirement).
+PERIOD_CHURN_SPACING_S = 80.0
+# (b): composed_sim's line at C = 3 lanes through a 32-slot pod window that
+# no wave grows, slabs of 56 columns (a ring of 3 slots), four waves.
+F5_FLEET = dict(n_lanes=3, horizon=400.0, max_pods_per_cycle=8, fast_forward=False, pod_window=32)
+F5_SCENARIOS = [dict(hpa_scan_interval=30.0), dict(ca_threshold=0.7), dict(hpa_tolerance=0.25), dict()]
+# (d): hetero_compiled's clusters at the composed line's node width, split
+# over two gloo ranks on the one card.
+MESH_GLOO_CLUSTERS = 16
+MESH_GLOO_KW = dict(k=64, n_nodes=32, rate=1.5, horizon=1000.0, pod_window=COMPOSED_POD_WINDOW, reclaim=True)
+MESH_GLOO_UNTIL = 590.0
+MESH_KERNELS = ("fused_event_scatter", "fused_free_resources", "fused_select_cycle_commit",
+                "fused_ca_scale_down", "fused_ca_scale_up")
+
+
+def bitwise_diff(a: dict, b: dict) -> list:
+    """The paths where two flat numpy states differ in any bit."""
+    if set(a) != set(b):
+        return [f"<leaf sets differ: {sorted(set(a) ^ set(b))}>"]
+    return [k for k in sorted(a) if a[k].shape != b[k].shape or not np.array_equal(
+        a[k].view(np.uint8) if a[k].dtype.kind == "f" else a[k], b[k].view(np.uint8) if b[k].dtype.kind == "f" else b[k])]
+
+
+def f5_fleet_events():
+    """The F5 fleet's cluster and workload: composed_sim's line at C = 1."""
+    from kubernetriks_tpu_torch.trace.generator import PoissonWorkloadTrace, UniformClusterTrace
+    from kubernetriks_tpu_torch.trace.generic import GenericWorkloadTrace
+
+    cluster = UniformClusterTrace(4, cpu=64000, ram=128 * 1024**3).convert_to_simulator_events()
+    plain = PoissonWorkloadTrace(
+        rate_per_second=0.2, horizon=300.0, seed=3, cpu=16000, ram=32 * 1024**3, duration_range=(30.0, 120.0),
+        name_prefix="plain",
+    ).convert_to_simulator_events()
+    group = GenericWorkloadTrace.from_yaml(composed_workload_yaml(16, (90.0, 90.0, 120.0))).convert_to_simulator_events()
+    return cluster, sorted(plain + group, key=lambda e: e[0])
+
+
+def mesh_gloo_rank(rank: int, world: int, store: str, out: str) -> None:
+    """(d) and (e) on one rank of a gloo group on the one card: the
+    sharded engine over hetero_compiled's clusters with graphs off (rank 0
+    writes the gathered state), and ring attention on CUDA tensors (gloo
+    takes host copies: parallel/ring._shift) against full_attention."""
+    import torch.distributed as dist
+
+    from kubernetriks_tpu_torch.parallel.multihost import global_mesh, initialize_from_env
+    from kubernetriks_tpu_torch.parallel.ring import full_attention, ring_attention
+
+    initialize_from_env(f"file://{store}", world, rank, backend="gloo", timeout_s=300.0)
+    dev = torch.device("cuda")
+    mesh = global_mesh()
+    try:
+        hetero_sim(dev, MESH_GLOO_CLUSTERS, mesh=mesh, graphs=True)
+        raise RuntimeError("a gloo mesh built with graphs=True")
+    except ValueError as e:
+        refusal = str(e)
+    t0 = time.perf_counter()
+    sim = hetero_sim(dev, MESH_GLOO_CLUSTERS, mesh=mesh, graphs=False, **MESH_GLOO_KW)
+    sim.step_until_time(MESH_GLOO_UNTIL)
+    state = sim.host_state()
+    wall = time.perf_counter() - t0
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn((3, 2, 16, 8), generator=g).to(dev) for _ in range(3))
+    mask = (torch.rand((3, 1, 16), generator=g) < 0.7).to(dev)
+    n = 16 // world
+    blk = slice(rank * n, (rank + 1) * n)
+    mine = ring_attention(q[..., blk, :], k[..., blk, :], v[..., blk, :], mask[..., blk])
+    err = float((mine - full_attention(q, k, v, mask)[..., blk, :]).abs().max())
+    errs = [None] * world
+    dist.all_gather_object(errs, err)
+    if rank == 0:
+        np.savez(out, **{k.replace(".", "|"): v for k, v in state.items()},
+                 **{"~rows": np.array(sim._rows), "~wall": np.array(wall), "~ring_err": np.array(max(errs)),
+                    "~eager": np.array(sim.dispatch_stats["eager_windows"]), "~slides": np.array(
+                        sim.dispatch_stats["slides"]), "~refusal": np.array(refusal)})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_phase(dev, sk, card: str) -> dict:
+    """Phase 27: (a) reclaim_period, (b) F5's streaming fleet, (c) the
+    mesh on a world-size-1 NCCL group, (d) the mesh on two gloo ranks on
+    the one card, (e) ring attention and the sharded policy; each part
+    timed, the whole within PHASE27_BUDGET_S."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
+    from kubernetriks_tpu_torch.batched.state import compare_states
+    from kubernetriks_tpu_torch.config import SimulationConfig
+    from kubernetriks_tpu_torch.convert import state_to_numpy
+    from kubernetriks_tpu_torch.parallel import multihost
+    from kubernetriks_tpu_torch.parallel.ring import full_attention, ring_attention
+    from kubernetriks_tpu_torch.rl.attention_policy import (
+        attention_policy_apply,
+        init_attention_policy,
+        make_sharded_apply,
+    )
+
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+
+    # (a) Phase 12's churn (its faults) at C = 4, 24 waves, reclaim on, with
+    # its waves 80 s apart and the endurance line's own ca_slot_multiplier
+    # 1, so a scale-up comes within a few windows of the last retirement:
+    # period 4 holds retired slots back, the reserve runs dry and the
+    # trajectory leaves period 1's. Both periods on the card and the CPU.
+    t0 = time.perf_counter()
+    spacing = PERIOD_CHURN_SPACING_S
+    horizon = 30.0 + 24 * spacing
+    runs = {}
+    for where in ("cuda", "cpu"):
+        for period in (1, 4):
+            s = endurance_sim(where, 4, 24, spacing=spacing, faults=True, ca_slot_multiplier=1, reclaim=True,
+                              reclaim_period=period)
+            if s.reclaim_period != period:
+                fail(f"phase 27a: built with reclaim_period {s.reclaim_period}, asked {period}")
+            s.step_until_time(horizon)
+            if where == "cuda":
+                ran_on_graphs("phase 27a", s)
+            st = state_to_numpy(s.state)
+            runs[(where, period)] = (st, int(s.ca_slots_reclaimed().sum()), int(st[".metrics.ca_reserve_starved"].sum()))
+    for period in (1, 4):
+        bad = compare_states(runs[("cuda", period)][0], runs[("cpu", period)][0])
+        if bad:
+            fail(f"phase 27a: the churn at reclaim_period={period}, card and CPU differ at {bad}")
+    moved = compare_states(runs[("cuda", 1)][0], runs[("cuda", 4)][0])
+    if ".metrics.ca_reserve_starved" not in moved:
+        fail(f"phase 27a: on the card periods 1 and 4 starve the reserve alike ({runs[('cuda', 1)][2]} "
+             f"starved cycles); the churn cannot tell the periods apart (differ at {moved})")
+    out["reclaimed"] = {p: runs[("cuda", p)][1] for p in (1, 4)}
+    out["starved"] = {p: runs[("cuda", p)][2] for p in (1, 4)}
+    out["seconds"]["a"] = time.perf_counter() - t0
+    print(f"phase 27a ({card}): phase 12's churn (faults) with waves {spacing:.0f} s apart, ca_slot_multiplier 1, "
+          f"at C=4 through 24 waves, reclaim on: card == CPU at reclaim_period 1 and 4; slots reclaimed "
+          f"{out['reclaimed'][1]} at period 1, {out['reclaimed'][4]} at period 4, reserve-starved cycles "
+          f"{out['starved'][1]} and {out['starved'][4]} (card; {len(moved)} leaves differ between the periods); "
+          f"{out['seconds']['a']:.1f} s", flush=True)
+
+    # (b) F5: a streaming pod-window fleet under KTPU_EXPLAIN_RECOMPILES=1
+    # captures nothing after wave one across 4 waves, and equals the same
+    # fleet unstreamed.
+    t0 = time.perf_counter()
+    config = SimulationConfig.from_yaml(composed_config_yaml(4))
+    queries = [Scenario(**sc) for sc in F5_SCENARIOS] * 3
+    os.environ["KTPU_EXPLAIN_RECOMPILES"] = "1"
+    try:
+        f = ScenarioFleet(config, *f5_fleet_events(), device=dev, stream=True, stream_segment=56, **F5_FLEET)
+    finally:
+        del os.environ["KTPU_EXPLAIN_RECOMPILES"]
+    try:
+        eng = f.engine
+        if f._sentinel is None or not eng._stream_on() or not eng.graphs or eng._feeder_uploads is None:
+            fail(f"phase 27b: the fleet built without the sentinel, the feeder or graphs")
+        f.submit(queries[0])
+        f.run()
+        after_one = eng.dispatch_stats["captures"]
+        ring = eng._feeder_uploads
+        for q in queries[1:10]:
+            f.submit(q)
+        got = dict(f.run())
+        if f.waves_run != 4:
+            fail(f"phase 27b: {f.waves_run} waves, expected 4")
+        if eng.dispatch_stats["captures"] != after_one or f._sentinel.post_seal_events():
+            fail(f"phase 27b: captures after wave one: {f._sentinel.post_seal_events()}")
+        if eng._feeder_uploads is not ring or eng.dispatch_stats["slides"] == 0 or eng.dispatch_stats["grows"]:
+            fail(f"phase 27b: the ring was rebuilt, or the fleet never slid or grew: {eng.dispatch_stats}")
+        stats_b = dict(eng.dispatch_stats)
+    finally:
+        f.close()
+    plain = ScenarioFleet(config, *f5_fleet_events(), device=dev, stream=False, **F5_FLEET)
+    try:
+        for q in queries[:10]:
+            plain.submit(q)
+        want = plain.run()
+    finally:
+        plain.close()
+    differ = [q for q in got if (got[q].counters, got[q].hpa_replicas, got[q].ca_nodes)
+              != (want[q].counters, want[q].hpa_replicas, want[q].ca_nodes)]
+    if sorted(got) != sorted(want) or differ:
+        fail(f"phase 27b: the streamed fleet's results differ from the unstreamed fleet's at queries {differ}")
+    out["f5"] = {"captures": after_one, "stats": stats_b, "ring_slots": ring.depth}
+    out["seconds"]["b"] = time.perf_counter() - t0
+    print(f"phase 27b ({card}): a streaming pod-window fleet (3 lanes, pod_window=32, a ring of {ring.depth} slabs) "
+          f"under KTPU_EXPLAIN_RECOMPILES=1: {after_one} captures at the build and wave one, none after across 4 "
+          f"waves ({stats_b['slides']} slides, {stats_b['stage_refills']} slab installs); 10 queries == the "
+          f"unstreamed fleet; {out['seconds']['b']:.1f} s", flush=True)
+
+    # (c) The mesh on a world-size-1 NCCL group: the headline shape and
+    # phase 6w's composed line on the graph executor equal the unsharded
+    # runs bit for bit; the five kernels launched; the captures hold the
+    # all-reduce.
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ktpu_mesh_")
+    multihost.initialize_from_env(f"file://{tmp}/nccl_store", 1, 0, backend="nccl")
+    try:
+        mesh = multihost.global_mesh()
+        lines = {
+            "headline": (lambda **kw: headline_sim(dev, **kw), 590.0),
+            "composed 6w": (lambda **kw: composed_sim(dev, 256, **FULL_COMPOSED, pod_window=COMPOSED_POD_WINDOW,
+                                                      **kw), 590.0),
+            # The headline's shape at the sparse rate, fast-forwarded: the
+            # next piece gathers every shard's words.
+            "sparse headline": (lambda **kw: headline_sim(dev, rate=SPARSE["rate"], horizon=2000.0, fast_forward=True,
+                                                          **kw), 2000.0),
+        }
+        mesh_out = {}
+        launched = {n: 0 for n in MESH_KERNELS}
+        for label, (build, until) in lines.items():
+            plain_sim = build()
+            plain_sim.step_until_time(until)
+            want_np = state_to_numpy(plain_sim.state)
+            del plain_sim
+            sim = build(mesh=mesh)
+            if sim.mesh is None or not sim.graphs:
+                fail(f"phase 27c: {label} built without the mesh or graphs")
+            sim.precompile_pieces()
+            sk.reset_launches()
+            sim.step_until_time(until)
+            launches = sk.launch_counts()
+            st = sim.dispatch_stats
+            # Every window that ran replayed graphs (fast-forward's skipped
+            # windows run none).
+            if st["eager_windows"] or st["graph_windows"] != sim.windows_run - st["skipped_windows"]:
+                fail(f"phase 27c {label}: the run did not go through the graph executor alone ({st})")
+            for n in MESH_KERNELS:
+                launched[n] += launches[n]
+            differ = bitwise_diff(want_np, sim.host_state())
+            if differ:
+                fail(f"phase 27c: {label} under the mesh differs from the unsharded run at {differ}")
+            mesh_out[label] = {"collective_captures": {repr(k): v for k, v in sim._executor.collective_captures.items()},
+                               "launches": {n: launches[n] for n in MESH_KERNELS}, "route": sim.cycle_route,
+                               "stats": dict(sim.dispatch_stats)}
+            del sim
+        never = [n for n, c in launched.items() if c <= 0]
+        if never:
+            fail(f"phase 27c: the mesh runs never launched {never}")
+        held = mesh_out["composed 6w"]["collective_captures"]
+        if not any("slide" in k for k in held) or not any("gate" in k for k in held):
+            fail(f"phase 27c: no captured slide or razor gate holds an all-reduce: {held}")
+        if "('next',)" not in mesh_out["sparse headline"]["collective_captures"]:
+            fail("phase 27c: the fast-forwarded line's next piece holds no gather")
+        if not mesh_out["sparse headline"]["stats"]["skipped_windows"]:
+            fail("phase 27c: the sparse headline skipped no window")
+        out["nccl"] = mesh_out
+        out["seconds"]["c"] = time.perf_counter() - t0
+        print(f"phase 27c ({card}): world-size-1 NCCL mesh on the graph executor: the headline (1024 x 256, "
+              f"{mesh_out['headline']['route']}) and phase 6w's composed line to 590 s, and the sparse headline "
+              f"fast-forwarded to 2 000 s ({mesh_out['sparse headline']['stats']['skipped_windows']} windows "
+              f"skipped), equal the unsharded runs bit for bit; launches {launched}; {len(held)} captured pieces hold a collective ({sorted(held)[:4]} "
+              f"...); {out['seconds']['c']:.1f} s", flush=True)
+
+        # (e) Ring attention at world size 1 on NCCL, and the sharded
+        # policy on a (1, 1, 1) NCCL mesh, against the plain forms.
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cpu").manual_seed(5)
+        q, k, v = (torch.randn((3, 2, 16, 8), generator=g).to(dev) for _ in range(3))
+        mask = (torch.rand((3, 1, 16), generator=g) < 0.7).to(dev)
+        ring_err = float((ring_attention(q, k, v, mask) - full_attention(q, k, v, mask)).abs().max())
+        from torch.distributed.device_mesh import DeviceMesh
+
+        mesh3 = DeviceMesh("cuda", torch.arange(1).reshape(1, 1, 1), mesh_dim_names=("data", "seq", "model"))
+        params = init_attention_policy(hidden=32, heads=4, device=dev)
+        feats = torch.rand((4, 8, params["embed_w"].shape[0]), generator=g).to(dev)
+        feats[..., 0] = (torch.rand((4, 8), generator=g) < 0.8).to(dev).float()
+        want_l, want_v = attention_policy_apply(params, feats)
+        got_l, got_v = make_sharded_apply(mesh3)(params, feats)
+        apply_err = max(float((got_l - want_l).abs().max()), float((got_v - want_v).abs().max()))
+        if ring_err > 1e-5 or apply_err > 1e-5:
+            fail(f"phase 27e: ring attention (max abs err {ring_err}) or the sharded apply ({apply_err}) at world "
+                 "size 1 on NCCL disagree with the plain forms (tolerance 1e-5)")
+        out["ring_nccl_err"], out["apply_nccl_err"] = ring_err, apply_err
+        out["seconds"]["e1"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+
+    # (d) The mesh on two gloo ranks on the one card (NCCL refuses two
+    # ranks on one device), graphs off; (e) ring attention at world size
+    # 2 on gloo, in the same processes.
+    t0 = time.perf_counter()
+    res = os.path.join(tmp, "gloo.npz")
+    mp.spawn(mesh_gloo_rank, args=(2, os.path.join(tmp, "gloo_store"), res), nprocs=2, join=True)
+    got = {k.replace("|", "."): v for k, v in np.load(res).items()}
+    extra = {k[1:]: got.pop(k) for k in list(got) if k.startswith("~")}
+    plain_sim = hetero_sim(dev, MESH_GLOO_CLUSTERS, **MESH_GLOO_KW)
+    plain_sim.step_until_time(MESH_GLOO_UNTIL)
+    bad = compare_states(state_to_numpy(plain_sim.state), got)
+    if bad:
+        fail(f"phase 27d: the two-rank gloo mesh's gathered state differs from the unsharded run at {bad}")
+    if extra["rows"].tolist() != [0, MESH_GLOO_CLUSTERS // 2] or int(extra["slides"]) == 0:
+        fail(f"phase 27d: rank 0 held rows {extra['rows'].tolist()}, slides {int(extra['slides'])}")
+    if "graphs=True needs NCCL" not in str(extra["refusal"]):
+        fail(f"phase 27d: the gloo mesh asked for graphs did not raise as it should: {extra['refusal']}")
+    if float(extra["ring_err"]) > 1e-5:
+        fail(f"phase 27e: ring attention at world size 2 on gloo: max abs err {float(extra['ring_err'])}")
+    out["gloo"] = {"rank0_rows": extra["rows"].tolist(), "rank_wall_s": float(extra["wall"]),
+                   "eager_windows": int(extra["eager"]), "slides": int(extra["slides"]),
+                   "ring_err": float(extra["ring_err"])}
+    out["seconds"]["d"] = time.perf_counter() - t0
+    print(f"phase 27d ({card}): {MESH_GLOO_CLUSTERS} heterogeneous clusters (composed width, pod_window="
+          f"{COMPOSED_POD_WINDOW}, reclaim, faults) over two gloo ranks on the one card, graphs off (a gloo mesh "
+          f"asked for graphs raises): the gathered state == the unsharded card run under compare_states to "
+          f"{MESH_GLOO_UNTIL:.0f} s ({out['gloo']['slides']} slides, rank 0's run {out['gloo']['rank_wall_s']:.1f} s); "
+          f"{out['seconds']['d']:.1f} s", flush=True)
+    print(f"phase 27e ({card}): ring attention == full_attention at world size 1 on NCCL (max abs err "
+          f"{out['ring_nccl_err']}) and at world size 2 on gloo with CUDA tensors through host copies (max abs err "
+          f"{out['gloo']['ring_err']}); make_sharded_apply on a (1, 1, 1) NCCL mesh == attention_policy_apply (max "
+          f"abs err {out['apply_nccl_err']})", flush=True)
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"phase 27 ({card}): {out['seconds']['total']:.1f} s (a {out['seconds']['a']:.1f}, b "
+          f"{out['seconds']['b']:.1f}, c {out['seconds']['c']:.1f}, d {out['seconds']['d']:.1f}, e "
+          f"{out['seconds']['e1']:.1f} s at world size 1)", flush=True)
+    if out["seconds"]["total"] > PHASE27_BUDGET_S:
+        fail(f"phase 27: took {out['seconds']['total']:.1f} s, over its {PHASE27_BUDGET_S:.0f} s budget")
+    return out
+
+
 def main() -> int:
     if not (HERE / "kubernetriks_tpu_torch" / "ops" / "csrc").is_dir():
         fail("the kubernetriks_tpu_torch package is not beside this script", 2)
@@ -4898,7 +5291,8 @@ def main() -> int:
         fail(f"phase 3: the sparse headline built with fast_forward {sim.fast_forward}, razor {sim.window_razor}")
     busiest, most = record_busiest(sim, 1500.0, {
         (wk, "window_work_due"): lambda a: int(not bool(step_mod.window_work_due_plain(*a))),
-        (wk, "next_window_span"): lambda a: 1,
+        (wk, "next_window_rows"): lambda a: 1,
+        (wk, "next_window_combine"): lambda a: 1,
         (wk, "catch_up"): lambda a: int(a[0][1] - a[0][0]),
     })
     print(f"phase 3: sparse headline C={sim.n_clusters} N={sim.n_nodes} P={sim.n_pods}: to 1 500 s "
@@ -4912,7 +5306,11 @@ def main() -> int:
     args, kwargs = busiest["window_work_due"]
     check_kernel("window_work_due", wk.window_work_due, step_mod.window_work_due_plain, args, kwargs, -1, None,
                  12 * C + 8 * C * N + 16 * C * P + 1, C * (2 * N + 5 * P))
-    args, kwargs = busiest["next_window_span"]
+    # The first span's two passes (the executor's ("next",) piece launches
+    # them apart), held whole: the state's operands, then W and limit.
+    (rows_args, rows_kw), (comb_args, comb_kw) = busiest["next_window_rows"], busiest["next_window_combine"]
+    args = tuple(rows_args[:9]) + tuple(comb_args[1:3]) + tuple(rows_args[9:])
+    kwargs = {"flush_windows": comb_kw["flush_windows"], "interval": rows_kw["interval"]}
     check_kernel("next_window_span", wk.next_window_span, step_mod.next_window_span_plain, args, kwargs, -1, None,
                  16 * C + 4 + 8 * C * N + 16 * C * P + 8, C * (2 * N + 6 * P))
 
@@ -5369,6 +5767,10 @@ def main() -> int:
     stamp("phase 26")
     tune_path = tune_phase(dev, sk, smi, names + ca_names + two_names)
 
+    # --- 27. reclaim_period, F5's fleet, the mesh ------------------------------------------------------------------
+    stamp("phase 27")
+    mesh_path = mesh_phase(dev, sk, smi)
+
     kernels = []
     meta = {
         "fused_event_scatter": ("event_scatter.cu", "kubernetriks_tpu/ops/scheduler_kernel.py:671"),
@@ -5486,6 +5888,7 @@ def main() -> int:
             "scalar": scalar_path,
             "guards": guards_path,
             "tune": tune_path,
+            "mesh": mesh_path,
             "replay_block_s": replay_block_s,
         }, f, indent=1, default=float)
     stamp("the report")

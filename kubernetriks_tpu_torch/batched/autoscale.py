@@ -795,8 +795,26 @@ def ca_dead_slots(state: ClusterBatchState, st: AutoscaleStatics) -> torch.Tenso
     )
 
 
+def reclaim_due(dead: torch.Tensor, W: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """0-dim bool: whether reclaim's compaction runs this window
+    (reference `ca_reclaim_pass`, autoscale.py:1762-1764): some slot is
+    dead (`dead`: ca_dead_slots) and, with `period` N > 1, every lane's
+    window W has (W + 1) % N == 0. The graph's conditional node and the
+    eager pass test the same predicate."""
+    do = dead.any()
+    if period > 1:
+        do = do & _period_window(W, period)
+    return do
+
+
+def _period_window(W: torch.Tensor, period: int) -> torch.Tensor:
+    """0-dim bool: (W + 1) % period == 0 on every lane."""
+    return ((W + 1) % period == 0).all()
+
+
 def ca_reclaim_pass(
-    state: ClusterBatchState, st: AutoscaleStatics, W: torch.Tensor, k, dead: Optional[torch.Tensor] = None
+    state: ClusterBatchState, st: AutoscaleStatics, W: torch.Tensor, k, dead: Optional[torch.Tensor] = None,
+    period: int = 1,
 ) -> ClusterBatchState:
     """CA slot reclaim (reference `ca_reclaim_pass`): return every retired
     reserve slot to its group by a stable compaction, so ca_cursor is the
@@ -818,7 +836,9 @@ def ca_reclaim_pass(
     allocation index -1. Caps are uniform within a group and the crash
     payload is zero on CA slots, so neither moves. Fixed shapes, no host
     branch: with nothing retired the permutation is the identity and the
-    pass returns its input's values bit for bit."""
+    pass returns its input's values bit for bit. With `period` N > 1 a
+    window with (W + 1) % N != 0 retires nothing (reference
+    autoscale.py:1762-1764), so the pass is the identity there too."""
     auto = state.auto
     if auto is None or auto.ca_alloc is None:
         return state
@@ -846,6 +866,8 @@ def ca_reclaim_pass(
         1, tgt, torch.ones_like(blocking)
     )[:, :N]
     retired = dead & ~torch.gather(node_blocked, 1, slotc)
+    if period > 1:
+        retired = retired & _period_window(W, period)
     keep = occupied & ~retired
 
     # Keepers first within each group, in slot order (each group's slots

@@ -56,10 +56,38 @@ reserved node slots after the trace's nodes (reference engine.py:1380-
 1460), and every window runs the autoscaler passes after the scheduling
 cycle (batched/autoscale.py). CA slot reclaim (`reclaim=`, reference
 engine.py:1021-1049, 1408-1436) returns retired reserve slots to their
-group at the head of every window (the reference's default period, 1):
-on by default on the card, off on the CPU, and off, with a RuntimeWarning,
-where the node names make its name orders unsound (an explicit
-reclaim=True raises there).
+group at the head of a window: on by default on the card, off on the
+CPU, and off, with a RuntimeWarning, where the node names make its name
+orders unsound (an explicit reclaim=True raises there). `reclaim_period=`
+N (reference engine.py:1041-1048) compacts only in windows with (W + 1) %
+N == 0 (1, the default: every window with a dead slot). Each of reclaim,
+reclaim_period and window_razor resolves as the reference's does: the
+argument, its flag (KTPU_RECLAIM, KTPU_RECLAIM_PERIOD, KTPU_WINDOW_RAZOR),
+the tuned profile's entry (the period and the razor), the default.
+
+Under a mesh (`mesh=`, a 1-D torch.distributed DeviceMesh, e.g.
+parallel/multihost.global_mesh(); `batch_axis=` names its axis; one
+process a card) the cluster axis is sharded: every rank builds from the
+whole list of compiled traces, as the reference's multihost note says,
+and keeps its contiguous rows [lo, hi) of the device state, the statics
+and the slab (C must divide by the ranks). The host tables stay whole, so
+every rank plans the same windows and runs the same pieces (the plan's
+chunk count and removal facts are maxima and unions over every cluster);
+the few device quantities reduced over the cluster axis are made the
+whole batch's inside the pieces: the razor's predicate (an all-reduce),
+fast-forward's next window (every shard's per-cluster words,
+ops/window_kernel.next_window_rows, gathered before the combine) and the slide's
+shift (an all-reduce of its minimum), so no shard skips or slides on its
+own. The commit draw keys on the global cluster index (FaultStep.row0);
+the cycle route is chosen by the clusters a device holds. Readouts take a
+global cluster index and gather every rank's rows (collectives: every rank
+calls them), as do metrics_summary, host_state() and the ring's drains.
+On NCCL the collectives are captured into the window graphs; a gloo group
+(the CPU's, or two ranks on one card) needs graphs=False, and asked for
+graphs it raises. Refused under a mesh, naming why: scenario builds and
+the lane-asynchronous fleet, install_state, checkpoints and gauge
+collection; on a cross-process mesh the streaming feeder is off and the
+whole-trace slide payload must fit its budget (the reference's errors).
 
 A scenario build (`scenario=`: per-lane (C,) vectors over
 fleet.SCENARIO_KEYS, reference engine.py:404-432, 722-756) composes the
@@ -153,7 +181,7 @@ Two ways of skipping work (reference engine.py:995-1012, 1149-1166,
   window, the density computed as the reference does from the finite
   event times, per cluster, over the span): after each executed window
   the device finds the next window that could change state
-  (step.next_window_span), the host reads it back (one read an executed
+  (step.next_window_rows and its combine), the host reads it back (one read an executed
   window, in host_syncs), brings its mirrors through the windows between
   and the catch-up piece replays their bookkeeping
   (step.catch_up_bookkeeping). A span never runs past its last window;
@@ -821,6 +849,7 @@ class BatchedSimulation:
         graphs: Optional[bool] = None,
         pod_window: Optional[int] = None,
         reclaim: Optional[bool] = None,
+        reclaim_period: Optional[int] = None,
         fast_forward: Optional[bool] = None,
         window_razor: Optional[bool] = None,
         telemetry: Optional[bool] = None,
@@ -834,9 +863,33 @@ class BatchedSimulation:
         sanitize_mode: Optional[bool] = None,
         megakernel: Optional[bool] = None,
         tuned_profile=None,
+        mesh=None,
+        batch_axis: str = "clusters",
     ) -> None:
         self.device = resolve_device(device)
         compiled_traces = list(compiled_traces)
+        # The mesh (module note): every rank builds from the whole list of
+        # compiled traces and keeps its contiguous rows [lo, hi) of the
+        # cluster axis on its device; None: one process holds the batch.
+        self.mesh = mesh
+        self._batch_axis = batch_axis
+        self._group = None
+        self._rows = (0, len(compiled_traces))
+        if mesh is not None:
+            from kubernetriks_tpu_torch.parallel.multihost import is_cross_process, mesh_group, row_range
+
+            if scenario is not None or lane_async:
+                raise ValueError(
+                    "mesh= shards the cluster axis of a plain batch: a scenario build and the lane-asynchronous "
+                    "fleet reset and re-seed lanes from one resident engine, so build them without a mesh"
+                )
+            self._group = mesh_group(mesh, batch_axis)
+            self._rows = row_range(len(compiled_traces), self._group)
+            if is_cross_process(mesh):
+                # Forced off on a cross-process mesh, as the reference does
+                # (engine.py:922-931): the slide reads the whole-trace
+                # payload on every rank.
+                stream = False
         # The tuned-statics profile (tune/profile.py; reference engine.py:
         # 726-745): the argument, else KTPU_TUNED_PROFILE (a path, or auto:
         # artifacts/tuned/ then the bundled tune/profiles/ by device type
@@ -971,6 +1024,14 @@ class BatchedSimulation:
                 "(pass graphs=False)"
             )
         self.graphs = bool(graphs)
+        if self.graphs and self._group is not None:
+            import torch.distributed as dist
+
+            if dist.get_backend(self._group) != "nccl":
+                raise ValueError(
+                    f"graphs=True needs NCCL under a mesh: the window's collectives are captured into its CUDA "
+                    f"graphs, and the {dist.get_backend(self._group)} backend's cannot be (pass graphs=False)"
+                )
         self.config = config
         # The scheduler profile: the argument, then the config's, then
         # KTPU_PROFILE, then the default (reference engine.py:759-770);
@@ -986,6 +1047,10 @@ class BatchedSimulation:
         self.fault_params = chaos.make_fault_params(config)
         self.conditional_move = bool(config.enable_unscheduled_pods_conditional_move)
         self.consts = make_step_constants(config)
+        # The razor (reference engine.py:1004-1014): the argument,
+        # KTPU_WINDOW_RAZOR, the profile's entry, then on for the card.
+        if window_razor is None:
+            window_razor = flag_tristate("KTPU_WINDOW_RAZOR")
         if window_razor is None:
             window_razor = tuned.get("window_razor")
         self.window_razor = self.device.type == "cuda" if window_razor is None else bool(window_razor)
@@ -1055,9 +1120,20 @@ class BatchedSimulation:
         self.max_ca_pods_per_cycle = max_ca_pods_per_cycle
         self.max_pods_per_scale_down = max_pods_per_scale_down
         self.reclaim = False
-        # The build's reclaim argument: None (the default) lets a restore
-        # follow the checkpoint's mode.
+        # The build's reclaim request (reference engine.py:1024-1048): the
+        # argument, else KTPU_RECLAIM; None (both unset) lets the device
+        # decide and a restore follow the checkpoint's mode. Its cadence:
+        # the argument, KTPU_RECLAIM_PERIOD where set, the profile's entry,
+        # then the flag's default (1), at least 1.
+        if reclaim is None:
+            reclaim = flag_tristate("KTPU_RECLAIM")
         self._reclaim_requested = reclaim
+        if reclaim_period is None:
+            if flag_set("KTPU_RECLAIM_PERIOD"):
+                reclaim_period = flag_int("KTPU_RECLAIM_PERIOD")
+            else:
+                reclaim_period = tuned.get("reclaim_period", flag_int("KTPU_RECLAIM_PERIOD"))
+        self.reclaim_period = max(1, int(reclaim_period))
         self._autoscale_aux = None
         self._reserve_capacities: dict = {}
         # Why reclaim cannot run on this build (None: it can).
@@ -1089,6 +1165,9 @@ class BatchedSimulation:
                 )
 
         self.n_clusters = C
+        # The clusters this engine holds on its device (all of them, but
+        # under a mesh: its shard's rows).
+        self._local_clusters = C
         self.n_nodes = node_cap_cpu.shape[1]
         self.n_pods = pod_req_cpu.shape[1]
         # N is known only here (the trace's nodes and the CA's slots): an
@@ -1115,7 +1194,9 @@ class BatchedSimulation:
         # K is fixed here: a growth of the pod window does not change it
         # (reference engine.py:1486).
         self.max_pods_per_cycle = max(1, max_pods_per_cycle or self.n_pods)
-        self.cycle_route = choose_cycle_route(C, self.megakernel)
+        # Chosen by the clusters this device holds, as the reference's
+        # gate reads the cluster count per shard (engine.py:1499-1524).
+        self.cycle_route = choose_cycle_route(self._rows[1] - self._rows[0], self.megakernel)
 
         state = init_state(
             C,
@@ -1237,6 +1318,8 @@ class BatchedSimulation:
         # Per-window gauge samples (collect_gauges; module note).
         self.collect_gauges = False
         self._gauges = GaugeSeries()
+        if self._group is not None:
+            state = self._keep_rows(state)
         self._state = state
         if self.pod_window is not None:
             self._refresh_name_ranks()
@@ -1267,6 +1350,43 @@ class BatchedSimulation:
             self._pristine = clone_state(self._state)
             self._pristine_due = None if self.clock is None else self.clock.due_times()
 
+    def _unsharded(self, what: str) -> None:
+        """Raise for an entry point the sharded engine does not run."""
+        if self._group is not None:
+            raise ValueError(
+                f"{what} is not supported under a mesh: it reads or writes the whole state in one process; build "
+                "the engine without mesh= for it"
+            )
+
+    def _keep_rows(self, state: ClusterBatchState) -> ClusterBatchState:
+        """Under a mesh, at the end of the build: this rank's rows of the
+        device state, the autoscaler statics, the slab and the name ranks
+        (copies: the whole batch's tensors go). The host tables (the plan's
+        slab tables, the cursor and clock mirrors, the slide's payload,
+        create windows and name ranks, the node-event table) stay whole, so
+        every rank plans the same windows; the stage and the name ranks
+        written at a slide or a growth take this rank's rows of them."""
+        from kubernetriks_tpu_torch.parallel.multihost import put_global
+
+        C = self.n_clusters
+        self.slab = put_global(self.slab, self._group, C)  # ktpu: capture-ok(the build: _keep_rows runs inside __init__, before the executor exists)
+        if self.autoscale_statics is not None:
+            self.autoscale_statics = put_global(self.autoscale_statics, self._group, C)  # ktpu: capture-ok(the build: _keep_rows runs inside __init__, before the executor exists)
+            self.name_ranks = (self.autoscale_statics.node_name_rank, self.autoscale_statics.pod_name_rank)
+        elif self.name_ranks is not None:
+            self.name_ranks = put_global(self.name_ranks, self._group, C)
+        self._local_clusters = self._rows[1] - self._rows[0]
+        self.faults = self._fault_step()
+        return put_global(state, self._group, C)
+
+    def _my_rows(self, a):
+        """This rank's rows of a whole-batch host array (all of it without
+        a mesh)."""
+        if self._group is None:
+            return a
+        lo, hi = self._rows
+        return a[lo:hi]
+
     def _fault_step(self) -> Optional[FaultStep]:
         """The chaos engine's window constants (None: faults off); the
         plain segment's width follows the pod window's growths, and a
@@ -1285,6 +1405,7 @@ class BatchedSimulation:
             backoff_base=f32(fp.backoff_base),
             backoff_cap=f32(fp.backoff_cap),
             fault_seed=self._fault_seeds,
+            row0=self._rows[0],
         )
 
     def _trace_name_ranks(self, C: int):
@@ -1381,12 +1502,29 @@ class BatchedSimulation:
         self._stage_lo = None
         W, T = self.pod_window, self.consts.trace_pod_bound
         if self._stream_on() or self._whole_payload_bytes(W) > SLIDE_PAYLOAD_BUDGET_BYTES:
+            self._refuse_cross_process_feeder(W, "pod_window on")
             self._ensure_feeder()
             return
         seg = stage_arrays_np(self._stage_arrays(0, T + W), self.config.scheduling_cycle_interval)
         self._slide_payload = {k: torch.from_numpy(v).to(self.device) for k, v in seg.items()}
         self._stage_lo = 0
         self.staging_bytes()  # the peak
+
+    def _refuse_cross_process_feeder(self, W: int, what: str) -> None:
+        """A cross-process mesh runs without the streaming feeder (forced
+        off at the build), so the whole-trace slide payload must fit its
+        budget at width W: raise the reference's error where it does not
+        (engine.py:1783-1796, :3380-3400)."""
+        from kubernetriks_tpu_torch.parallel.multihost import is_cross_process
+
+        if not is_cross_process(self.mesh) or self._stream_on():
+            return
+        if self._whole_payload_bytes(W) > SLIDE_PAYLOAD_BUDGET_BYTES:
+            raise ValueError(
+                f"{what} a cross-process mesh requires the device-resident slide payload, but this trace "
+                "exceeds its memory budget: raise SLIDE_PAYLOAD_BUDGET_BYTES, enlarge pod_window, or drop to a "
+                "single-process mesh"
+            )
 
     def _ring_depth(self) -> int:
         """Slots of the feeder's ring: stream_depth with the thread, two
@@ -1444,13 +1582,14 @@ class BatchedSimulation:
         """The host half of a stage: payload columns [lo, lo + width)
         (trace_compile.stage_segment owns the layout and padding). Host
         numpy alone, so the feeder thread calls it too."""
-        return stage_segment(
+        seg = stage_segment(
             self._payload_source,
             self._pod_create_win,
             self._pod_name_rank_full[:, : self.consts.trace_pod_bound] if self.autoscale_statics is not None else None,
             lo,
             width,
         )
+        return seg if self._group is None else {k: np.ascontiguousarray(self._my_rows(v)) for k, v in seg.items()}
 
     def _stage_covers(self, lo: Optional[int], width: int) -> bool:
         """Whether a stage over [lo, lo + width) holds every column the
@@ -1542,10 +1681,17 @@ class BatchedSimulation:
         depth = min(self._ring_depth(), self._slabs_needed(L, self._pod_base))
         if self.device.type == "cuda" and self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
-        ring = SlabRing(
-            self.n_clusters, L, self.autoscale_statics is not None, depth, self.device,
-            self.config.scheduling_cycle_interval, self._copy_stream,
-        )
+        ring = self._feeder_uploads
+        if ring is not None and (ring.width, ring.depth) != (L, depth):
+            # A ring kept across a re-seek (close(keep_ring=True)) at other
+            # widths: its slots and their slide graphs go.
+            self._drop_ring()
+            ring = None
+        if ring is None:
+            ring = SlabRing(
+                self._local_clusters, L, self.autoscale_statics is not None, depth, self.device,
+                self.config.scheduling_cycle_interval, self._copy_stream,
+            )
         # The producer holds the engine weakly: an engine dropped without
         # close() stops its feeder when it is collected.
         engine = weakref.ref(self)
@@ -1587,23 +1733,39 @@ class BatchedSimulation:
         time.sleep(delay)
         return self._ensure_feeder(retired_lo=retired)
 
-    def close(self, timeout: float = 30.0) -> None:
-        """Stop and drop the feeder, its thread and its ring, and the slide
-        graphs on its slots (also a re-seek's first half): the next span
-        builds one at the then current base and width."""
+    def close(self, timeout: float = 30.0, keep_ring: bool = False) -> None:
+        """Stop and drop the feeder and its thread (also a re-seek's first
+        half): the next span builds one at the then current base and width.
+        The ring and the slide graphs on its slots go too, unless
+        `keep_ring`: a re-seek at the same widths (a fleet's wave boundary)
+        then writes the new feeder's slabs into the slots that exist, whose
+        addresses, and so whose slide graphs, stay valid. A producer that
+        outlives the join (mid-build) may still upload into the ring, so
+        the ring goes then all the same."""
         feeder = self._feeder
         if feeder is None:
+            if not keep_ring:
+                self._drop_ring()
             return
         self._release_stage()
-        executor = getattr(self, "_executor", None)
-        if executor is not None:
-            executor.drop_slide()
         self._feeder_produced_total += feeder.produced
         self.dispatch_stats["feeder_slabs_produced"] = self._feeder_produced_total
         self._feeder_finalizer.detach()
-        self._feeder = self._feeder_uploads = self._feeder_finalizer = None
-        feeder.close(timeout)
+        self._feeder = self._feeder_finalizer = None
+        joined = feeder.close(timeout)
+        if not (keep_ring and joined):
+            self._drop_ring()
         self._last_feeder_report = feeder.report()
+
+    def _drop_ring(self) -> None:
+        """Free the feeder's ring and forget the slide graphs on its
+        slots."""
+        if self._feeder_uploads is None:
+            return
+        executor = getattr(self, "_executor", None)
+        if executor is not None:
+            executor.drop_slide()
+        self._feeder_uploads = None
 
     def _feeder_report(self) -> Optional[Dict]:
         """The live feeder's report with the supervisor's restarts, and
@@ -1679,7 +1841,7 @@ class BatchedSimulation:
         full = self._pod_name_rank_full
         win = _pad_cols(full[:, :T], self._pod_base, W, BIG_RANK, np.int32)
         ranks = np.concatenate([win, full[:, T:]], axis=1)
-        self.autoscale_statics.pod_name_rank.copy_(torch.from_numpy(ranks))
+        self.autoscale_statics.pod_name_rank.copy_(torch.from_numpy(np.ascontiguousarray(self._my_rows(ranks))))
 
     def _slide(self) -> bool:
         """Slide the window on the device past its leading terminal slots
@@ -1709,6 +1871,8 @@ class BatchedSimulation:
         W, T = self.pod_window, self.consts.trace_pod_bound
         if W >= T:
             return False
+        # Before anything moves, so the raise leaves the engine as it was.
+        self._refuse_cross_process_feeder(min(2 * W, T), "pod_window growth on")
         # A growth uploads fresh slots and name ranks (blocking copies to
         # the card) and captures the pieces again: host work the sync
         # guard would flag, counted in dispatch_stats["grows"].
@@ -1722,8 +1886,8 @@ class BatchedSimulation:
         W, T = self.pod_window, self.consts.trace_pod_bound
         insert = new_W - W
         self.close()  # a re-seek at the new width
-        C = self.n_clusters
-        cols = self._payload_source.segment(self._pod_base + W, insert)
+        C = self._local_clusters
+        cols = {k: self._my_rows(v) for k, v in self._payload_source.segment(self._pod_base + W, insert).items()}
         fresh = fresh_pods_np(
             cols["req_cpu"], cols["req_ram"], cols["duration"], self.config.scheduling_cycle_interval, self.device
         )
@@ -1771,6 +1935,7 @@ class BatchedSimulation:
         seed the host mirrors. Raises if a leaf is not on this engine's
         device or differs in shape or dtype, or if the state's autoscaler
         leaves do not match this engine's autoscaler configuration."""
+        self._unsharded("install_state")
         for path, leaf in flatten(state).items():
             if leaf.device != self.device:
                 raise ValueError(
@@ -1862,6 +2027,8 @@ class BatchedSimulation:
         gauge series to `path.gauges.npz` (reference engine.py:4297)."""
         from kubernetriks_tpu_torch.checkpoint import ckpt_save
 
+        self._unsharded("save_checkpoint")
+
         with self.tracer.span(PH_CKPT_SAVE):
             ckpt_save(path, self._ckpt_payload())
             meta_path = os.path.abspath(path) + ".meta.json"
@@ -1873,6 +2040,8 @@ class BatchedSimulation:
                 meta["telemetry_ring"] = int(self._telemetry_ring_size)
             if self.reclaim:
                 meta["reclaim"] = True
+                if self.reclaim_period != 1:
+                    meta["reclaim_period"] = int(self.reclaim_period)
             if self.profile != DEFAULT_PROFILE:
                 meta["scheduler_profile"] = {
                     "name": self.profile.name,
@@ -1919,6 +2088,8 @@ class BatchedSimulation:
         reset), and the gauge series from its sidecar."""
         from kubernetriks_tpu_torch.checkpoint import ckpt_restore
 
+        self._unsharded("load_checkpoint")
+
         meta_path = os.path.abspath(path) + ".meta.json"
         meta: Dict[str, object] = {}
         if os.path.exists(meta_path):
@@ -1939,6 +2110,15 @@ class BatchedSimulation:
                     f"{self.reclaim}; the slot-reclaim leaves are part of the state: build the restoring "
                     f"engine with reclaim={saved_reclaim} to continue the run"
                 )
+        # The compaction's cadence shapes the trajectory from the restore
+        # on: a reclaiming restore must run the saved period.
+        saved_period = int(meta.get("reclaim_period", 1))
+        if saved_reclaim and saved_period != self.reclaim_period:
+            raise ValueError(
+                f"checkpoint reclaim_period mismatch: saved with reclaim_period={saved_period}, this engine "
+                f"built with {self.reclaim_period}; build the restoring engine with reclaim_period={saved_period} "
+                "(or KTPU_RECLAIM_PERIOD) to continue the run"
+            )
         saved_ring = meta.get("telemetry_ring")
         have_ring = self._telemetry_ring_size if self.state.telemetry is not None else None
         if saved_ring != have_ring:
@@ -2095,7 +2275,10 @@ class BatchedSimulation:
         self.next_window_idx = 0
         if self.pod_window is not None:
             self._pod_base = 0
-            self.close()
+            # A re-seek to base 0 at the build's widths: the ring's slots,
+            # and the slide graphs on them, are kept (nothing is captured
+            # after the fleet's first wave).
+            self.close(keep_ring=True)
             self._refresh_name_ranks()
             if self._slide_payload is None:
                 self._ensure_feeder()
@@ -2336,6 +2519,7 @@ class BatchedSimulation:
             profile_terms=self.profile_terms,
             window_razor=self.window_razor,
             lanes=self._lane_clocks,
+            reclaim_period=self.reclaim_period,
         )
 
     def _run_span(self, first: int, last: int, freeze: bool = True) -> None:
@@ -2364,6 +2548,7 @@ class BatchedSimulation:
         once GAUGE_SPAN windows and at the end: one host read each (counted
         in host_syncs), none a window. Gauge collection steps every window
         (no fast-forward), as the reference's does (engine.py:2013)."""
+        self._unsharded("gauge collection")
         ex = self._executor
         ex.enable_gauges()
         for lo in range(first, last + 1, GAUGE_SPAN):
@@ -2498,8 +2683,13 @@ class BatchedSimulation:
                     | ((pods.phase == PHASE_RUNNING) & (pods.duration.win >= 0))
                 )
                 self.host_syncs += 1
+                live_n = live_mask.sum()
                 with sanitize.allow_transfer(self._sanitize, "run_to_completion's live pods, a chunk's read"):
-                    live = int(sanitize.to_host(live_mask.sum()))  # ktpu: sync-ok(run_to_completion's live pods, a chunk's read, counted in host_syncs, in an allow scope)
+                    if self._group is not None:
+                        from kubernetriks_tpu_torch.parallel.multihost import all_reduce_
+
+                        all_reduce_(live_n, "sum", self._group)  # every shard's pods: all stop together
+                    live = int(sanitize.to_host(live_n))  # ktpu: sync-ok(run_to_completion's live pods, a chunk's read, counted in host_syncs, in an allow scope)
                 if live == 0:
                     return
                 if self.next_window > max_time:
@@ -2559,10 +2749,33 @@ class BatchedSimulation:
 
     # --- readout ------------------------------------------------------------
 
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """Under a mesh, every rank's rows of the (C_local, ...) tensor t
+        gathered in rank order, on the host (a collective: every rank of
+        the mesh calls the readout)."""
+        from kubernetriks_tpu_torch.parallel.multihost import to_host
+
+        with sanitize.allow_transfer(self._sanitize, "a sharded readout's gather"):
+            return torch.from_numpy(to_host(t, self._group))  # ktpu: sync-ok(a sharded readout's gather, after a run, outside the stepping loop)
+
+    def _global_state(self) -> ClusterBatchState:
+        """The state the readouts read: the engine's own, or under a mesh
+        the whole batch's, every rank's rows gathered on the host (a
+        collective)."""
+        if self._group is None:
+            return self.state
+        return unflatten(ClusterBatchState, {k: self._gathered(v) for k, v in flatten(self.state).items()})
+
+    def host_state(self) -> Dict[str, np.ndarray]:
+        """The whole batch's state as {path: numpy array}
+        (convert.state_to_numpy's layout), under a mesh every rank's rows
+        gathered in rank order (a collective: every rank calls it)."""
+        return {k: v.detach().to("cpu", copy=True).numpy() for k, v in flatten(self._global_state()).items()}  # ktpu: sync-ok(readout after a run, outside the stepping loop)
+
     def decisions_total(self) -> int:
         self.host_syncs += 1
         with sanitize.allow_transfer(self._sanitize, "decisions_total readout"):
-            return int(sanitize.to_host(self.state.metrics.scheduling_decisions).sum())  # ktpu: sync-ok(readout, counted in host_syncs)
+            return int(sanitize.to_host(self._global_state().metrics.scheduling_decisions).sum())  # ktpu: sync-ok(readout, counted in host_syncs)
 
     def check_autoscaler_bounds(self) -> None:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """Raise when a documented autoscaler work bound was crossed, so the
@@ -2574,7 +2787,8 @@ class BatchedSimulation:
         slot reclaim, a CA group's allocation count)."""
         if self.autoscale_statics is None:
             return
-        m = self.state.metrics
+        st = self._global_state()
+        m = st.metrics
         clamped = m.hpa_reserve_clamped.cpu().numpy()
         if clamped.sum() > 0:
             raise RuntimeError(
@@ -2604,7 +2818,7 @@ class BatchedSimulation:
                 "starved where the reference semantics would have provisioned a node. "
                 + hint
             )
-        auto = self.state.auto
+        auto = st.auto
         tail_max = int(auto.hpa_tail.max())
         total_max = 0 if auto.ca_total is None else int(auto.ca_total.max())
         if max(tail_max, total_max) >= 10**8:
@@ -2617,7 +2831,7 @@ class BatchedSimulation:
         """Created replicas of each of the cluster's pod groups (the
         scalar reference's len(created_pods); reference engine.py:3846),
         by group name: one host read."""
-        auto = self.state.auto
+        auto = self._global_state().auto
         if auto is None:
             raise ValueError("hpa_replicas: autoscaling is not enabled on this engine")
         counts = (auto.hpa_tail[cluster] - auto.hpa_head[cluster]).cpu().tolist()
@@ -2626,7 +2840,7 @@ class BatchedSimulation:
     def ca_node_counts(self, cluster: int) -> np.ndarray:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """The cluster autoscaler's current node count per node group
         (reference engine.py:3872): one host read."""
-        auto = self.state.auto
+        auto = self._global_state().auto
         if auto is None:
             raise ValueError("ca_node_counts: autoscaling is not enabled on this engine")
         return auto.ca_count[cluster].cpu().numpy()
@@ -2634,7 +2848,7 @@ class BatchedSimulation:
     def ca_slots_reclaimed(self) -> np.ndarray:  # ktpu: sync-ok(readout after a run, outside the stepping loop)
         """(C,) CA reserve slots the reclaim compaction returned (zeros
         when reclaim is off)."""
-        auto = self.state.auto
+        auto = self._global_state().auto
         if auto is None or auto.ca_reclaimed is None:
             return np.zeros(self.n_clusters, np.int32)
         return auto.ca_reclaimed.cpu().numpy()
@@ -2660,7 +2874,7 @@ class BatchedSimulation:
         Raises via check_autoscaler_bounds when an autoscaler work bound
         was crossed."""
         self.check_autoscaler_bounds()
-        m = self.state.metrics
+        m = self._global_state().metrics
 
         def host(x):
             return x.cpu().numpy()
@@ -2719,6 +2933,8 @@ class BatchedSimulation:
         as int32 bits and come back in their own dtype."""
         parts, kinds = [], []
         for t in tensors:
+            if self._group is not None:
+                t = self._gathered(t)
             row = t[cluster].reshape(-1)
             kinds.append((t.dtype, row.numel()))
             if t.dtype == torch.bool:
@@ -2848,7 +3064,12 @@ class BatchedSimulation:
         # The rows recorded since the last drain, as the host counts them.
         t0 = time.perf_counter_ns()
         with sanitize.allow_transfer(self._sanitize, "telemetry ring drain, riding a read that blocks anyway"):
-            buf, cursor = dring.snapshot(self.state.telemetry, self._ring_drained_at, self._ring_host_cursor)
+            ring = self.state.telemetry
+            if self._group is not None:
+                # The whole batch's rows (a collective: every rank drains
+                # at the same host-decided points).
+                ring = type(ring)(*[self._gathered(t) for t in ring])
+            buf, cursor = dring.snapshot(ring, self._ring_drained_at, self._ring_host_cursor)
         t1 = time.perf_counter_ns()
         if cursor != self._ring_host_cursor:
             raise RuntimeError(

@@ -29,8 +29,10 @@ serves any scenario mix:
 On the card the engine's window pieces are captured once, at the fleet's
 build (`precompile_pieces`); a scenario update and a wave reset write into
 the tensors those graphs read and never capture again. A pod-window
-fleet that streams re-seeks its feeder at each wave boundary, which
-captures the new ring's slide graphs (at most its depth a wave).
+fleet that streams re-seeks its feeder at each wave boundary into the
+ring it already has (engine.close(keep_ring=True)): the slots keep their
+addresses, so their slide graphs stay valid and nothing is captured after
+the first wave.
 
 Two lane protocols (reference fleet.py:37-57):
 - wave-aligned (the default, `run()`): the engine's window clock is

@@ -29,9 +29,11 @@ per key:
   both are captured at build.
 - ("reclaim",): CA slot reclaim, first in every window under reclaim,
   before the event chunks: the dead-slot predicate
-  (autoscale.ca_dead_slots), then ca_reclaim_pass's compaction in a
-  conditional node that runs only where some slot is dead, as the
-  reference's lax.cond does, so a quiet window pays only the predicate.
+  (autoscale.ca_dead_slots, with the engine's reclaim_period the window
+  test of autoscale.reclaim_due), then ca_reclaim_pass's compaction in a
+  conditional node that runs only where some slot is dead in a window of
+  the period, as the reference's lax.cond does, so a quiet window pays
+  only the predicate.
   The reference runs it at the head of its window body, after the
   previous span's slide, so a SUCCEEDED pod still in flight blocks
   retirement only while the window holds it. A piece of its own rather
@@ -81,7 +83,9 @@ WakeEvents in WindowBuffers.wake, emptied before the conditional node.
 Fast-forward (the reference's `_run_windows_skip_impl`, step.py:2391)
 adds two pieces, replayed after each executed window:
 
-- ("next",): step.next_window_span writes [W + 1, next] into
+- ("next",): step.next_window_rows, then window_kernel.
+  next_window_combine (under a mesh over every shard's rows, gathered
+  between the two), writes [W + 1, next] into
   WindowBuffers.span, next clamped to WindowBuffers.limit (the span's
   last window + 1, filled by the host once a span); the host reads
   next back (`run_windows_skipping`: the executed window's one read);
@@ -107,8 +111,10 @@ on the slab's upload event and writes stage_lo; the next slides replay
 its slot's graph. One graph a slot rather than a copy into fixed stage
 buffers: those buffers were one slab more on the device beside the ring,
 and a ring has at most `stream_depth` slots, so a slide costs at most
-that many captures. A re-seek builds a new ring and drops the slide
-graphs of the old one (`drop_slide`).
+that many captures. A re-seek at the ring's widths (a fleet's wave
+boundary) keeps the ring, whose slots keep their addresses, so their
+slide graphs stay; one at other widths builds a new ring and drops the
+slide graphs of the old one (`drop_slide`).
 
 A growth of the window changes the pod axis, so `rebuild` binds new
 buffers at the new widths and captures again every piece it held.
@@ -165,6 +171,15 @@ executor records its state leaves' addresses at every binding of its
 buffers (`addresses`), which the sanitizer's address check compares the
 engine's state against (sanitize.check_addresses).
 
+Under a mesh (the engine's `mesh=`) three pieces reduce over the whole
+batch: the gated end piece all-reduces the razor's predicate before its
+conditional node, the next piece gathers every shard's per-cluster words
+before its combine, and the slide all-reduces its shift's minimum. On
+NCCL the collectives are captured with the piece
+(`collective_captures` records which captures issued one); every rank
+runs the same pieces in the same order, since the host plans are the
+whole batch's.
+
 A device WHILE node over a whole span is not used: the host plans each
 window's pieces (step.WindowPlan), so a loop on the device would need one
 graph for every sequence of plans.
@@ -184,6 +199,7 @@ from kubernetriks_tpu_torch.batched.autoscale import (
     ca_pass,
     ca_reclaim_pass,
     hpa_pass,
+    reclaim_due,
     reclaim_name_orders,
 )
 from kubernetriks_tpu_torch.batched.state import (
@@ -208,7 +224,7 @@ from kubernetriks_tpu_torch.batched.step import (
     freeze_lanes_,
     gauge_snapshot,
     lane_window,
-    next_window_span,
+    next_window_rows,
     quantize_shift,
     run_scheduling_cycle,
     slide_apply,
@@ -217,6 +233,8 @@ from kubernetriks_tpu_torch.batched.step import (
     window_work_due,
 )
 from kubernetriks_tpu_torch.ops._launch import LAUNCHES, register_deferred
+from kubernetriks_tpu_torch.ops import window_kernel
+from kubernetriks_tpu_torch.parallel.multihost import CALLS as COLLECTIVE_CALLS, all_gather_rows, all_reduce_
 from kubernetriks_tpu_torch.recompile import publish_capture
 from kubernetriks_tpu_torch.sanitize import allow_transfer, state_addresses, to_host
 from kubernetriks_tpu_torch.telemetry.tracer import PH_PRECOMPILE, PH_PROGRESS_WAIT, PH_SHIFT_WAIT
@@ -475,6 +493,9 @@ class WindowExecutor:
         # key -> (graph, its launch counts, the counted conditional bodies'
         # slots it holds)
         self.graphs: Dict[Key, Tuple[object, Dict[str, int], range]] = {}
+        # key -> the collectives its capture recorded (under a mesh: the
+        # slide's shift, the razor's predicate, fast-forward's next window).
+        self.collective_captures: Dict[Key, int] = {}
 
     @staticmethod
     def _with_gauges(b: WindowBuffers) -> WindowBuffers:
@@ -563,6 +584,17 @@ class WindowExecutor:
         elif pred.device.type != "cpu" or bool(pred):
             fn()
 
+    def _global_any(self, pred: torch.Tensor) -> torch.Tensor:
+        """A 0-dim bool over the engine's clusters, made the whole batch's
+        under a mesh (an all-reduce over its group, captured with the
+        piece on NCCL)."""
+        group = self.sim._group
+        if group is None:
+            return pred
+        flag = pred.to(torch.int32)
+        all_reduce_(flag, "max", group)
+        return flag > 0
+
     def _body(self, key: Key) -> Callable[[WindowBuffers], None]:
         """The piece `key` as a function of the buffers it reads and writes."""
         run = self._bodies.get(key)
@@ -597,13 +629,15 @@ class WindowExecutor:
         elif kind == "reclaim":
             st = sim.autoscale_statics
 
+            period = sim.reclaim_period
+
             def run(b: WindowBuffers) -> None:
                 dead = ca_dead_slots(b.state, st)
 
                 def compact() -> None:
-                    self._copy_back(b.state, ca_reclaim_pass(b.state, st, b.W, k, dead))
+                    self._copy_back(b.state, ca_reclaim_pass(b.state, st, b.W, k, dead, period))
 
-                self._when(dead.any(), compact)
+                self._when(reclaim_due(dead, b.W, period), compact)
         elif kind == "end":
             route, removal_due, hpa, ca_due = key[1:5]
             crash_due = "crash" in key[5:]
@@ -635,7 +669,7 @@ class WindowExecutor:
                         if cm:
                             self._copy_back(b.wake, wake)
 
-                    self._when(window_work_due(b.state, sim.slab, b.W), gated_tail)
+                    self._when(self._global_any(window_work_due(b.state, sim.slab, b.W)), gated_tail)
                     state, wake = b.state, b.wake
                 else:
                     state, wake = tail()
@@ -670,10 +704,16 @@ class WindowExecutor:
                 b.gauges.index_copy_(0, b.gauge_slot.long(), gauge_snapshot(b.state)[None])
                 b.gauge_slot.add_(1)
         elif kind == "next":
+            has_auto = sim.autoscale_statics is not None and sim.state.auto is not None
+
             def run(b: WindowBuffers) -> None:
-                b.span.copy_(next_window_span(
-                    b.state, sim.slab, b.W, b.limit, sim.autoscale_statics, sim.flush_windows,
-                    sim.config.scheduling_cycle_interval,
+                rows = next_window_rows(b.state, sim.slab, sim.autoscale_statics, sim.config.scheduling_cycle_interval)
+                if sim._group is not None:
+                    # Every shard's words, in rank order: the span is the
+                    # whole batch's.
+                    rows = all_gather_rows(rows, sim._group)
+                b.span.copy_(window_kernel.next_window_combine(
+                    rows, b.W, b.limit, flush_windows=sim.flush_windows, has_auto=has_auto,
                 ))
         elif kind == "catch_up":
             def run(b: WindowBuffers) -> None:
@@ -687,7 +727,11 @@ class WindowExecutor:
             def run(b: WindowBuffers) -> None:
                 pay = sim._stage_slot(slot)._asdict()
                 base, lo = b.state.pod_base[0], b.stage_lo[0]
-                s = quantize_shift(slide_shift_core(b.state.pods.phase[:, :W], pay["create_win"], base, lo), W)
+                s0 = slide_shift_core(b.state.pods.phase[:, :W], pay["create_win"], base, lo)
+                if sim._group is not None:
+                    # The least over every shard's clusters: all slide alike.
+                    all_reduce_(s0, "min", sim._group)
+                s = quantize_shift(s0, W)
                 pods, rank = slide_apply(b.state.pods, b.rank, pay, base, s, W, lo)
                 self._copy_back(b.state.pods, pods)
                 if rank is not None:
@@ -767,8 +811,11 @@ class WindowExecutor:
                 warmed = dict(LAUNCHES)
                 first = len(slots)
                 _CAPTURING.key = key
+                calls = sum(COLLECTIVE_CALLS.values())
                 graph = self.backend.capture(partial(body, self.bufs))
                 delta = {n: LAUNCHES[n] - warmed[n] for n in LAUNCHES if LAUNCHES[n] != warmed[n]}
+                if sum(COLLECTIVE_CALLS.values()) > calls:
+                    self.collective_captures[key] = sum(COLLECTIVE_CALLS.values()) - calls
             finally:
                 _CAPTURING.key = None
                 LAUNCHES.update(before)

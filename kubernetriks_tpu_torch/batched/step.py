@@ -22,7 +22,7 @@ window are float32 seconds relative to the previous window's start.
 between spans of the sliding pod window, its slide (`slide_shift_core`,
 `quantize_shift`, `slide_apply`). The window-skipping functions are here
 too: the razor's predicate (`window_work_due`), fast-forward's next
-window (`next_window_span`) and catch-up (`catch_up_bookkeeping`), and
+window (`next_window_rows`, then its combine) and catch-up (`catch_up_bookkeeping`), and
 the conditional move's scans on the device (`conditional_wake`), each
 through a glue kernel of ops/window_kernel.py whose plain version is
 beside it; and the flight recorder's: the ring's record
@@ -217,6 +217,9 @@ class FaultStep(NamedTuple):
     backoff_base: torch.Tensor  # 0-dim float32
     backoff_cap: torch.Tensor  # 0-dim float32
     fault_seed: Optional[torch.Tensor] = None  # (C,) uint32
+    # The global cluster index of row 0: a shard of a batch sharded over a
+    # mesh keys its commit draws on the global index.
+    row0: int = 0
 
 
 class WakeEvents(NamedTuple):
@@ -970,7 +973,7 @@ def commit_scattered_tail(
         will_fail, fail_rel = pod_attempt_draw(
             start_tmp, pods.restarts, pods.duration.win, pods.duration.off, pods.will_fail,
             state.pod_base, fp.seed if faults.fault_seed is None else faults.fault_seed, min(faults.plain_width, P),
-            fp.fail_prob, faults.interval,
+            fp.fail_prob, faults.interval, faults.row0,
         )
         finish_val = t_where(started & will_fail, t_norm(Wp, fail_rel, interval), finish_val)
         fault_fields["will_fail"] = will_fail
@@ -1256,9 +1259,11 @@ def window_body(
     profile_terms=None,
     window_razor: bool = False,
     lanes=None,
+    reclaim_period: int = 1,
 ) -> ClusterBatchState:
     """Advance every cluster through scheduling window `w`: CA slot
-    reclaim's compaction where the plan runs it, events and finishes, one
+    reclaim's compaction where the plan runs it (and, with
+    `reclaim_period` N > 1, only in windows with (W + 1) % N == 0), events and finishes, one
     cycle, then the autoscaler passes the plan names, and where the state
     carries a telemetry ring the window's record into a copy of it
     (reference `_window_body`, step.py:1886). `lanes`: None, or the lane
@@ -1286,7 +1291,7 @@ def window_body(
         from kubernetriks_tpu_torch.batched.autoscale import ca_reclaim_pass, reclaim_name_orders
 
         if plan.reclaim:
-            state = ca_reclaim_pass(state, autoscale[0], W, k)
+            state = ca_reclaim_pass(state, autoscale[0], W, k, period=reclaim_period)
         orders = reclaim_name_orders(state.auto, autoscale[0], k, plan.removal_due or plan.ca_due)
     state, wake = apply_window_events(
         state, slab, W, consts, k, max_events_per_window, plan,
@@ -1465,40 +1470,73 @@ def next_window_span_plain(cursor, packed, phase, finish_win, node_create_win, n
     with the autoscalers (ca_next given) the CA cycle's snapshot window
     where the CA can act, the HPA tick and the collection latch), at least
     W + 1 and at most `limit` (1,), the span's last window + 1. W is the
-    (C,) window buffer (one value)."""
+    (C,) window buffer (one value). The kernel's two passes: each
+    cluster's words (next_window_rows_plain), then their combine
+    (next_window_combine_plain)."""
+    rows = next_window_rows_plain(
+        cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win, queue_win,
+        last_flush_win, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win, col_next_win, ca_count,
+        interval=interval,
+    )
+    return next_window_combine_plain(rows, W, limit, flush_windows=flush_windows, has_auto=ca_next_win is not None)
+
+
+def next_window_rows_plain(cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win,
+                           queue_win, last_flush_win, ca_next_win=None, ca_next_off=None, ca_snap_win=None,
+                           ca_snap_off=None, hpa_next_win=None, col_next_win=None, ca_count=None, *,
+                           interval: float) -> torch.Tensor:
+    """(C, 5) int32 words a cluster, next_window_span_plain's terms before
+    the reduction over the clusters (the kernel's first pass): its least
+    unconditional trigger, whether a pod is parked, its last flush window,
+    its CA snapshot window (INF_WIN without the autoscalers) and whether
+    it has a CA node. A batch sharded over a mesh gathers every shard's
+    rows and combines them (next_window_combine_plain), so its span is the
+    whole batch's."""
     big = INF_WIN
     C = cursor.shape[0]
     E_total = packed.shape[1]
     rows = torch.arange(C, device=cursor.device)
     ev_win = packed[rows, cursor.clamp(0, E_total - 1).long(), 0]
-    ev_next = torch.where(cursor < E_total, ev_win, big)
-    cand = ev_next.amin() + 1
-    cand = torch.minimum(cand, torch.where(phase == PHASE_RUNNING, finish_win, big).amin())
-    cand = torch.minimum(cand, node_create_win.amin() + 1)
-    cand = torch.minimum(cand, node_remove_win.amin() + 1)
-    cand = torch.minimum(cand, pod_removal_win.amin() + 1)
-    cand = torch.minimum(cand, torch.where(phase == PHASE_QUEUED, queue_win, big).amin() + 1)
-    parked_any = (phase == PHASE_UNSCHEDULABLE).any()
-    flush_next = last_flush_win.amin() + flush_windows
-    cand = torch.minimum(cand, torch.where(parked_any, flush_next, big))
+    m = torch.where(cursor < E_total, ev_win, big) + 1
+    m = torch.minimum(m, torch.where(phase == PHASE_RUNNING, finish_win, big).amin(dim=1))
+    m = torch.minimum(m, node_create_win.amin(dim=1) + 1)
+    m = torch.minimum(m, node_remove_win.amin(dim=1) + 1)
+    m = torch.minimum(m, pod_removal_win.amin(dim=1) + 1)
+    m = torch.minimum(m, torch.where(phase == PHASE_QUEUED, queue_win, big).amin(dim=1) + 1)
+    parked = (phase == PHASE_UNSCHEDULABLE).any(dim=1).to(torch.int32)
+    snap = torch.full((C,), big, dtype=torch.int32, device=cursor.device)
+    ca_any = torch.zeros((C,), dtype=torch.int32, device=cursor.device)
     if ca_next_win is not None:
         interval_t = torch.tensor(float(interval), dtype=torch.float32, device=cursor.device)
-        ca_snap_t = t_add(TPair(ca_next_win, ca_next_off), TPair(ca_snap_win, ca_snap_off), interval_t)
-        ca_can_act = parked_any | (ca_count.sum() > 0)
-        cand = torch.minimum(cand, torch.where(ca_can_act, ca_snap_t.win.amin(), big))
-        cand = torch.minimum(cand, hpa_next_win.amin())
+        snap = t_add(TPair(ca_next_win, ca_next_off), TPair(ca_snap_win, ca_snap_off), interval_t).win
+        ca_any = (ca_count != 0).any(dim=1).to(torch.int32)
+        m = torch.minimum(m, hpa_next_win)
         if col_next_win is not None:
-            cand = torch.minimum(cand, col_next_win.amin())
+            m = torch.minimum(m, col_next_win)
+    return torch.stack([m, parked, last_flush_win, snap, ca_any], dim=1).to(torch.int32)
+
+
+def next_window_combine_plain(rows: torch.Tensor, W: torch.Tensor, limit: torch.Tensor, *, flush_windows: int,
+                              has_auto: bool) -> torch.Tensor:
+    """(2,) int32 [W + 1, next] from every cluster's (C, 5) words
+    (next_window_rows_plain), in the kernel's combine order."""
+    big = INF_WIN
+    parked = rows[:, 1].any()
+    cand = rows[:, 0].amin()
+    cand = torch.minimum(cand, torch.where(parked, rows[:, 2].amin() + flush_windows, big))
+    if has_auto:
+        cand = torch.minimum(cand, torch.where(parked | rows[:, 4].any(), rows[:, 3].amin(), big))
     first = W[:1] + 1
     nxt = torch.maximum(first, cand.reshape(1))
     return torch.cat([first, torch.minimum(nxt, limit)]).to(torch.int32)
 
 
-def next_window_span(state: ClusterBatchState, slab: TraceSlab, W: torch.Tensor, limit: torch.Tensor, statics,
-                     flush_windows: int, interval: float) -> torch.Tensor:
-    """[W + 1, next] (next_window_span_plain) of the state after window W,
-    through ops/window_kernel.next_window_span; `statics`: the autoscaler
-    statics or None."""
+def next_window_rows(state: ClusterBatchState, slab: TraceSlab, statics, interval: float) -> torch.Tensor:
+    """The (C, 5) words of each cluster of the state after a window
+    (next_window_rows_plain), through ops/window_kernel.next_window_rows;
+    `statics`: the autoscaler statics or None. window_kernel.
+    next_window_combine over them, with has_auto = whether the autoscaler
+    operands were given (statics and state.auto), gives the span."""
     pods, nodes, auto = state.pods, state.nodes, state.auto
     extra = ()
     if statics is not None and auto is not None:
@@ -1506,10 +1544,10 @@ def next_window_span(state: ClusterBatchState, slab: TraceSlab, W: torch.Tensor,
             auto.ca_next.win, auto.ca_next.off, statics.ca_snap.win, statics.ca_snap.off, auto.hpa_next.win,
             None if auto.col_next is None else auto.col_next.win, auto.ca_count,
         )
-    return window_kernel.next_window_span(
+    return window_kernel.next_window_rows(
         state.event_cursor, slab.packed, pods.phase, pods.finish_time.win, nodes.create_time.win,
-        nodes.remove_time.win, pods.removal_time.win, pods.queue_ts.win, state.last_flush_win, W, limit, *extra,
-        flush_windows=flush_windows, interval=interval,
+        nodes.remove_time.win, pods.removal_time.win, pods.queue_ts.win, state.last_flush_win, *extra,
+        interval=interval,
     )
 
 

@@ -97,6 +97,41 @@ _FLAGS = [
         "whole payload where K slabs of 4W would hold as much).",
     ),
     Flag(
+        "KTPU_WINDOW_RAZOR",
+        "tristate",
+        None,
+        "Window-cost razor: a window with no event chunk runs its event "
+        "tail behind a cheap due-ness predicate (step.window_work_due; a "
+        "conditional node on graphs), so empty windows skip the masked "
+        "elementwise passes. Bit-exact: the tail is skipped only where it is "
+        "the identity. The engine's window_razor= argument supersedes it; a "
+        "tuned profile's entry ranks below it. Unset: on for the card, off "
+        "on the CPU.",
+    ),
+    Flag(
+        "KTPU_RECLAIM",
+        "tristate",
+        None,
+        "CA slot reclaim (batched/autoscale.py ca_reclaim_pass): a "
+        "compaction at the head of the window returns fully retired CA "
+        "reserve slots to their group, so ca_cursor tracks live occupancy "
+        "and sustained churn never runs the reserve dry. Trajectories stay "
+        "scalar-exact. The engine's reclaim= argument supersedes it. Unset: "
+        "on for the card, off on the CPU. Forced off (warning) where the "
+        "trace's node-name classes interleave; an explicit 1 raises there.",
+    ),
+    Flag(
+        "KTPU_RECLAIM_PERIOD",
+        "int",
+        1,
+        "Reclaim compaction cadence in windows: 1 (default) compacts in any "
+        "window with a retired slot (a scale-up can then never starve while "
+        "reclaimable slots exist); N > 1 compacts only in windows with (W + "
+        "1) % N == 0, trading a transiently tighter reserve for less work. "
+        "The engine's reclaim_period= argument supersedes it; a tuned "
+        "profile's entry ranks below a set flag.",
+    ),
+    Flag(
         "KTPU_DEBUG_FINITE",
         "bool",
         False,

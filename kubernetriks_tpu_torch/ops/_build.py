@@ -64,14 +64,14 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     # The chaos engine's commit-time draw: glue, no TPU kernel of the
     # reference's (ops/chaos_kernel.py).
     "pod_attempt_draw": (
-        "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 9 + [_I] * 6 + [_P],
+        "pod_attempt_draw.cu", "ktt_pod_attempt_draw", [_P] * 9 + [_I] * 7 + [_P],
     ),
     # The window executor's glue (ops/window_kernel.py): no TPU kernels.
     "window_work_due": (
         "window_work_due.cu", "ktt_window_work_due", [_P] * 11 + [_I] * 4 + [_P],
     ),
     "next_window": (
-        "next_window.cu", "ktt_next_window", [_P] * 20 + [_I] * 8 + [_P],
+        "next_window.cu", "ktt_next_window", [_P] * 20 + [_I] * 9 + [_P],
     ),
     "catch_up": (
         "catch_up.cu", "ktt_catch_up", [_P] * 19 + [_I] * 4 + [_P],

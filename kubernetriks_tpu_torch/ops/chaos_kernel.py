@@ -43,12 +43,14 @@ def _f32_bits(x: float) -> int:
 
 
 def pod_attempt_draw_plain(start_tmp, restarts, dur_win, dur_off, will_fail, pod_base,
-                           seed, plain_width: int, fail_prob: float, interval: float):
+                           seed, plain_width: int, fail_prob: float, interval: float, row0: int = 0):
     """(will_fail_out, fail_rel), each (C, P): will_fail_out = the draw's
     verdict where the attempt starts, else will_fail; fail_rel = start_tmp
     + u_frac * duration seconds (one fused multiply-add, as XLA:CPU
     contracts it) where it fails, else 0. `seed`: an int (cluster key c)
-    or a (C,) uint32 tensor (cluster key 0; module note)."""
+    or a (C,) uint32 tensor (cluster key 0; module note). `row0`: the
+    global cluster index of row 0 (a shard of a batch sharded over a
+    mesh keys its draws on the global index)."""
     C, P = start_tmp.shape
     dev = start_tmp.device
     idx = torch.arange(P, dtype=torch.int64, device=dev)[None, :].expand(C, P)
@@ -61,7 +63,7 @@ def pod_attempt_draw_plain(start_tmp, restarts, dur_win, dur_off, will_fail, pod
         seed = (seed.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)[:, None]
         cid = torch.zeros((C, P), dtype=torch.int64, device=dev)
     else:
-        cid = torch.arange(C, dtype=torch.int64, device=dev)[:, None].expand(C, P)
+        cid = (torch.arange(C, dtype=torch.int64, device=dev) + int(row0))[:, None].expand(C, P)
     u_fail, u_frac = chaos.pod_attempt_uniforms(seed, cid, gslot, restarts.to(torch.int64), xp=torch)
     prob = float(np.float32(fail_prob))
     wf = started & in_plain & (dur_win >= 0) & (u_fail < prob)
@@ -81,11 +83,13 @@ def pod_attempt_draw(
     plain_width: int,
     fail_prob: float,
     interval: float,  # the scheduling interval, seconds
+    row0: int = 0,  # global cluster index of row 0 (a mesh shard's first row)
 ):
     """(will_fail_out (C, P) bool, fail_rel (C, P) float32)."""
     if not _on_cuda(start_tmp):
         return pod_attempt_draw_plain(
-            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, seed, plain_width, fail_prob, interval
+            start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, seed, plain_width, fail_prob, interval,
+            row0,
         )
     C, P = start_tmp.shape
     i32, f32, b = torch.int32, torch.float32, torch.bool
@@ -104,6 +108,6 @@ def pod_attempt_draw(
     if C * P:
         _launch("pod_attempt_draw", "pod_attempt_draw", [
             start_tmp, restarts, dur_win, dur_off, will_fail, pod_base, seeds, will_fail_out, fail_rel,
-            C, P, _i32(seed), int(plain_width), _f32_bits(fail_prob), _f32_bits(interval),
+            C, P, _i32(seed), int(plain_width), _f32_bits(fail_prob), _f32_bits(interval), int(row0),
         ])
     return will_fail_out, fail_rel

@@ -26,6 +26,12 @@
 // last flush window, its CA snapshot window, has CA nodes or not); one
 // block then combines the clusters' words in the reference's order: two
 // launches, no atomics on global memory, no buffer to clear beforehand.
+//
+// `part` 1 launches the first pass (the (C, 5) words from the state's
+// rows), `part` 2 the combine over C given words (W, limit -> span): a
+// cluster batch sharded over a mesh gathers every shard's words between
+// the two, so its span is the whole batch's (the reference reduces over
+// the whole sharded axis). The pointers a part does not read may be null.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -139,20 +145,25 @@ extern "C" int ktt_next_window(const void* cursor, const void* packed, const voi
                                const void* ca_next_win, const void* ca_next_off, const void* ca_snap_win,
                                const void* ca_snap_off, const void* hpa_next_win, const void* col_next_win,
                                const void* ca_count, void* rows, void* span, int C, int N, int P, int E, int G,
-                               int flush_windows, int has_auto, int interval_bits, void* stream) {
+                               int flush_windows, int has_auto, int interval_bits, int part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   float interval;
   memcpy(&interval, &interval_bits, 4);
-  if (C > 0) {
-    next_rows<<<C, 256, 0, s>>>(
-        (const int32_t*)cursor, (const int32_t*)packed, (const int32_t*)phase, (const int32_t*)finish_win,
-        (const int32_t*)create_win, (const int32_t*)remove_win, (const int32_t*)removal_win,
-        (const int32_t*)queue_win, (const int32_t*)last_flush, (const int32_t*)ca_next_win,
-        (const float*)ca_next_off, (const int32_t*)ca_snap_win, (const float*)ca_snap_off,
-        (const int32_t*)hpa_next_win, (const int32_t*)col_next_win, (const int32_t*)ca_count, (int32_t*)rows, N,
-        P, E, G, has_auto, interval);
+  if (part == 1) {
+    if (C > 0) {
+      next_rows<<<C, 256, 0, s>>>(
+          (const int32_t*)cursor, (const int32_t*)packed, (const int32_t*)phase, (const int32_t*)finish_win,
+          (const int32_t*)create_win, (const int32_t*)remove_win, (const int32_t*)removal_win,
+          (const int32_t*)queue_win, (const int32_t*)last_flush, (const int32_t*)ca_next_win,
+          (const float*)ca_next_off, (const int32_t*)ca_snap_win, (const float*)ca_snap_off,
+          (const int32_t*)hpa_next_win, (const int32_t*)col_next_win, (const int32_t*)ca_count, (int32_t*)rows,
+          N, P, E, G, has_auto, interval);
+    }
+  } else if (part == 2) {
+    next_combine<<<1, 1024, 0, s>>>((const int32_t*)rows, (const int32_t*)W, (const int32_t*)limit,
+                                    (int32_t*)span, C, flush_windows, has_auto);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  next_combine<<<1, 1024, 0, s>>>((const int32_t*)rows, (const int32_t*)W, (const int32_t*)limit,
-                                  (int32_t*)span, C, flush_windows, has_auto);
   return (int)cudaGetLastError();
 }

@@ -9,9 +9,11 @@
 // take ~300-400 elementwise launches a committing window, as many as the
 // rest of the window; this kernel computes them in one pass over (C, P).
 //
-// Per slot p of cluster c, started = start_tmp < +inf:
+// Per slot p of row c (cluster row0 + c: a shard of a cluster batch
+// sharded over a mesh keys its draws on the global cluster index),
+// started = start_tmp < +inf:
 //   gslot = p + pod_base[c] (only plain slots, p < plain_width, draw)
-//   (u_fail, u_frac) = pod_attempt_uniforms(seed, c, gslot, restarts)
+//   (u_fail, u_frac) = pod_attempt_uniforms(seed, row0 + c, gslot, restarts)
 //     = to_unit of threefry(key = threefry(key = (seed, 3), ctr = (c,
 //       gslot)), ctr = (restarts, 0)), to_unit(b) = (b >> 8) * 2^-24
 //   (a scenario fleet passes `seeds`, (C,) uint32 in device memory: then
@@ -73,7 +75,7 @@ __global__ void pod_attempt_draw_kernel(
     const uint8_t* __restrict__ will_fail, const int32_t* __restrict__ pod_base,
     const uint32_t* __restrict__ seeds, uint8_t* __restrict__ will_fail_out,
     float* __restrict__ fail_rel, int C, int P, uint32_t seed, int plain_width, float fail_prob,
-    float interval) {
+    float interval, int row0) {
   const size_t total = (size_t)C * P;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -87,7 +89,7 @@ __global__ void pod_attempt_draw_kernel(
       const int32_t dwin = dur_win[i];
       bool wf = false;
       if (in_plain && dwin >= 0) {
-        uint32_t h0 = seeds ? 0u : (uint32_t)c, h1 = (uint32_t)(p + pod_base[c]);
+        uint32_t h0 = seeds ? 0u : (uint32_t)(row0 + c), h1 = (uint32_t)(p + pod_base[c]);
         threefry(seeds ? seeds[c] : seed, kStreamPod, h0, h1);
         uint32_t b0 = (uint32_t)restarts[i], b1 = 0u;
         threefry(h0, h1, b0, b1);
@@ -112,7 +114,7 @@ extern "C" int ktt_pod_attempt_draw(const void* start_tmp, const void* restarts,
                                     const void* seeds, void* will_fail_out, void* fail_rel, int C,
                                     int P, int seed,
                                     int plain_width, int fail_prob_bits, int interval_bits,
-                                    void* stream) {
+                                    int row0, void* stream) {
   const size_t total = (size_t)C * P;
   if (total == 0) return 0;
   const int threads = 256;
@@ -125,6 +127,6 @@ extern "C" int ktt_pod_attempt_draw(const void* start_tmp, const void* restarts,
       (const float*)start_tmp, (const int32_t*)restarts, (const int32_t*)dur_win,
       (const float*)dur_off, (const uint8_t*)will_fail, (const int32_t*)pod_base,
       (const uint32_t*)seeds, (uint8_t*)will_fail_out, (float*)fail_rel, C, P, (uint32_t)seed,
-      plain_width, fail_prob, interval);
+      plain_width, fail_prob, interval, row0);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,9 @@ eager PyTorch each would be a dozen to hundreds of small launches a window
 (the razor's predicate ~12, the next window ~30, a 50-window catch-up ~500)
 or, for the conditional move's scans, a host loop over the events and the
 parked pods; each kernel is one launch (the reductions two: a pass per
-cluster, then one block over the clusters). Integer and float32 work
+cluster, then one block over the clusters; next_window_span's are the
+wrappers next_window_rows and next_window_combine, each launch counted
+under next_window_span). Integer and float32 work
 only, with the reference's float32 operations unfused (--fmad=false).
 """
 
@@ -80,12 +82,28 @@ def next_window_span(
     (C, N) and (C, P) int32 rows, the (C,) cursor, last flush window and
     window, the (1,) limit; with the autoscalers the (C,) due-time pairs
     and snapshot delay, the collection latch (or None) and the (C, Gn) CA
-    node counts."""
+    node counts. The kernel's two passes, next_window_rows then
+    next_window_combine."""
+    rows = next_window_rows(
+        cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win, queue_win,
+        last_flush_win, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win, col_next_win, ca_count,
+        interval=interval,
+    )
+    return next_window_combine(rows, W, limit, flush_windows=flush_windows, has_auto=ca_next_win is not None)
+
+
+def next_window_rows(
+    cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win, queue_win,
+    last_flush_win, ca_next_win=None, ca_next_off=None, ca_snap_win=None, ca_snap_off=None, hpa_next_win=None,
+    col_next_win=None, ca_count=None, *, interval: float,
+) -> torch.Tensor:
+    """next_window.cu's first pass (step.next_window_rows_plain): (C, 5)
+    int32 words a cluster, next_window_span's operands but W and limit."""
     if not _on_cuda(cursor):
-        return _step().next_window_span_plain(
+        return _step().next_window_rows_plain(
             cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win, queue_win,
-            last_flush_win, W, limit, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win,
-            col_next_win, ca_count, flush_windows=flush_windows, interval=interval,
+            last_flush_win, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win, col_next_win,
+            ca_count, interval=interval,
         )
     C, E = packed.shape[:2]
     N = node_create_win.shape[1]
@@ -96,7 +114,6 @@ def next_window_span(
         "finish_win": (finish_win, i32, (C, P)), "node_create_win": (node_create_win, i32, (C, N)),
         "node_remove_win": (node_remove_win, i32, (C, N)), "pod_removal_win": (pod_removal_win, i32, (C, P)),
         "queue_win": (queue_win, i32, (C, P)), "last_flush_win": (last_flush_win, i32, (C,)),
-        "W": (W, i32, (C,)), "limit": (limit, i32, (1,)),
     }
     has_auto = ca_next_win is not None
     G = 0
@@ -110,13 +127,31 @@ def next_window_span(
         if col_next_win is not None:
             ops["col_next_win"] = (col_next_win, i32, (C,))
     _check("next_window_span", ops, cursor.device)
-    span = torch.empty((2,), dtype=i32, device=cursor.device)
     rows = torch.empty((C, 5), dtype=i32, device=cursor.device)
     _launch("next_window_span", "next_window", [
         cursor, packed, phase, finish_win, node_create_win, node_remove_win, pod_removal_win, queue_win,
-        last_flush_win, W, limit, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win,
-        col_next_win, ca_count, rows, span, C, N, P, E, G, int(flush_windows), int(has_auto),
-        _f32_bits(interval),
+        last_flush_win, None, None, ca_next_win, ca_next_off, ca_snap_win, ca_snap_off, hpa_next_win,
+        col_next_win, ca_count, rows, None, C, N, P, E, G, 0, int(has_auto), _f32_bits(interval), 1,
+    ])
+    return rows
+
+
+def next_window_combine(rows, W, limit, *, flush_windows: int, has_auto: bool) -> torch.Tensor:
+    """next_window.cu's combine (step.next_window_combine_plain): (2,)
+    int32 [W + 1, next] from the (C, 5) words of every cluster, the (C,)
+    window and the (1,) limit. A mesh gathers every shard's words between
+    the two passes (the executor's ("next",) piece)."""
+    if not _on_cuda(rows):
+        return _step().next_window_combine_plain(rows, W, limit, flush_windows=flush_windows, has_auto=has_auto)
+    C = rows.shape[0]
+    i32 = torch.int32
+    _check("next_window_span", {
+        "rows": (rows, i32, (C, 5)), "W": (W, i32, tuple(W.shape)), "limit": (limit, i32, (1,)),
+    }, rows.device)
+    span = torch.empty((2,), dtype=i32, device=rows.device)
+    _launch("next_window_span", "next_window", [
+        None, None, None, None, None, None, None, None, None, W, limit, None, None, None, None, None, None, None,
+        rows, span, C, 0, 0, 0, 0, int(flush_windows), int(has_auto), 0, 2,
     ])
     return span
 

@@ -10,10 +10,11 @@ that keep the sweep off configurations where the knob is inert.
 
 The port's knobs are its own statics: the graph executor (`graphs`), the
 dense cycle route (`megakernel`, KTPU_MEGAKERNEL), the window razor
-(`window_razor`) and the streaming feeder (`stream`, `stream_depth`,
-`stream_segment`). The reference's TPU knobs (`superspan*`, `fuse_slide`,
-`lane_major`, `donate`, `ca_descatter`, `reclaim_period`) have no
-counterpart here: a profile naming one raises at load, naming the field.
+(`window_razor`), the streaming feeder (`stream`, `stream_depth`,
+`stream_segment`) and reclaim's cadence (`reclaim_period`, open-domain as
+in the reference's registry). The reference's TPU knobs (`superspan*`,
+`fuse_slide`, `lane_major`, `donate`, `ca_descatter`) have no counterpart
+here: a profile naming one raises at load, naming the field.
 
 Two things differ from the reference's single table:
 
@@ -35,7 +36,6 @@ skips them (a slab width scales with the pod window, not with one list).
 Deliberately NOT knobs:
 - `reclaim`: an explicit reclaim=True raises on traces whose node-name
   classes interleave, and a candidate must never be a build error.
-- `reclaim_period`: the port has no such argument (every window reclaims).
 - `fast_forward`: pinned off while measuring, so every candidate steps the
   windows it names.
 - the cluster count and the pod window: GEOMETRY, the profile's key.
@@ -139,6 +139,18 @@ KNOBS: Tuple[Knob, ...] = (
         "Width (payload columns) of the feeder's slabs "
         "(KTPU_STREAM_SEGMENT). Geometry-specific: profiles may pin it, the "
         "sweep leaves the engine's 4W rule in charge.",
+    ),
+    Knob(
+        "reclaim_period",
+        "int",
+        None,
+        1,
+        "memory",
+        True,
+        (),
+        "Reclaim compaction cadence in windows (KTPU_RECLAIM_PERIOD), for "
+        "engines whose reclaim tristate is already on (the knob never turns "
+        "reclaim on; see the module docstring).",
     ),
 )
 

@@ -992,7 +992,8 @@ def test_glue_kernels_match_plain_versions(cuda_device, seed):
         port_kernels.reset_launches()
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
-        assert port_kernels.LAUNCHES[name] == 1
+        # next_window_span launches its two passes, rows then combine.
+        assert port_kernels.LAUNCHES[name] == (2 if name == "next_window_span" else 1)
         want = plain(*args, **kw)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -1638,3 +1639,77 @@ def test_card_sweep_shares_one_fingerprint(cuda_device, tmp_path):
     assert stats[0] == stats[1]
     for sim in sims:
         sim.close()
+
+
+@pytest.mark.cuda
+def test_streaming_pod_window_fleet_captures_nothing_after_wave_one(cuda_device, monkeypatch):
+    """A streaming pod-window fleet re-seeks its feeder at every wave into
+    the ring it already has: under KTPU_EXPLAIN_RECOMPILES=1 four waves
+    capture nothing after the first (the sentinel raises otherwise), and
+    the results equal the same fleet unstreamed (exact counters)."""
+    from chip_smoke import F5_FLEET, F5_SCENARIOS, composed_config_yaml, f5_fleet_events
+    from kubernetriks_tpu_torch.batched.fleet import Scenario, ScenarioFleet
+
+    config = SimulationConfig.from_yaml(composed_config_yaml(4))
+    queries = [Scenario(**s) for s in F5_SCENARIOS] * 3
+    monkeypatch.setenv("KTPU_EXPLAIN_RECOMPILES", "1")
+    fleet = ScenarioFleet(config, *f5_fleet_events(), device=cuda_device, stream=True, stream_segment=56, **F5_FLEET)
+    monkeypatch.delenv("KTPU_EXPLAIN_RECOMPILES")
+    try:
+        eng = fleet.engine
+        assert fleet._sentinel is not None and eng._stream_on() and eng._feeder_uploads.depth == 3
+        fleet.submit(queries[0])
+        fleet.run()
+        after_one, ring = eng.dispatch_stats["captures"], eng._feeder_uploads
+        for q in queries[1:10]:
+            fleet.submit(q)
+        got = dict(fleet.run())
+        assert fleet.waves_run == 4 and eng.dispatch_stats["slides"] > 0 and eng.dispatch_stats["grows"] == 0
+        assert eng.dispatch_stats["captures"] == after_one and fleet._sentinel.post_seal_events() == []
+        assert eng._feeder_uploads is ring
+    finally:
+        fleet.close()
+    plain = ScenarioFleet(config, *f5_fleet_events(), device=cuda_device, stream=False, **F5_FLEET)
+    try:
+        for q in queries[:10]:
+            plain.submit(q)
+        want = plain.run()
+    finally:
+        plain.close()
+    assert sorted(got) == sorted(want)
+    for q in got:
+        assert (got[q].counters, got[q].hpa_replicas, got[q].ca_nodes) == (
+            want[q].counters, want[q].hpa_replicas, want[q].ca_nodes)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_a_one_rank_nccl_group_equals_the_unsharded_engine(cuda_device, tmp_path):
+    """The composed toy with the fault block, slot reclaim, a sliding pod
+    window and fast-forward under mesh=global_mesh() of a world-size-1 NCCL
+    group, on the graph executor: bit for bit the unsharded engine's
+    state, and the captured slide, razor-gate and next pieces hold their
+    collectives."""
+    import torch.distributed as dist
+
+    from kubernetriks_tpu_torch.parallel.multihost import global_mesh, initialize_from_env
+
+    def run(**kw):
+        sim = composed_sim(cuda_device, 8, faults=True, pod_window=8, reclaim=True, fast_forward=True, **kw)
+        sim.precompile_pieces()
+        sim.step_until_time(600.0)
+        return sim
+
+    want = state_to_numpy(run().state)
+    assert initialize_from_env(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        sim = run(mesh=global_mesh())
+        got = sim.host_state()
+        held = sim._executor.collective_captures
+    finally:
+        dist.destroy_process_group()
+    assert sim.graphs and sim.dispatch_stats["eager_windows"] == 0 and sim.dispatch_stats["slides"] > 0
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert np.array_equal(want[k].view(np.uint8), got[k].view(np.uint8)), k
+    assert any(key[0] == "slide" for key in held) and any("gate" in key for key in held) and ("next",) in held
+    assert sim.dispatch_stats["skipped_windows"] > 0

@@ -202,7 +202,7 @@ def test_attention_gradients_match_reference():
                                    err_msg=name)
 
 
-def test_full_attention_gives_zero_on_rows_without_a_valid_key():
+def test_full_attention_gives_zero_on_rows_without_a_valid_key(tmp_path):
     rng = np.random.default_rng(3)
     q, k, v = (rng.normal(size=(2, 4, 8, 16)).astype(np.float32) for _ in range(3))
     mask = rng.random((2, 1, 8)) < 0.5
@@ -212,10 +212,20 @@ def test_full_attention_gives_zero_on_rows_without_a_valid_key():
     assert (out[1] == 0).all()
     ref = jax_full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ring_attention(out, out, out, mask, "seq")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port_attention.make_sharded_apply(None)
+    # The ring form on a one-rank gloo group of this process (its shards at
+    # world sizes 2 and 4: tests/test_torch_parallel.py) gives the same
+    # rows, the empty ones 0.
+    import torch.distributed as dist
+
+    from kubernetriks_tpu_torch.parallel.multihost import initialize_from_env
+
+    assert initialize_from_env(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo")
+    try:
+        ring = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask))
+    finally:
+        dist.destroy_process_group()
+    assert (ring[1] == 0).all()
+    np.testing.assert_allclose(ring.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
 def test_featurize_and_bestfit_logits_are_exact():

@@ -193,10 +193,10 @@ def test_profile_roundtrips_and_names_are_the_key(tmp_path):
     assert prof.explicit is True
 
 
-@pytest.mark.parametrize("field", ["bogus_knob", "lane_major", "reclaim_period", "superspan", "ca_descatter"])
+@pytest.mark.parametrize("field", ["bogus_knob", "lane_major", "donate", "superspan", "ca_descatter"])
 def test_unknown_knob_raises_at_load_naming_the_field(tmp_path, field):
-    """Unknown names, the reference's TPU knobs and reclaim_period among
-    them, raise at save and at load."""
+    """Unknown names and the reference's TPU knobs raise at save and at
+    load."""
     doc = _doc(statics={field: 1})
     path = str(tmp_path / "p.json")
     with pytest.raises(ValueError, match=field):
