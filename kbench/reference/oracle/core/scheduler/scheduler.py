@@ -1,0 +1,491 @@
+"""Scheduler component: queueing machinery + periodic scheduling cycles.
+
+Mirrors the reference's Scheduler (reference: src/core/scheduler/scheduler.rs):
+an active min-heap queue and an unschedulable map, a drain-the-queue scheduling
+cycle with simulated per-pod algorithm latency, requeue/reschedule on node
+removal / pod finish / pod removal, and conditional vs flush-all move policies.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Set, TYPE_CHECKING
+
+import numpy as np
+
+from kbench.reference.oracle.core.events import (
+    AddNodeToCache,
+    AssignPodToNodeRequest,
+    FlushUnschedulableQueueLeftover,
+    PodFinishedRunning,
+    PodNotScheduled,
+    PodScheduleRequest,
+    RemoveNodeFromCache,
+    RemovePodFromCache,
+    RequeuePodAfterBackoff,
+    RunSchedulingCycle,
+)
+from kbench.reference.oracle.core.scheduler.interface import (
+    PodSchedulingAlgorithm,
+    ScheduleError,
+    SchedulingFailure,
+)
+from kbench.reference.oracle.core.scheduler.model import (
+    ConstantTimePerNodeModel,
+    PodSchedulingTimeModel,
+)
+from kbench.reference.oracle.core.scheduler.queue import (
+    ActiveQueue,
+    DEFAULT_POD_MAX_IN_UNSCHEDULABLE_PODS_DURATION,
+    POD_FLUSH_INTERVAL,
+    QueuedPodInfo,
+    UnschedulablePodKey,
+    UnschedulableQueue,
+)
+from kbench.reference.oracle.core.types import Node, ObjectsInfo, Pod, RuntimeResources
+from kbench.reference.oracle.sim.kernel import EventHandler, SimulationContext
+
+if TYPE_CHECKING:
+    from kbench.reference.oracle.config import SimulationConfig
+    from kbench.reference.oracle.metrics.collector import MetricsCollector
+
+
+class Scheduler(EventHandler):
+    def __init__(
+        self,
+        api_server: int,
+        scheduler_algorithm: PodSchedulingAlgorithm,
+        ctx: SimulationContext,
+        config: "SimulationConfig",
+        metrics_collector: "MetricsCollector",
+    ) -> None:
+        self.api_server = api_server
+        self.objects_cache = ObjectsInfo()
+        # node name -> pod names assigned by this scheduler
+        self.assignments: Dict[str, Set[str]] = {}
+        self.scheduler_algorithm = scheduler_algorithm
+        self.pod_scheduling_time_model: PodSchedulingTimeModel = (
+            ConstantTimePerNodeModel()
+        )
+        self.action_queue = ActiveQueue()
+        self.unschedulable_pods = UnschedulableQueue()
+        self.ctx = ctx
+        self.config = config
+        self.metrics_collector = metrics_collector
+        # Chaos engine: pod fault oracle (backoff/limit reads); installed by
+        # the simulator when fault injection is on.
+        self.fault_oracle = None
+        # The benchmark's semantics (kbench/reference/README.md): at most
+        # `max_pods_per_cycle` pods leave the active queue a cycle (0: all),
+        # scores in `score_precision` ("float32", or "bfloat16" for the
+        # control), ties to the last node in `node_order` (a sort key of the
+        # node's name: the program's slot order).
+        self.max_pods_per_cycle = 0
+        self.score_precision = "float32"
+        self.node_order = None
+        self._table = None
+        self.decisions = 0
+
+    def start(self) -> None:
+        """Arm both self-tick cycles (reference: src/core/scheduler/scheduler.rs:78-81)."""
+        self.ctx.emit_self_now(RunSchedulingCycle())
+        self.ctx.emit_self_now(FlushUnschedulableQueueLeftover())
+
+    # --- cache API ----------------------------------------------------------
+
+    def add_node(self, node: Node) -> None:
+        self.objects_cache.nodes[node.metadata.name] = node
+        self._table = None
+
+    def add_pod(self, pod: Pod) -> None:
+        self.objects_cache.pods[pod.metadata.name] = pod
+
+    def get_node(self, node_name: str) -> Node:
+        return self.objects_cache.nodes[node_name]
+
+    def get_pod(self, pod_name: str) -> Pod:
+        return self.objects_cache.pods[pod_name]
+
+    def node_count(self) -> int:
+        return len(self.objects_cache.nodes)
+
+    def pod_count(self) -> int:
+        return len(self.objects_cache.pods)
+
+    def set_scheduler_algorithm(self, algorithm: PodSchedulingAlgorithm) -> None:
+        self.scheduler_algorithm = algorithm
+
+    # --- resource bookkeeping ----------------------------------------------
+
+    def reserve_node_resources(self, pod_name: str, assigned_node: str) -> None:
+        pod = self.objects_cache.pods[pod_name]
+        node = self.objects_cache.nodes[assigned_node]
+        node.status.allocatable.cpu -= pod.spec.resources.requests.cpu
+        node.status.allocatable.ram -= pod.spec.resources.requests.ram
+        self._sync_node(assigned_node)
+
+    def assign_node_to_pod(self, pod_name: str, node_name: str) -> None:
+        self.assignments.setdefault(node_name, set()).add(pod_name)
+        self.objects_cache.pods[pod_name].status.assigned_node = node_name
+
+    def release_node_resources(self, pod: Pod) -> None:
+        node = self.objects_cache.nodes[pod.status.assigned_node]
+        node.status.allocatable.cpu += pod.spec.resources.requests.cpu
+        node.status.allocatable.ram += pod.spec.resources.requests.ram
+        self._sync_node(pod.status.assigned_node)
+
+    def _node_table(self):
+        """(names in slot order, name -> row, allocatable cpu, allocatable
+        ram in MiB), rebuilt when a node joins or leaves."""
+        if self._table is None:
+            nodes = self.objects_cache.nodes
+            names = sorted(nodes, key=self.node_order)
+            cpu = np.array([nodes[n].status.allocatable.cpu for n in names], np.int64)
+            ram = np.array([nodes[n].status.allocatable.ram >> 20 for n in names], np.int64)
+            self._table = (names, {n: i for i, n in enumerate(names)}, cpu, ram)
+        return self._table
+
+    def _sync_node(self, name: str) -> None:
+        if self._table is not None:
+            _, row, cpu, ram = self._table
+            alloc = self.objects_cache.nodes[name].status.allocatable
+            cpu[row[name]] = alloc.cpu
+            ram[row[name]] = alloc.ram >> 20
+
+    def schedule_one(self, pod: Pod) -> str:
+        """The default profile (Fit, LeastAllocatedResources) over every
+        node at once: the score in float32 (or the control's bfloat16) on
+        cpu in mCPU and ram in MiB, the last node of maximal score in slot
+        order."""
+        requests = pod.spec.resources.requests
+        if requests.cpu == 0 and requests.ram == 0:
+            raise SchedulingFailure(ScheduleError.REQUESTED_RESOURCES_ARE_ZEROS)
+        if not self.objects_cache.nodes:
+            raise SchedulingFailure(ScheduleError.NO_NODES_IN_CLUSTER)
+        names, _, cpu, ram = self._node_table()
+        rc, rr = requests.cpu, -(-requests.ram >> 20)
+        fit = (rc <= cpu) & (rr <= ram)
+        if not fit.any():
+            raise SchedulingFailure(ScheduleError.NO_SUFFICIENT_RESOURCES)
+        score = least_allocated(cpu, ram, rc, rr, self.score_precision)
+        score = np.where(fit, score, np.float32(-np.inf))
+        return names[int(np.flatnonzero(score == score.max())[-1])]
+
+    # --- queue movement -----------------------------------------------------
+
+    def _move_pods_to_active_queue(self, keys) -> None:
+        """reference: src/core/scheduler/scheduler.rs:174-186."""
+        for key in keys:
+            if key.pod_name not in self.objects_cache.pods:
+                continue
+            info = self.unschedulable_pods.remove(key)
+            info.attempts += 1
+            self.action_queue.push(info)
+
+    def flush_unschedulable_pods_leftover(self, event_time: float) -> None:
+        """Move pods stuck in unschedulable for >300 s; re-arm the 30 s cycle
+        (reference: src/core/scheduler/scheduler.rs:188-203)."""
+        to_move = [
+            key
+            for key, info in self.unschedulable_pods.sorted_items()
+            if event_time - info.timestamp > DEFAULT_POD_MAX_IN_UNSCHEDULABLE_PODS_DURATION
+        ]
+        self._move_pods_to_active_queue(to_move)
+        self.ctx.emit_self(FlushUnschedulableQueueLeftover(), POD_FLUSH_INTERVAL)
+
+    def move_to_active_queue_if(
+        self, check: Callable[[RuntimeResources], bool]
+    ) -> None:
+        """Move pods whose requests satisfy `check` (which may mutate captured
+        state to account resources as it accepts pods)
+        (reference: src/core/scheduler/scheduler.rs:205-234)."""
+        to_move = [
+            key
+            for key, info in self.unschedulable_pods.sorted_items()
+            if check(self.objects_cache.pods[info.pod_name].spec.resources.requests)
+        ]
+        self._move_pods_to_active_queue(to_move)
+
+    def move_all_to_active_queue(self) -> None:
+        self._move_pods_to_active_queue(self.unschedulable_pods.sorted_keys())
+
+    # --- scheduling cycle (hot loop) ----------------------------------------
+
+    def run_scheduling_cycle(self, cycle_event_time: float) -> None:
+        """Drain the active queue, assigning or parking each pod; accumulated
+        simulated algorithm latency shifts each assignment's effect time
+        (reference: src/core/scheduler/scheduler.rs:246-333)."""
+        cycle_sim_duration = 0.0
+        metrics = self.metrics_collector
+        metrics.gauge_metrics.pods_in_scheduling_queues = len(self.action_queue) + len(
+            self.unschedulable_pods
+        )
+
+        taken = 0
+        while not self.max_pods_per_cycle or taken < self.max_pods_per_cycle:
+            next_pod = self.action_queue.pop()
+            if next_pod is None:
+                break
+            # Pod may have been removed via RemovePodFromCache while queued.
+            if next_pod.pod_name not in self.objects_cache.pods:
+                continue
+            taken += 1
+
+            pod_queue_time = (
+                cycle_event_time - next_pod.initial_attempt_timestamp + cycle_sim_duration
+            )
+            pod = self.objects_cache.pods[next_pod.pod_name]
+            pod_schedule_time = self.pod_scheduling_time_model.simulate_time(
+                pod, self.objects_cache.nodes
+            )
+            cycle_sim_duration += pod_schedule_time
+
+            try:
+                assigned_node = self.schedule_one(pod)
+            except SchedulingFailure:
+                next_pod.timestamp = cycle_event_time + cycle_sim_duration
+                self.unschedulable_pods.insert(
+                    UnschedulablePodKey(
+                        pod_name=next_pod.pod_name,
+                        insert_timestamp=next_pod.timestamp,
+                    ),
+                    next_pod,
+                )
+                self.ctx.emit(
+                    PodNotScheduled(
+                        not_scheduled_time=cycle_event_time + cycle_sim_duration,
+                        pod_name=pod.metadata.name,
+                    ),
+                    self.api_server,
+                    self.config.sched_to_as_network_delay,
+                )
+                continue
+
+            self.reserve_node_resources(next_pod.pod_name, assigned_node)
+            self.assign_node_to_pod(next_pod.pod_name, assigned_node)
+            self.decisions += 1
+            self.ctx.emit(
+                AssignPodToNodeRequest(
+                    assign_time=cycle_event_time + cycle_sim_duration,
+                    pod_name=next_pod.pod_name,
+                    node_name=assigned_node,
+                ),
+                self.api_server,
+                cycle_sim_duration + self.config.sched_to_as_network_delay,
+            )
+            metrics.accumulated_metrics.increment_pod_scheduling_algorithm_latency(
+                pod_schedule_time
+            )
+            metrics.accumulated_metrics.increment_pod_queue_time(pod_queue_time)
+
+        next_cycle_delay = max(cycle_sim_duration, self.config.scheduling_cycle_interval)
+        self.ctx.emit_self(RunSchedulingCycle(), next_cycle_delay)
+
+    # --- rescheduling -------------------------------------------------------
+
+    def reschedule_pod(self, pod_name: str, event_time: float) -> None:
+        self.objects_cache.pods[pod_name].status.assigned_node = ""
+        self.action_queue.push(
+            QueuedPodInfo(
+                timestamp=event_time,
+                attempts=1,
+                initial_attempt_timestamp=event_time,
+                pod_name=pod_name,
+            )
+        )
+
+    def reschedule_unfinished_pods(self, node_name: str, event_time: float) -> int:
+        """All pods of a dead node go back to the active queue in sorted-name
+        order (reference: src/core/scheduler/scheduler.rs:336-364). Returns
+        the reschedule count (the chaos engine's interruption metric)."""
+        unfinished = self.assignments.pop(node_name, None)
+        if not unfinished:
+            return 0
+        for pod_name in sorted(unfinished):
+            self.reschedule_pod(pod_name, event_time)
+        return len(unfinished)
+
+    def _move_to_active_due_to_pod_freed_resources(
+        self, freed: RuntimeResources
+    ) -> None:
+        """Greedy first-fit against the freed budget, decrementing it per
+        accepted pod (reference: src/core/scheduler/scheduler.rs:366-380)."""
+        remaining = freed.copy()
+
+        def check(requests: RuntimeResources) -> bool:
+            if requests.cpu <= remaining.cpu and requests.ram <= remaining.ram:
+                remaining.cpu -= requests.cpu
+                remaining.ram -= requests.ram
+                return True
+            return False
+
+        self.move_to_active_queue_if(check)
+
+    # --- event handlers -----------------------------------------------------
+
+    def on_run_scheduling_cycle(self, data: RunSchedulingCycle, time: float) -> None:
+        self.run_scheduling_cycle(time)
+
+    def on_flush_unschedulable_queue_leftover(
+        self, data: FlushUnschedulableQueueLeftover, time: float
+    ) -> None:
+        self.flush_unschedulable_pods_leftover(time)
+
+    def on_add_node_to_cache(self, data: AddNodeToCache, time: float) -> None:
+        """reference: src/core/scheduler/scheduler.rs:391-410."""
+        node = data.node
+        allocatable = node.status.allocatable.copy()
+        self.add_node(node)
+
+        if self.config.enable_unscheduled_pods_conditional_move:
+
+            def check(requests: RuntimeResources) -> bool:
+                if requests.cpu <= allocatable.cpu and requests.ram <= allocatable.ram:
+                    allocatable.cpu -= requests.cpu
+                    allocatable.ram -= requests.ram
+                    return False
+                return True
+
+            self.move_to_active_queue_if(check)
+        else:
+            self.move_all_to_active_queue()
+
+    def on_pod_schedule_request(self, data: PodScheduleRequest, time: float) -> None:
+        pod_name = data.pod.metadata.name
+        self.add_pod(data.pod)
+        self.action_queue.push(
+            QueuedPodInfo(
+                timestamp=time,
+                attempts=1,
+                initial_attempt_timestamp=time,
+                pod_name=pod_name,
+            )
+        )
+
+    def on_pod_finished_running(self, data: PodFinishedRunning, time: float) -> None:
+        from kbench.reference.oracle.core.types import PodConditionType
+
+        if data.finish_result == PodConditionType.POD_FAILED:
+            self._on_pod_failed(data, time)
+            return
+        pod = self.objects_cache.pods.pop(data.pod_name)
+        self.assignments[data.node_name].discard(data.pod_name)
+        self.release_node_resources(pod)
+        if self.config.enable_unscheduled_pods_conditional_move:
+            self._move_to_active_due_to_pod_freed_resources(
+                pod.spec.resources.requests.copy()
+            )
+        else:
+            self.move_all_to_active_queue()
+
+    def _on_pod_failed(self, data: PodFinishedRunning, time: float) -> None:
+        """Chaos-engine attempt failure: free the node's resources, then
+        either requeue with CrashLoopBackOff (new active-queue entry at
+        fail_time + min(base * 2^k, cap), fresh initial-attempt timestamp —
+        mirroring the batched retry disposition) or drop the pod as
+        permanently failed. Both outcomes wake the unschedulable queue like
+        a finish — resources were freed either way."""
+        pod = self.objects_cache.pods.get(data.pod_name)
+        if pod is None:
+            return  # removed while the failure was in flight
+        self.assignments.get(data.node_name, set()).discard(data.pod_name)
+        if data.node_name in self.objects_cache.nodes:
+            self.release_node_resources(pod)
+        if self.fault_oracle.is_permanently_failed(data.pod_name):
+            self.objects_cache.pods.pop(data.pod_name)
+        else:
+            pod.status.assigned_node = ""
+            requeue_ts = data.finish_time + self.fault_oracle.backoff_after_failure(
+                data.pod_name
+            )
+            # Deliver at backoff expiry: each cycle drains the whole active
+            # queue, so pushing a future-timestamped entry now would defeat
+            # the backoff (the batched path gates on queue_ts < cycle time).
+            self.ctx.emit_self(
+                RequeuePodAfterBackoff(
+                    pod_name=data.pod_name, requeue_ts=requeue_ts
+                ),
+                max(requeue_ts - time, 0.0),
+            )
+        if self.config.enable_unscheduled_pods_conditional_move:
+            self._move_to_active_due_to_pod_freed_resources(
+                pod.spec.resources.requests.copy()
+            )
+        else:
+            self.move_all_to_active_queue()
+
+    def on_requeue_pod_after_backoff(
+        self, data: RequeuePodAfterBackoff, time: float
+    ) -> None:
+        """CrashLoopBackOff expiry: the retry enters the active queue with a
+        fresh initial-attempt timestamp. Queue entry is stamped with the
+        DELIVERY time — max(requeue_ts, failure-chain arrival) — which is
+        the batched retry disposition's initial_attempt_ts = fail +
+        max(backoff, delta_reschedule); a backoff shorter than the chain
+        delay cannot beat the failure notification to the queue."""
+        if data.pod_name not in self.objects_cache.pods:
+            return  # removed while backing off
+        self.action_queue.push(
+            QueuedPodInfo(
+                timestamp=time,
+                attempts=1,
+                initial_attempt_timestamp=time,
+                pod_name=data.pod_name,
+            )
+        )
+
+    def on_remove_node_from_cache(self, data: RemoveNodeFromCache, time: float) -> None:
+        del self.objects_cache.nodes[data.node_name]
+        self._table = None
+        n_rescheduled = self.reschedule_unfinished_pods(data.node_name, time)
+        if data.crashed:
+            self.metrics_collector.accumulated_metrics.pod_interruptions += (
+                n_rescheduled
+            )
+
+    def on_remove_pod_from_cache(self, data: RemovePodFromCache, time: float) -> None:
+        """Tolerant of finish-before-remove races
+        (reference: src/core/scheduler/scheduler.rs:445-473)."""
+        pod = self.objects_cache.pods.pop(data.pod_name, None)
+        if pod is None:
+            return  # already finished
+        # Deviation from the reference (which leaks the entry and would panic in
+        # move_to_active_queue_if): a removed pod must leave the unschedulable
+        # queue too, else later queue scans dereference a pod no longer cached.
+        self.unschedulable_pods.remove_pod(data.pod_name)
+        assigned_node_name = pod.status.assigned_node
+        if assigned_node_name:
+            # Node may itself have been removed from cache earlier; only clean
+            # up when it is still alive.
+            if assigned_node_name in self.objects_cache.nodes:
+                self.release_node_resources(pod)
+                self.assignments[assigned_node_name].discard(data.pod_name)
+                if self.config.enable_unscheduled_pods_conditional_move:
+                    self._move_to_active_due_to_pod_freed_resources(
+                        pod.spec.resources.requests.copy()
+                    )
+                else:
+                    self.move_all_to_active_queue()
+        # Otherwise the pod is in a scheduling queue; the pop-time existence
+        # check drops it.
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to the nearest bfloat16 (ties to even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def least_allocated(cpu, ram, rc: int, rr: int, precision: str) -> np.ndarray:
+    """LeastAllocatedResources, ((cpu - rc) * 100 / cpu + (ram - rr) * 100 /
+    ram) * 0.5, each operation rounded to `precision`."""
+    r = _bf16 if precision == "bfloat16" else (lambda v: np.asarray(v, np.float32))
+    if precision not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown score precision {precision!r}")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cf, rf = r(cpu.astype(np.float32)), r(ram.astype(np.float32))
+        hundred = np.float32(100.0)
+        cs = r(r(r(cf - r(np.float32(rc))) * hundred) / cf)
+        rs = r(r(r(rf - r(np.float32(rr))) * hundred) / rf)
+        score = r(r(cs + rs) * np.float32(0.5))
+    return np.where((cpu > 0) & (ram > 0), score, np.float32(-np.inf))
